@@ -29,6 +29,19 @@ from zuko_tpu_torch.serial import load_params, to_torch_name
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _leave_torch_globals_as_found():
+    """Other tests of the suite draw from torch's global generator unseeded
+    and set its default dtype: run on float32 defaults, and hand both back
+    as they were."""
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float32)
+    with torch.random.fork_rng(devices=[]):
+        yield
+    torch.set_default_dtype(dtype)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 HIDDEN = (16, 16)
 BATCH = 32

@@ -1,8 +1,8 @@
 r"""Rules of the PyTorch port (``zuko_tpu_torch``) that hold without a GPU:
 it imports neither JAX nor ``zuko_tpu``, it builds on the GPU by default,
 its kernel wrappers take the plain versions for CPU tensors (and count no
-launch), and the fused dispatch gate and structure routing behave as in
-``zuko_tpu``."""
+launch), the unfused layers reach their kernels for every GPU tensor and keep
+their own arithmetic on the CPU, and the fused dispatch gate and structure routing behave as in ``zuko_tpu``."""
 
 import ast
 
@@ -14,10 +14,24 @@ import torch
 import zuko_tpu_torch as zt
 
 from zuko_tpu_torch.distributions import NormalizingFlow
-from zuko_tpu_torch.ops import nsf_fused
+from zuko_tpu_torch import ops
+from zuko_tpu_torch.ops import masked_linear, nsf_fused, rqs
 from zuko_tpu_torch.ops.dispatch import FusedAutoregressiveFlow, fused_dispatch_enabled
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _leave_torch_globals_as_found():
+    """Other tests of the suite draw from torch's global generator unseeded
+    and set its default dtype: run on float32 defaults, and hand both back
+    as they were."""
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float32)
+    with torch.random.fork_rng(devices=[]):
+        yield
+    torch.set_default_dtype(dtype)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
@@ -67,8 +81,123 @@ def test_wrappers_take_plain_versions_on_cpu():
         torch.testing.assert_close(lp, nsf_fused._full_math(xc, params, layout, *statics))
         torch.testing.assert_close(x, nsf_fused._sample_math(xc, params, layout, *statics))
         torch.testing.assert_close(x, xl)
-    assert lp.shape == lq.shape == (16,) and x.shape == (16, 4)
+        xr, lr = nsf_fused.nsf_sample(xc, params, layout, *statics, want_log_prob="raw")
+        y, ly = nsf_fused.nsf_apply(xc, params, layout, *statics)
+        plain_xr, plain_lr = nsf_fused._sample_math(
+            xc, params, layout, *statics, want_log_prob="raw")
+        plain_y, plain_ly = nsf_fused._full_math(xc, params, layout, *statics, raw=True)
+        for a, b in ((xr, plain_xr), (lr, plain_lr), (y, plain_y), (ly, plain_ly), (xr, x)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        # raw mode: the same sum of ladjs, without the base term
+        base = -0.5 * (xc[:, :4] ** 2).sum(dim=1) - 2 * torch.log(torch.tensor(2 * torch.pi))
+        torch.testing.assert_close(lq, lr + base)
+    assert lp.shape == lq.shape == lr.shape == ly.shape == (16,)
+    assert x.shape == y.shape == (16, 4)
     assert all(v == 0 for v in nsf_fused.LAUNCHES.values())
+
+
+def test_per_op_wrappers_take_plain_versions_on_cpu():
+    torch.manual_seed(0)
+    x, w, b = torch.randn(3, 9, 5), torch.randn(7, 5), torch.randn(7)
+    m = (torch.rand(7, 5) < 0.5).float()
+    t = zt.transforms.MonotonicRQSTransform(
+        torch.randn(9, 8), torch.randn(9, 8), torch.randn(9, 7))
+    knots = (t.horizontal, t.vertical, t.derivatives)
+    v = 4 * torch.randn(3, 9)
+    ops.reset_launches()
+    torch.testing.assert_close(
+        masked_linear.masked_linear(x, w, m, b),
+        masked_linear._masked_linear_math(x, w, m, b), rtol=0, atol=0)
+    for fn, inverse in ((rqs.rqs_forward, False), (rqs.rqs_inverse, True)):
+        for a, e in zip(fn(v, *knots), rqs._math_nd(v, *knots, inverse)):
+            assert a.shape == (3, 9)
+            torch.testing.assert_close(a, e, rtol=0, atol=0)
+    assert ops.LAUNCHES is nsf_fused.LAUNCHES
+    assert set(ops.LAUNCHES) >= {"nsf_apply", "nsf_sample_raw", "masked_linear",
+                                 "rqs_forward", "rqs_inverse"}
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+    with pytest.raises(ValueError, match="on the GPU"):
+        masked_linear._masked_linear_kernel(x, w, m, b)
+    with pytest.raises(ValueError, match="on the GPU"):
+        rqs._rqs_kernel(v, *knots, False)
+
+
+def test_cpu_tensors_keep_the_default_arithmetic():
+    """On the CPU ``MaskedLinear`` and the spline keep their own arithmetic
+    bit for bit, and never reach the per-op wrappers."""
+    torch.manual_seed(0)
+    layer = zt.nn.MaskedLinear(torch.rand(7, 5) < 0.5, device="cpu")
+    x = torch.randn(4, 5)
+    ops.reset_launches()
+    torch.testing.assert_close(
+        layer(x), x @ (layer.mask * layer.weight).T + layer.bias, rtol=0, atol=0)
+
+    w, h, d = torch.randn(6, 8), torch.randn(6, 8), torch.randn(6, 7)
+    t = zt.transforms.MonotonicRQSTransform(w, h, d)
+    v = 4 * torch.randn(6)
+    y, ladj = t.call_and_ladj(v)
+    # the spline forward written out: its own arithmetic, no wrapper
+    mask, x0, x1, y0, y1, d0, d1, s = t._bin(t.horizontal, v)
+    z = torch.where(mask, (v - x0) / (x1 - x0), 0.0)
+    log_jac, denom = t._log_jac(z, d0, d1, s)
+    expected = y0 + (y1 - y0) * (s * z**2 + d0 * z * (1 - z)) / denom
+    torch.testing.assert_close(y, torch.where(mask, expected, v), rtol=0, atol=0)
+    torch.testing.assert_close(ladj, torch.where(mask, log_jac, 0.0), rtol=0, atol=0)
+    back, ladj_inv = t.inverse_and_ladj(y)
+    torch.testing.assert_close(back, v, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ladj_inv, -ladj, rtol=1e-3, atol=1e-3)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the GPU: what the calling code
+    sees of a CUDA tensor, without a card."""
+
+    is_cuda = property(lambda self: True)
+
+
+@pytest.mark.parametrize("dtype, error, match", [
+    (torch.float64, TypeError, "float32 only"),
+    (torch.float32, ValueError, "on the GPU"),  # the CPU weights stop it
+], ids=["float64", "float32"])
+@pytest.mark.parametrize("op", ["masked_linear", "rqs_forward", "rqs_inverse"])
+def test_gpu_tensors_reach_the_kernel_or_raise(op, dtype, error, match):
+    """For a tensor on the GPU the unfused layers go to their kernel's
+    wrapper whatever the type: float64 raises there, as the whole-flow
+    kernels do, and nothing gives way to the plain arithmetic."""
+    torch.manual_seed(0)
+    if op == "masked_linear":
+        layer = zt.nn.MaskedLinear(torch.rand(7, 5) < 0.5, device="cpu").to(dtype)
+        fn, x = layer, torch.randn(4, 5, dtype=dtype)
+    else:
+        t = zt.transforms.MonotonicRQSTransform(
+            *(torch.randn(6, k, dtype=dtype) for k in (8, 8, 7)))
+        fn = t.call_and_ladj if op == "rqs_forward" else t.inverse_and_ladj
+        x = torch.randn(6, dtype=dtype)
+    fn(x)  # a CPU tensor: the plain arithmetic
+    ops.reset_launches()
+    with pytest.raises(error, match=match):
+        fn(x.as_subclass(_OnCard))
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+def test_plain_versions_stay_plain_for_gpu_tensors():
+    """The whole-flow kernels' plain versions (the references, and what the
+    Functions' backward passes differentiate) keep the spline's own
+    arithmetic for a tensor on the GPU: they launch no per-op kernel."""
+    flow = _flagship_like().double()
+    params, layout, cfg = nsf_fused._flatten_flow(flow)
+    statics = (4, cfg["bins"], cfg["bound"], cfg["slope"], cfg["univ"])
+    xc = torch.randn(16, 6, dtype=torch.float64)
+    ops.reset_launches()
+    with torch.no_grad():
+        for fn, kwargs in ((nsf_fused._full_math, {}),
+                           (nsf_fused._sample_math, {"want_log_prob": True})):
+            want = fn(xc, params, layout, *statics, **kwargs)
+            got = fn(xc.as_subclass(_OnCard), params, layout, *statics, **kwargs)
+            for a, b in zip(*((want,), (got,)) if torch.is_tensor(want) else (want, got)):
+                torch.testing.assert_close(a, b.as_subclass(torch.Tensor), rtol=0, atol=0)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("mode, fused", [("auto", False), ("1", True), ("0", False)])
@@ -102,13 +231,22 @@ def test_trainable_base_keeps_unfused_path(monkeypatch):
 
 
 def test_single_feature_and_rsample_are_later_slices(monkeypatch):
+    """A single feature still is; ``rsample`` no longer: it works on the
+    fused flow and carries gradients to every parameter."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zt.MAF(1, device="cpu")
     monkeypatch.setenv("ZUKO_TPU_TORCH_FUSED_DISPATCH", "1")
-    dist = _flagship_like()(torch.zeros(2))
-    for method in (dist.rsample, dist.rsample_and_log_prob):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            method((2,))
+    flow = _flagship_like()
+    dist = flow(torch.zeros(2))
+    assert isinstance(dist, FusedAutoregressiveFlow)
+    x = dist.rsample((2,))
+    xl, lq = dist.rsample_and_log_prob((2,))
+    assert x.shape == xl.shape == (2, 4) and lq.shape == (2,)
+    assert x.requires_grad and xl.requires_grad and lq.requires_grad
+    ((x**2).sum() + (xl**2).sum() + lq.sum()).backward()
+    for name, p in flow.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    assert any(bool((p.grad != 0).any()) for p in flow.parameters())
 
 
 @pytest.mark.parametrize("kwargs", [

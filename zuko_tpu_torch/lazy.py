@@ -19,6 +19,7 @@ __all__ = [
     "Flow",
     "LazyComposedTransform",
     "LazyDistribution",
+    "LazyInverse",
     "LazyTransform",
     "UnconditionalDistribution",
     "UnconditionalTransform",
@@ -39,6 +40,28 @@ class LazyTransform(nn.Module):
 
     def forward(self, c: torch.Tensor = None) -> Transform:
         raise NotImplementedError
+
+    @property
+    def inv(self) -> "LazyTransform":
+        return LazyInverse(self)
+
+
+class LazyInverse(LazyTransform):
+    r"""Lazy inverse: ``forward(c) = transform(c).inv``
+    (reference: zuko/lazy.py:81-98). It flips a flow for reverse-KL sampling
+    efficiency, ``Flow(flow.transform.inv, flow.base)``; the flipped flow
+    shares the original's parameters."""
+
+    def __init__(self, transform: LazyTransform):
+        super().__init__()
+        self.transform = transform
+
+    def forward(self, c: torch.Tensor = None) -> Transform:
+        return self.transform(c).inv
+
+    @property
+    def inv(self) -> LazyTransform:
+        return self.transform
 
 
 class LazyComposedTransform(LazyTransform):

@@ -65,7 +65,9 @@ class Linear(nn.Module):
 
 class MaskedLinear(Linear):
     r"""Masked linear layer :math:`y = x (W \odot A)^T + b`
-    (reference: zuko/nn.py:202-218). The adjacency is the buffer ``mask``."""
+    (reference: zuko/nn.py:202-218). The adjacency is the buffer ``mask``.
+    For a tensor on the GPU the forward runs the ``masked_linear`` kernel
+    (:func:`zuko_tpu_torch.ops.masked_linear.masked_linear`, float32 only)."""
 
     def __init__(self, adjacency, device=None, dtype=torch.float32):
         adjacency = np.asarray(adjacency, bool)
@@ -76,6 +78,10 @@ class MaskedLinear(Linear):
         )
 
     def forward(self, x):
+        if x.is_cuda:  # the kernel, or an error: never the plain version
+            from .ops.masked_linear import masked_linear
+
+            return masked_linear(x, self.weight, self.mask, self.bias)
         y = x @ (self.mask * self.weight).T
         return y if self.bias is None else y + self.bias
 

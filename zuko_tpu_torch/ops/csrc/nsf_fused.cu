@@ -10,14 +10,26 @@
 // layers in reverse, min(passes, F) Jacobi sweeps per layer (each sweep
 // evaluates the hyper-net on the whole current iterate, then inverts every
 // feature in closed form), and with kLogQ the log-density of the returned
-// point, base(z) + the forward ladj of every layer at its solved x.
+// point, base(z) + the forward ladj of every layer at its solved x. In its
+// raw mode (kRawLadj) the sum starts at zero instead of base(z): the bare
+// sum of forward ladjs at the solved point, which is what the density of an
+// inverted flow is made of. The base term never enters the sum, so nothing
+// is subtracted afterwards.
+//
+// nsf_apply replaces zuko_tpu/ops/nsf_fused.py::_apply_impl (pallas_call at
+// :2183; kernel body _apply_kernel_T :2052): the forward map T(x) of the
+// whole flow and the bare sum of its log-Jacobians, no base term. It is the
+// density kernel's body (one template, kRaw) with another epilogue: each row
+// writes its F transformed values and its summed ladj, 4 * F more output
+// bytes a row than the density. An inverted flow samples through it.
 //
 // What bounds them on an H100: arithmetic. Per row and layer the hyper-net
 // costs 2 * sum(d_in * d_out) flops (about 26.6K for the flagship D=6,
 // 64x64 MADE, K=8), against 4 * (F + C) bytes in and 4 bytes out per row,
 // so at 1M rows the density does ~80 GFLOP against ~28 MB: compute-bound on
 // the fp32 pipes (no tensor cores: float32 throughout, no TF32). Sampling
-// repeats the hyper-net min(passes, F) times per layer.
+// repeats the hyper-net min(passes, F) times per layer. nsf_apply does the
+// density's operations and stays bound by them.
 //
 // Design (simple and right first): one thread per batch row, blocks of 128
 // rows. Each block stages one AR layer's pre-masked weights and biases into
@@ -34,6 +46,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "rqs.cuh"
 
 namespace {
 
@@ -143,50 +157,6 @@ __device__ __forceinline__ void rqs_knots(float* p, const Shape& s, float* xs, f
   }
 }
 
-// k = sum(knots < v) - 1; in the domain iff 0 <= k < K.
-__device__ __forceinline__ int find_bin(const float* knots, int K, float v) {
-  int k = -1;
-  for (int j = 0; j <= K; ++j) k += knots[j] < v;
-  return k;
-}
-
-__device__ __forceinline__ float rqs_forward(float x, const float* xs, const float* ys,
-                                             const float* ds, int K, float* ladj) {
-  const int k = find_bin(xs, K, x);
-  if (k < 0 || k >= K) {  // out of domain: identity, ladj 0
-    *ladj = 0.0f;
-    return x;
-  }
-  const float x0 = xs[k], x1 = xs[k + 1], y0 = ys[k], y1 = ys[k + 1];
-  const float d0 = ds[k], d1 = ds[k + 1];
-  const float s = (y1 - y0) / (x1 - x0);
-  const float z = (x - x0) / (x1 - x0);
-  const float z1 = z * (1.0f - z);
-  const float denom = s + (d0 + d1 - 2.0f * s) * z1;
-  const float jac = s * s * (2.0f * s * z1 + d0 * (1.0f - z) * (1.0f - z) + d1 * z * z) /
-                    (denom * denom);
-  *ladj = logf(jac);
-  return y0 + (y1 - y0) * (s * z * z + d0 * z1) / denom;
-}
-
-// Closed-form quadratic root (zuko_tpu/ops/nsf_fused.py _spline_inverse_F).
-__device__ __forceinline__ float rqs_inverse(float y, const float* xs, const float* ys,
-                                             const float* ds, int K) {
-  const int k = find_bin(ys, K, y);
-  if (k < 0 || k >= K) return y;
-  const float x0 = xs[k], x1 = xs[k + 1], y0 = ys[k], y1 = ys[k + 1];
-  const float d0 = ds[k], d1 = ds[k + 1];
-  const float s = (y1 - y0) / (x1 - x0);
-  const float y_ = y - y0;
-  const float t = d0 + d1 - 2.0f * s;
-  const float a = (y1 - y0) * (s - d0) + y_ * t;
-  const float b = (y1 - y0) * d0 - y_ * t;
-  const float c = -s * y_;
-  const float disc = fmaxf(b * b - 4.0f * a * c, 0.0f);
-  const float z = 2.0f * c / (-b - sqrtf(disc));
-  return x0 + z * (x1 - x0);
-}
-
 __device__ __forceinline__ float affine_log_scale(const float* p, float ls) {
   return p[1] / (1.0f + fabsf(p[1] / ls));
 }
@@ -200,7 +170,7 @@ __device__ __forceinline__ float univ_forward(float x, float* p, const Shape& s,
   }
   float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
   rqs_knots(p, s, xs, ys, ds);
-  return rqs_forward(x, xs, ys, ds, s.K, ladj);
+  return rqs::forward(x, xs, ys, ds, s.K, ladj);
 }
 
 __device__ __forceinline__ float univ_inverse(float y, float* p, const Shape& s) {
@@ -209,12 +179,16 @@ __device__ __forceinline__ float univ_inverse(float y, float* p, const Shape& s)
   }
   float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
   rqs_knots(p, s, xs, ys, ds);
-  return rqs_inverse(y, xs, ys, ds, s.K);
+  return rqs::inverse<false>(y, xs, ys, ds, s.K, nullptr);
 }
 
+// kRaw false: out[row] = log_prob. kRaw true (nsf_apply): y[row, :] = T(x)
+// and out[row] = the bare sum of ladjs.
+template <bool kRaw>
 __global__ void __launch_bounds__(kThreads)
-nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
-                   const float* __restrict__ params, Shape s, long long n) {
+nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ y,
+                   float* __restrict__ out, const float* __restrict__ params, Shape s,
+                   long long n) {
   extern __shared__ float smem[];
   const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = row < n;
@@ -239,14 +213,22 @@ nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
       acc += ladj;
     }
   }
-  if (active) {
+  if (!active) return;
+  if (kRaw) {
+    for (int f = 0; f < s.F; ++f) y[row * s.F + f] = xcv[f];
+    out[row] = acc;
+  } else {
     float sq = 0.0f;
     for (int f = 0; f < s.F; ++f) sq = fmaf(xcv[f], xcv[f], sq);
     out[row] = acc - 0.5f * sq - s.F * kHalfLog2Pi;
   }
 }
 
-template <bool kLogQ>
+// What the sampling kernel sums beside the solve: nothing, log q (base(z) +
+// the forward ladjs), or the bare forward ladjs.
+enum SampleMode { kNoLadj = 0, kLogQ = 1, kRawLadj = 2 };
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
                   float* __restrict__ logq, const float* __restrict__ params,
@@ -261,7 +243,7 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   if (active) {
     for (int j = 0; j < s.F; ++j) y[j] = zc[row * D0 + j];
     for (int j = s.F; j < D0; ++j) xcv[j] = zc[row * D0 + j];
-    if (kLogQ) {
+    if (kMode == kLogQ) {
       float sq = 0.0f;
       for (int f = 0; f < s.F; ++f) sq = fmaf(y[f], y[f], sq);
       acc = -0.5f * sq - s.F * kHalfLog2Pi;
@@ -283,7 +265,7 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
         xcv[f] = univ_inverse(y[f], p, s);
       }
     }
-    if (kLogQ) {
+    if (kMode != kNoLadj) {
       for (int j = 0; j < D0; ++j) a[j] = xcv[j];
       const float* h = hidden_layers(smem, s, a, b);
       for (int f = 0; f < s.F; ++f) {
@@ -297,7 +279,7 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   }
   if (active) {
     for (int f = 0; f < s.F; ++f) xout[row * s.F + f] = y[f];
-    if (kLogQ) logq[row] = acc;
+    if (kMode != kNoLadj) logq[row] = acc;
   }
 }
 
@@ -337,6 +319,40 @@ int configure(Kernel kernel, const Shape& s, size_t* smem) {
                               (int)*smem);
 }
 
+template <bool kRaw>
+int launch_density(const float* xc, float* y, float* out, const float* params,
+                   const int* widths, const int* passes, int n_lin, int n_ar, int F, int C,
+                   int K, int univ, float bound, float log_s, long long n, void* stream) {
+  Shape s;
+  int rc = make_shape(&s, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
+  if (rc != cudaSuccess) return rc;
+  if (n <= 0) return cudaSuccess;
+  size_t smem;
+  rc = configure(nsf_density_kernel<kRaw>, s, &smem);
+  if (rc != cudaSuccess) return rc;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  nsf_density_kernel<kRaw><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(xc, y, out,
+                                                                            params, s, n);
+  return cudaGetLastError();
+}
+
+template <int kMode>
+int launch_sample(const float* zc, float* x, float* ladj, const float* params,
+                  const int* widths, const int* passes, int n_lin, int n_ar, int F, int C,
+                  int K, int univ, float bound, float log_s, long long n, void* stream) {
+  Shape s;
+  int rc = make_shape(&s, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
+  if (rc != cudaSuccess) return rc;
+  if (n <= 0) return cudaSuccess;
+  size_t smem;
+  rc = configure(nsf_sample_kernel<kMode>, s, &smem);
+  if (rc != cudaSuccess) return rc;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  nsf_sample_kernel<kMode><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(zc, x, ladj,
+                                                                            params, s, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int nsf_density_f32(const float* xc, float* out, const float* params,
@@ -344,41 +360,43 @@ extern "C" int nsf_density_f32(const float* xc, float* out, const float* params,
                                int n_ar, int F, int C, int K, int univ,
                                float bound, float log_s, long long n,
                                void* stream) {
-  Shape s;
-  int rc = make_shape(&s, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
-  if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  size_t smem;
-  rc = configure(nsf_density_kernel, s, &smem);
-  if (rc != cudaSuccess) return rc;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  nsf_density_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(xc, out, params,
-                                                                      s, n);
-  return cudaGetLastError();
+  return launch_density<false>(xc, nullptr, out, params, widths, passes, n_lin, n_ar, F, C, K,
+                               univ, bound, log_s, n, stream);
 }
 
+// y (n, F) = T(x), ladj (n,) = the bare sum of the forward log-Jacobians.
+extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, const float* params,
+                             const int* widths, const int* passes, int n_lin,
+                             int n_ar, int F, int C, int K, int univ,
+                             float bound, float log_s, long long n,
+                             void* stream) {
+  return launch_density<true>(xc, y, ladj, params, widths, passes, n_lin, n_ar, F, C, K, univ,
+                              bound, log_s, n, stream);
+}
+
+// logq may be null: the solve alone.
 extern "C" int nsf_sample_f32(const float* zc, float* x, float* logq,
                               const float* params, const int* widths,
                               const int* passes, int n_lin, int n_ar, int F,
                               int C, int K, int univ, float bound, float log_s,
                               long long n, void* stream) {
-  Shape s;
-  int rc = make_shape(&s, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
-  if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  size_t smem;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (logq != nullptr) {
-    rc = configure(nsf_sample_kernel<true>, s, &smem);
-    if (rc != cudaSuccess) return rc;
-    nsf_sample_kernel<true><<<blocks, kThreads, smem, st>>>(zc, x, logq, params, s, n);
-  } else {
-    rc = configure(nsf_sample_kernel<false>, s, &smem);
-    if (rc != cudaSuccess) return rc;
-    nsf_sample_kernel<false><<<blocks, kThreads, smem, st>>>(zc, x, nullptr, params, s, n);
-  }
-  return cudaGetLastError();
+  if (logq != nullptr)
+    return launch_sample<kLogQ>(zc, x, logq, params, widths, passes, n_lin, n_ar, F, C, K,
+                                univ, bound, log_s, n, stream);
+  return launch_sample<kNoLadj>(zc, x, nullptr, params, widths, passes, n_lin, n_ar, F, C, K,
+                                univ, bound, log_s, n, stream);
+}
+
+// The raw mode: ladj (n,) = the bare sum of the forward log-Jacobians at the
+// solved x, with no base term.
+extern "C" int nsf_sample_raw_f32(const float* zc, float* x, float* ladj,
+                                  const float* params, const int* widths,
+                                  const int* passes, int n_lin, int n_ar, int F,
+                                  int C, int K, int univ, float bound, float log_s,
+                                  long long n, void* stream) {
+  if (ladj == nullptr) return cudaErrorInvalidValue;
+  return launch_sample<kRawLadj>(zc, x, ladj, params, widths, passes, n_lin, n_ar, F, C, K,
+                                 univ, bound, log_s, n, stream);
 }
 
 // Shared memory a block may opt into on `device` (bytes), or -1.
@@ -390,6 +408,6 @@ extern "C" int nsf_max_shared_bytes(int device) {
   return v;
 }
 
-extern "C" const char* nsf_error_string(int code) {
+extern "C" const char* nsf_fused_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -1,7 +1,7 @@
 r"""Whole-flow NSF/MAF density and sampling: plain PyTorch versions and the
 CUDA kernels that replace the TPU kernels.
 
-Counterpart of ``zuko_tpu/ops/nsf_fused.py``. Two kernels, both in
+Counterpart of ``zuko_tpu/ops/nsf_fused.py``. Three kernels, all in
 ``csrc/nsf_fused.cu``:
 
 * ``nsf_density`` replaces ``_fused_impl`` (:1793, ``pallas_call`` at :1842):
@@ -11,7 +11,11 @@ Counterpart of ``zuko_tpu/ops/nsf_fused.py``. Two kernels, both in
 * ``nsf_sample`` replaces ``_sample_core`` (:1575, ``pallas_call`` at :1658):
   the whole autoregressive inversion (layers in reverse, ``min(passes, F)``
   Jacobi sweeps each, closed-form univariate inverses) and optionally
-  ``log q`` at the returned point.
+  ``log q`` at the returned point, or (raw mode) the bare sum of the forward
+  log-Jacobians there.
+* ``nsf_apply`` replaces ``_apply_impl`` (:2134, ``pallas_call`` at :2183):
+  the forward map ``T(u)`` of the whole flow and the bare sum of its
+  log-Jacobians, no base term. An inverted flow samples through it.
 
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. ``LAUNCHES`` counts the
@@ -38,21 +42,20 @@ from ..flows.autoregressive import MaskedAutoregressiveTransform
 from ..lazy import LazyComposedTransform, UnconditionalDistribution
 from ..nn import Activation, MaskedLinear
 from ..transforms import MonotonicAffineTransform, MonotonicRQSTransform
+from ._common import LAUNCHES, check_cuda_f32, reset_launches
 
 __all__ = [
     "FusedStructureError",
     "LAUNCHES",
     "extract_nsf_params",
+    "fused_nsf_apply",
     "fused_nsf_log_prob",
     "fused_nsf_sample",
+    "nsf_apply",
     "nsf_density",
     "nsf_sample",
     "reset_launches",
 ]
-
-#: Kernel launches per wrapper (and per sampling mode), counted where the
-#: kernel is launched and nowhere else.
-LAUNCHES = {"nsf_density": 0, "nsf_sample": 0, "nsf_sample_log_prob": 0}
 
 # Limits of the kernels (mirrored in csrc/nsf_fused.cu): the widest hyper
 # layer, including the F + C inputs; the spline bins; linears per hyper-net;
@@ -62,12 +65,6 @@ _MAX_BINS = 32
 _MAX_LINEAR = 8
 _MAX_LAYERS = 64
 _UNIV_CODE = {"affine": 0, "rqs": 1}
-
-
-def reset_launches():
-    """Set every launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 class FusedStructureError(ValueError):
@@ -260,25 +257,46 @@ def _hyper(xc, ps):
     return h
 
 
+class _PlainRQS(MonotonicRQSTransform):
+    """The spline with its own arithmetic on any device: what the plain
+    versions compute and the Functions' backward passes differentiate, on the
+    GPU too, where the transform itself launches the ``rqs`` kernel."""
+
+    call_and_ladj = MonotonicRQSTransform._forward_math
+    inverse_and_ladj = MonotonicRQSTransform._inverse_math
+
+
 def _univariate(h, F, K, bound, slope, univ):
     phi = h.reshape(h.shape[0], F, -1)
     if univ == "rqs":
-        return MonotonicRQSTransform(
+        return _PlainRQS(
             phi[..., :K], phi[..., K : 2 * K], phi[..., 2 * K :],
             bound=bound, slope=slope,
         )
     return MonotonicAffineTransform(phi[..., 0], phi[..., 1], slope=slope)
 
 
-def _full_math(xc, params, layout, F, K, bound, slope, univ):
+def _univ_forward(x, h, F, K, bound, slope, univ):
+    """One layer's univariate forward from its hyper outputs ``h (n, F *
+    T)``: ``(y (n, F), ladj (n, F))``, the log-Jacobian per element
+    (counterpart of ``_univ_forward_F`` :823). Feature ``f`` of ``y``
+    depends on ``x[:, f]`` and on ``h[:, f * T : (f + 1) * T]`` only."""
+    return _univariate(h, F, K, bound, slope, univ).call_and_ladj(x)
+
+
+def _full_math(xc, params, layout, F, K, bound, slope, univ, raw=False):
     """Plain version of the density kernel (counterpart of ``_full_math_T``
-    :1268): ``xc (n, F + C) -> log_prob (n,)``."""
+    :1268): ``xc (n, F + C) -> log_prob (n,)``. With ``raw`` it is the plain
+    version of the apply kernel instead: ``(y (n, F), sum_ladj (n,))``, the
+    transformed points and the bare sum of log-Jacobians, no base term."""
     x, c = xc[:, :F], xc[:, F:]
     acc = 0.0
     for ps, _ in _split_layers(params, layout):
         h = _hyper(torch.cat([x, c], dim=1), ps)
-        x, ladj = _univariate(h, F, K, bound, slope, univ).call_and_ladj(x)
+        x, ladj = _univ_forward(x, h, F, K, bound, slope, univ)
         acc = acc + ladj
+    if raw:
+        return x, torch.sum(acc, dim=1)
     return torch.sum(acc - 0.5 * x**2, dim=1) - 0.5 * F * math.log(2 * math.pi)
 
 
@@ -287,11 +305,15 @@ def _sample_math(zc, params, layout, F, K, bound, slope, univ,
     """Plain version of the sampling kernel (counterpart of
     ``_sample_math_T`` :1348): ``zc (n, F + C)`` base draws (+ context) ->
     ``x (n, F)``, and ``log q (n,) = base(z) + sum of forward ladjs`` with
-    ``want_log_prob``. Layers run in reverse, each with ``min(passes, F)``
-    Jacobi sweeps: every sweep evaluates the hyper-net on the whole current
-    iterate, then inverts every feature."""
+    ``want_log_prob``; with ``want_log_prob="raw"`` the sum starts at zero
+    instead of ``base(z)``: the bare sum of forward ladjs at ``x``. Layers
+    run in reverse, each with ``min(passes, F)`` Jacobi sweeps: every sweep
+    evaluates the hyper-net on the whole current iterate, then inverts every
+    feature."""
     y, c = zc[:, :F], zc[:, F:]
-    if want_log_prob:
+    if want_log_prob == "raw":
+        acc = torch.zeros_like(y[:, 0])
+    elif want_log_prob:
         acc = -0.5 * torch.sum(y**2, dim=1) - 0.5 * F * math.log(2 * math.pi)
     for ps, passes in reversed(_split_layers(params, layout)):
         x = torch.zeros_like(y)
@@ -300,7 +322,7 @@ def _sample_math(zc, params, layout, F, K, bound, slope, univ,
             x = _univariate(h, F, K, bound, slope, univ).inverse(y)
         if want_log_prob:
             h = _hyper(torch.cat([x, c], dim=1), ps)
-            _, ladj = _univariate(h, F, K, bound, slope, univ).call_and_ladj(x)
+            _, ladj = _univ_forward(x, h, F, K, bound, slope, univ)
             acc = acc + ladj.sum(dim=1)
         y = x
     return (y, acc) if want_log_prob else y
@@ -339,26 +361,18 @@ def _pack_weights(params, layout, F, C, K, univ):
     return packed, widths, [p for _, p in layers], layer_floats
 
 
-def _check_cuda_f32(name, tensors):
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name}: all inputs must be on the GPU")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32 only, got {t.dtype}")
-
-
 def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ):
-    """Common launch path of both kernels: check, pack, call the C entry
+    """Common launch path of the kernels: check, pack, call the C entry
     point with the input, the output pointers ``outs`` and the packed
     weights on the current stream, raise on a CUDA error, count."""
-    from ._build import load_library
+    from ._build import check_launch, load_library
 
     if xc.dim() != 2 or not xc.is_contiguous():
         raise ValueError(f"{counter}: expected a contiguous (n, F + C) tensor")
-    _check_cuda_f32(counter, [xc, *params])
+    check_cuda_f32(counter, [xc, *params])
     C = xc.shape[1] - F
     packed, widths, passes, layer_floats = _pack_weights(params, layout, F, C, K, univ)
-    lib = load_library()
+    lib = load_library("nsf_fused")
     smem = 4 * layer_floats
     limit = lib.nsf_max_shared_bytes(xc.device.index)
     if smem > limit:
@@ -376,8 +390,7 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ):
             bound, math.log(slope), xc.shape[0],
             torch.cuda.current_stream().cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"{counter} kernel failed: {lib.nsf_error_string(rc).decode()}")
+    check_launch(counter, lib, "nsf_fused", rc)
     LAUNCHES[counter] += 1
 
 
@@ -388,10 +401,33 @@ def _density_kernel(xc, params, layout, F, K, bound, slope, univ):
     return out
 
 
+def _apply_kernel(xc, params, layout, F, K, bound, slope, univ):
+    y = torch.empty(xc.shape[0], F, device=xc.device, dtype=torch.float32)
+    ladj = torch.empty(xc.shape[0], device=xc.device, dtype=torch.float32)
+    _launch("nsf_apply_f32", "nsf_apply", xc, [y.data_ptr(), ladj.data_ptr()],
+            params, layout, F, K, bound, slope, univ)
+    return y, ladj
+
+
+def _plain_backward(ctx, cotangents, raw):
+    """Backward of the density and apply Functions: recompute the plain
+    version (``_full_math``) on the saved inputs and differentiate it, as
+    ``_fused_bwd`` (:1746) and ``_apply_bwd`` (:2083) do. There is no
+    backward kernel. Returns the gradients of ``(xc, statics, *params)``."""
+    xc, *params = ctx.saved_tensors
+    needs = ctx.needs_input_grad
+    with torch.enable_grad():
+        xc_ = xc.detach().requires_grad_(needs[0])
+        ps = [p.detach().requires_grad_(needs[2 + i]) for i, p in enumerate(params)]
+        out = _full_math(xc_, ps, *ctx.statics, raw=raw)
+        wrt = [t for t in [xc_, *ps] if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, cotangents, allow_unused=True))
+    dx = next(grads) if needs[0] else None
+    return (dx, None, *(next(grads) if p.requires_grad else None for p in ps))
+
+
 class _DensityFunction(torch.autograd.Function):
-    """Kernel forward; the backward recomputes the plain version and
-    differentiates it, as ``_fused_bwd`` (:1746) does. There is no backward
-    kernel."""
+    """Kernel forward, plain backward (:func:`_plain_backward`)."""
 
     @staticmethod
     def forward(ctx, xc, statics, *params):
@@ -401,16 +437,22 @@ class _DensityFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        xc, *params = ctx.saved_tensors
-        needs = ctx.needs_input_grad
-        with torch.enable_grad():
-            xc_ = xc.detach().requires_grad_(needs[0])
-            ps = [p.detach().requires_grad_(needs[2 + i]) for i, p in enumerate(params)]
-            out = _full_math(xc_, ps, *ctx.statics)
-            wrt = [t for t in [xc_, *ps] if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        dx = next(grads) if needs[0] else None
-        return (dx, None, *(next(grads) if p.requires_grad else None for p in ps))
+        return _plain_backward(ctx, g, raw=False)
+
+
+class _ApplyFunction(torch.autograd.Function):
+    """Kernel forward, plain backward (:func:`_plain_backward`); counterpart
+    of ``_apply_op`` (:2072)."""
+
+    @staticmethod
+    def forward(ctx, xc, statics, *params):
+        ctx.statics = statics
+        ctx.save_for_backward(xc, *params)
+        return _apply_kernel(xc, params, *statics)
+
+    @staticmethod
+    def backward(ctx, gy, gl):
+        return _plain_backward(ctx, (gy, gl), raw=True)
 
 
 def nsf_density(xc, params, layout, F, K, bound, slope, univ):
@@ -424,21 +466,43 @@ def nsf_density(xc, params, layout, F, K, bound, slope, univ):
     )
 
 
+def nsf_apply(xc, params, layout, F, K, bound, slope, univ):
+    r"""Whole-flow forward map ``xc (n, F + C) -> (T(x) (n, F), sum_ladj
+    (n,))``, no base term: the ``nsf_apply`` kernel for a CUDA tensor
+    (differentiable through its ``autograd.Function``), the plain version
+    for a CPU tensor."""
+    if not xc.is_cuda:
+        return _full_math(xc, params, layout, F, K, bound, slope, univ, raw=True)
+    return _ApplyFunction.apply(
+        xc.contiguous(), (layout, F, K, bound, slope, univ), *params
+    )
+
+
+# C entry point and launch counter of each sampling mode (``want_log_prob``)
+_SAMPLE_MODES = {
+    False: ("nsf_sample_f32", "nsf_sample"),
+    True: ("nsf_sample_f32", "nsf_sample_log_prob"),
+    "raw": ("nsf_sample_raw_f32", "nsf_sample_raw"),
+}
+
+
 def nsf_sample(zc, params, layout, F, K, bound, slope, univ, want_log_prob=False):
-    r"""Whole-flow inversion ``zc (n, F + C) -> x (n, F)`` (and ``log q
-    (n,)`` with ``want_log_prob``): the ``nsf_sample`` kernel for a CUDA
-    tensor, the plain version for a CPU tensor. Not differentiable."""
+    r"""Whole-flow inversion ``zc (n, F + C) -> x (n, F)``, and with
+    ``want_log_prob`` also ``log q (n,)`` or (``"raw"``) the bare sum of the
+    forward log-Jacobians at ``x``: the ``nsf_sample`` kernel for a CUDA
+    tensor, the plain version for a CPU tensor. Not differentiable; the
+    differentiable form is :mod:`zuko_tpu_torch.ops.ift`."""
     if not zc.is_cuda:
         with torch.no_grad():
             return _sample_math(zc, params, layout, F, K, bound, slope, univ,
                                 want_log_prob)
+    fn, counter = _SAMPLE_MODES[want_log_prob]
     zc = zc.contiguous()
     x = torch.empty(zc.shape[0], F, device=zc.device, dtype=torch.float32)
     lq = torch.empty(zc.shape[0], device=zc.device, dtype=torch.float32) \
         if want_log_prob else None
     _launch(
-        "nsf_sample_f32", "nsf_sample_log_prob" if want_log_prob else "nsf_sample",
-        zc, [x.data_ptr(), None if lq is None else lq.data_ptr()],
+        fn, counter, zc, [x.data_ptr(), None if lq is None else lq.data_ptr()],
         params, layout, F, K, bound, slope, univ,
     )
     return (x, lq) if want_log_prob else x
@@ -447,25 +511,44 @@ def nsf_sample(zc, params, layout, F, K, bound, slope, univ, want_log_prob=False
 # ------------------------------------------------------------ flow level
 
 
+def _statics(cfg, F):
+    return F, cfg["bins"], cfg["bound"], cfg["slope"], cfg["univ"]
+
+
+def _with_context(x, c):
+    """``(batch, xc (n, F + C))``: ``x (*, F)`` beside its context ``c (*,
+    C)``, broadcast against each other's batch and flattened to rows."""
+    F = x.shape[-1]
+    if c is None:
+        return x.shape[:-1], x.reshape(-1, F)
+    batch = torch.broadcast_shapes(x.shape[:-1], c.shape[:-1])
+    xc = torch.cat(
+        [x.expand(batch + (F,)), c.to(x.dtype).expand(batch + c.shape[-1:])], dim=-1
+    )
+    return batch, xc.reshape(-1, xc.shape[-1])
+
+
 def fused_nsf_log_prob(flat, x, c=None):
     r"""``flow(c).log_prob(x)`` for an NSF/MAF through :func:`nsf_density`,
     with ``flat = _flatten_flow(flow)``. A batched context broadcasts against
     the batch of ``x``."""
     params, layout, cfg = flat
-    F = x.shape[-1]
-    if c is not None:
-        batch = torch.broadcast_shapes(x.shape[:-1], c.shape[:-1])
-        xc = torch.cat(
-            [x.expand(batch + (F,)), c.to(x.dtype).expand(batch + c.shape[-1:])],
-            dim=-1,
-        )
-    else:
-        batch, xc = x.shape[:-1], x
-    out = nsf_density(
-        xc.reshape(-1, xc.shape[-1]), params, layout, F,
-        cfg["bins"], cfg["bound"], cfg["slope"], cfg["univ"],
-    )
-    return out.reshape(batch)
+    batch, xc = _with_context(x, c)
+    return nsf_density(xc, params, layout, *_statics(cfg, x.shape[-1])).reshape(batch)
+
+
+def fused_nsf_apply(flat, u, c=None):
+    r"""Forward-apply the flow's transform through :func:`nsf_apply`:
+    ``(T(u), sum of forward ladjs at u)``, with ``flat =
+    _flatten_flow(flow)`` (counterpart of ``fused_nsf_apply`` :2212). It is
+    the sampling direction of an inverted flow ``Flow(flow.transform.inv,
+    flow.base)``: ``sample' = T(z')``, ``log q' = base(z') - sum_ladj``.
+    Differentiable."""
+    params, layout, cfg = flat
+    F = u.shape[-1]
+    batch, uc = _with_context(u, c)
+    y, ladj = nsf_apply(uc, params, layout, *_statics(cfg, F))
+    return y.reshape(batch + (F,)), ladj.reshape(batch)
 
 
 def fused_nsf_sample(flat, sample_shape=(), c=None, generator=None,
@@ -473,10 +556,22 @@ def fused_nsf_sample(flat, sample_shape=(), c=None, generator=None,
     r"""Draw ``sample_shape + batch + (F,)`` samples (and ``log q`` with
     ``want_log_prob``) through :func:`nsf_sample`, with ``flat =
     _flatten_flow(flow)``. The standard-normal base draws come from
-    ``torch.randn(..., generator=generator)`` here, so a caller can hand the
+    ``torch.randn(..., generator=generator)``, so a caller can hand the
     same draws to the plain version."""
+    shape, zc = _base_draws(flat, sample_shape, c, generator)
     params, layout, cfg = flat
-    W0 = params[0]
+    out = nsf_sample(zc, params, layout, *_statics(cfg, shape[-1]), want_log_prob)
+    if want_log_prob:
+        x, lq = out
+        return x.reshape(shape), lq.reshape(shape[:-1])
+    return out.reshape(shape)
+
+
+def _base_draws(flat, sample_shape, c, generator):
+    """The sampling preamble (counterpart of ``_prep_sample`` :1503):
+    ``(shape, zc)`` with ``shape = sample_shape + batch + (F,)`` and ``zc
+    (n, F + C)`` the standard-normal draws beside the broadcast context."""
+    W0 = flat[0][0]
     C = 0 if c is None else c.shape[-1]
     F = W0.shape[1] - C
     cbatch = () if c is None else tuple(c.shape[:-1])
@@ -486,11 +581,4 @@ def fused_nsf_sample(flat, sample_shape=(), c=None, generator=None,
     if c is not None:
         cf = c.to(z.dtype).expand(tuple(sample_shape) + cbatch + (C,))
         zc = torch.cat([zc, cf.reshape(-1, C)], dim=-1)
-    out = nsf_sample(
-        zc, params, layout, F, cfg["bins"], cfg["bound"], cfg["slope"],
-        cfg["univ"], want_log_prob,
-    )
-    if want_log_prob:
-        x, lq = out
-        return x.reshape(shape), lq.reshape(shape[:-1])
-    return out.reshape(shape)
+    return shape, zc

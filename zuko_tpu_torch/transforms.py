@@ -221,6 +221,8 @@ class MonotonicRQSTransform(Transform):
     cumsummed into ``K + 1`` knots on :math:`[-B, B]`; the bin is the
     branchless ``sum(knots < value) - 1``; out-of-domain inputs pass through
     the identity with zero log-Jacobian (reference: zuko/transforms.py:449-567).
+    For a tensor on the GPU the forward and the inverse run the ``rqs``
+    kernel (:mod:`zuko_tpu_torch.ops.rqs`, float32 only).
     """
 
     def __init__(self, widths, heights, derivatives, bound: float = 5.0,
@@ -267,13 +269,29 @@ class MonotonicRQSTransform(Transform):
         return torch.log(jac), denom
 
     def call_and_ladj(self, x):
+        if x.is_cuda:  # the kernel, or an error: never the plain version
+            from .ops import rqs_forward
+
+            return rqs_forward(x, self.horizontal, self.vertical, self.derivatives)
+        return self._forward_math(x)
+
+    def inverse_and_ladj(self, y):
+        if y.is_cuda:
+            from .ops import rqs_inverse
+
+            return rqs_inverse(y, self.horizontal, self.vertical, self.derivatives)
+        return self._inverse_math(y)
+
+    def _forward_math(self, x):
+        """The forward's own arithmetic, on any device."""
         mask, x0, x1, y0, y1, d0, d1, s = self._bin(self.horizontal, x)
         z = torch.where(mask, (x - x0) / (x1 - x0), 0.0)
         log_jac, denom = self._log_jac(z, d0, d1, s)
         y = y0 + (y1 - y0) * (s * z**2 + d0 * z * (1 - z)) / denom
         return torch.where(mask, y, x), torch.where(mask, log_jac, 0.0)
 
-    def inverse_and_ladj(self, y):
+    def _inverse_math(self, y):
+        """The inverse's own arithmetic, on any device."""
         mask, x0, x1, y0, y1, d0, d1, s = self._bin(self.vertical, y)
         y_ = torch.where(mask, y - y0, 0.0)
         a = (y1 - y0) * (s - d0) + y_ * (d0 + d1 - 2 * s)

@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``zuko_tpu_torch/ops/csrc`` into ``build/``,
-then drives the port's two main paths through the public API.
+then drives the port's main paths through the public API: the flagship NSF
+served and trained, then the Gaussianization flow (GF) served and trained.
 
 **Serving**: the flagship NSF (D=6, 3 transforms, 64x64 MADE, K=8, float32,
 the committed ``zuko_tpu_torch/assets/nsf_flagship.npz`` weights) and a
@@ -47,9 +48,45 @@ It checks:
   before each phase and read just after it), and that every training loss
   is finite and falls (mean of the last 5 steps below the first 5).
 
+**The Gaussianization flow**: ``GF(6, 0, transforms=3, components=8)`` with
+the trained parameters of ``tools/gf_truth_f64.npz`` served at 1M rows
+(``log_prob``, ``sample``, ``sample_and_log_prob``), a conditional ``GF(6, 4,
+transforms=3)`` from seeded weights under a batched context of 1M rows
+(density) or 1024 rows x 4 draws (sampling), then trained from the trained
+parameters at 262,144 rows a step: (e) maximum likelihood on the samples the
+NSF serving phase drew, (f) reverse KL through the GF tier of the IFT on the
+ring energy. Its checks:
+
+* the density through the kernel against ``lp`` of ``tools/gf_truth_f64.npz``
+  (median <= 1e-5, max <= 5e-4);
+* ``gf_density`` and ``gf_sample`` against their plain versions in float64 at
+  1M and 262,144 rows, unconditional and with per-row parameters, and at
+  ``GF(21, transforms=2)`` and ``GF(64, transforms=3)`` (parameters damped
+  by 0.3) for the rotation products at real widths. A density, or a log q,
+  is held to median <= 1e-5 and, over the rows where no layer's output
+  passes |y| = 3.5, to max <= 5e-4; the saturated rows apart, to 0.1 (see
+  ``GF_SATURATED``); both limits times F / 6 for wider flows. Samples are
+  held by quantiles (median <= 1e-5, 95th percentile <= 1e-2), ``x`` of
+  ``sample`` and of ``sample_and_log_prob`` must be equal, the round trip
+  ``T(x)`` in float64 against ``z`` over the rows that plain float64 itself
+  solves to median <= 1e-5 and 99th percentile <= 1e-3, and log q over the
+  solved, unsaturated rows (median <= 1e-5; against the density kernel at
+  the returned points median <= 1e-4). The share of pegged rows is printed:
+  the trained parameters saturate, and three quarters of standard-normal
+  draws peg at the bracket in float64 as well. In the ``kernels`` line the GF
+  kernels' ``max_abs_err`` is the largest error over the unsaturated rows
+  (density) or the solved, unsaturated rows (samples, log q);
+* the gradients through the two GF ``autograd.Function``s against float64
+  (the IFT's at the kernel's own root), over the unsaturated rows: inputs
+  under the limits above, parameters max-relative <= 5e-4 (see
+  ``TOL_GF_GRAD_PARAMS``); over all rows they are printed;
+* launch counts of each GF phase (one ``gf_density`` a step of (e), one
+  ``gf_sample`` with log q a step of (f)), losses finite and falling.
+
 Then it times each kernel, its plain version (float32, on the card), its
 bound and, for ``masked_linear``, the one PyTorch call that computes the
-same function; one training step of each of (a)-(d) on the host clock; and
+same function (the GF kernels also with per-row parameters at 1M rows); one
+training step of each of (a)-(f) and a served request on the host clock; and
 prints the card's name and power limit, one JSON line ``{"kernels": [...]}``
 and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits non-zero and prints no result; it also fails without a CUDA
@@ -98,6 +135,32 @@ TOL_GRAD_PARAMS, TOL_GRAD_INPUT = 1e-4, 1e-3
 # (0.18 max-wise) at 262,144 rows on an H100, with the parameters' gradients
 # of the same run at 6e-5.
 TOL_GRAD_SOLVE_INPUT = 1e-2
+# The Gaussianization flow. A layer's output is y = sqrt(2) erfinv(m) with
+# |m| <= 1 - 1e-6; rounding m by one float32 ulp (6e-8) moves y by 6e-8 *
+# sqrt(pi / 2) * exp(y^2 / 2) and the y^2 / 2 of the log-Jacobian by |y|
+# times that: 4e-5 at |y| = 3.5 and 0.06 at the largest |y| = 4.89. So a
+# density is held to the median and max below over the rows where no layer's
+# |y| passes GF_SATURATED, and to TOL_GF_SATURATED over the others, which
+# are printed with their |y|.
+GF_SATURATED = 3.5
+TOL_GF_MEDIAN, TOL_GF_MAX, TOL_GF_SATURATED = 1e-5, 5e-4, 0.1
+# Samples: a quantile contract, because tail targets peg at the bracket and
+# a plateau of the erf mixture leaves the root ill-conditioned (both by
+# design). Log q is held where the solve came back to its target (T(x) = z
+# to GF_SOLVED in float64) and no layer saturates; against the density
+# kernel at the returned points it is held to TOL_GF_SELF.
+GF_SOLVED = 1e-4
+TOL_GF_SAMPLE_Q95, TOL_GF_SELF = 1e-2, 1e-4
+# T(x) against z over the rows that plain float64 solves: the median as the
+# samples', and the 99th percentile, since float32 rounding of x times a
+# layer's slope reaches 1e-2 at single rows of a million.
+TOL_GF_BACK_Q99 = 1e-3
+# A GF's parameter gradients: the one to a rotation's A is what is left of
+# dL/dR after A - A^T and matrix_exp cancel most of it (a hundredth of it for
+# the conditional GF at 262,144 rows; both are printed), and the one to a
+# hyper-network's first layer is a sum over zero-mean contexts. Float32 sums
+# that are right to 1e-6 of their terms leave about 1e-4 of such remainders.
+TOL_GF_GRAD_PARAMS = 5e-4
 CSRC = "zuko_tpu_torch/ops/csrc/"
 
 
@@ -165,15 +228,43 @@ def hyper_ops(ps):
     return sum(2 * int(M.sum().item()) + b.numel() for b, M in zip(ps[1::3], ps[2::3]))
 
 
+def gf_ops(layout, F, mode):
+    """Operations of one row through the GF kernels, counted from
+    ``csrc/gf_fused.cu`` with a transcendental as one operation, as
+    :func:`spline_ops` counts them. Forward, per mixture component 14 (the
+    affine argument 2, ``erff`` of it 2, its sum 1, the streamed
+    log-sum-exp 9) and per feature 10 (shrink, ``erfinvf``, ``y^2 / 2``, the
+    two logs, the sums); a bisection step 5 per component (argument,
+    ``erff``, sum) and 4 per feature (midpoint, compare, select), 29 steps
+    and 4 for the target and the last midpoint; a rotation 2 F^2; the base
+    term 2 F + 2; a layer with per-row parameters one ``expf`` per
+    log-scale. ``mode``: ``"density"``, ``"sample"`` or
+    ``"sample_log_prob"``."""
+    forward = sum(F * (14 * e[1] + 10) for e in layout if e[0] != "rot") + 2 * F + 2
+    solve = sum(F * (29 * (5 * e[1] + 4) + 4) for e in layout if e[0] != "rot")
+    shared = sum(2 * F * F for e in layout if e[0] == "rot") \
+        + sum(F * e[1] for e in layout if e[0] == "gaussb")
+    return shared + {"density": forward, "sample": solve, "sample_log_prob": solve + forward}[mode]
+
+
+def quantiles(diff):
+    """median, 95th and 99th percentile and max of a tensor of errors."""
+    flat = diff.flatten().float()
+    q = torch.quantile(flat[:: max(1, flat.numel() // (1 << 22))],
+                       torch.tensor([0.5, 0.95, 0.99], device=flat.device))
+    return (*q.tolist(), flat.max().item())
+
+
 def bound(ops, nbytes):
     t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def compare_grads(label, got, want, n_inputs=1, tol_input=TOL_GRAD_INPUT):
+def compare_grads(label, got, want, n_inputs=1, tol_input=TOL_GRAD_INPUT, hold=True,
+                  tol_params=TOL_GRAD_PARAMS):
     """Hold float32 gradients ``got`` against float64 ``want``: the first
     ``n_inputs`` entries are inputs (normwise), the rest parameters
-    (max-relative)."""
+    (max-relative). Without ``hold`` the figures are printed only."""
     diffs = [(a.double() - b, b) for a, b in zip(got, want)]
     input_norm = max((d.norm() / b.norm().clamp_min(1e-30)).item() for d, b in diffs[:n_inputs])
     input_max = max(
@@ -185,8 +276,9 @@ def compare_grads(label, got, want, n_inputs=1, tol_input=TOL_GRAD_INPUT):
           f" parameters worst max-relative {params_max:.3e}; inputs normwise"
           f" {input_norm:.3e}, max-relative {input_max:.3e}")
     check(all(bool(torch.isfinite(a).all()) for a in got), f"{label} gradient is not finite")
-    check(params_max <= TOL_GRAD_PARAMS, f"{label} gradient (parameters)")
-    check(input_norm <= tol_input, f"{label} gradient (inputs)")
+    if hold:
+        check(params_max <= tol_params, f"{label} gradient (parameters)")
+        check(input_norm <= tol_input, f"{label} gradient (inputs)")
 
 
 def main():
@@ -198,9 +290,10 @@ def main():
 
     from zuko_tpu_torch import ops
     from zuko_tpu_torch.lazy import Flow
-    from zuko_tpu_torch.ops import _build, ift, masked_linear, nsf_fused, rqs
+    from zuko_tpu_torch.ops import _build, gf_fused, ift, masked_linear, nsf_fused, rqs
     from zuko_tpu_torch.ops.dispatch import (
         FusedAutoregressiveFlow,
+        FusedGaussianizationFlow,
         FusedInvertedAutoregressiveFlow,
     )
     from zuko_tpu_torch.transforms import MonotonicRQSTransform
@@ -221,7 +314,8 @@ def main():
     t0 = time.perf_counter()
     reports = _build.build_all(force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(reports)})")
-    check(set(reports) == {"nsf_fused", "masked_linear", "rqs"}, f"built {sorted(reports)}")
+    check(set(reports) == {"nsf_fused", "gf_fused", "masked_linear", "rqs"},
+          f"built {sorted(reports)}")
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -681,6 +775,9 @@ def main():
         "masked_linear": (CSRC + "masked_linear.cu", "zuko_tpu/ops/masked_linear.py:116"),
         "rqs_forward": (CSRC + "rqs.cu", "zuko_tpu/ops/rqs.py:106"),
         "rqs_inverse": (CSRC + "rqs.cu", "zuko_tpu/ops/rqs.py:106"),
+        "gf_density": (CSRC + "gf_fused.cu", "zuko_tpu/ops/gf_fused.py:562"),
+        "gf_sample": (CSRC + "gf_fused.cu", "zuko_tpu/ops/gf_fused.py:657"),
+        "gf_sample_log_prob": (CSRC + "gf_fused.cu", "zuko_tpu/ops/gf_fused.py:657"),
     }
 
     def flow_work(rows):
@@ -772,11 +869,300 @@ def main():
     check(ms["nsf_sample_log_prob"] >= ms["nsf_sample"] >= ms["nsf_density"],
           f"rates out of order (slp <= sample <= density): {ms}")
 
+    # 9. the Gaussianization flow: served, held against float64, trained, timed
+    def gf_args(flow, c, rows, dtype):
+        """``(params, layout, F)`` as the wrappers take them: per-row
+        parameters as ``(rows, F, K)``, everything detached, in ``dtype``."""
+        params, layout, F, _ = gf_fused._flatten_gf(flow, c)
+        params = gf_fused._row_params([p.detach() for p in params], layout, (rows,))
+        return [p.to(dtype) for p in params], layout, F
+
+    def gf_chain(x, p64, layout):
+        """The plain float64 forward: ``(T(x), largest |y| of any layer's
+        output in the row)``. A row is called saturated past GF_SATURATED."""
+        largest = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for kind, tensors in gf_fused._stages(p64, layout):
+            if kind == "rot":
+                x = x @ tensors[0].T
+            else:
+                x, _ = gf_fused._gauss_forward(x, *tensors)
+                largest = torch.maximum(largest, x.abs().amax(dim=1))
+        return x, largest
+
+    def hold_density(label, name, got, want, largest, F, rows):
+        """A GF log-density (or log q) against float64: the median, the
+        rows no layer saturates, and the saturated rows apart."""
+        d = (got.double() - want).abs()
+        calm = largest <= GF_SATURATED
+        med, q95, q99, worst = quantiles(d)
+        calm_max = d[calm].max().item() if bool(calm.any()) else 0.0
+        tol = max(1.0, F / 6)  # the errors of F features add
+        print(f"{label} at {rows} rows vs f64: median {med:.3e} q95 {q95:.3e} q99 {q99:.3e}"
+              f" max {worst:.3e}; rows with every |y| <= {GF_SATURATED}:"
+              f" {calm.float().mean().item():.4f} of all, max {calm_max:.3e}")
+        if not bool(calm.all()):
+            sat = d[~calm]
+            at = sat.argmax()
+            print(f"  saturated rows: {sat.numel()}, max {sat.max().item():.3e} at |y| ="
+                  f" {largest[~calm][at].item():.3f}, largest |y| {largest.max().item():.3f}")
+            check(sat.max().item() <= TOL_GF_SATURATED, f"{label} (saturated rows)")
+        check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+        check(med <= tol * TOL_GF_MEDIAN, f"{label} (median)")
+        check(calm_max <= tol * TOL_GF_MAX, f"{label} (max over unsaturated rows)")
+        if name is not None:
+            note_error(name, d[calm], rows)
+
+    def hold_gf(label, flow, c, rows, x, report=True):
+        """K6 and K7 of ``flow`` under context ``c`` at ``rows`` rows against
+        their plain versions in float64."""
+        params, layout, F = gf_args(flow, c, rows, torch.float32)
+        p64 = [p.double() for p in params]
+        _, largest = gf_chain(x.double(), p64, layout)
+        hold_density(f"{label} density", "gf_density" if report else None,
+                     gf_fused.gf_density(x, params, layout, F),
+                     gf_fused._gf_math(x.double(), p64, layout, F), largest, F, rows)
+        z = torch.randn(rows, F, generator=gen, device=dev)
+        k_x = gf_fused.gf_sample(z, params, layout, F)
+        k_xl, k_lq = gf_fused.gf_sample(z, params, layout, F, True)
+        r_x, r_lq = gf_fused._gf_sample_math(z.double(), p64, layout, F, True)
+        check(bool((k_x == k_xl).all()), f"{label}: sample and sample_and_log_prob differ in x")
+        check(bool(torch.isfinite(k_x).all() and torch.isfinite(k_lq).all()),
+              f"{label}: samples not finite")
+        dx = (k_x.double() - r_x).abs()
+        back, largest = gf_chain(k_x.double(), p64, layout)
+        dback = (back - z.double()).abs()
+        solved = dback.amax(dim=1) <= GF_SOLVED
+        # the rows the float64 plain version itself brings back to z: the
+        # others peg at the bracket, by design, in both
+        solved64 = (gf_chain(r_x, p64, layout)[0] - z.double()).abs().amax(dim=1) <= GF_SOLVED
+        dlq = (k_lq.double() - r_lq).abs()
+        dself = (k_lq - gf_fused.gf_density(k_xl, params, layout, F)).abs()
+        good = solved & (largest <= GF_SATURATED)
+        for what, d in (("x vs plain f64", dx), ("T(x) vs z (f64 forward)", dback),
+                        ("log q vs plain f64", dlq), ("log q vs density kernel at x", dself)):
+            print(f"{label} sample at {rows} rows, {what}: median %.3e q95 %.3e q99 %.3e"
+                  f" max %.3e" % quantiles(d))
+        print(f"{label} sample: rows solved to {GF_SOLVED} {solved.float().mean().item():.4f}"
+              f" (plain f64: {solved64.float().mean().item():.4f}; T(x) vs z there: median"
+              f" %.3e q95 %.3e q99 %.3e max %.3e)," % quantiles(dback[solved64]),
+              f"solved and unsaturated {good.float().mean().item():.4f} of all; there log q vs"
+              f" plain f64 max {dlq[good].max().item():.3e}, vs density kernel max"
+              f" {dself[good].max().item():.3e}")
+        tol = max(1.0, F / 6)
+        check(quantiles(dx)[0] <= TOL_SAMPLE_MEDIAN and quantiles(dx)[1] <= TOL_GF_SAMPLE_Q95,
+              f"{label} samples vs plain")
+        check(quantiles(dback[solved64])[0] <= TOL_SAMPLE_MEDIAN, f"{label} round trip")
+        check(quantiles(dback[solved64])[2] <= TOL_GF_BACK_Q99, f"{label} round trip (q99)")
+        check(dlq[good].median().item() <= tol * TOL_GF_MEDIAN, f"{label} log q vs plain (median)")
+        check(dself[good].median().item() <= tol * TOL_GF_SELF, f"{label} log q vs density kernel")
+        if report:
+            note_error("gf_sample", dx[good], rows)
+            note_error("gf_sample_log_prob", dlq[good], rows)
+        return params, layout, F
+
+    gtruth = np.load(ROOT / "tools" / "gf_truth_f64.npz")
+    gf_weights = {k: gtruth[k] for k in gtruth.files if k not in ("x", "lp")}
+    # the file holds the trained parameters; the base is the standard normal
+    gf_weights.update({"base.args.0": np.zeros(6, np.float32), "base.args.1": np.ones(6, np.float32)})
+
+    def gf_trained():
+        return zt.load_params(zt.GF(6, 0, transforms=3, components=8, device=dev), gf_weights)
+
+    gf = gf_trained()
+    torch.manual_seed(2)
+    gf_cond = zt.GF(6, 4, transforms=3, device=dev)
+    gf_wide = {  # the rotation branch at real widths, parameters damped
+        "GF(21, transforms=2)": (zt.GF(21, 0, transforms=2, device=dev), 1 << 16),
+        "GF(64, transforms=3)": (zt.GF(64, 0, transforms=3, device=dev), 1 << 14),
+    }
+    with torch.no_grad():
+        for flow, _ in gf_wide.values():
+            for p in flow.parameters():
+                p.mul_(0.3)
+    gx_truth = torch.as_tensor(gtruth["x"], device=dev)
+    gc_big = torch.randn(ROWS, 4, generator=gen, device=dev)
+    gc_few = torch.randn(1024, 4, generator=gen, device=dev)
+
+    gf_served = ("gf_density", "gf_sample", "gf_sample_log_prob")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gdist = gf(None)
+        g_lp_truth = gdist.log_prob(gx_truth)
+        g_lp = gdist.log_prob(x_big)
+        g_xs = gdist.sample((ROWS,), generator=gen)
+        g_xl, g_lq = gdist.sample_and_log_prob((ROWS,), generator=gen)
+        gcdist = gf_cond(gc_big)
+        gc_lp = gcdist.log_prob(x_big)
+        gcfew = gf_cond(gc_few)
+        gc_xs = gcfew.sample((4,), generator=gen)
+        gc_xl, gc_lq = gcfew.sample_and_log_prob((4,), generator=gen)
+    torch.cuda.synchronize()
+    gf_launches = {name: ops.LAUNCHES[name] for name in gf_served}
+    print(f"GF serving phase: {time.perf_counter() - t0:.3f} s, launches {gf_launches}")
+    check(isinstance(gdist, FusedGaussianizationFlow)
+          and isinstance(gcdist, FusedGaussianizationFlow),
+          "GFs on the GPU did not dispatch to the fused kernels")
+    for name, count in gf_launches.items():
+        check(count > 0, f"kernel {name} was not launched by the served GF path")
+    check(all(ops.LAUNCHES[name] == 0 for name in served), "the GF path launched an NSF kernel")
+    for t, shape in [
+        (g_lp_truth, (16384,)), (g_lp, (ROWS,)), (g_xs, (ROWS, 6)), (g_xl, (ROWS, 6)),
+        (g_lq, (ROWS,)), (gc_lp, (ROWS,)), (gc_xs, (4, 1024, 6)), (gc_xl, (4, 1024, 6)),
+        (gc_lq, (4, 1024)),
+    ]:
+        check(tuple(t.shape) == shape, f"GF shape {tuple(t.shape)} != {shape}")
+        check(bool(torch.isfinite(t).all()), "non-finite values on the served GF path")
+    err = (g_lp_truth.double() - torch.as_tensor(gtruth["lp"], device=dev)).abs()
+    print(f"GF log_prob vs f64 truth: max {err.max().item():.3e} median {err.median().item():.3e}")
+    check(err.median().item() <= TOL_GF_MEDIAN and err.max().item() <= TOL_GF_MAX,
+          "GF density vs f64 truth")
+
+    with torch.no_grad():
+        for rows in (ROWS, GRAD_ROWS):
+            gparams, glayout, _ = hold_gf("GF", gf, None, rows, x_big[:rows])
+            hold_gf("conditional GF", gf_cond, gc_big[:rows], rows, x_big[:rows])
+        for label, (flow, rows) in gf_wide.items():
+            width = flow.base._0.shape[0]
+            hold_gf(label, flow, None, rows,
+                    torch.randn(rows, width, generator=gen, device=dev), report=False)
+
+    # gradients through the two Functions (kernel forward, float32 plain
+    # backward) against float64, down to the flows' parameters: the density's
+    # against plain autograd; the IFT's against the same three sweeps in
+    # float64 at the kernel's own root (the root's conditioning is the
+    # solve's contract, held above). The loss is a mean over the rows no
+    # layer saturates: a saturated row's slope carries the relative error of
+    # exp(y^2 / 2) under float32 rounding of m (up to 6%, see GF_SATURATED),
+    # and such rows have the largest gradients, so they are printed apart,
+    # with all rows in the loss, and not held.
+    def gf_grads(flow, c, v, dtype, weights, x=None):
+        """Gradients to ``v`` and to the parameters of ``flow`` of the
+        ``weights``-sum of the log-density at ``v``, or, given the root ``x``
+        of the draw from ``v``, of log q + |x|^2 (in float32 the Function
+        solves again, with the kernel)."""
+        flow = copy.deepcopy(flow).to(dtype)
+        c = None if c is None else c.to(dtype)
+        v, w = v.to(dtype, copy=True).requires_grad_(True), weights.to(dtype)
+        params, layout, F, _ = gf_fused._flatten_gf(flow, c)
+        rotations = [t[0] for kind, t in gf_fused._stages(params, layout) if kind == "rot"]
+        for R in rotations:
+            R.retain_grad()
+        rows = gf_fused._row_params(params, layout, (v.shape[0],))
+        if x is None:
+            fn = gf_fused.gf_density if dtype == torch.float32 else gf_fused._gf_math
+            (fn(v, rows, layout, F) * w).sum().backward()
+        elif dtype == torch.float32:
+            x, lq = ift._GFIFTFunction.apply(v, (layout, F), True, *rows)
+            ((lq + (x**2).sum(dim=1)) * w).sum().backward()
+        else:
+            x = x.to(dtype)
+            dz, dps = ift._gf_ift_bwd_math(
+                v.detach(), x, 2 * x * w[:, None], w, [p.detach() for p in rows],
+                [True] * len(rows), layout, F)
+            torch.autograd.backward(rows, dps)
+            v.grad = dz
+        # the first rotation apart: dL/dR, and dL/dA, what A - A^T and
+        # matrix_exp leave of it
+        first = (rotations[0].grad, next(
+            p.grad for name, p in flow.named_parameters() if name.endswith("transforms.1._0")))
+        return [v.grad] + [p.grad for p in flow.parameters()], first
+
+    for label, flow, c in (("GF", gf, None), ("conditional GF", gf_cond, gc_big[:GRAD_ROWS])):
+        xg, zg = x_big[:GRAD_ROWS], torch.randn(GRAD_ROWS, 6, generator=gen, device=dev)
+        params, layout, F = gf_args(flow, c, GRAD_ROWS, torch.float32)
+        with torch.no_grad():
+            root = gf_fused.gf_sample(zg, params, layout, F)
+            p64 = [p.double() for p in params]
+            calm = [gf_chain(t.double(), p64, layout)[1] <= GF_SATURATED for t in (xg, root)]
+        every = torch.ones(GRAD_ROWS, device=dev)
+        for rows, hold in (("unsaturated rows", True), ("all rows", False)):
+            for what, v, x, w in (("density", xg, None, calm[0]), ("IFT", zg, root, calm[1])):
+                w = (w if hold else every) / GRAD_ROWS
+                (got, first32), (want, first64) = (
+                    gf_grads(flow, c, v, dtype, w, x) for dtype in (torch.float32, torch.float64))
+                compare_grads(
+                    f"{label} {what}, {rows}", got, want, hold=hold,
+                    tol_params=TOL_GF_GRAD_PARAMS,
+                    tol_input=TOL_GRAD_INPUT if x is None else TOL_GRAD_SOLVE_INPUT)
+                if hold:
+                    print(f"  first rotation: max |dL/dR| %.3e (f32 - f64 max %.3e),"
+                          f" max |dL/dA| %.3e (%.3e)" % tuple(
+                              t.item() for a, b in zip(first32, first64)
+                              for t in (b.abs().max(), (a.double() - b).abs().max())))
+        del params, p64
+
+    # train from the trained parameters (a random-init GF saturates)
+    flow_e = gf_trained()
+    ops.reset_launches()
+    init_fn, step_fns["gf_mle"] = zt.make_mle_step(flow_e, lr=1e-3)
+    trained["gf_mle"], _ = run("(e) GF MLE", step_fns["gf_mle"], init_fn(), batch, TRAIN_STEPS)
+    counts = counts_after("(e) GF MLE", ["gf_density"], none=served)
+    check(counts["gf_density"] == TRAIN_STEPS, "(e): one gf_density launch a step")
+    train_launches["gf_density"] = counts["gf_density"]
+
+    flow_f = gf_trained()
+    ops.reset_launches()
+    init_fn, step_fns["gf_rkl"] = zt.make_reverse_kl_step(flow_f, ring, n_samples=GRAD_ROWS, lr=1e-3)
+    trained["gf_rkl"], _ = run("(f) GF reverse KL, IFT", step_fns["gf_rkl"], init_fn(), generator,
+                               TRAIN_STEPS)
+    counts = counts_after("(f) GF reverse KL, IFT", ["gf_sample_log_prob"], none=served)
+    check(counts["gf_sample_log_prob"] == TRAIN_STEPS, "(f): one gf_sample_log_prob launch a step")
+    train_launches["gf_sample_log_prob"] = counts["gf_sample_log_prob"]
+    per_step.update({
+        "gf_mle": time_step("gf_mle", batch, lambda: flow_e(None).log_prob(batches[0]).mean()),
+        "gf_rkl": time_step(
+            "gf_rkl", generator, lambda: flow_f(None).sample_and_log_prob((GRAD_ROWS,), gen)),
+    })
+
+    # times: unconditional at both row counts, batched context at 1M rows
+    def gf_work(params, layout, F, rows):
+        x, z = x_big[:rows], torch.randn(rows, F, generator=gen, device=dev)
+        args = (params, layout, F)
+        read = 4 * sum(p.numel() for p in params)  # every parameter once
+        return {
+            "gf_density": (
+                lambda: gf_fused.gf_density(x, *args), lambda: gf_fused._gf_math(x, *args),
+                rows * gf_ops(layout, F, "density"), 4 * rows * (F + 1) + read),
+            "gf_sample": (
+                lambda: gf_fused.gf_sample(z, *args), lambda: gf_fused._gf_sample_math(z, *args),
+                rows * gf_ops(layout, F, "sample"), 4 * rows * 2 * F + read),
+            "gf_sample_log_prob": (
+                lambda: gf_fused.gf_sample(z, *args, True),
+                lambda: gf_fused._gf_sample_math(z, *args, True),
+                rows * gf_ops(layout, F, "sample_log_prob"), 4 * rows * (2 * F + 1) + read),
+        }
+
+    with torch.no_grad():
+        for rows in (ROWS, GRAD_ROWS):
+            for name, work in gf_work(gparams, glayout, 6, rows).items():
+                time_kernel(name, rows, *work)
+                check(timed[name, rows, ""]["bound_by"] == "operations",
+                      f"{name}: the unconditional kernel is bound by bytes")
+        cparams, clayout, _ = gf_args(gf_cond, gc_big, ROWS, torch.float32)
+        for name, work in gf_work(cparams, clayout, 6, ROWS).items():
+            time_kernel(name, ROWS, *work, note="batched context")
+        check(timed["gf_density", ROWS, "batched context"]["bound_by"] == "bytes",
+              "gf_density with per-row parameters is bound by operations")
+        del cparams
+        gf_requests = {
+            "gf_density": lambda: gf(None).log_prob(x_big),
+            "gf_sample": lambda: gf(None).sample((ROWS,), generator=gen),
+            "gf_sample_log_prob": lambda: gf(None).sample_and_log_prob((ROWS,), generator=gen),
+            "gf_density batched context": lambda: gf_cond(gc_big).log_prob(x_big),
+        }
+        for name, request in gf_requests.items():
+            r_ms, r_runs = host_ms(request, 5)
+            k_ms = timed[name.split()[0], ROWS, name.partition(" ")[2]]["ms"]
+            print(f"served request {name}: {r_ms:.3f} ms {fmt(r_runs)},"
+                  f" kernel share {k_ms / r_ms:.3f}")
+    step_labels = (("gf_mle", "(e) GF MLE"), ("gf_rkl", "(f) GF reverse KL, IFT"))
+
     # a training step beside the kernels it launches (their times at the
     # step's shapes, times the launches of one step)
     for key, label in (("mle", "(a) MLE"), ("rkl", "(b) reverse KL, IFT"),
                        ("rkl_inv", "(c) reverse KL, inverted flow"),
-                       ("mle_unfused", "(d) MLE, unfused, per-op kernels")):
+                       ("mle_unfused", "(d) MLE, unfused, per-op kernels"), *step_labels):
         s_ms, s_runs = step_ms[key]
         k_ms = sum(timed[name, GRAD_ROWS, ""]["ms"] * count / (3 if name == "masked_linear" else 1)
                    for name, count in per_step[key].items())
@@ -801,14 +1187,17 @@ def main():
     # the old kernels at the serving shape, the new ones at the training
     # step's; launches from the phase that drives each
     kernels = []
+    launches.update(gf_launches)
     for name, (source, replaces) in origin.items():
-        rows = ROWS if name in served else GRAD_ROWS
+        rows = ROWS if name in launches else GRAD_ROWS
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] if name in served else train_launches[name],
+            "launches": launches[name] if name in launches else train_launches[name],
             "max_abs_err": errors[name, rows], "rows": rows, **timed[name, rows, ""],
             "max_abs_err_at_rows": {str(r): e for (n, r), e in errors.items() if n == name},
         })
+        if name in gf_launches:
+            kernels[-1]["batched_context"] = timed[name, rows, "batched context"]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

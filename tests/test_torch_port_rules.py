@@ -15,7 +15,8 @@ import zuko_tpu_torch as zt
 
 from zuko_tpu_torch.distributions import NormalizingFlow
 from zuko_tpu_torch import ops
-from zuko_tpu_torch.ops import masked_linear, nsf_fused, rqs
+from zuko_tpu_torch.flows import ElementWiseTransform
+from zuko_tpu_torch.ops import gf_fused, masked_linear, nsf_fused, rqs
 from zuko_tpu_torch.ops.dispatch import FusedAutoregressiveFlow, fused_dispatch_enabled
 
 torch.set_num_threads(1)
@@ -122,6 +123,35 @@ def test_per_op_wrappers_take_plain_versions_on_cpu():
         rqs._rqs_kernel(v, *knots, False)
 
 
+def _small_gf(context=0, dtype=torch.float32):
+    """``(flat arguments of the GF wrappers, rows)``: per-row parameters
+    with a context."""
+    torch.manual_seed(0)
+    flow = zt.GF(4, context, transforms=2, components=5, hidden_features=(16, 16),
+                 device="cpu").to(dtype)
+    c = torch.randn(16, context, dtype=dtype) if context else None
+    with torch.no_grad():
+        params, layout, F, _ = gf_fused._flatten_gf(flow, c)
+    return ([p.detach() for p in gf_fused._row_params(params, layout, (16,))], layout, F)
+
+
+@pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
+def test_gf_wrappers_take_plain_versions_on_cpu(context):
+    args = _small_gf(context)
+    x = torch.randn(16, 4)
+    ops.reset_launches()
+    torch.testing.assert_close(
+        gf_fused.gf_density(x, *args), gf_fused._gf_math(x, *args), rtol=0, atol=0)
+    sample = gf_fused.gf_sample(x, *args)
+    sample_l, lq = gf_fused.gf_sample(x, *args, want_log_prob=True)
+    plain, plain_lq = gf_fused._gf_sample_math(x, *args, want_log_prob=True)
+    for a, b in ((sample, plain), (sample_l, plain), (lq, plain_lq)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert sample.shape == (16, 4) and lq.shape == (16,)
+    assert {"gf_density", "gf_sample", "gf_sample_log_prob"} <= set(ops.LAUNCHES)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
 def test_cpu_tensors_keep_the_default_arithmetic():
     """On the CPU ``MaskedLinear`` and the spline keep their own arithmetic
     bit for bit, and never reach the per-op wrappers."""
@@ -160,13 +190,18 @@ class _OnCard(torch.Tensor):
     (torch.float64, TypeError, "float32 only"),
     (torch.float32, ValueError, "on the GPU"),  # the CPU weights stop it
 ], ids=["float64", "float32"])
-@pytest.mark.parametrize("op", ["masked_linear", "rqs_forward", "rqs_inverse"])
+@pytest.mark.parametrize(
+    "op", ["masked_linear", "rqs_forward", "rqs_inverse", "gf_density", "gf_sample"])
 def test_gpu_tensors_reach_the_kernel_or_raise(op, dtype, error, match):
-    """For a tensor on the GPU the unfused layers go to their kernel's
-    wrapper whatever the type: float64 raises there, as the whole-flow
-    kernels do, and nothing gives way to the plain arithmetic."""
+    """For a tensor on the GPU the unfused layers and the GF wrappers go to
+    their kernel whatever the type: float64 raises there, as the whole-flow
+    NSF kernels do, and nothing gives way to the plain arithmetic."""
     torch.manual_seed(0)
-    if op == "masked_linear":
+    if op.startswith("gf_"):
+        args = _small_gf(3, dtype)
+        wrapper = getattr(gf_fused, op)
+        fn, x = (lambda v: wrapper(v, *args)), torch.randn(16, 4, dtype=dtype)
+    elif op == "masked_linear":
         layer = zt.nn.MaskedLinear(torch.rand(7, 5) < 0.5, device="cpu").to(dtype)
         fn, x = layer, torch.randn(4, 5, dtype=dtype)
     else:
@@ -197,6 +232,23 @@ def test_plain_versions_stay_plain_for_gpu_tensors():
             got = fn(xc.as_subclass(_OnCard), params, layout, *statics, **kwargs)
             for a, b in zip(*((want,), (got,)) if torch.is_tensor(want) else (want, got)):
                 torch.testing.assert_close(a, b.as_subclass(torch.Tensor), rtol=0, atol=0)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
+def test_gf_plain_versions_stay_plain_for_gpu_tensors(context):
+    """The GF kernels' plain versions (the references, and what the
+    Functions' backward passes differentiate) stay plain PyTorch for a
+    tensor on the GPU: they launch nothing."""
+    args = _small_gf(context, torch.float64)
+    x = torch.randn(16, 4, dtype=torch.float64)
+    ops.reset_launches()
+    with torch.no_grad():
+        want = (gf_fused._gf_math(x, *args), *gf_fused._gf_sample_math(x, *args, True))
+        got = (gf_fused._gf_math(x.as_subclass(_OnCard), *args),
+               *gf_fused._gf_sample_math(x.as_subclass(_OnCard), *args, True))
+    for a, b in zip(want, got):
+        torch.testing.assert_close(a, b.as_subclass(torch.Tensor), rtol=0, atol=0)
     assert all(count == 0 for count in ops.LAUNCHES.values())
 
 
@@ -231,10 +283,14 @@ def test_trainable_base_keeps_unfused_path(monkeypatch):
 
 
 def test_single_feature_and_rsample_are_later_slices(monkeypatch):
-    """A single feature still is; ``rsample`` no longer: it works on the
-    fused flow and carries gradients to every parameter."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zt.MAF(1, device="cpu")
+    """Both were missing once and are ported now: a single feature
+    builds an ``ElementWiseTransform`` (nothing to mask), and ``rsample``
+    works on the fused flow and carries gradients to every parameter."""
+    for cls in (zt.MAF, zt.NSF):
+        flow = cls(1, 2, transforms=2, hidden_features=(8,), device="cpu")
+        assert all(type(t) is ElementWiseTransform for t in flow.transform.transforms)
+        assert flow(torch.zeros(5, 2)).log_prob(torch.zeros(5, 1)).shape == (5,)
+        assert type(flow(torch.zeros(2))) is NormalizingFlow  # and keeps the unfused path
     monkeypatch.setenv("ZUKO_TPU_TORCH_FUSED_DISPATCH", "1")
     flow = _flagship_like()
     dist = flow(torch.zeros(2))
@@ -259,3 +315,26 @@ def test_kernel_limits_raise_before_launch(kwargs):
     params, layout, cfg = nsf_fused._flatten_flow(flow)
     with pytest.raises(ValueError, match="the kernels take"):
         nsf_fused._pack_weights(params, layout, 3, 0, cfg["bins"], cfg["univ"])
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"features": 65},
+    {"components": 33},
+    {"transforms": 33},  # 65 layers and rotations together
+], ids=["features", "components", "stages"])
+def test_gf_kernel_limits_raise_before_launch(kwargs):
+    """64 features and 32 components are taken; one more of either, or more
+    than 64 stages, raises before anything is packed or launched."""
+    torch.manual_seed(0)
+    kwargs = {"features": 3, "components": 4, "transforms": 2, **kwargs}
+    flow = zt.GF(device="cpu", **kwargs)
+    with torch.no_grad():
+        params, layout, F, _ = gf_fused._flatten_gf(flow)
+    x = torch.randn(8, F)
+    gf_fused.gf_density(x, params, layout, F)  # the plain version has no limits
+    gf_fused._check_limits((("gauss", 32), ("rot",)) * 32, 64)
+    ops.reset_launches()
+    for fn in (gf_fused.gf_density, gf_fused.gf_sample):
+        with pytest.raises(ValueError, match="the kernels take"):
+            fn(x.as_subclass(_OnCard), params, layout, F)
+    assert all(count == 0 for count in ops.LAUNCHES.values())

@@ -20,12 +20,13 @@ Example:
 
 from . import data, parallel
 from .distributions import NormalizingFlow
-from .flows import MAF, NSF, Flow
+from .flows import GF, MAF, NSF, Flow
 from .parallel import make_mle_step, make_reverse_kl_step, train_mle
 from .serial import load_params
 
 __all__ = [
     "Flow",
+    "GF",
     "MAF",
     "NSF",
     "NormalizingFlow",

@@ -2,7 +2,9 @@ r"""Autoregressive flows and transformations.
 
 Counterpart of ``zuko_tpu/flows/autoregressive.py``:
 :class:`MaskedAutoregressiveTransform` :56 (the MADE conditioner, with
-``order``/``passes`` grouping and custom adjacency) and :class:`MAF` :181.
+``order``/``passes`` grouping and custom adjacency; a single feature gets an
+:class:`~zuko_tpu_torch.flows.gaussianization.ElementWiseTransform`) and
+:class:`MAF` :181.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..transforms import (
     MonotonicAffineTransform,
 )
 from ..utils import broadcast, resolve_device, unpack
+from .gaussianization import ElementWiseTransform
 
 __all__ = ["MAF", "MaskedAutoregressiveTransform"]
 
@@ -54,7 +57,16 @@ class MaskedAutoregressiveTransform(LazyTransform):
 
     The hyper-network's outputs are feature-major: the ``total`` parameters
     of feature ``f`` are outputs ``f * total ... (f + 1) * total - 1``.
+    With ``features <= 1`` there is nothing to mask, and the constructor
+    returns an :class:`ElementWiseTransform` instead
+    (zuko/flows/autoregressive.py:73-86).
     """
+
+    def __new__(cls, features: int = None, context: int = 0, passes: int = None,
+                order=None, adjacency=None, *args, **kwargs):
+        if features is None or features > 1:
+            return super().__new__(cls)
+        return ElementWiseTransform(features, context, *args, **kwargs)
 
     def __init__(
         self,
@@ -69,11 +81,6 @@ class MaskedAutoregressiveTransform(LazyTransform):
         **kwargs,
     ):
         super().__init__()
-        if features <= 1:
-            raise NotImplementedError(
-                "features <= 1 needs ElementWiseTransform, which is not ported"
-                " yet (ROADMAP.md, Queue 1 item 2)"
-            )
         self.univariate = univariate
         self.shapes = tuple(tuple(s) for s in shapes)
         self.total = sum(math.prod(s) for s in self.shapes)

@@ -1,10 +1,12 @@
-r"""Layers of the MADE hyper-network.
+r"""Layers of the hyper-networks.
 
-Counterpart of ``zuko_tpu/nn.py``: :class:`Activation` :51, :class:`Linear`
-:93, :class:`MaskedLinear` :149, :func:`masked_mlp_masks` :270 and
-:class:`MaskedMLP` :329. Weights are ``(out, in)`` and the MADE mask is a
-buffer named ``mask``, so parameter names match ``zuko_tpu``'s dotted names
-one to one (see :mod:`zuko_tpu_torch.serial`).
+Counterpart of ``zuko_tpu/nn.py``: :class:`Activation` :51,
+:class:`LayerNorm` :79, :class:`Linear` :93, :class:`MaskedLinear` :149,
+:class:`MLP` :187, :func:`masked_mlp_masks` :270 and :class:`MaskedMLP`
+:329. Weights are ``(out, in)``, the MADE mask is a buffer named ``mask``
+and every stack keeps its modules under ``layers``, so parameter names
+match ``zuko_tpu``'s dotted names one to one (see
+:mod:`zuko_tpu_torch.serial`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from .utils import resolve_device
 
 __all__ = [
     "Activation",
+    "LayerNorm",
     "Linear",
+    "MLP",
     "MaskedLinear",
     "MaskedMLP",
     "Residual",
@@ -38,6 +42,20 @@ class Activation(nn.Module):
 
     def forward(self, x):
         return self.fn(x)
+
+
+class LayerNorm(nn.Module):
+    r"""Standardizes features along a dimension: no affine parameters,
+    unbiased variance (reference: zuko/nn.py:25-48)."""
+
+    def __init__(self, dim: int = -1, eps: float = 1e-5):
+        super().__init__()
+        self.dim = dim
+        self.eps = float(eps)
+
+    def forward(self, x):
+        variance, mean = torch.var_mean(x, dim=self.dim, keepdim=True, correction=1)
+        return (x - mean) / torch.sqrt(variance + self.eps)
 
 
 class Linear(nn.Module):
@@ -98,6 +116,48 @@ class Residual(nn.Module):
         for layer in self.layers:
             y = layer(y)
         return x + y
+
+
+class MLP(nn.Module):
+    r"""Multi-layer perceptron (reference: zuko/nn.py:122-192): linear
+    layers of widths ``hidden_features`` with ``activation`` (default ReLU)
+    and, with ``normalize``, a :class:`LayerNorm` between them. Further
+    keyword arguments go to every :class:`Linear`.
+
+    Example:
+        >>> net = MLP(64, 1, (32, 16), activation=torch.nn.functional.elu, device="cpu")
+        >>> net(torch.ones(64)).shape
+        torch.Size([1])
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        hidden_features: Sequence[int] = (64, 64),
+        activation: Callable = None,
+        normalize: bool = False,
+        **kwargs,
+    ):
+        super().__init__()
+        if activation is None:
+            activation = torch.relu
+        widths = [in_features, *hidden_features, out_features]
+        layers = []
+        for i, (before, after) in enumerate(zip(widths[:-1], widths[1:])):
+            layers.append(Linear(before, after, **kwargs))
+            if i < len(widths) - 2:
+                layers.append(Activation(activation))
+                if normalize:
+                    layers.append(LayerNorm())
+        self.layers = nn.ModuleList(layers)
+        self.in_features = int(in_features)
+        self.out_features = int(out_features)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
 
 
 def masked_mlp_masks(

@@ -29,6 +29,9 @@ _LIBS = {}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # (input, two outputs, weights, widths, passes, 6 ints, 2 floats, rows, stream)
 _NSF_TWO_OUTPUTS = ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _LL, _P], _I)
+# (packed, kinds, Ks, offs, shifts, raws, row strides, feature strides,
+# stages, F, rows, stream)
+_GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P]
 # argument types of every C entry point, by library; each library also has
 # ``<library>_error_string`` (declared by ``load_library``)
 _SIGNATURES = {
@@ -39,6 +42,10 @@ _SIGNATURES = {
         "nsf_sample_f32": _NSF_TWO_OUTPUTS,
         "nsf_sample_raw_f32": _NSF_TWO_OUTPUTS,
         "nsf_max_shared_bytes": ([_I], _I),
+    },
+    "gf_fused": {
+        "gf_density_f32": ([_P, _P, *_GF_FLOW], _I),
+        "gf_sample_f32": ([_P, _P, _P, *_GF_FLOW], _I),
     },
     "masked_linear": {
         "masked_linear_f32": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),

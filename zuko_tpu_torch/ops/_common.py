@@ -17,6 +17,9 @@ LAUNCHES = {
     "masked_linear": 0,
     "rqs_forward": 0,
     "rqs_inverse": 0,
+    "gf_density": 0,
+    "gf_sample": 0,
+    "gf_sample_log_prob": 0,
 }
 
 

@@ -3,11 +3,12 @@ r"""Automatic fused-kernel dispatch for the flows.
 Counterpart of ``zuko_tpu/ops/dispatch.py``: when a :class:`~zuko_tpu_torch.lazy.Flow`
 is called, its structure is inspected and — if the whole-flow kernels can
 represent it — the returned distribution routes ``log_prob``, ``sample`` and
-``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused`, and
-``rsample`` / ``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift`.
-An inverted flow, ``Flow(flow.transform.inv, flow.base)``, swaps the roles.
-A flow the extractor rejects with ``FusedStructureError`` keeps the unfused
-transform path.
+``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused` (NSF, MAF)
+or :mod:`zuko_tpu_torch.ops.gf_fused` (GF), and ``rsample`` /
+``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift`. An inverted
+autoregressive flow, ``Flow(flow.transform.inv, flow.base)``, swaps the
+roles. A flow every extractor rejects with ``FusedStructureError`` keeps the
+unfused transform path.
 
 Dispatch policy (``ZUKO_TPU_TORCH_FUSED_DISPATCH``):
 
@@ -24,7 +25,8 @@ import torch
 
 from ..distributions import NormalizingFlow
 from ..lazy import LazyInverse
-from .ift import fused_nsf_inverse_and_ladj, fused_nsf_rsample
+from .gf_fused import _flatten_gf, fused_gf_log_prob, fused_gf_sample
+from .ift import fused_gf_rsample, fused_nsf_inverse_and_ladj, fused_nsf_rsample
 from .nsf_fused import (
     FusedStructureError,
     _flatten_flow,
@@ -35,6 +37,7 @@ from .nsf_fused import (
 
 __all__ = [
     "FusedAutoregressiveFlow",
+    "FusedGaussianizationFlow",
     "FusedInvertedAutoregressiveFlow",
     "fused_dispatch_enabled",
     "maybe_fused_flow",
@@ -84,6 +87,37 @@ class FusedAutoregressiveFlow(NormalizingFlow):
         return fused_nsf_rsample(
             self._flat, sample_shape, self._c, generator, want_log_prob=True
         )
+
+
+class FusedGaussianizationFlow(NormalizingFlow):
+    r"""A :class:`NormalizingFlow` whose density and sampling run through the
+    fused GF kernels (:mod:`zuko_tpu_torch.ops.gf_fused`): analytic
+    gaussianization log-Jacobians, rotation products and per-feature
+    bisection inverses. ``rsample`` / ``rsample_and_log_prob`` run the same
+    solve with implicit-function-theorem gradients
+    (:mod:`zuko_tpu_torch.ops.ift`: diagonal solves and rotation products,
+    no iteration). ``flat`` is ``_flatten_gf(flow, c, transform)``, taken once
+    per ``flow(c)`` from the tensors ``transform`` already holds (the
+    hyper-networks' outputs and the rotations)."""
+
+    def __init__(self, transform, base, flat):
+        super().__init__(transform, base)
+        self._flat = flat
+
+    def log_prob(self, x):
+        return fused_gf_log_prob(self._flat, x)
+
+    def sample(self, sample_shape=(), generator=None):
+        return fused_gf_sample(self._flat, sample_shape, generator)
+
+    def sample_and_log_prob(self, sample_shape=(), generator=None):
+        return fused_gf_sample(self._flat, sample_shape, generator, want_log_prob=True)
+
+    def rsample(self, sample_shape=(), generator=None):
+        return fused_gf_rsample(self._flat, sample_shape, generator)
+
+    def rsample_and_log_prob(self, sample_shape=(), generator=None):
+        return fused_gf_rsample(self._flat, sample_shape, generator, want_log_prob=True)
 
 
 class FusedInvertedAutoregressiveFlow(NormalizingFlow):
@@ -137,7 +171,10 @@ def maybe_fused_flow(module, transform, base, c):
             return None  # an inverted flow of another structure stays unfused
         return FusedInvertedAutoregressiveFlow(transform, base, flat, c)
     try:
-        flat = _flatten_flow(module)
+        return FusedAutoregressiveFlow(transform, base, _flatten_flow(module), c)
+    except FusedStructureError:
+        pass
+    try:
+        return FusedGaussianizationFlow(transform, base, _flatten_gf(module, c, transform))
     except FusedStructureError:
         return None
-    return FusedAutoregressiveFlow(transform, base, flat, c)

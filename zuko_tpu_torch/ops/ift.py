@@ -1,8 +1,9 @@
 r"""Differentiable fused sampling through the implicit function theorem.
 
-Counterpart of ``zuko_tpu/ops/ift.py`` (the NSF/MAF tier, :103-433 and
-:815-842). ``rsample`` / ``rsample_and_log_prob`` do not differentiate
-through the autoregressive solve:
+Counterpart of ``zuko_tpu/ops/ift.py``: the NSF/MAF tier (:103-433 and
+:815-842) and the GF tier (:653-803, at the end of this module).
+``rsample`` / ``rsample_and_log_prob`` do not differentiate through the
+autoregressive solve:
 
 * **forward**: the sampling kernel (:func:`..nsf_fused.nsf_sample`, not
   differentiable) solves :math:`x = T^{-1}(z; \phi)`, optionally with the
@@ -27,17 +28,20 @@ through the autoregressive solve:
 The backward is not a kernel (``_ift_bwd`` :224 is not either): it is
 autograd over the plain per-layer functions of
 :mod:`zuko_tpu_torch.ops.nsf_fused`, each layer's graph kept alive across
-the three sweeps. The NAF and GF tiers of ``zuko_tpu/ops/ift.py`` come with
-their families.
+the three sweeps. The NAF tier of ``zuko_tpu/ops/ift.py`` comes with its
+family.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import gf_fused as gf
 from . import nsf_fused as nf
 
 __all__ = [
+    "fused_gf_rsample",
+    "fused_gf_rsample_and_log_prob",
     "fused_nsf_inverse_and_ladj",
     "fused_nsf_rsample",
     "fused_nsf_rsample_and_log_prob",
@@ -47,7 +51,8 @@ __all__ = [
 # whose reconstruction misses z by more than this get zero cotangent: a
 # failed solve has no meaningful pathwise gradient. The closed-form inverses
 # (rqs, affine) never trip it, their out-of-domain branch being an exact
-# identity; it stands guard for the iterative families.
+# identity; it stands guard for the iterative families: a GF's bisection
+# pegs at its bracket for tail targets the saturated erf mixture cannot reach.
 _SOLVE_ATOL = 1e-2
 
 
@@ -211,3 +216,124 @@ def fused_nsf_inverse_and_ladj(flat, x, c=None):
     batch, xc = nf._with_context(x, c)
     u, ladj = _ift(xc, flat, F, "raw")
     return u.reshape(batch + (F,)), ladj.reshape(batch)
+
+
+# ------------------------------------------------------------------ GF tier
+#
+# Gaussianization flows are the easy case: every layer is either an
+# element-wise erf mixture (a diagonal Jacobian, so the triangular solve is
+# one division) or an orthogonal rotation (J^-T v = R v). No iteration.
+
+
+def _gf_ift_bwd_math(z, x, xbar, lbar, params, needs, layout, F):
+    """The IFT backward over GF stages (counterpart of ``_gf_ift_bwd_math``
+    :716): cotangents ``xbar (n, F)`` and ``lbar (n,)`` (or ``None``) ->
+    ``(dz (n, F), dparams)``, with ``None`` in ``dparams`` where ``needs`` is
+    false. Per-row parameters are inputs like the others, so their
+    cotangents come back per row. The three sweeps of the NSF tier, each
+    layer's graph kept alive across them:
+
+    1. **march** ``x_l = T_l(x_{l-1})`` from the solved ``x``;
+    2. **density backward** (with ``lbar``): ``g_l = d(lbar · log q) / dx_l``
+       from the base back;
+    3. **solves**: ``v = xbar + g_0`` goes through ``u = v / exp(ladj)`` per
+       layer and ``u = R v`` per rotation, and each stage takes one parameter
+       pullback with cotangents ``(g_l - u_l, lbar)``; a rotation's is
+       ``(g_l - u_l)ᵀ x_{l-1}``."""
+    dparams = [None] * len(params)
+
+    def grad(outputs, inputs, cotangents):
+        return torch.autograd.grad(outputs, inputs, cotangents, retain_graph=True)
+
+    with torch.enable_grad():
+        recs, idx = [], 0
+        xcur = x.detach()
+        for kind, tensors in gf._stages(list(params), layout):
+            if kind == "rot":
+                recs.append((kind, idx, tensors[0].detach(), xcur))
+                xcur = xcur @ tensors[0].detach().T
+            else:
+                ps = [t.detach().requires_grad_(needs[idx + i]) for i, t in enumerate(tensors)]
+                xs = xcur.requires_grad_(True)
+                y, ladj = gf._gauss_forward(xs, *ps)
+                recs.append((kind, idx, ps, xs, y, ladj))
+                xcur = y.detach()
+            idx += len(tensors)
+
+        # rows whose solve pegged contribute nothing
+        xbar, lrow = _solve_consistency_mask(xcur, z, xbar, lbar)
+
+        g_out = [None] * len(recs)
+        v = xbar
+        if lrow is not None:
+            g = -xcur * lrow  # the standard-normal base
+            for i in reversed(range(len(recs))):
+                g_out[i] = g
+                if recs[i][0] == "rot":
+                    g = g @ recs[i][2]  # Rᵀ g; |det R| = 1, no lbar term
+                else:
+                    _, _, _, xs, y, ladj = recs[i]
+                    (g,) = grad((y, ladj), xs, (g, lrow.expand_as(ladj)))
+            v = xbar + g
+
+        for i, rec in enumerate(recs):
+            if rec[0] == "rot":
+                _, idx, R, xin = rec
+                u = v @ R.T  # J^-T v = R v
+                if needs[idx]:
+                    ycot = -u if g_out[i] is None else g_out[i] - u
+                    dparams[idx] = ycot.T @ xin
+            else:
+                _, idx, ps, xs, y, ladj = rec
+                u = v / torch.exp(ladj.detach())
+                wrt = [p for p in ps if p.requires_grad]
+                if wrt:
+                    ycot = -u if g_out[i] is None else g_out[i] - u
+                    lcot = torch.zeros_like(ladj) if lrow is None else lrow.expand_as(ladj)
+                    grads = iter(grad((y, ladj), wrt, (ycot, lcot)))
+                    for j, p in enumerate(ps):
+                        if p.requires_grad:
+                            dparams[idx + j] = next(grads)
+            v = u
+    return v, dparams
+
+
+class _GFIFTFunction(torch.autograd.Function):
+    """The GF sampling kernel forward, the IFT backward (counterpart of
+    ``_gf_ift_op`` :690). Differentiable once."""
+
+    @staticmethod
+    def forward(ctx, z, statics, want_log_prob, *params):
+        out = gf.gf_sample(z, params, *statics, want_log_prob)
+        ctx.statics = statics
+        ctx.save_for_backward(z, out[0] if want_log_prob else out, *params)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, xbar, lbar=None):
+        z, x, *params = ctx.saved_tensors
+        if xbar is None:
+            xbar = torch.zeros_like(x)
+        dz, dparams = _gf_ift_bwd_math(
+            z, x, xbar, lbar, params, ctx.needs_input_grad[3:], *ctx.statics)
+        return (dz if ctx.needs_input_grad[0] else None, None, None, *dparams)
+
+
+def fused_gf_rsample(flat, sample_shape=(), generator=None, want_log_prob: bool = False):
+    r"""Differentiable fused GF sampling, with ``flat = _flatten_gf(flow,
+    c)``: the sampling kernel forward (:func:`..gf_fused.gf_sample`) and an
+    implicit-function-theorem backward of diagonal solves and rotation
+    products. The values are those of :func:`..gf_fused.fused_gf_sample` for
+    the same generator state. With ``want_log_prob`` also returns the equally
+    differentiable ``log q(x)``, the reverse-KL pair."""
+    shape, z, params = gf._gf_prep_sample(flat, sample_shape, generator)
+    out = _GFIFTFunction.apply(z, flat[1:3], want_log_prob, *params)
+    if want_log_prob:
+        x, lq = out
+        return x.reshape(shape), lq.reshape(shape[:-1])
+    return out.reshape(shape)
+
+
+def fused_gf_rsample_and_log_prob(flat, sample_shape=(), generator=None):
+    return fused_gf_rsample(flat, sample_shape, generator, want_log_prob=True)

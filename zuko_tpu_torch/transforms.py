@@ -2,9 +2,11 @@ r"""Bijective transformations with fused log-Jacobians.
 
 Counterpart of ``zuko_tpu/transforms.py``: :class:`Transform` :95,
 :class:`ComposedTransform` :197, :class:`DependentTransform` :284,
-:class:`MonotonicAffineTransform` :584, :class:`MonotonicRQSTransform` :612
-and :class:`AutoregressiveTransform` :1033. Transforms are plain objects
-built per call by the lazy modules; they hold tensors, not parameters.
+:class:`MonotonicAffineTransform` :584, :class:`MonotonicRQSTransform` :612,
+:class:`MonotonicTransform` :724, :class:`GaussianizationTransform` :910,
+:class:`AutoregressiveTransform` :1033 and :class:`RotationTransform` :1292.
+Transforms are plain objects built per call by the lazy modules; they hold
+tensors, not parameters.
 
 Convention (as in ``zuko_tpu``): ``inverse_and_ladj(y)`` returns the
 log-det of the *inverse* map, i.e. minus the forward ladj at
@@ -15,18 +17,23 @@ from __future__ import annotations
 
 import math
 
-from typing import Callable, Tuple
+from typing import Callable, Iterable, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .utils import newton_bisection
 
 __all__ = [
     "AutoregressiveTransform",
     "ComposedTransform",
     "DependentTransform",
+    "GaussianizationTransform",
     "Inverse",
     "MonotonicAffineTransform",
     "MonotonicRQSTransform",
+    "MonotonicTransform",
+    "RotationTransform",
     "Transform",
 ]
 
@@ -302,6 +309,121 @@ class MonotonicRQSTransform(Transform):
         log_jac, _ = self._log_jac(z, d0, d1, s)
         x = x0 + z * (x1 - x0)
         return torch.where(mask, x, y), torch.where(mask, -log_jac, 0.0)
+
+
+class MonotonicTransform(Transform):
+    r"""Transformation from a generic monotonic univariate function
+    :math:`f_\phi` (reference: zuko/transforms.py:570-637).
+
+    The inverse is a safeguarded Newton solve on :math:`[-B, B]`
+    (:func:`zuko_tpu_torch.utils.newton_bisection`) of at most
+    :math:`n = \lceil \log_2(2B/\epsilon) \rceil + 4` steps; ``phi`` holds
+    the tensors ``f`` depends on, which receive their gradients by implicit
+    differentiation. The log-Jacobian differentiates ``f``.
+    """
+
+    def __init__(
+        self,
+        f: Callable[[torch.Tensor], torch.Tensor] = None,
+        phi: Iterable[torch.Tensor] = (),
+        bound: float = 10.0,
+        eps: float = 1e-6,
+    ):
+        if f is not None:
+            self.f = f
+        self.phi = tuple(phi)
+        self.bound = float(bound)
+        self.eps = float(eps)
+
+    def forward(self, x):
+        return self.f(x)
+
+    def inverse(self, y):
+        n = int(math.ceil(math.log2(2 * self.bound / self.eps))) + 4
+        return newton_bisection(
+            self.f, y, -self.bound, self.bound, n=n, xtol=self.eps, phi=self.phi
+        )
+
+    def call_and_ladj(self, x):
+        with torch.enable_grad():
+            x = x.view_as(x).requires_grad_()
+            y = self.f(x)
+            (jacobian,) = torch.autograd.grad(
+                y, x, torch.ones_like(y), create_graph=True
+            )
+        return y, torch.log(jacobian)
+
+    def inverse_and_ladj(self, y):
+        x = self.inverse(y)
+        _, ladj = self.call_and_ladj(x)
+        return x, -ladj
+
+
+class GaussianizationTransform(MonotonicTransform):
+    r"""Gaussianization: :math:`f(x) = \Phi^{-1}(\frac{1}{K}\sum_i
+    \Phi(\exp(a_i) x + b_i))` (reference: zuko/transforms.py:834-875), the
+    univariate of GF. The inverse is a root solve.
+
+    Arguments:
+        shift: shifts :math:`b`, shape ``(*, K)``.
+        scale: unconstrained log-scales :math:`a`, shape ``(*, K)``.
+    """
+
+    EPS = 1e-6  # the reference shrinks the mean of erfs by 1 - 1e-6
+
+    def __init__(self, shift, scale, **kwargs):
+        super().__init__(None, **kwargs)
+        self.shift = shift
+        self.log_scale = scale
+        self.scale = torch.exp(scale)
+        self.phi = (self.shift, self.scale)
+
+    def f(self, x):
+        z = x[..., None] * self.scale + self.shift
+        m = torch.erf(z / math.sqrt(2)).mean(dim=-1) * (1 - self.EPS)
+        return torch.erfinv(m) * math.sqrt(2)
+
+    def call_and_ladj(self, x):
+        r"""``f(x)`` with the analytic log-sum-exp log-Jacobian
+
+        .. math:: \log f'(x) = \frac{y^2}{2} + \log\frac{1-\epsilon}{K}
+            + \mathrm{logsumexp}_i\left(a_i - \frac{(e^{a_i} x+b_i)^2}{2}\right),
+
+        finite for any parameters. Differentiating ``f`` instead computes
+        ``log(mean_i s_i phi(s_i x + b_i) / phi(y))``, whose inner sum
+        underflows to 0 in float32 wherever every component saturates
+        (:math:`|s_i x + b_i|` above about 9.3): the log-Jacobian becomes
+        ``-inf`` and a training loss ``inf``."""
+        z = x[..., None] * self.scale + self.shift
+        m = torch.erf(z / math.sqrt(2)).mean(dim=-1) * (1 - self.EPS)
+        y = torch.erfinv(m) * math.sqrt(2)
+        K = self.scale.shape[-1]
+        ls = torch.logsumexp(self.log_scale - 0.5 * z**2, dim=-1)
+        return y, 0.5 * y**2 + math.log((1 - self.EPS) / K) + ls
+
+
+class RotationTransform(Transform):
+    r"""Rotation :math:`f(x) = R x` with :math:`R = \exp(A - A^T)` orthogonal
+    (reference: zuko/transforms.py:1217-1244), the mixing between the layers
+    of GF."""
+
+    domain_dim = 1
+    codomain_dim = 1
+
+    def __init__(self, A):
+        self.R = torch.linalg.matrix_exp(A - A.mT)
+
+    def forward(self, x):
+        return torch.einsum("...ij,...j->...i", self.R, x)
+
+    def inverse(self, y):
+        return torch.einsum("...ij,...i->...j", self.R, y)
+
+    def call_and_ladj(self, x):
+        return self.forward(x), torch.zeros_like(x[..., 0])
+
+    def inverse_and_ladj(self, y):
+        return self.inverse(y), torch.zeros_like(y[..., 0])
 
 
 class AutoregressiveTransform(Transform):

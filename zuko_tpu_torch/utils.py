@@ -1,17 +1,18 @@
 r"""Tensor helpers and the device rule.
 
-Counterpart of ``zuko_tpu/utils.py`` (``broadcast`` :85, ``unpack`` :116).
+Counterpart of ``zuko_tpu/utils.py`` (``broadcast`` :85, ``unpack`` :116,
+``bisection`` :171, ``newton_bisection`` :251).
 """
 
 from __future__ import annotations
 
 import math
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Iterable, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["broadcast", "resolve_device", "unpack"]
+__all__ = ["bisection", "broadcast", "newton_bisection", "resolve_device", "unpack"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,3 +57,143 @@ def unpack(x: torch.Tensor, shapes: Sequence[Tuple[int, ...]]):
     sizes = [math.prod(s) for s in shapes]
     chunks = torch.split(x, sizes, dim=-1)
     return [c.reshape(c.shape[:-1] + tuple(s)) for c, s in zip(chunks, shapes)]
+
+
+# ------------------------------------------------------------------ bisection
+
+
+def _implicit_backward(ctx, grad_x, needs):
+    """The implicit-function rule both solvers share (counterpart of
+    ``_bisection_bwd`` :157): ``f(x*, phi) = y`` gives ``dx/dy = 1 / f'(x*)``,
+    and the parameters receive the pullback of ``-grad_y`` through ``f`` at
+    the solved point. ``needs`` says which of ``phi`` want a gradient.
+    Returns ``(grad_y, grad_phi)``."""
+    phi = ctx.saved_tensors
+    with torch.enable_grad():
+        x = ctx.x.detach().requires_grad_()
+        y = ctx.f(x)
+    (jacobian,) = torch.autograd.grad(y, x, torch.ones_like(y), retain_graph=True)
+    grad_y = grad_x / jacobian
+    wanted = [p for p, need in zip(phi, needs) if need]
+    grads = iter(torch.autograd.grad(y, wanted, -grad_y, allow_unused=True) if wanted else ())
+    return grad_y, [next(grads) if need else None for need in needs]
+
+
+class _Bisection(torch.autograd.Function):
+    """``n`` even subdivisions of ``[a, b]`` forward, the implicit-function
+    rule backward (reference: zuko/utils.py:118-209)."""
+
+    @staticmethod
+    def forward(ctx, f, n, y, a, b, *phi):
+        for _ in range(n):
+            c = (a + b) / 2
+            mask = f(c) < y
+            a = torch.where(mask, c, a)
+            b = torch.where(mask, b, c)
+        ctx.f, ctx.x = f, (a + b) / 2
+        ctx.save_for_backward(*phi)
+        return ctx.x
+
+    @staticmethod
+    def backward(ctx, grad_x):
+        grad_y, grad_phi = _implicit_backward(ctx, grad_x, ctx.needs_input_grad[5:])
+        return (None, None, grad_y, None, None, *grad_phi)
+
+
+class _NewtonBisection(torch.autograd.Function):
+    """Safeguarded Newton ("rtsafe") forward, the implicit-function rule
+    backward (counterpart of ``_newton_bisection`` :206). A Newton step is
+    taken only when it stays inside the bracket and makes fast enough
+    progress (``|2 r| <= |dx_old f'|``, the Numerical-Recipes criterion that
+    prevents oscillation); otherwise the bracket is bisected, so it provably
+    shrinks. The loop ends early, on the host, once every element has
+    converged."""
+
+    @staticmethod
+    def forward(ctx, f, n, xtol, y, a, b, *phi):
+        lo, hi = a, b
+        x, dxold = (a + b) / 2, b - a
+        for _ in range(n):
+            if not bool(torch.max(torch.minimum(hi - lo, dxold.abs())) > xtol):
+                break
+            with torch.enable_grad():
+                xg = x.detach().requires_grad_()
+                fx = f(xg)
+                (dfx,) = torch.autograd.grad(fx, xg, torch.ones_like(fx))
+            r = fx.detach() - y
+            below = r < 0
+            lo = torch.where(below, x, lo)
+            hi = torch.where(below, hi, x)
+            xn = x - r / dfx
+            ok = (
+                (xn >= lo) & (xn <= hi) & torch.isfinite(xn)
+                & ((2 * r).abs() <= (dxold * dfx).abs())
+            )
+            x_new = torch.where(ok, xn, (lo + hi) / 2)
+            x, dxold = x_new, x_new - x
+        ctx.f, ctx.x = f, x
+        ctx.save_for_backward(*phi)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad_x):
+        grad_y, grad_phi = _implicit_backward(ctx, grad_x, ctx.needs_input_grad[6:])
+        return (None, None, None, grad_y, None, None, *grad_phi)
+
+
+def _solver_inputs(y, a, b):
+    """``y`` and the bracket ends broadcast to it, in their common dtype."""
+    y = torch.as_tensor(y)
+    dtype = torch.promote_types(torch.result_type(y, a), torch.result_type(y, b))
+    y = y.to(dtype)
+    a = torch.as_tensor(a, dtype=dtype, device=y.device).expand(y.shape)
+    b = torch.as_tensor(b, dtype=dtype, device=y.device).expand(y.shape)
+    return y, a, b
+
+
+def bisection(
+    f: Callable[[torch.Tensor], torch.Tensor],
+    y: torch.Tensor,
+    a: Union[float, torch.Tensor],
+    b: Union[float, torch.Tensor],
+    n: int = 16,
+    phi: Iterable[torch.Tensor] = (),
+) -> torch.Tensor:
+    r"""Solve ``f(x) = y`` elementwise by ``n`` bisection iterations.
+
+    ``f`` must be strictly increasing on ``[a, b]`` with ``f(a) <= y <= f(b)``
+    (reference: zuko/utils.py:118-209). ``phi`` holds the tensors ``f``
+    depends on: gradients reach ``y`` and them through the implicit function
+    theorem, not through the iterations.
+
+    Example:
+        >>> f = lambda x: x**3
+        >>> x = bisection(f, torch.tensor(8.0), 0.0, 10.0, n=40)
+        >>> bool(torch.allclose(x, torch.tensor(2.0), atol=1e-6))
+        True
+    """
+    return _Bisection.apply(f, n, *_solver_inputs(y, a, b), *phi)
+
+
+def newton_bisection(
+    f: Callable[[torch.Tensor], torch.Tensor],
+    y: torch.Tensor,
+    a: Union[float, torch.Tensor],
+    b: Union[float, torch.Tensor],
+    n: int = 32,
+    xtol: float = 1e-8,
+    phi: Iterable[torch.Tensor] = (),
+) -> torch.Tensor:
+    r"""Solve ``f(x) = y`` for an elementwise increasing ``f`` with
+    safeguarded Newton iterations: each step takes the Newton update when it
+    stays inside the current bracket and bisects otherwise, at most ``n``
+    steps, fewer once every element moves by less than ``xtol``. Gradients
+    use the same implicit-function rule as :func:`bisection`.
+
+    Example:
+        >>> f = lambda x: x**3 + x
+        >>> x = newton_bisection(f, torch.tensor(10.0), -3.0, 3.0)
+        >>> bool(torch.allclose(f(x), torch.tensor(10.0), atol=1e-6))
+        True
+    """
+    return _NewtonBisection.apply(f, n, float(xtol), *_solver_inputs(y, a, b), *phi)

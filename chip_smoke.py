@@ -161,6 +161,28 @@ TOL_GF_BACK_Q99 = 1e-3
 # hyper-network's first layer is a sum over zero-mean contexts. Float32 sums
 # that are right to 1e-6 of their terms leave about 1e-4 of such remainders.
 TOL_GF_GRAD_PARAMS = 5e-4
+# The NAF. A log-density sums 2 F log-Jacobian terms per layer pair and the
+# base term, each right to a few float32 ulps of the monotone network's output
+# and slope, which are themselves sums of 64 products: about 2e-6 at the
+# median and 2e-5 at the worst row of a million for the flagship on an H100
+# (seeded weights). So median 1e-5 and max 1e-3; a flow of F features has
+# F / 6 times the flagship's terms, and its limits are F / 6 times these.
+TOL_NAF_MEDIAN, TOL_NAF_MAX = 1e-5, 1e-3
+# Samples: three Newton steps from a bracket of 2e-2 land on the root to the
+# float32 resolution of f divided by f', which is small on the flat stretches
+# of a monotone network: 1e-7 at the median, 1e-5 at the worst of 65,536 rows
+# on an H100. A target beyond the network's range pegs at the bracket
+# in float32 and float64 alike. So: median TOL_SAMPLE_MEDIAN and the 99th
+# percentile 1e-3, the maximum printed.
+TOL_NAF_SAMPLE_Q99 = 1e-3
+# log q against K8 at the returned points: the same functions at the same x,
+# one through the solver's sweeps; the median to 1e-4.
+TOL_NAF_SELF = 1e-4
+# K9 costs about 30 times K3 a row: sampling is served at 262,144 rows, the
+# reverse-KL step (h) draws 65,536; the 32-feature flow (F^2 sweeps and
+# solves a layer) is served at 65,536 rows (density) and 16,384 (samples).
+NAF_SAMPLE_ROWS, NAF_IFT_ROWS, NAF_WIDE_ROWS = 1 << 18, 1 << 16, 1 << 16
+NAF_RUNS = 3
 CSRC = "zuko_tpu_torch/ops/csrc/"
 
 
@@ -247,6 +269,47 @@ def gf_ops(layout, F, mode):
     return shared + {"density": forward, "sample": solve, "sample_log_prob": solve + forward}[mode]
 
 
+def naf_ops(params, layout, F, S, mode):
+    """Operations of one row through the NAF kernels, counted from
+    ``csrc/naf_fused.cu`` with a multiply-add as 2 and a transcendental as 1:
+    the MADE's hidden layers and the signal rows from their masked weights (2
+    per kept entry, a bias and a ReLU per hidden unit, a bias per signal); a
+    hoist 2 S + 1 per first-layer unit; a monotone evaluation 4 per
+    first-layer unit (the x column's multiply-add, TwoWayELU's compare and
+    exp), per further unit 2 per input and 3, and 2 per input of the output;
+    with the derivative every weight takes a second multiply-add and every
+    unit one more multiply; a bisection step 4 (midpoint, compare, select), a
+    Newton step 6; a softclip 4 a feature (6 in the sampler with log q); the
+    base term 2 F + 2; a log-Jacobian 1. ``mode``: ``"density"``,
+    ``"sample"`` or ``"sample_log_prob"``."""
+    from zuko_tpu_torch.ops import naf_fused
+
+    total = 0 if mode == "sample" else 2 * F + 2
+    for entry, made, mono_w, _ in naf_fused._stages(params, layout):
+        if entry[0] == "softclip":
+            total += {"density": 4, "sample": 4, "sample_log_prob": 6}[mode] * F
+            continue
+        made_pass = sum(2 * int((W != 0).sum()) + 2 * W.shape[0] for W in made[0:-2:2]) \
+            + 2 * int((made[-2] != 0).sum()) + F * S
+        H1 = mono_w[0].shape[1]
+        hoist = H1 * (2 * S + 1)
+        middle = [(W.shape[1], W.shape[2]) for W in mono_w[1:-1]]
+        din_out = mono_w[-1].shape[2]
+        plain = 4 * H1 + sum(o * (2 * i + 3) for o, i in middle) + 2 * din_out + 1
+        vg = 5 * H1 + sum(o * (4 * i + 4) for o, i in middle) + 4 * din_out + 1
+        forward = made_pass + F * (hoist + vg + 1)
+        if mode == "density":
+            total += forward
+            continue
+        sweeps = min(entry[3], F)
+        evals = 10 + 5 * (sweeps - 1)  # bisection steps and warm checks
+        total += sweeps * (made_pass + F * hoist) \
+            + F * (evals * (plain + 4) + 3 * sweeps * (vg + 6))
+        if mode == "sample_log_prob":
+            total += forward
+    return total
+
+
 def quantiles(diff):
     """median, 95th and 99th percentile and max of a tensor of errors."""
     flat = diff.flatten().float()
@@ -290,11 +353,12 @@ def main():
 
     from zuko_tpu_torch import ops
     from zuko_tpu_torch.lazy import Flow
-    from zuko_tpu_torch.ops import _build, gf_fused, ift, masked_linear, nsf_fused, rqs
+    from zuko_tpu_torch.ops import _build, gf_fused, ift, masked_linear, naf_fused, nsf_fused, rqs
     from zuko_tpu_torch.ops.dispatch import (
         FusedAutoregressiveFlow,
         FusedGaussianizationFlow,
         FusedInvertedAutoregressiveFlow,
+        FusedNeuralSamplingFlow,
     )
     from zuko_tpu_torch.transforms import MonotonicRQSTransform
 
@@ -314,7 +378,7 @@ def main():
     t0 = time.perf_counter()
     reports = _build.build_all(force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(reports)})")
-    check(set(reports) == {"nsf_fused", "gf_fused", "masked_linear", "rqs"},
+    check(set(reports) == {"nsf_fused", "gf_fused", "naf_fused", "masked_linear", "rqs"},
           f"built {sorted(reports)}")
     for name, log in reports.items():
         for line in log.splitlines():
@@ -778,6 +842,9 @@ def main():
         "gf_density": (CSRC + "gf_fused.cu", "zuko_tpu/ops/gf_fused.py:562"),
         "gf_sample": (CSRC + "gf_fused.cu", "zuko_tpu/ops/gf_fused.py:657"),
         "gf_sample_log_prob": (CSRC + "gf_fused.cu", "zuko_tpu/ops/gf_fused.py:657"),
+        "naf_density": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:949"),
+        "naf_sample": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
+        "naf_sample_log_prob": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
     }
 
     def flow_work(rows):
@@ -1158,17 +1225,278 @@ def main():
                   f" kernel share {k_ms / r_ms:.3f}")
     step_labels = (("gf_mle", "(e) GF MLE"), ("gf_rkl", "(f) GF reverse KL, IFT"))
 
+    # 10. the neural autoregressive flow (NAF): served, held against float64,
+    # trained, timed
+    def naf_args(flow, dtype):
+        """``(params, layout, F, S)`` as the wrappers take them, detached, in
+        ``dtype``."""
+        params, layout, F, S = naf_fused._flatten_naf(flow)
+        return [p.detach().to(dtype) for p in params], layout, F, S
+
+    def naf_chain(x, p64, layout, F, S, c):
+        """The plain float64 forward T(x): what a solved x must map back to."""
+        for entry, made, mono_w, mono_b in naf_fused._stages(p64, layout):
+            if entry[0] == "softclip":
+                x, _ = naf_fused._softclip(x, entry[1])
+            else:
+                h = naf_fused._made(x if c is None else torch.cat([x, c], dim=1), made)
+                x, _ = naf_fused._mono_layer(x, h, mono_w, mono_b, F, S)
+        return x
+
+    def hold_naf(label, flow, xd, cd, zs, cs, log_q=True, report=True):
+        """K8 at ``xd`` (context ``cd``) and K9 from the draws ``zs`` (context
+        ``cs``) against their plain versions in float64: the density and log q
+        by median and max (times F / 6 for wider flows), the samples by
+        quantiles, the round trip T(x) through the float64 forward, and log q
+        against K8 at the returned points."""
+        params, layout, F, S = naf_args(flow, torch.float32)
+        p64 = [p.double() for p in params]
+        tol = max(1.0, F / 6)  # the errors of F features add
+        xc = xd if cd is None else torch.cat([xd, cd], dim=1)
+        d = (naf_fused.naf_density(xc, params, layout, F, S).double()
+             - naf_fused._naf_density_math(xc.double(), p64, layout, F, S)).abs()
+        med, q95, q99, worst = quantiles(d)
+        print(f"{label} density at {xd.shape[0]} rows vs plain f64: median {med:.3e}"
+              f" q95 {q95:.3e} q99 {q99:.3e} max {worst:.3e}")
+        check(med <= tol * TOL_NAF_MEDIAN and worst <= tol * TOL_NAF_MAX,
+              f"{label} density vs plain")
+        if report:
+            note_error("naf_density", d, xd.shape[0])
+        rows = zs.shape[0]
+        zc = zs if cs is None else torch.cat([zs, cs], dim=1)
+        k_x = naf_fused.naf_sample(zc, params, layout, F, S)
+        r_x = naf_fused._naf_sample_math(zc.double(), p64, layout, F, S, log_q)
+        if log_q:
+            r_x, r_lq = r_x
+            k_xl, k_lq = naf_fused.naf_sample(zc, params, layout, F, S, True)
+            check(bool((k_x == k_xl).all()), f"{label}: sample and sample_and_log_prob differ in x")
+        dx = (k_x.double() - r_x).abs()
+        c64 = None if cs is None else cs.double()
+        dback = (naf_chain(k_x.double(), p64, layout, F, S, c64) - zs.double()).abs()
+        found = [("x vs plain f64", dx), ("T(x) vs z (f64 forward)", dback)]
+        if log_q:
+            dlq = (k_lq.double() - r_lq).abs()
+            dself = (k_lq - naf_fused.naf_density(
+                k_xl if cs is None else torch.cat([k_xl, cs], dim=1), params, layout, F, S)).abs()
+            found += [("log q vs plain f64", dlq), ("log q vs density kernel at x", dself)]
+        for what, diff in found:
+            print(f"{label} sample at {rows} rows, {what}: median %.3e q95 %.3e q99 %.3e"
+                  f" max %.3e" % quantiles(diff))
+        check(bool(torch.isfinite(k_x).all()), f"{label}: samples not finite")
+        check(quantiles(dx)[0] <= TOL_SAMPLE_MEDIAN and quantiles(dx)[2] <= TOL_NAF_SAMPLE_Q99,
+              f"{label} samples vs plain")
+        check(quantiles(dback)[0] <= TOL_SAMPLE_MEDIAN, f"{label} round trip")
+        if log_q:
+            check(bool(torch.isfinite(k_lq).all()), f"{label}: log q not finite")
+            check(quantiles(dlq)[0] <= tol * TOL_NAF_MEDIAN, f"{label} log q vs plain (median)")
+            check(quantiles(dself)[0] <= tol * TOL_NAF_SELF, f"{label} log q vs density kernel")
+        if report:
+            note_error("naf_sample", dx, rows)
+            note_error("naf_sample_log_prob", dlq, rows)
+
+    naf_flagship = zt.load_params(zt.NAF(6, 0, transforms=3, signal=16, device=dev),
+                                  ROOT / "zuko_tpu_torch" / "assets" / "naf_flagship.npz")
+    ntruth = np.load(ROOT / "zuko_tpu_torch" / "assets" / "naf_truth_f64.npz")
+    torch.manual_seed(3)
+    naf_cond = zt.NAF(6, 4, transforms=3, signal=16, device=dev)
+    torch.manual_seed(4)
+    naf_wide = zt.NAF(32, 0, transforms=2, signal=16, device=dev)
+    # one request of 1M rows holds the truth rows first
+    nx_big = torch.cat([torch.as_tensor(ntruth["x"], device=dev, dtype=torch.float32),
+                        x_big[: ROWS - ntruth["x"].shape[0]]])
+    nc_big = torch.randn(ROWS, 4, generator=gen, device=dev)
+    nc_few = torch.randn(1024, 4, generator=gen, device=dev)
+    nw_x = torch.randn(NAF_WIDE_ROWS, 32, generator=gen, device=dev)
+
+    naf_served = ("naf_density", "naf_sample", "naf_sample_log_prob")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ndist = naf_flagship(None)
+        n_lp = ndist.log_prob(nx_big)
+        n_xs = ndist.sample((NAF_SAMPLE_ROWS,), generator=gen)
+        n_xl, n_lq = ndist.sample_and_log_prob((NAF_SAMPLE_ROWS,), generator=gen)
+        ncdist = naf_cond(nc_big)
+        nc_lp = ncdist.log_prob(x_big)
+        ncfew = naf_cond(nc_few)
+        nc_xs = ncfew.sample((4,), generator=gen)
+        nc_xl, nc_lq = ncfew.sample_and_log_prob((4,), generator=gen)
+        nwdist = naf_wide(None)
+        nw_lp = nwdist.log_prob(nw_x)
+        nw_xs = nwdist.sample((NAF_WIDE_ROWS // 4,), generator=gen)
+    torch.cuda.synchronize()
+    naf_launches = {name: ops.LAUNCHES[name] for name in naf_served}
+    print(f"NAF serving phase: {time.perf_counter() - t0:.3f} s, launches {naf_launches}")
+    check(all(isinstance(d, FusedNeuralSamplingFlow) for d in (ndist, ncdist, nwdist)),
+          "NAFs on the GPU did not dispatch to the fused kernels")
+    check(naf_launches == {"naf_density": 3, "naf_sample": 3, "naf_sample_log_prob": 2},
+          f"NAF serving launches {naf_launches}")
+    check(all(ops.LAUNCHES[name] == 0 for name in (*served, *gf_served)),
+          "the NAF path launched another flow's kernel")
+    for t, shape in [
+        (n_lp, (ROWS,)), (n_xs, (NAF_SAMPLE_ROWS, 6)), (n_xl, (NAF_SAMPLE_ROWS, 6)),
+        (n_lq, (NAF_SAMPLE_ROWS,)), (nc_lp, (ROWS,)), (nc_xs, (4, 1024, 6)),
+        (nc_xl, (4, 1024, 6)), (nc_lq, (4, 1024)), (nw_lp, (NAF_WIDE_ROWS,)),
+        (nw_xs, (NAF_WIDE_ROWS // 4, 32)),
+    ]:
+        check(tuple(t.shape) == shape, f"NAF shape {tuple(t.shape)} != {shape}")
+        check(bool(torch.isfinite(t).all()), "non-finite values on the served NAF path")
+    n_truth = ntruth["x"].shape[0]
+    err = (n_lp[:n_truth].double() - torch.as_tensor(ntruth["lp"], device=dev)).abs()
+    print(f"NAF log_prob vs f64 truth ({n_truth} rows): max {err.max().item():.3e}"
+          f" median {err.median().item():.3e}")
+    check(err.median().item() <= TOL_NAF_MEDIAN and err.max().item() <= TOL_NAF_MAX,
+          "NAF density vs f64 truth")
+
+    with torch.no_grad():
+        hold_naf("NAF", naf_flagship, nx_big, None,
+                 torch.randn(NAF_SAMPLE_ROWS, 6, generator=gen, device=dev), None)
+        hold_naf("conditional NAF", naf_cond, x_big, nc_big,
+                 torch.randn(4096, 6, generator=gen, device=dev), nc_few.repeat(4, 1),
+                 report=False)
+        hold_naf("NAF(32, transforms=2)", naf_wide, nw_x, None,
+                 torch.randn(NAF_WIDE_ROWS // 4, 32, generator=gen, device=dev), None,
+                 log_q=False, report=False)
+
+    # at the training steps' shapes, through the tensors the gradient checks
+    # build: K8's Function (kernel forward, float32 plain backward) against
+    # float64 plain autograd at (g)'s 262,144 rows, the reference in chunks to
+    # bound its graph; K9 with log q and the IFT backward at (h)'s 65,536
+    # rows against the same sweeps in float64 at the kernel's own root
+    nparams, nlayout, _, nS = naf_args(naf_flagship, torch.float32)
+    n64 = [p.double() for p in nparams]
+
+    def naf_leaves(ps0):
+        return [p.detach().clone().requires_grad_(True) for p in ps0]
+
+    # not the flagship's own samples: there the score has mean zero under the
+    # model, and every parameter's gradient is a cancelling remainder of its
+    # terms (1.3e-01 max-relative in float32 on an H100 at 262,144 rows)
+    xg = x_big[:GRAD_ROWS]
+    ps, xr = naf_leaves(nparams), xg.clone().requires_grad_(True)
+    lp32 = naf_fused.naf_density(xr, ps, nlayout, 6, nS)
+    lp32.mean().backward()
+    got = [xr.grad] + [p.grad for p in ps]
+    ps, dxs, lp64 = naf_leaves(n64), [], []
+    for chunk in xg.double().split(GRAD_ROWS // 4):
+        xr = chunk.clone().requires_grad_(True)
+        lp = naf_fused._naf_density_math(xr, ps, nlayout, 6, nS)
+        (lp.sum() / GRAD_ROWS).backward()
+        dxs.append(xr.grad)
+        lp64.append(lp.detach())
+    hold_values("NAF density", "naf_density", [[lp32.detach()], [torch.cat(lp64)]], [TOL_NAF_MAX])
+    compare_grads("NAF density", got, [torch.cat(dxs)] + [p.grad for p in ps])
+    del got, dxs, lp64
+
+    zg = torch.randn(NAF_IFT_ROWS, 6, generator=gen, device=dev)
+    w = torch.full((NAF_IFT_ROWS,), 1.0 / NAF_IFT_ROWS, device=dev)
+    ps, zr = naf_leaves(nparams), zg.clone().requires_grad_(True)
+    root, lq32 = ift._NAFIFTFunction.apply(zr, (nlayout, 6, nS), True, *ps)
+    ((lq32 + (root**2).sum(dim=1)) * w).sum().backward()
+    got = [zr.grad] + [p.grad for p in ps]
+    with torch.no_grad():
+        r_x, r_lq = naf_fused._naf_sample_math(zg.double(), n64, nlayout, 6, nS, True)
+    x64, w64 = root.detach().double(), w.double()
+    dz, dps = ift._naf_ift_bwd_math(zg.double(), x64, 2 * x64 * w64[:, None], w64, n64,
+                                    [True] * len(n64), nlayout, 6, nS)
+    dx, dlq = (root.detach().double() - r_x).abs(), (lq32.detach().double() - r_lq).abs()
+    print(f"NAF solve (log q) at {NAF_IFT_ROWS} rows vs plain f64: x median %.3e q95 %.3e"
+          f" q99 %.3e max %.3e;" % quantiles(dx), "log q median %.3e q95 %.3e q99 %.3e max %.3e"
+          % quantiles(dlq))
+    check(quantiles(dx)[0] <= TOL_SAMPLE_MEDIAN and quantiles(dx)[2] <= TOL_NAF_SAMPLE_Q99,
+          f"NAF solve at {NAF_IFT_ROWS} rows vs plain")
+    check(quantiles(dlq)[0] <= TOL_NAF_MEDIAN, f"NAF log q at {NAF_IFT_ROWS} rows vs plain")
+    note_error("naf_sample_log_prob", dlq, NAF_IFT_ROWS)
+    compare_grads("NAF IFT (log q), at the kernel's root", got, [dz[:, :6]] + dps,
+                  tol_input=TOL_GRAD_SOLVE_INPUT)
+    del got, dz, dps, r_x, r_lq
+
+    # train from the flagship's parameters; (g) on the samples the NSF
+    # serving phase drew, as (a) and (e): the NAF's own samples give MLE no
+    # gradient in expectation
+    flow_g = zt.load_params(zt.NAF(6, 0, transforms=3, signal=16, device=dev),
+                            ROOT / "zuko_tpu_torch" / "assets" / "naf_flagship.npz")
+    ops.reset_launches()
+    init_fn, step_fns["naf_mle"] = zt.make_mle_step(flow_g, lr=1e-3)
+    trained["naf_mle"], _ = run("(g) NAF MLE", step_fns["naf_mle"], init_fn(), batch,
+                                TRAIN_STEPS)
+    counts = counts_after("(g) NAF MLE", ["naf_density"], none=(*served, *gf_served))
+    check(counts["naf_density"] == TRAIN_STEPS, "(g): one naf_density launch a step")
+    train_launches["naf_density"] = counts["naf_density"]
+
+    flow_h = copy.deepcopy(naf_flagship)
+    ops.reset_launches()
+    init_fn, step_fns["naf_rkl"] = zt.make_reverse_kl_step(
+        flow_h, ring, n_samples=NAF_IFT_ROWS, lr=1e-3)
+    trained["naf_rkl"], _ = run("(h) NAF reverse KL, IFT", step_fns["naf_rkl"], init_fn(),
+                                generator, TRAIN_STEPS)
+    counts = counts_after("(h) NAF reverse KL, IFT", ["naf_sample_log_prob"],
+                          none=(*served, *gf_served, "naf_density", "naf_sample"))
+    check(counts["naf_sample_log_prob"] == TRAIN_STEPS,
+          "(h): one naf_sample_log_prob launch a step")
+    train_launches["naf_sample_log_prob"] = counts["naf_sample_log_prob"]
+    per_step.update({
+        "naf_mle": time_step("naf_mle", batch, lambda: flow_g(None).log_prob(batches[0]).mean()),
+        "naf_rkl": time_step("naf_rkl", generator, lambda: flow_h(None).sample_and_log_prob(
+            (NAF_IFT_ROWS,), gen)),
+    })
+
+    # times: the density at the serving and training rows, sampling at the
+    # serving rows (= the MLE step's) and at (h)'s
+    naf_bytes = 4 * sum(p.numel() for p in nparams)  # every weight once
+
+    def naf_work(rows):
+        x, z = nx_big[:rows], torch.randn(rows, 6, generator=gen, device=dev)
+        args = (nparams, nlayout, 6, nS)
+        return {
+            "naf_density": (
+                lambda: naf_fused.naf_density(x, *args),
+                lambda: naf_fused._naf_density_math(x, *args),
+                rows * naf_ops(nparams, nlayout, 6, nS, "density"), 4 * rows * 7 + naf_bytes),
+            "naf_sample": (
+                lambda: naf_fused.naf_sample(z, *args),
+                lambda: naf_fused._naf_sample_math(z, *args),
+                rows * naf_ops(nparams, nlayout, 6, nS, "sample"), 4 * rows * 12 + naf_bytes),
+            "naf_sample_log_prob": (
+                lambda: naf_fused.naf_sample(z, *args, True),
+                lambda: naf_fused._naf_sample_math(z, *args, True),
+                rows * naf_ops(nparams, nlayout, 6, nS, "sample_log_prob"),
+                4 * rows * 13 + naf_bytes),
+        }
+
+    with torch.no_grad():
+        for rows, names in ((ROWS, ("naf_density",)), (NAF_SAMPLE_ROWS, naf_served),
+                            (NAF_IFT_ROWS, ("naf_sample_log_prob",))):
+            work = naf_work(rows)
+            for name in names:
+                time_kernel(name, rows, *work[name], runs=NAF_RUNS)
+                check(timed[name, rows, ""]["bound_by"] == "operations",
+                      f"{name}: bound by bytes")
+        naf_requests = {
+            "naf_density": (ROWS, lambda: naf_flagship(None).log_prob(nx_big)),
+            "naf_sample": (NAF_SAMPLE_ROWS,
+                           lambda: naf_flagship(None).sample((NAF_SAMPLE_ROWS,), generator=gen)),
+            "naf_sample_log_prob": (NAF_SAMPLE_ROWS, lambda: naf_flagship(None).sample_and_log_prob(
+                (NAF_SAMPLE_ROWS,), generator=gen)),
+        }
+        for name, (rows, request) in naf_requests.items():
+            r_ms, r_runs = host_ms(request, NAF_RUNS)
+            print(f"served request {name} at {rows} rows: {r_ms:.3f} ms {fmt(r_runs)},"
+                  f" kernel share {timed[name, rows, '']['ms'] / r_ms:.3f}")
+    step_labels += (("naf_mle", "(g) NAF MLE"), ("naf_rkl", "(h) NAF reverse KL, IFT"))
+
     # a training step beside the kernels it launches (their times at the
     # step's shapes, times the launches of one step)
     for key, label in (("mle", "(a) MLE"), ("rkl", "(b) reverse KL, IFT"),
                        ("rkl_inv", "(c) reverse KL, inverted flow"),
                        ("mle_unfused", "(d) MLE, unfused, per-op kernels"), *step_labels):
         s_ms, s_runs = step_ms[key]
-        k_ms = sum(timed[name, GRAD_ROWS, ""]["ms"] * count / (3 if name == "masked_linear" else 1)
+        rows = NAF_IFT_ROWS if key == "naf_rkl" else GRAD_ROWS
+        k_ms = sum(timed[name, rows, ""]["ms"] * count / (3 if name == "masked_linear" else 1)
                    for name, count in per_step[key].items())
         print(f"training step {label}: {s_ms:.3f} ms {fmt(s_runs)}, launches per step"
               f" {per_step[key]}, their kernels {k_ms:.3f} ms, kernel share {k_ms / s_ms:.3f},"
-              f" forward alone {forward_ms[key]:.3f} ms, {GRAD_ROWS / s_ms / 1e3:.3f} M rows/s")
+              f" forward alone {forward_ms[key]:.3f} ms, {rows / s_ms / 1e3:.3f} M rows/s")
 
     # a served request end to end (host clock, synchronised): building
     # flow(None), extraction, weight packing and base draws around the kernel
@@ -1188,8 +1516,10 @@ def main():
     # step's; launches from the phase that drives each
     kernels = []
     launches.update(gf_launches)
+    launches.update(naf_launches)
     for name, (source, replaces) in origin.items():
-        rows = ROWS if name in launches else GRAD_ROWS
+        rows = {"naf_sample": NAF_SAMPLE_ROWS, "naf_sample_log_prob": NAF_SAMPLE_ROWS}.get(
+            name, ROWS if name in launches else GRAD_ROWS)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name] if name in launches else train_launches[name],

@@ -12,21 +12,29 @@ import pytest
 # module (relative to either package) -> the names ported so far
 PORTED = {
     "utils": ["bisection", "broadcast", "newton_bisection", "unpack"],
-    "nn": ["Activation", "LayerNorm", "Linear", "MLP", "MaskedLinear", "MaskedMLP", "Residual"],
+    "nn": [
+        "Activation", "LayerNorm", "Linear", "MLP", "MaskedLinear", "MaskedMLP", "MonotonicLinear",
+        "MonotonicMLP", "Residual", "TwoWayELU",
+    ],
     "transforms": [
         "AutoregressiveTransform", "ComposedTransform", "DependentTransform",
         "GaussianizationTransform", "Inverse", "MonotonicAffineTransform",
-        "MonotonicRQSTransform", "MonotonicTransform", "RotationTransform", "Transform",
+        "MonotonicRQSTransform", "MonotonicTransform", "RotationTransform", "SoftclipTransform",
+        "Transform",
     ],
     "distributions": ["DiagNormal", "Distribution", "NormalizingFlow"],
     "lazy": [
         "Flow", "LazyComposedTransform", "LazyDistribution", "LazyInverse", "LazyTransform",
         "UnconditionalDistribution", "UnconditionalTransform",
     ],
-    "flows": ["ElementWiseTransform", "Flow", "GF", "MAF", "MaskedAutoregressiveTransform", "NSF"],
+    "flows": [
+        "ElementWiseTransform", "Flow", "GF", "MAF", "MNN", "MaskedAutoregressiveTransform", "NAF",
+        "NSF",
+    ],
     "flows.autoregressive": ["MAF", "MaskedAutoregressiveTransform"],
     "flows.spline": ["NSF"],
     "flows.gaussianization": ["ElementWiseTransform", "GF"],
+    "flows.neural": ["MNN", "NAF"],
     "serial": ["load_params"],
     "data": ["ring_energy", "two_moons"],
     "parallel": ["TrainState", "make_mle_step", "make_reverse_kl_step", "train_mle"],
@@ -34,13 +42,14 @@ PORTED = {
     "ops.nsf_fused": [
         "FusedStructureError", "extract_nsf_params", "fused_nsf_log_prob", "fused_nsf_sample"],
     "ops.gf_fused": ["extract_gf_params", "fused_gf_log_prob", "fused_gf_sample"],
+    "ops.naf_fused": ["extract_naf_params", "fused_naf_log_prob", "fused_naf_sample"],
     "ops.ift": [
-        "fused_gf_rsample", "fused_gf_rsample_and_log_prob", "fused_nsf_rsample",
-        "fused_nsf_rsample_and_log_prob",
+        "fused_gf_rsample", "fused_gf_rsample_and_log_prob", "fused_naf_rsample",
+        "fused_naf_rsample_and_log_prob", "fused_nsf_rsample", "fused_nsf_rsample_and_log_prob",
     ],
     "ops.dispatch": [
         "FusedAutoregressiveFlow", "FusedGaussianizationFlow", "FusedInvertedAutoregressiveFlow",
-        "fused_dispatch_enabled", "maybe_fused_flow",
+        "FusedNeuralSamplingFlow", "fused_dispatch_enabled", "maybe_fused_flow",
     ],
     "ops.masked_linear": ["masked_linear"],
     "ops.rqs": ["rqs_forward", "rqs_inverse"],

@@ -16,7 +16,7 @@ import zuko_tpu_torch as zt
 from zuko_tpu_torch.distributions import NormalizingFlow
 from zuko_tpu_torch import ops
 from zuko_tpu_torch.flows import ElementWiseTransform
-from zuko_tpu_torch.ops import gf_fused, masked_linear, nsf_fused, rqs
+from zuko_tpu_torch.ops import _build, gf_fused, masked_linear, naf_fused, nsf_fused, rqs
 from zuko_tpu_torch.ops.dispatch import FusedAutoregressiveFlow, fused_dispatch_enabled
 
 torch.set_num_threads(1)
@@ -60,8 +60,9 @@ def test_port_imports_neither_jax_nor_zuko_tpu(path):
 def test_default_device_is_cuda_and_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the rule under test is its absence")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        zt.NSF(3)
+    for build in (lambda: zt.NSF(3), lambda: zt.NAF(6, transforms=3, signal=16)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
 
 
 def _flagship_like(**kwargs):
@@ -152,6 +153,76 @@ def test_gf_wrappers_take_plain_versions_on_cpu(context):
     assert all(count == 0 for count in ops.LAUNCHES.values())
 
 
+def _small_naf(context=0, dtype=torch.float32):
+    """``(flat arguments of the NAF wrappers, rows)``: the rows carry a
+    context beside ``x`` when there is one."""
+    torch.manual_seed(0)
+    flow = zt.NAF(4, context, transforms=2, signal=4, hidden_features=(16,),
+                  network={"hidden_features": (8,)}, device="cpu").to(dtype)
+    with torch.no_grad():
+        params, layout, F, S = naf_fused._flatten_naf(flow)
+    return [p.detach() for p in params], layout, F, S
+
+
+@pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
+def test_naf_wrappers_take_plain_versions_on_cpu(context):
+    args = _small_naf(context)
+    xc = torch.randn(16, 4 + context)
+    ops.reset_launches()
+    torch.testing.assert_close(
+        naf_fused.naf_density(xc, *args), naf_fused._naf_density_math(xc, *args), rtol=0, atol=0)
+    sample = naf_fused.naf_sample(xc, *args)
+    sample_l, lq = naf_fused.naf_sample(xc, *args, want_log_prob=True)
+    plain, plain_lq = naf_fused._naf_sample_math(xc, *args, want_log_prob=True)
+    for a, b in ((sample, plain), (sample_l, plain), (lq, plain_lq)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert sample.shape == (16, 4) and lq.shape == (16,)
+    assert {"naf_density", "naf_sample", "naf_sample_log_prob"} <= set(ops.LAUNCHES)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+def test_naf_has_no_warm_switch_and_its_kernel_is_built_and_counted():
+    """Warm-started sweeps are the only sampler: no environment variable
+    selects them (the TPU package reads ``ZUKO_TPU_NAF_WARM``). The kernel
+    source is one of the libraries the build compiles, its entry points are
+    declared, each wrapper counts its launches, and the source uses no
+    tensor-core or TF32 arithmetic."""
+    source = (ROOT / "zuko_tpu_torch" / "ops" / "naf_fused.py").read_text()
+    assert "os.environ" not in source and "getenv" not in source
+    for path in PORT_FILES:
+        assert "ZUKO_TPU_NAF_WARM" not in (ROOT / path).read_text(), path
+    cu = ROOT / "zuko_tpu_torch" / "ops" / "csrc" / "naf_fused.cu"
+    assert cu in set(_build._CSRC.glob("*.cu"))
+    assert set(_build._SIGNATURES["naf_fused"]) == {"naf_density_f32", "naf_sample_f32"}
+    text = cu.read_text()
+    for entry in _build._SIGNATURES["naf_fused"]:
+        assert f'extern "C" int {entry}(' in text
+    code = "\n".join(line.split("//")[0] for line in text.splitlines()).lower()
+    for word in ("wmma", "mma", "tf32", "__half", "bfloat16", "#include <cu"):
+        assert word not in code.replace("#include <cuda_runtime.h>", ""), word
+    assert {"naf_density", "naf_sample", "naf_sample_log_prob"} <= set(ops.LAUNCHES)
+
+
+def test_naf_wrappers_never_call_their_plain_versions_for_gpu_tensors(monkeypatch):
+    """For a tensor on the GPU the NAF wrappers go to the launch path, which
+    raises here on the CPU weights; the plain versions are never reached."""
+    args = _small_naf(3)
+
+    def plain(*a, **k):
+        raise AssertionError("plain version called for a GPU tensor")
+
+    monkeypatch.setattr(naf_fused, "_naf_density_math", plain)
+    monkeypatch.setattr(naf_fused, "_naf_sample_math", plain)
+    xc = torch.randn(16, 7).as_subclass(_OnCard)
+    ops.reset_launches()
+    for call in (lambda: naf_fused.naf_density(xc, *args),
+                 lambda: naf_fused.naf_sample(xc, *args),
+                 lambda: naf_fused.naf_sample(xc, *args, want_log_prob=True)):
+        with pytest.raises(ValueError, match="on the GPU"):
+            call()
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
 def test_cpu_tensors_keep_the_default_arithmetic():
     """On the CPU ``MaskedLinear`` and the spline keep their own arithmetic
     bit for bit, and never reach the per-op wrappers."""
@@ -191,13 +262,19 @@ class _OnCard(torch.Tensor):
     (torch.float32, ValueError, "on the GPU"),  # the CPU weights stop it
 ], ids=["float64", "float32"])
 @pytest.mark.parametrize(
-    "op", ["masked_linear", "rqs_forward", "rqs_inverse", "gf_density", "gf_sample"])
+    "op", ["masked_linear", "rqs_forward", "rqs_inverse", "gf_density", "gf_sample",
+           "naf_density", "naf_sample"])
 def test_gpu_tensors_reach_the_kernel_or_raise(op, dtype, error, match):
-    """For a tensor on the GPU the unfused layers and the GF wrappers go to
-    their kernel whatever the type: float64 raises there, as the whole-flow
-    NSF kernels do, and nothing gives way to the plain arithmetic."""
+    """For a tensor on the GPU the unfused layers and the GF and NAF wrappers
+    go to their kernel whatever the type: float64 raises there, as the
+    whole-flow NSF kernels do, and nothing gives way to the plain
+    arithmetic."""
     torch.manual_seed(0)
-    if op.startswith("gf_"):
+    if op.startswith("naf_"):
+        args = _small_naf(3, dtype)
+        wrapper = getattr(naf_fused, op)
+        fn, x = (lambda v: wrapper(v, *args)), torch.randn(16, 7, dtype=dtype)
+    elif op.startswith("gf_"):
         args = _small_gf(3, dtype)
         wrapper = getattr(gf_fused, op)
         fn, x = (lambda v: wrapper(v, *args)), torch.randn(16, 4, dtype=dtype)
@@ -247,6 +324,24 @@ def test_gf_plain_versions_stay_plain_for_gpu_tensors(context):
         want = (gf_fused._gf_math(x, *args), *gf_fused._gf_sample_math(x, *args, True))
         got = (gf_fused._gf_math(x.as_subclass(_OnCard), *args),
                *gf_fused._gf_sample_math(x.as_subclass(_OnCard), *args, True))
+    for a, b in zip(want, got):
+        torch.testing.assert_close(a, b.as_subclass(torch.Tensor), rtol=0, atol=0)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
+def test_naf_plain_versions_stay_plain_for_gpu_tensors(context):
+    """The NAF kernels' plain versions (the references, and what the density
+    Function's backward and the IFT differentiate) stay plain PyTorch for a
+    tensor on the GPU: they launch nothing."""
+    args = _small_naf(context, torch.float64)
+    xc = torch.randn(16, 4 + context, dtype=torch.float64)
+    ops.reset_launches()
+    with torch.no_grad():
+        want = (naf_fused._naf_density_math(xc, *args),
+                *naf_fused._naf_sample_math(xc, *args, True))
+        got = (naf_fused._naf_density_math(xc.as_subclass(_OnCard), *args),
+               *naf_fused._naf_sample_math(xc.as_subclass(_OnCard), *args, True))
     for a, b in zip(want, got):
         torch.testing.assert_close(a, b.as_subclass(torch.Tensor), rtol=0, atol=0)
     assert all(count == 0 for count in ops.LAUNCHES.values())

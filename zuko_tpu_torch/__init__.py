@@ -20,7 +20,7 @@ Example:
 
 from . import data, parallel
 from .distributions import NormalizingFlow
-from .flows import GF, MAF, NSF, Flow
+from .flows import GF, MAF, NAF, NSF, Flow
 from .parallel import make_mle_step, make_reverse_kl_step, train_mle
 from .serial import load_params
 
@@ -28,6 +28,7 @@ __all__ = [
     "Flow",
     "GF",
     "MAF",
+    "NAF",
     "NSF",
     "NormalizingFlow",
     "data",

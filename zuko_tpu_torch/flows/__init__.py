@@ -1,9 +1,13 @@
-r"""Flow recipes ported so far: MAF, NSF and GF (counterpart of
+r"""Flow recipes ported so far: MAF, NSF, GF and NAF (counterpart of
 ``zuko_tpu/flows/__init__.py``)."""
 
 from ..lazy import Flow
 from .autoregressive import MAF, MaskedAutoregressiveTransform
 from .gaussianization import GF, ElementWiseTransform
+from .neural import MNN, NAF
 from .spline import NSF
 
-__all__ = ["ElementWiseTransform", "Flow", "GF", "MAF", "MaskedAutoregressiveTransform", "NSF"]
+__all__ = [
+    "ElementWiseTransform", "Flow", "GF", "MAF", "MNN", "MaskedAutoregressiveTransform", "NAF",
+    "NSF",
+]

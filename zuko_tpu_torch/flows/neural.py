@@ -1,0 +1,134 @@
+r"""Neural autoregressive flows.
+
+Counterpart of ``zuko_tpu/flows/neural.py``: the monotonic neural network
+:class:`MNN` :53 (a stacked :class:`~zuko_tpu_torch.nn.MonotonicMLP`
+modulated by a per-feature signal), the transform it builds
+(``_MonotonicNetTransform`` :37), the interleaved construction
+``_interleaved_flow`` :105 (a ``SoftclipTransform(bound=11)`` between the
+autoregressive layers, the standard ``DiagNormal`` base as buffers) and the
+:class:`NAF` recipe :143.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..distributions import DiagNormal
+from ..lazy import Flow, UnconditionalDistribution, UnconditionalTransform
+from ..nn import MonotonicMLP
+from ..transforms import MonotonicTransform, SoftclipTransform
+from ..utils import broadcast, resolve_device
+from .autoregressive import MaskedAutoregressiveTransform
+
+__all__ = ["MNN", "NAF"]
+
+
+class _MonotonicNetTransform(MonotonicTransform):
+    """The monotone transformation :math:`x \\mapsto \\text{net}([x, s])` of a
+    stacked :class:`MonotonicMLP` and a per-feature signal ``s`` (reference:
+    zuko/flows/neural.py:55-60). The signal and the network's parameters are
+    the ``phi`` of the implicit-function backward of the inverse."""
+
+    def __init__(self, network, signal, bound: float = 10.0, eps: float = 1e-6):
+        super().__init__(None, (signal, *network.parameters()), bound=bound, eps=eps)
+        self.network = network
+        self.signal = signal
+
+    def f(self, x):
+        u = torch.cat(broadcast(x[..., None], self.signal, ignore=1), dim=-1)
+        return self.network(u)[..., 0]
+
+
+class MNN(nn.Module):
+    r"""Monotonic neural network: positive internal weights shared across
+    contexts, one network per feature (``stack``), modulated by a signal
+    vector (reference: zuko/flows/neural.py:32-71). Further keyword
+    arguments go to the :class:`MonotonicMLP`.
+
+    Calling an instance with a signal ``(*, stack, signal)`` returns a
+    :class:`~zuko_tpu_torch.transforms.MonotonicTransform`.
+    """
+
+    def __init__(self, signal: int = 16, stack: int = None, **kwargs):
+        super().__init__()
+        self.network = MonotonicMLP(1 + signal, 1, stack=stack, **kwargs)
+
+    def forward(self, signal):
+        return _MonotonicNetTransform(self.network, signal)
+
+
+def _interleaved_flow(features, context, transforms, randperm, univariate_factory, shapes,
+                      device, **kwargs):
+    """The layers and base of the neural flows: ``transforms``
+    autoregressive layers with alternating (or, with ``randperm``, random)
+    orders, a ``SoftclipTransform(bound=11)`` between consecutive ones, and a
+    standard-normal base held as buffers."""
+    orders = [np.arange(features), np.arange(features)[::-1]]
+    layers = [
+        MaskedAutoregressiveTransform(
+            features=features,
+            context=context,
+            order=torch.randperm(features).numpy() if randperm else orders[i % 2],
+            univariate=univariate_factory(),
+            shapes=shapes,
+            device=device,
+            **kwargs,
+        )
+        for i in range(transforms)
+    ]
+    # a softclip between the layers keeps every feature inside the solve
+    # domain of the next layer's inverse (reference: zuko/flows/neural.py:172-173)
+    for i in reversed(range(1, len(layers))):
+        layers.insert(i, UnconditionalTransform(SoftclipTransform, bound=11.0))
+    base = UnconditionalDistribution(
+        DiagNormal,
+        torch.zeros(features, device=device),
+        torch.ones(features, device=device),
+        buffer=True,
+    )
+    return layers, base
+
+
+class NAF(Flow):
+    r"""Neural autoregressive flow (Huang et al., 2018): masked
+    autoregressive layers whose univariates are :class:`MNN` monotone
+    networks of ``signal`` inputs besides ``x``, with a softclip between the
+    layers (reference: zuko/flows/neural.py:121-182). ``network`` holds the
+    keyword arguments of the monotone networks (e.g. ``hidden_features``);
+    further keyword arguments go to the MADE hyper-networks. Built on
+    ``device`` (default ``cuda``; see :func:`zuko_tpu_torch.utils.resolve_device`).
+
+    Warning:
+        Invertibility is only guaranteed within :math:`[-10, 10]`;
+        standardize features before training.
+
+    Example:
+        >>> flow = NAF(3, transforms=2, signal=8, device="cpu")
+        >>> x = torch.tensor([[0.1, -0.5, 0.3]])
+        >>> flow(None).log_prob(x).shape
+        torch.Size([1])
+    """
+
+    def __init__(
+        self,
+        features: int,
+        context: int = 0,
+        transforms: int = 3,
+        randperm: bool = False,
+        signal: int = 16,
+        network: dict = None,
+        device=None,
+        **kwargs,
+    ):
+        device = resolve_device(device)
+        network = {} if network is None else dict(network)
+        layers, base = _interleaved_flow(
+            features, context, transforms, randperm,
+            lambda: MNN(signal=signal, stack=features, device=device, **network),
+            [(signal,)],
+            device,
+            **kwargs,
+        )
+        super().__init__(layers, base)

@@ -1,9 +1,10 @@
 r"""Layers of the hyper-networks.
 
 Counterpart of ``zuko_tpu/nn.py``: :class:`Activation` :51,
-:class:`LayerNorm` :79, :class:`Linear` :93, :class:`MaskedLinear` :149,
-:class:`MLP` :187, :func:`masked_mlp_masks` :270 and :class:`MaskedMLP`
-:329. Weights are ``(out, in)``, the MADE mask is a buffer named ``mask``
+:class:`TwoWayELU` :61, :class:`LayerNorm` :79, :class:`Linear` :93 (with its
+``stack`` of independent operators), :class:`MonotonicLinear` :142,
+:class:`MaskedLinear` :149, :class:`MLP` :187, :class:`MonotonicMLP` :245,
+:func:`masked_mlp_masks` :270 and :class:`MaskedMLP` :329. Weights are ``(out, in)``, the MADE mask is a buffer named ``mask``
 and every stack keeps its modules under ``layers``, so parameter names
 match ``zuko_tpu``'s dotted names one to one (see
 :mod:`zuko_tpu_torch.serial`).
@@ -28,7 +29,10 @@ __all__ = [
     "MLP",
     "MaskedLinear",
     "MaskedMLP",
+    "MonotonicLinear",
+    "MonotonicMLP",
     "Residual",
+    "TwoWayELU",
     "masked_mlp_masks",
 ]
 
@@ -42,6 +46,24 @@ class Activation(nn.Module):
 
     def forward(self, x):
         return self.fn(x)
+
+
+class TwoWayELU(nn.Module):
+    r"""Splits the channels in two halves and applies :math:`\text{ELU}(x)`
+    to the first, :math:`-\text{ELU}(-x)` to the second: the activation of
+    :class:`MonotonicMLP` (reference: zuko/nn.py:335-353, a ``torch.nn.ELU``,
+    so ``alpha`` scales :math:`e^x - 1`). ``inplace`` is accepted and
+    ignored."""
+
+    def __init__(self, alpha: float = 1.0, inplace: bool = False):
+        super().__init__()
+        self.alpha = float(alpha)
+
+    def forward(self, x):
+        x0, x1 = torch.chunk(x, 2, dim=-1)
+        return torch.cat(
+            [nn.functional.elu(x0, self.alpha), -nn.functional.elu(-x1, self.alpha)], dim=-1
+        )
 
 
 class LayerNorm(nn.Module):
@@ -60,25 +82,40 @@ class LayerNorm(nn.Module):
 
 class Linear(nn.Module):
     r"""Linear layer :math:`y = x W^T + b`, initialised to
-    :math:`U(\pm 1/\sqrt{\text{fan-in}})` (reference: zuko/nn.py:51-119)."""
+    :math:`U(\pm 1/\sqrt{\text{fan-in}})`, optionally a ``stack`` of
+    independent operators: a weight ``(stack, out, in)`` applied to inputs
+    ``(..., stack, in)`` (reference: zuko/nn.py:51-119)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 device=None, dtype=torch.float32):
+                 stack: int = None, device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
+        shape = () if stack is None else (stack,)
         bound = 1 / math.sqrt(in_features)
         self.weight = nn.Parameter(torch.empty(
-            out_features, in_features, device=device, dtype=dtype
+            *shape, out_features, in_features, device=device, dtype=dtype
         ).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.empty(
-            out_features, device=device, dtype=dtype
+            *shape, out_features, device=device, dtype=dtype
         ).uniform_(-bound, bound)) if bias else None
         self.in_features = int(in_features)
         self.out_features = int(out_features)
 
+    def _matrix(self):
+        return self.weight
+
     def forward(self, x):
-        y = x @ self.weight.T
+        W = self._matrix()
+        y = x @ W.T if W.dim() == 2 else torch.einsum("...ij,...j->...i", W, x)
         return y if self.bias is None else y + self.bias
+
+
+class MonotonicLinear(Linear):
+    r"""Linear layer with positive weights, :math:`y = x |W|^T + b`
+    (reference: zuko/nn.py:321-332)."""
+
+    def _matrix(self):
+        return self.weight.abs()
 
 
 class MaskedLinear(Linear):
@@ -145,19 +182,53 @@ class MLP(nn.Module):
         widths = [in_features, *hidden_features, out_features]
         layers = []
         for i, (before, after) in enumerate(zip(widths[:-1], widths[1:])):
-            layers.append(Linear(before, after, **kwargs))
+            layers.append(self._make_linear(before, after, **kwargs))
             if i < len(widths) - 2:
-                layers.append(Activation(activation))
+                layers.append(self._make_activation(activation))
                 if normalize:
                     layers.append(LayerNorm())
         self.layers = nn.ModuleList(layers)
         self.in_features = int(in_features)
         self.out_features = int(out_features)
 
+    @staticmethod
+    def _make_linear(before, after, **kwargs):
+        return Linear(before, after, **kwargs)
+
+    @staticmethod
+    def _make_activation(activation):
+        return Activation(activation)
+
     def forward(self, x):
         for layer in self.layers:
             x = layer(x)
         return x
+
+
+class MonotonicMLP(MLP):
+    r"""MLP whose Jacobian is positive: :class:`MonotonicLinear` layers with
+    :class:`TwoWayELU` between them and no normalisation (reference:
+    zuko/nn.py:356-392), the network of NAF's univariates.
+
+    Example:
+        >>> net = MonotonicMLP(3, 4, (16, 32), device="cpu")
+        >>> J = torch.autograd.functional.jacobian(net, torch.zeros(3))
+        >>> bool((J > 0).all())
+        True
+    """
+
+    def __init__(self, *args, **kwargs):
+        kwargs["activation"] = None
+        kwargs["normalize"] = False
+        super().__init__(*args, **kwargs)
+
+    @staticmethod
+    def _make_linear(before, after, **kwargs):
+        return MonotonicLinear(before, after, **kwargs)
+
+    @staticmethod
+    def _make_activation(activation):
+        return TwoWayELU()
 
 
 def masked_mlp_masks(

@@ -1,6 +1,6 @@
 r"""Hand-written CUDA kernels (CUDA C++ under ``csrc/``), their plain PyTorch
 versions and the automatic dispatch (counterpart of ``zuko_tpu/ops``): the
-whole-flow NSF/MAF and GF kernels and their implicit-function-theorem
+whole-flow NSF/MAF, GF and NAF kernels and their implicit-function-theorem
 backward, and the per-op kernels of the unfused path (``masked_linear``,
 ``rqs``). Every wrapper launches its kernel for a CUDA tensor and takes its
 plain version for a CPU tensor."""
@@ -17,9 +17,18 @@ from .gf_fused import (
 from .ift import (
     fused_gf_rsample,
     fused_gf_rsample_and_log_prob,
+    fused_naf_rsample,
+    fused_naf_rsample_and_log_prob,
     fused_nsf_inverse_and_ladj,
     fused_nsf_rsample,
     fused_nsf_rsample_and_log_prob,
+)
+from .naf_fused import (
+    extract_naf_params,
+    fused_naf_log_prob,
+    fused_naf_sample,
+    naf_density,
+    naf_sample,
 )
 from .nsf_fused import (
     FusedStructureError,
@@ -37,11 +46,16 @@ __all__ = [
     "FusedStructureError",
     "LAUNCHES",
     "extract_gf_params",
+    "extract_naf_params",
     "extract_nsf_params",
     "fused_gf_log_prob",
     "fused_gf_rsample",
     "fused_gf_rsample_and_log_prob",
     "fused_gf_sample",
+    "fused_naf_log_prob",
+    "fused_naf_rsample",
+    "fused_naf_rsample_and_log_prob",
+    "fused_naf_sample",
     "fused_nsf_apply",
     "fused_nsf_inverse_and_ladj",
     "fused_nsf_log_prob",
@@ -50,6 +64,8 @@ __all__ = [
     "fused_nsf_sample",
     "gf_density",
     "gf_sample",
+    "naf_density",
+    "naf_sample",
     "nsf_apply",
     "nsf_density",
     "nsf_sample",

@@ -32,6 +32,9 @@ _NSF_TWO_OUTPUTS = ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _LL
 # (packed, kinds, Ks, offs, shifts, raws, row strides, feature strides,
 # stages, F, rows, stream)
 _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P]
+# (packed, kinds, passes, bounds, offsets, stages, MADE widths, MADE linears,
+# monotone widths, monotone linears, F, C, S, rows, stream)
+_NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _LL, _P]
 # argument types of every C entry point, by library; each library also has
 # ``<library>_error_string`` (declared by ``load_library``)
 _SIGNATURES = {
@@ -46,6 +49,10 @@ _SIGNATURES = {
     "gf_fused": {
         "gf_density_f32": ([_P, _P, *_GF_FLOW], _I),
         "gf_sample_f32": ([_P, _P, _P, *_GF_FLOW], _I),
+    },
+    "naf_fused": {
+        "naf_density_f32": ([_P, _P, *_NAF_FLOW], _I),
+        "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW], _I),
     },
     "masked_linear": {
         "masked_linear_f32": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),

@@ -3,8 +3,9 @@ r"""Automatic fused-kernel dispatch for the flows.
 Counterpart of ``zuko_tpu/ops/dispatch.py``: when a :class:`~zuko_tpu_torch.lazy.Flow`
 is called, its structure is inspected and — if the whole-flow kernels can
 represent it — the returned distribution routes ``log_prob``, ``sample`` and
-``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused` (NSF, MAF)
-or :mod:`zuko_tpu_torch.ops.gf_fused` (GF), and ``rsample`` /
+``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused` (NSF, MAF),
+:mod:`zuko_tpu_torch.ops.gf_fused` (GF) or :mod:`zuko_tpu_torch.ops.naf_fused`
+(NAF), and ``rsample`` /
 ``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift`. An inverted
 autoregressive flow, ``Flow(flow.transform.inv, flow.base)``, swaps the
 roles. A flow every extractor rejects with ``FusedStructureError`` keeps the
@@ -26,7 +27,13 @@ import torch
 from ..distributions import NormalizingFlow
 from ..lazy import LazyInverse
 from .gf_fused import _flatten_gf, fused_gf_log_prob, fused_gf_sample
-from .ift import fused_gf_rsample, fused_nsf_inverse_and_ladj, fused_nsf_rsample
+from .ift import (
+    fused_gf_rsample,
+    fused_naf_rsample,
+    fused_nsf_inverse_and_ladj,
+    fused_nsf_rsample,
+)
+from .naf_fused import _flatten_naf, fused_naf_log_prob, fused_naf_sample
 from .nsf_fused import (
     FusedStructureError,
     _flatten_flow,
@@ -39,6 +46,7 @@ __all__ = [
     "FusedAutoregressiveFlow",
     "FusedGaussianizationFlow",
     "FusedInvertedAutoregressiveFlow",
+    "FusedNeuralSamplingFlow",
     "fused_dispatch_enabled",
     "maybe_fused_flow",
 ]
@@ -120,6 +128,36 @@ class FusedGaussianizationFlow(NormalizingFlow):
         return fused_gf_rsample(self._flat, sample_shape, generator, want_log_prob=True)
 
 
+class FusedNeuralSamplingFlow(NormalizingFlow):
+    r"""A :class:`NormalizingFlow` whose density and sampling run through the
+    fused NAF kernels (:mod:`zuko_tpu_torch.ops.naf_fused`): the density with
+    the monotone networks' analytic log-Jacobians, sampling by the
+    bisection-and-Newton solve of every sweep. ``rsample`` /
+    ``rsample_and_log_prob`` run the same solve with implicit-function-theorem
+    gradients (:mod:`zuko_tpu_torch.ops.ift`). ``flat`` is the flow module's
+    ``_flatten_naf``, taken once per ``flow(c)``."""
+
+    def __init__(self, transform, base, flat, c):
+        super().__init__(transform, base)
+        self._flat = flat
+        self._c = c
+
+    def log_prob(self, x):
+        return fused_naf_log_prob(self._flat, x, self._c)
+
+    def sample(self, sample_shape=(), generator=None):
+        return fused_naf_sample(self._flat, sample_shape, self._c, generator)
+
+    def sample_and_log_prob(self, sample_shape=(), generator=None):
+        return fused_naf_sample(self._flat, sample_shape, self._c, generator, want_log_prob=True)
+
+    def rsample(self, sample_shape=(), generator=None):
+        return fused_naf_rsample(self._flat, sample_shape, self._c, generator)
+
+    def rsample_and_log_prob(self, sample_shape=(), generator=None):
+        return fused_naf_rsample(self._flat, sample_shape, self._c, generator, want_log_prob=True)
+
+
 class FusedInvertedAutoregressiveFlow(NormalizingFlow):
     r"""An inverted flow (``Flow(flow.transform.inv, flow.base)``, the
     reverse-KL recipe) whose roles swap onto the fused kernels: sampling is
@@ -176,5 +214,9 @@ def maybe_fused_flow(module, transform, base, c):
         pass
     try:
         return FusedGaussianizationFlow(transform, base, _flatten_gf(module, c, transform))
+    except FusedStructureError:
+        pass
+    try:
+        return FusedNeuralSamplingFlow(transform, base, _flatten_naf(module), c)
     except FusedStructureError:
         return None

@@ -38,7 +38,7 @@ import torch
 
 from ..transforms import GaussianizationTransform, RotationTransform
 from ..utils import bisection, unpack
-from ._common import LAUNCHES, check_cuda_f32
+from ._common import LAUNCHES, PlainBackward, check_cuda_f32
 from .nsf_fused import FusedStructureError, _require_standard_base
 
 __all__ = [
@@ -311,38 +311,14 @@ def _density_kernel(x, params, layout, F):
     return out
 
 
-class _DensityFunction(torch.autograd.Function):
-    """Kernel forward, plain backward: the plain version (:func:`_gf_math`)
-    recomputed on the saved inputs and differentiated, as ``_gf_bwd`` (:497)
-    does. There is no backward kernel."""
-
-    @staticmethod
-    def forward(ctx, x, statics, *params):
-        ctx.statics = statics
-        ctx.save_for_backward(x, *params)
-        return _density_kernel(x, params, *statics)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, *params = ctx.saved_tensors
-        needs = ctx.needs_input_grad
-        with torch.enable_grad():
-            x_ = x.detach().requires_grad_(needs[0])
-            ps = [p.detach().requires_grad_(needs[2 + i]) for i, p in enumerate(params)]
-            out = _gf_math(x_, ps, *ctx.statics)
-            wrt = [t for t in [x_, *ps] if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        dx = next(grads) if needs[0] else None
-        return (dx, None, *(next(grads) if p.requires_grad else None for p in ps))
-
-
 def gf_density(x, params, layout, F):
     r"""Whole-flow GF log-density ``x (n, F) -> (n,)``: the ``gf_density``
-    kernel for a CUDA tensor (differentiable through its
-    ``autograd.Function``), the plain version for a CPU tensor."""
+    kernel for a CUDA tensor (differentiable through
+    :class:`~._common.PlainBackward`, the backward of ``_gf_bwd`` :497), the
+    plain version for a CPU tensor."""
     if not x.is_cuda:
         return _gf_math(x, params, layout, F)
-    return _DensityFunction.apply(x.contiguous(), (layout, F), *params)
+    return PlainBackward.apply(x.contiguous(), _density_kernel, _gf_math, (layout, F), *params)
 
 
 def gf_sample(z, params, layout, F, want_log_prob=False):

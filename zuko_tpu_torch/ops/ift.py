@@ -1,7 +1,8 @@
 r"""Differentiable fused sampling through the implicit function theorem.
 
 Counterpart of ``zuko_tpu/ops/ift.py``: the NSF/MAF tier (:103-433 and
-:815-842) and the GF tier (:653-803, at the end of this module).
+:815-842), the NAF tier (:436-641, monotone-network layers) and the GF tier
+(:653-803, at the end of this module).
 ``rsample`` / ``rsample_and_log_prob`` do not differentiate through the
 autoregressive solve:
 
@@ -28,8 +29,7 @@ autoregressive solve:
 The backward is not a kernel (``_ift_bwd`` :224 is not either): it is
 autograd over the plain per-layer functions of
 :mod:`zuko_tpu_torch.ops.nsf_fused`, each layer's graph kept alive across
-the three sweeps. The NAF tier of ``zuko_tpu/ops/ift.py`` comes with its
-family.
+the three sweeps.
 """
 
 from __future__ import annotations
@@ -37,11 +37,14 @@ from __future__ import annotations
 import torch
 
 from . import gf_fused as gf
+from . import naf_fused as naf
 from . import nsf_fused as nf
 
 __all__ = [
     "fused_gf_rsample",
     "fused_gf_rsample_and_log_prob",
+    "fused_naf_rsample",
+    "fused_naf_rsample_and_log_prob",
     "fused_nsf_inverse_and_ladj",
     "fused_nsf_rsample",
     "fused_nsf_rsample_and_log_prob",
@@ -216,6 +219,154 @@ def fused_nsf_inverse_and_ladj(flat, x, c=None):
     batch, xc = nf._with_context(x, c)
     u, ladj = _ift(xc, flat, F, "raw")
     return u.reshape(batch + (F,)), ladj.reshape(batch)
+
+
+# ----------------------------------------------------------------- NAF tier
+#
+# The NSF tier's three sweeps over NAF stages. An autoregressive layer splits
+# as y = S(x, h), h = H(x, c): S is every feature's monotone network, diagonal
+# in x at fixed h, and it has parameters of its own (the networks' weights);
+# h's outputs [f * S, (f + 1) * S) feed feature f only (feature-major, so u
+# repeats S times per feature). A softclip is diagonal and has none. The
+# solved roots carry the solver's tolerance (about 1e-6), so the gradients
+# match differentiating the unfused solve to that, not to roundoff.
+
+
+def _naf_ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, S):
+    """The IFT backward over NAF stages (counterpart of ``_naf_ift_bwd_math``
+    :501): cotangents ``xbar (n, F)`` and ``lbar (n,)`` (or ``None``) ->
+    ``(dzc (n, F + C), dparams)``, with ``None`` in ``dparams`` where
+    ``needs`` is false. The sweeps of :func:`_ift_bwd_math`:
+
+    1. **march** from the solved ``x`` through every stage, keeping each
+       stage's graphs, its diagonal ``d = dy/dx`` at fixed ``h`` and, for an
+       autoregressive layer, ``G = dy/dh``;
+    2. **density backward** (with ``lbar``): ``g_l = d(lbar · log q) / dx_l``
+       from the base back;
+    3. **solves**: ``u = v / d`` for a softclip; for an autoregressive layer
+       the nilpotent iteration ``u = (v - H'(x)ᵀ(G ⊙ repeat(u))) / d``, then
+       one merged pullback with cotangents ``(g_l - u_l, lbar)`` to the
+       monotone networks' parameters, the MADE's and the context."""
+    z, c = zc[:, :F], zc[:, F:].detach().requires_grad_(zc.shape[1] > F)
+    dparams = [None] * len(params)
+
+    def grad(outputs, inputs, cotangents):
+        return torch.autograd.grad(outputs, inputs, cotangents, retain_graph=True)
+
+    with torch.enable_grad():
+        # ---- sweep 1: march and linearise
+        recs, idx = [], 0
+        xcur = x.detach()
+        for entry, made, mono_w, mono_b in naf._stages(list(params), layout):
+            xs = xcur.detach().requires_grad_(True)
+            if entry[0] == "softclip":
+                y, ladj = naf._softclip(xs, entry[1])
+                (d,) = grad(y, xs, torch.ones_like(y))
+                recs.append((entry, None, xs, y, ladj, d))
+            else:
+                count = len(made) + 2 * len(mono_w)
+                ps = [p.detach().requires_grad_(needs[idx + j])
+                      for j, p in enumerate(made + mono_w + mono_b)]
+                xh = xcur.detach().requires_grad_(True)
+                h = naf._made(torch.cat([xh, c], dim=1), ps[: len(made)])
+                hs = h.detach().requires_grad_(True)
+                mono = ps[len(made):]
+                y, ladj = naf._mono_layer(xs, hs, mono[: len(mono_w)], mono[len(mono_w):], F, S)
+                d, G = grad(y, (xs, hs), torch.ones_like(y))
+                recs.append((entry, (idx, ps, len(made), xh, h, hs, G), xs, y, ladj, d))
+                idx += count
+            xcur = y.detach()
+
+        # rows whose solve failed contribute nothing
+        xbar, lrow = _solve_consistency_mask(xcur, z, xbar, lbar)
+
+        # ---- sweep 2: g_out[i], the log-density cotangent at stage i's output
+        g_out = [None] * len(recs)
+        v = xbar
+        if lrow is not None:
+            g = -xcur * lrow  # the standard-normal base
+            for i in reversed(range(len(recs))):
+                g_out[i] = g
+                _, ar, xs, y, ladj, _ = recs[i]
+                if ar is None:
+                    (g,) = grad((y, ladj), xs, (g, lrow.expand_as(ladj)))
+                else:
+                    _, _, _, xh, h, hs, _ = ar
+                    gxs, gh = grad((y, ladj), (xs, hs), (g, lrow.expand_as(ladj)))
+                    (gxh,) = grad(h, xh, gh)
+                    g = gxs + gxh
+            v = xbar + g
+
+        # ---- sweep 3: triangular solves and merged parameter pullbacks
+        dc = torch.zeros_like(c)
+        for i, (entry, ar, xs, y, ladj, d) in enumerate(recs):
+            u = v / d
+            if ar is not None:
+                idx, ps, n_made, xh, h, hs, G = ar
+                # min(passes, F) iterations in all are exact by nilpotency
+                for _ in range(min(entry[3], F) - 1):
+                    (lower,) = grad(h, xh, G * u.repeat_interleave(S, dim=1))
+                    u = (v - lower) / d
+                ycot = -u if g_out[i] is None else g_out[i] - u
+                lcot = torch.zeros_like(ladj) if lrow is None else lrow.expand_as(ladj)
+                mono = [j for j in range(n_made, len(ps)) if ps[j].requires_grad]
+                gh, *gmono = grad((y, ladj), [hs] + [ps[j] for j in mono], (ycot, lcot))
+                for j, gj in zip(mono, gmono):
+                    dparams[idx + j] = gj
+                made = [j for j in range(n_made) if ps[j].requires_grad]
+                wrt = [ps[j] for j in made] + ([c] if c.requires_grad else [])
+                grads = iter(grad(h, wrt, gh) if wrt else ())
+                for j in made:
+                    dparams[idx + j] = next(grads)
+                if c.requires_grad:
+                    dc = dc + next(grads)
+            v = u
+
+    return torch.cat([v, dc], dim=1), dparams
+
+
+class _NAFIFTFunction(torch.autograd.Function):
+    """The NAF sampling kernel forward, the IFT backward (counterpart of
+    ``_naf_ift_op`` :473). Differentiable once."""
+
+    @staticmethod
+    def forward(ctx, zc, statics, want_log_prob, *params):
+        out = naf.naf_sample(zc, params, *statics, want_log_prob)
+        ctx.statics = statics
+        ctx.save_for_backward(zc, out[0] if want_log_prob else out, *params)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, xbar, lbar=None):
+        zc, x, *params = ctx.saved_tensors
+        if xbar is None:
+            xbar = torch.zeros_like(x)
+        dzc, dparams = _naf_ift_bwd_math(
+            zc, x, xbar, lbar, params, ctx.needs_input_grad[3:], *ctx.statics)
+        return (dzc if ctx.needs_input_grad[0] else None, None, None, *dparams)
+
+
+def fused_naf_rsample(flat, sample_shape=(), c=None, generator=None,
+                      want_log_prob: bool = False):
+    r"""Differentiable fused NAF sampling, with ``flat =
+    _flatten_naf(flow)`` (counterpart of ``fused_naf_rsample`` :449): the
+    sampling kernel forward (:func:`..naf_fused.naf_sample`) and the
+    implicit-function-theorem backward. The values are those of
+    :func:`..naf_fused.fused_naf_sample` for the same generator state. With
+    ``want_log_prob`` also returns the equally differentiable ``log q(x)``,
+    the reverse-KL pair."""
+    shape, zc = nf._base_draws(flat, sample_shape, c, generator)
+    params, layout, F, S = flat
+    out = _NAFIFTFunction.apply(zc, (layout, F, S), want_log_prob, *params)
+    if want_log_prob:
+        x, lq = out
+        return x.reshape(shape), lq.reshape(shape[:-1])
+    return out.reshape(shape)
+
+
+def fused_naf_rsample_and_log_prob(flat, sample_shape=(), c=None, generator=None):
+    return fused_naf_rsample(flat, sample_shape, c, generator, want_log_prob=True)
 
 
 # ------------------------------------------------------------------ GF tier

@@ -2,7 +2,8 @@ r"""Bijective transformations with fused log-Jacobians.
 
 Counterpart of ``zuko_tpu/transforms.py``: :class:`Transform` :95,
 :class:`ComposedTransform` :197, :class:`DependentTransform` :284,
-:class:`MonotonicAffineTransform` :584, :class:`MonotonicRQSTransform` :612,
+:class:`SoftclipTransform` :505, :class:`MonotonicAffineTransform` :584,
+:class:`MonotonicRQSTransform` :612,
 :class:`MonotonicTransform` :724, :class:`GaussianizationTransform` :910,
 :class:`AutoregressiveTransform` :1033 and :class:`RotationTransform` :1292.
 Transforms are plain objects built per call by the lazy modules; they hold
@@ -34,6 +35,7 @@ __all__ = [
     "MonotonicRQSTransform",
     "MonotonicTransform",
     "RotationTransform",
+    "SoftclipTransform",
     "Transform",
 ]
 
@@ -192,6 +194,38 @@ class DependentTransform(Transform):
     def inverse_and_ladj(self, y):
         x, ladj = self.base.inverse_and_ladj(y)
         return x, _sum_rightmost(ladj, self.reinterpreted)
+
+
+class SoftclipTransform(Transform):
+    r""":math:`f(x) = \frac{x}{1 + |x / B|}`, mapping :math:`\mathbb{R}` onto
+    :math:`(-B, B)` (reference: zuko/transforms.py:286-316); NAF puts one
+    between its autoregressive layers.
+
+    Example:
+        >>> t = SoftclipTransform(5.0)
+        >>> x = torch.tensor(100.0)
+        >>> bool(torch.allclose(t.inverse(t(x)), x, atol=1e-3))
+        True
+    """
+
+    def __init__(self, bound: float = 1.0):
+        self.bound = float(bound)
+
+    def forward(self, x):
+        return x / (1 + torch.abs(x / self.bound))
+
+    def inverse(self, y):
+        return y / (1 - torch.abs(y / self.bound))
+
+    def _ladj(self, x):
+        return -2 * torch.log1p(torch.abs(x / self.bound))
+
+    def call_and_ladj(self, x):
+        return self.forward(x), self._ladj(x)
+
+    def inverse_and_ladj(self, y):
+        x = self.inverse(y)
+        return x, -self._ladj(x)
 
 
 class MonotonicAffineTransform(Transform):

@@ -6,8 +6,10 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``zuko_tpu_torch/ops/csrc`` into ``build/``,
-then drives the port's main paths through the public API: the flagship NSF
-served and trained, then the Gaussianization flow (GF) served and trained.
+then drives the port's main paths through the public API: the flagship NSF,
+the Gaussianization flow (GF), the neural autoregressive flow (NAF) and the
+unconstrained one (UNAF) served and trained, then flows past every kernel's
+narrow limits served through the kernels' wide tier.
 
 **Serving**: the flagship NSF (D=6, 3 transforms, 64x64 MADE, K=8, float32,
 the committed ``zuko_tpu_torch/assets/nsf_flagship.npz`` weights) and a
@@ -40,10 +42,11 @@ It checks:
   the spline's domain, and their round trip; and each of them again, under
   the same tolerances, at the 262,144 rows the training steps give it;
 * the gradient through each ``autograd.Function`` (kernel forward, plain
-  float32 backward) against float64 plain autograd at 262,144 rows: each
-  parameter's largest |diff| over its largest |gradient| <= 1e-4, each
-  input's gradient normwise <= 1e-3. This holds the Functions' wiring and
-  their float32 backward, not the kernels;
+  float32 backward) against float64 plain autograd at 262,144 rows, and K1's
+  again at the parameters and rows step (a) trains on: each parameter's
+  largest |diff| over its largest |gradient| <= 1e-4, each input's gradient
+  normwise <= 1e-3. This holds the Functions' wiring and their float32
+  backward, not the kernels;
 * that each main path launched its kernels (launch counts, zeroed just
   before each phase and read just after it), and that every training loss
   is finite and falls (mean of the last 5 steps below the first 5).
@@ -83,14 +86,28 @@ ring energy. Its checks:
 * launch counts of each GF phase (one ``gf_density`` a step of (e), one
   ``gf_sample`` with log q a step of (f)), losses finite and falling.
 
+**The NAF** (phase 10): ``NAF(6, 0, transforms=3, signal=16)`` of
+``zuko_tpu_torch/assets/naf_flagship.npz``, a conditional NAF(6, 4) and a
+NAF(32), held against ``assets/naf_truth_f64.npz`` and plain float64, then
+(g) MLE and (h) reverse KL through the NAF IFT; K6's and K8's Functions are
+also held at the rows (e) and (g) train on. **The UNAF** (phase 11): the
+same for ``UNAF(6, 0, transforms=3, signal=16)`` of ``assets/unaf_flagship.npz``
+and a conditional UNAF(6, 4), through the UMNN mode of K8 and K9, against
+``assets/unaf_truth_f64.npz`` (its GL-16 and GL-32 columns), then (i) MLE
+and (j) reverse KL. **The repair** (phase 12): configurations past every
+narrow limit (widths, bins, linears, layers, features, components, stages,
+signal, shared memory) served through the public API by the wide tier of
+K1-K3 and K6-K9 and by K5 at 48 bins, held against plain float64 at their
+families' tolerances, each wide kernel timed once.
+
 Then it times each kernel, its plain version (float32, on the card), its
 bound and, for ``masked_linear``, the one PyTorch call that computes the
 same function (the GF kernels also with per-row parameters at 1M rows); one
-training step of each of (a)-(f) and a served request on the host clock; and
+training step of each of (a)-(j) and a served request on the host clock; and
 prints the card's name and power limit, one JSON line ``{"kernels": [...]}``
-and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
-the script exits non-zero and prints no result; it also fails without a CUDA
-device and outside a checkout of the repository.
+(every kernel, mode and tier) and, last, ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero and prints no result;
+it also fails without a CUDA device and outside a checkout of the repository.
 """
 
 import copy
@@ -182,7 +199,18 @@ TOL_NAF_SELF = 1e-4
 # reverse-KL step (h) draws 65,536; the 32-feature flow (F^2 sweeps and
 # solves a layer) is served at 65,536 rows (density) and 16,384 (samples).
 NAF_SAMPLE_ROWS, NAF_IFT_ROWS, NAF_WIDE_ROWS = 1 << 18, 1 << 16, 1 << 16
+# The UNAF's UMNN mode costs about 7 times K8's MNN mode a density row and 5
+# times K9's a sample row: the density is served at 262,144 rows (and (i)
+# trains on GRAD_ROWS); sampling is served at 65,536 rows and (j) draws 16,384.
+UNAF_DENSITY_ROWS, UNAF_SAMPLE_ROWS, UNAF_IFT_ROWS = 1 << 18, 1 << 16, 1 << 14
+# The flows past the narrow tiers' limits are served at 65,536 rows (the
+# widest at 16,384); a NAF of 72 features samples 256 rows (72 sweeps of 72
+# solves a layer), one of a signal of 72 and networks of width 160 1,024.
+REPAIR_ROWS = 1 << 16
 NAF_RUNS = 3
+GF_NAMES = ("gf_density", "gf_sample", "gf_sample_log_prob")
+NAF_NAMES = ("naf_density", "naf_sample", "naf_sample_log_prob")
+UMNN_NAMES = ("naf_density_umnn", "naf_sample_umnn", "naf_sample_umnn_log_prob")
 CSRC = "zuko_tpu_torch/ops/csrc/"
 
 
@@ -272,16 +300,19 @@ def gf_ops(layout, F, mode):
 def naf_ops(params, layout, F, S, mode):
     """Operations of one row through the NAF kernels, counted from
     ``csrc/naf_fused.cu`` with a multiply-add as 2 and a transcendental as 1:
-    the MADE's hidden layers and the signal rows from their masked weights (2
-    per kept entry, a bias and a ReLU per hidden unit, a bias per signal); a
-    hoist 2 S + 1 per first-layer unit; a monotone evaluation 4 per
-    first-layer unit (the x column's multiply-add, TwoWayELU's compare and
-    exp), per further unit 2 per input and 3, and 2 per input of the output;
-    with the derivative every weight takes a second multiply-add and every
-    unit one more multiply; a bisection step 4 (midpoint, compare, select), a
-    Newton step 6; a softclip 4 a feature (6 in the sampler with log q); the
-    base term 2 F + 2; a log-Jacobian 1. ``mode``: ``"density"``,
-    ``"sample"`` or ``"sample_log_prob"``."""
+    the MADE's hidden layers and a feature's T outputs from their masked
+    weights (2 per kept entry, a bias and a ReLU per hidden unit, a bias per
+    output); a hoist 2 S + 1 per first-layer unit; a network evaluation 4 per
+    first-layer unit (the x column's multiply-add, the activation's compare
+    and exp), per further unit 2 per input and 3, and 2 per input of the
+    output. A monotone network's derivative gives every weight a second
+    multiply-add and every unit one more multiply. A UMNN integrand adds 5
+    for g = exp(d / (1 + |d / 7|)), and a GL-N integral takes N of them and
+    3 a node (the node's x, the weighted sum); its derivative is one more
+    integrand. A bisection step 4 (midpoint, compare, select), a Newton step
+    6; a softclip 4 a feature (6 in the sampler with log q); the base term 2 F
+    + 2; a log-Jacobian 1. ``mode``: ``"density"``, ``"sample"`` or
+    ``"sample_log_prob"``."""
     from zuko_tpu_torch.ops import naf_fused
 
     total = 0 if mode == "sample" else 2 * F + 2
@@ -290,23 +321,39 @@ def naf_ops(params, layout, F, S, mode):
             total += {"density": 4, "sample": 4, "sample_log_prob": 6}[mode] * F
             continue
         made_pass = sum(2 * int((W != 0).sum()) + 2 * W.shape[0] for W in made[0:-2:2]) \
-            + 2 * int((made[-2] != 0).sum()) + F * S
+            + 2 * int((made[-2] != 0).sum()) + made[-1].numel()
         H1 = mono_w[0].shape[1]
         hoist = H1 * (2 * S + 1)
         middle = [(W.shape[1], W.shape[2]) for W in mono_w[1:-1]]
         din_out = mono_w[-1].shape[2]
         plain = 4 * H1 + sum(o * (2 * i + 3) for o, i in middle) + 2 * din_out + 1
-        vg = 5 * H1 + sum(o * (4 * i + 4) for o, i in middle) + 4 * din_out + 1
-        forward = made_pass + F * (hoist + vg + 1)
+        sweeps = min(entry[3], F)
+        if entry[4] == "umnn":
+            g = plain + 5
+
+            def integral(n):
+                return n * (g + 3) + 2
+
+            def vg(n):
+                return integral(n) + g
+
+            forward = made_pass + F * (hoist + vg(16) + 2)
+            cold = 10 * (integral(4) + 4) + 3 * (vg(8) + 6) + vg(16) + 6
+            warm = 5 * (integral(4) + 4) + 2 * (vg(8) + 6) + vg(16) + 6
+            solves = F * (cold + (sweeps - 1) * warm)
+            log_q = made_pass + F * (hoist + g + 1)
+        else:
+            vg = 5 * H1 + sum(o * (4 * i + 4) for o, i in middle) + 4 * din_out + 1
+            forward = made_pass + F * (hoist + vg + 1)
+            evals = 10 + 5 * (sweeps - 1)  # bisection steps and warm checks
+            solves = F * (evals * (plain + 4) + 3 * sweeps * (vg + 6))
+            log_q = forward
         if mode == "density":
             total += forward
             continue
-        sweeps = min(entry[3], F)
-        evals = 10 + 5 * (sweeps - 1)  # bisection steps and warm checks
-        total += sweeps * (made_pass + F * hoist) \
-            + F * (evals * (plain + 4) + 3 * sweeps * (vg + 6))
+        total += sweeps * (made_pass + F * hoist) + solves
         if mode == "sample_log_prob":
-            total += forward
+            total += log_q
     return total
 
 
@@ -354,6 +401,7 @@ def main():
     from zuko_tpu_torch import ops
     from zuko_tpu_torch.lazy import Flow
     from zuko_tpu_torch.ops import _build, gf_fused, ift, masked_linear, naf_fused, nsf_fused, rqs
+    from zuko_tpu_torch.ops._common import WHOLE_FLOW
     from zuko_tpu_torch.ops.dispatch import (
         FusedAutoregressiveFlow,
         FusedGaussianizationFlow,
@@ -435,6 +483,13 @@ def main():
           f" median {err_truth.median().item():.3e}")
     check(err_truth.max().item() <= TOL_DENSITY, "flagship density vs f64 truth")
 
+    def fresh():
+        """The flow (a)-(d) train: the flagship's width from seeded weights."""
+        torch.manual_seed(1)
+        return zt.NSF(6, 0, transforms=3, device=dev)
+
+    batches = xs.split(GRAD_ROWS)  # the samples the serving phase drew, what MLE trains on
+
     # 4-5. every whole-flow kernel (both univariate branches) against its
     # plain version, float64 on the card
     def plain_args(flow, dtype):
@@ -474,6 +529,23 @@ def main():
                 check(d.max().item() <= tol, f"{label} at {GRAD_ROWS} rows vs plain")
         for d in diffs if report is None else [diffs[report]]:
             note_error(name, d, GRAD_ROWS)
+
+    def hold_density_grads(label, params, p64, layout, st, xg):
+        """K1's Function at the rows ``xg``: its forward (the kernel) against
+        plain float64, its gradient (float32 plain backward) against float64
+        plain autograd. A loss of means, as training has: cotangents of
+        random sign would make each parameter's gradient a cancelling sum,
+        which the few rows near the spline's slope floor then dominate."""
+        density, values = [], []
+        for fn, ps0, dtype in ((nsf_fused.nsf_density, params, torch.float32),
+                               (nsf_fused._full_math, p64, torch.float64)):
+            ps, xr = leaves(ps0), xg.to(dtype, copy=True).requires_grad_(True)
+            lp = fn(xr, ps, layout, *st)
+            lp.mean().backward()
+            density.append([xr.grad] + grads_of(ps))
+            values.append([lp.detach()])
+        hold_values(f"{label} density", "nsf_density", values, [TOL_DENSITY])
+        compare_grads(f"{label} density", *density)
 
     for label, flow, xc in (
         ("flagship", flagship, x_big),
@@ -545,21 +617,15 @@ def main():
         # against float64 plain autograd, which holds which gradient reaches
         # which input and the float32 backward's accuracy
         xg = xc[:GRAD_ROWS]
-        # a loss of means, as training has: cotangents of random sign would
-        # make each parameter's gradient a cancelling sum, which the few
-        # rows near the spline's slope floor then dominate
+        hold_density_grads(label, params, p64, layout, st, xg)
+        if label == "flagship":
+            # what step (a) feeds the Function: its parameters and its rows
+            ps_a, _, _ = plain_args(fresh(), torch.float32)
+            hold_density_grads("flagship, (a)'s parameters at (a)'s rows", ps_a,
+                               [p.double() for p in ps_a], layout, st, batches[0])
+        # a loss of means, as training has (see hold_density_grads)
         weights = torch.arange(1, F + 1, device=dev) / F
-        density, applied, values = [], [], []
-        for fn, ps0, dtype in ((nsf_fused.nsf_density, params, torch.float32),
-                               (nsf_fused._full_math, p64, torch.float64)):
-            ps, xr = leaves(ps0), xg.to(dtype, copy=True).requires_grad_(True)
-            lp = fn(xr, ps, layout, *st)
-            lp.mean().backward()
-            density.append([xr.grad] + grads_of(ps))
-            values.append([lp.detach()])
-        hold_values(f"{label} density", "nsf_density", values, [TOL_DENSITY])
-        compare_grads(f"{label} density", *density)
-        values = []
+        applied, values = [], []
         for fn, kw, ps0, dtype in ((nsf_fused.nsf_apply, {}, params, torch.float32),
                                    (nsf_fused._full_math, {"raw": True}, p64, torch.float64)):
             ps, xr = leaves(ps0), xg.to(dtype, copy=True).requires_grad_(True)
@@ -700,10 +766,6 @@ def main():
     def ring(x):
         return -((x.norm(dim=-1) - 2.0) ** 2) / 0.1
 
-    def fresh():
-        torch.manual_seed(1)
-        return zt.NSF(6, 0, transforms=3, device=dev)
-
     def run(label, step_fn, state, args, steps):
         losses = []
         for i in range(steps):
@@ -727,7 +789,6 @@ def main():
             check(counts[name] == 0, f"training {label} launched {name}")
         return counts
 
-    batches = xs.split(GRAD_ROWS)  # the samples the serving phase drew
     batch = lambda i: (batches[i % len(batches)],)  # noqa: E731
     generator = lambda i: (gen,)  # noqa: E731
     step_fns, trained = {}, {}
@@ -820,16 +881,8 @@ def main():
     })
 
     # 8. times: kernel, plain version (float32 on the card), bound, library
-    weight_bytes = 4 * sum(p.numel() for i, p in enumerate(fparams) if i % 3 != 2)
-    univ = fst[4]
-    # one pass of each AR layer: its masked hyper-net and F univariates
-    passes = [
-        (hyper_ops(ps) + F * spline_ops(univ, K), min(p, F))
-        for ps, p in nsf_fused._split_layers(fparams, flayout)
-    ]
-    density_ops = sum(n for n, _ in passes)
-    sample_ops = sum(n * sweeps for n, sweeps in passes)
-    # name -> (source, the pallas_call it replaces)
+    # name -> (source, the pallas_call it replaces); a whole-flow kernel's
+    # wide tier replaces the same pallas_call as its narrow one
     origin = {
         "nsf_density": (CSRC + "nsf_fused.cu", "zuko_tpu/ops/nsf_fused.py:1842"),
         "nsf_apply": (CSRC + "nsf_fused.cu", "zuko_tpu/ops/nsf_fused.py:2183"),
@@ -845,37 +898,59 @@ def main():
         "naf_density": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:949"),
         "naf_sample": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
         "naf_sample_log_prob": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
+        "naf_density_umnn": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:949"),
+        "naf_sample_umnn": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
+        "naf_sample_umnn_log_prob": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
     }
+    origin.update({f"{name}_wide": origin[name] for name in WHOLE_FLOW})
 
     def flow_work(rows):
         """name -> (kernel, plain, operations, bytes) of the whole-flow
         kernels at ``rows`` rows of the flagship."""
-        x, z = x_big[:rows], torch.randn(rows, F, generator=gen, device=dev)
-        args = (fparams, flayout, *fst)
+        return nsf_work(fparams, flayout, fst, x_big[:rows],
+                        torch.randn(rows, F, generator=gen, device=dev))
+
+    def nsf_work(params, layout, st, x, z):
+        """name -> (kernel, plain, operations, bytes) of the whole-flow NSF
+        kernels at the rows ``x`` (with their context) and the draws ``z``
+        (with the same context)."""
+        F, K, univ = st[0], st[1], st[4]
+        rows = x.shape[0]
+        z = torch.cat([z, x[:, F:]], dim=1)
+        args = (params, layout, *st)
+        weight_bytes = 4 * sum(p.numel() for i, p in enumerate(params) if i % 3 != 2)
+        passes = [(hyper_ops(ps) + F * spline_ops(univ, K), min(p, F))
+                  for ps, p in nsf_fused._split_layers(params, layout)]
+        density_ops = sum(n for n, _ in passes)
+        sample_ops = sum(n * sweeps for n, sweeps in passes)
+        D0 = x.shape[1]
         return {
             "nsf_density": (
                 lambda: nsf_fused.nsf_density(x, *args),
                 lambda: nsf_fused._full_math(x, *args),
-                rows * density_ops, 4 * rows * (F + 1) + weight_bytes),
+                rows * density_ops, 4 * rows * (D0 + 1) + weight_bytes),
             "nsf_apply": (
                 lambda: nsf_fused.nsf_apply(x, *args),
                 lambda: nsf_fused._full_math(x, *args, raw=True),
-                rows * density_ops, 4 * rows * (2 * F + 1) + weight_bytes),
+                rows * density_ops, 4 * rows * (D0 + F + 1) + weight_bytes),
             "nsf_sample": (
                 lambda: nsf_fused.nsf_sample(z, *args),
                 lambda: nsf_fused._sample_math(z, *args),
-                rows * sample_ops, 4 * rows * 2 * F + weight_bytes),
+                rows * sample_ops, 4 * rows * (D0 + F) + weight_bytes),
             "nsf_sample_log_prob": (
                 lambda: nsf_fused.nsf_sample(z, *args, want_log_prob=True),
                 lambda: nsf_fused._sample_math(z, *args, want_log_prob=True),
-                rows * (sample_ops + density_ops), 4 * rows * (2 * F + 1) + weight_bytes),
+                rows * (sample_ops + density_ops), 4 * rows * (D0 + F + 1) + weight_bytes),
             "nsf_sample_raw": (
                 lambda: nsf_fused.nsf_sample(z, *args, want_log_prob="raw"),
                 lambda: nsf_fused._sample_math(z, *args, want_log_prob="raw"),
-                rows * (sample_ops + density_ops), 4 * rows * (2 * F + 1) + weight_bytes),
+                rows * (sample_ops + density_ops), 4 * rows * (D0 + F + 1) + weight_bytes),
         }
 
     timed = {}  # (name, rows) -> dict of times
+    # the rows at which the kernels line reports a kernel, where not the
+    # serving phase's (ROWS) or the training steps' (GRAD_ROWS)
+    report_rows = {"naf_sample": NAF_SAMPLE_ROWS, "naf_sample_log_prob": NAF_SAMPLE_ROWS}
 
     def time_kernel(name, rows, kernel, plain, n_ops, nbytes, library=None, note="", runs=5):
         """Time one kernel at one shape into ``timed[name, rows, note]``."""
@@ -979,13 +1054,15 @@ def main():
         if name is not None:
             note_error(name, d[calm], rows)
 
-    def hold_gf(label, flow, c, rows, x, report=True):
+    def hold_gf(label, flow, c, rows, x, names=GF_NAMES):
         """K6 and K7 of ``flow`` under context ``c`` at ``rows`` rows against
-        their plain versions in float64."""
+        their plain versions in float64; the errors noted under ``names``
+        (density, sample, sample with log q), if any."""
+        report = names is not None
         params, layout, F = gf_args(flow, c, rows, torch.float32)
         p64 = [p.double() for p in params]
         _, largest = gf_chain(x.double(), p64, layout)
-        hold_density(f"{label} density", "gf_density" if report else None,
+        hold_density(f"{label} density", names[0] if report else None,
                      gf_fused.gf_density(x, params, layout, F),
                      gf_fused._gf_math(x.double(), p64, layout, F), largest, F, rows)
         z = torch.randn(rows, F, generator=gen, device=dev)
@@ -1023,8 +1100,8 @@ def main():
         check(dlq[good].median().item() <= tol * TOL_GF_MEDIAN, f"{label} log q vs plain (median)")
         check(dself[good].median().item() <= tol * TOL_GF_SELF, f"{label} log q vs density kernel")
         if report:
-            note_error("gf_sample", dx[good], rows)
-            note_error("gf_sample_log_prob", dlq[good], rows)
+            note_error(names[1], dx[good], rows)
+            note_error(names[2], dlq[good], rows)
         return params, layout, F
 
     gtruth = np.load(ROOT / "tools" / "gf_truth_f64.npz")
@@ -1092,7 +1169,7 @@ def main():
         for label, (flow, rows) in gf_wide.items():
             width = flow.base._0.shape[0]
             hold_gf(label, flow, None, rows,
-                    torch.randn(rows, width, generator=gen, device=dev), report=False)
+                    torch.randn(rows, width, generator=gen, device=dev), names=None)
 
     # gradients through the two Functions (kernel forward, float32 plain
     # backward) against float64, down to the flows' parameters: the density's
@@ -1135,8 +1212,13 @@ def main():
             p.grad for name, p in flow.named_parameters() if name.endswith("transforms.1._0")))
         return [v.grad] + [p.grad for p in flow.parameters()], first
 
-    for label, flow, c in (("GF", gf, None), ("conditional GF", gf_cond, gc_big[:GRAD_ROWS])):
-        xg, zg = x_big[:GRAD_ROWS], torch.randn(GRAD_ROWS, 6, generator=gen, device=dev)
+    for label, flow, c, xg, ift_too in (
+        ("GF", gf, None, x_big[:GRAD_ROWS], True),
+        ("conditional GF", gf_cond, gc_big[:GRAD_ROWS], x_big[:GRAD_ROWS], True),
+        # what step (e) feeds K6's Function: the trained GF at (e)'s rows
+        ("GF at (e)'s rows", gf, None, batches[0], False),
+    ):
+        zg = torch.randn(GRAD_ROWS, 6, generator=gen, device=dev)
         params, layout, F = gf_args(flow, c, GRAD_ROWS, torch.float32)
         with torch.no_grad():
             root = gf_fused.gf_sample(zg, params, layout, F)
@@ -1144,7 +1226,8 @@ def main():
             calm = [gf_chain(t.double(), p64, layout)[1] <= GF_SATURATED for t in (xg, root)]
         every = torch.ones(GRAD_ROWS, device=dev)
         for rows, hold in (("unsaturated rows", True), ("all rows", False)):
-            for what, v, x, w in (("density", xg, None, calm[0]), ("IFT", zg, root, calm[1])):
+            for what, v, x, w in (("density", xg, None, calm[0]),
+                                  *([("IFT", zg, root, calm[1])] if ift_too else [])):
                 w = (w if hold else every) / GRAD_ROWS
                 (got, first32), (want, first64) = (
                     gf_grads(flow, c, v, dtype, w, x) for dtype in (torch.float32, torch.float64))
@@ -1183,8 +1266,9 @@ def main():
     })
 
     # times: unconditional at both row counts, batched context at 1M rows
-    def gf_work(params, layout, F, rows):
-        x, z = x_big[:rows], torch.randn(rows, F, generator=gen, device=dev)
+    def gf_work(params, layout, F, rows, x=None):
+        x = x_big[:rows] if x is None else x
+        z = torch.randn(rows, F, generator=gen, device=dev)
         args = (params, layout, F)
         read = 4 * sum(p.numel() for p in params)  # every parameter once
         return {
@@ -1240,15 +1324,17 @@ def main():
                 x, _ = naf_fused._softclip(x, entry[1])
             else:
                 h = naf_fused._made(x if c is None else torch.cat([x, c], dim=1), made)
-                x, _ = naf_fused._mono_layer(x, h, mono_w, mono_b, F, S)
+                x, _ = naf_fused._ar_layer(x, h, entry[4], mono_w, mono_b, F, S)
         return x
 
-    def hold_naf(label, flow, xd, cd, zs, cs, log_q=True, report=True):
+    def hold_naf(label, flow, xd, cd, zs, cs, log_q=True, names=NAF_NAMES):
         """K8 at ``xd`` (context ``cd``) and K9 from the draws ``zs`` (context
         ``cs``) against their plain versions in float64: the density and log q
         by median and max (times F / 6 for wider flows), the samples by
         quantiles, the round trip T(x) through the float64 forward, and log q
-        against K8 at the returned points."""
+        against K8 at the returned points. The errors are noted under
+        ``names`` (density, sample, sample with log q), if any."""
+        report = names is not None
         params, layout, F, S = naf_args(flow, torch.float32)
         p64 = [p.double() for p in params]
         tol = max(1.0, F / 6)  # the errors of F features add
@@ -1261,7 +1347,7 @@ def main():
         check(med <= tol * TOL_NAF_MEDIAN and worst <= tol * TOL_NAF_MAX,
               f"{label} density vs plain")
         if report:
-            note_error("naf_density", d, xd.shape[0])
+            note_error(names[0], d, xd.shape[0])
         rows = zs.shape[0]
         zc = zs if cs is None else torch.cat([zs, cs], dim=1)
         k_x = naf_fused.naf_sample(zc, params, layout, F, S)
@@ -1291,8 +1377,9 @@ def main():
             check(quantiles(dlq)[0] <= tol * TOL_NAF_MEDIAN, f"{label} log q vs plain (median)")
             check(quantiles(dself)[0] <= tol * TOL_NAF_SELF, f"{label} log q vs density kernel")
         if report:
-            note_error("naf_sample", dx, rows)
-            note_error("naf_sample_log_prob", dlq, rows)
+            note_error(names[1], dx, rows)
+            if log_q:
+                note_error(names[2], dlq, rows)
 
     naf_flagship = zt.load_params(zt.NAF(6, 0, transforms=3, signal=16, device=dev),
                                   ROOT / "zuko_tpu_torch" / "assets" / "naf_flagship.npz")
@@ -1353,63 +1440,79 @@ def main():
                  torch.randn(NAF_SAMPLE_ROWS, 6, generator=gen, device=dev), None)
         hold_naf("conditional NAF", naf_cond, x_big, nc_big,
                  torch.randn(4096, 6, generator=gen, device=dev), nc_few.repeat(4, 1),
-                 report=False)
+                 names=None)
         hold_naf("NAF(32, transforms=2)", naf_wide, nw_x, None,
                  torch.randn(NAF_WIDE_ROWS // 4, 32, generator=gen, device=dev), None,
-                 log_q=False, report=False)
+                 log_q=False, names=None)
 
     # at the training steps' shapes, through the tensors the gradient checks
     # build: K8's Function (kernel forward, float32 plain backward) against
-    # float64 plain autograd at (g)'s 262,144 rows, the reference in chunks to
-    # bound its graph; K9 with log q and the IFT backward at (h)'s 65,536
-    # rows against the same sweeps in float64 at the kernel's own root
+    # float64 plain autograd, at 262,144 standard-normal rows and at (g)'s
+    # rows (the NSF's samples, batches[0]), the reference in chunks to bound
+    # its graph; K9 with log q and the IFT backward at (h)'s 65,536 rows
+    # against the same sweeps in float64 at the kernel's own root
     nparams, nlayout, _, nS = naf_args(naf_flagship, torch.float32)
     n64 = [p.double() for p in nparams]
 
     def naf_leaves(ps0):
         return [p.detach().clone().requires_grad_(True) for p in ps0]
 
+    def hold_naf_density_grads(label, name, params, p64, layout, S, xg, chunk):
+        """K8's Function at the rows ``xg``: its forward against plain
+        float64, its gradient against float64 plain autograd (in chunks of
+        ``chunk`` rows)."""
+        rows = xg.shape[0]
+        ps, xr = naf_leaves(params), xg.clone().requires_grad_(True)
+        lp32 = naf_fused.naf_density(xr, ps, layout, 6, S)
+        lp32.mean().backward()
+        got = [xr.grad] + [p.grad for p in ps]
+        ps, dxs, lp64 = naf_leaves(p64), [], []
+        for part in xg.double().split(chunk):
+            xr = part.clone().requires_grad_(True)
+            lp = naf_fused._naf_density_math(xr, ps, layout, 6, S)
+            (lp.sum() / rows).backward()
+            dxs.append(xr.grad)
+            lp64.append(lp.detach())
+        d = (lp32.detach().double() - torch.cat(lp64)).abs()
+        print(f"{label} density at {rows} rows vs plain f64: max {d.max().item():.3e}")
+        check(d.max().item() <= TOL_NAF_MAX, f"{label} density at {rows} rows vs plain")
+        note_error(name, d, rows)
+        compare_grads(f"{label} density", got, [torch.cat(dxs)] + [p.grad for p in ps])
+
+    def hold_naf_ift(label, name, params, p64, layout, S, zg):
+        """K9 with log q and the IFT backward at the draws ``zg`` against the
+        same sweeps in float64 at the kernel's own root."""
+        rows = zg.shape[0]
+        w = torch.full((rows,), 1.0 / rows, device=dev)
+        ps, zr = naf_leaves(params), zg.clone().requires_grad_(True)
+        root, lq32 = ift._NAFIFTFunction.apply(zr, (layout, 6, S), True, *ps)
+        ((lq32 + (root**2).sum(dim=1)) * w).sum().backward()
+        got = [zr.grad] + [p.grad for p in ps]
+        with torch.no_grad():
+            r_x, r_lq = naf_fused._naf_sample_math(zg.double(), p64, layout, 6, S, True)
+        x64, w64 = root.detach().double(), w.double()
+        dz, dps = ift._naf_ift_bwd_math(zg.double(), x64, 2 * x64 * w64[:, None], w64, p64,
+                                        [True] * len(p64), layout, 6, S)
+        dx, dlq = (root.detach().double() - r_x).abs(), (lq32.detach().double() - r_lq).abs()
+        print(f"{label} solve (log q) at {rows} rows vs plain f64: x median %.3e q95 %.3e"
+              f" q99 %.3e max %.3e;" % quantiles(dx), "log q median %.3e q95 %.3e q99 %.3e"
+              " max %.3e" % quantiles(dlq))
+        check(quantiles(dx)[0] <= TOL_SAMPLE_MEDIAN and quantiles(dx)[2] <= TOL_NAF_SAMPLE_Q99,
+              f"{label} solve at {rows} rows vs plain")
+        check(quantiles(dlq)[0] <= TOL_NAF_MEDIAN, f"{label} log q at {rows} rows vs plain")
+        note_error(name, dlq, rows)
+        compare_grads(f"{label} IFT (log q), at the kernel's root", got, [dz[:, :6]] + dps,
+                      tol_input=TOL_GRAD_SOLVE_INPUT)
+
     # not the flagship's own samples: there the score has mean zero under the
     # model, and every parameter's gradient is a cancelling remainder of its
     # terms (1.3e-01 max-relative in float32 on an H100 at 262,144 rows)
-    xg = x_big[:GRAD_ROWS]
-    ps, xr = naf_leaves(nparams), xg.clone().requires_grad_(True)
-    lp32 = naf_fused.naf_density(xr, ps, nlayout, 6, nS)
-    lp32.mean().backward()
-    got = [xr.grad] + [p.grad for p in ps]
-    ps, dxs, lp64 = naf_leaves(n64), [], []
-    for chunk in xg.double().split(GRAD_ROWS // 4):
-        xr = chunk.clone().requires_grad_(True)
-        lp = naf_fused._naf_density_math(xr, ps, nlayout, 6, nS)
-        (lp.sum() / GRAD_ROWS).backward()
-        dxs.append(xr.grad)
-        lp64.append(lp.detach())
-    hold_values("NAF density", "naf_density", [[lp32.detach()], [torch.cat(lp64)]], [TOL_NAF_MAX])
-    compare_grads("NAF density", got, [torch.cat(dxs)] + [p.grad for p in ps])
-    del got, dxs, lp64
-
-    zg = torch.randn(NAF_IFT_ROWS, 6, generator=gen, device=dev)
-    w = torch.full((NAF_IFT_ROWS,), 1.0 / NAF_IFT_ROWS, device=dev)
-    ps, zr = naf_leaves(nparams), zg.clone().requires_grad_(True)
-    root, lq32 = ift._NAFIFTFunction.apply(zr, (nlayout, 6, nS), True, *ps)
-    ((lq32 + (root**2).sum(dim=1)) * w).sum().backward()
-    got = [zr.grad] + [p.grad for p in ps]
-    with torch.no_grad():
-        r_x, r_lq = naf_fused._naf_sample_math(zg.double(), n64, nlayout, 6, nS, True)
-    x64, w64 = root.detach().double(), w.double()
-    dz, dps = ift._naf_ift_bwd_math(zg.double(), x64, 2 * x64 * w64[:, None], w64, n64,
-                                    [True] * len(n64), nlayout, 6, nS)
-    dx, dlq = (root.detach().double() - r_x).abs(), (lq32.detach().double() - r_lq).abs()
-    print(f"NAF solve (log q) at {NAF_IFT_ROWS} rows vs plain f64: x median %.3e q95 %.3e"
-          f" q99 %.3e max %.3e;" % quantiles(dx), "log q median %.3e q95 %.3e q99 %.3e max %.3e"
-          % quantiles(dlq))
-    check(quantiles(dx)[0] <= TOL_SAMPLE_MEDIAN and quantiles(dx)[2] <= TOL_NAF_SAMPLE_Q99,
-          f"NAF solve at {NAF_IFT_ROWS} rows vs plain")
-    check(quantiles(dlq)[0] <= TOL_NAF_MEDIAN, f"NAF log q at {NAF_IFT_ROWS} rows vs plain")
-    note_error("naf_sample_log_prob", dlq, NAF_IFT_ROWS)
-    compare_grads("NAF IFT (log q), at the kernel's root", got, [dz[:, :6]] + dps,
-                  tol_input=TOL_GRAD_SOLVE_INPUT)
-    del got, dz, dps, r_x, r_lq
+    hold_naf_density_grads("NAF", "naf_density", nparams, n64, nlayout, nS, x_big[:GRAD_ROWS],
+                           GRAD_ROWS // 4)
+    hold_naf_density_grads("NAF at (g)'s rows", "naf_density", nparams, n64, nlayout, nS,
+                           batches[0], GRAD_ROWS // 4)
+    hold_naf_ift("NAF", "naf_sample_log_prob", nparams, n64, nlayout, nS,
+                 torch.randn(NAF_IFT_ROWS, 6, generator=gen, device=dev))
 
     # train from the flagship's parameters; (g) on the samples the NSF
     # serving phase drew, as (a) and (e): the NAF's own samples give MLE no
@@ -1443,26 +1546,33 @@ def main():
 
     # times: the density at the serving and training rows, sampling at the
     # serving rows (= the MLE step's) and at (h)'s
-    naf_bytes = 4 * sum(p.numel() for p in nparams)  # every weight once
+    def naf_work_of(params, layout, F, S, xc, zc, names):
+        """``names`` (density, sample, sample with log q) -> (kernel, plain,
+        operations, bytes) of the NAF kernels at the rows ``xc`` and the
+        draws ``zc`` (each with its context): every input read once, every
+        weight once, every output written once."""
+        rows, D0 = xc.shape
+        args = (params, layout, F, S)
+        weights = 4 * sum(p.numel() for p in params)
+        return {
+            names[0]: (
+                lambda: naf_fused.naf_density(xc, *args),
+                lambda: naf_fused._naf_density_math(xc, *args),
+                rows * naf_ops(params, layout, F, S, "density"), 4 * rows * (D0 + 1) + weights),
+            names[1]: (
+                lambda: naf_fused.naf_sample(zc, *args),
+                lambda: naf_fused._naf_sample_math(zc, *args),
+                rows * naf_ops(params, layout, F, S, "sample"), 4 * rows * (D0 + F) + weights),
+            names[2]: (
+                lambda: naf_fused.naf_sample(zc, *args, True),
+                lambda: naf_fused._naf_sample_math(zc, *args, True),
+                rows * naf_ops(params, layout, F, S, "sample_log_prob"),
+                4 * rows * (D0 + F + 1) + weights),
+        }
 
     def naf_work(rows):
-        x, z = nx_big[:rows], torch.randn(rows, 6, generator=gen, device=dev)
-        args = (nparams, nlayout, 6, nS)
-        return {
-            "naf_density": (
-                lambda: naf_fused.naf_density(x, *args),
-                lambda: naf_fused._naf_density_math(x, *args),
-                rows * naf_ops(nparams, nlayout, 6, nS, "density"), 4 * rows * 7 + naf_bytes),
-            "naf_sample": (
-                lambda: naf_fused.naf_sample(z, *args),
-                lambda: naf_fused._naf_sample_math(z, *args),
-                rows * naf_ops(nparams, nlayout, 6, nS, "sample"), 4 * rows * 12 + naf_bytes),
-            "naf_sample_log_prob": (
-                lambda: naf_fused.naf_sample(z, *args, True),
-                lambda: naf_fused._naf_sample_math(z, *args, True),
-                rows * naf_ops(nparams, nlayout, 6, nS, "sample_log_prob"),
-                4 * rows * 13 + naf_bytes),
-        }
+        return naf_work_of(nparams, nlayout, 6, nS, nx_big[:rows],
+                           torch.randn(rows, 6, generator=gen, device=dev), NAF_NAMES)
 
     with torch.no_grad():
         for rows, names in ((ROWS, ("naf_density",)), (NAF_SAMPLE_ROWS, naf_served),
@@ -1485,13 +1595,331 @@ def main():
                   f" kernel share {timed[name, rows, '']['ms'] / r_ms:.3f}")
     step_labels += (("naf_mle", "(g) NAF MLE"), ("naf_rkl", "(h) NAF reverse KL, IFT"))
 
+    # 11. the unconstrained neural autoregressive flow (UNAF, the UMNN mode of
+    # K8 and K9): served, held against float64, trained, timed
+    unaf_flagship = zt.load_params(zt.UNAF(6, 0, transforms=3, signal=16, device=dev),
+                                   ROOT / "zuko_tpu_torch" / "assets" / "unaf_flagship.npz")
+    utruth = np.load(ROOT / "zuko_tpu_torch" / "assets" / "unaf_truth_f64.npz")
+    torch.manual_seed(5)
+    unaf_cond = zt.UNAF(6, 4, transforms=3, signal=16, device=dev)
+    n_utruth = utruth["x"].shape[0]
+    # one request holds the truth rows first
+    ux_big = torch.cat([torch.as_tensor(utruth["x"], device=dev, dtype=torch.float32),
+                        x_big[: UNAF_DENSITY_ROWS - n_utruth]])
+    uc_big = torch.randn(UNAF_DENSITY_ROWS, 4, generator=gen, device=dev)
+    uc_few = torch.randn(1024, 4, generator=gen, device=dev)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        udist = unaf_flagship(None)
+        u_lp = udist.log_prob(ux_big)
+        u_xs = udist.sample((UNAF_SAMPLE_ROWS,), generator=gen)
+        u_xl, u_lq = udist.sample_and_log_prob((UNAF_SAMPLE_ROWS,), generator=gen)
+        ucdist = unaf_cond(uc_big)
+        uc_lp = ucdist.log_prob(x_big[:UNAF_DENSITY_ROWS])
+        ucfew = unaf_cond(uc_few)
+        uc_xs = ucfew.sample((4,), generator=gen)
+        uc_xl, uc_lq = ucfew.sample_and_log_prob((4,), generator=gen)
+    torch.cuda.synchronize()
+    unaf_launches = {name: ops.LAUNCHES[name] for name in UMNN_NAMES}
+    print(f"UNAF serving phase: {time.perf_counter() - t0:.3f} s, launches {unaf_launches}")
+    check(all(isinstance(d, FusedNeuralSamplingFlow) for d in (udist, ucdist, ucfew)),
+          "UNAFs on the GPU did not dispatch to the fused kernels")
+    check(unaf_launches == dict(zip(UMNN_NAMES, (2, 2, 2))),
+          f"UNAF serving launches {unaf_launches}")
+    check(all(count == 0 for name, count in ops.LAUNCHES.items() if name not in UMNN_NAMES),
+          "the UNAF path launched another kernel")
+    for t, shape in [
+        (u_lp, (UNAF_DENSITY_ROWS,)), (u_xs, (UNAF_SAMPLE_ROWS, 6)), (u_xl, (UNAF_SAMPLE_ROWS, 6)),
+        (u_lq, (UNAF_SAMPLE_ROWS,)), (uc_lp, (UNAF_DENSITY_ROWS,)), (uc_xs, (4, 1024, 6)),
+        (uc_xl, (4, 1024, 6)), (uc_lq, (4, 1024)),
+    ]:
+        check(tuple(t.shape) == shape, f"UNAF shape {tuple(t.shape)} != {shape}")
+        check(bool(torch.isfinite(t).all()), "non-finite values on the served UNAF path")
+    # K8's UMNN mode integrates by 16 nodes: held against zuko_tpu's fused
+    # float64 math (lp_gl16), and against its unfused GL-32 density (lp),
+    # from which the rules themselves differ by up to 3.4e-6 on these rows
+    for column in ("lp_gl16", "lp"):
+        err = (u_lp[:n_utruth].double() - torch.as_tensor(utruth[column], device=dev)).abs()
+        print(f"UNAF log_prob vs f64 truth {column} ({n_utruth} rows): max {err.max().item():.3e}"
+              f" median {err.median().item():.3e}")
+        check(err.max().item() <= TOL_DENSITY, f"UNAF density vs f64 truth {column}")
+
+    with torch.no_grad():
+        hold_naf("UNAF", unaf_flagship, ux_big, None,
+                 torch.randn(UNAF_SAMPLE_ROWS, 6, generator=gen, device=dev), None,
+                 names=UMNN_NAMES)
+        hold_naf("conditional UNAF", unaf_cond, x_big[:UNAF_DENSITY_ROWS], uc_big,
+                 torch.randn(4096, 6, generator=gen, device=dev), uc_few.repeat(4, 1), names=None)
+
+    # at the training steps' shapes: K8's UMNN Function at (i)'s rows, K9's
+    # UMNN mode with log q and the IFT backward at (j)'s
+    uparams, ulayout, _, uS = naf_args(unaf_flagship, torch.float32)
+    u64 = [p.double() for p in uparams]
+    # the float64 reference in chunks of 16,384 rows: its graph holds 17
+    # integrand evaluations a feature and layer
+    hold_naf_density_grads("UNAF at (i)'s rows", "naf_density_umnn", uparams, u64, ulayout, uS,
+                           batches[0], 1 << 14)
+    hold_naf_ift("UNAF", "naf_sample_umnn_log_prob", uparams, u64, ulayout, uS,
+                 torch.randn(UNAF_IFT_ROWS, 6, generator=gen, device=dev))
+
+    # (i) on the samples the NSF serving phase drew, as (a), (e) and (g)
+    flow_i = zt.load_params(zt.UNAF(6, 0, transforms=3, signal=16, device=dev),
+                            ROOT / "zuko_tpu_torch" / "assets" / "unaf_flagship.npz")
+    ops.reset_launches()
+    init_fn, step_fns["unaf_mle"] = zt.make_mle_step(flow_i, lr=1e-3)
+    trained["unaf_mle"], _ = run("(i) UNAF MLE", step_fns["unaf_mle"], init_fn(), batch,
+                                 TRAIN_STEPS)
+    counts = counts_after("(i) UNAF MLE", ["naf_density_umnn"],
+                          none=(*served, *gf_served, *NAF_NAMES))
+    check(counts["naf_density_umnn"] == TRAIN_STEPS, "(i): one naf_density_umnn launch a step")
+    train_launches["naf_density_umnn"] = counts["naf_density_umnn"]
+
+    flow_j = copy.deepcopy(unaf_flagship)
+    ops.reset_launches()
+    init_fn, step_fns["unaf_rkl"] = zt.make_reverse_kl_step(
+        flow_j, ring, n_samples=UNAF_IFT_ROWS, lr=1e-3)
+    trained["unaf_rkl"], _ = run("(j) UNAF reverse KL, IFT", step_fns["unaf_rkl"], init_fn(),
+                                 generator, TRAIN_STEPS)
+    counts = counts_after("(j) UNAF reverse KL, IFT", ["naf_sample_umnn_log_prob"],
+                          none=(*served, *gf_served, *NAF_NAMES, *UMNN_NAMES[:2]))
+    check(counts["naf_sample_umnn_log_prob"] == TRAIN_STEPS,
+          "(j): one naf_sample_umnn_log_prob launch a step")
+    train_launches["naf_sample_umnn_log_prob"] = counts["naf_sample_umnn_log_prob"]
+    per_step.update({
+        "unaf_mle": time_step("unaf_mle", batch, lambda: flow_i(None).log_prob(batches[0]).mean()),
+        "unaf_rkl": time_step("unaf_rkl", generator, lambda: flow_j(None).sample_and_log_prob(
+            (UNAF_IFT_ROWS,), gen)),
+    })
+
+    # times: the density at the serving rows and (i)'s, sampling at the
+    # serving rows and (j)'s
+    with torch.no_grad():
+        for rows, names in ((UNAF_DENSITY_ROWS, UMNN_NAMES[:1]), (GRAD_ROWS, UMNN_NAMES[:1]),
+                            (UNAF_SAMPLE_ROWS, UMNN_NAMES[1:]), (UNAF_IFT_ROWS, UMNN_NAMES[2:])):
+            if (names[0], rows, "") in timed:
+                continue
+            work = naf_work_of(uparams, ulayout, 6, uS, ux_big[:rows],
+                               torch.randn(rows, 6, generator=gen, device=dev), UMNN_NAMES)
+            for name in names:
+                time_kernel(name, rows, *work[name], runs=NAF_RUNS)
+                check(timed[name, rows, ""]["bound_by"] == "operations", f"{name}: bound by bytes")
+        r_ms, r_runs = host_ms(lambda: unaf_flagship(None).log_prob(ux_big), NAF_RUNS)
+        print(f"served request naf_density_umnn at {UNAF_DENSITY_ROWS} rows: {r_ms:.3f} ms"
+              f" {fmt(r_runs)}, kernel share"
+              f" {timed['naf_density_umnn', UNAF_DENSITY_ROWS, '']['ms'] / r_ms:.3f}")
+    step_labels += (("unaf_mle", "(i) UNAF MLE"), ("unaf_rkl", "(j) UNAF reverse KL, IFT"))
+    report_rows.update({"naf_density_umnn": UNAF_DENSITY_ROWS,
+                        "naf_sample_umnn": UNAF_SAMPLE_ROWS,
+                        "naf_sample_umnn_log_prob": UNAF_SAMPLE_ROWS})
+
+    # 12. repair: flows past the narrow tiers' limits, served through the
+    # public API by the wide tier (and K5 past 32 bins, unfused), held against
+    # plain float64 at their families' tolerances, each wide kernel timed
+    # once at its configuration's shape. Built on the CPU from a seed and
+    # moved to the card, so a CPU run makes the same weights. Scaled so that
+    # float64 itself solves their draws and float32 can hold their values
+    # (CPU runs in float64, these seeds): the MAF's parameters by 0.3 (at
+    # full scale 66 affine layers compound to densities of 1e10); the GFs'
+    # by 0.1 (at 0.3 the 33 layers of GF(3, transforms=33) bring 17% of the
+    # draws back to z, at 0.1 89%); the 72-feature NAF's monotone weights by
+    # 3 (its small random networks cover too narrow a range: every row of
+    # 72 features pegs somewhere, at 3 none does); the wide-network NAF and
+    # UNAF's MADE and biases by 0.3 (at full scale a quarter of the NAF's
+    # draws fail the fixed-step solve, and its float32 density sums 160
+    # products of large terms: median error 8.8e-6 against 2.5e-6).
+    def built(make, seed, damp=1.0, mono=1.0):
+        torch.manual_seed(seed)
+        flow = make()
+        with torch.no_grad():
+            for name, p in flow.named_parameters():
+                p.mul_(mono if "univariate" in name and "weight" in name else damp)
+        return flow.to(dev)
+
+    wide_nsf = [
+        ("NSF(6, hidden_features=(256, 256))", 0,
+         built(lambda: zt.NSF(6, hidden_features=(256, 256), device="cpu"), 10), REPAIR_ROWS),
+        ("NSF(5, 3, bins=40, hidden_features=(320, 320))", 3,
+         built(lambda: zt.NSF(5, 3, bins=40, hidden_features=(320, 320), device="cpu"), 11),
+         REPAIR_ROWS // 4),
+        ("NSF(3, hidden_features=(16,) * 8)", 0,
+         built(lambda: zt.NSF(3, hidden_features=(16,) * 8, device="cpu"), 12), REPAIR_ROWS),
+        ("MAF(2, transforms=66)", 0,
+         built(lambda: zt.MAF(2, transforms=66, device="cpu"), 13, damp=0.3), REPAIR_ROWS),
+    ]
+    spline48 = built(lambda: zt.NSF(4, bins=48, device="cpu"), 14)
+    wide_gf = [
+        ("GF(72, components=8)", built(lambda: zt.GF(72, components=8, device="cpu"), 15, 0.1),
+         REPAIR_ROWS // 4),
+        ("GF(4, components=40)", built(lambda: zt.GF(4, components=40, device="cpu"), 16, 0.1),
+         REPAIR_ROWS),
+        ("GF(3, transforms=33)", built(lambda: zt.GF(3, transforms=33, device="cpu"), 17, 0.1),
+         REPAIR_ROWS),
+    ]
+    wide_naf = []
+    for family, cls in (("NAF", zt.NAF), ("UNAF", zt.UNAF)):
+        mono = 3.0 if cls is zt.NAF else 1.0
+        wide_naf += [
+            (f"{family}(72, transforms=1, signal=4, ...)", built(lambda: cls(
+                72, transforms=1, signal=4, hidden_features=(32,),
+                network={"hidden_features": (8,)}, device="cpu"), 18, mono=mono), REPAIR_ROWS // 4,
+             REPAIR_ROWS // 256),
+            (f"{family}(3, signal=72, ...)", built(lambda: cls(
+                3, signal=72, hidden_features=(320,), network={"hidden_features": (160, 160)},
+                device="cpu"), 19, damp=0.3), REPAIR_ROWS // 4, REPAIR_ROWS // 64),
+        ]
+    wide_names = [f"{name}_wide" for name in WHOLE_FLOW]
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for label, C, flow, rows in wide_nsf:
+            c = None if C == 0 else torch.randn(rows, C, generator=gen, device=dev)
+            x = torch.randn(rows, flow.base._0.shape[0], generator=gen, device=dev)
+            dist = flow(c)
+            check(isinstance(dist, FusedAutoregressiveFlow), f"{label} did not dispatch")
+            outs = [dist.log_prob(x), dist.sample(generator=gen), *dist.sample_and_log_prob(
+                generator=gen)] if C else [dist.log_prob(x), dist.sample((rows,), generator=gen),
+                                          *dist.sample_and_log_prob((rows,), generator=gen)]
+            inverted_wide = Flow(flow.transform.inv, flow.base)(c)
+            check(isinstance(inverted_wide, FusedInvertedAutoregressiveFlow),
+                  f"inverted {label} did not dispatch")
+            y = inverted_wide.sample(() if C else (rows,), generator=gen)
+            outs += [y, inverted_wide.log_prob(y)]
+            check(all(bool(torch.isfinite(t).all()) for t in outs), f"{label}: not finite")
+        for label, flow, rows in wide_gf:
+            dist = flow(None)
+            check(isinstance(dist, FusedGaussianizationFlow), f"{label} did not dispatch")
+            x = torch.randn(rows, flow.base._0.shape[0], generator=gen, device=dev)
+            outs = [dist.log_prob(x), dist.sample((rows,), generator=gen),
+                    *dist.sample_and_log_prob((rows,), generator=gen)]
+            check(all(bool(torch.isfinite(t).all()) for t in outs), f"{label}: not finite")
+        for label, flow, rows, sample_rows in wide_naf:
+            dist = flow(None)
+            check(isinstance(dist, FusedNeuralSamplingFlow), f"{label} did not dispatch")
+            x = torch.randn(rows, flow.base._0.shape[0], generator=gen, device=dev)
+            outs = [dist.log_prob(x), dist.sample((sample_rows,), generator=gen),
+                    *dist.sample_and_log_prob((sample_rows,), generator=gen)]
+            check(all(bool(torch.isfinite(t).all()) for t in outs), f"{label}: not finite")
+    before = os.environ.get("ZUKO_TPU_TORCH_FUSED_DISPATCH")
+    os.environ["ZUKO_TPU_TORCH_FUSED_DISPATCH"] = "0"
+    try:
+        with torch.no_grad():
+            x48 = torch.randn(REPAIR_ROWS // 4, 4, generator=gen, device=dev)
+            outs = [spline48(None).log_prob(x48),
+                    spline48(None).sample((REPAIR_ROWS // 4,), generator=gen)]
+            check(all(bool(torch.isfinite(t).all()) for t in outs), "NSF(4, bins=48): not finite")
+    finally:
+        if before is None:
+            del os.environ["ZUKO_TPU_TORCH_FUSED_DISPATCH"]
+        else:
+            os.environ["ZUKO_TPU_TORCH_FUSED_DISPATCH"] = before
+    torch.cuda.synchronize()
+    repair_launches = {name: ops.LAUNCHES[name] for name in (*wide_names, "rqs_forward",
+                                                             "rqs_inverse")}
+    print(f"repair phase: {time.perf_counter() - t0:.3f} s, launches {repair_launches}")
+    for name, count in repair_launches.items():
+        check(count > 0, f"repair phase: {name} was not launched")
+    check(all(ops.LAUNCHES[name] == 0 for name in WHOLE_FLOW),
+          "repair phase: a narrow tier was launched")
+
+    # each configuration held against plain float64, and each wide kernel
+    # timed once, at the first configuration that drives it
+    def hold_nsf_wide(label, flow, C, rows):
+        params, layout, st = plain_args(flow, torch.float32)
+        p64, _, _ = plain_args(flow, torch.float64)
+        F = st[0]
+        xc = torch.randn(rows, F + C, generator=gen, device=dev)
+        zc = torch.cat([torch.randn(rows, F, generator=gen, device=dev), xc[:, F:]], dim=1)
+        with torch.no_grad():
+            d = (nsf_fused.nsf_density(xc, params, layout, *st).double()
+                 - nsf_fused._full_math(xc.double(), p64, layout, *st)).abs()
+            k_y, k_sl = nsf_fused.nsf_apply(xc, params, layout, *st)
+            r_y, r_sl = nsf_fused._full_math(xc.double(), p64, layout, *st, raw=True)
+            k_x = nsf_fused.nsf_sample(zc, params, layout, *st)
+            k_xl, k_lq = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=True)
+            k_u, k_rl = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob="raw")
+            r_x, r_lq = nsf_fused._sample_math(zc.double(), p64, layout, *st, want_log_prob=True)
+        z64 = zc[:, :F].double()
+        r_rl = r_lq + 0.5 * (z64**2).sum(dim=1) + 0.5 * F * math.log(2 * math.pi)
+        dy = torch.maximum((k_y.double() - r_y).abs().amax(dim=1), (k_sl.double() - r_sl).abs())
+        dx, dlq = (k_x.double() - r_x).abs(), (k_lq.double() - r_lq).abs()
+        du, drl = (k_u.double() - r_x).abs(), (k_rl.double() - r_rl).abs()
+        print(f"{label} at {rows} rows vs plain f64: density max {d.max().item():.3e}, apply max"
+              f" {dy.max().item():.3e}; x max {dx.max().item():.3e} median"
+              f" {dx.median().item():.3e}, log q max {dlq.max().item():.3e}, raw x max"
+              f" {du.max().item():.3e} sum ladj max {drl.max().item():.3e}")
+        check(d.max().item() <= TOL_DENSITY and dy.max().item() <= TOL_DENSITY,
+              f"{label} density or apply vs plain")
+        for diff in (dx, (k_xl.double() - r_x).abs(), du):
+            check_samples(f"{label} samples vs plain", diff)
+        check(dlq.max().item() <= TOL_DENSITY and drl.max().item() <= TOL_DENSITY,
+              f"{label} log q or raw sum vs plain")
+        for name, diff in (("nsf_density_wide", d), ("nsf_apply_wide", dy),
+                           ("nsf_sample_wide", dx), ("nsf_sample_log_prob_wide", dlq),
+                           ("nsf_sample_raw_wide", drl)):
+            note_error(name, diff, rows)
+        return nsf_work(params, layout, st, xc, torch.randn(rows, F, generator=gen, device=dev))
+
+    def time_wide(rows, work):
+        """Time the wide kernels of ``work`` not timed yet, once each."""
+        for name, item in work.items():
+            name = f"{name}_wide"
+            if name not in report_rows:
+                time_kernel(name, rows, *item, runs=1)
+                report_rows[name] = rows
+
+    for label, C, flow, rows in wide_nsf:
+        time_wide(rows, hold_nsf_wide(label, flow, C, rows))
+    with torch.no_grad():
+        for label, flow, rows in wide_gf:
+            width = flow.base._0.shape[0]
+            x = torch.randn(rows, width, generator=gen, device=dev)
+            params, layout, F = hold_gf(label, flow, None, rows, x,
+                                        names=tuple(f"{n}_wide" for n in GF_NAMES))
+            time_wide(rows, gf_work(params, layout, F, rows, x))
+        for label, flow, rows, sample_rows in wide_naf:
+            params, layout, F, S = naf_args(flow, torch.float32)
+            names = UMNN_NAMES if layout[0][4] == "umnn" else NAF_NAMES
+            x = torch.randn(rows, F, generator=gen, device=dev)
+            z = torch.randn(sample_rows, F, generator=gen, device=dev)
+            hold_naf(label, flow, x, None, z, None, names=tuple(f"{n}_wide" for n in names))
+            work = naf_work_of(params, layout, F, S, x, z, names)
+            time_wide(rows, {names[0]: work[names[0]]})
+            time_wide(sample_rows, {n: work[n] for n in names[1:]})
+        # K5 past 32 bins, held against its plain version in float64
+        K = 48
+        spline = MonotonicRQSTransform(
+            torch.randn(REPAIR_ROWS // 4, 4, K, generator=gen, device=dev),
+            torch.randn(REPAIR_ROWS // 4, 4, K, generator=gen, device=dev),
+            torch.randn(REPAIR_ROWS // 4, 4, K - 1, generator=gen, device=dev),
+        )
+        knots = (spline.horizontal, spline.vertical, spline.derivatives)
+        x_rqs48 = 3 * torch.randn(REPAIR_ROWS // 4, 4, generator=gen, device=dev)
+        for name, fn, inverse in (("rqs_forward", rqs.rqs_forward, False),
+                                  ("rqs_inverse", rqs.rqs_inverse, True)):
+            k_y, k_l = fn(x_rqs48, *knots)
+            r_y, r_l = rqs._math_nd(x_rqs48.double(), *(k.double() for k in knots), inverse)
+            dy, dl = (k_y.double() - r_y).abs(), (k_l.double() - r_l).abs()
+            print(f"{name} at {K} bins ({x_rqs48.numel()} elements) vs plain f64: y max"
+                  f" {dy.max().item():.3e} median {dy.median().item():.3e}, ladj max"
+                  f" {dl.max().item():.3e}")
+            if inverse:
+                check_samples(f"{name} at {K} bins vs plain", dy)
+                check(dl.max().item() <= TOL_SAMPLE_MAX, f"{name} at {K} bins ladj vs plain")
+            else:
+                check(max(dy.max().item(), dl.max().item()) <= TOL_DENSITY,
+                      f"{name} at {K} bins vs plain")
+    check(set(report_rows) >= set(wide_names), "a wide kernel was not timed")
+
     # a training step beside the kernels it launches (their times at the
     # step's shapes, times the launches of one step)
     for key, label in (("mle", "(a) MLE"), ("rkl", "(b) reverse KL, IFT"),
                        ("rkl_inv", "(c) reverse KL, inverted flow"),
                        ("mle_unfused", "(d) MLE, unfused, per-op kernels"), *step_labels):
         s_ms, s_runs = step_ms[key]
-        rows = NAF_IFT_ROWS if key == "naf_rkl" else GRAD_ROWS
+        rows = {"naf_rkl": NAF_IFT_ROWS, "unaf_rkl": UNAF_IFT_ROWS}.get(key, GRAD_ROWS)
         k_ms = sum(timed[name, rows, ""]["ms"] * count / (3 if name == "masked_linear" else 1)
                    for name, count in per_step[key].items())
         print(f"training step {label}: {s_ms:.3f} ms {fmt(s_runs)}, launches per step"
@@ -1517,9 +1945,10 @@ def main():
     kernels = []
     launches.update(gf_launches)
     launches.update(naf_launches)
+    launches.update(unaf_launches)
+    launches.update({name: repair_launches[name] for name in wide_names})
     for name, (source, replaces) in origin.items():
-        rows = {"naf_sample": NAF_SAMPLE_ROWS, "naf_sample_log_prob": NAF_SAMPLE_ROWS}.get(
-            name, ROWS if name in launches else GRAD_ROWS)
+        rows = report_rows.get(name, ROWS if name in launches else GRAD_ROWS)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name] if name in launches else train_launches[name],

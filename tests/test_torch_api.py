@@ -11,16 +11,16 @@ import pytest
 
 # module (relative to either package) -> the names ported so far
 PORTED = {
-    "utils": ["bisection", "broadcast", "newton_bisection", "unpack"],
+    "utils": ["bisection", "broadcast", "gauss_legendre", "newton_bisection", "unpack"],
     "nn": [
         "Activation", "LayerNorm", "Linear", "MLP", "MaskedLinear", "MaskedMLP", "MonotonicLinear",
         "MonotonicMLP", "Residual", "TwoWayELU",
     ],
     "transforms": [
-        "AutoregressiveTransform", "ComposedTransform", "DependentTransform",
+        "AdditiveTransform", "AutoregressiveTransform", "ComposedTransform", "DependentTransform",
         "GaussianizationTransform", "Inverse", "MonotonicAffineTransform",
         "MonotonicRQSTransform", "MonotonicTransform", "RotationTransform", "SoftclipTransform",
-        "Transform",
+        "Transform", "UnconstrainedMonotonicTransform",
     ],
     "distributions": ["DiagNormal", "Distribution", "NormalizingFlow"],
     "lazy": [
@@ -29,12 +29,12 @@ PORTED = {
     ],
     "flows": [
         "ElementWiseTransform", "Flow", "GF", "MAF", "MNN", "MaskedAutoregressiveTransform", "NAF",
-        "NSF",
+        "NSF", "UMNN", "UNAF",
     ],
     "flows.autoregressive": ["MAF", "MaskedAutoregressiveTransform"],
     "flows.spline": ["NSF"],
     "flows.gaussianization": ["ElementWiseTransform", "GF"],
-    "flows.neural": ["MNN", "NAF"],
+    "flows.neural": ["MNN", "NAF", "UMNN", "UNAF"],
     "serial": ["load_params"],
     "data": ["ring_energy", "two_moons"],
     "parallel": ["TrainState", "make_mle_step", "make_reverse_kl_step", "train_mle"],

@@ -153,12 +153,13 @@ def test_gf_wrappers_take_plain_versions_on_cpu(context):
     assert all(count == 0 for count in ops.LAUNCHES.values())
 
 
-def _small_naf(context=0, dtype=torch.float32):
-    """``(flat arguments of the NAF wrappers, rows)``: the rows carry a
-    context beside ``x`` when there is one."""
+def _small_naf(context=0, dtype=torch.float32, cls=zt.NAF):
+    """``(flat arguments of the NAF wrappers, rows)`` of a small NAF (or,
+    with ``cls``, UNAF): the rows carry a context beside ``x`` when there is
+    one."""
     torch.manual_seed(0)
-    flow = zt.NAF(4, context, transforms=2, signal=4, hidden_features=(16,),
-                  network={"hidden_features": (8,)}, device="cpu").to(dtype)
+    flow = cls(4, context, transforms=2, signal=4, hidden_features=(16,),
+               network={"hidden_features": (8,)}, device="cpu").to(dtype)
     with torch.no_grad():
         params, layout, F, S = naf_fused._flatten_naf(flow)
     return [p.detach() for p in params], layout, F, S
@@ -263,16 +264,16 @@ class _OnCard(torch.Tensor):
 ], ids=["float64", "float32"])
 @pytest.mark.parametrize(
     "op", ["masked_linear", "rqs_forward", "rqs_inverse", "gf_density", "gf_sample",
-           "naf_density", "naf_sample"])
+           "naf_density", "naf_sample", "unaf_density", "unaf_sample"])
 def test_gpu_tensors_reach_the_kernel_or_raise(op, dtype, error, match):
-    """For a tensor on the GPU the unfused layers and the GF and NAF wrappers
-    go to their kernel whatever the type: float64 raises there, as the
-    whole-flow NSF kernels do, and nothing gives way to the plain
+    """For a tensor on the GPU the unfused layers and the GF, NAF and UNAF
+    wrappers go to their kernel whatever the type: float64 raises there, as
+    the whole-flow NSF kernels do, and nothing gives way to the plain
     arithmetic."""
     torch.manual_seed(0)
-    if op.startswith("naf_"):
-        args = _small_naf(3, dtype)
-        wrapper = getattr(naf_fused, op)
+    if op.startswith(("naf_", "unaf_")):
+        args = _small_naf(3, dtype, zt.UNAF if op.startswith("unaf_") else zt.NAF)
+        wrapper = getattr(naf_fused, op.removeprefix("u"))
         fn, x = (lambda v: wrapper(v, *args)), torch.randn(16, 7, dtype=dtype)
     elif op.startswith("gf_"):
         args = _small_gf(3, dtype)
@@ -400,36 +401,76 @@ def test_single_feature_and_rsample_are_later_slices(monkeypatch):
     assert any(bool((p.grad != 0).any()) for p in flow.parameters())
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"bins": 33},
-    {"hidden_features": (300, 16)},
+@pytest.mark.parametrize("kwargs, widths, slots", [
+    ({"bins": 33}, [3, 64, 64, 294], 334),
+    ({"hidden_features": (300, 16)}, [3, 300, 16, 69], 656),
 ], ids=["bins", "width"])
-def test_kernel_limits_raise_before_launch(kwargs):
+def test_kernel_limits_raise_before_launch(kwargs, widths, slots):
+    """Past the narrow tier's limits (32 bins, widths of 256) the NSF
+    kernels raise no more: the flow packs, and the planner gives it the wide
+    tier with a workspace of ``F + C + F + 2 max(widths) + T + 3 (K + 1)``
+    floats a row, in one launch of whole blocks of rows, and a descriptor
+    buffer of its widths and passes."""
     torch.manual_seed(0)
     flow = zt.NSF(3, 0, transforms=1, device="cpu", **kwargs)
     params, layout, cfg = nsf_fused._flatten_flow(flow)
-    with pytest.raises(ValueError, match="the kernels take"):
-        nsf_fused._pack_weights(params, layout, 3, 0, cfg["bins"], cfg["univ"])
+    _, got, passes = nsf_fused._pack_weights(params, layout, 3, 0, cfg["bins"], cfg["univ"])
+    assert got == widths
+    plan = nsf_fused.plan_nsf(widths, cfg["bins"], cfg["univ"], len(passes), 1000)
+    assert plan == (True, slots, 1024, 4 * slots * 1024, 4 * (len(widths) + 1))
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"features": 65},
-    {"components": 33},
-    {"transforms": 33},  # 65 layers and rotations together
+@pytest.mark.parametrize("kwargs, slots, stages", [
+    ({"features": 65}, 130, 3),
+    ({"components": 33}, 6, 3),
+    ({"transforms": 33}, 6, 65),  # layers and rotations together
 ], ids=["features", "components", "stages"])
-def test_gf_kernel_limits_raise_before_launch(kwargs):
-    """64 features and 32 components are taken; one more of either, or more
-    than 64 stages, raises before anything is packed or launched."""
+def test_gf_kernel_limits_raise_before_launch(kwargs, slots, stages):
+    """Past the narrow tier's limits (64 features, 32 components, 64 stages)
+    the GF kernels raise no more: the planner gives the flow the wide tier,
+    a workspace of ``2 F`` floats a row and 48 bytes of descriptor a stage,
+    and the wrappers go on to the launch, where the CPU weights stop them
+    (a GPU tensor would launch)."""
     torch.manual_seed(0)
     kwargs = {"features": 3, "components": 4, "transforms": 2, **kwargs}
     flow = zt.GF(device="cpu", **kwargs)
     with torch.no_grad():
         params, layout, F, _ = gf_fused._flatten_gf(flow)
+    assert len(layout) == stages
+    assert gf_fused.plan_gf(layout, F, 1000) == (True, slots, 1024, 4 * slots * 1024, 48 * stages)
     x = torch.randn(8, F)
-    gf_fused.gf_density(x, params, layout, F)  # the plain version has no limits
-    gf_fused._check_limits((("gauss", 32), ("rot",)) * 32, 64)
+    gf_fused.gf_density(x, params, layout, F)  # the plain version
     ops.reset_launches()
     for fn in (gf_fused.gf_density, gf_fused.gf_sample):
-        with pytest.raises(ValueError, match="the kernels take"):
+        with pytest.raises(ValueError, match="on the GPU"):
             fn(x.as_subclass(_OnCard), params, layout, F)
     assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("family", ["NSF", "GF", "NAF", "UNAF"])
+def test_flagship_shapes_plan_the_narrow_tier(family):
+    """The flagships keep the narrow tier (its arithmetic and its times),
+    however many rows a call brings; a width, bin count or depth past its
+    limits takes the wide tier."""
+    torch.manual_seed(0)
+    if family == "NSF":
+        flow = zt.NSF(6, 0, transforms=3, device="cpu")
+        params, layout, cfg = nsf_fused._flatten_flow(flow)
+        _, widths, passes = nsf_fused._pack_weights(params, layout, 6, 0, cfg["bins"], cfg["univ"])
+        plan = [nsf_fused.plan_nsf(widths, cfg["bins"], cfg["univ"], len(passes), n)
+                for n in (1, 1 << 20)]
+        wider = nsf_fused.plan_nsf([6, 256, 256, 138], 8, "rqs", 3, 1 << 20)  # 410 KB a layer
+    elif family == "GF":
+        with torch.no_grad():
+            _, layout, F, _ = gf_fused._flatten_gf(zt.GF(6, 0, transforms=3, device="cpu"))
+        plan = [gf_fused.plan_gf(layout, F, n) for n in (1, 1 << 20)]
+        wider = gf_fused.plan_gf(layout, 65, 1 << 20)
+    else:
+        flow = getattr(zt, family)(6, 0, transforms=3, signal=16, device="cpu")
+        params, layout, F, S = naf_fused._flatten_naf(flow)
+        _, made_w, mono_w = naf_fused._widths(params, layout, F, 0, S)
+        plan = [naf_fused.plan_naf(made_w, mono_w, F, 0, S, len(layout), n) for n in (1, 1 << 20)]
+        wider = naf_fused.plan_naf(made_w, mono_w[:1] + [130] + mono_w[2:], F, 0, S, len(layout),
+                                   1 << 20)
+    assert plan == [(False, 0, 1, 0, 0), (False, 0, 1 << 20, 0, 0)]
+    assert wider.wide and wider.workspace_bytes <= (1 << 30)

@@ -20,7 +20,7 @@ Example:
 
 from . import data, parallel
 from .distributions import NormalizingFlow
-from .flows import GF, MAF, NAF, NSF, Flow
+from .flows import GF, MAF, NAF, NSF, UNAF, Flow
 from .parallel import make_mle_step, make_reverse_kl_step, train_mle
 from .serial import load_params
 
@@ -31,6 +31,7 @@ __all__ = [
     "NAF",
     "NSF",
     "NormalizingFlow",
+    "UNAF",
     "data",
     "load_params",
     "make_mle_step",

@@ -3,10 +3,12 @@ r"""Neural autoregressive flows.
 Counterpart of ``zuko_tpu/flows/neural.py``: the monotonic neural network
 :class:`MNN` :53 (a stacked :class:`~zuko_tpu_torch.nn.MonotonicMLP`
 modulated by a per-feature signal), the transform it builds
-(``_MonotonicNetTransform`` :37), the interleaved construction
+(``_MonotonicNetTransform`` :37), the unconstrained monotonic network
+:class:`UMNN` :86 (a stacked ELU :class:`~zuko_tpu_torch.nn.MLP` integrand)
+and its transform (``_UMNNTransform`` :69), the interleaved construction
 ``_interleaved_flow`` :105 (a ``SoftclipTransform(bound=11)`` between the
 autoregressive layers, the standard ``DiagNormal`` base as buffers) and the
-:class:`NAF` recipe :143.
+:class:`NAF` :143 and :class:`UNAF` :184 recipes.
 """
 
 from __future__ import annotations
@@ -17,12 +19,18 @@ import torch.nn as nn
 
 from ..distributions import DiagNormal
 from ..lazy import Flow, UnconditionalDistribution, UnconditionalTransform
-from ..nn import MonotonicMLP
-from ..transforms import MonotonicTransform, SoftclipTransform
+from ..nn import MLP, MonotonicMLP
+from ..transforms import (
+    AdditiveTransform,
+    ComposedTransform,
+    MonotonicTransform,
+    SoftclipTransform,
+    UnconstrainedMonotonicTransform,
+)
 from ..utils import broadcast, resolve_device
 from .autoregressive import MaskedAutoregressiveTransform
 
-__all__ = ["MNN", "NAF"]
+__all__ = ["MNN", "NAF", "UMNN", "UNAF"]
 
 
 class _MonotonicNetTransform(MonotonicTransform):
@@ -57,6 +65,47 @@ class MNN(nn.Module):
 
     def forward(self, signal):
         return _MonotonicNetTransform(self.network, signal)
+
+
+class _UMNNTransform(UnconstrainedMonotonicTransform):
+    r"""The integral of :math:`g(u) = \exp(d / (1 + |d / 7|))`, ``d`` the
+    integrand network's output at ``[u, s]``, so :math:`g \in [e^{-7},
+    e^7]` (reference: zuko/flows/neural.py:100-104). The signal and the
+    network's parameters are the ``phi`` of the inverse's implicit-function
+    backward."""
+
+    def __init__(self, integrand, signal, n: int = 32, **kwargs):
+        super().__init__(None, n=n, phi=(signal, *integrand.parameters()), **kwargs)
+        self.integrand = integrand
+        self.signal = signal
+
+    def g(self, x):
+        u = torch.cat(broadcast(x[..., None], self.signal, ignore=1), dim=-1)
+        d = self.integrand(u)[..., 0]
+        return torch.exp(d / (1 + torch.abs(d / 7)))
+
+
+class UMNN(nn.Module):
+    r"""Unconstrained monotonic neural network: an integrand network of
+    ``1 + signal`` inputs with ELU activations, one per feature (``stack``),
+    whose integral from 0 is the monotone map (reference:
+    zuko/flows/neural.py:74-118). Further keyword arguments go to the
+    :class:`~zuko_tpu_torch.nn.MLP`.
+
+    Calling an instance with ``(signal, constant)`` returns the integral
+    transform followed by :class:`~zuko_tpu_torch.transforms.AdditiveTransform`
+    of ``constant``.
+    """
+
+    def __init__(self, signal: int = 16, stack: int = None, **kwargs):
+        super().__init__()
+        kwargs.setdefault("activation", torch.nn.functional.elu)
+        self.integrand = MLP(1 + signal, 1, stack=stack, **kwargs)
+
+    def forward(self, signal, constant):
+        return ComposedTransform(
+            _UMNNTransform(self.integrand, signal), AdditiveTransform(constant)
+        )
 
 
 def _interleaved_flow(features, context, transforms, randperm, univariate_factory, shapes,
@@ -128,6 +177,45 @@ class NAF(Flow):
             features, context, transforms, randperm,
             lambda: MNN(signal=signal, stack=features, device=device, **network),
             [(signal,)],
+            device,
+            **kwargs,
+        )
+        super().__init__(layers, base)
+
+
+class UNAF(Flow):
+    r"""Unconstrained neural autoregressive flow (Wehenkel et al., 2019):
+    masked autoregressive layers whose univariates are :class:`UMNN`
+    integrals of ``signal`` inputs besides ``x`` plus a constant, with a
+    softclip between the layers (reference: zuko/flows/neural.py:185-246).
+    ``network`` holds the keyword arguments of the integrand networks;
+    further keyword arguments go to the MADE hyper-networks. Built on
+    ``device`` (default ``cuda``; see :func:`zuko_tpu_torch.utils.resolve_device`).
+
+    Example:
+        >>> flow = UNAF(3, transforms=2, signal=8, device="cpu")
+        >>> x = torch.tensor([[0.1, -0.5, 0.3]])
+        >>> flow(None).log_prob(x).shape
+        torch.Size([1])
+    """
+
+    def __init__(
+        self,
+        features: int,
+        context: int = 0,
+        transforms: int = 3,
+        randperm: bool = False,
+        signal: int = 16,
+        network: dict = None,
+        device=None,
+        **kwargs,
+    ):
+        device = resolve_device(device)
+        network = {} if network is None else dict(network)
+        layers, base = _interleaved_flow(
+            features, context, transforms, randperm,
+            lambda: UMNN(signal=signal, stack=features, device=device, **network),
+            [(signal,), ()],
             device,
             **kwargs,
         )

@@ -1,6 +1,7 @@
 r"""Hand-written CUDA kernels (CUDA C++ under ``csrc/``), their plain PyTorch
 versions and the automatic dispatch (counterpart of ``zuko_tpu/ops``): the
-whole-flow NSF/MAF, GF and NAF kernels and their implicit-function-theorem
+whole-flow NSF/MAF, GF and NAF/UNAF kernels (each in a narrow and a wide
+tier, chosen from the flow's shapes) and their implicit-function-theorem
 backward, and the per-op kernels of the unfused path (``masked_linear``,
 ``rqs``). Every wrapper launches its kernel for a CUDA tensor and takes its
 plain version for a CPU tensor."""

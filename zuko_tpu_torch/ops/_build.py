@@ -27,20 +27,25 @@ _FLAGS = [
 _LIBS = {}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# (input, two outputs, weights, widths, passes, 6 ints, 2 floats, rows, stream)
-_NSF_TWO_OUTPUTS = ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _LL, _P], _I)
+# a whole-flow kernel's tier: wide, workspace, its floats, rows a launch,
+# descriptor buffer, its bytes
+_TIER = [_I, _P, _LL, _LL, _P, _LL]
+# (input, one or two outputs, weights, widths, passes, 6 ints, 2 floats, rows,
+# the tier, stream)
+_NSF_FLOW = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _LL, *_TIER, _P]
+_NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_FLOW], _I)
 # (packed, kinds, Ks, offs, shifts, raws, row strides, feature strides,
-# stages, F, rows, stream)
-_GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _P]
+# stages, F, rows, the tier, stream)
+_GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
 # (packed, kinds, passes, bounds, offsets, stages, MADE widths, MADE linears,
-# monotone widths, monotone linears, F, C, S, rows, stream)
-_NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _LL, _P]
+# network widths, network linears, F, C, S, mode, rows, then the tier: wide,
+# workspace, its floats, rows a launch, descriptor buffer, its bytes; stream)
+_NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER, _P]
 # argument types of every C entry point, by library; each library also has
 # ``<library>_error_string`` (declared by ``load_library``)
 _SIGNATURES = {
     "nsf_fused": {
-        "nsf_density_f32": (
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _LL, _P], _I),
+        "nsf_density_f32": ([_P, _P, *_NSF_FLOW], _I),
         "nsf_apply_f32": _NSF_TWO_OUTPUTS,
         "nsf_sample_f32": _NSF_TWO_OUTPUTS,
         "nsf_sample_raw_f32": _NSF_TWO_OUTPUTS,

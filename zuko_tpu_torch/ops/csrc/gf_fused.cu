@@ -43,6 +43,17 @@
 // scale = expf(log scale) for its row once, so the 29 bisection steps do not.
 // The rotation products are plain float32 FMAs in the kernel body.
 //
+// Two tiers, chosen by the wrapper from the flow's shape alone
+// (zuko_tpu_torch/ops/gf_fused.py plan_gf). The narrow tier (kWide false) is
+// the design above, within its limits: kMaxF features, kMaxK components,
+// kMaxStages stages. The wide tier takes any shape: a row's F values live in
+// a workspace in device memory, one column of `stride` rows per value, so
+// neighbouring threads touch neighbouring addresses as in local memory;
+// per-row parameters are read where the hyper-network wrote them, with
+// scale = expf(log scale) taken at each use; the stages lie in a small
+// device buffer. The wrapper allocates both; the rows run in chunks of
+// `stride`, one launch each, so the workspace stays bounded.
+//
 // Each C entry point checks its arguments, launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
 
@@ -50,10 +61,12 @@
 #include <math.h>
 
 #include <algorithm>
+#include <type_traits>
+#include <vector>
 
 namespace {
 
-// limits, mirrored in zuko_tpu_torch/ops/gf_fused.py
+// the narrow tier's limits, mirrored in zuko_tpu_torch/ops/gf_fused.py
 constexpr int kMaxF = 64;       // features
 constexpr int kMaxK = 32;       // mixture components
 constexpr int kMaxStages = 64;  // gaussianization layers and rotations together
@@ -76,7 +89,7 @@ enum Kind { kGauss = 0, kGaussBatched = 1, kRot = 2 };
 struct Stage {
   int kind;
   int K;                // components (gaussianization layers)
-  int fc;               // features per staged chunk (batched layers)
+  int fc;               // features per staged chunk (batched layers, narrow tier)
   int feat_stride;      // floats between two features of a row (batched layers)
   long long off;        // offset of the stage's floats in `packed` (other stages)
   long long row_stride; // floats between two rows (batched layers)
@@ -84,31 +97,96 @@ struct Stage {
   const float* raw;     // (n, F, K) per-row log-scales (batched layers)
 };
 
-// The kernels take it as a __grid_constant__ parameter: its stages are
-// indexed in a loop, and a plain by-value parameter whose address is taken
-// would be copied into every thread's local memory.
+// The narrow tier's description, a __grid_constant__ parameter: its stages
+// are indexed in a loop, and a plain by-value parameter whose address is
+// taken would be copied into every thread's local memory.
 struct Shape {
   int F;
   int n_stages;
   Stage st[kMaxStages];
 };
 
-// (1 - eps) / K * sum_k erf((s_k x + b_k) / sqrt 2), p = [shift K][scale K][...]
-__device__ __forceinline__ float mixture_mean(float x, const float* p, int K) {
+// The wide tier's: the stages in the device buffer `desc`.
+struct WideShape {
+  int F;
+  int n_stages;
+  const Stage* st;
+};
+
+template <bool kWide>
+using ShapeOf = typename std::conditional<kWide, WideShape, Shape>::type;
+
+// One of a row's arrays: a per-thread array (narrow) or a slot column of the
+// workspace, `stride` floats between consecutive elements (wide).
+template <bool kWide>
+struct Vec {
+  float* p;
+  long long stride;
+  __device__ __forceinline__ float& operator[](int i) const {
+    return kWide ? p[i * stride] : p[i];
+  }
+};
+
+// The narrow tier's per-thread arrays; nothing for the wide tier.
+template <bool kWide>
+struct Local {
+  float a[kMaxF], b[kMaxF];
+};
+template <>
+struct Local<true> {};
+
+// The two arrays a row's F values ping-pong between (the workspace's two
+// slots of F floats each in the wide tier, mirrored in gf_fused.py plan_gf).
+template <bool kWide>
+__device__ __forceinline__ void make_row(Local<kWide>& m, int F, float* work, long long stride,
+                                         long long i, Vec<kWide>* a, Vec<kWide>* b) {
+  if constexpr (kWide) {
+    *a = {work + i, stride};
+    *b = {work + i + F * stride, stride};
+  } else {
+    *a = {m.a, 1};
+    *b = {m.b, 1};
+  }
+}
+
+// A feature's mixture parameters [shift K][scale K][log scale K], packed by
+// the wrapper or staged in the shared tile.
+struct Packed {
+  const float* p;
+  int K;
+  __device__ __forceinline__ float shift(int k) const { return p[k]; }
+  __device__ __forceinline__ float scale(int k) const { return p[K + k]; }
+  __device__ __forceinline__ float log_scale(int k) const { return p[2 * K + k]; }
+};
+
+// A feature's per-row parameters where the hyper-network wrote them (wide
+// tier): the scale taken from the log-scale at each use.
+struct PerRow {
+  const float* sh;
+  const float* raw;
+  __device__ __forceinline__ float shift(int k) const { return __ldg(sh + k); }
+  __device__ __forceinline__ float scale(int k) const { return expf(__ldg(raw + k)); }
+  __device__ __forceinline__ float log_scale(int k) const { return __ldg(raw + k); }
+};
+
+// (1 - eps) / K * sum_k erf((s_k x + b_k) / sqrt 2)
+template <class P>
+__device__ __forceinline__ float mixture_mean(float x, const P& p, int K) {
   float m = 0.0f;
-  for (int k = 0; k < K; ++k) m += erff(fmaf(p[K + k], x, p[k]) * kInvSqrt2);
+  for (int k = 0; k < K; ++k) m += erff(fmaf(p.scale(k), x, p.shift(k)) * kInvSqrt2);
   return m * (kShrink / (float)K);
 }
 
-// y = f(x) and log f'(x) of one feature, p = [shift K][scale K][log scale K].
-// The log-sum-exp is streamed (running maximum, rescaled sum), so it stays
-// finite where every exp(-z^2 / 2) underflows.
-__device__ __forceinline__ float gauss_forward(float x, const float* p, int K, float* ladj) {
+// y = f(x) and log f'(x) of one feature. The log-sum-exp is streamed
+// (running maximum, rescaled sum), so it stays finite where every
+// exp(-z^2 / 2) underflows.
+template <class P>
+__device__ __forceinline__ float gauss_forward(float x, const P& p, int K, float* ladj) {
   float m = 0.0f, lmax = -INFINITY, acc = 0.0f;
   for (int k = 0; k < K; ++k) {
-    const float z = fmaf(p[K + k], x, p[k]);
+    const float z = fmaf(p.scale(k), x, p.shift(k));
     m += erff(z * kInvSqrt2);
-    const float li = fmaf(-0.5f * z, z, p[2 * K + k]);
+    const float li = fmaf(-0.5f * z, z, p.log_scale(k));
     // one of the two rescalings is by 1: a single exp of -|difference|
     const float d = li - lmax;
     const float e = expf(-fabsf(d));
@@ -122,7 +200,8 @@ __device__ __forceinline__ float gauss_forward(float x, const float* p, int K, f
 }
 
 // Solve f(x) = y on [-10, 10]: f(x) = y iff m(x) = erf(y / sqrt 2).
-__device__ __forceinline__ float gauss_inverse(float y, const float* p, int K) {
+template <class P>
+__device__ __forceinline__ float gauss_inverse(float y, const P& p, int K) {
   const float target = erff(y * kInvSqrt2);
   float lo = -kBound, hi = kBound;
   for (int it = 0; it < kIters; ++it) {
@@ -177,9 +256,9 @@ __device__ __forceinline__ void fill_scales(float* p, int nf, int K) {
 }
 
 // kTranspose false: out = R in; true: out = R^T in (R is row-major F x F).
-template <bool kTranspose>
-__device__ __forceinline__ void rotate(const float* __restrict__ R, int F, const float* in,
-                                       float* out) {
+template <bool kTranspose, class V>
+__device__ __forceinline__ void rotate(const float* __restrict__ R, int F, const V& in,
+                                       const V& out) {
   for (int i = 0; i < F; ++i) {
     float acc = 0.0f;
     for (int j = 0; j < F; ++j) {
@@ -189,19 +268,31 @@ __device__ __forceinline__ void rotate(const float* __restrict__ R, int F, const
   }
 }
 
+// Feature f's per-row parameters of a batched layer at `row` (wide tier).
+__device__ __forceinline__ PerRow per_row(const Stage& st, long long row, int f) {
+  const long long at = row * st.row_stride + (long long)f * st.feat_stride;
+  return {st.shift + at, st.raw + at};
+}
+
+// Rows [row0, row_end) of the launch; thread i takes row row0 + i, and in the
+// wide tier workspace column i.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 gf_density_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  const float* __restrict__ packed, const __grid_constant__ Shape s,
-                  long long n) {
+                  const float* __restrict__ packed, const __grid_constant__ ShapeOf<kWide> s,
+                  float* __restrict__ work, long long stride, long long row0,
+                  long long row_end) {
   extern __shared__ float tile[];
-  const long long row0 = (long long)blockIdx.x * blockDim.x;
-  const long long row = row0 + threadIdx.x;
-  const bool active = row < n;
-  const int rows = (int)min((long long)blockDim.x, n - row0);
+  const long long block0 = row0 + (long long)blockIdx.x * blockDim.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = row0 + i;
+  const bool active = row < row_end;
+  if (kWide && !active) return;  // the wide tier has no barriers
+  const int rows = (int)min((long long)blockDim.x, row_end - block0);
   const int F = s.F;
-  float a[kMaxF], b[kMaxF];
-  float* cur = a;
-  float* nxt = b;
+  Local<kWide> m;
+  Vec<kWide> cur, nxt;
+  make_row(m, F, work, stride, i, &cur, &nxt);
   if (active) {
     for (int f = 0; f < F; ++f) cur[f] = x[row * F + f];
   }
@@ -210,14 +301,20 @@ gf_density_kernel(const float* __restrict__ x, float* __restrict__ out,
     const Stage& st = s.st[si];
     if (st.kind == kRot) {
       if (active) rotate<false>(packed + st.off, F, cur, nxt);
-      float* t = cur;
+      const Vec<kWide> t = cur;
       cur = nxt;
       nxt = t;
     } else if (st.kind == kGauss) {
       if (!active) continue;
       for (int f = 0; f < F; ++f) {
         float ladj;
-        cur[f] = gauss_forward(cur[f], packed + st.off + f * 3 * st.K, st.K, &ladj);
+        cur[f] = gauss_forward(cur[f], Packed{packed + st.off + f * 3 * st.K, st.K}, st.K, &ladj);
+        acc += ladj;
+      }
+    } else if constexpr (kWide) {
+      for (int f = 0; f < F; ++f) {
+        float ladj;
+        cur[f] = gauss_forward(cur[f], per_row(st, row, f), st.K, &ladj);
         acc += ladj;
       }
     } else {
@@ -225,14 +322,14 @@ gf_density_kernel(const float* __restrict__ x, float* __restrict__ out,
       for (int f0 = 0; f0 < F; f0 += st.fc) {
         const int nf = min(st.fc, F - f0);
         __syncthreads();  // every thread is done with the previous chunk
-        stage_tile(tile, st, ts, f0, nf, row0, rows);
+        stage_tile(tile, st, ts, f0, nf, block0, rows);
         __syncthreads();
         if (!active) continue;
         float* p = tile + threadIdx.x * ts;
         fill_scales(p, nf, st.K);
         for (int fl = 0; fl < nf; ++fl) {
           float ladj;
-          cur[f0 + fl] = gauss_forward(cur[f0 + fl], p + fl * 3 * st.K, st.K, &ladj);
+          cur[f0 + fl] = gauss_forward(cur[f0 + fl], Packed{p + fl * 3 * st.K, st.K}, st.K, &ladj);
           acc += ladj;
         }
       }
@@ -244,36 +341,35 @@ gf_density_kernel(const float* __restrict__ x, float* __restrict__ out,
   out[row] = acc - 0.5f * sq - F * kHalfLog2Pi;
 }
 
-// One layer's inverse for features [f0, f0 + nf) of a row, parameters at p.
-template <bool kLogQ>
-__device__ __forceinline__ void invert_features(float* y, const float* p, int f0, int nf, int K,
-                                                float* acc) {
-  for (int fl = 0; fl < nf; ++fl) {
-    const float* pf = p + fl * 3 * K;
-    const float xv = gauss_inverse(y[f0 + fl], pf, K);
-    if (kLogQ) {
-      float ladj;
-      gauss_forward(xv, pf, K, &ladj);
-      *acc += ladj;
-    }
-    y[f0 + fl] = xv;
+// One feature's inverse, and with kLogQ its forward ladj at the solved x.
+template <bool kLogQ, class P>
+__device__ __forceinline__ float invert(float y, const P& p, int K, float* acc) {
+  const float xv = gauss_inverse(y, p, K);
+  if (kLogQ) {
+    float ladj;
+    gauss_forward(xv, p, K, &ladj);
+    *acc += ladj;
   }
+  return xv;
 }
 
-template <bool kLogQ>
+template <bool kWide, bool kLogQ>
 __global__ void __launch_bounds__(kThreads)
 gf_sample_kernel(const float* __restrict__ z, float* __restrict__ xout,
                  float* __restrict__ logq, const float* __restrict__ packed,
-                 const __grid_constant__ Shape s, long long n) {
+                 const __grid_constant__ ShapeOf<kWide> s, float* __restrict__ work,
+                 long long stride, long long row0, long long row_end) {
   extern __shared__ float tile[];
-  const long long row0 = (long long)blockIdx.x * blockDim.x;
-  const long long row = row0 + threadIdx.x;
-  const bool active = row < n;
-  const int rows = (int)min((long long)blockDim.x, n - row0);
+  const long long block0 = row0 + (long long)blockIdx.x * blockDim.x;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = row0 + i;
+  const bool active = row < row_end;
+  if (kWide && !active) return;
+  const int rows = (int)min((long long)blockDim.x, row_end - block0);
   const int F = s.F;
-  float a[kMaxF], b[kMaxF];
-  float* y = a;
-  float* nxt = b;
+  Local<kWide> m;
+  Vec<kWide> y, nxt;
+  make_row(m, F, work, stride, i, &y, &nxt);
   float acc = 0.0f;
   if (active) {
     float sq = 0.0f;
@@ -287,22 +383,29 @@ gf_sample_kernel(const float* __restrict__ z, float* __restrict__ xout,
     const Stage& st = s.st[si];
     if (st.kind == kRot) {
       if (active) rotate<true>(packed + st.off, F, y, nxt);
-      float* t = y;
+      const Vec<kWide> t = y;
       y = nxt;
       nxt = t;
     } else if (st.kind == kGauss) {
-      if (active) invert_features<kLogQ>(y, packed + st.off, 0, F, st.K, &acc);
+      if (!active) continue;
+      for (int f = 0; f < F; ++f) {
+        y[f] = invert<kLogQ>(y[f], Packed{packed + st.off + f * 3 * st.K, st.K}, st.K, &acc);
+      }
+    } else if constexpr (kWide) {
+      for (int f = 0; f < F; ++f) y[f] = invert<kLogQ>(y[f], per_row(st, row, f), st.K, &acc);
     } else {
       const int ts = (st.fc * 3 * st.K) | 1;
       for (int f0 = 0; f0 < F; f0 += st.fc) {
         const int nf = min(st.fc, F - f0);
         __syncthreads();
-        stage_tile(tile, st, ts, f0, nf, row0, rows);
+        stage_tile(tile, st, ts, f0, nf, block0, rows);
         __syncthreads();
         if (!active) continue;
         float* p = tile + threadIdx.x * ts;
         fill_scales(p, nf, st.K);
-        invert_features<kLogQ>(y, p, f0, nf, st.K, &acc);
+        for (int fl = 0; fl < nf; ++fl) {
+          y[f0 + fl] = invert<kLogQ>(y[f0 + fl], Packed{p + fl * 3 * st.K, st.K}, st.K, &acc);
+        }
       }
     }
   }
@@ -311,39 +414,75 @@ gf_sample_kernel(const float* __restrict__ z, float* __restrict__ xout,
   if (kLogQ) logq[row] = acc;
 }
 
-// Fill the kernel's description of the flow from the wrapper's arrays (one
-// entry per stage) and size the shared tile.
-int make_shape(Shape* s, size_t* smem, const int* kinds, const int* Ks, const long long* offs,
-               const void* const* shifts, const void* const* raws,
-               const long long* row_strides, const int* feat_strides, int n_stages, int F) {
-  if (F < 1 || F > kMaxF || n_stages < 1 || n_stages > kMaxStages) return cudaErrorInvalidValue;
-  s->F = F;
-  s->n_stages = n_stages;
-  int tile_row = 0;
+// The stages as the wrapper hands them over (one entry per stage), checked;
+// the narrow tier's tile chunks sized.
+int describe(std::vector<Stage>* out, const int* kinds, const int* Ks, const long long* offs,
+             const void* const* shifts, const void* const* raws, const long long* row_strides,
+             const int* feat_strides, int n_stages, int F) {
+  if (F < 1 || n_stages < 1) return cudaErrorInvalidValue;
+  out->clear();
   for (int i = 0; i < n_stages; ++i) {
-    Stage& st = s->st[i];
-    st.kind = kinds[i];
-    st.K = Ks[i];
-    st.off = offs[i];
-    st.fc = 0;
-    st.feat_stride = 0;
-    st.row_stride = 0;
-    st.shift = nullptr;
-    st.raw = nullptr;
-    if (st.kind == kRot) continue;
-    if ((st.kind != kGauss && st.kind != kGaussBatched) || st.K < 1 || st.K > kMaxK)
-      return cudaErrorInvalidValue;
-    if (st.kind == kGaussBatched) {
-      if (shifts[i] == nullptr || raws[i] == nullptr) return cudaErrorInvalidValue;
-      st.shift = (const float*)shifts[i];
-      st.raw = (const float*)raws[i];
-      st.row_stride = row_strides[i];
-      st.feat_stride = feat_strides[i];
-      st.fc = std::min(F, std::max(1, (kTileRow - 1) / (3 * st.K)));
-      tile_row = std::max(tile_row, (st.fc * 3 * st.K) | 1);
+    Stage st{kinds[i], Ks[i], 0, 0, offs[i], 0, nullptr, nullptr};
+    if (st.kind != kRot) {
+      if ((st.kind != kGauss && st.kind != kGaussBatched) || st.K < 1)
+        return cudaErrorInvalidValue;
+      if (st.kind == kGaussBatched) {
+        if (shifts[i] == nullptr || raws[i] == nullptr) return cudaErrorInvalidValue;
+        st.shift = (const float*)shifts[i];
+        st.raw = (const float*)raws[i];
+        st.row_stride = row_strides[i];
+        st.feat_stride = feat_strides[i];
+        st.fc = std::min(F, std::max(1, (kTileRow - 1) / (3 * st.K)));
+      }
     }
+    out->push_back(st);
   }
-  *smem = (size_t)kThreads * tile_row * sizeof(float);
+  return cudaSuccess;
+}
+
+bool fits_narrow(const std::vector<Stage>& st, int F) {
+  if (F > kMaxF || (int)st.size() > kMaxStages) return false;
+  for (const Stage& s : st) {
+    if (s.kind != kRot && s.K > kMaxK) return false;
+  }
+  return true;
+}
+
+// What a launch needs besides the flow (see naf_fused.cu).
+struct Launch {
+  const float* in;
+  float* out0;
+  float* out1;
+  const float* packed;
+  long long n;
+  int wide;
+  float* work;
+  long long work_floats, stride;
+  void* desc;
+  long long desc_bytes;
+  cudaStream_t stream;
+};
+
+enum Op { kDensity = 0, kSample = 1, kSampleLogQ = 2 };
+
+template <bool kWide>
+int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, size_t smem) {
+  for (long long row0 = 0; row0 < l.n; row0 += stride) {
+    const long long row_end = row0 + stride < l.n ? row0 + stride : l.n;
+    const unsigned blocks = (unsigned)((row_end - row0 + kThreads - 1) / kThreads);
+    if (op == kDensity) {
+      gf_density_kernel<kWide><<<blocks, kThreads, smem, l.stream>>>(
+          l.in, l.out0, l.packed, s, l.work, stride, row0, row_end);
+    } else if (op == kSampleLogQ) {
+      gf_sample_kernel<kWide, true><<<blocks, kThreads, smem, l.stream>>>(
+          l.in, l.out0, l.out1, l.packed, s, l.work, stride, row0, row_end);
+    } else {
+      gf_sample_kernel<kWide, false><<<blocks, kThreads, smem, l.stream>>>(
+          l.in, l.out0, nullptr, l.packed, s, l.work, stride, row0, row_end);
+    }
+    const int rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
   return cudaSuccess;
 }
 
@@ -352,56 +491,81 @@ int configure(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+int run(int op, const Launch& l, const std::vector<Stage>& stages, int F) {
+  if (l.n < 0) return cudaErrorInvalidValue;
+  const int n_stages = (int)stages.size();
+  if (!l.wide) {
+    if (!fits_narrow(stages, F)) return cudaErrorInvalidValue;
+    Shape s;
+    s.F = F;
+    s.n_stages = n_stages;
+    int tile_row = 0;
+    for (int i = 0; i < n_stages; ++i) {
+      s.st[i] = stages[i];
+      if (stages[i].kind == kGaussBatched)
+        tile_row = std::max(tile_row, (stages[i].fc * 3 * stages[i].K) | 1);
+    }
+    const size_t smem = (size_t)kThreads * tile_row * sizeof(float);
+    int rc;
+    switch (op) {
+      case kDensity: rc = configure(gf_density_kernel<false>, smem); break;
+      case kSampleLogQ: rc = configure(gf_sample_kernel<false, true>, smem); break;
+      default: rc = configure(gf_sample_kernel<false, false>, smem); break;
+    }
+    if (rc != cudaSuccess) return rc;
+    return launch<false>(op, l, s, l.n > 0 ? l.n : 1, smem);
+  }
+  const long long need = (long long)n_stages * (long long)sizeof(Stage);
+  if (l.desc == nullptr || l.desc_bytes < need || l.work == nullptr || l.stride < 1 ||
+      2LL * F * l.stride > l.work_floats)
+    return cudaErrorInvalidValue;
+  // a pageable source is staged before cudaMemcpyAsync returns
+  const int rc = cudaMemcpyAsync(l.desc, stages.data(), (size_t)need, cudaMemcpyHostToDevice,
+                                 l.stream);
+  if (rc != cudaSuccess) return rc;
+  const WideShape ws{F, n_stages, (const Stage*)l.desc};
+  return launch<true>(op, l, ws, l.stride, 0);
+}
+
 }  // namespace
 
-// out (n,) = log_prob of x (n, F). `packed` holds the stages without per-row
-// parameters at offs[i]: a layer as [F][3][K] (shift, scale, log scale), a
-// rotation as R (F, F) row-major. A layer with per-row parameters gives
-// shifts[i] and raws[i], (n, F, K) with strides (row_strides[i],
-// feat_strides[i], 1) in floats.
-extern "C" int gf_density_f32(const float* x, float* out, const float* packed,
-                              const int* kinds, const int* Ks, const long long* offs,
-                              const void* const* shifts, const void* const* raws,
-                              const long long* row_strides, const int* feat_strides,
-                              int n_stages, int F, long long n, void* stream) {
-  Shape s;
-  size_t smem;
-  int rc = make_shape(&s, &smem, kinds, Ks, offs, shifts, raws, row_strides, feat_strides,
-                      n_stages, F);
+// The flow as the wrapper hands it over: `packed` holds the stages without
+// per-row parameters at offs[i], a layer as [F][3][K] (shift, scale, log
+// scale), a rotation as R (F, F) row-major; a layer with per-row parameters
+// gives shifts[i] and raws[i], (n, F, K) with strides (row_strides[i],
+// feat_strides[i], 1) in floats. Then the tier: wide 0, the narrow tier
+// (work and desc unused); wide 1, the wide tier, with a workspace of
+// work_floats floats for `stride` rows a launch and a descriptor buffer of
+// desc_bytes bytes on the device.
+#define GF_FLOW                                                                             \
+  const float *packed, const int *kinds, const int *Ks, const long long *offs,             \
+      const void *const *shifts, const void *const *raws, const long long *row_strides,    \
+      const int *feat_strides, int n_stages, int F, long long n, int wide, float *work,      \
+      long long work_floats, long long stride, void *desc, long long desc_bytes, void *stream
+
+static int entry(int op, const float* in, float* out0, float* out1, GF_FLOW) {
+  std::vector<Stage> stages;
+  const int rc = describe(&stages, kinds, Ks, offs, shifts, raws, row_strides, feat_strides,
+                          n_stages, F);
   if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  rc = configure(gf_density_kernel, smem);
-  if (rc != cudaSuccess) return rc;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  gf_density_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(x, out, packed, s, n);
-  return cudaGetLastError();
+  return run(op,
+             {in, out0, out1, packed, n, wide, work, work_floats, stride, desc, desc_bytes,
+              (cudaStream_t)stream},
+             stages, F);
+}
+
+// out (n,) = log_prob of x (n, F).
+extern "C" int gf_density_f32(const float* x, float* out, GF_FLOW) {
+  return entry(kDensity, x, out, nullptr, packed, kinds, Ks, offs, shifts, raws, row_strides,
+               feat_strides, n_stages, F, n, wide, work, work_floats, stride, desc, desc_bytes,
+               stream);
 }
 
 // xout (n, F) = T^-1(z), and logq (n,) = log q(xout) unless logq is null.
-extern "C" int gf_sample_f32(const float* z, float* xout, float* logq, const float* packed,
-                             const int* kinds, const int* Ks, const long long* offs,
-                             const void* const* shifts, const void* const* raws,
-                             const long long* row_strides, const int* feat_strides,
-                             int n_stages, int F, long long n, void* stream) {
-  Shape s;
-  size_t smem;
-  int rc = make_shape(&s, &smem, kinds, Ks, offs, shifts, raws, row_strides, feat_strides,
-                      n_stages, F);
-  if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  if (logq != nullptr) {
-    rc = configure(gf_sample_kernel<true>, smem);
-    if (rc != cudaSuccess) return rc;
-    gf_sample_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(z, xout, logq,
-                                                                             packed, s, n);
-  } else {
-    rc = configure(gf_sample_kernel<false>, smem);
-    if (rc != cudaSuccess) return rc;
-    gf_sample_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(z, xout, nullptr,
-                                                                              packed, s, n);
-  }
-  return cudaGetLastError();
+extern "C" int gf_sample_f32(const float* z, float* xout, float* logq, GF_FLOW) {
+  return entry(logq != nullptr ? kSampleLogQ : kSample, z, xout, logq, packed, kinds, Ks, offs,
+               shifts, raws, row_strides, feat_strides, n_stages, F, n, wide, work, work_floats,
+               stride, desc, desc_bytes, stream);
 }
 
 extern "C" const char* gf_fused_error_string(int code) {

@@ -1,78 +1,127 @@
-// Whole-flow neural autoregressive flow (NAF) kernels for Hopper (sm_90a),
-// for the monotone-network (MNN) univariate.
+// Whole-flow neural autoregressive flow kernels for Hopper (sm_90a), for the
+// monotone-network (MNN, NAF) and the unconstrained monotone-network (UMNN,
+// UNAF) univariates.
 //
 // naf_density replaces the TPU kernel zuko_tpu/ops/naf_fused.py::_naf_density_impl
 // (pallas_call at :949; kernel body _naf_density_kernel_T :821, math
-// _naf_density_math_T :657): log_prob of a NAF in one launch. Per
+// _naf_density_math_T :657): log_prob of a NAF or UNAF in one launch. Per
 // autoregressive layer, the MADE pass on the layer's input; then per feature f
-// its S signal outputs, the monotone network's first layer split into its
-// signal part pre1 = W1[:, 1:] s + b1 (hoisted) and its x column, the network
-// and its x-derivative g by forward mode through the TwoWayELU layers. The
-// output is the feature's new value and log g its log-Jacobian. A softclip
-// x / (1 + |x / B|) adds -2 log1p(|x / B|) per feature; the standard-normal
-// base term closes the sum.
+// its T outputs (the S signal values, and for a UMNN its additive constant),
+// the univariate network's first layer split into its signal part
+// pre1 = W1[:, 1:] s + b1 (hoisted) and its x column, and:
+//   MNN: the monotone network and its x-derivative g by forward mode through
+//     the TwoWayELU layers; the output is the new value, log g the ladj;
+//   UMNN (_umnn_vg_hoisted :456): y = c + (x / 2) sum_k w_k g(x (t_k + 1) / 2)
+//     over the 16 Gauss-Legendre nodes, with g = exp(d / (1 + |d / 7|)) and d
+//     the ELU integrand network's output; the ladj is log g(x), one more
+//     integrand evaluation (17 a feature and layer).
+// A softclip x / (1 + |x / B|) adds -2 log1p(|x / B|) per feature; the
+// standard-normal base term closes the sum.
 //
 // naf_sample replaces zuko_tpu/ops/naf_fused.py::_naf_sample_core (pallas_call
 // at :1128; kernel body _naf_kernel_T :802, solver _ar_inverse_sweeps_T :492):
 // the whole inversion, stages in reverse. A softclip inverts as
 // y / (1 - |y / B|). An autoregressive layer takes min(passes, F) sweeps, each
 // one MADE pass on the current iterate and then, feature by feature, the
-// hoist and the solve of f(x) = y. Within a sweep the features are
-// independent at fixed MADE outputs, so this equals the TPU's all-features-at-
-// once loop while only one feature's H1 hoisted values are live. Sweep 0
-// bisects [-10, 10] 10 times; later sweeps bracket the previous root by
-// +-0.0625, checked by 2 evaluations (a row whose root left the window takes
-// the full bracket), and bisect 3 times. Then 3 Newton steps
-// x - (f - y) / max(f', 1e-12), clamped to [-10, 10]. With kLogQ it also
-// returns log q of the returned point: base(z), each softclip's forward ladj
-// at its solved input, and per layer one more MADE pass and log g at the
-// solved x.
+// hoist and the solve of f(x) = y (a UMNN solves for y less its constant).
+// Within a sweep the features are independent at fixed MADE outputs, so this
+// equals the TPU's all-features-at-once loop while only one feature's hoisted
+// values are live. Sweep 0 bisects [-10, 10] 10 times; later sweeps bracket
+// the previous root by +-0.0625, checked by 2 evaluations (a row whose root
+// left the window takes the full bracket), and bisect 3 times. Then Newton
+// steps x - (f - y) / max(f', 1e-12), clamped to [-10, 10]: 3 for a monotone
+// network; for a UMNN 4 in sweep 0 and 3 later, the integral by GL-4 in the
+// bisection and the checks, GL-8 in the Newton steps but the last, GL-16 in
+// the last. With kLogQ it also returns log q of the returned point: base(z),
+// each softclip's forward ladj at its solved input, and per layer one more
+// MADE pass and log g at the solved x.
 //
 // What bounds them on an H100: operations. A density row of the flagship
 // NAF(6, transforms=3, signal=16), 64x64 MADE and monotone nets 17-64-64-1,
-// costs about 0.4M flops against 28 bytes; a sample row about 11.6M (per
-// layer and feature 35 plain evaluations and 18 with the derivative, 6
-// sweeps of MADE passes and hoists).
+// costs about 0.4M flops against 28 bytes, a sample row about 11.6M; a UNAF
+// density row about 2.7M (306 integrand evaluations of ~8.4K), a sample row
+// about 54M (84 evaluations a feature in the cold sweep, 55 in a warm one).
 //
 // Design (simple and right first): one thread per row, blocks of 128 rows,
 // no shared memory and no synchronisation. Weights are read through the
 // read-only data cache (__ldg): every thread of a warp reads the same
-// address at the same time, one broadcast per warp, and one layer's weights
-// (172 KB for the flagship: 6 monotone nets of 5.4K floats and a MADE of
-// 10.8K) stay in L1 and L2 across the block's rows. A row's state lives in
-// per-thread arrays (local memory): the MADE's input and hidden activations,
-// one feature's signal, hoisted layer and monotone activations with their
-// derivatives. The MADE's F * S outputs are never stored together: a feature
-// computes its S signal values from the last hidden layer when it needs them.
-// Float32 throughout (expf, expm1f, logf, log1pf); no tensor cores, no TF32.
+// address at the same time, one broadcast per warp. The MADE's F * T outputs
+// are never stored together: a feature computes its T values from the last
+// hidden layer when it needs them. Float32 throughout (expf, expm1f, logf,
+// log1pf); no tensor cores, no TF32.
+//
+// Two tiers, chosen by the wrapper from the flow's shape alone
+// (zuko_tpu_torch/ops/naf_fused.py plan_naf). The narrow tier (kWide false)
+// keeps a row's state in per-thread arrays (local memory) of fixed size and
+// the flow's description in the kernel parameter (__grid_constant__): up to
+// kMaxF features, a signal of kMaxS, MADE widths of kMaxMade, network widths
+// of kMaxMono, kMaxLinear linears a network, kMaxStages stages. The wide tier
+// takes any shape: a row's state lives in a workspace in device memory, one
+// column of `stride` rows per value (slot), so neighbouring threads touch
+// neighbouring addresses as in local memory; the layer widths and the stages
+// lie in a small device buffer. The wrapper allocates both; the rows run in
+// chunks of `stride`, one launch each, so the workspace stays bounded.
 //
 // Each C entry point checks its arguments, launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
+
+#include <type_traits>
+#include <vector>
 
 namespace {
 
-// limits, mirrored in zuko_tpu_torch/ops/naf_fused.py
+// the narrow tier's limits, mirrored in zuko_tpu_torch/ops/naf_fused.py
 constexpr int kMaxF = 64;       // features
 constexpr int kMaxS = 64;       // signal size
-constexpr int kMaxMono = 128;   // monotone-net hidden widths
+constexpr int kMaxMono = 128;   // univariate-network hidden widths
 constexpr int kMaxMade = 256;   // MADE widths, the F + C inputs included
 constexpr int kMaxLinear = 8;   // linears per network
 constexpr int kMaxStages = 64;  // autoregressive layers and softclips together
 constexpr int kThreads = 128;
 
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
-// the solve (zuko_tpu/ops/naf_fused.py:62-80, 603-654)
+// the solve (zuko_tpu/ops/naf_fused.py:62-85, 385-406, 603-654)
 constexpr float kBound = 10.0f;
 constexpr float kWarmR = 0.0625f;
 constexpr float kDfFloor = 1e-12f;
 constexpr int kCoarse = 10;  // ceil(log2(2 * 10 / 2e-2))
 constexpr int kWarm = 3;     // ceil(log2(2 * 0.0625 / 2e-2))
 constexpr int kNewton = 3;
+constexpr int kNewtonUMNN = 4;  // sweep 0; one fewer in the warm sweeps
+
+// Gauss-Legendre rules on [0, 1] as the UMNN integral uses them: the
+// fraction (t + 1) / 2 of x at which each node evaluates the integrand, and
+// the node's weight; 4 nodes at [0, 4), 8 at [4, 12), 16 at [12, 28).
+// numpy.polynomial.legendre.leggauss's float64 values, rounded to float.
+__constant__ float kGLPoint[28] = {
+    // 4
+    0.06943184420297371, 0.33000947820757187, 0.6699905217924281, 0.9305681557970262,
+    // 8
+    0.019855071751231912, 0.10166676129318664, 0.2372337950418355, 0.4082826787521751,
+    0.5917173212478248, 0.7627662049581645, 0.8983332387068134, 0.9801449282487681,
+    // 16
+    0.005299532504175031, 0.0277124884633837, 0.06718439880608412, 0.1222977958224985,
+    0.19106187779867811, 0.2709916111713863, 0.35919822461037054, 0.4524937450811813,
+    0.5475062549188188, 0.6408017753896295, 0.7290083888286136, 0.8089381222013219,
+    0.8777022041775016, 0.9328156011939159, 0.9722875115366163, 0.994700467495825};
+__constant__ float kGLWeight[28] = {
+    // 4
+    0.3478548451374537, 0.6521451548625462, 0.6521451548625462, 0.3478548451374537,
+    // 8
+    0.10122853629037669, 0.22238103445337434, 0.31370664587788705, 0.36268378337836177,
+    0.36268378337836177, 0.31370664587788705, 0.22238103445337434, 0.10122853629037669,
+    // 16
+    0.027152459411754037, 0.062253523938647706, 0.09515851168249259, 0.12462897125553403,
+    0.14959598881657676, 0.16915651939500262, 0.1826034150449236, 0.18945061045506859,
+    0.18945061045506859, 0.1826034150449236, 0.16915651939500262, 0.14959598881657676,
+    0.12462897125553403, 0.09515851168249259, 0.062253523938647706, 0.027152459411754037};
 
 enum Kind { kSoftclip = 0, kAR = 1 };
+enum Mode { kMNN = 0, kUMNN = 1 };
 
 struct Stage {
   int kind;
@@ -81,28 +130,87 @@ struct Stage {
   long long off;  // offset of the layer's parameters in `packed` (floats)
 };
 
-// The kernels take it as a __grid_constant__ parameter (it is indexed in
-// loops; a by-value copy would land in every thread's local memory). All
-// autoregressive layers share one shape: per layer, MADE linear i's weights
-// (out, in) row-major at made_off[i], its bias right after; monotone linear i
-// as (F, out, in) at mono_off[i], its (F, out) bias right after.
+// The narrow tier's description of the flow, a __grid_constant__ parameter
+// (it is indexed in loops; a by-value copy would land in every thread's local
+// memory). All autoregressive layers share one shape: per layer, MADE linear
+// i's weights (out, in) row-major at made_off[i], its bias right after;
+// network linear i as (F, out, in) at mono_off[i], its (F, out) bias right
+// after. A feature has T = S (MNN) or S + 1 (UMNN, the constant last)
+// outputs, T known from the kernel's mode.
 struct Shape {
   int F, C, S, n_stages, n_made, n_mono;
-  int made_w[kMaxLinear + 1];  // made_w[0] = F + C, made_w[n_made] = F * S
+  int made_w[kMaxLinear + 1];  // made_w[0] = F + C, made_w[n_made] = F * T
   int mono_w[kMaxLinear + 1];  // mono_w[0] = 1 + S, mono_w[n_mono] = 1
   int made_off[kMaxLinear];
   int mono_off[kMaxLinear];
   Stage st[kMaxStages];
 };
 
+// The wide tier's: the same fields, the arrays in the device buffer `desc`.
+struct WideShape {
+  int F, C, S, n_stages, n_made, n_mono, made_max, mono_max;
+  const int* made_w;
+  const int* mono_w;
+  const int* made_off;
+  const int* mono_off;
+  const Stage* st;
+};
+
+template <bool kWide>
+using ShapeOf = typename std::conditional<kWide, WideShape, Shape>::type;
+
+// A slot column of the wide tier's workspace: one of a row's arrays,
+// `stride` floats between consecutive elements.
+struct Column {
+  float* p;
+  long long stride;
+  __device__ __forceinline__ float& operator[](int i) const { return p[i * stride]; }
+};
+
+// What indexes one of a row's arrays: a pointer into a per-thread array
+// (narrow) or a workspace column (wide).
+template <bool kWide>
+using Vec = typename std::conditional<kWide, Column, float*>::type;
+
+// The state of a row: the current iterate (or input) with its context, the
+// MADE's activations, one feature's T outputs, its hoisted first layer and
+// its network's activations (with their derivatives, MNN). Narrow: per-thread
+// arrays (local memory); the sampler keeps its target apart.
+template <bool kWide>
+struct Row {
+  // sig holds a UMNN's constant after the signal; 3 more floats keep the
+  // arrays after it 16-byte aligned, so that 4 neighbours load at once
+  float xc[kMaxMade], a[kMaxMade], b[kMaxMade], sig[kMaxS + 4];
+  float pre1[kMaxMono], u[kMaxMono], du[kMaxMono], t[kMaxMono], dt[kMaxMono];
+  __device__ __forceinline__ void init(const Shape&, float*, long long, long long) {}
+};
+
+// Wide: the same fields and the sampler's target y as columns of the
+// workspace, from column i on, in this order (the slots mirrored in
+// naf_fused.py plan_naf).
+template <>
+struct Row<true> {
+  Column xc, a, b, sig, pre1, u, du, t, dt, y;
+  __device__ __forceinline__ void init(const WideShape& s, float* work, long long stride,
+                                       long long i) {
+    float* p = work + i;
+    const long long widths[10] = {s.F + s.C, s.made_max, s.made_max, s.S + 1, s.mono_max,
+                                  s.mono_max, s.mono_max, s.mono_max, s.mono_max, s.F};
+    Column* cs[10] = {&xc, &a, &b, &sig, &pre1, &u, &du, &t, &dt, &y};
+    for (int k = 0; k < 10; ++k) {
+      *cs[k] = {p, stride};
+      p += widths[k] * stride;
+    }
+  }
+};
+
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
-// The MADE's hidden ReLU layers on a[0 .. made_w[0]); returns the buffer that
+// The MADE's hidden ReLU layers on a[0 .. made_w[0]); returns the array that
 // holds the last hidden activations (a or b).
-__device__ __forceinline__ const float* made_hidden(const float* __restrict__ w, const Shape& s,
-                                                    float* a, float* b) {
-  float* cur = a;
-  float* nxt = b;
+template <class Sh, class V>
+__device__ __forceinline__ V made_hidden(const float* __restrict__ w, const Sh& s, V a, V b) {
+  V cur = a, nxt = b;
   for (int i = 0; i < s.n_made - 1; ++i) {
     const int din = s.made_w[i], dout = s.made_w[i + 1];
     const float* W = w + s.made_off[i];
@@ -113,27 +221,29 @@ __device__ __forceinline__ const float* made_hidden(const float* __restrict__ w,
       for (int j = 0; j < din; ++j) acc = fmaf(ld(row + j), cur[j], acc);
       nxt[o] = fmaxf(acc, 0.0f);
     }
-    float* t = cur;
+    const V t = cur;
     cur = nxt;
     nxt = t;
   }
   return cur;
 }
 
-// Feature f's signal, outputs f*S .. f*S + S - 1 of the MADE's last linear,
-// and from it the hoisted first monotone layer pre1[k] = b1[k] + W1[k, 1:] s.
-__device__ __forceinline__ void signal_and_hoist(const float* __restrict__ w, const Shape& s,
-                                                 const float* h, int f, float* sig,
-                                                 float* pre1) {
+// Feature f's T outputs f*T .. f*T + T - 1 of the MADE's last linear into
+// r.sig (the signal, then a UMNN's constant), and from the signal the hoisted
+// first network layer r.pre1[k] = b1[k] + W1[k, 1:] s.
+template <bool kWide, int kMode, class Sh>
+__device__ __forceinline__ void signal_and_hoist(const float* __restrict__ w, const Sh& s,
+                                                 const Vec<kWide> h, int f, Row<kWide>& r) {
+  const int T = s.S + (kMode == kUMNN);
   const int din = s.made_w[s.n_made - 1], dout = s.made_w[s.n_made];
   const float* W = w + s.made_off[s.n_made - 1];
   const float* bias = W + dout * din;
-  for (int t = 0; t < s.S; ++t) {
-    const int o = f * s.S + t;
+  for (int t = 0; t < T; ++t) {
+    const int o = f * T + t;
     const float* row = W + o * din;
     float acc = ld(bias + o);
     for (int j = 0; j < din; ++j) acc = fmaf(ld(row + j), h[j], acc);
-    sig[t] = acc;
+    r.sig[t] = acc;
   }
   const int in1 = s.mono_w[0], H1 = s.mono_w[1];
   const float* W1 = w + s.mono_off[0] + f * H1 * in1;
@@ -141,8 +251,8 @@ __device__ __forceinline__ void signal_and_hoist(const float* __restrict__ w, co
   for (int k = 0; k < H1; ++k) {
     const float* row = W1 + k * in1 + 1;
     float acc = ld(b1 + k);
-    for (int t = 0; t < s.S; ++t) acc = fmaf(ld(row + t), sig[t], acc);
-    pre1[k] = acc;
+    for (int t = 0; t < s.S; ++t) acc = fmaf(ld(row + t), r.sig[t], acc);
+    r.pre1[k] = acc;
   }
 }
 
@@ -157,25 +267,23 @@ __device__ __forceinline__ float two_way_elu(float z, int o, int width, float* d
   return z < 0.0f ? z : -expm1f(-z);
 }
 
+__device__ __forceinline__ float elu(float z) { return z > 0.0f ? z : expm1f(z); }
+
 // Feature f's monotone network at x from its hoisted first layer; with kGrad
 // also its x-derivative in *g (forward mode: dz1/dx is the x column). The
 // activations ping-pong between (u, du) and (t, dt).
-template <bool kGrad>
-__device__ __forceinline__ float monotone(float x, const float* __restrict__ w, const Shape& s,
-                                          int f, const float* pre1, float* u, float* du,
-                                          float* t, float* dt, float* g) {
+template <bool kGrad, bool kWide, class Sh>
+__device__ __forceinline__ float monotone_net(float x, const float* __restrict__ w, const Sh& s,
+                                              int f, Row<kWide>& r, float* g) {
   const int in1 = s.mono_w[0], H1 = s.mono_w[1];
   const float* W1 = w + s.mono_off[0] + f * H1 * in1;
   for (int k = 0; k < H1; ++k) {
     const float wx = ld(W1 + k * in1);
     float d;
-    u[k] = two_way_elu(fmaf(wx, x, pre1[k]), k, H1, &d);
-    if (kGrad) du[k] = d * wx;
+    r.u[k] = two_way_elu(fmaf(wx, x, r.pre1[k]), k, H1, &d);
+    if (kGrad) r.du[k] = d * wx;
   }
-  float* cur = u;
-  float* dcur = du;
-  float* nxt = t;
-  float* dnxt = dt;
+  Vec<kWide> cur = r.u, dcur = r.du, nxt = r.t, dnxt = r.dt;
   for (int i = 1; i < s.n_mono - 1; ++i) {
     const int din = s.mono_w[i], dout = s.mono_w[i + 1];
     const float* W = w + s.mono_off[i] + f * dout * din;
@@ -192,7 +300,7 @@ __device__ __forceinline__ float monotone(float x, const float* __restrict__ w, 
       nxt[o] = two_way_elu(acc, o, dout, &d);
       if (kGrad) dnxt[o] = d * dacc;
     }
-    float* tmp = cur;
+    Vec<kWide> tmp = cur;
     cur = nxt;
     nxt = tmp;
     tmp = dcur;
@@ -211,30 +319,83 @@ __device__ __forceinline__ float monotone(float x, const float* __restrict__ w, 
   return acc;
 }
 
-// The per-thread state of a row.
-struct Row {
-  float xc[kMaxMade];  // the current iterate (or input) and the context
-  float a[kMaxMade], b[kMaxMade];
-  float sig[kMaxS], pre1[kMaxMono];
-  float u[kMaxMono], du[kMaxMono], t[kMaxMono], dt[kMaxMono];
-};
+// Feature f's UMNN integrand g(x) = exp(d / (1 + |d / 7|)), d the ELU
+// network's output at [x, s], from the hoisted first layer. The activations
+// ping-pong between u and t.
+template <bool kWide, class Sh>
+__device__ __forceinline__ float integrand(float x, const float* __restrict__ w, const Sh& s,
+                                           int f, Row<kWide>& r) {
+  const int in1 = s.mono_w[0], H1 = s.mono_w[1];
+  const float* W1 = w + s.mono_off[0] + f * H1 * in1;
+  for (int k = 0; k < H1; ++k) r.u[k] = elu(fmaf(ld(W1 + k * in1), x, r.pre1[k]));
+  Vec<kWide> cur = r.u, nxt = r.t;
+  for (int i = 1; i < s.n_mono - 1; ++i) {
+    const int din = s.mono_w[i], dout = s.mono_w[i + 1];
+    const float* W = w + s.mono_off[i] + f * dout * din;
+    const float* bias = w + s.mono_off[i] + s.F * dout * din + f * dout;
+    for (int o = 0; o < dout; ++o) {
+      const float* row = W + o * din;
+      float acc = ld(bias + o);
+      for (int j = 0; j < din; ++j) acc = fmaf(ld(row + j), cur[j], acc);
+      nxt[o] = elu(acc);
+    }
+    const Vec<kWide> tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  const int din = s.mono_w[s.n_mono - 1];
+  const float* WL = w + s.mono_off[s.n_mono - 1] + f * din;
+  float d = ld(w + s.mono_off[s.n_mono - 1] + s.F * din + f);
+  for (int j = 0; j < din; ++j) d = fmaf(ld(WL + j), cur[j], d);
+  return expf(d / (1.0f + fabsf(d / 7.0f)));
+}
+
+// Feature f's integral of g from 0 to x by the N-point Gauss-Legendre rule
+// (N = 4, 8 or 16).
+template <int N, bool kWide, class Sh>
+__device__ __forceinline__ float umnn_integral(float x, const float* __restrict__ w,
+                                               const Sh& s, int f, Row<kWide>& r) {
+  constexpr int at = N - 4;  // 4 -> 0, 8 -> 4, 16 -> 12
+  float acc = 0.0f;
+  for (int k = 0; k < N; ++k) {
+    acc += kGLWeight[at + k] * integrand(x * kGLPoint[at + k], w, s, f, r);
+  }
+  return 0.5f * x * acc;
+}
+
+// The univariate's value (without a UMNN's constant) and, with kGrad, its
+// derivative: a monotone network, or a UMNN integral by GL-N and g(x).
+template <int kMode, int N, bool kGrad, bool kWide, class Sh>
+__device__ __forceinline__ float univariate(float x, const float* __restrict__ w, const Sh& s,
+                                            int f, Row<kWide>& r, float* g) {
+  if (kMode == kMNN) return monotone_net<kGrad>(x, w, s, f, r, g);
+  const float v = umnn_integral<N>(x, w, s, f, r);
+  if (kGrad) *g = integrand(x, w, s, f, r);
+  return v;
+}
 
 // MADE pass on the row's xc; copies it first, so xc may change while the
 // hidden activations are read.
-__device__ __forceinline__ const float* made_pass(const float* __restrict__ w, const Shape& s,
-                                                  Row& r) {
+template <bool kWide, class Sh>
+__device__ __forceinline__ Vec<kWide> made_pass(const float* __restrict__ w, const Sh& s,
+                                                Row<kWide>& r) {
   for (int j = 0; j < s.F + s.C; ++j) r.a[j] = r.xc[j];
-  return made_hidden(w, s, r.a, r.b);
+  return made_hidden<Sh, Vec<kWide>>(w, s, r.a, r.b);
 }
 
+// Rows [row0, row_end) of the launch; thread i takes row row0 + i, and in the
+// wide tier workspace column i.
+template <bool kWide, int kMode>
 __global__ void __launch_bounds__(kThreads)
 naf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
-                   const float* __restrict__ packed, const __grid_constant__ Shape s,
-                   long long n) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+                   const float* __restrict__ packed, const __grid_constant__ ShapeOf<kWide> s,
+                   float* __restrict__ work, long long stride, long long row0, long long row_end) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = row0 + i;
+  if (row >= row_end) return;
   const int F = s.F, D0 = s.F + s.C;
-  Row r;
+  Row<kWide> r;
+  r.init(s, work, stride, i);
   for (int j = 0; j < D0; ++j) r.xc[j] = xc[row * D0 + j];
   float acc = 0.0f;
   for (int si = 0; si < s.n_stages; ++si) {
@@ -248,11 +409,12 @@ naf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
       continue;
     }
     const float* w = packed + st.off;
-    const float* h = made_pass(w, s, r);
+    const Vec<kWide> h = made_pass(w, s, r);
     for (int f = 0; f < F; ++f) {
-      signal_and_hoist(w, s, h, f, r.sig, r.pre1);
+      signal_and_hoist<kWide, kMode>(w, s, h, f, r);
       float g;
-      r.xc[f] = monotone<true>(r.xc[f], w, s, f, r.pre1, r.u, r.du, r.t, r.dt, &g);
+      const float v = univariate<kMode, 16, true>(r.xc[f], w, s, f, r, &g);
+      r.xc[f] = kMode == kUMNN ? v + r.sig[s.S] : v;
       acc += logf(g);
     }
   }
@@ -262,16 +424,19 @@ naf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
 }
 
 // Solve feature f's f(x) = target at fixed hoisted layer; x0 is the previous
-// sweep's root (sweep > 0).
+// sweep's root (sweep > 0). The bisection evaluates the univariate without
+// its derivative (a UMNN by GL-4), the Newton steps with it (a UMNN by GL-8,
+// the last one by GL-16).
+template <int kMode, bool kWide, class Sh>
 __device__ __forceinline__ float solve(float target, float x0, int sweep,
-                                       const float* __restrict__ w, const Shape& s, int f,
-                                       Row& r) {
+                                       const float* __restrict__ w, const Sh& s, int f,
+                                       Row<kWide>& r) {
   float lo = -kBound, hi = kBound;
   int iters = kCoarse;
   if (sweep > 0) {
     const float lo0 = x0 - kWarmR, hi0 = x0 + kWarmR;
-    const float flo = monotone<false>(lo0, w, s, f, r.pre1, r.u, r.du, r.t, r.dt, nullptr);
-    const float fhi = monotone<false>(hi0, w, s, f, r.pre1, r.u, r.du, r.t, r.dt, nullptr);
+    const float flo = univariate<kMode, 4, false>(lo0, w, s, f, r, nullptr);
+    const float fhi = univariate<kMode, 4, false>(hi0, w, s, f, r, nullptr);
     if (flo < target && target < fhi) {
       lo = lo0;
       hi = hi0;
@@ -280,31 +445,47 @@ __device__ __forceinline__ float solve(float target, float x0, int sweep,
   }
   for (int it = 0; it < iters; ++it) {
     const float mid = 0.5f * (lo + hi);
-    if (monotone<false>(mid, w, s, f, r.pre1, r.u, r.du, r.t, r.dt, nullptr) < target) {
+    if (univariate<kMode, 4, false>(mid, w, s, f, r, nullptr) < target) {
       lo = mid;
     } else {
       hi = mid;
     }
   }
   float x = 0.5f * (lo + hi);
-  for (int it = 0; it < kNewton; ++it) {
-    float g;
-    const float v = monotone<true>(x, w, s, f, r.pre1, r.u, r.du, r.t, r.dt, &g);
+  const int steps = kMode == kMNN ? kNewton : (sweep == 0 ? kNewtonUMNN : kNewtonUMNN - 1);
+  for (int it = 0; it < steps; ++it) {
+    float g, v;
+    // one inlined copy of the network for a monotone net (N does not apply)
+    if (kMode == kMNN || it < steps - 1) {
+      v = univariate<kMode, 8, true>(x, w, s, f, r, &g);
+    } else {
+      v = univariate<kMode, 16, true>(x, w, s, f, r, &g);
+    }
     x = fminf(fmaxf(x - (v - target) / fmaxf(g, kDfFloor), -kBound), kBound);
   }
   return x;
 }
 
-template <bool kLogQ>
+template <bool kWide, int kMode, bool kLogQ>
 __global__ void __launch_bounds__(kThreads)
 naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
                   float* __restrict__ logq, const float* __restrict__ packed,
-                  const __grid_constant__ Shape s, long long n) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+                  const __grid_constant__ ShapeOf<kWide> s, float* __restrict__ work,
+                  long long stride, long long row0, long long row_end) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = row0 + i;
+  if (row >= row_end) return;
   const int F = s.F, D0 = s.F + s.C;
-  Row r;
-  float y[kMaxF];  // the current stage's target
+  Row<kWide> r;
+  r.init(s, work, stride, i);
+  // the current stage's target
+  float y_local[kWide ? 1 : kMaxF];
+  Vec<kWide> y;
+  if constexpr (kWide) {
+    y = r.y;
+  } else {
+    y = y_local;
+  }
   float acc = 0.0f;
   for (int f = 0; f < F; ++f) y[f] = zc[row * D0 + f];
   for (int j = F; j < D0; ++j) r.xc[j] = zc[row * D0 + j];
@@ -326,19 +507,24 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
     for (int f = 0; f < F; ++f) r.xc[f] = 0.0f;
     const int sweeps = min(st.passes, F);
     for (int sweep = 0; sweep < sweeps; ++sweep) {
-      const float* h = made_pass(w, s, r);
+      const Vec<kWide> h = made_pass(w, s, r);
       // Jacobi: h holds the MADE outputs of the whole previous iterate
       for (int f = 0; f < F; ++f) {
-        signal_and_hoist(w, s, h, f, r.sig, r.pre1);
-        r.xc[f] = solve(y[f], r.xc[f], sweep, w, s, f, r);
+        signal_and_hoist<kWide, kMode>(w, s, h, f, r);
+        const float target = kMode == kUMNN ? y[f] - r.sig[s.S] : y[f];
+        r.xc[f] = solve<kMode>(target, r.xc[f], sweep, w, s, f, r);
       }
     }
     if (kLogQ) {
-      const float* h = made_pass(w, s, r);
+      const Vec<kWide> h = made_pass(w, s, r);
       for (int f = 0; f < F; ++f) {
-        signal_and_hoist(w, s, h, f, r.sig, r.pre1);
+        signal_and_hoist<kWide, kMode>(w, s, h, f, r);
         float g;
-        monotone<true>(r.xc[f], w, s, f, r.pre1, r.u, r.du, r.t, r.dt, &g);
+        if (kMode == kMNN) {
+          monotone_net<true>(r.xc[f], w, s, f, r, &g);
+        } else {
+          g = integrand(r.xc[f], w, s, f, r);
+        }
         acc += logf(g);
       }
     }
@@ -348,52 +534,158 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   if (kLogQ) logq[row] = acc;
 }
 
-// Fill the kernel's description of the flow from the wrapper's arrays and
-// check it against the limits.
-int make_shape(Shape* s, const int* kinds, const int* passes, const float* bounds,
-               const long long* offs, int n_stages, const int* made_w, int n_made,
-               const int* mono_w, int n_mono, int F, int C, int S) {
-  if (F < 1 || F > kMaxF || C < 0 || S < 1 || S > kMaxS || n_stages < 1 ||
-      n_stages > kMaxStages || n_made < 1 || n_made > kMaxLinear || n_mono < 2 ||
-      n_mono > kMaxLinear)
+// The flow's description as the wrapper hands it over, checked; the tiers'
+// shapes are made from it.
+struct Desc {
+  int F, C, S, T, n_stages, n_made, n_mono, made_max, mono_max;
+  std::vector<int> made_w, mono_w, made_off, mono_off;
+  std::vector<Stage> st;
+};
+
+int describe(Desc* d, const int* kinds, const int* passes, const float* bounds,
+             const long long* offs, int n_stages, const int* made_w, int n_made,
+             const int* mono_w, int n_mono, int F, int C, int S, int mode) {
+  if (F < 1 || C < 0 || S < 1 || n_stages < 1 || n_made < 1 || n_mono < 2 ||
+      (mode != kMNN && mode != kUMNN))
     return cudaErrorInvalidValue;
-  s->F = F;
-  s->C = C;
-  s->S = S;
-  s->n_stages = n_stages;
-  s->n_made = n_made;
-  s->n_mono = n_mono;
-  if (made_w[0] != F + C || made_w[n_made] != F * S || mono_w[0] != 1 + S || mono_w[n_mono] != 1)
+  *d = Desc{F, C, S, S + (mode == kUMNN), n_stages, n_made, n_mono, 0, 0, {}, {}, {}, {}, {}};
+  if (made_w[0] != F + C || made_w[n_made] != F * d->T || mono_w[0] != 1 + S ||
+      mono_w[n_mono] != 1)
     return cudaErrorInvalidValue;
-  int off = 0;
+  long long off = 0;
   for (int i = 0; i <= n_made; ++i) {
-    if (made_w[i] < 1 || (i < n_made && made_w[i] > kMaxMade)) return cudaErrorInvalidValue;
-    s->made_w[i] = made_w[i];
+    if (made_w[i] < 1) return cudaErrorInvalidValue;
+    d->made_w.push_back(made_w[i]);
     if (i < n_made) {
-      s->made_off[i] = off;
-      off += made_w[i + 1] * (made_w[i] + 1);
+      d->made_max = made_w[i] > d->made_max ? made_w[i] : d->made_max;
+      d->made_off.push_back((int)off);
+      off += (long long)made_w[i + 1] * (made_w[i] + 1);
     }
   }
   for (int i = 0; i <= n_mono; ++i) {
-    if (mono_w[i] < 1 || (i > 0 && i < n_mono && (mono_w[i] > kMaxMono || mono_w[i] % 2)))
-      return cudaErrorInvalidValue;
-    s->mono_w[i] = mono_w[i];
+    const bool hidden = i > 0 && i < n_mono;
+    if (mono_w[i] < 1 || (hidden && mode == kMNN && mono_w[i] % 2)) return cudaErrorInvalidValue;
+    d->mono_w.push_back(mono_w[i]);
+    if (hidden) d->mono_max = mono_w[i] > d->mono_max ? mono_w[i] : d->mono_max;
     if (i < n_mono) {
-      s->mono_off[i] = off;
-      off += F * mono_w[i + 1] * (mono_w[i] + 1);
+      d->mono_off.push_back((int)off);
+      off += (long long)F * mono_w[i + 1] * (mono_w[i] + 1);
     }
   }
+  if (off > 0x7fffffffLL) return cudaErrorInvalidValue;  // offsets are ints
   for (int i = 0; i < n_stages; ++i) {
-    Stage& st = s->st[i];
-    st.kind = kinds[i];
-    st.passes = passes[i];
-    st.bound = bounds[i];
-    st.off = offs[i];
+    const Stage st{kinds[i], passes[i], bounds[i], offs[i]};
     if ((st.kind != kSoftclip && st.kind != kAR) || (st.kind == kAR && st.passes < 1) ||
         (st.kind == kSoftclip && !(st.bound > 0.0f)))
       return cudaErrorInvalidValue;
+    d->st.push_back(st);
   }
   return cudaSuccess;
+}
+
+bool fits_narrow(const Desc& d) {
+  return d.F <= kMaxF && d.S <= kMaxS && d.n_stages <= kMaxStages && d.n_made <= kMaxLinear &&
+         d.n_mono <= kMaxLinear && d.made_max <= kMaxMade && d.mono_max <= kMaxMono;
+}
+
+Shape narrow_shape(const Desc& d) {
+  Shape s;
+  s.F = d.F;
+  s.C = d.C;
+  s.S = d.S;
+  s.n_stages = d.n_stages;
+  s.n_made = d.n_made;
+  s.n_mono = d.n_mono;
+  for (int i = 0; i <= d.n_made; ++i) s.made_w[i] = d.made_w[i];
+  for (int i = 0; i <= d.n_mono; ++i) s.mono_w[i] = d.mono_w[i];
+  for (int i = 0; i < d.n_made; ++i) s.made_off[i] = d.made_off[i];
+  for (int i = 0; i < d.n_mono; ++i) s.mono_off[i] = d.mono_off[i];
+  for (int i = 0; i < d.n_stages; ++i) s.st[i] = d.st[i];
+  return s;
+}
+
+// What a launch needs besides the flow: the input, the outputs, the packed
+// parameters, the rows, the tier, the wide tier's workspace (work_floats
+// floats, `stride` rows a launch) and descriptor buffer (desc_bytes bytes).
+struct Launch {
+  const float* in;
+  float* out0;
+  float* out1;
+  const float* packed;
+  long long n;
+  int wide;
+  float* work;
+  long long work_floats, stride;
+  void* desc;
+  long long desc_bytes;
+  cudaStream_t stream;
+};
+
+enum Op { kDensity = 0, kSample = 1, kSampleLogQ = 2 };
+
+// The rows in chunks of `stride`, one launch each.
+template <bool kWide, int kMode>
+int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride) {
+  for (long long row0 = 0; row0 < l.n; row0 += stride) {
+    const long long row_end = row0 + stride < l.n ? row0 + stride : l.n;
+    const unsigned blocks = (unsigned)((row_end - row0 + kThreads - 1) / kThreads);
+    if (op == kDensity) {
+      naf_density_kernel<kWide, kMode><<<blocks, kThreads, 0, l.stream>>>(
+          l.in, l.out0, l.packed, s, l.work, stride, row0, row_end);
+    } else if (op == kSampleLogQ) {
+      naf_sample_kernel<kWide, kMode, true><<<blocks, kThreads, 0, l.stream>>>(
+          l.in, l.out0, l.out1, l.packed, s, l.work, stride, row0, row_end);
+    } else {
+      naf_sample_kernel<kWide, kMode, false><<<blocks, kThreads, 0, l.stream>>>(
+          l.in, l.out0, nullptr, l.packed, s, l.work, stride, row0, row_end);
+    }
+    const int rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+// Bytes of the wide tier's descriptor buffer: made_w, mono_w, made_off,
+// mono_off (ints), then the stages from a 16-byte boundary (bounded from
+// above in naf_fused.py plan_naf).
+long long stage_at(const Desc& d) {
+  const long long ints = 2LL * (d.n_made + d.n_mono) + 2;
+  return (ints * (long long)sizeof(int) + 15) / 16 * 16;
+}
+
+int run(int op, int mode, const Launch& l, const Desc& d) {
+  if (l.n < 0) return cudaErrorInvalidValue;
+  if (!l.wide) {
+    if (!fits_narrow(d)) return cudaErrorInvalidValue;
+    const Shape s = narrow_shape(d);
+    return mode == kUMNN ? launch<false, kUMNN>(op, l, s, l.n)
+                         : launch<false, kMNN>(op, l, s, l.n);
+  }
+  const long long at = stage_at(d);
+  const long long need = at + (long long)d.n_stages * (long long)sizeof(Stage);
+  const long long slots = (long long)(d.F + d.C) + 2LL * d.made_max + (d.S + 1) +
+                          5LL * d.mono_max + d.F;  // the fields of Row
+  if (l.desc == nullptr || l.desc_bytes < need || l.work == nullptr || l.stride < 1 ||
+      slots * l.stride > l.work_floats)
+    return cudaErrorInvalidValue;
+  // the host image of the buffer, copied in one transfer; a pageable source
+  // is staged before cudaMemcpyAsync returns, so the image may go
+  std::vector<unsigned char> image((size_t)need, 0);
+  int* iw = (int*)image.data();
+  for (int v : d.made_w) *iw++ = v;
+  for (int v : d.mono_w) *iw++ = v;
+  for (int v : d.made_off) *iw++ = v;
+  for (int v : d.mono_off) *iw++ = v;
+  memcpy(image.data() + at, d.st.data(), d.st.size() * sizeof(Stage));
+  int rc = cudaMemcpyAsync(l.desc, image.data(), (size_t)need, cudaMemcpyHostToDevice, l.stream);
+  if (rc != cudaSuccess) return rc;
+  const int* dw = (const int*)l.desc;
+  const WideShape ws{d.F, d.C, d.S, d.n_stages, d.n_made, d.n_mono, d.made_max, d.mono_max,
+                     dw, dw + d.n_made + 1, dw + d.n_made + d.n_mono + 2,
+                     dw + 2 * d.n_made + d.n_mono + 2,
+                     (const Stage*)((const unsigned char*)l.desc + at)};
+  return mode == kUMNN ? launch<true, kUMNN>(op, l, ws, l.stride)
+                       : launch<true, kMNN>(op, l, ws, l.stride);
 }
 
 }  // namespace
@@ -401,42 +693,44 @@ int make_shape(Shape* s, const int* kinds, const int* passes, const float* bound
 // out (n,) = log_prob of xc (n, F + C). `packed` holds each autoregressive
 // layer's parameters at offs[i] in the layout of Shape; kinds[i] is 0 for a
 // softclip of bound bounds[i], 1 for an autoregressive layer of passes[i].
+// mode 0: monotone networks (NAF), 1: UMNN integrands (UNAF). wide 0: the
+// narrow tier (work and desc unused); 1: the wide tier, with a workspace of
+// work_floats floats for `stride` rows a launch and a descriptor buffer of
+// desc_bytes bytes, both on the device.
 extern "C" int naf_density_f32(const float* xc, float* out, const float* packed,
                                const int* kinds, const int* passes, const float* bounds,
                                const long long* offs, int n_stages, const int* made_w,
                                int n_made, const int* mono_w, int n_mono, int F, int C, int S,
-                               long long n, void* stream) {
-  Shape s;
-  int rc = make_shape(&s, kinds, passes, bounds, offs, n_stages, made_w, n_made, mono_w, n_mono,
-                      F, C, S);
+                               int mode, long long n, int wide, float* work,
+                               long long work_floats, long long stride, void* desc,
+                               long long desc_bytes, void* stream) {
+  Desc d;
+  const int rc = describe(&d, kinds, passes, bounds, offs, n_stages, made_w, n_made, mono_w,
+                          n_mono, F, C, S, mode);
   if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  naf_density_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(xc, out, packed, s, n);
-  return cudaGetLastError();
+  return run(kDensity, mode,
+             {xc, out, nullptr, packed, n, wide, work, work_floats, stride, desc, desc_bytes,
+              (cudaStream_t)stream},
+             d);
 }
 
 // xout (n, F) = T^-1(z) of zc = [z, c] (n, F + C), and logq (n,) = log q(xout)
-// unless logq is null.
+// unless logq is null; the other arguments as naf_density_f32's.
 extern "C" int naf_sample_f32(const float* zc, float* xout, float* logq, const float* packed,
                               const int* kinds, const int* passes, const float* bounds,
                               const long long* offs, int n_stages, const int* made_w,
                               int n_made, const int* mono_w, int n_mono, int F, int C, int S,
-                              long long n, void* stream) {
-  Shape s;
-  int rc = make_shape(&s, kinds, passes, bounds, offs, n_stages, made_w, n_made, mono_w, n_mono,
-                      F, C, S);
+                              int mode, long long n, int wide, float* work,
+                              long long work_floats, long long stride, void* desc,
+                              long long desc_bytes, void* stream) {
+  Desc d;
+  const int rc = describe(&d, kinds, passes, bounds, offs, n_stages, made_w, n_made, mono_w,
+                          n_mono, F, C, S, mode);
   if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  if (logq != nullptr) {
-    naf_sample_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(zc, xout, logq,
-                                                                           packed, s, n);
-  } else {
-    naf_sample_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(zc, xout, nullptr,
-                                                                            packed, s, n);
-  }
-  return cudaGetLastError();
+  return run(logq != nullptr ? kSampleLogQ : kSample, mode,
+             {zc, xout, logq, packed, n, wide, work, work_floats, stride, desc, desc_bytes,
+              (cudaStream_t)stream},
+             d);
 }
 
 extern "C" const char* naf_fused_error_string(int code) {

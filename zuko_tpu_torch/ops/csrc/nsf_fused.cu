@@ -41,17 +41,33 @@
 // (T = 3K - 1 for the spline, 2 for the affine) and evaluates the
 // univariate at once, so the F * T outputs never exist together.
 //
+// Two tiers, chosen by the wrapper from the flow's shape alone
+// (zuko_tpu_torch/ops/nsf_fused.py plan_nsf). The narrow tier (kWide false)
+// is the design above, within its limits: widths of kMaxWidth, kMaxBins
+// bins, kMaxLinear linears, kMaxLayers layers, and one layer's weights in a
+// block's shared memory (227 KB on an H100). The wide tier takes any shape:
+// the weights are read through the read-only data cache (__ldg), one address
+// per warp at a time, as the NAF kernels read theirs; a row's activations,
+// raw parameters and knots live in a workspace in device memory, one column
+// of `stride` rows per value (slot), so neighbouring threads touch
+// neighbouring addresses as in local memory; the widths and passes lie in a
+// small device buffer. The wrapper allocates both; the rows run in chunks of
+// `stride`, one launch each, so the workspace stays bounded.
+//
 // Each C entry point checks its arguments, launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+#include <vector>
+
 #include "rqs.cuh"
 
 namespace {
 
-// limits, mirrored in zuko_tpu_torch/ops/nsf_fused.py
+// the narrow tier's limits, mirrored in zuko_tpu_torch/ops/nsf_fused.py
 constexpr int kMaxWidth = 256;  // widest hyper layer, F + C inputs included
 constexpr int kMaxBins = 32;
 constexpr int kMaxT = 3 * kMaxBins - 1;
@@ -62,6 +78,7 @@ constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
 enum Univariate { kAffine = 0, kRQS = 1 };
 
+// The narrow tier's description of the flow, by value.
 struct Shape {
   int n_lin;         // linears per hyper-net
   int n_ar;          // autoregressive layers
@@ -70,9 +87,78 @@ struct Shape {
   int layer_floats;  // floats of one layer's packed [W0, b0, W1, b1, ...]
   int last_off;      // offset of the last linear's weights in a layer
   float bound, log_s;
+  int w_max;         // widest hyper layer but the last
   int widths[kMaxLinear + 1];
   int passes[kMaxLayers];
 };
+
+// The wide tier's: the same fields, the arrays in the device buffer `desc`.
+struct WideShape {
+  int n_lin, n_ar, F, C, K, T, univ;
+  long long layer_floats;
+  int last_off;
+  float bound, log_s;
+  int w_max;
+  const int* widths;
+  const int* passes;
+};
+
+template <bool kWide>
+using ShapeOf = typename std::conditional<kWide, WideShape, Shape>::type;
+
+// A slot column of the wide tier's workspace: one of a row's arrays,
+// `stride` floats between consecutive elements.
+struct Column {
+  float* p;
+  long long stride;
+  __device__ __forceinline__ float& operator[](int i) const { return p[i * stride]; }
+};
+
+// What indexes one of a row's arrays: a pointer into a per-thread array
+// (narrow) or a workspace column (wide).
+template <bool kWide>
+using Vec = typename std::conditional<kWide, Column, float*>::type;
+
+// The wide tier's state of a row: xcv = [x, c], the current iterate (or
+// input) with its context; the sampler's target y; the hyper-net's
+// activations; one feature's raw parameters and its knots; as columns of
+// the workspace from column i on, in this order (the slots mirrored in
+// nsf_fused.py plan_nsf): F + C, F, 2 w_max, T and 3 (K + 1). The narrow
+// tier keeps the same arrays in the thread (local memory).
+struct WideRow {
+  Column xcv, y, a, b, p, xs, ys, ds;
+  __device__ __forceinline__ void init(const WideShape& s, float* work, long long stride,
+                                       long long i) {
+    float* q = work + i;
+    const long long widths[8] = {s.F + s.C, s.F, s.w_max, s.w_max, s.T, s.K + 1, s.K + 1,
+                                 s.K + 1};
+    Column* cs[8] = {&xcv, &y, &a, &b, &p, &xs, &ys, &ds};
+    for (int k = 0; k < 8; ++k) {
+      *cs[k] = {q, stride};
+      q += widths[k] * stride;
+    }
+  }
+};
+
+// One of a row's arrays in the tier: the workspace column or the local array.
+template <bool kWide>
+__device__ __forceinline__ Vec<kWide> pick(const Column& column, float* local) {
+  if constexpr (kWide) {
+    return column;
+  } else {
+    return local;
+  }
+}
+
+// A weight: from shared memory (narrow) or through the read-only cache (wide).
+template <bool kWide>
+__device__ __forceinline__ float ldw(const float* p) {
+  if constexpr (kWide) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
 
 __device__ __forceinline__ void stage_layer(float* smem, const float* __restrict__ params,
                                             const Shape& s, int layer) {
@@ -80,23 +166,23 @@ __device__ __forceinline__ void stage_layer(float* smem, const float* __restrict
   for (int i = threadIdx.x; i < s.layer_floats; i += blockDim.x) smem[i] = src[i];
 }
 
-// The hidden ReLU layers, from a[0 .. widths[0]) on; returns the buffer that
+// The hidden ReLU layers, from a[0 .. widths[0]) on; returns the array that
 // holds the last hidden activations (a or b).
-__device__ __forceinline__ const float* hidden_layers(const float* w, const Shape& s, float* a,
-                                                      float* b) {
-  float* cur = a;
-  float* nxt = b;
+template <bool kWide, class Sh>
+__device__ __forceinline__ Vec<kWide> hidden_layers(const float* w, const Sh& s, Vec<kWide> a,
+                                                    Vec<kWide> b) {
+  Vec<kWide> cur = a, nxt = b;
   for (int i = 0; i < s.n_lin - 1; ++i) {
     const int din = s.widths[i], dout = s.widths[i + 1];
     const float* bias = w + dout * din;
     for (int o = 0; o < dout; ++o) {
       const float* row = w + o * din;
-      float acc = bias[o];
-      for (int j = 0; j < din; ++j) acc = fmaf(row[j], cur[j], acc);
+      float acc = ldw<kWide>(bias + o);
+      for (int j = 0; j < din; ++j) acc = fmaf(ldw<kWide>(row + j), cur[j], acc);
       nxt[o] = fmaxf(acc, 0.0f);
     }
     w = bias + dout;
-    float* t = cur;
+    const Vec<kWide> t = cur;
     cur = nxt;
     nxt = t;
   }
@@ -104,23 +190,24 @@ __device__ __forceinline__ const float* hidden_layers(const float* w, const Shap
 }
 
 // Feature f's T raw parameters: rows f*T .. f*T + T - 1 of the last linear.
-__device__ __forceinline__ void feature_params(const float* w, const Shape& s, const float* h,
-                                               int f, float* p) {
+template <bool kWide, class Sh>
+__device__ __forceinline__ void feature_params(const float* w, const Sh& s, const Vec<kWide> h,
+                                               int f, const Vec<kWide> p) {
   const int din = s.widths[s.n_lin - 1], dout = s.widths[s.n_lin];
   const float* bias = w + dout * din;
   for (int t = 0; t < s.T; ++t) {
     const int o = f * s.T + t;
     const float* row = w + o * din;
-    float acc = bias[o];
-    for (int j = 0; j < din; ++j) acc = fmaf(row[j], h[j], acc);
+    float acc = ldw<kWide>(bias + o);
+    for (int j = 0; j < din; ++j) acc = fmaf(ldw<kWide>(row + j), h[j], acc);
     p[t] = acc;
   }
 }
 
 // Raw (widths, heights, derivatives) -> K + 1 knots: slope clamp, softmax,
 // cumsum (zuko_tpu/transforms.py MonotonicRQSTransform).
-__device__ __forceinline__ void rqs_knots(float* p, const Shape& s, float* xs, float* ys,
-                                          float* ds) {
+template <class V, class Knots, class Sh>
+__device__ __forceinline__ void rqs_knots(V p, const Sh& s, Knots xs, Knots ys, Knots ds) {
   const int K = s.K;
   const float B = s.bound, ls = s.log_s;
   float mw = -INFINITY, mh = -INFINITY;
@@ -157,59 +244,87 @@ __device__ __forceinline__ void rqs_knots(float* p, const Shape& s, float* xs, f
   }
 }
 
-__device__ __forceinline__ float affine_log_scale(const float* p, float ls) {
+template <class V>
+__device__ __forceinline__ float affine_log_scale(const V& p, float ls) {
   return p[1] / (1.0f + fabsf(p[1] / ls));
 }
 
-// Univariate forward of one feature from its raw parameters p (overwritten).
-__device__ __forceinline__ float univ_forward(float x, float* p, const Shape& s, float* ladj) {
+// Univariate forward of one feature from its raw parameters p (overwritten);
+// the knots in the thread (narrow) or in the row's columns (wide).
+template <bool kWide, class Sh>
+__device__ __forceinline__ float univ_forward(float x, Vec<kWide> p, const Sh& s, float* ladj,
+                                              const WideRow& wr) {
   if (s.univ == kAffine) {
     const float lsc = affine_log_scale(p, s.log_s);
     *ladj = lsc;
     return x * expf(lsc) + p[0];
   }
-  float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
-  rqs_knots(p, s, xs, ys, ds);
-  return rqs::forward(x, xs, ys, ds, s.K, ladj);
+  if constexpr (kWide) {
+    rqs_knots(p, s, wr.xs, wr.ys, wr.ds);
+    return rqs::forward(x, wr.xs, wr.ys, wr.ds, s.K, ladj);
+  } else {
+    float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
+    rqs_knots(p, s, xs, ys, ds);
+    return rqs::forward(x, xs, ys, ds, s.K, ladj);
+  }
 }
 
-__device__ __forceinline__ float univ_inverse(float y, float* p, const Shape& s) {
+template <bool kWide, class Sh>
+__device__ __forceinline__ float univ_inverse(float y, Vec<kWide> p, const Sh& s,
+                                              const WideRow& wr) {
   if (s.univ == kAffine) {
     return (y - p[0]) / expf(affine_log_scale(p, s.log_s));
   }
-  float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
-  rqs_knots(p, s, xs, ys, ds);
-  return rqs::inverse<false>(y, xs, ys, ds, s.K, nullptr);
+  if constexpr (kWide) {
+    rqs_knots(p, s, wr.xs, wr.ys, wr.ds);
+    return rqs::inverse<false>(y, wr.xs, wr.ys, wr.ds, s.K, nullptr);
+  } else {
+    float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
+    rqs_knots(p, s, xs, ys, ds);
+    return rqs::inverse<false>(y, xs, ys, ds, s.K, nullptr);
+  }
 }
 
 // kRaw false: out[row] = log_prob. kRaw true (nsf_apply): y[row, :] = T(x)
-// and out[row] = the bare sum of ladjs.
-template <bool kRaw>
+// and out[row] = the bare sum of ladjs. Rows [row0, row_end) of the launch;
+// thread i takes row row0 + i, and in the wide tier workspace column i.
+template <bool kWide, bool kRaw>
 __global__ void __launch_bounds__(kThreads)
 nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ y,
-                   float* __restrict__ out, const float* __restrict__ params, Shape s,
-                   long long n) {
+                   float* __restrict__ out, const float* __restrict__ params,
+                   const ShapeOf<kWide> s, float* __restrict__ work, long long stride,
+                   long long row0, long long row_end) {
   extern __shared__ float smem[];
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = row < n;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = row0 + i;
+  const bool active = row < row_end;
+  if (kWide && !active) return;  // the wide tier has no barriers
   const int D0 = s.F + s.C;
-  float xcv[kMaxWidth], a[kMaxWidth], b[kMaxWidth], p[kMaxT];
+  float xcv_l[kWide ? 1 : kMaxWidth], a_l[kWide ? 1 : kMaxWidth], b_l[kWide ? 1 : kMaxWidth];
+  float p_l[kWide ? 1 : kMaxT];
+  WideRow wr;
+  if constexpr (kWide) wr.init(s, work, stride, i);
+  const Vec<kWide> xcv = pick<kWide>(wr.xcv, xcv_l), a = pick<kWide>(wr.a, a_l),
+                   b = pick<kWide>(wr.b, b_l), p = pick<kWide>(wr.p, p_l);
   if (active) {
     for (int j = 0; j < D0; ++j) xcv[j] = xc[row * D0 + j];
   }
   float acc = 0.0f;
   for (int l = 0; l < s.n_ar; ++l) {
-    __syncthreads();  // every thread is done with the previous layer
-    stage_layer(smem, params, s, l);
-    __syncthreads();
-    if (!active) continue;
+    const float* w = kWide ? params + (size_t)l * s.layer_floats : smem;
+    if constexpr (!kWide) {
+      __syncthreads();  // every thread is done with the previous layer
+      stage_layer(smem, params, s, l);
+      __syncthreads();
+      if (!active) continue;
+    }
     for (int j = 0; j < D0; ++j) a[j] = xcv[j];
-    const float* h = hidden_layers(smem, s, a, b);
+    const Vec<kWide> h = hidden_layers<kWide>(w, s, a, b);
     // the hidden activations already hold x, so x updates in place
     for (int f = 0; f < s.F; ++f) {
-      feature_params(smem + s.last_off, s, h, f, p);
+      feature_params<kWide>(w + s.last_off, s, h, f, p);
       float ladj;
-      xcv[f] = univ_forward(xcv[f], p, s, &ladj);
+      xcv[f] = univ_forward<kWide>(xcv[f], p, s, &ladj, wr);
       acc += ladj;
     }
   }
@@ -228,17 +343,26 @@ nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ y,
 // the forward ladjs), or the bare forward ladjs.
 enum SampleMode { kNoLadj = 0, kLogQ = 1, kRawLadj = 2 };
 
-template <int kMode>
+template <bool kWide, int kMode>
 __global__ void __launch_bounds__(kThreads)
 nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
                   float* __restrict__ logq, const float* __restrict__ params,
-                  Shape s, long long n) {
+                  const ShapeOf<kWide> s, float* __restrict__ work, long long stride,
+                  long long row0, long long row_end) {
   extern __shared__ float smem[];
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = row < n;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = row0 + i;
+  const bool active = row < row_end;
+  if (kWide && !active) return;
   const int D0 = s.F + s.C;
   // xcv = [x, c] is the current iterate with its context; y the target
-  float xcv[kMaxWidth], y[kMaxWidth], a[kMaxWidth], b[kMaxWidth], p[kMaxT];
+  float xcv_l[kWide ? 1 : kMaxWidth], y_l[kWide ? 1 : kMaxWidth], a_l[kWide ? 1 : kMaxWidth];
+  float b_l[kWide ? 1 : kMaxWidth], p_l[kWide ? 1 : kMaxT];
+  WideRow wr;
+  if constexpr (kWide) wr.init(s, work, stride, i);
+  const Vec<kWide> xcv = pick<kWide>(wr.xcv, xcv_l), y = pick<kWide>(wr.y, y_l),
+                   a = pick<kWide>(wr.a, a_l), b = pick<kWide>(wr.b, b_l),
+                   p = pick<kWide>(wr.p, p_l);
   float acc = 0.0f;
   if (active) {
     for (int j = 0; j < s.F; ++j) y[j] = zc[row * D0 + j];
@@ -250,28 +374,31 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
     }
   }
   for (int l = s.n_ar - 1; l >= 0; --l) {
-    __syncthreads();
-    stage_layer(smem, params, s, l);
-    __syncthreads();
-    if (!active) continue;
+    const float* w = kWide ? params + (size_t)l * s.layer_floats : smem;
+    if constexpr (!kWide) {
+      __syncthreads();
+      stage_layer(smem, params, s, l);
+      __syncthreads();
+      if (!active) continue;
+    }
     for (int f = 0; f < s.F; ++f) xcv[f] = 0.0f;
     const int sweeps = min(s.passes[l], s.F);
     for (int sweep = 0; sweep < sweeps; ++sweep) {
       for (int j = 0; j < D0; ++j) a[j] = xcv[j];
-      const float* h = hidden_layers(smem, s, a, b);
+      const Vec<kWide> h = hidden_layers<kWide>(w, s, a, b);
       // Jacobi: h was computed from the whole previous iterate
       for (int f = 0; f < s.F; ++f) {
-        feature_params(smem + s.last_off, s, h, f, p);
-        xcv[f] = univ_inverse(y[f], p, s);
+        feature_params<kWide>(w + s.last_off, s, h, f, p);
+        xcv[f] = univ_inverse<kWide>(y[f], p, s, wr);
       }
     }
     if (kMode != kNoLadj) {
       for (int j = 0; j < D0; ++j) a[j] = xcv[j];
-      const float* h = hidden_layers(smem, s, a, b);
+      const Vec<kWide> h = hidden_layers<kWide>(w, s, a, b);
       for (int f = 0; f < s.F; ++f) {
-        feature_params(smem + s.last_off, s, h, f, p);
+        feature_params<kWide>(w + s.last_off, s, h, f, p);
         float ladj;
-        univ_forward(xcv[f], p, s, &ladj);
+        univ_forward<kWide>(xcv[f], p, s, &ladj, wr);
         acc += ladj;
       }
     }
@@ -283,120 +410,199 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   }
 }
 
-int make_shape(Shape* s, const int* widths, const int* passes, int n_lin,
-               int n_ar, int F, int C, int K, int univ, float bound,
-               float log_s) {
-  if (n_lin < 1 || n_lin > kMaxLinear || n_ar < 1 || n_ar > kMaxLayers || F < 1 ||
-      C < 0 || (univ != kAffine && univ != kRQS) ||
-      (univ == kRQS && (K < 1 || K > kMaxBins)))
+// The flow's description as the wrapper hands it over, checked.
+struct Desc {
+  int n_lin, n_ar, F, C, K, T, univ;
+  long long layer_floats;
+  int last_off;
+  float bound, log_s;
+  int w_max;
+  std::vector<int> widths, passes;
+};
+
+int describe(Desc* d, const int* widths, const int* passes, int n_lin, int n_ar, int F, int C,
+             int K, int univ, float bound, float log_s) {
+  if (n_lin < 1 || n_ar < 1 || F < 1 || C < 0 || (univ != kAffine && univ != kRQS) ||
+      (univ == kRQS && K < 1))
     return cudaErrorInvalidValue;
-  s->n_lin = n_lin;
-  s->n_ar = n_ar;
-  s->F = F;
-  s->C = C;
-  s->K = K;
-  s->T = univ == kRQS ? 3 * K - 1 : 2;
-  s->univ = univ;
-  s->bound = bound;
-  s->log_s = log_s;
-  if (widths[0] != F + C || widths[n_lin] != F * s->T) return cudaErrorInvalidValue;
-  int floats = 0;
+  const int T = univ == kRQS ? 3 * K - 1 : 2;
+  *d = Desc{n_lin, n_ar, F, C, K, T, univ, 0, 0, bound, log_s, 0, {}, {}};
+  if (widths[0] != F + C || widths[n_lin] != F * T) return cudaErrorInvalidValue;
+  long long floats = 0;
   for (int i = 0; i <= n_lin; ++i) {
-    if (widths[i] < 1 || (i < n_lin && widths[i] > kMaxWidth)) return cudaErrorInvalidValue;
-    s->widths[i] = widths[i];
-    if (i == n_lin - 1) s->last_off = floats;
-    if (i < n_lin) floats += widths[i + 1] * (widths[i] + 1);
+    if (widths[i] < 1) return cudaErrorInvalidValue;
+    d->widths.push_back(widths[i]);
+    if (i == n_lin - 1) d->last_off = (int)floats;
+    if (i < n_lin) {
+      d->w_max = widths[i] > d->w_max ? widths[i] : d->w_max;
+      floats += (long long)widths[i + 1] * (widths[i] + 1);
+    }
   }
-  s->layer_floats = floats;
-  for (int l = 0; l < n_ar; ++l) s->passes[l] = passes[l];
+  if (floats > 0x7fffffffLL) return cudaErrorInvalidValue;  // offsets in a layer are ints
+  d->layer_floats = floats;
+  for (int l = 0; l < n_ar; ++l) {
+    if (passes[l] < 1) return cudaErrorInvalidValue;
+    d->passes.push_back(passes[l]);
+  }
   return cudaSuccess;
 }
 
-template <typename Kernel>
-int configure(Kernel kernel, const Shape& s, size_t* smem) {
-  *smem = (size_t)s.layer_floats * sizeof(float);
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
+bool fits_narrow(const Desc& d) {
+  return d.n_lin <= kMaxLinear && d.n_ar <= kMaxLayers && d.w_max <= kMaxWidth &&
+         d.F <= kMaxWidth && (d.univ != kRQS || d.K <= kMaxBins);
 }
 
-template <bool kRaw>
-int launch_density(const float* xc, float* y, float* out, const float* params,
-                   const int* widths, const int* passes, int n_lin, int n_ar, int F, int C,
-                   int K, int univ, float bound, float log_s, long long n, void* stream) {
+Shape narrow_shape(const Desc& d) {
   Shape s;
-  int rc = make_shape(&s, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
-  if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  size_t smem;
-  rc = configure(nsf_density_kernel<kRaw>, s, &smem);
-  if (rc != cudaSuccess) return rc;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  nsf_density_kernel<kRaw><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(xc, y, out,
-                                                                            params, s, n);
-  return cudaGetLastError();
+  s.n_lin = d.n_lin;
+  s.n_ar = d.n_ar;
+  s.F = d.F;
+  s.C = d.C;
+  s.K = d.K;
+  s.T = d.T;
+  s.univ = d.univ;
+  s.layer_floats = (int)d.layer_floats;
+  s.last_off = d.last_off;
+  s.bound = d.bound;
+  s.log_s = d.log_s;
+  s.w_max = d.w_max;
+  for (int i = 0; i <= d.n_lin; ++i) s.widths[i] = d.widths[i];
+  for (int l = 0; l < d.n_ar; ++l) s.passes[l] = d.passes[l];
+  return s;
 }
 
-template <int kMode>
-int launch_sample(const float* zc, float* x, float* ladj, const float* params,
-                  const int* widths, const int* passes, int n_lin, int n_ar, int F, int C,
-                  int K, int univ, float bound, float log_s, long long n, void* stream) {
-  Shape s;
-  int rc = make_shape(&s, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
+// What a launch needs besides the flow (see naf_fused.cu): the input, the
+// outputs, the packed weights, the rows, the tier and the wide tier's
+// workspace and descriptor buffer.
+struct Launch {
+  const float* in;
+  float* out0;
+  float* out1;
+  const float* params;
+  long long n;
+  int wide;
+  float* work;
+  long long work_floats, stride;
+  void* desc;
+  long long desc_bytes;
+  cudaStream_t stream;
+};
+
+// kDensity, kApply: the density kernel without or with kRaw; the sample
+// modes as SampleMode + 2.
+enum Op { kDensity = 0, kApply = 1, kSample = 2, kSampleLogQ = 3, kSampleRaw = 4 };
+
+template <bool kWide>
+int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, size_t smem) {
+  for (long long row0 = 0; row0 < l.n; row0 += stride) {
+    const long long row_end = row0 + stride < l.n ? row0 + stride : l.n;
+    const unsigned blocks = (unsigned)((row_end - row0 + kThreads - 1) / kThreads);
+    const auto args = [&](auto kernel) {
+      kernel<<<blocks, kThreads, smem, l.stream>>>(l.in, l.out0, l.out1, l.params, s, l.work,
+                                                    stride, row0, row_end);
+    };
+    switch (op) {
+      case kDensity: args(nsf_density_kernel<kWide, false>); break;
+      case kApply: args(nsf_density_kernel<kWide, true>); break;
+      case kSample: args(nsf_sample_kernel<kWide, kNoLadj>); break;
+      case kSampleLogQ: args(nsf_sample_kernel<kWide, kLogQ>); break;
+      default: args(nsf_sample_kernel<kWide, kRawLadj>); break;
+    }
+    const int rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+template <class Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+int run(int op, const Launch& l, const Desc& d) {
+  if (l.n < 0) return cudaErrorInvalidValue;
+  if (!l.wide) {
+    if (!fits_narrow(d)) return cudaErrorInvalidValue;
+    const Shape s = narrow_shape(d);
+    const size_t smem = (size_t)s.layer_floats * sizeof(float);
+    int rc;
+    switch (op) {
+      case kDensity: rc = allow_smem(nsf_density_kernel<false, false>, smem); break;
+      case kApply: rc = allow_smem(nsf_density_kernel<false, true>, smem); break;
+      case kSample: rc = allow_smem(nsf_sample_kernel<false, kNoLadj>, smem); break;
+      case kSampleLogQ: rc = allow_smem(nsf_sample_kernel<false, kLogQ>, smem); break;
+      default: rc = allow_smem(nsf_sample_kernel<false, kRawLadj>, smem); break;
+    }
+    if (rc != cudaSuccess) return rc;
+    return launch<false>(op, l, s, l.n > 0 ? l.n : 1, smem);
+  }
+  // the device buffer: widths, then passes (ints)
+  const long long need = (long long)(d.n_lin + 1 + d.n_ar) * (long long)sizeof(int);
+  const long long slots = (long long)(d.F + d.C) + d.F + 2LL * d.w_max + d.T + 3LL * (d.K + 1);
+  if (l.desc == nullptr || l.desc_bytes < need || l.work == nullptr || l.stride < 1 ||
+      slots * l.stride > l.work_floats)
+    return cudaErrorInvalidValue;
+  // a pageable source is staged before cudaMemcpyAsync returns
+  std::vector<int> image(d.widths);
+  image.insert(image.end(), d.passes.begin(), d.passes.end());
+  const int rc = cudaMemcpyAsync(l.desc, image.data(), (size_t)need, cudaMemcpyHostToDevice,
+                                 l.stream);
   if (rc != cudaSuccess) return rc;
-  if (n <= 0) return cudaSuccess;
-  size_t smem;
-  rc = configure(nsf_sample_kernel<kMode>, s, &smem);
+  const int* dw = (const int*)l.desc;
+  const WideShape ws{d.n_lin, d.n_ar,   d.F,     d.C,   d.K,     d.T, d.univ, d.layer_floats,
+                     d.last_off, d.bound, d.log_s, d.w_max, dw, dw + d.n_lin + 1};
+  return launch<true>(op, l, ws, l.stride, 0);
+}
+
+int entry(int op, const float* in, float* out0, float* out1, const float* params,
+          const int* widths, const int* passes, int n_lin, int n_ar, int F, int C, int K,
+          int univ, float bound, float log_s, long long n, int wide, float* work,
+          long long work_floats, long long stride, void* desc, long long desc_bytes,
+          void* stream) {
+  Desc d;
+  const int rc = describe(&d, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
   if (rc != cudaSuccess) return rc;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  nsf_sample_kernel<kMode><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(zc, x, ladj,
-                                                                            params, s, n);
-  return cudaGetLastError();
+  return run(op,
+             {in, out0, out1, params, n, wide, work, work_floats, stride, desc, desc_bytes,
+              (cudaStream_t)stream},
+             d);
 }
 
 }  // namespace
 
-extern "C" int nsf_density_f32(const float* xc, float* out, const float* params,
-                               const int* widths, const int* passes, int n_lin,
-                               int n_ar, int F, int C, int K, int univ,
-                               float bound, float log_s, long long n,
-                               void* stream) {
-  return launch_density<false>(xc, nullptr, out, params, widths, passes, n_lin, n_ar, F, C, K,
-                               univ, bound, log_s, n, stream);
+// Each entry point takes the flow as the wrapper packs it (per AR layer
+// [M*W_0, b_0, M*W_1, b_1, ...], `widths` of the hyper-net, `passes` per
+// layer), then the tier: wide 0, the narrow tier (work and desc unused);
+// wide 1, the wide tier, with a workspace of work_floats floats for `stride`
+// rows a launch and a descriptor buffer of desc_bytes bytes on the device.
+#define NSF_FLOW                                                                           \
+  const float *params, const int *widths, const int *passes, int n_lin, int n_ar, int F, \
+      int C, int K, int univ, float bound, float log_s, long long n, int wide, float *work, \
+      long long work_floats, long long stride, void *desc, long long desc_bytes, void *stream
+#define NSF_ARGS                                                                            \
+  params, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s, n, wide, work,       \
+      work_floats, stride, desc, desc_bytes, stream
+
+// out (n,) = log_prob of xc (n, F + C).
+extern "C" int nsf_density_f32(const float* xc, float* out, NSF_FLOW) {
+  return entry(kDensity, xc, nullptr, out, NSF_ARGS);
 }
 
 // y (n, F) = T(x), ladj (n,) = the bare sum of the forward log-Jacobians.
-extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, const float* params,
-                             const int* widths, const int* passes, int n_lin,
-                             int n_ar, int F, int C, int K, int univ,
-                             float bound, float log_s, long long n,
-                             void* stream) {
-  return launch_density<true>(xc, y, ladj, params, widths, passes, n_lin, n_ar, F, C, K, univ,
-                              bound, log_s, n, stream);
+extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, NSF_FLOW) {
+  return entry(kApply, xc, y, ladj, NSF_ARGS);
 }
 
-// logq may be null: the solve alone.
-extern "C" int nsf_sample_f32(const float* zc, float* x, float* logq,
-                              const float* params, const int* widths,
-                              const int* passes, int n_lin, int n_ar, int F,
-                              int C, int K, int univ, float bound, float log_s,
-                              long long n, void* stream) {
-  if (logq != nullptr)
-    return launch_sample<kLogQ>(zc, x, logq, params, widths, passes, n_lin, n_ar, F, C, K,
-                                univ, bound, log_s, n, stream);
-  return launch_sample<kNoLadj>(zc, x, nullptr, params, widths, passes, n_lin, n_ar, F, C, K,
-                                univ, bound, log_s, n, stream);
+// x (n, F) = T^-1(z) of zc = [z, c]; logq may be null: the solve alone.
+extern "C" int nsf_sample_f32(const float* zc, float* x, float* logq, NSF_FLOW) {
+  return entry(logq != nullptr ? kSampleLogQ : kSample, zc, x, logq, NSF_ARGS);
 }
 
 // The raw mode: ladj (n,) = the bare sum of the forward log-Jacobians at the
 // solved x, with no base term.
-extern "C" int nsf_sample_raw_f32(const float* zc, float* x, float* ladj,
-                                  const float* params, const int* widths,
-                                  const int* passes, int n_lin, int n_ar, int F,
-                                  int C, int K, int univ, float bound, float log_s,
-                                  long long n, void* stream) {
+extern "C" int nsf_sample_raw_f32(const float* zc, float* x, float* ladj, NSF_FLOW) {
   if (ladj == nullptr) return cudaErrorInvalidValue;
-  return launch_sample<kRawLadj>(zc, x, ladj, params, widths, passes, n_lin, n_ar, F, C, K,
-                                 univ, bound, log_s, n, stream);
+  return entry(kSampleRaw, zc, x, ladj, NSF_ARGS);
 }
 
 // Shared memory a block may opt into on `device` (bytes), or -1.

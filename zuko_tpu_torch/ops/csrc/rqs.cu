@@ -18,7 +18,8 @@
 // arrays in device memory: the bin search reads one row of K + 1 knots, the
 // evaluation six more values of the bin found. A warp's 32 rows are
 // contiguous, so every fetched line is used in full, across the iterations
-// of the search through L1 rather than in one coalesced instruction.
+// of the search through L1 rather than in one coalesced instruction. The
+// knots are read where they lie, so any number of bins is taken.
 //
 // The C entry point checks its arguments, launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
@@ -29,7 +30,6 @@
 
 namespace {
 
-constexpr int kMaxBins = 32;  // mirrored in zuko_tpu_torch/ops/rqs.py
 constexpr int kThreads = 256;
 
 template <bool kInverse>
@@ -39,12 +39,14 @@ rqs_kernel(const float* __restrict__ x, const float* __restrict__ hs,
            float* __restrict__ out, float* __restrict__ ladj, int K, long long m) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  const long long row = i * (K + 1);
+  const float* h = hs + i * (K + 1);
+  const float* v = vs + i * (K + 1);
+  const float* d = ds + i * (K + 1);
   float l;
   if (kInverse) {
-    out[i] = rqs::inverse<true>(x[i], hs + row, vs + row, ds + row, K, &l);
+    out[i] = rqs::inverse<true>(x[i], h, v, d, K, &l);
   } else {
-    out[i] = rqs::forward(x[i], hs + row, vs + row, ds + row, K, &l);
+    out[i] = rqs::forward(x[i], h, v, d, K, &l);
   }
   ladj[i] = l;
 }
@@ -55,7 +57,7 @@ rqs_kernel(const float* __restrict__ x, const float* __restrict__ hs,
 extern "C" int rqs_f32(const float* x, const float* hs, const float* vs, const float* ds,
                        float* out, float* ladj, int K, long long m, int inverse,
                        void* stream) {
-  if (K < 1 || K > kMaxBins || m < 0) return cudaErrorInvalidValue;
+  if (K < 1 || m < 0) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
   cudaStream_t st = (cudaStream_t)stream;

@@ -1,8 +1,9 @@
 // The rational-quadratic spline's element arithmetic, shared by the
 // whole-flow kernels (nsf_fused.cu) and the element-wise kernel (rqs.cu), so
 // that one arithmetic serves all of them: the bin search, the forward map
-// with its log-Jacobian, and the closed-form inverse. The knot pointers may
-// point to registers, local, shared or device memory.
+// with its log-Jacobian, and the closed-form inverse. The knots are anything
+// indexed by [j]: pointers to registers, local, shared or device memory, or
+// the wide tiers' workspace columns.
 //
 // Semantics (zuko_tpu/ops/rqs.py _rqs_math, zuko_tpu/transforms.py
 // MonotonicRQSTransform): a value outside [knot_0, knot_K) passes through
@@ -17,7 +18,8 @@
 namespace rqs {
 
 // k = sum(knots < v) - 1; in the domain iff 0 <= k < K.
-__device__ __forceinline__ int find_bin(const float* knots, int K, float v) {
+template <class V>
+__device__ __forceinline__ int find_bin(const V& knots, int K, float v) {
   int k = -1;
   for (int j = 0; j <= K; ++j) k += knots[j] < v;
   return k;
@@ -32,8 +34,9 @@ __device__ __forceinline__ float jacobian(float z, float d0, float d1, float s, 
          (*denom * *denom);
 }
 
-__device__ __forceinline__ float forward(float x, const float* xs, const float* ys,
-                                         const float* ds, int K, float* ladj) {
+template <class V>
+__device__ __forceinline__ float forward(float x, const V& xs, const V& ys, const V& ds, int K,
+                                         float* ladj) {
   const int k = find_bin(xs, K, x);
   if (k < 0 || k >= K) {  // out of domain: identity, ladj 0
     *ladj = 0.0f;
@@ -51,9 +54,9 @@ __device__ __forceinline__ float forward(float x, const float* xs, const float* 
 // Closed-form quadratic root (zuko_tpu/ops/nsf_fused.py _spline_inverse_F).
 // With kLadj, *ladj is the log-Jacobian of the inverse map at y: minus the
 // forward one at the returned x.
-template <bool kLadj>
-__device__ __forceinline__ float inverse(float y, const float* xs, const float* ys,
-                                         const float* ds, int K, float* ladj) {
+template <bool kLadj, class V>
+__device__ __forceinline__ float inverse(float y, const V& xs, const V& ys, const V& ds, int K,
+                                         float* ladj) {
   const int k = find_bin(ys, K, y);
   if (k < 0 || k >= K) {
     if (kLadj) *ladj = 0.0f;

@@ -5,7 +5,7 @@ is called, its structure is inspected and — if the whole-flow kernels can
 represent it — the returned distribution routes ``log_prob``, ``sample`` and
 ``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused` (NSF, MAF),
 :mod:`zuko_tpu_torch.ops.gf_fused` (GF) or :mod:`zuko_tpu_torch.ops.naf_fused`
-(NAF), and ``rsample`` /
+(NAF, UNAF), and ``rsample`` /
 ``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift`. An inverted
 autoregressive flow, ``Flow(flow.transform.inv, flow.base)``, swaps the
 roles. A flow every extractor rejects with ``FusedStructureError`` keeps the
@@ -130,9 +130,9 @@ class FusedGaussianizationFlow(NormalizingFlow):
 
 class FusedNeuralSamplingFlow(NormalizingFlow):
     r"""A :class:`NormalizingFlow` whose density and sampling run through the
-    fused NAF kernels (:mod:`zuko_tpu_torch.ops.naf_fused`): the density with
-    the monotone networks' analytic log-Jacobians, sampling by the
-    bisection-and-Newton solve of every sweep. ``rsample`` /
+    fused NAF kernels (:mod:`zuko_tpu_torch.ops.naf_fused`), for a NAF or a
+    UNAF: the density with the univariates' analytic log-Jacobians, sampling
+    by the bisection-and-Newton solve of every sweep. ``rsample`` /
     ``rsample_and_log_prob`` run the same solve with implicit-function-theorem
     gradients (:mod:`zuko_tpu_torch.ops.ift`). ``flat`` is the flow module's
     ``_flatten_naf``, taken once per ``flow(c)``."""

@@ -16,9 +16,11 @@ Counterpart of ``zuko_tpu/ops/gf_fused.py``. Two kernels, both in
   and optionally ``log q`` at the returned point.
 
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
-launches its kernel (or raises) for a CUDA tensor. ``LAUNCHES`` counts the
-kernel launches under ``gf_density``, ``gf_sample`` and
-``gf_sample_log_prob``.
+launches its kernel (or raises) for a CUDA tensor. :func:`plan_gf` chooses
+the kernels' tier from the flow's shape: the narrow tier within its limits,
+the wide tier (a row's values in a workspace in device memory) beyond them.
+``LAUNCHES`` counts the kernel launches under ``gf_density``, ``gf_sample``
+and ``gf_sample_log_prob``, the wide tier's under ``<name>_wide``.
 
 A flow is handed to them flat: ``params`` lists, stage by stage, a layer's
 ``shift`` and log-scales ``raw`` — ``(F, K)`` each, or ``(n, F, K)`` each
@@ -38,7 +40,14 @@ import torch
 
 from ..transforms import GaussianizationTransform, RotationTransform
 from ..utils import bisection, unpack
-from ._common import LAUNCHES, PlainBackward, check_cuda_f32
+from ._common import (
+    LAUNCHES,
+    PlainBackward,
+    check_cuda_f32,
+    narrow_plan,
+    wide_plan,
+    workspace,
+)
 from .nsf_fused import FusedStructureError, _require_standard_base
 
 __all__ = [
@@ -47,10 +56,12 @@ __all__ = [
     "fused_gf_sample",
     "gf_density",
     "gf_sample",
+    "plan_gf",
 ]
 
-# Limits of the kernels (mirrored in csrc/gf_fused.cu): features, mixture
-# components, and gaussianization layers and rotations together.
+# The narrow tier's limits (mirrored in csrc/gf_fused.cu): features, mixture
+# components, and gaussianization layers and rotations together. Beyond any
+# of them the wide tier takes the flow.
 _MAX_FEATURES = 64
 _MAX_COMPONENTS = 32
 _MAX_STAGES = 64
@@ -235,30 +246,32 @@ def _gf_sample_math(z, params, layout, F, want_log_prob=False):
 # ---------------------------------------------------------- CUDA launches
 
 
-def _check_limits(layout, F):
-    """Raise ``ValueError`` for a flow the kernels do not take."""
+def plan_gf(layout, F, rows):
+    """The tier of the GF kernels for a flow of this shape (what the
+    wrappers launch, from the shapes alone): the narrow tier within its
+    limits, else the wide tier with a workspace of ``2 F`` floats a row (the
+    two arrays a row's values ping-pong between) and a descriptor buffer of
+    48 bytes a stage (``Stage`` in ``csrc/gf_fused.cu``)."""
     K = max((entry[1] for entry in layout if entry[0] != "rot"), default=0)
-    if F > _MAX_FEATURES or K > _MAX_COMPONENTS or len(layout) > _MAX_STAGES:
-        raise ValueError(
-            f"the kernels take <= {_MAX_FEATURES} features, <= {_MAX_COMPONENTS}"
-            f" components and <= {_MAX_STAGES} layers and rotations together,"
-            f" got {F}, {K} and {len(layout)}"
-        )
+    if F <= _MAX_FEATURES and K <= _MAX_COMPONENTS and len(layout) <= _MAX_STAGES:
+        return narrow_plan(rows)
+    return wide_plan(2 * F, rows, 48 * len(layout))
 
 
 def _launch(fn, counter, x, outs, params, layout, F):
-    """Common launch path of the two kernels: check, pack the stages without
-    per-row parameters into one buffer (a layer as ``[F][3][K]``: shift,
-    ``exp(raw)``, raw; a rotation as ``R``), describe the others by pointer
-    and strides, call the C entry point on the current stream, raise on a
-    CUDA error, count."""
+    """Common launch path of the two kernels: check, plan the tier, pack the
+    stages without per-row parameters into one buffer (a layer as
+    ``[F][3][K]``: shift, ``exp(raw)``, raw; a rotation as ``R``), describe
+    the others by pointer and strides, call the C entry point on the current
+    stream, raise on a CUDA error, count (the wide tier under
+    ``<counter>_wide``)."""
     from ._build import check_launch, load_library
 
-    _check_limits(layout, F)
     if x.dim() != 2 or x.shape[1] != F or not x.is_contiguous():
         raise ValueError(f"{counter}: expected a contiguous (n, {F}) tensor")
     check_cuda_f32(counter, [x, *params])
     n = x.shape[0]
+    plan = plan_gf(layout, F, n)
     # one row per stage: kind, K, offset in `packed`, and for per-row
     # parameters the two pointers with their row and feature strides
     table, chunks, floats = [], [], 0
@@ -294,15 +307,19 @@ def _launch(fn, counter, x, outs, params, layout, F):
                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int)
     columns = [(ctype * len(table))(*column) for ctype, column in zip(ctypes_of, zip(*table))]
 
+    work, desc = workspace(plan, x.device)
+
     lib = load_library("gf_fused")
     with torch.cuda.device(x.device):
         rc = getattr(lib, fn)(
             x.data_ptr(), *outs, packed.data_ptr(),
-            *(ctypes.addressof(column) for column in columns), len(table), F, n,
+            *(ctypes.addressof(column) for column in columns), len(table), F, n, int(plan.wide),
+            None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
+            plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     check_launch(counter, lib, "gf_fused", rc)
-    LAUNCHES[counter] += 1
+    LAUNCHES[counter + ("_wide" if plan.wide else "")] += 1
 
 
 def _density_kernel(x, params, layout, F):

@@ -1,7 +1,7 @@
 r"""Differentiable fused sampling through the implicit function theorem.
 
 Counterpart of ``zuko_tpu/ops/ift.py``: the NSF/MAF tier (:103-433 and
-:815-842), the NAF tier (:436-641, monotone-network layers) and the GF tier
+:815-842), the NAF tier (:436-641, monotone-network and UMNN layers) and the GF tier
 (:653-803, at the end of this module).
 ``rsample`` / ``rsample_and_log_prob`` do not differentiate through the
 autoregressive solve:
@@ -223,13 +223,16 @@ def fused_nsf_inverse_and_ladj(flat, x, c=None):
 
 # ----------------------------------------------------------------- NAF tier
 #
-# The NSF tier's three sweeps over NAF stages. An autoregressive layer splits
-# as y = S(x, h), h = H(x, c): S is every feature's monotone network, diagonal
-# in x at fixed h, and it has parameters of its own (the networks' weights);
-# h's outputs [f * S, (f + 1) * S) feed feature f only (feature-major, so u
-# repeats S times per feature). A softclip is diagonal and has none. The
-# solved roots carry the solver's tolerance (about 1e-6), so the gradients
-# match differentiating the unfused solve to that, not to roundoff.
+# The NSF tier's three sweeps over NAF and UNAF stages. An autoregressive
+# layer splits as y = S(x, h), h = H(x, c): S is every feature's monotone
+# network (or UMNN integral plus constant), diagonal in x at fixed h, and it
+# has parameters of its own (the networks' weights); h's outputs [f * T, (f +
+# 1) * T) feed feature f only (feature-major, so u repeats T times per
+# feature; T = S, or S + 1 with a UMNN's constant). A softclip is diagonal
+# and has none. The solved roots carry the solver's tolerance (about 1e-6),
+# so the gradients match differentiating the unfused solve to that, not to
+# roundoff; a UMNN's d = dy/dx is that of its GL-16 integral, as in
+# zuko_tpu.
 
 
 def _naf_ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, S):
@@ -271,7 +274,8 @@ def _naf_ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, S):
                 h = naf._made(torch.cat([xh, c], dim=1), ps[: len(made)])
                 hs = h.detach().requires_grad_(True)
                 mono = ps[len(made):]
-                y, ladj = naf._mono_layer(xs, hs, mono[: len(mono_w)], mono[len(mono_w):], F, S)
+                y, ladj = naf._ar_layer(
+                    xs, hs, entry[4], mono[: len(mono_w)], mono[len(mono_w):], F, S)
                 d, G = grad(y, (xs, hs), torch.ones_like(y))
                 recs.append((entry, (idx, ps, len(made), xh, h, hs, G), xs, y, ladj, d))
                 idx += count
@@ -305,7 +309,7 @@ def _naf_ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, S):
                 idx, ps, n_made, xh, h, hs, G = ar
                 # min(passes, F) iterations in all are exact by nilpotency
                 for _ in range(min(entry[3], F) - 1):
-                    (lower,) = grad(h, xh, G * u.repeat_interleave(S, dim=1))
+                    (lower,) = grad(h, xh, G * u.repeat_interleave(G.shape[1] // F, dim=1))
                     u = (v - lower) / d
                 ycot = -u if g_out[i] is None else g_out[i] - u
                 lcot = torch.zeros_like(ladj) if lrow is None else lrow.expand_as(ladj)

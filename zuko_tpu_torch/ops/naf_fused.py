@@ -1,40 +1,51 @@
-r"""Whole-flow neural autoregressive flow (NAF) density and sampling: plain
-PyTorch versions and the CUDA kernels that replace the TPU kernels.
+r"""Whole-flow neural autoregressive flow (NAF and UNAF) density and sampling:
+plain PyTorch versions and the CUDA kernels that replace the TPU kernels.
 
-Counterpart of ``zuko_tpu/ops/naf_fused.py``, for the monotone-network (MNN)
-univariate. Two kernels, both in ``csrc/naf_fused.cu``:
+Counterpart of ``zuko_tpu/ops/naf_fused.py``, for the monotone-network (MNN,
+NAF) and the unconstrained monotone-network (UMNN, UNAF) univariates. Two
+kernels, both in ``csrc/naf_fused.cu``, each with a mode per univariate:
 
 * ``naf_density`` replaces ``_naf_density_impl`` (:904, ``pallas_call`` at
   :949): the whole-flow ``log_prob``. Per autoregressive layer, the MADE pass
-  gives every feature its signal; the monotone network's first layer is
-  split into its signal part (computed once, "hoisted") and its ``x``
-  column; one evaluation of the network and of its derivative ``g`` gives
-  the feature's output and its log-Jacobian ``log g``. Softclips between the
-  layers and the standard-normal base term close the sum.
+  gives every feature its signal (and a UMNN its additive constant); the
+  univariate network's first layer is split into its signal part (computed
+  once, "hoisted") and its ``x`` column. A monotone network gives the
+  feature's output and its slope ``g`` in one evaluation with its
+  derivative; a UMNN integrates its integrand ``g`` from 0 to ``x`` with 16
+  Gauss-Legendre nodes and evaluates ``g(x)`` once more. ``log g`` is the
+  log-Jacobian. Softclips between the layers and the standard-normal base
+  term close the sum.
 * ``naf_sample`` replaces ``_naf_sample_core`` (:1054, ``pallas_call`` at
   :1128): the whole inversion, stages in reverse. A softclip inverts in
   closed form; an autoregressive layer by ``min(passes, F)`` sweeps, each a
   MADE pass on the current iterate and, per feature, a bracketed bisection
-  followed by Newton steps on the monotone network. The first sweep bisects
-  ``[-10, 10]`` 10 times; the later ones start from the previous sweep's
-  root (a bracket of radius 0.0625 checked by two evaluations, the full
-  bracket for the rows where it does not hold the root) and bisect 3 times.
-  Three Newton steps follow, each clamped to ``[-10, 10]``. With
-  ``want_log_prob`` it also returns ``log q`` at the returned point.
+  followed by Newton steps on the univariate (a UMNN's target less its
+  constant). The first sweep bisects ``[-10, 10]`` 10 times; the later ones
+  start from the previous sweep's root (a bracket of radius 0.0625 checked
+  by two evaluations, the full bracket for the rows where it does not hold
+  the root) and bisect 3 times. Newton steps follow, each clamped to
+  ``[-10, 10]``: three for a monotone network; for a UMNN four in the first
+  sweep and three later, the integral by 4 nodes in the bisection, 8 in the
+  Newton steps but the last and 16 in the last. With ``want_log_prob`` it
+  also returns ``log q`` at the returned point.
 
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
-launches its kernel (or raises) for a CUDA tensor. ``LAUNCHES`` counts the
-kernel launches under ``naf_density``, ``naf_sample`` and
-``naf_sample_log_prob``.
+launches its kernel (or raises) for a CUDA tensor. :func:`plan_naf` chooses
+the kernels' tier from the flow's shape: the narrow tier within its limits,
+the wide tier (a workspace in device memory) beyond them. ``LAUNCHES`` counts
+the launches under ``naf_density``, ``naf_sample`` and
+``naf_sample_log_prob``, with ``_umnn`` after ``naf_density`` or
+``naf_sample`` for a UNAF and ``_wide`` at the end for the wide tier.
 
 A flow is handed to them flat: per autoregressive stage the MADE's masked
-weights ``M ⊙ W`` and biases, then the monotone network's positive weights
-``|W|`` of shape ``(F, out, in)`` and biases ``(F, out)``; ``layout`` names
-the stages. Both products are taken once per ``flow(c)``, outside the
-kernels, and stay in the autograd graph of the flow's parameters. The TPU
-kernels' workarounds are not carried over: no tile arithmetic, no bf16
-product splits, no compensated logs, and no route by width to another path.
-The UMNN univariate (UNAF) is not ported yet.
+weights ``M ⊙ W`` and biases, then the univariate network's weights of shape
+``(F, out, in)`` (the monotone network's positive ``|W|``, the integrand's
+``W``) and biases ``(F, out)``; ``layout`` names the stages. The products
+are taken once per ``flow(c)``, outside the kernels, and stay in the
+autograd graph of the flow's parameters. The TPU kernels' workarounds are
+not carried over: no tile arithmetic, no bf16 product splits, no
+compensated logs, no chunks of quadrature nodes, and no route by width to
+another path.
 """
 
 from __future__ import annotations
@@ -42,10 +53,18 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from ._common import LAUNCHES, PlainBackward, check_cuda_f32
+from ._common import (
+    LAUNCHES,
+    RowChunkedBackward,
+    check_cuda_f32,
+    narrow_plan,
+    wide_plan,
+    workspace,
+)
 from .nsf_fused import (
     FusedStructureError,
     _base_draws,
@@ -60,18 +79,21 @@ __all__ = [
     "fused_naf_sample",
     "naf_density",
     "naf_sample",
+    "plan_naf",
 ]
 
-# Limits of the kernels (mirrored in csrc/naf_fused.cu): features, signal
-# size, monotone-network and MADE widths (the MADE's F + C inputs included,
-# its F * S outputs excluded: they are computed a feature at a time), linears
-# per network, and autoregressive layers and softclips together.
+# The narrow tier's limits (mirrored in csrc/naf_fused.cu): features, signal
+# size, univariate-network and MADE widths (the MADE's F + C inputs
+# included, its F * T outputs excluded: they are computed a feature at a
+# time), linears per network, and autoregressive layers and softclips
+# together. Beyond any of them the wide tier takes the flow.
 _MAX_FEATURES = 64
 _MAX_SIGNAL = 64
 _MAX_MONO_WIDTH = 128
 _MAX_MADE_WIDTH = 256
 _MAX_LINEAR = 8
 _MAX_STAGES = 64
+_MODE_CODE = {"mnn": 0, "umnn": 1}
 
 # The solve of ``MonotonicTransform`` (bound 10) as the TPU sampler runs it:
 # a coarse bisection to 2e-2 (10 halvings of [-10, 10]), then Newton steps,
@@ -82,58 +104,92 @@ _WARM_R = 0.0625
 _N_WARM = math.ceil(math.log2(2 * _WARM_R / 2e-2))
 _N_NEWTON = 3
 _DF_FLOOR = 1e-12
+# The UMNN's rules (``_UMNN_COARSE_N`` :393, ``_UMNN_NEWTON_N`` :404,
+# ``_UMNN_FINE_N`` :406): its integral by GL-4 in the bisection, GL-8 in the
+# Newton steps but the last, GL-16 in the last one and in the density; one
+# Newton step more in the first sweep (``_N_NEWTON_UMNN`` :85).
+_UMNN_COARSE_N, _UMNN_NEWTON_N, _UMNN_FINE_N = 4, 8, 16
+_N_NEWTON_UMNN = 4
+_GAUSS_LEGENDRE = {
+    n: np.polynomial.legendre.leggauss(n) for n in (_UMNN_COARSE_N, _UMNN_NEWTON_N, _UMNN_FINE_N)
+}
 
 
 # ------------------------------------------------------------- extraction
 
 
-def _extract_monotone_net(net, features, signal):
-    """Require ``[MonotonicLinear, TwoWayELU(alpha=1)]* MonotonicLinear``,
-    biased, stacked over ``features``, mapping ``1 + signal`` inputs to one
-    output with at least one hidden layer of even width (the TwoWayELU
-    halves); return its linears."""
-    from ..nn import MonotonicLinear, TwoWayELU
-
+def _extract_stacked_net(net, linear_cls, activation_ok, features, signal, label):
+    """Require ``[linear_cls, activation]* linear_cls``, biased, stacked over
+    ``features``, mapping ``1 + signal`` inputs to one output with at least
+    one hidden layer (its first layer is hoisted per sweep); return its
+    linears."""
     lins, expect_linear = [], True
     for layer in net.layers:
         if expect_linear:
-            if type(layer) is not MonotonicLinear:
+            if type(layer) is not linear_cls:
                 raise FusedStructureError(
-                    f"fused NAF kernels expect MonotonicLinear stacks, got {type(layer).__name__}"
+                    f"fused NAF kernels expect {linear_cls.__name__} stacks in the {label},"
+                    f" got {type(layer).__name__}"
                 )
             if layer.bias is None or layer.weight.dim() != 3:
-                raise FusedStructureError("the monotone net must be biased and stacked per feature")
+                raise FusedStructureError(f"the {label} must be biased and stacked per feature")
             lins.append(layer)
-        elif type(layer) is not TwoWayELU or layer.alpha != 1.0:
-            raise FusedStructureError(
-                f"fused NAF kernels expect TwoWayELU(alpha=1) activations, got {layer}"
-            )
+        elif not activation_ok(layer):
+            raise FusedStructureError(f"fused NAF kernels do not take {layer} in the {label}")
         expect_linear = not expect_linear
     if expect_linear or len(lins) < 2:
         raise FusedStructureError(
-            "the monotone net must end with a linear and have a hidden layer"
+            f"the {label} must end with a linear and have a hidden layer"
             " (its first layer is hoisted per sweep)"
         )
     if any(tuple(l.weight.shape[::2]) != (features, l.in_features) for l in lins):
-        raise FusedStructureError("the monotone net must be stacked over the features")
+        raise FusedStructureError(f"the {label} must be stacked over the features")
     if lins[0].in_features != 1 + signal or lins[-1].out_features != 1:
-        raise FusedStructureError(f"the monotone net must map {1 + signal} inputs to 1")
-    if any(l.out_features % 2 for l in lins[:-1]):
-        raise FusedStructureError("TwoWayELU needs even hidden widths")
+        raise FusedStructureError(f"the {label} must map {1 + signal} inputs to 1")
     return lins
 
 
+def _univariate_net(univariate, features, signal):
+    """``(kind, linears)`` of an autoregressive layer's univariate: an
+    :class:`~zuko_tpu_torch.flows.neural.MNN`'s monotone network
+    (``MonotonicLinear`` with ``TwoWayELU(alpha=1)``, even hidden widths) or
+    a :class:`~zuko_tpu_torch.flows.neural.UMNN`'s integrand (``Linear``
+    with ELU)."""
+    from ..flows.neural import MNN, UMNN
+    from ..nn import Activation, Linear, MonotonicLinear, TwoWayELU
+
+    if isinstance(univariate, MNN):
+        lins = _extract_stacked_net(
+            univariate.network, MonotonicLinear,
+            lambda l: type(l) is TwoWayELU and l.alpha == 1.0, features, signal,
+            "monotone net")
+        if any(l.out_features % 2 for l in lins[:-1]):
+            raise FusedStructureError("TwoWayELU needs even hidden widths")
+        return "mnn", lins
+    if isinstance(univariate, UMNN):
+        return "umnn", _extract_stacked_net(
+            univariate.integrand, Linear,
+            lambda l: isinstance(l, Activation) and l.fn is Fn.elu, features, signal,
+            "UMNN integrand")
+    raise FusedStructureError(
+        f"fused NAF kernels take MNN and UMNN univariates, got {type(univariate).__name__}"
+    )
+
+
 def extract_naf_params(flow):
-    """Validate a NAF structure and pull its parameters out (counterpart of
-    ``extract_naf_params`` :131, MNN stages only): masked autoregressive
-    layers with an :class:`~zuko_tpu_torch.flows.neural.MNN` univariate,
-    unconditional ``SoftclipTransform`` interleaves, plain ReLU MADE
-    hyper-networks and a standard ``DiagNormal`` base. Returns ``(stages,
-    {"signal": S, "features": F})`` with stages ``("softclip", bound)`` or
-    ``("ar", {made_w, made_b, made_m, mono_w, mono_b, passes})``. Anything
-    else raises :class:`FusedStructureError`."""
+    """Validate a NAF or UNAF structure and pull its parameters out
+    (counterpart of ``extract_naf_params`` :131): masked autoregressive
+    layers with an :class:`~zuko_tpu_torch.flows.neural.MNN` univariate
+    (shapes ``((S,),)``) or a :class:`~zuko_tpu_torch.flows.neural.UMNN`
+    univariate (shapes ``((S,), ())``: a signal and a constant per feature),
+    one kind for every layer, unconditional ``SoftclipTransform``
+    interleaves, plain ReLU MADE hyper-networks and a standard ``DiagNormal``
+    base. Returns ``(stages, {"signal": S, "features": F})`` with stages
+    ``("softclip", bound)`` or ``("ar", {kind, made_w, made_b, made_m,
+    mono_w, mono_b, passes})``, ``mono_*`` the univariate network's linears
+    (the integrand's for ``kind == "umnn"``). Anything else raises
+    :class:`FusedStructureError`."""
     from ..flows.autoregressive import MaskedAutoregressiveTransform
-    from ..flows.neural import MNN
     from ..lazy import LazyComposedTransform, UnconditionalTransform
     from ..transforms import SoftclipTransform
 
@@ -142,7 +198,7 @@ def extract_naf_params(flow):
             "fused NAF kernels require a LazyComposedTransform flow, got"
             f" {type(getattr(flow, 'transform', None)).__name__}"
         )
-    stages, S, F = [], None, None
+    stages, S, F, kind = [], None, None, None
     for t in flow.transform.transforms:
         if isinstance(t, UnconditionalTransform):
             if t.f is not SoftclipTransform or t.args or set(t.kwargs) - {"bound"}:
@@ -156,26 +212,26 @@ def extract_naf_params(flow):
                 "fused NAF kernels support MaskedAutoregressiveTransform layers only,"
                 f" got {type(t).__name__}"
             )
-        if not isinstance(t.univariate, MNN):
-            raise FusedStructureError(
-                "fused NAF kernels take MNN univariates; the UMNN univariate (UNAF)"
-                f" is not ported yet, got {type(t.univariate).__name__}"
-            )
-        if len(t.shapes) != 1 or len(t.shapes[0]) != 1:
-            raise FusedStructureError(f"unexpected MNN shapes {t.shapes}")
+        if not t.shapes or len(t.shapes[0]) != 1:
+            raise FusedStructureError(f"unexpected NAF shapes {t.shapes}")
         if S is not None and t.shapes[0][0] != S:
             raise FusedStructureError("layers must share the signal size")
         S = t.shapes[0][0]
         made = _extract_mlp_linears(t.hyper)
-        net = t.univariate.network
-        F = net.layers[0].weight.shape[0] if F is None else F
-        mono = _extract_monotone_net(net, F, S)
+        F = made[-1].weight.shape[0] // t.total if F is None else F
+        k, net = _univariate_net(t.univariate, F, S)
+        if t.shapes != (((S,),) if k == "mnn" else ((S,), ())):
+            raise FusedStructureError(f"unexpected {k.upper()} shapes {t.shapes}")
+        if kind is not None and k != kind:
+            raise FusedStructureError("layers must share the univariate kind")
+        kind = k
         stages.append(("ar", {
+            "kind": kind,
             "made_w": [l.weight for l in made],
             "made_b": [l.bias for l in made],
             "made_m": [l.mask for l in made],
-            "mono_w": [l.weight for l in mono],
-            "mono_b": [l.bias for l in mono],
+            "mono_w": [l.weight for l in net],
+            "mono_b": [l.bias for l in net],
             "passes": int(t.passes),
         }))
     if F is None:
@@ -187,10 +243,11 @@ def extract_naf_params(flow):
 def _flatten_naf(flow):
     """``(params, layout, F, S)`` (counterpart of ``_stage_layout`` :745):
     per autoregressive stage the flat list holds ``[M⊙W, b]`` per MADE
-    linear, then ``|W|`` per monotone linear, then their biases; ``layout``
-    has one ``("softclip", bound)`` or ``("ar", n_made, n_mono, passes)``
-    entry per stage. The products are taken here, once per ``flow(c)``, so
-    the gradients to ``W`` are autograd's own."""
+    linear, then the univariate network's weights (``|W|`` for a monotone
+    net, ``W`` for a UMNN integrand), then their biases; ``layout`` has one
+    ``("softclip", bound)`` or ``("ar", n_made, n_net, passes, kind)`` entry
+    per stage. The products are taken here, once per ``flow(c)``, so the
+    gradients to ``W`` are autograd's own."""
     stages, cfg = extract_naf_params(flow)
     params, layout = [], []
     for kind, st in stages:
@@ -199,8 +256,9 @@ def _flatten_naf(flow):
             continue
         for W, b, M in zip(st["made_w"], st["made_b"], st["made_m"]):
             params += [M * W, b]
-        params += [W.abs() for W in st["mono_w"]] + list(st["mono_b"])
-        layout.append(("ar", len(st["made_w"]), len(st["mono_w"]), st["passes"]))
+        net_w = [W.abs() for W in st["mono_w"]] if st["kind"] == "mnn" else st["mono_w"]
+        params += list(net_w) + list(st["mono_b"])
+        layout.append(("ar", len(st["made_w"]), len(st["mono_w"]), st["passes"], st["kind"]))
     return params, tuple(layout), cfg["features"], cfg["signal"]
 
 
@@ -212,7 +270,7 @@ def _stages(params, layout):
         if entry[0] == "softclip":
             yield entry, [], [], []
             continue
-        _, n_made, n_mono, _ = entry
+        _, n_made, n_mono, _, _ = entry
         made = list(params[idx : idx + 2 * n_made])
         mono = list(params[idx + 2 * n_made : idx + 2 * n_made + 2 * n_mono])
         idx += 2 * (n_made + n_mono)
@@ -245,12 +303,11 @@ def _two_way_elu(z, grad=False):
     return v, torch.cat([torch.exp(a.clamp(max=0)), torch.exp((-b).clamp(max=0))], dim=-1)
 
 
-def _hoist(h, mono_w, mono_b, F, S):
-    """The first monotone layer's signal part (counterpart of
+def _hoist(sig, mono_w, mono_b):
+    """The first network layer's signal part (counterpart of
     ``_hoist_first_layer`` :305): ``pre1 (n, F, H1) = W1[:, :, 1:] · s +
-    b1``, constant through a sweep's solve, and the ``x`` column ``w1x (F,
-    H1)``."""
-    sig = h.reshape(h.shape[0], F, S)
+    b1`` from the signals ``sig (n, F, S)``, constant through a sweep's
+    solve, and the ``x`` column ``w1x (F, H1)``."""
     W1 = mono_w[0]
     return torch.einsum("fks,nfs->nfk", W1[..., 1:], sig) + mono_b[0], W1[..., 0]
 
@@ -280,13 +337,50 @@ def _mono(x, pre1, w1x, mono_w, mono_b, grad=False):
     return (value, torch.einsum("fj,nfj->nf", wL, du)) if grad else value
 
 
-def _mono_layer(x, h, mono_w, mono_b, F, S):
+def _integrand(x, pre1, w1x, net_w, net_b):
+    """Every feature's UMNN integrand at ``x (n, F)`` from the hoisted first
+    layer: ``g = exp(d / (1 + |d / 7|))``, ``d`` the ELU network's output
+    (the integrand of ``_umnn_eval_hoisted`` :410)."""
+    u = Fn.elu(pre1 + w1x * x[..., None])
+    for W, b in zip(net_w[1:-1], net_b[1:-1]):
+        u = Fn.elu(torch.einsum("fij,nfj->nfi", W, u) + b)
+    d = torch.einsum("fj,nfj->nf", net_w[-1][:, 0], u) + net_b[-1][:, 0]
+    return torch.exp(d / (1 + torch.abs(d / 7)))
+
+
+def _umnn(x, pre1, w1x, net_w, net_b, n, grad=False):
+    """Every feature's integral :math:`\\int_0^x g` at ``x (n, F)`` by the
+    ``n``-point Gauss-Legendre rule, one node at a time (counterpart of
+    ``_umnn_eval_hoisted`` :410), and with ``grad`` also its derivative
+    ``g(x)``, one more integrand evaluation (``_umnn_vg_hoisted`` :456)."""
+    nodes, weights = _GAUSS_LEGENDRE[n]
+    acc = 0.0
+    for t, w in zip(nodes.tolist(), weights.tolist()):
+        acc = acc + w * _integrand(x * (0.5 * (t + 1.0)), pre1, w1x, net_w, net_b)
+    value = 0.5 * x * acc
+    return (value, _integrand(x, pre1, w1x, net_w, net_b)) if grad else value
+
+
+def _univariates(h, kind, mono_w, mono_b, F, S):
+    """A layer's per-sweep constants from its hyper outputs ``h (n, F *
+    T)`` (``T = S``, or ``S + 1`` with the UMNN's constant last):
+    ``(shift (n, F), pre1, w1x)``, the shift zero for a monotone net."""
+    hh = h.reshape(h.shape[0], F, -1)
+    pre1, w1x = _hoist(hh[..., :S], mono_w, mono_b)
+    return (hh[..., S] if kind == "umnn" else 0.0), pre1, w1x
+
+
+def _ar_layer(x, h, kind, mono_w, mono_b, F, S):
     """An autoregressive layer's univariates at fixed hyper outputs ``h``:
-    ``(y (n, F), ladj (n, F))``, ``ladj = log f'``. Feature ``f`` of ``y``
-    reads ``x[:, f]`` and its signal in ``h`` only."""
-    pre1, w1x = _hoist(h, mono_w, mono_b, F, S)
-    y, g = _mono(x, pre1, w1x, mono_w, mono_b, grad=True)
-    return y, torch.log(g)
+    ``(y (n, F), ladj (n, F))`` with ``ladj = log f'``. Feature ``f`` of
+    ``y`` reads ``x[:, f]`` and its outputs in ``h`` only. A UMNN's value is
+    its GL-16 integral plus its constant, its slope ``g(x)``."""
+    shift, pre1, w1x = _univariates(h, kind, mono_w, mono_b, F, S)
+    if kind == "umnn":
+        y, g = _umnn(x, pre1, w1x, mono_w, mono_b, _UMNN_FINE_N, grad=True)
+    else:
+        y, g = _mono(x, pre1, w1x, mono_w, mono_b, grad=True)
+    return y + shift, torch.log(g)
 
 
 def _softclip(x, bound):
@@ -304,23 +398,42 @@ def _naf_density_math(xc, params, layout, F, S):
         if entry[0] == "softclip":
             x, ladj = _softclip(x, entry[1])
         else:
-            x, ladj = _mono_layer(x, _made(torch.cat([x, c], dim=1), made), mono_w, mono_b, F, S)
+            h = _made(torch.cat([x, c], dim=1), made)
+            x, ladj = _ar_layer(x, h, entry[4], mono_w, mono_b, F, S)
         acc = acc + ladj.sum(dim=1)
     return acc - 0.5 * (x**2).sum(dim=1) - 0.5 * F * math.log(2 * math.pi)
 
 
-def _ar_inverse(y, c, made, mono_w, mono_b, passes, F, S):
+def _ar_inverse(y, c, made, mono_w, mono_b, passes, kind, F, S):
     """Invert one autoregressive layer (counterpart of
     ``_ar_inverse_sweeps_T`` :492, its warm-started default): ``min(passes,
     F)`` Jacobi sweeps, each a MADE pass on the current iterate, then per
-    feature a bisection and Newton steps on the monotone network."""
-    x = torch.zeros_like(y)
-    for sweep in range(min(passes, F)):
-        pre1, w1x = _hoist(_made(torch.cat([x, c], dim=1), made), mono_w, mono_b, F, S)
+    feature a bisection and Newton steps on the univariate. A UMNN solves
+    for ``y`` less its constant; it bisects with the GL-4 rule, takes its
+    Newton steps with GL-8 and the last one with GL-16, and takes one more
+    step in the first sweep than in the later ones."""
+    if kind == "umnn":
+        def f(t):
+            return _umnn(t, pre1, w1x, mono_w, mono_b, _UMNN_COARSE_N)
 
+        def vg(t, last):
+            n = _UMNN_FINE_N if last else _UMNN_NEWTON_N
+            return _umnn(t, pre1, w1x, mono_w, mono_b, n, grad=True)
+
+        n_newton = (_N_NEWTON_UMNN, _N_NEWTON_UMNN - 1)
+    else:
         def f(t):
             return _mono(t, pre1, w1x, mono_w, mono_b)
 
+        def vg(t, last):
+            return _mono(t, pre1, w1x, mono_w, mono_b, grad=True)
+
+        n_newton = (_N_NEWTON, _N_NEWTON)
+    x = torch.zeros_like(y)
+    for sweep in range(min(passes, F)):
+        h = _made(torch.cat([x, c], dim=1), made)
+        shift, pre1, w1x = _univariates(h, kind, mono_w, mono_b, F, S)
+        target = y - shift
         full_lo, full_hi = torch.full_like(y, -_BOUND), torch.full_like(y, _BOUND)
         if sweep == 0:
             lo, hi, n_bisect = full_lo, full_hi, _N_COARSE
@@ -328,16 +441,17 @@ def _ar_inverse(y, c, made, mono_w, mono_b, passes, F, S):
             # the previous root brackets this sweep's where f says it does;
             # the other rows start again from the full bracket
             lo, hi = x - _WARM_R, x + _WARM_R
-            ok = (f(lo) < y) & (y < f(hi))
+            ok = (f(lo) < target) & (target < f(hi))
             lo, hi, n_bisect = torch.where(ok, lo, full_lo), torch.where(ok, hi, full_hi), _N_WARM
         for _ in range(n_bisect):
             mid = 0.5 * (lo + hi)
-            right = f(mid) < y
+            right = f(mid) < target
             lo, hi = torch.where(right, mid, lo), torch.where(right, hi, mid)
         x = 0.5 * (lo + hi)
-        for _ in range(_N_NEWTON):
-            value, g = _mono(x, pre1, w1x, mono_w, mono_b, grad=True)
-            x = (x - (value - y) / g.clamp(min=_DF_FLOOR)).clamp(-_BOUND, _BOUND)
+        steps = n_newton[sweep > 0]
+        for i in range(steps):
+            value, g = vg(x, i == steps - 1)
+            x = (x - (value - target) / g.clamp(min=_DF_FLOOR)).clamp(-_BOUND, _BOUND)
     return x
 
 
@@ -356,10 +470,11 @@ def _naf_sample_math(zc, params, layout, F, S, want_log_prob=False):
             if want_log_prob:
                 acc = acc + _softclip(x, entry[1])[1].sum(dim=1)
         else:
-            x = _ar_inverse(y, c, made, mono_w, mono_b, entry[3], F, S)
+            _, _, _, passes, kind = entry
+            x = _ar_inverse(y, c, made, mono_w, mono_b, passes, kind, F, S)
             if want_log_prob:
                 h = _made(torch.cat([x, c], dim=1), made)
-                acc = acc + _mono_layer(x, h, mono_w, mono_b, F, S)[1].sum(dim=1)
+                acc = acc + _ar_layer(x, h, kind, mono_w, mono_b, F, S)[1].sum(dim=1)
         y = x
     return (y, acc) if want_log_prob else y
 
@@ -367,43 +482,58 @@ def _naf_sample_math(zc, params, layout, F, S, want_log_prob=False):
 # ---------------------------------------------------------- CUDA launches
 
 
-def _check_limits(params, layout, F, C, S):
-    """Raise ``ValueError`` for a flow the kernels do not take; return the
-    MADE's and the monotone nets' widths."""
-    widths = [
-        ([made[0].shape[1]] + [W.shape[0] for W in made[0::2]],
+def _widths(params, layout, F, C, S):
+    """``(kind, MADE widths, network widths)`` of the autoregressive layers,
+    which must share one shape and one univariate kind; ``ValueError``
+    otherwise."""
+    layers = [
+        (entry[4], [made[0].shape[1]] + [W.shape[0] for W in made[0::2]],
          [mono_w[0].shape[2]] + [W.shape[1] for W in mono_w])
         for entry, made, mono_w, _ in _stages(params, layout) if entry[0] == "ar"
     ]
-    made_w, mono_w = widths[0]
-    if any(w != widths[0] for w in widths):
-        raise ValueError("the kernels take autoregressive layers of one shape only")
-    if (
-        F > _MAX_FEATURES or S > _MAX_SIGNAL or made_w[0] != F + C
-        or max(made_w[:-1]) > _MAX_MADE_WIDTH or max(mono_w[1:-1]) > _MAX_MONO_WIDTH
-        or max(len(made_w), len(mono_w)) - 1 > _MAX_LINEAR or len(layout) > _MAX_STAGES
-    ):
+    if not layers or any(layer != layers[0] for layer in layers):
+        raise ValueError("the kernels take autoregressive layers of one shape and kind")
+    kind, made_w, mono_w = layers[0]
+    T = S + (kind == "umnn")
+    if made_w[0] != F + C or made_w[-1] != F * T or mono_w[0] != 1 + S or mono_w[-1] != 1:
         raise ValueError(
-            f"the kernels take <= {_MAX_FEATURES} features, a signal of <= {_MAX_SIGNAL},"
-            f" MADE widths <= {_MAX_MADE_WIDTH} (inputs included), monotone widths <="
-            f" {_MAX_MONO_WIDTH}, <= {_MAX_LINEAR} linears a network and <= {_MAX_STAGES}"
-            f" stages; got F = {F}, S = {S}, MADE {made_w}, monotone {mono_w},"
-            f" {len(layout)} stages"
-        )
-    return made_w, mono_w
+            f"MADE widths {made_w} and network widths {mono_w} do not match F = {F},"
+            f" C = {C}, S = {S}")
+    return kind, made_w, mono_w
+
+
+def plan_naf(made_w, mono_w, F, C, S, n_stages, rows):
+    """The tier of the NAF kernels for a flow of this shape (what the
+    wrappers launch, from the shapes alone): the narrow tier within its
+    limits, else the wide tier with a workspace of ``F + C + 2 max(MADE
+    widths) + S + 1 + 5 max(network widths) + F`` floats a row (the
+    fields of ``Row`` in ``csrc/naf_fused.cu``) and a descriptor buffer of
+    the widths, their offsets and 24 bytes a stage, rounded up."""
+    n_made, n_mono = len(made_w) - 1, len(mono_w) - 1
+    made_max, mono_max = max(made_w[:-1]), max(mono_w[1:-1])
+    if (F <= _MAX_FEATURES and S <= _MAX_SIGNAL and n_stages <= _MAX_STAGES
+            and max(n_made, n_mono) <= _MAX_LINEAR and made_max <= _MAX_MADE_WIDTH
+            and mono_max <= _MAX_MONO_WIDTH):
+        return narrow_plan(rows)
+    slots = (F + C) + 2 * made_max + (S + 1) + 5 * mono_max + F
+    desc = -(-4 * (2 * (n_made + n_mono) + 2) // 16) * 16 + 24 * n_stages
+    return wide_plan(slots, rows, desc)
 
 
 def _launch(fn, counter, xc, outs, params, layout, F, S):
-    """Common launch path of the two kernels: check, pack every stage's
-    parameters into one buffer (a softclip holds none), describe the stages
-    by kind, passes, bound and offset, call the C entry point on the current
-    stream, raise on a CUDA error, count."""
+    """Common launch path of the two kernels: check, plan the tier, pack
+    every stage's parameters into one buffer (a softclip holds none),
+    describe the stages by kind, passes, bound and offset, call the C entry
+    point on the current stream, raise on a CUDA error, count (a UMNN flow
+    under ``<kernel>_umnn``, the wide tier under ``<counter>_wide``)."""
     from ._build import check_launch, load_library
 
     if xc.dim() != 2 or not xc.is_contiguous() or xc.shape[1] < F:
         raise ValueError(f"{counter}: expected a contiguous (n, F + C) tensor, F = {F}")
-    made_w, mono_w = _check_limits(params, layout, F, xc.shape[1] - F, S)
+    C = xc.shape[1] - F
+    kind, made_w, mono_w = _widths(params, layout, F, C, S)
     check_cuda_f32(counter, [xc, *params])
+    plan = plan_naf(made_w, mono_w, F, C, S, len(layout), xc.shape[0])
     chunks, table, floats = [], [], 0
     for entry, made, mw, mb in _stages(params, layout):
         if entry[0] == "softclip":
@@ -419,6 +549,7 @@ def _launch(fn, counter, xc, outs, params, layout, F, S):
     columns = [(ctype * len(table))(*column) for ctype, column in zip(ctypes_of, zip(*table))]
     c_made = (ctypes.c_int * len(made_w))(*made_w)
     c_mono = (ctypes.c_int * len(mono_w))(*mono_w)
+    work, desc = workspace(plan, xc.device)
 
     lib = load_library("naf_fused")
     with torch.cuda.device(xc.device):
@@ -426,10 +557,16 @@ def _launch(fn, counter, xc, outs, params, layout, F, S):
             xc.data_ptr(), *outs, packed.data_ptr(),
             *(ctypes.addressof(column) for column in columns), len(table),
             ctypes.addressof(c_made), len(made_w) - 1, ctypes.addressof(c_mono), len(mono_w) - 1,
-            F, xc.shape[1] - F, S, xc.shape[0], torch.cuda.current_stream().cuda_stream,
+            F, C, S, _MODE_CODE[kind], xc.shape[0], int(plan.wide),
+            None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
+            plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(counter, lib, "naf_fused", rc)
-    LAUNCHES[counter] += 1
+    if kind == "umnn":
+        counter = counter.replace("naf_density", "naf_density_umnn").replace(
+            "naf_sample", "naf_sample_umnn")
+    LAUNCHES[counter + ("_wide" if plan.wide else "")] += 1
 
 
 def _density_kernel(xc, params, layout, F, S):
@@ -439,22 +576,22 @@ def _density_kernel(xc, params, layout, F, S):
 
 
 def naf_density(xc, params, layout, F, S):
-    r"""Whole-flow NAF log-density ``xc (n, F + C) -> (n,)``: the
+    r"""Whole-flow NAF or UNAF log-density ``xc (n, F + C) -> (n,)``: the
     ``naf_density`` kernel for a CUDA tensor (differentiable through
-    :class:`~._common.PlainBackward`, the backward of ``_naf_density_bwd``
-    :855, without its TPU row chunking), the plain version for a CPU
-    tensor."""
+    :class:`~._common.RowChunkedBackward`, the backward of
+    ``_naf_density_bwd`` :855, in chunks of rows for float32 accuracy and
+    memory), the plain version for a CPU tensor."""
     if not xc.is_cuda:
         return _naf_density_math(xc, params, layout, F, S)
-    return PlainBackward.apply(
+    return RowChunkedBackward.apply(
         xc.contiguous(), _density_kernel, _naf_density_math, (layout, F, S), *params)
 
 
 def naf_sample(zc, params, layout, F, S, want_log_prob=False):
-    r"""Whole-flow NAF inversion ``zc (n, F + C) -> x (n, F)``, and with
-    ``want_log_prob`` also ``log q (n,)``: the ``naf_sample`` kernel for a
-    CUDA tensor, the plain version for a CPU tensor. Not differentiable; the
-    differentiable form is :mod:`zuko_tpu_torch.ops.ift`."""
+    r"""Whole-flow NAF or UNAF inversion ``zc (n, F + C) -> x (n, F)``, and
+    with ``want_log_prob`` also ``log q (n,)``: the ``naf_sample`` kernel for
+    a CUDA tensor, the plain version for a CPU tensor. Not differentiable;
+    the differentiable form is :mod:`zuko_tpu_torch.ops.ift`."""
     if not zc.is_cuda:
         with torch.no_grad():
             return _naf_sample_math(zc, params, layout, F, S, want_log_prob)

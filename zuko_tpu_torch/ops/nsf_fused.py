@@ -18,8 +18,12 @@ Counterpart of ``zuko_tpu/ops/nsf_fused.py``. Three kernels, all in
   log-Jacobians, no base term. An inverted flow samples through it.
 
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
-launches its kernel (or raises) for a CUDA tensor. ``LAUNCHES`` counts the
-kernel launches, one per call that reaches a kernel.
+launches its kernel (or raises) for a CUDA tensor. :func:`plan_nsf` chooses
+the kernels' tier from the flow's shape: the narrow tier within its limits,
+the wide tier (weights through the read-only cache, a row's state in a
+workspace in device memory) beyond them. ``LAUNCHES`` counts the kernel
+launches, one per call that reaches a kernel, the wide tier's under
+``<name>_wide``.
 
 The TPU kernels' layout choices are not carried over: the batch is
 row-major ``(n, F + C)`` and the hyper-net's last layer keeps the MADE's
@@ -42,7 +46,14 @@ from ..flows.autoregressive import MaskedAutoregressiveTransform
 from ..lazy import LazyComposedTransform, UnconditionalDistribution
 from ..nn import Activation, MaskedLinear
 from ..transforms import MonotonicAffineTransform, MonotonicRQSTransform
-from ._common import LAUNCHES, check_cuda_f32, reset_launches
+from ._common import (
+    LAUNCHES,
+    check_cuda_f32,
+    narrow_plan,
+    reset_launches,
+    wide_plan,
+    workspace,
+)
 
 __all__ = [
     "FusedStructureError",
@@ -54,16 +65,20 @@ __all__ = [
     "nsf_apply",
     "nsf_density",
     "nsf_sample",
+    "plan_nsf",
     "reset_launches",
 ]
 
-# Limits of the kernels (mirrored in csrc/nsf_fused.cu): the widest hyper
+# The narrow tier's limits (mirrored in csrc/nsf_fused.cu): the widest hyper
 # layer, including the F + C inputs; the spline bins; linears per hyper-net;
-# autoregressive layers per flow.
+# autoregressive layers per flow; and one layer's weights in a block's shared
+# memory (the card's opt-in limit). Beyond any of them the wide tier takes the
+# flow.
 _MAX_WIDTH = 256
 _MAX_BINS = 32
 _MAX_LINEAR = 8
 _MAX_LAYERS = 64
+_SMEM_OPTIN = 232448  # bytes an H100 block may opt into
 _UNIV_CODE = {"affine": 0, "rqs": 1}
 
 
@@ -331,55 +346,62 @@ def _sample_math(zc, params, layout, F, K, bound, slope, univ,
 # ---------------------------------------------------------- CUDA launches
 
 
+def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN):
+    """The tier of the NSF kernels for a flow of this shape (what the
+    wrappers launch, from the shapes alone): the narrow tier within its
+    limits, one layer's weights in ``smem_limit`` bytes of shared memory;
+    else the wide tier with a workspace of ``F + C + F + 2 max(widths) + T +
+    3 (K + 1)`` floats a row (the fields of ``Row`` in
+    ``csrc/nsf_fused.cu``) and a descriptor buffer of the widths and
+    passes."""
+    n_lin = len(widths) - 1
+    F = widths[-1] // _univ_size(univ, K)
+    w_max = max(widths[:-1])
+    layer_floats = sum(o * (i + 1) for i, o in zip(widths[:-1], widths[1:]))
+    if (n_lin <= _MAX_LINEAR and n_ar <= _MAX_LAYERS and w_max <= _MAX_WIDTH
+            and F <= _MAX_WIDTH and (univ != "rqs" or K <= _MAX_BINS)
+            and 4 * layer_floats <= smem_limit):
+        return narrow_plan(rows)
+    slots = widths[0] + F + 2 * w_max + _univ_size(univ, K) + 3 * (K + 1)
+    return wide_plan(slots, rows, 4 * (n_lin + 1 + n_ar))
+
+
 def _pack_weights(params, layout, F, C, K, univ):
-    """Validate the shapes against the kernels' limits and pack, per AR
-    layer, ``[M⊙W_0, b_0, M⊙W_1, b_1, ...]`` into one contiguous buffer (the
-    mask is multiplied in once per call, as ``_presplit_params``' "mask"
-    mode does). Returns ``(packed, widths, passes, layer_floats)``."""
+    """Check the shapes and pack, per AR layer, ``[M⊙W_0, b_0, M⊙W_1, b_1,
+    ...]`` into one contiguous buffer (the mask is multiplied in once per
+    call, as ``_presplit_params``' "mask" mode does). Returns ``(packed,
+    widths, passes)``."""
     layers = _split_layers(params, layout)
     first = layers[0][0]
     widths = [first[0].shape[1]] + [first[3 * i].shape[0] for i in range(len(first) // 3)]
     T = _univ_size(univ, K)
     if widths[0] != F + C or widths[-1] != F * T:
         raise ValueError(f"hyper-net widths {widths} do not match F={F}, C={C}, T={T}")
-    if max(widths[:-1]) > _MAX_WIDTH or F > _MAX_WIDTH:
-        raise ValueError(f"the kernels take hyper-net widths <= {_MAX_WIDTH}, got {widths}")
-    if K > _MAX_BINS:
-        raise ValueError(f"the kernels take at most {_MAX_BINS} bins, got {K}")
-    if len(widths) - 1 > _MAX_LINEAR or len(layers) > _MAX_LAYERS:
-        raise ValueError(
-            f"the kernels take <= {_MAX_LINEAR} linears per hyper-net and"
-            f" <= {_MAX_LAYERS} layers"
-        )
     chunks = []
     for ps, _ in layers:
         for i in range(len(ps) // 3):
             W, b, M = ps[3 * i : 3 * i + 3]
             chunks += [(M * W).reshape(-1), b]
     packed = torch.cat(chunks).detach().contiguous()
-    layer_floats = packed.numel() // len(layers)
-    return packed, widths, [p for _, p in layers], layer_floats
+    return packed, widths, [p for _, p in layers]
 
 
 def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ):
-    """Common launch path of the kernels: check, pack, call the C entry
-    point with the input, the output pointers ``outs`` and the packed
-    weights on the current stream, raise on a CUDA error, count."""
+    """Common launch path of the kernels: check, pack, plan the tier (with
+    the card's shared memory), call the C entry point with the input, the
+    output pointers ``outs`` and the packed weights on the current stream,
+    raise on a CUDA error, count (the wide tier under ``<counter>_wide``)."""
     from ._build import check_launch, load_library
 
     if xc.dim() != 2 or not xc.is_contiguous():
         raise ValueError(f"{counter}: expected a contiguous (n, F + C) tensor")
     check_cuda_f32(counter, [xc, *params])
     C = xc.shape[1] - F
-    packed, widths, passes, layer_floats = _pack_weights(params, layout, F, C, K, univ)
+    packed, widths, passes = _pack_weights(params, layout, F, C, K, univ)
     lib = load_library("nsf_fused")
-    smem = 4 * layer_floats
-    limit = lib.nsf_max_shared_bytes(xc.device.index)
-    if smem > limit:
-        raise ValueError(
-            f"{counter}: one layer's weights take {smem} bytes of shared"
-            f" memory, the card allows {limit}"
-        )
+    plan = plan_nsf(widths, K, univ, len(passes), xc.shape[0],
+                    lib.nsf_max_shared_bytes(xc.device.index))
+    work, desc = workspace(plan, xc.device)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     c_passes = (ctypes.c_int * len(passes))(*passes)
     with torch.cuda.device(xc.device):
@@ -387,11 +409,13 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ):
             xc.data_ptr(), *outs, packed.data_ptr(),
             ctypes.addressof(c_widths), ctypes.addressof(c_passes),
             len(widths) - 1, len(passes), F, C, K, _UNIV_CODE[univ],
-            bound, math.log(slope), xc.shape[0],
+            bound, math.log(slope), xc.shape[0], int(plan.wide),
+            None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
+            plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     check_launch(counter, lib, "nsf_fused", rc)
-    LAUNCHES[counter] += 1
+    LAUNCHES[counter + ("_wide" if plan.wide else "")] += 1
 
 
 def _density_kernel(xc, params, layout, F, K, bound, slope, univ):

@@ -6,8 +6,9 @@ Counterpart of ``zuko_tpu/ops/rqs.py``. The ``rqs`` kernel (``csrc/rqs.cu``)
 replaces ``_pallas_rqs`` (:92, ``pallas_call`` at :106): given each element's
 ``K + 1`` horizontal, vertical and derivative knots, the bin search, the
 rational-quadratic evaluation (or its closed-form inverse) and the
-log-Jacobian in one pass. Its arithmetic is the device code the whole-flow
-kernels use (``csrc/rqs.cuh``).
+log-Jacobian in one pass, for any number of bins (the knots are read where
+they lie). Its arithmetic is the device code the whole-flow kernels use
+(``csrc/rqs.cuh``).
 
 :func:`rqs_forward` and :func:`rqs_inverse` take the plain version for a
 tensor that lies on the CPU, and launch the kernel (or raise) for a CUDA
@@ -24,9 +25,6 @@ import torch
 from ._common import LAUNCHES, check_cuda_f32
 
 __all__ = ["rqs_forward", "rqs_inverse"]
-
-_MAX_BINS = 32  # mirrored in csrc/rqs.cu
-
 
 def _rqs_math(x, hs, vs, ds, inverse: bool):
     """Plain version on flat elements (counterpart of ``_rqs_math`` :34):
@@ -108,8 +106,6 @@ def _rqs_kernel(x, hs, vs, ds, inverse):
     shape, *flat = _flat(x, hs, vs, ds)
     xf, hf, vf, df = (t.contiguous() for t in flat)
     K = hf.shape[-1] - 1
-    if K > _MAX_BINS:
-        raise ValueError(f"{name}: the kernel takes at most {_MAX_BINS} bins, got {K}")
     out, ladj = torch.empty_like(xf), torch.empty_like(xf)
     lib = load_library("rqs")
     with torch.cuda.device(x.device):

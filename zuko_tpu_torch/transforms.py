@@ -4,7 +4,9 @@ Counterpart of ``zuko_tpu/transforms.py``: :class:`Transform` :95,
 :class:`ComposedTransform` :197, :class:`DependentTransform` :284,
 :class:`SoftclipTransform` :505, :class:`MonotonicAffineTransform` :584,
 :class:`MonotonicRQSTransform` :612,
-:class:`MonotonicTransform` :724, :class:`GaussianizationTransform` :910,
+:class:`AdditiveTransform` :563, :class:`MonotonicTransform` :724,
+:class:`GaussianizationTransform` :910,
+:class:`UnconstrainedMonotonicTransform` :966,
 :class:`AutoregressiveTransform` :1033 and :class:`RotationTransform` :1292.
 Transforms are plain objects built per call by the lazy modules; they hold
 tensors, not parameters.
@@ -23,9 +25,10 @@ from typing import Callable, Iterable, Tuple
 import torch
 import torch.nn.functional as F
 
-from .utils import newton_bisection
+from .utils import gauss_legendre, newton_bisection
 
 __all__ = [
+    "AdditiveTransform",
     "AutoregressiveTransform",
     "ComposedTransform",
     "DependentTransform",
@@ -37,6 +40,7 @@ __all__ = [
     "RotationTransform",
     "SoftclipTransform",
     "Transform",
+    "UnconstrainedMonotonicTransform",
 ]
 
 
@@ -226,6 +230,30 @@ class SoftclipTransform(Transform):
     def inverse_and_ladj(self, y):
         x = self.inverse(y)
         return x, -self._ladj(x)
+
+
+class AdditiveTransform(Transform):
+    r""":math:`f(x) = x + b`, the NICE coupling law (reference:
+    zuko/transforms.py:381-409); UMNN adds its per-feature constant with it."""
+
+    def __init__(self, shift):
+        self.shift = shift
+
+    def forward(self, x):
+        return x + self.shift
+
+    def inverse(self, y):
+        return y - self.shift
+
+    def _ladj(self, x):
+        return torch.zeros(torch.broadcast_shapes(x.shape, self.shift.shape),
+                           dtype=x.dtype, device=x.device)
+
+    def call_and_ladj(self, x):
+        return self.forward(x), self._ladj(x)
+
+    def inverse_and_ladj(self, y):
+        return self.inverse(y), self._ladj(y)
 
 
 class MonotonicAffineTransform(Transform):
@@ -434,6 +462,32 @@ class GaussianizationTransform(MonotonicTransform):
         K = self.scale.shape[-1]
         ls = torch.logsumexp(self.log_scale - 0.5 * z**2, dim=-1)
         return y, 0.5 * y**2 + math.log((1 - self.EPS) / K) + ls
+
+
+class UnconstrainedMonotonicTransform(MonotonicTransform):
+    r""":math:`f(x) = \int_0^x g(u)\,du` with a positive integrand :math:`g`,
+    estimated by an ``n``-point Gauss-Legendre rule
+    (:func:`~zuko_tpu_torch.utils.gauss_legendre`); the log-Jacobian is
+    :math:`\log g(x)` exactly (reference: zuko/transforms.py:878-924, the
+    UMNN ingredient). The inverse is :class:`MonotonicTransform`'s solve;
+    ``phi`` holds the tensors ``g`` depends on."""
+
+    def __init__(self, g: Callable = None, n: int = 32, phi: Iterable[torch.Tensor] = (),
+                 **kwargs):
+        super().__init__(None, phi, **kwargs)
+        if g is not None:
+            self.g = g
+        self.n = int(n)
+
+    def f(self, x):
+        return gauss_legendre(self.g, torch.zeros_like(x), x, n=self.n)
+
+    def call_and_ladj(self, x):
+        return self.f(x), torch.log(self.g(x))
+
+    def inverse_and_ladj(self, y):
+        x = self.inverse(y)
+        return x, -torch.log(self.g(x))
 
 
 class RotationTransform(Transform):

@@ -7,9 +7,10 @@ Run from the root of a checkout, with no arguments::
 
 It builds the CUDA kernels from ``zuko_tpu_torch/ops/csrc`` into ``build/``,
 then drives the port's main paths through the public API: the flagship NSF,
-the Gaussianization flow (GF), the neural autoregressive flow (NAF) and the
-unconstrained one (UNAF) served and trained, then flows past every kernel's
-narrow limits served through the kernels' wide tier.
+the Gaussianization flow (GF), the neural autoregressive flow (NAF), the
+unconstrained one (UNAF) and the continuous normalizing flow (CNF) served and
+trained, and flows past every kernel's narrow limits served through the
+kernels' wide tier.
 
 **Serving**: the flagship NSF (D=6, 3 transforms, 64x64 MADE, K=8, float32,
 the committed ``zuko_tpu_torch/assets/nsf_flagship.npz`` weights) and a
@@ -97,13 +98,26 @@ and a conditional UNAF(6, 4), through the UMNN mode of K8 and K9, against
 and (j) reverse KL. **The repair** (phase 12): configurations past every
 narrow limit (widths, bins, linears, layers, features, components, stages,
 signal, shared memory) served through the public API by the wide tier of
-K1-K3 and K6-K9 and by K5 at 48 bins, held against plain float64 at their
-families' tolerances, each wide kernel timed once.
+K1-K3 and K6-K11 and by K5 at 48 bins, held against plain float64 at their
+families' tolerances, each wide kernel timed once (the CNFs: ``CNF(64, 10)``
+at 1,024 rows, the shape ``zuko_tpu`` refuses at its VMEM gate, and ``CNF(3,
+hidden_features=(512, 512))`` at 16,384). **The CNF** (phase 13):
+``CNF(6)`` of ``zuko_tpu_torch/assets/cnf_flagship.npz`` (ODE network 12-64-64-6,
+exact trace) and a conditional ``CNF(6, 4)`` under a batched context served
+through K10 (``cnf_density``) and K11 (``cnf_sample``, with and without log q)
+at 262,144 rows, held against ``assets/cnf_truth_f64.npz`` (density median
+<= 1e-4, max <= 1e-3; samples 99th percentile <= 1e-4; log q median <= 1e-4,
+max <= 1e-3) and against plain float64 at the same tiles (density and log q
+median <= 1e-4, max <= 1e-3; samples median <= 1e-5, 99th percentile <= 1e-4;
+log q against K10 at the returned points median <= 1e-3); K10's Function
+held at (k)'s parameters and rows against the float64 gradient of the
+global-step integration (parameters max-relative <= 1e-3, input normwise
+<= 1e-2); **(k)** MLE at 65,536 rows a step on the NSF's samples.
 
 Then it times each kernel, its plain version (float32, on the card), its
 bound and, for ``masked_linear``, the one PyTorch call that computes the
 same function (the GF kernels also with per-row parameters at 1M rows); one
-training step of each of (a)-(j) and a served request on the host clock; and
+training step of each of (a)-(k) and a served request on the host clock; and
 prints the card's name and power limit, one JSON line ``{"kernels": [...]}``
 (every kernel, mode and tier) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -208,6 +222,22 @@ UNAF_DENSITY_ROWS, UNAF_SAMPLE_ROWS, UNAF_IFT_ROWS = 1 << 18, 1 << 16, 1 << 14
 # solves a layer), one of a signal of 72 and networks of width 160 1,024.
 REPAIR_ROWS = 1 << 16
 NAF_RUNS = 3
+# The CNF. Its ladj is integrated scaled by trace_scale = 1e-2, so the error
+# control allows about atol / trace_scale = 1e-4 a step on the unscaled
+# log-determinant; the error estimate is a difference of nearly equal slopes,
+# so a float32 and a float64 run can take different steps in a tile, and then
+# every row of that tile differs at that level: densities and log q median
+# 1e-4, max 1e-3 (zuko_tpu's TPU kernel: max 2.1e-4 and median 4.0e-5 against
+# the same kind of truth); samples, whose error control is 1e-6 + 1e-5 |x|,
+# median 1e-5 and 99th percentile 1e-4; log q against K10 at the returned
+# points median 1e-3 (tests/test_fused_dispatch.py:862). K10's gradient: both
+# sides differentiate the global-step integration, float32 against float64
+# decisions: parameters max-relative 1e-3, input normwise 1e-2.
+TOL_CNF_MEDIAN, TOL_CNF_MAX, TOL_CNF_SAMPLE_Q99, TOL_CNF_SELF = 1e-4, 1e-3, 1e-4, 1e-3
+TOL_CNF_GRAD_PARAMS, TOL_CNF_GRAD_INPUT = 1e-3, 1e-2
+# K10 and K11 at the CNF batch of tools/bench_suite.py:214; (k) at 65,536
+CNF_ROWS, CNF_SAMPLE_ROWS, CNF_TRAIN_ROWS = 1 << 18, 1 << 18, 1 << 16
+CNF_NAMES = ("cnf_density", "cnf_sample", "cnf_sample_log_prob")
 GF_NAMES = ("gf_density", "gf_sample", "gf_sample_log_prob")
 NAF_NAMES = ("naf_density", "naf_sample", "naf_sample_log_prob")
 UMNN_NAMES = ("naf_density_umnn", "naf_sample_umnn", "naf_sample_umnn_log_prob")
@@ -357,6 +387,34 @@ def naf_ops(params, layout, F, S, mode):
     return total
 
 
+def cnf_ops(widths, nf, trace):
+    """Operations of one row's attempt through the CNF kernels, counted from
+    ``csrc/cnf_fused.cu`` with a multiply-add as 2 and a transcendental as 1,
+    for the network ``widths = [F, H1, ..., F]``: 7 evaluations, each a
+    multiply-add per weight, an add per bias and 3 per hidden unit (ELU and
+    its derivative); with the exact trace (``trace`` True) F tangent columns
+    (a multiply per first-layer unit, the middle layers' products and
+    derivative multiplies, one row of the last layer), with Hutchinson's
+    (False) one (the first layer's product with the probe, the middle
+    layers', the last layer's and the dot with the probe), without one
+    (None) none; and 78 per element of the state (x, and the ladj with a
+    trace) for the stage inputs, the two solutions, the error and its ratio.
+    The time-embedding term is the tile's, once per stage, and left out."""
+    F, hidden = widths[0], widths[1:-1]
+    pairs = list(zip(widths[:-1], widths[1:]))
+    network = sum(o * (2 * i + 1) for i, o in pairs) + 3 * sum(hidden)
+    middle = sum(o * (2 * i + 1) for i, o in pairs[1:-1])
+    if trace is None:
+        tangent = 0
+    elif not hidden:
+        tangent = F if trace else F * (2 * F + 2)
+    elif trace:
+        tangent = F * (hidden[0] + middle + 2 * pairs[-1][0] + 1)
+    else:
+        tangent = hidden[0] * (2 * F + 1) + middle + F * (2 * pairs[-1][0] + 2)
+    return 7 * (network + tangent) + 78 * (F + (trace is not None))
+
+
 def quantiles(diff):
     """median, 95th and 99th percentile and max of a tensor of errors."""
     flat = diff.flatten().float()
@@ -400,10 +458,13 @@ def main():
 
     from zuko_tpu_torch import ops
     from zuko_tpu_torch.lazy import Flow
-    from zuko_tpu_torch.ops import _build, gf_fused, ift, masked_linear, naf_fused, nsf_fused, rqs
+    from zuko_tpu_torch.ops import (
+        _build, cnf_fused, gf_fused, ift, masked_linear, naf_fused, nsf_fused, rqs,
+    )
     from zuko_tpu_torch.ops._common import WHOLE_FLOW
     from zuko_tpu_torch.ops.dispatch import (
         FusedAutoregressiveFlow,
+        FusedContinuousFlow,
         FusedGaussianizationFlow,
         FusedInvertedAutoregressiveFlow,
         FusedNeuralSamplingFlow,
@@ -426,7 +487,8 @@ def main():
     t0 = time.perf_counter()
     reports = _build.build_all(force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(reports)})")
-    check(set(reports) == {"nsf_fused", "gf_fused", "naf_fused", "masked_linear", "rqs"},
+    check(set(reports) == {"nsf_fused", "gf_fused", "naf_fused", "cnf_fused", "masked_linear",
+                           "rqs"},
           f"built {sorted(reports)}")
     for name, log in reports.items():
         for line in log.splitlines():
@@ -901,6 +963,9 @@ def main():
         "naf_density_umnn": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:949"),
         "naf_sample_umnn": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
         "naf_sample_umnn_log_prob": (CSRC + "naf_fused.cu", "zuko_tpu/ops/naf_fused.py:1128"),
+        "cnf_density": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:863"),
+        "cnf_sample": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1312"),
+        "cnf_sample_log_prob": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1312"),
     }
     origin.update({f"{name}_wide": origin[name] for name in WHOLE_FLOW})
 
@@ -1714,6 +1779,106 @@ def main():
                         "naf_sample_umnn": UNAF_SAMPLE_ROWS,
                         "naf_sample_umnn_log_prob": UNAF_SAMPLE_ROWS})
 
+    # the CNF's helpers (phases 12 and 13)
+    def cnf_args(flow, c, dtype=torch.float32):
+        """``(params, cfg)`` as the CNF wrappers take them, detached, in
+        ``dtype`` (the exact trace)."""
+        params, _, cfg = cnf_fused._flatten_cnf(flow, flow.transform(c), c)
+        return [p.detach().to(dtype) for p in params], cfg
+
+    def draws(shape):
+        """The standard-normal draws the next sampling call of ``shape`` takes
+        from ``gen`` (a copy of its state)."""
+        copy_ = torch.Generator(device=dev)
+        copy_.set_state(gen.get_state())
+        return torch.randn(shape, generator=copy_, device=dev)
+
+    def hold_cnf(label, flow, x, c, lp, zs, xs_k, zl, xl_k, lq_k, cz, names=None,
+                 self_check=True):
+        """Served CNF outputs against plain float64 at the same tiles: the
+        density ``lp`` at the rows ``x`` (context rows ``c``), the samples
+        ``xs_k`` (x alone) from the draws ``zs`` and ``xl_k``, ``lq_k``
+        (with log q) from ``zl`` (context rows ``cz``), and with
+        ``self_check`` log q against K10 at the returned points. The errors
+        are noted under ``names`` (density, sample, sample with log q), if
+        any."""
+        params, cfg = cnf_args(flow, None if c is None else c[:1])
+        p64 = [p.double() for p in params]
+
+        def plain64(c_):
+            return cnf_fused._kernel_params(p64[0::2], p64[1::2],
+                                            None if c_ is None else c_.double(), cfg)
+
+        with torch.no_grad():
+            d = (lp.double() - cnf_fused._cnf_tile_math(x.double(), None, plain64(c), cfg)).abs()
+            kz = plain64(cz)
+            r_x = cnf_fused._cnf_tile_sample_math(zs.double(), None, kz, cfg, False)
+            r_xl, r_lq = cnf_fused._cnf_tile_sample_math(zl.double(), None, kz, cfg, True)
+        dx, dxl = (xs_k.double() - r_x).abs(), (xl_k.double() - r_xl).abs()
+        dlq = (lq_k.double() - r_lq).abs()
+        found = [("density", d), ("x vs plain f64", dx), ("x (with log q) vs plain f64", dxl),
+                 ("log q vs plain f64", dlq)]
+        if self_check:
+            with torch.no_grad():
+                found.append(("log q vs K10 at x", (lq_k - cnf_fused.cnf_density(
+                    xl_k, None, params, cz, cfg)).abs()))
+        for what, diff in found:
+            print(f"{label} at {x.shape[0]} / {zs.shape[0]} rows, {what}: median %.3e q95 %.3e"
+                  " q99 %.3e max %.3e" % quantiles(diff))
+            check(bool(torch.isfinite(diff).all()), f"{label} {what}: not finite")
+        for diff in (d, dlq):
+            check(quantiles(diff)[0] <= TOL_CNF_MEDIAN and diff.max().item() <= TOL_CNF_MAX,
+                  f"{label} density or log q vs plain")
+        for diff in (dx, dxl):
+            check(quantiles(diff)[0] <= TOL_SAMPLE_MEDIAN
+                  and quantiles(diff)[2] <= TOL_CNF_SAMPLE_Q99, f"{label} samples vs plain")
+        if self_check:
+            check(quantiles(found[-1][1])[0] <= TOL_CNF_SELF, f"{label} log q vs K10")
+        if names is not None:
+            for name, diff in zip(names, (d, dx, dlq)):
+                note_error(name, diff, x.shape[0] if name == names[0] else zs.shape[0])
+
+    def cnf_work(params, cfg, x, c, z, cz, names=CNF_NAMES):
+        """``names`` (density, sample, sample with log q) -> (kernel, plain,
+        operations, bytes) of the CNF kernels at the rows ``x`` (context
+        rows ``c``) and the draws ``z`` (context rows ``cz``): the operations
+        of the attempts the plain float32 version takes on each tile (rows
+        past the end excluded), each input read once (a context as its
+        folded first bias), each weight once, each output written once."""
+        kx = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+        kz = cnf_fused._kernel_params(params[0::2], params[1::2], cz, cfg)
+        widths, F = cnf_fused._widths(kx), cfg["F"]
+        weights = 4 * sum(p.numel() for p in params)
+
+        def ops_of(rows, attempts, trace):
+            tile = cnf_fused.TILE
+            last = rows - (attempts.numel() - 1) * tile
+            row_attempts = attempts[:-1].sum().item() * tile + attempts[-1].item() * last
+            return row_attempts * cnf_ops(widths, cfg["nf"], trace)
+
+        def bias_bytes(rows, c_):
+            return 0 if c_ is None else 4 * rows * widths[1]
+
+        with torch.no_grad():
+            n, m = x.shape[0], z.shape[0]
+            _, a_d = cnf_fused._cnf_tile_math(x, None, kx, cfg, counts=True)
+            _, a_s = cnf_fused._cnf_tile_sample_math(z, None, kz, cfg, False, counts=True)
+            _, a_l = cnf_fused._cnf_tile_sample_math(z, None, kz, cfg, True, counts=True)
+        return {
+            names[0]: (
+                lambda: cnf_fused.cnf_density(x, None, params, c, cfg),
+                lambda: cnf_fused._cnf_tile_math(x, None, kx, cfg),
+                ops_of(n, a_d, True), 4 * n * (F + 1) + bias_bytes(n, c) + weights),
+            names[1]: (
+                lambda: cnf_fused.cnf_sample(z, None, params, cz, cfg),
+                lambda: cnf_fused._cnf_tile_sample_math(z, None, kz, cfg, False),
+                ops_of(m, a_s, None), 8 * m * F + bias_bytes(m, cz) + weights),
+            names[2]: (
+                lambda: cnf_fused.cnf_sample(z, None, params, cz, cfg, True),
+                lambda: cnf_fused._cnf_tile_sample_math(z, None, kz, cfg, True),
+                ops_of(m, a_l, True), 4 * m * (2 * F + 1) + bias_bytes(m, cz) + weights),
+        }
+
     # 12. repair: flows past the narrow tiers' limits, served through the
     # public API by the wide tier (and K5 past 32 bins, unfused), held against
     # plain float64 at their families' tolerances, each wide kernel timed
@@ -1769,6 +1934,15 @@ def main():
                 3, signal=72, hidden_features=(320,), network={"hidden_features": (160, 160)},
                 device="cpu"), 19, damp=0.3), REPAIR_ROWS // 4, REPAIR_ROWS // 64),
         ]
+    # the CNFs: 64 features (what zuko_tpu refuses at its VMEM gate), with a
+    # context of rows, and hidden widths of 512
+    wide_cnf = [
+        ("CNF(64, 10)", built(lambda: zt.CNF(64, 10, exact=True, device="cpu"), 20), 10,
+         REPAIR_ROWS // 64),
+        ("CNF(3, hidden_features=(512, 512))",
+         built(lambda: zt.CNF(3, hidden_features=(512, 512), device="cpu"), 21), 0,
+         REPAIR_ROWS // 4),
+    ]
     wide_names = [f"{name}_wide" for name in WHOLE_FLOW]
 
     ops.reset_launches()
@@ -1802,6 +1976,22 @@ def main():
             outs = [dist.log_prob(x), dist.sample((sample_rows,), generator=gen),
                     *dist.sample_and_log_prob((sample_rows,), generator=gen)]
             check(all(bool(torch.isfinite(t).all()) for t in outs), f"{label}: not finite")
+        cnf_served = []
+        for label, flow, C, rows in wide_cnf:
+            F = flow.base._0.shape[0]
+            c = torch.randn(rows, C, generator=gen, device=dev) if C else None
+            x = torch.randn(rows, F, generator=gen, device=dev)
+            dist = flow(c)
+            check(isinstance(dist, FusedContinuousFlow), f"{label} did not dispatch")
+            shape = () if C else (rows,)
+            lp = dist.log_prob(x)
+            z1 = draws((rows, F))
+            xs_ = dist.sample(shape, generator=gen)
+            z2 = draws((rows, F))
+            xl_, lq_ = dist.sample_and_log_prob(shape, generator=gen)
+            check(all(bool(torch.isfinite(t).all()) for t in (lp, xs_, xl_, lq_)),
+                  f"{label}: not finite")
+            cnf_served.append((label, flow, c, x, lp, z1, xs_, z2, xl_, lq_))
     before = os.environ.get("ZUKO_TPU_TORCH_FUSED_DISPATCH")
     os.environ["ZUKO_TPU_TORCH_FUSED_DISPATCH"] = "0"
     try:
@@ -1911,7 +2101,158 @@ def main():
             else:
                 check(max(dy.max().item(), dl.max().item()) <= TOL_DENSITY,
                       f"{name} at {K} bins vs plain")
+            m48 = x_rqs48.numel()
+            time_kernel(name, x_rqs48.shape[0], lambda: fn(x_rqs48, *knots),
+                        lambda: rqs._math_nd(x_rqs48, *knots, inverse), m48 * rqs_ops(K),
+                        4 * m48 * (1 + 3 * (K + 1) + 2), note=f"{K} bins ({m48} elements)",
+                        runs=PER_OP_RUNS)
+    # the CNFs held on their served outputs; the wide kernels timed at the
+    # first (at 16,384 rows of width 512 a tile takes seconds)
+    for i, (label, flow, c, x, lp, z1, xs_, z2, xl_, lq_) in enumerate(cnf_served):
+        names = tuple(f"{n}_wide" for n in CNF_NAMES) if i == 0 else None
+        hold_cnf(label, flow, x, c, lp, z1, xs_, z2, xl_, lq_, c, names, self_check=False)
+        if i == 0:
+            params, cfg = cnf_args(flow, c)
+            with torch.no_grad():
+                time_wide(x.shape[0], cnf_work(params, cfg, x, c, z2, c))
     check(set(report_rows) >= set(wide_names), "a wide kernel was not timed")
+
+    # 13. the continuous normalizing flow (CNF): K10 and K11 served, held
+    # against float64 truth and plain float64, K10's Function at (k)'s rows,
+    # (k) trained, timed
+    t13 = time.perf_counter()
+    cnf_flagship = zt.load_params(zt.CNF(6, device=dev),
+                                  ROOT / "zuko_tpu_torch" / "assets" / "cnf_flagship.npz")
+    ctruth = np.load(ROOT / "zuko_tpu_torch" / "assets" / "cnf_truth_f64.npz")
+    torch.manual_seed(7)
+    cnf_cond = zt.CNF(6, 4, device=dev)
+    n_ctruth = ctruth["x"].shape[0]
+    # one request holds the truth rows first
+    cx_big = torch.cat([torch.as_tensor(ctruth["x"], device=dev, dtype=torch.float32),
+                        x_big[: CNF_ROWS - n_ctruth]])
+    cc_big = torch.randn(CNF_ROWS, 4, generator=gen, device=dev)
+    cc_few = torch.randn(1024, 4, generator=gen, device=dev)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cdist = cnf_flagship(None)
+        c_lp = cdist.log_prob(cx_big)
+        c_zs = draws((CNF_SAMPLE_ROWS, 6))
+        c_xs = cdist.sample((CNF_SAMPLE_ROWS,), generator=gen)
+        c_zl = draws((CNF_SAMPLE_ROWS, 6))
+        c_xl, c_lq = cdist.sample_and_log_prob((CNF_SAMPLE_ROWS,), generator=gen)
+        ccdist = cnf_cond(cc_big)
+        cc_lp = ccdist.log_prob(x_big[:CNF_ROWS])
+        ccfew = cnf_cond(cc_few)
+        cc_zs = draws((4, 1024, 6))
+        cc_xs = ccfew.sample((4,), generator=gen)
+        cc_zl = draws((4, 1024, 6))
+        cc_xl, cc_lq = ccfew.sample_and_log_prob((4,), generator=gen)
+    torch.cuda.synchronize()
+    cnf_launches = {name: ops.LAUNCHES[name] for name in CNF_NAMES}
+    print(f"CNF serving phase: {time.perf_counter() - t0:.3f} s, launches {cnf_launches}")
+    check(all(isinstance(d, FusedContinuousFlow) for d in (cdist, ccdist, ccfew)),
+          "CNFs on the GPU did not dispatch to the fused kernels")
+    check(cnf_launches == dict(zip(CNF_NAMES, (2, 2, 2))), f"CNF serving launches {cnf_launches}")
+    check(all(count == 0 for name, count in ops.LAUNCHES.items() if name not in CNF_NAMES),
+          "the CNF path launched another kernel")
+    for t, shape in [
+        (c_lp, (CNF_ROWS,)), (c_xs, (CNF_SAMPLE_ROWS, 6)), (c_xl, (CNF_SAMPLE_ROWS, 6)),
+        (c_lq, (CNF_SAMPLE_ROWS,)), (cc_lp, (CNF_ROWS,)), (cc_xs, (4, 1024, 6)),
+        (cc_xl, (4, 1024, 6)), (cc_lq, (4, 1024)),
+    ]:
+        check(tuple(t.shape) == shape, f"CNF shape {tuple(t.shape)} != {shape}")
+        check(bool(torch.isfinite(t).all()), "non-finite values on the served CNF path")
+
+    # against the float64 truth: the density of the truth rows as served,
+    # and K11 from the truth's base draws
+    cparams, ccfg = cnf_args(cnf_flagship, None)
+    err = (c_lp[:n_ctruth].double() - torch.as_tensor(ctruth["lp"], device=dev)).abs()
+    print(f"CNF log_prob vs f64 truth ({n_ctruth} rows): median %.3e q95 %.3e q99 %.3e"
+          " max %.3e" % quantiles(err))
+    check(err.median().item() <= TOL_CNF_MEDIAN and err.max().item() <= TOL_CNF_MAX,
+          "CNF density vs f64 truth")
+    with torch.no_grad():
+        z_truth = torch.as_tensor(ctruth["z"], device=dev, dtype=torch.float32)
+        t_x, t_lq = cnf_fused.cnf_sample(z_truth, None, cparams, None, ccfg, True)
+    dx = (t_x.double() - torch.as_tensor(ctruth["x_sample"], device=dev)).abs()
+    dlq = (t_lq.double() - torch.as_tensor(ctruth["lq"], device=dev)).abs()
+    print(f"CNF sample vs f64 truth ({dx.shape[0]} draws): x median %.3e q95 %.3e q99 %.3e"
+          " max %.3e;" % quantiles(dx), "log q median %.3e q95 %.3e q99 %.3e max %.3e"
+          % quantiles(dlq))
+    check(quantiles(dx)[2] <= TOL_CNF_SAMPLE_Q99, "CNF samples vs f64 truth")
+    check(dlq.median().item() <= TOL_CNF_MEDIAN and dlq.max().item() <= TOL_CNF_MAX,
+          "CNF log q vs f64 truth")
+
+    # against plain float64 at the same tiles, the served outputs
+    hold_cnf("CNF", cnf_flagship, cx_big, None, c_lp, c_zs, c_xs, c_zl, c_xl, c_lq, None,
+             names=CNF_NAMES)
+    hold_cnf("conditional CNF", cnf_cond, x_big[:CNF_ROWS], cc_big, cc_lp,
+             cc_zs.reshape(-1, 6), cc_xs.reshape(-1, 6), cc_zl.reshape(-1, 6),
+             cc_xl.reshape(-1, 6), cc_lq.reshape(-1), cc_few.repeat(4, 1))
+
+    # K10's Function at (k)'s parameters and rows (the NSF's samples): the
+    # kernel forward, the float32 gradient of the global-step integration,
+    # against its float64 gradient; a loss of means
+    cnf_batches = xs.split(CNF_TRAIN_ROWS)
+    xg = cnf_batches[0]
+    ps32 = [p.clone().requires_grad_(True) for p in cparams]
+    x32 = xg.clone().requires_grad_(True)
+    lp32 = cnf_fused.cnf_density(x32, None, ps32, None, ccfg)
+    lp32.mean().backward()
+    ps64 = [p.double().requires_grad_(True) for p in cparams]
+    x64 = xg.double().requires_grad_(True)
+    lp64 = cnf_fused._ref_log_prob(x64, None, ps64[0::2], ps64[1::2], None, ccfg)
+    lp64.mean().backward()
+    print("CNF at (k)'s rows, K10 vs the global-step integration in float64: median %.3e"
+          " q95 %.3e q99 %.3e max %.3e" % quantiles((lp32.detach().double() - lp64.detach()).abs()))
+    compare_grads("CNF at (k)'s rows", [x32.grad] + [p.grad for p in ps32],
+                  [x64.grad] + [p.grad for p in ps64], tol_input=TOL_CNF_GRAD_INPUT,
+                  tol_params=TOL_CNF_GRAD_PARAMS)
+    del lp64, ps64, x64
+
+    # (k) on the samples the NSF serving phase drew, as (a), (e), (g), (i)
+    flow_k = zt.load_params(zt.CNF(6, device=dev),
+                            ROOT / "zuko_tpu_torch" / "assets" / "cnf_flagship.npz")
+    cnf_batch = lambda i: (cnf_batches[i % len(cnf_batches)],)  # noqa: E731
+    ops.reset_launches()
+    init_fn, step_fns["cnf_mle"] = zt.make_mle_step(flow_k, lr=1e-3)
+    trained["cnf_mle"], _ = run("(k) CNF MLE", step_fns["cnf_mle"], init_fn(), cnf_batch,
+                                TRAIN_STEPS)
+    counts = counts_after("(k) CNF MLE", ["cnf_density"],
+                          none=(*served, *gf_served, *NAF_NAMES, *UMNN_NAMES, *CNF_NAMES[1:]))
+    check(counts["cnf_density"] == TRAIN_STEPS, "(k): one cnf_density launch a step")
+    train_launches["cnf_density"] = counts["cnf_density"]
+    per_step["cnf_mle"] = time_step(
+        "cnf_mle", cnf_batch, lambda: flow_k(None).log_prob(cnf_batches[0]).mean())
+
+    # times: K10 at the serving rows and (k)'s, K11 with and without log q
+    # at the serving rows; the served requests around them
+    with torch.no_grad():
+        work = cnf_work(cparams, ccfg, cx_big, None,
+                        torch.randn(CNF_SAMPLE_ROWS, 6, generator=gen, device=dev), None)
+        for name in CNF_NAMES:
+            rows = CNF_ROWS if name == "cnf_density" else CNF_SAMPLE_ROWS
+            time_kernel(name, rows, *work[name])
+            check(timed[name, rows, ""]["bound_by"] == "operations", f"{name}: bound by bytes")
+        time_kernel("cnf_density", CNF_TRAIN_ROWS, *cnf_work(
+            cparams, ccfg, xg, None, xg, None)["cnf_density"])
+        cnf_requests = {
+            "cnf_density": (CNF_ROWS, lambda: cnf_flagship(None).log_prob(cx_big)),
+            "cnf_sample": (CNF_SAMPLE_ROWS, lambda: cnf_flagship(None).sample(
+                (CNF_SAMPLE_ROWS,), generator=gen)),
+            "cnf_sample_log_prob": (CNF_SAMPLE_ROWS, lambda: cnf_flagship(None).sample_and_log_prob(
+                (CNF_SAMPLE_ROWS,), generator=gen)),
+        }
+        for name, (rows, request) in cnf_requests.items():
+            r_ms, r_runs = host_ms(request, 3)
+            print(f"served request {name} at {rows} rows: {r_ms:.3f} ms {fmt(r_runs)},"
+                  f" kernel share {timed[name, rows, '']['ms'] / r_ms:.3f}")
+    step_labels += (("cnf_mle", "(k) CNF MLE"),)
+    report_rows.update({"cnf_density": CNF_ROWS, "cnf_sample": CNF_SAMPLE_ROWS,
+                        "cnf_sample_log_prob": CNF_SAMPLE_ROWS})
+    print(f"CNF phase: {time.perf_counter() - t13:.1f} s")
 
     # a training step beside the kernels it launches (their times at the
     # step's shapes, times the launches of one step)
@@ -1919,7 +2260,8 @@ def main():
                        ("rkl_inv", "(c) reverse KL, inverted flow"),
                        ("mle_unfused", "(d) MLE, unfused, per-op kernels"), *step_labels):
         s_ms, s_runs = step_ms[key]
-        rows = {"naf_rkl": NAF_IFT_ROWS, "unaf_rkl": UNAF_IFT_ROWS}.get(key, GRAD_ROWS)
+        rows = {"naf_rkl": NAF_IFT_ROWS, "unaf_rkl": UNAF_IFT_ROWS,
+                "cnf_mle": CNF_TRAIN_ROWS}.get(key, GRAD_ROWS)
         k_ms = sum(timed[name, rows, ""]["ms"] * count / (3 if name == "masked_linear" else 1)
                    for name, count in per_step[key].items())
         print(f"training step {label}: {s_ms:.3f} ms {fmt(s_runs)}, launches per step"
@@ -1946,6 +2288,7 @@ def main():
     launches.update(gf_launches)
     launches.update(naf_launches)
     launches.update(unaf_launches)
+    launches.update(cnf_launches)
     launches.update({name: repair_launches[name] for name in wide_names})
     for name, (source, replaces) in origin.items():
         rows = report_rows.get(name, ROWS if name in launches else GRAD_ROWS)

@@ -11,14 +11,14 @@ import pytest
 
 # module (relative to either package) -> the names ported so far
 PORTED = {
-    "utils": ["bisection", "broadcast", "gauss_legendre", "newton_bisection", "unpack"],
+    "utils": ["bisection", "broadcast", "gauss_legendre", "newton_bisection", "odeint", "unpack"],
     "nn": [
         "Activation", "LayerNorm", "Linear", "MLP", "MaskedLinear", "MaskedMLP", "MonotonicLinear",
         "MonotonicMLP", "Residual", "TwoWayELU",
     ],
     "transforms": [
         "AdditiveTransform", "AutoregressiveTransform", "ComposedTransform", "DependentTransform",
-        "GaussianizationTransform", "Inverse", "MonotonicAffineTransform",
+        "FreeFormJacobianTransform", "GaussianizationTransform", "Inverse", "MonotonicAffineTransform",
         "MonotonicRQSTransform", "MonotonicTransform", "RotationTransform", "SoftclipTransform",
         "Transform", "UnconstrainedMonotonicTransform",
     ],
@@ -28,13 +28,14 @@ PORTED = {
         "UnconditionalDistribution", "UnconditionalTransform",
     ],
     "flows": [
-        "ElementWiseTransform", "Flow", "GF", "MAF", "MNN", "MaskedAutoregressiveTransform", "NAF",
-        "NSF", "UMNN", "UNAF",
+        "CNF", "ElementWiseTransform", "FFJTransform", "Flow", "GF", "MAF", "MNN",
+        "MaskedAutoregressiveTransform", "NAF", "NSF", "UMNN", "UNAF",
     ],
     "flows.autoregressive": ["MAF", "MaskedAutoregressiveTransform"],
     "flows.spline": ["NSF"],
     "flows.gaussianization": ["ElementWiseTransform", "GF"],
     "flows.neural": ["MNN", "NAF", "UMNN", "UNAF"],
+    "flows.continuous": ["CNF", "FFJTransform"],
     "serial": ["load_params"],
     "data": ["ring_energy", "two_moons"],
     "parallel": ["TrainState", "make_mle_step", "make_reverse_kl_step", "train_mle"],
@@ -43,13 +44,15 @@ PORTED = {
         "FusedStructureError", "extract_nsf_params", "fused_nsf_log_prob", "fused_nsf_sample"],
     "ops.gf_fused": ["extract_gf_params", "fused_gf_log_prob", "fused_gf_sample"],
     "ops.naf_fused": ["extract_naf_params", "fused_naf_log_prob", "fused_naf_sample"],
+    "ops.cnf_fused": ["extract_cnf_params", "fused_cnf_log_prob", "fused_cnf_sample"],
     "ops.ift": [
         "fused_gf_rsample", "fused_gf_rsample_and_log_prob", "fused_naf_rsample",
         "fused_naf_rsample_and_log_prob", "fused_nsf_rsample", "fused_nsf_rsample_and_log_prob",
     ],
     "ops.dispatch": [
-        "FusedAutoregressiveFlow", "FusedGaussianizationFlow", "FusedInvertedAutoregressiveFlow",
-        "FusedNeuralSamplingFlow", "fused_dispatch_enabled", "maybe_fused_flow",
+        "FusedAutoregressiveFlow", "FusedContinuousFlow", "FusedGaussianizationFlow",
+        "FusedInvertedAutoregressiveFlow", "FusedNeuralSamplingFlow", "fused_dispatch_enabled",
+        "maybe_fused_flow",
     ],
     "ops.masked_linear": ["masked_linear"],
     "ops.rqs": ["rqs_forward", "rqs_inverse"],

@@ -16,7 +16,9 @@ import zuko_tpu_torch as zt
 from zuko_tpu_torch.distributions import NormalizingFlow
 from zuko_tpu_torch import ops
 from zuko_tpu_torch.flows import ElementWiseTransform
-from zuko_tpu_torch.ops import _build, gf_fused, masked_linear, naf_fused, nsf_fused, rqs
+from zuko_tpu_torch.ops import (
+    _build, cnf_fused, gf_fused, masked_linear, naf_fused, nsf_fused, rqs,
+)
 from zuko_tpu_torch.ops.dispatch import FusedAutoregressiveFlow, fused_dispatch_enabled
 
 torch.set_num_threads(1)
@@ -60,7 +62,8 @@ def test_port_imports_neither_jax_nor_zuko_tpu(path):
 def test_default_device_is_cuda_and_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the rule under test is its absence")
-    for build in (lambda: zt.NSF(3), lambda: zt.NAF(6, transforms=3, signal=16)):
+    for build in (lambda: zt.NSF(3), lambda: zt.NAF(6, transforms=3, signal=16),
+                  lambda: zt.CNF(6)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
 
@@ -182,6 +185,84 @@ def test_naf_wrappers_take_plain_versions_on_cpu(context):
     assert all(count == 0 for count in ops.LAUNCHES.values())
 
 
+def _small_cnf(context=0, dtype=torch.float32, rows=16):
+    """``(eps, params, c, cfg)`` of the CNF wrappers for a small CNF with
+    a Hutchinson probe: the context one row each when there is one."""
+    torch.manual_seed(0)
+    flow = zt.CNF(4, context, hidden_features=(16, 16), exact=False, device="cpu").to(dtype)
+    c = torch.randn(rows, context, dtype=dtype) if context else None
+    t = flow.transform(c, generator=torch.Generator().manual_seed(0))
+    params, probe, cfg = cnf_fused._flatten_cnf(flow, t, c)
+    eps = probe(torch.zeros(rows, 4, dtype=dtype))
+    return eps, [p.detach() for p in params], c, cfg
+
+
+@pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
+def test_cnf_wrappers_take_plain_versions_on_cpu(context):
+    eps, params, c, cfg = _small_cnf(context)
+    x = torch.randn(16, 4)
+    kp = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+    ops.reset_launches()
+    with torch.no_grad():
+        torch.testing.assert_close(cnf_fused.cnf_density(x, eps, params, c, cfg),
+                                   cnf_fused._cnf_tile_math(x, eps, kp, cfg), rtol=0, atol=0)
+        sample = cnf_fused.cnf_sample(x, eps, params, c, cfg)
+        sample_l, lq = cnf_fused.cnf_sample(x, eps, params, c, cfg, want_log_prob=True)
+        plain, plain_lq = cnf_fused._cnf_tile_sample_math(x, eps, kp, cfg, want_log_prob=True)
+        torch.testing.assert_close(sample, cnf_fused._cnf_tile_sample_math(x, eps, kp, cfg),
+                                   rtol=0, atol=0)
+    for a, b in ((sample_l, plain), (lq, plain_lq)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert sample.shape == (16, 4) and lq.shape == (16,)
+    assert {"cnf_density", "cnf_sample", "cnf_sample_log_prob"} <= set(ops.LAUNCHES)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+def test_cnf_kernel_is_built_and_counted_and_has_no_switch():
+    """The CNF kernel source is one of the libraries the build compiles,
+    its entry points are declared, each wrapper counts its launches under
+    its name (and ``_wide``), the source uses no tensor-core or TF32
+    arithmetic, and no environment variable chooses a CNF route (the TPU
+    package reads ``ZUKO_TPU_IFT`` and ``ZUKO_TPU_CNF_ADJ``)."""
+    source = (ROOT / "zuko_tpu_torch" / "ops" / "cnf_fused.py").read_text()
+    assert "os.environ" not in source and "getenv" not in source
+    for path in PORT_FILES:
+        text = (ROOT / path).read_text()
+        assert "ZUKO_TPU_IFT" not in text and "ZUKO_TPU_CNF_ADJ" not in text, path
+    cu = ROOT / "zuko_tpu_torch" / "ops" / "csrc" / "cnf_fused.cu"
+    assert cu in set(_build._CSRC.glob("*.cu"))
+    assert set(_build._SIGNATURES["cnf_fused"]) == {"cnf_density_f32", "cnf_sample_f32"}
+    text = cu.read_text()
+    for entry in _build._SIGNATURES["cnf_fused"]:
+        assert f'extern "C" int {entry}(' in text
+    code = "\n".join(line.split("//")[0] for line in text.splitlines()).lower()
+    for word in ("wmma", "mma", "tf32", "__half", "bfloat16", "#include <cu"):
+        assert word not in code.replace("#include <cuda_runtime.h>", ""), word
+    names = {"cnf_density", "cnf_sample", "cnf_sample_log_prob"}
+    assert names | {f"{n}_wide" for n in names} <= set(ops.LAUNCHES)
+
+
+@pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
+def test_cnf_wrappers_never_call_their_plain_versions_for_gpu_tensors(context, monkeypatch):
+    """For a tensor on the GPU the CNF wrappers go to the launch path, which
+    raises here on the CPU weights; the plain versions are never reached."""
+    eps, params, c, cfg = _small_cnf(context)
+
+    def plain(*a, **k):
+        raise AssertionError("plain version called for a GPU tensor")
+
+    monkeypatch.setattr(cnf_fused, "_cnf_tile_math", plain)
+    monkeypatch.setattr(cnf_fused, "_cnf_tile_sample_math", plain)
+    x = torch.randn(16, 4).as_subclass(_OnCard)
+    ops.reset_launches()
+    for call in (lambda: cnf_fused.cnf_density(x, eps, params, c, cfg),
+                 lambda: cnf_fused.cnf_sample(x, eps, params, c, cfg),
+                 lambda: cnf_fused.cnf_sample(x, eps, params, c, cfg, want_log_prob=True)):
+        with pytest.raises(ValueError, match="on the GPU"):
+            call()
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
 def test_naf_has_no_warm_switch_and_its_kernel_is_built_and_counted():
     """Warm-started sweeps are the only sampler: no environment variable
     selects them (the TPU package reads ``ZUKO_TPU_NAF_WARM``). The kernel
@@ -264,14 +345,19 @@ class _OnCard(torch.Tensor):
 ], ids=["float64", "float32"])
 @pytest.mark.parametrize(
     "op", ["masked_linear", "rqs_forward", "rqs_inverse", "gf_density", "gf_sample",
-           "naf_density", "naf_sample", "unaf_density", "unaf_sample"])
+           "naf_density", "naf_sample", "unaf_density", "unaf_sample", "cnf_density",
+           "cnf_sample"])
 def test_gpu_tensors_reach_the_kernel_or_raise(op, dtype, error, match):
-    """For a tensor on the GPU the unfused layers and the GF, NAF and UNAF
-    wrappers go to their kernel whatever the type: float64 raises there, as
+    """For a tensor on the GPU the unfused layers and the GF, NAF, UNAF and
+    CNF wrappers go to their kernel whatever the type: float64 raises there, as
     the whole-flow NSF kernels do, and nothing gives way to the plain
     arithmetic."""
     torch.manual_seed(0)
-    if op.startswith(("naf_", "unaf_")):
+    if op.startswith("cnf_"):
+        eps, params, c, cfg = _small_cnf(3, dtype)
+        wrapper = getattr(cnf_fused, op)
+        fn, x = (lambda v: wrapper(v, eps, params, c, cfg)), torch.randn(16, 4, dtype=dtype)
+    elif op.startswith(("naf_", "unaf_")):
         args = _small_naf(3, dtype, zt.UNAF if op.startswith("unaf_") else zt.NAF)
         wrapper = getattr(naf_fused, op.removeprefix("u"))
         fn, x = (lambda v: wrapper(v, *args)), torch.randn(16, 7, dtype=dtype)

@@ -20,11 +20,12 @@ Example:
 
 from . import data, parallel
 from .distributions import NormalizingFlow
-from .flows import GF, MAF, NAF, NSF, UNAF, Flow
+from .flows import CNF, GF, MAF, NAF, NSF, UNAF, Flow
 from .parallel import make_mle_step, make_reverse_kl_step, train_mle
 from .serial import load_params
 
 __all__ = [
+    "CNF",
     "Flow",
     "GF",
     "MAF",

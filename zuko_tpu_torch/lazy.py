@@ -2,10 +2,15 @@ r"""Lazy distributions and transformations — the conditional DSL.
 
 Counterpart of ``zuko_tpu/lazy.py:43-227``: a flow is a parameter-holding
 ``nn.Module`` whose call ``flow(c)`` builds and returns a distribution bound
-to the context ``c`` (reference: zuko/lazy.py:29-49).
+to the context ``c`` (reference: zuko/lazy.py:29-49). A ``generator``,
+``flow(c, generator=g)``, reaches the modules whose ``forward`` takes one
+(the Hutchinson trace of a CNF draws its probe from it), as ``zuko_tpu``
+threads a PRNG ``key`` (``zuko_tpu/lazy.py:34-70``).
 """
 
 from __future__ import annotations
+
+import inspect
 
 from typing import Callable, Sequence, Union
 
@@ -26,9 +31,25 @@ __all__ = [
 ]
 
 
+def _accepts_generator(fn) -> bool:
+    return "generator" in inspect.signature(fn).parameters
+
+
+def _call(module, c, generator):
+    """``module(c)``, with ``generator=`` only if its ``forward`` takes one
+    (counterpart of the ``__call__`` of ``zuko_tpu/lazy.py:53-70``)."""
+    if generator is not None and _accepts_generator(module.forward):
+        return nn.Module.__call__(module, c, generator=generator)
+    return nn.Module.__call__(module, c)
+
+
 class LazyDistribution(nn.Module):
     r"""Abstract module whose forward pass returns a distribution
-    (reference: zuko/lazy.py:29-49)."""
+    (reference: zuko/lazy.py:29-49). ``generator`` goes to ``forward`` if it
+    takes one."""
+
+    def __call__(self, c: torch.Tensor = None, generator: torch.Generator = None):
+        return _call(self, c, generator)
 
     def forward(self, c: torch.Tensor = None) -> Distribution:
         raise NotImplementedError
@@ -36,7 +57,11 @@ class LazyDistribution(nn.Module):
 
 class LazyTransform(nn.Module):
     r"""Abstract module whose forward pass returns a transformation
-    (reference: zuko/lazy.py:52-78)."""
+    (reference: zuko/lazy.py:52-78). ``generator`` goes to ``forward`` if it
+    takes one."""
+
+    def __call__(self, c: torch.Tensor = None, generator: torch.Generator = None):
+        return _call(self, c, generator)
 
     def forward(self, c: torch.Tensor = None) -> Transform:
         raise NotImplementedError
@@ -56,8 +81,8 @@ class LazyInverse(LazyTransform):
         super().__init__()
         self.transform = transform
 
-    def forward(self, c: torch.Tensor = None) -> Transform:
-        return self.transform(c).inv
+    def forward(self, c: torch.Tensor = None, generator: torch.Generator = None) -> Transform:
+        return self.transform(c, generator=generator).inv
 
     @property
     def inv(self) -> LazyTransform:
@@ -72,8 +97,8 @@ class LazyComposedTransform(LazyTransform):
         super().__init__()
         self.transforms = nn.ModuleList(transforms)
 
-    def forward(self, c: torch.Tensor = None) -> Transform:
-        return ComposedTransform(*(t(c) for t in self.transforms))
+    def forward(self, c: torch.Tensor = None, generator: torch.Generator = None) -> Transform:
+        return ComposedTransform(*(t(c, generator=generator) for t in self.transforms))
 
 
 class Flow(LazyDistribution):
@@ -94,8 +119,9 @@ class Flow(LazyDistribution):
         self.transform = transform
         self.base = base
 
-    def forward(self, c: torch.Tensor = None) -> NormalizingFlow:
-        transform = self.transform(c)
+    def forward(self, c: torch.Tensor = None,
+                generator: torch.Generator = None) -> NormalizingFlow:
+        transform = self.transform(c, generator=generator)
         if c is None:
             base = self.base(c)
         else:

@@ -1,6 +1,6 @@
 r"""Hand-written CUDA kernels (CUDA C++ under ``csrc/``), their plain PyTorch
 versions and the automatic dispatch (counterpart of ``zuko_tpu/ops``): the
-whole-flow NSF/MAF, GF and NAF/UNAF kernels (each in a narrow and a wide
+whole-flow NSF/MAF, GF, NAF/UNAF and CNF kernels (each in a narrow and a wide
 tier, chosen from the flow's shapes) and their implicit-function-theorem
 backward, and the per-op kernels of the unfused path (``masked_linear``,
 ``rqs``). Every wrapper launches its kernel for a CUDA tensor and takes its
@@ -8,6 +8,13 @@ plain version for a CPU tensor."""
 
 from . import masked_linear, rqs
 from ._common import LAUNCHES, reset_launches
+from .cnf_fused import (
+    cnf_density,
+    cnf_sample,
+    extract_cnf_params,
+    fused_cnf_log_prob,
+    fused_cnf_sample,
+)
 from .gf_fused import (
     extract_gf_params,
     fused_gf_log_prob,
@@ -46,9 +53,14 @@ from .rqs import rqs_forward, rqs_inverse
 __all__ = [
     "FusedStructureError",
     "LAUNCHES",
+    "cnf_density",
+    "cnf_sample",
+    "extract_cnf_params",
     "extract_gf_params",
     "extract_naf_params",
     "extract_nsf_params",
+    "fused_cnf_log_prob",
+    "fused_cnf_sample",
     "fused_gf_log_prob",
     "fused_gf_rsample",
     "fused_gf_rsample_and_log_prob",

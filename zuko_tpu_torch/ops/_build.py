@@ -41,6 +41,10 @@ _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
 # network widths, network linears, F, C, S, mode, rows, then the tier: wide,
 # workspace, its floats, rows a launch, descriptor buffer, its bytes; stream)
 _NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER, _P]
+# (input, probe, per-row first bias, one or two outputs, weights, widths,
+# linears, frequencies and their count, atol, rtol, trace scale, max_steps,
+# trace mode, rows, the tier, stream)
+_CNF_FLOW = [_P, _P, _I, _I, _P, _F, _F, _F, _I, _I, _LL, *_TIER, _P]
 # argument types of every C entry point, by library; each library also has
 # ``<library>_error_string`` (declared by ``load_library``)
 _SIGNATURES = {
@@ -58,6 +62,10 @@ _SIGNATURES = {
     "naf_fused": {
         "naf_density_f32": ([_P, _P, *_NAF_FLOW], _I),
         "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW], _I),
+    },
+    "cnf_fused": {
+        "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW], _I),
+        "cnf_sample_f32": ([_P, _P, _P, _P, _P, *_CNF_FLOW], _I),
     },
     "masked_linear": {
         "masked_linear_f32": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),

@@ -1,0 +1,628 @@
+// Whole-flow continuous normalizing flow (CNF, FFJORD) kernels for Hopper
+// (sm_90a).
+//
+// cnf_density replaces the TPU kernel zuko_tpu/ops/cnf_fused.py::_cnf_impl
+// (pallas_call at :863; kernel body _cnf_kernel :678, integration
+// _cnf_tile_integrate :302): log_prob of a CNF in one launch. Each row is
+// integrated from t = 0 to 1 by adaptive Dormand-Prince 4(5) over the
+// augmented state (x, l), dx/dt = f(t, x) and dl/dt = s tr(df/dx) with
+// s = trace_scale; log_prob = -|z|^2 / 2 - F log(2 pi) / 2 + l / s at the
+// endpoint z.
+//
+// cnf_sample replaces zuko_tpu/ops/cnf_fused.py::_cnf_sample_impl (pallas_call
+// at :1312; kernel body _cnf_sample_kernel :692): the base draws integrated
+// from t = 1 to 0 (the slopes negated, :374-376), x alone (error control over
+// x only) or, with log q, beside the trace: log q = log N(z) - l / s.
+//
+// The dynamics f is the ODE network, biased linears with ELU between them, on
+// [cos(f_k t), sin(f_k t), x, c]. The first layer is split by the wrapper
+// into its x columns W1_x and its time-embedding columns W1_te; the context's
+// columns are folded into the first bias, one vector or one per row
+// (zuko_tpu's _kernel_params :782 and _batched_aug :802).
+//
+// Step control is per tile, as on the TPU: one block is one tile of rows, one
+// thread a row (kTile = 256 on the card; the kernel takes its tile from
+// blockDim.x). Every attempt the block max-reduces the row's error ratio,
+// max |err| / (atol + rtol max(|x|, |y|)) over x and l, NaN counting as
+// infinite (warp shuffles, then shared memory), so every thread takes the
+// same accept decision and the same next step 0.9 ratio^(-1/5) clipped to
+// [0.1, 10]: the control flow never diverges. Rows past n take no part in the
+// decision. A tile still short of t = 1 after 4 max_steps attempts writes
+// NaN, as the TPU kernel does (:439-444).
+//
+// The time-embedding term sum_k W1_te[:, k] cos(f_k t) + W1_te[:, nf + k]
+// sin(f_k t) (plus a shared first bias) is the same for every row of a tile:
+// the block computes it once per stage into shared memory.
+//
+// The exact trace needs only the diagonal of the Jacobian. For column j the
+// thread takes W1_x[:, j] through the hidden layers, v <- W (elu'(h) v), and
+// only row j of the last layer: one hidden vector live at a time, where the
+// TPU kernel carries the whole (H, F * tile) tangent block (:325-331), and
+// F - 1 of the F rows of the last product skipped; the same sum to roundoff.
+// Hutchinson's trace takes the row's probe e through once and dots the
+// network's tangent with e.
+//
+// What bounds them on an H100: operations. The flagship CNF(6) (network
+// 12-64-64-6, about 21 KB of weights) costs per attempt 7 network evaluations,
+// each about 5K multiply-adds for the values and 25K for the 6 tangent
+// columns of the exact trace, against 28 bytes a row in and out.
+//
+// Design (simple and right first): the narrow tier stages the weights in
+// shared memory and keeps a row's state in per-thread arrays (local memory);
+// its limits are kMaxF features, hidden widths of kMaxWidth, kMaxLinear
+// linears, kMaxFreqs frequencies and kMaxSharedFloats floats of weights. The
+// wide tier takes any shape: a row's state in a workspace in device memory,
+// one column of `stride` rows per value (slot), the weights read through the
+// read-only data cache (__ldg; every thread of a warp reads the same address
+// at the same time), the widths, offsets and frequencies in a small device
+// buffer. The wrapper (zuko_tpu_torch/ops/cnf_fused.py plan_cnf) picks the
+// tier from the shapes and allocates the workspace; the rows then run in
+// chunks of `stride` (whole tiles), one launch each. Float32 throughout
+// (expf, expm1f, powf, cosf, sinf); no tensor cores, no TF32.
+//
+// Each C entry point checks its arguments, launches on the caller's stream,
+// does not synchronise, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <string.h>
+
+#include <type_traits>
+#include <vector>
+
+namespace {
+
+// the narrow tier's limits, mirrored in zuko_tpu_torch/ops/cnf_fused.py
+constexpr int kMaxF = 16;                 // features
+constexpr int kMaxWidth = 128;            // hidden widths
+constexpr int kMaxLinear = 4;             // linears of the ODE network
+constexpr int kMaxFreqs = 16;             // time-embedding frequencies
+constexpr int kMaxSharedFloats = 32768;   // the weights staged in shared memory
+constexpr int kTile = 256;                // rows of a tile: one block
+constexpr int kRed = 32;                  // shared floats of the block's max
+
+constexpr float kHalfLog2Pi = 0.91893853320467274f;
+
+enum Trace { kNone = 0, kExact = 1, kHutchinson = 2 };
+
+// Dormand-Prince 4(5) (zuko_tpu/utils.py:345-356): stage times, stage weights
+// (row i: the weights of slopes 0..i-1), fifth-order weights and the
+// differences of the fifth- and fourth-order weights (the error estimate).
+__constant__ float kDpC[7] = {0.0f, (float)(1.0 / 5), (float)(3.0 / 10), (float)(4.0 / 5),
+                              (float)(8.0 / 9), 1.0f, 1.0f};
+__constant__ float kDpA[7][6] = {
+    {0, 0, 0, 0, 0, 0},
+    {(float)(1.0 / 5), 0, 0, 0, 0, 0},
+    {(float)(3.0 / 40), (float)(9.0 / 40), 0, 0, 0, 0},
+    {(float)(44.0 / 45), (float)(-56.0 / 15), (float)(32.0 / 9), 0, 0, 0},
+    {(float)(19372.0 / 6561), (float)(-25360.0 / 2187), (float)(64448.0 / 6561),
+     (float)(-212.0 / 729), 0, 0},
+    {(float)(9017.0 / 3168), (float)(-355.0 / 33), (float)(46732.0 / 5247), (float)(49.0 / 176),
+     (float)(-5103.0 / 18656), 0},
+    {(float)(35.0 / 384), 0, (float)(500.0 / 1113), (float)(125.0 / 192),
+     (float)(-2187.0 / 6784), (float)(11.0 / 84)}};
+__constant__ float kDpB5[7] = {(float)(35.0 / 384), 0, (float)(500.0 / 1113),
+                               (float)(125.0 / 192), (float)(-2187.0 / 6784),
+                               (float)(11.0 / 84), 0};
+__constant__ float kDpE[7] = {
+    (float)(35.0 / 384 - 5179.0 / 57600), 0, (float)(500.0 / 1113 - 7571.0 / 16695),
+    (float)(125.0 / 192 - 393.0 / 640), (float)(-2187.0 / 6784 + 92097.0 / 339200),
+    (float)(11.0 / 84 - 187.0 / 2100), (float)(-1.0 / 40)};
+
+// The narrow tier's description of the network, a __grid_constant__ parameter.
+// Linear i maps w[i] inputs to w[i + 1] outputs (w[0] = w[n_lin] = F: the x
+// columns of the first layer, and the slopes); its weights (out, in)
+// row-major lie at off[i] in the packed buffer, its bias right after, except
+// the first linear's: W1_x (H1, F) at off[0], then W1_te (H1, 2 nf) at off_te,
+// then its bias at off_b1 (none when the bias comes per row).
+struct Net {
+  int F, nf, n_lin, off_te, off_b1, total, max_attempts;
+  float atol, rtol, scale;
+  int w[kMaxLinear + 1];
+  int off[kMaxLinear];
+  float freqs[kMaxFreqs];
+};
+
+// The wide tier's: the same fields, the arrays in the device buffer `desc`.
+struct WideNet {
+  int F, nf, n_lin, off_te, off_b1, total, max_attempts;
+  float atol, rtol, scale;
+  const int* w;
+  const int* off;
+  const float* freqs;
+  int sum_hidden, max_hidden;
+};
+
+template <bool kWide>
+using NetOf = typename std::conditional<kWide, WideNet, Net>::type;
+
+// A slot column of the wide tier's workspace: one of a row's arrays, `stride`
+// floats between consecutive elements.
+struct Column {
+  float* p;
+  long long stride;
+  __device__ __forceinline__ float& operator[](int i) const { return p[i * stride]; }
+};
+
+template <bool kWide>
+using Vec = typename std::conditional<kWide, Column, float*>::type;
+
+// A row's state: x, the current stage's input xs, the probe e, the 7 stage
+// slopes of x and of l (F + 1 each), elu' of every hidden layer, and two
+// buffers each of the activations and of the tangent. Narrow: per-thread
+// arrays (local memory).
+template <bool kWide>
+struct Row {
+  float x[kMaxF], xs[kMaxF], e[kMaxF], k[7 * (kMaxF + 1)];
+  float d[(kMaxLinear - 1) * kMaxWidth];
+  float a0[kMaxWidth], a1[kMaxWidth], v0[kMaxWidth], v1[kMaxWidth];
+  __device__ __forceinline__ void init(const Net&, float*, long long, long long) {}
+};
+
+// Wide: the same fields as columns of the workspace, from column i on, in this
+// order (the slots mirrored in cnf_fused.py plan_cnf).
+template <>
+struct Row<true> {
+  Column x, xs, e, k, d, a0, a1, v0, v1;
+  __device__ __forceinline__ void init(const WideNet& s, float* work, long long stride,
+                                       long long i) {
+    float* p = work + i;
+    const long long widths[9] = {s.F, s.F, s.F, 7LL * (s.F + 1), s.sum_hidden, s.max_hidden,
+                                 s.max_hidden, s.max_hidden, s.max_hidden};
+    Column* cs[9] = {&x, &xs, &e, &k, &d, &a0, &a1, &v0, &v1};
+    for (int c = 0; c < 9; ++c) {
+      *cs[c] = {p, stride};
+      p += widths[c] * stride;
+    }
+  }
+};
+
+// A weight: from shared memory (narrow) or through the read-only cache (wide).
+template <bool kWide>
+__device__ __forceinline__ float wt(const float* p) {
+  if (kWide) return __ldg(p);
+  return *p;
+}
+
+// The block's max of v; every thread gets it. Ends with a barrier, so `red`
+// may be written again at once.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warps = (blockDim.x + 31) >> 5;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int i = 1; i < warps; ++i) m = fmaxf(m, red[i]);
+  __syncthreads();
+  return m;
+}
+
+// out(o, init(o) + sum_j Wm[o, j] in[j]) for o < dout: eight outputs at a
+// time in registers, so that each in[j] is loaded once for eight of them (each
+// sum in the order of j, one fmaf a term, as one output at a time would be).
+template <bool kWide, class V, class Init, class Out>
+__device__ __forceinline__ void matvec(const float* Wm, int din, int dout, const V& in, Init init,
+                                       Out out) {
+  for (int o0 = 0; o0 < dout; o0 += 8) {
+    float acc[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[b] = o0 + b < dout ? init(o0 + b) : 0.0f;
+    for (int j = 0; j < din; ++j) {
+      const float v = in[j];
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (o0 + b < dout) acc[b] = fmaf(wt<kWide>(Wm + (o0 + b) * din + j), v, acc[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (o0 + b < dout) out(o0 + b, acc[b]);
+  }
+}
+
+// One evaluation of the dynamics at the row's stage input r.xs, into slope
+// slot `ks` of r.k: F values, then trace_scale times the trace (kTrace != kNone).
+// te holds the tile's time-embedding term (with the shared first bias);
+// brow is the row's first bias, or null.
+template <int kTrace, bool kWide, class N, class R>
+__device__ __forceinline__ void dynamics(const N& net, const float* W, const float* te,
+                                         const float* brow, R& r, int ks) {
+  const int F = net.F, L = net.n_lin, H1 = net.w[1];
+  const int kb = ks * (F + 1);
+  const float* W1x = W + net.off[0];
+  const auto zero = [](int) { return 0.0f; };
+  // the first layer: the slopes themselves when it is the only one
+  Vec<kWide> cur = r.a0, nxt = r.a1;
+  matvec<kWide>(W1x, F, H1, r.xs,
+                [&](int o) { return brow != nullptr ? te[o] + __ldg(brow + o) : te[o]; },
+                [&](int o, float acc) {
+                  if (L == 1) {
+                    r.k[kb + o] = acc;
+                  } else {
+                    cur[o] = acc > 0.0f ? acc : expm1f(acc);
+                    r.d[o] = acc > 0.0f ? 1.0f : expf(acc);
+                  }
+                });
+  int dofs = 0;  // where elu' of the current hidden layer starts in r.d
+  for (int i = 1; i < L; ++i) {
+    const int din = net.w[i], dout = net.w[i + 1];
+    const float* Wi = W + net.off[i];
+    const float* bi = Wi + dout * din;
+    const bool last = i == L - 1;
+    matvec<kWide>(Wi, din, dout, cur, [&](int o) { return wt<kWide>(bi + o); },
+                  [&](int o, float acc) {
+                    if (last) {
+                      r.k[kb + o] = acc;
+                    } else {
+                      nxt[o] = acc > 0.0f ? acc : expm1f(acc);
+                      r.d[dofs + din + o] = acc > 0.0f ? 1.0f : expf(acc);
+                    }
+                  });
+    if (!last) {
+      dofs += din;
+      const Vec<kWide> t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+  }
+  if (kTrace == kNone) return;
+  float tr = 0.0f;
+  const float* WL = W + net.off[L - 1];
+  const int dl = net.w[L - 1];  // the last layer's inputs
+  if (L == 1) {
+    for (int j = 0; j < F; ++j) {
+      if (kTrace == kExact) {
+        tr += wt<kWide>(W1x + j * F + j);
+      } else {
+        float acc = 0.0f;
+        for (int q = 0; q < F; ++q) acc = fmaf(wt<kWide>(W1x + j * F + q), r.e[q], acc);
+        tr = fmaf(r.e[j], acc, tr);
+      }
+    }
+  } else {
+    const int passes = kTrace == kExact ? F : 1;
+    for (int j = 0; j < passes; ++j) {
+      // v = elu'(h1) * W1_x[:, j] (exact) or elu'(h1) * (W1_x e)
+      Vec<kWide> vc = r.v0, vn = r.v1;
+      if (kTrace == kExact) {
+        for (int o = 0; o < H1; ++o) vc[o] = r.d[o] * wt<kWide>(W1x + o * F + j);
+      } else {
+        matvec<kWide>(W1x, F, H1, r.e, zero, [&](int o, float u) { vc[o] = r.d[o] * u; });
+      }
+      int dv = 0;
+      for (int i = 1; i < L - 1; ++i) {
+        const int din = net.w[i], dout = net.w[i + 1];
+        dv += din;
+        matvec<kWide>(W + net.off[i], din, dout, vc, zero,
+                      [&](int o, float acc) { vn[o] = r.d[dv + o] * acc; });
+        const Vec<kWide> t = vc;
+        vc = vn;
+        vn = t;
+      }
+      if (kTrace == kExact) {  // row j of the last layer only
+        float acc = 0.0f;
+        for (int q = 0; q < dl; ++q) acc = fmaf(wt<kWide>(WL + j * dl + q), vc[q], acc);
+        tr += acc;
+      } else {
+        matvec<kWide>(WL, dl, F, vc, zero, [&](int o, float acc) { tr = fmaf(r.e[o], acc, tr); });
+      }
+    }
+  }
+  r.k[kb + F] = tr * net.scale;
+}
+
+// The tile's time-embedding term at time tt (and the shared first bias),
+// computed by the whole block into te. Starts with a barrier: the previous
+// stage's readers are done.
+template <bool kWide, class N>
+__device__ __forceinline__ void time_embedding(const N& net, const float* W, float tt,
+                                               bool row_bias, float* te) {
+  __syncthreads();
+  const int H1 = net.w[1], nf = net.nf;
+  const float* Wte = W + net.off_te;
+  for (int o = threadIdx.x; o < H1; o += blockDim.x) {
+    float acc = row_bias ? 0.0f : wt<kWide>(W + net.off_b1 + o);
+    for (int q = 0; q < nf; ++q) {
+      const float ft = net.freqs[q] * tt;
+      acc = fmaf(wt<kWide>(Wte + o * 2 * nf + q), cosf(ft), acc);
+      acc = fmaf(wt<kWide>(Wte + o * 2 * nf + nf + q), sinf(ft), acc);
+    }
+    te[o] = acc;
+  }
+  __syncthreads();
+}
+
+// The fifth-order solution of element f (f = F: l) of the current step.
+template <class R>
+__device__ __forceinline__ float fifth(const R& r, int F, int f, float x0, float dt) {
+  float y = x0;
+  for (int i = 0; i < 7; ++i)
+    if (kDpB5[i] != 0.0f) y = fmaf(dt * kDpB5[i], r.k[i * (F + 1) + f], y);
+  return y;
+}
+
+template <int kTrace, bool kReverse, bool kRowBias, bool kWide>
+__global__ void __launch_bounds__(kTile)
+    cnf_kernel(const float* __restrict__ in, const float* __restrict__ eps,
+               const float* __restrict__ bias_rows, float* __restrict__ out_x,
+               float* __restrict__ out_lp, const float* __restrict__ packed,
+               const __grid_constant__ NetOf<kWide> net, float* work, long long stride,
+               long long row0, long long row_end) {
+  extern __shared__ float smem[];
+  const int F = net.F, H1 = net.w[1];
+  const int tile = blockDim.x;
+  const long long i = (long long)blockIdx.x * tile + threadIdx.x;  // row in the chunk
+  const long long row = row0 + i;
+  const bool valid = row < row_end;
+  float* te = smem;
+  float* red = smem + H1;
+  const float* W = packed;
+  if (!kWide) {  // stage the weights
+    float* sw = smem + H1 + kRed;
+    for (int q = threadIdx.x; q < net.total; q += tile) sw[q] = packed[q];
+    W = sw;
+    __syncthreads();
+  }
+  // the launch covers whole tiles of a chunk of `stride` rows (a multiple of
+  // the tile), so every thread has a workspace row of its own
+  Row<kWide> r;
+  r.init(net, work, stride, i);
+  const float* brow = kRowBias && valid ? bias_rows + row * H1 : nullptr;
+  float base = 0.0f;  // -|z|^2 / 2 of the sampler's input
+  for (int f = 0; f < F; ++f) {
+    const float v = valid ? in[row * F + f] : 0.0f;
+    r.x[f] = v;
+    base = fmaf(-0.5f * v, v, base);
+    if (kTrace == kHutchinson) r.e[f] = valid ? eps[row * F + f] : 0.0f;
+  }
+  // the tile's time and step: the same in every thread
+  float l = 0.0f, t = 0.0f, dt = 1.0f;
+  for (int attempt = 0; t < 1.0f && attempt < net.max_attempts; ++attempt) {
+    dt = fminf(dt, 1.0f - t);
+    for (int s = 0; s < 7; ++s) {
+      for (int f = 0; f < F; ++f) {
+        float v = r.x[f];
+        for (int q = 0; q < s; ++q)
+          if (kDpA[s][q] != 0.0f) v = fmaf(dt * kDpA[s][q], r.k[q * (F + 1) + f], v);
+        r.xs[f] = v;
+      }
+      const float st = t + kDpC[s] * dt;
+      time_embedding<kWide>(net, W, kReverse ? 1.0f - st : st, kRowBias, te);
+      dynamics<kTrace, kWide>(net, W, te, brow, r, s);
+      if (kReverse)
+        for (int f = 0; f <= (kTrace == kNone ? F - 1 : F); ++f)
+          r.k[s * (F + 1) + f] = -r.k[s * (F + 1) + f];
+    }
+    // the row's error ratio, then the tile's
+    const int n_el = kTrace == kNone ? F : F + 1;
+    float ratio = 0.0f;
+    for (int f = 0; f < n_el; ++f) {
+      const float x0 = f < F ? r.x[f] : l;
+      float err = 0.0f;
+      for (int q = 0; q < 7; ++q)
+        if (kDpE[q] != 0.0f) err = fmaf(dt * kDpE[q], r.k[q * (F + 1) + f], err);
+      const float y = fifth(r, F, f, x0, dt);
+      float q = fabsf(err) / (net.atol + net.rtol * fmaxf(fabsf(x0), fabsf(y)));
+      if (isnan(q)) q = INFINITY;
+      ratio = fmaxf(ratio, q);
+    }
+    ratio = block_max(valid ? ratio : 0.0f, red);
+    if (ratio <= 1.0f) {
+      for (int f = 0; f < F; ++f) r.x[f] = fifth(r, F, f, r.x[f], dt);
+      if (kTrace != kNone) l = fifth(r, F, F, l, dt);
+      t += dt;
+    }
+    dt *= fminf(fmaxf(0.9f * powf(fmaxf(ratio, FLT_MIN), -0.2f), 0.1f), 10.0f);
+  }
+  if (!valid) return;
+  const bool exhausted = t < 1.0f - 64.0f * FLT_EPSILON;
+  float sq = 0.0f;
+  for (int f = 0; f < F; ++f) {
+    const float v = exhausted ? NAN : r.x[f];
+    sq = fmaf(v, v, sq);
+    if (out_x != nullptr) out_x[row * F + f] = v;
+  }
+  if (exhausted) l = NAN;
+  if (out_lp == nullptr) return;
+  out_lp[row] = kReverse ? base - F * kHalfLog2Pi - l / net.scale
+                         : -0.5f * sq - F * kHalfLog2Pi + l / net.scale;
+}
+
+// The network as the host describes it: the widths, the offsets of the
+// linears in the packed buffer, the frequencies, the tolerances.
+struct Desc {
+  int F, nf, n_lin, off_te, off_b1, total, max_attempts, sum_hidden, max_hidden;
+  float atol, rtol, scale;
+  std::vector<int> w, off;
+  std::vector<float> freqs;
+};
+
+int describe(Desc* d, const int* widths, int n_lin, int nf, const float* freqs, float atol,
+             float rtol, float scale, int max_steps, bool row_bias) {
+  if (n_lin < 1 || nf < 0 || max_steps < 1 || !(scale > 0.0f)) return cudaErrorInvalidValue;
+  d->F = widths[0];
+  d->nf = nf;
+  d->n_lin = n_lin;
+  d->atol = atol;
+  d->rtol = rtol;
+  d->scale = scale;
+  d->max_attempts = 4 * max_steps;
+  if (d->F < 1 || widths[n_lin] != d->F) return cudaErrorInvalidValue;
+  d->sum_hidden = 0;
+  d->max_hidden = 1;
+  for (int i = 0; i <= n_lin; ++i) {
+    if (widths[i] < 1) return cudaErrorInvalidValue;
+    d->w.push_back(widths[i]);
+    if (i > 0 && i < n_lin) {
+      d->sum_hidden += widths[i];
+      d->max_hidden = widths[i] > d->max_hidden ? widths[i] : d->max_hidden;
+    }
+  }
+  // W1_x, W1_te, the first bias unless per row, then each linear and its bias
+  const int H1 = widths[1];
+  long long off = 0;
+  d->off.push_back(0);
+  off += (long long)H1 * d->F;
+  d->off_te = (int)off;
+  off += 2LL * H1 * nf;
+  d->off_b1 = (int)off;
+  if (!row_bias) off += H1;
+  for (int i = 1; i < n_lin; ++i) {
+    d->off.push_back((int)off);
+    off += (long long)widths[i + 1] * (widths[i] + 1);
+  }
+  if (off > 0x7fffffffLL) return cudaErrorInvalidValue;  // offsets are ints
+  d->total = (int)off;
+  for (int q = 0; q < nf; ++q) d->freqs.push_back(freqs[q]);
+  return cudaSuccess;
+}
+
+bool fits_narrow(const Desc& d) {
+  return d.F <= kMaxF && d.n_lin <= kMaxLinear && d.nf <= kMaxFreqs &&
+         d.total <= kMaxSharedFloats && (d.n_lin == 1 || d.max_hidden <= kMaxWidth);
+}
+
+Net narrow_net(const Desc& d) {
+  Net s;
+  s.F = d.F;
+  s.nf = d.nf;
+  s.n_lin = d.n_lin;
+  s.off_te = d.off_te;
+  s.off_b1 = d.off_b1;
+  s.total = d.total;
+  s.max_attempts = d.max_attempts;
+  s.atol = d.atol;
+  s.rtol = d.rtol;
+  s.scale = d.scale;
+  for (int i = 0; i <= d.n_lin; ++i) s.w[i] = d.w[i];
+  for (int i = 0; i < d.n_lin; ++i) s.off[i] = d.off[i];
+  for (int q = 0; q < d.nf; ++q) s.freqs[q] = d.freqs[q];
+  return s;
+}
+
+// What a launch needs besides the network: the input, the probe, the per-row
+// first biases, the outputs, the packed weights, the rows, the tier, the wide
+// tier's workspace (work_floats floats, `stride` rows a launch) and
+// descriptor buffer (desc_bytes bytes).
+struct Launch {
+  const float* in;
+  const float* eps;
+  const float* bias;
+  float* out_x;
+  float* out_lp;
+  const float* packed;
+  long long n;
+  int wide;
+  float* work;
+  long long work_floats, stride;
+  void* desc;
+  long long desc_bytes;
+  cudaStream_t stream;
+};
+
+// The rows in chunks of `stride`, one launch each, a block a tile.
+template <int kTrace, bool kReverse, bool kRowBias, bool kWide>
+int launch(const Launch& l, const NetOf<kWide>& s, long long stride, size_t smem) {
+  auto kernel = cnf_kernel<kTrace, kReverse, kRowBias, kWide>;
+  if (smem > 48 * 1024) {
+    const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  for (long long row0 = 0; row0 < l.n; row0 += stride) {
+    const long long row_end = row0 + stride < l.n ? row0 + stride : l.n;
+    const unsigned blocks = (unsigned)((row_end - row0 + kTile - 1) / kTile);
+    kernel<<<blocks, kTile, smem, l.stream>>>(l.in, l.eps, l.bias, l.out_x, l.out_lp, l.packed,
+                                              s, l.work, stride, row0, row_end);
+    const int rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+template <int kTrace, bool kReverse>
+int run_mode(const Launch& l, const Desc& d) {
+  const bool row_bias = l.bias != nullptr;
+  const size_t te = (size_t)(d.w[1] + kRed) * sizeof(float);
+  if (!l.wide) {
+    if (!fits_narrow(d)) return cudaErrorInvalidValue;
+    const Net s = narrow_net(d);
+    const size_t smem = te + (size_t)d.total * sizeof(float);
+    return row_bias ? launch<kTrace, kReverse, true, false>(l, s, l.n, smem)
+                    : launch<kTrace, kReverse, false, false>(l, s, l.n, smem);
+  }
+  const long long need = (2LL * d.n_lin + 1 + d.nf) * 4;
+  const long long slots = 3LL * d.F + 7LL * (d.F + 1) + d.sum_hidden + 4LL * d.max_hidden;
+  if (l.desc == nullptr || l.desc_bytes < need || l.work == nullptr || l.stride < kTile ||
+      l.stride % kTile != 0 || slots * l.stride > l.work_floats)
+    return cudaErrorInvalidValue;
+  // the host image of the buffer (widths, offsets, frequencies), copied in
+  // one transfer; a pageable source is staged before cudaMemcpyAsync returns
+  std::vector<unsigned char> image((size_t)need, 0);
+  int* iw = (int*)image.data();
+  for (int v : d.w) *iw++ = v;
+  for (int v : d.off) *iw++ = v;
+  memcpy(iw, d.freqs.data(), d.freqs.size() * sizeof(float));
+  int rc = cudaMemcpyAsync(l.desc, image.data(), (size_t)need, cudaMemcpyHostToDevice, l.stream);
+  if (rc != cudaSuccess) return rc;
+  const int* dw = (const int*)l.desc;
+  const WideNet s{d.F, d.nf, d.n_lin, d.off_te, d.off_b1, d.total, d.max_attempts,
+                  d.atol, d.rtol, d.scale, dw, dw + d.n_lin + 1,
+                  (const float*)(dw + 2 * d.n_lin + 1), d.sum_hidden, d.max_hidden};
+  return row_bias ? launch<kTrace, kReverse, true, true>(l, s, l.stride, te)
+                  : launch<kTrace, kReverse, false, true>(l, s, l.stride, te);
+}
+
+}  // namespace
+
+// out (n,) = log_prob of the rows x (n, F). eps (n, F) is the Hutchinson
+// probe (trace 2; unused by the exact trace, trace 1); bias (n, H1) the
+// per-row first bias, or null for the one in `packed`. packed holds W1_x
+// (H1, F), W1_te (H1, 2 nf), the first bias unless per row, then each further
+// linear's (out, in) weights and its bias; widths = [F, H1, ..., F] (n_lin + 1
+// ints); freqs the nf frequencies. wide 0: the narrow tier (work and desc
+// unused); 1: the wide tier, with a workspace of work_floats floats for
+// `stride` rows a launch (a multiple of 256) and a descriptor buffer of
+// desc_bytes bytes, both on the device.
+extern "C" int cnf_density_f32(const float* x, const float* eps, const float* bias, float* out,
+                               const float* packed, const int* widths, int n_lin, int nf,
+                               const float* freqs, float atol, float rtol, float scale,
+                               int max_steps, int trace, long long n, int wide, float* work,
+                               long long work_floats, long long stride, void* desc,
+                               long long desc_bytes, void* stream) {
+  Desc d;
+  int rc = describe(&d, widths, n_lin, nf, freqs, atol, rtol, scale, max_steps, bias != nullptr);
+  if (rc != cudaSuccess) return rc;
+  if (n < 0 || (trace == kHutchinson && eps == nullptr)) return cudaErrorInvalidValue;
+  const Launch l{x, eps, bias, nullptr, out, packed, n, wide, work, work_floats, stride,
+                 desc, desc_bytes, (cudaStream_t)stream};
+  if (trace == kExact) return run_mode<kExact, false>(l, d);
+  if (trace == kHutchinson) return run_mode<kHutchinson, false>(l, d);
+  return cudaErrorInvalidValue;
+}
+
+// xout (n, F): the base draws z (n, F) integrated from t = 1 to 0; with trace
+// 1 (exact) or 2 (Hutchinson, probe eps) also logq (n,) = log q(xout), with
+// trace 0 (logq null) x alone. The other arguments as cnf_density_f32's.
+extern "C" int cnf_sample_f32(const float* z, const float* eps, const float* bias, float* xout,
+                              float* logq, const float* packed, const int* widths, int n_lin,
+                              int nf, const float* freqs, float atol, float rtol, float scale,
+                              int max_steps, int trace, long long n, int wide, float* work,
+                              long long work_floats, long long stride, void* desc,
+                              long long desc_bytes, void* stream) {
+  Desc d;
+  int rc = describe(&d, widths, n_lin, nf, freqs, atol, rtol, scale, max_steps, bias != nullptr);
+  if (rc != cudaSuccess) return rc;
+  if (n < 0 || (trace == kHutchinson && eps == nullptr) || ((trace == kNone) != (logq == nullptr)))
+    return cudaErrorInvalidValue;
+  const Launch l{z, eps, bias, xout, logq, packed, n, wide, work, work_floats, stride,
+                 desc, desc_bytes, (cudaStream_t)stream};
+  if (trace == kNone) return run_mode<kNone, true>(l, d);
+  if (trace == kExact) return run_mode<kExact, true>(l, d);
+  if (trace == kHutchinson) return run_mode<kHutchinson, true>(l, d);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* cnf_fused_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

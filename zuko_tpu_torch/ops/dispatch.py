@@ -4,9 +4,10 @@ Counterpart of ``zuko_tpu/ops/dispatch.py``: when a :class:`~zuko_tpu_torch.lazy
 is called, its structure is inspected and — if the whole-flow kernels can
 represent it — the returned distribution routes ``log_prob``, ``sample`` and
 ``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused` (NSF, MAF),
-:mod:`zuko_tpu_torch.ops.gf_fused` (GF) or :mod:`zuko_tpu_torch.ops.naf_fused`
-(NAF, UNAF), and ``rsample`` /
-``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift`. An inverted
+:mod:`zuko_tpu_torch.ops.gf_fused` (GF), :mod:`zuko_tpu_torch.ops.cnf_fused`
+(CNF) or :mod:`zuko_tpu_torch.ops.naf_fused` (NAF, UNAF), and ``rsample`` /
+``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift` (a CNF's
+through the unfused transform path). An inverted
 autoregressive flow, ``Flow(flow.transform.inv, flow.base)``, swaps the
 roles. A flow every extractor rejects with ``FusedStructureError`` keeps the
 unfused transform path.
@@ -26,6 +27,7 @@ import torch
 
 from ..distributions import NormalizingFlow
 from ..lazy import LazyInverse
+from .cnf_fused import _flatten_cnf, fused_cnf_log_prob, fused_cnf_sample
 from .gf_fused import _flatten_gf, fused_gf_log_prob, fused_gf_sample
 from .ift import (
     fused_gf_rsample,
@@ -44,6 +46,7 @@ from .nsf_fused import (
 
 __all__ = [
     "FusedAutoregressiveFlow",
+    "FusedContinuousFlow",
     "FusedGaussianizationFlow",
     "FusedInvertedAutoregressiveFlow",
     "FusedNeuralSamplingFlow",
@@ -126,6 +129,35 @@ class FusedGaussianizationFlow(NormalizingFlow):
 
     def rsample_and_log_prob(self, sample_shape=(), generator=None):
         return fused_gf_rsample(self._flat, sample_shape, generator, want_log_prob=True)
+
+
+class FusedContinuousFlow(NormalizingFlow):
+    r"""A :class:`NormalizingFlow` whose density and sampling run through the
+    fused CNF kernels (:mod:`zuko_tpu_torch.ops.cnf_fused`): the whole
+    adaptive Dormand-Prince integration per tile of rows, with the
+    log-Jacobian for ``log_prob`` and ``sample_and_log_prob``, without it for
+    ``sample``. ``log_prob`` is differentiable (autograd over the global-step
+    integration). ``rsample`` and ``rsample_and_log_prob`` run the unfused
+    transform path, the discrete adjoint of
+    :func:`~zuko_tpu_torch.utils.odeint`: what ``zuko_tpu`` computes with its
+    IFT switch off (``zuko_tpu/ops/dispatch.py:226-243``), the same function
+    as its continuous-adjoint kernel to solver tolerance; that kernel (K12,
+    ``fused_cnf_rsample``) is not ported yet. ``flat`` is
+    ``_flatten_cnf(flow, transform, c)``, taken once per ``flow(c)``."""
+
+    def __init__(self, transform, base, flat, c):
+        super().__init__(transform, base)
+        self._flat = flat
+        self._c = c
+
+    def log_prob(self, x):
+        return fused_cnf_log_prob(self._flat, x, self._c)
+
+    def sample(self, sample_shape=(), generator=None):
+        return fused_cnf_sample(self._flat, sample_shape, self._c, generator)
+
+    def sample_and_log_prob(self, sample_shape=(), generator=None):
+        return fused_cnf_sample(self._flat, sample_shape, self._c, generator, want_log_prob=True)
 
 
 class FusedNeuralSamplingFlow(NormalizingFlow):
@@ -214,6 +246,10 @@ def maybe_fused_flow(module, transform, base, c):
         pass
     try:
         return FusedGaussianizationFlow(transform, base, _flatten_gf(module, c, transform))
+    except FusedStructureError:
+        pass
+    try:
+        return FusedContinuousFlow(transform, base, _flatten_cnf(module, transform, c), c)
     except FusedStructureError:
         pass
     try:

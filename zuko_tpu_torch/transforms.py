@@ -7,7 +7,8 @@ Counterpart of ``zuko_tpu/transforms.py``: :class:`Transform` :95,
 :class:`AdditiveTransform` :563, :class:`MonotonicTransform` :724,
 :class:`GaussianizationTransform` :910,
 :class:`UnconstrainedMonotonicTransform` :966,
-:class:`AutoregressiveTransform` :1033 and :class:`RotationTransform` :1292.
+:class:`AutoregressiveTransform` :1033, :class:`FreeFormJacobianTransform`
+:1131 and :class:`RotationTransform` :1292.
 Transforms are plain objects built per call by the lazy modules; they hold
 tensors, not parameters.
 
@@ -25,13 +26,14 @@ from typing import Callable, Iterable, Tuple
 import torch
 import torch.nn.functional as F
 
-from .utils import gauss_legendre, newton_bisection
+from .utils import _empty_phi, gauss_legendre, newton_bisection, odeint
 
 __all__ = [
     "AdditiveTransform",
     "AutoregressiveTransform",
     "ComposedTransform",
     "DependentTransform",
+    "FreeFormJacobianTransform",
     "GaussianizationTransform",
     "Inverse",
     "MonotonicAffineTransform",
@@ -545,3 +547,109 @@ class AutoregressiveTransform(Transform):
         x = self.inverse(y)
         _, ladj = self.meta(x).call_and_ladj(x)
         return x, -ladj
+
+
+class FreeFormJacobianTransform(Transform):
+    r"""Free-form Jacobian transformation (FFJORD, CNF):
+    :math:`x(t_1) = x_0 + \int_{t_0}^{t_1} f_\phi(t, x) dt` (reference:
+    zuko/transforms.py:1076-1179), integrated by :func:`~zuko_tpu_torch.utils.odeint`.
+
+    The log-Jacobian is the integral of the trace of :math:`\partial_x f`,
+    integrated beside ``x`` scaled by ``trace_scale = 1e-2`` (which relaxes
+    its error control, as the reference does). The trace is exact, from a
+    batched vector-Jacobian product over the identity (``zuko_tpu`` takes
+    forward-mode columns: the same trace to roundoff), or Hutchinson's
+    :math:`\varepsilon^\top J \varepsilon` with a standard-normal probe
+    :math:`\varepsilon` drawn from a generator seeded with ``seed``: the same
+    probe on every call at the same shape, as a PRNG key gives.
+
+    Arguments:
+        f: the dynamics, called as ``f(t, x, phi)`` (``f(t, x)`` without
+            ``phi``).
+        t0, t1: the integration bounds.
+        phi: the parameters of ``f``, a nest of tuples, lists and dicts whose
+            tensors receive gradients.
+        exact: exact trace, or Hutchinson's.
+        seed: the seed of the Hutchinson probe.
+        max_steps: the integrator's budget of accepted steps; running out
+            NaN-poisons the output.
+    """
+
+    domain_dim = 1
+    codomain_dim = 1
+
+    def __init__(self, f: Callable, t0: float = 0.0, t1: float = 1.0, phi=(),
+                 atol: float = 1e-6, rtol: float = 1e-5, exact: bool = True, seed: int = None,
+                 max_steps: int = 256):
+        self.f = f
+        self.t0 = float(t0)
+        self.t1 = float(t1)
+        self.phi = phi
+        self.atol = float(atol)
+        self.rtol = float(rtol)
+        self.exact = bool(exact)
+        self.seed = seed
+        self.max_steps = int(max_steps)
+        self.trace_scale = 1e-2
+
+    def _odeint(self, f, x, t0, t1, phi):
+        return odeint(f, x, t0, t1, phi, self.atol, self.rtol, self.max_steps)
+
+    def forward(self, x):
+        return self._odeint(self.f, x, self.t0, self.t1, self.phi)
+
+    def inverse(self, y):
+        return self._odeint(self.f, y, self.t1, self.t0, self.phi)
+
+    @property
+    def inv(self) -> Transform:
+        # the reference swaps the bounds: zuko/transforms.py:1129-1138
+        return FreeFormJacobianTransform(
+            self.f, self.t1, self.t0, self.phi, self.atol, self.rtol, self.exact, self.seed,
+            self.max_steps)
+
+    def probe(self, x):
+        """The Hutchinson probe at ``x``'s shape: standard-normal draws of a
+        generator seeded with ``seed``."""
+        if self.seed is None:
+            raise ValueError("the Hutchinson trace needs a seed")
+        generator = torch.Generator(device=x.device).manual_seed(self.seed)
+        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+
+    def call_and_ladj(self, x):
+        return self.augmented(x, None if self.exact else self.probe(x))
+
+    def augmented(self, x, eps=None):
+        """``(y, ladj)`` by the integration of ``x`` beside its log-Jacobian,
+        with the Hutchinson probe ``eps`` (unused by the exact trace)."""
+        scale, exact, f = self.trace_scale, self.exact, self.f
+        has_phi = not _empty_phi(self.phi)
+
+        def f_aug(t, state, phi=()):
+            xt, _ = state
+            create = torch.is_grad_enabled()  # inside a backward pass
+            with torch.enable_grad():
+                if not xt.requires_grad:
+                    xt = xt.detach().requires_grad_()
+                dx = f(t, xt, phi) if has_phi else f(t, xt)
+                if exact:
+                    eye = torch.eye(xt.shape[-1], dtype=xt.dtype, device=xt.device)
+                    eye = eye.expand(*xt.shape, xt.shape[-1]).movedim(-1, 0)
+                    (jacobian,) = torch.autograd.grad(
+                        dx, xt, eye, create_graph=create, is_grads_batched=True)
+                    trace = torch.einsum("i...i->...", jacobian)
+                else:
+                    (vjp,) = torch.autograd.grad(dx, xt, eps, create_graph=create)
+                    trace = (vjp * eps).sum(dim=-1)
+            if not create:
+                dx, trace = dx.detach(), trace.detach()
+            return dx, trace * scale
+
+        ladj0 = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        y, ladj = self._odeint(f_aug, (x, ladj0), self.t0, self.t1, self.phi)
+        return y, ladj / scale
+
+    def inverse_and_ladj(self, y):
+        # the inverse integrates backwards: its forward ladj is the ladj of
+        # this transform's inverse
+        return self.inv.call_and_ladj(y)

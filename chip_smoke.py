@@ -9,8 +9,9 @@ It builds the CUDA kernels from ``zuko_tpu_torch/ops/csrc`` into ``build/``,
 then drives the port's main paths through the public API: the flagship NSF,
 the Gaussianization flow (GF), the neural autoregressive flow (NAF), the
 unconstrained one (UNAF) and the continuous normalizing flow (CNF) served and
-trained, and flows past every kernel's narrow limits served through the
-kernels' wide tier.
+trained (the CNF by maximum likelihood and by reverse KL through its
+continuous adjoint), and flows past every kernel's narrow limits served
+through the kernels' wide tier.
 
 **Serving**: the flagship NSF (D=6, 3 transforms, 64x64 MADE, K=8, float32,
 the committed ``zuko_tpu_torch/assets/nsf_flagship.npz`` weights) and a
@@ -112,12 +113,25 @@ median <= 1e-4, max <= 1e-3; samples median <= 1e-5, 99th percentile <= 1e-4;
 log q against K10 at the returned points median <= 1e-3); K10's Function
 held at (k)'s parameters and rows against the float64 gradient of the
 global-step integration (parameters max-relative <= 1e-3, input normwise
-<= 1e-2); **(k)** MLE at 65,536 rows a step on the NSF's samples.
+<= 1e-2); **(k)** MLE at 65,536 rows a step on the NSF's samples. **Sampling
+with gradients** (phase 14): ``rsample_and_log_prob`` and ``rsample`` of the
+flagship CNF (16,384 draws), of the conditional CNF(6, 4) and of a
+conditional CNF(6, 4) with Hutchinson's trace (each 1,024 contexts x 4
+draws) with a backward, K11 forward and K12 (``cnf_adjoint``, the
+continuous adjoint) backward, one launch of each a call; K12 in both modes
+held against its plain version in float64 at the same tiles after the
+solve-consistency gate, which must pass on every row (parameters
+max-relative <= 1e-3, the draws' and the context rows' gradients normwise
+<= 1e-2, the limits of K10's Function); **(l)** reverse KL through K11 with
+log q and K12 at 16,384 draws a step on the ring energy, one launch of each
+a step and no other kernel. Phase 12 also drives K12's wide tier on both
+wide CNFs at 1,024 draws, holds it the same way and times it once on each;
+phase 14 times the flagship's K12 in both tiers.
 
 Then it times each kernel, its plain version (float32, on the card), its
 bound and, for ``masked_linear``, the one PyTorch call that computes the
 same function (the GF kernels also with per-row parameters at 1M rows); one
-training step of each of (a)-(k) and a served request on the host clock; and
+training step of each of (a)-(l) and a served request on the host clock; and
 prints the card's name and power limit, one JSON line ``{"kernels": [...]}``
 (every kernel, mode and tier) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -238,6 +252,11 @@ TOL_CNF_GRAD_PARAMS, TOL_CNF_GRAD_INPUT = 1e-3, 1e-2
 # K10 and K11 at the CNF batch of tools/bench_suite.py:214; (k) at 65,536
 CNF_ROWS, CNF_SAMPLE_ROWS, CNF_TRAIN_ROWS = 1 << 18, 1 << 18, 1 << 16
 CNF_NAMES = ("cnf_density", "cnf_sample", "cnf_sample_log_prob")
+# K12 (the continuous adjoint): served with a gradient and trained by (l) at
+# 16,384 rows a step; its wide tier at 1,024 rows (each tile of 256 rows is
+# one block, and a wide tile takes seconds)
+CNF_RKL_ROWS, K12_WIDE_ROWS = 1 << 14, 1 << 10
+ADJ_NAMES = ("cnf_adjoint", "cnf_adjoint_log_prob")
 GF_NAMES = ("gf_density", "gf_sample", "gf_sample_log_prob")
 NAF_NAMES = ("naf_density", "naf_sample", "naf_sample_log_prob")
 UMNN_NAMES = ("naf_density_umnn", "naf_sample_umnn", "naf_sample_umnn_log_prob")
@@ -413,6 +432,48 @@ def cnf_ops(widths, nf, trace):
     else:
         tangent = hidden[0] * (2 * F + 1) + middle + F * (2 * pairs[-1][0] + 2)
     return 7 * (network + tangent) + 78 * (F + (trace is not None))
+
+
+def cnf_adjoint_ops(widths, trace):
+    """Operations of one row's attempt through the adjoint kernel, counted
+    from ``csrc/cnf_fused.cu`` as :func:`cnf_ops` counts them, for the network
+    ``widths = [F, H1, ..., F]``: 7 stages, each the network's values, per
+    tangent column (F with the exact trace, 1 with Hutchinson's, none
+    without a trace) its products through the hidden layers (the first
+    layer's product with the probe for Hutchinson's) and its pullback (a
+    transposed product and 4 per hidden unit), the primal pullback (a
+    transposed product and 2 per unit, the first layer's for the input's
+    cotangent) and 10 per element of ``(u, a)`` for the stage inputs; 6 of
+    the 7 stages also reduce the outer products over the rows (a
+    multiply-add per weight and pair, an add per weight of the exact trace's
+    first-layer pairs, an add per bias), and each attempt takes 40 per
+    element of ``(u, a)`` for the solutions, the errors and their ratio.
+    The exact trace's column j enters the last linear with the cotangent
+    ``-Lbar e_j``, so only row j of that linear is needed: a multiply per
+    input in its pullback, a multiply-add per input in its outer product
+    (with no hidden layer, one add). The kernel computes the whole rows;
+    what the function needs is counted. The tile's time-embedding and
+    accumulator updates are left out."""
+    F, hidden = widths[0], widths[1:-1]
+    pairs = list(zip(widths[:-1], widths[1:]))
+    network = sum(o * (2 * i + 1) for i, o in pairs) + 3 * sum(hidden)
+    columns = {None: 0, True: F, False: 1}[trace]
+    middle = sum(o * (2 * i + 1) for i, o in pairs[1:-1])
+    forward = (0 if trace else 2 * F * widths[1]) + middle if hidden else 0
+    pullback = sum(2 * i * o + 4 * i for i, o in pairs[1:])
+    primal = sum(2 * i * o + 2 * i for i, o in pairs[1:]) + 2 * F * widths[1]
+    weights = sum(i * o for i, o in pairs)
+    reduce = 2 * weights + sum(o for _, o in pairs)
+    if trace and hidden:
+        last = pairs[-1][0]
+        pullback -= 2 * last * F - last
+        reduce += F * (widths[1] + 2 * (weights - F * widths[1] - last * F) + 2 * last)
+    elif trace:
+        reduce += F
+    elif trace is False:
+        reduce += 2 * weights
+    stage = network + columns * (forward + pullback) + primal + 20 * F
+    return 7 * stage + 6 * reduce + 80 * F
 
 
 def quantiles(diff):
@@ -966,6 +1027,8 @@ def main():
         "cnf_density": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:863"),
         "cnf_sample": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1312"),
         "cnf_sample_log_prob": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1312"),
+        "cnf_adjoint": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1044"),
+        "cnf_adjoint_log_prob": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1044"),
     }
     origin.update({f"{name}_wide": origin[name] for name in WHOLE_FLOW})
 
@@ -1879,6 +1942,99 @@ def main():
                 ops_of(m, a_l, True), 4 * m * (2 * F + 1) + bias_bytes(m, cz) + weights),
         }
 
+    def cnf_grad_request(flow, c, shape, want_log_prob):
+        """``rsample_and_log_prob`` (or ``rsample``) of ``flow(c)`` with a
+        backward of ``mean(lq) + mean(|x|^2)`` (or ``mean(|x|^2)``): K11, then
+        K12. A Hutchinson flow draws its probe's seed from ``gen``. Returns
+        the loss and the parameters' gradients."""
+        flow.zero_grad(set_to_none=True)
+        dist = flow(c) if flow.transform.exact else flow(c, generator=gen)
+        check(isinstance(dist, FusedContinuousFlow), "a CNF on the GPU did not dispatch")
+        if want_log_prob:
+            x, lq = dist.rsample_and_log_prob(shape, generator=gen)
+            loss = lq.mean() + (x * x).sum(dim=-1).mean()
+        else:
+            loss = (dist.rsample(shape, generator=gen) ** 2).sum(dim=-1).mean()
+        loss.backward()
+        return loss.detach(), [p.grad for p in flow.parameters() if p.grad is not None]
+
+    def hold_adjoint(label, flow, c, rows, names=ADJ_NAMES):
+        """K12 against its plain version in float64 at the same tiles, both
+        modes (``names``: without and with the log-q cotangent), on the
+        samples K11 draws from ``rows`` base draws (context rows ``c``) under
+        the cotangents of ``mean(lq) + mean(|x|^2)``: after the gate of each,
+        which must pass on every row, the parameters' cotangents max-relative
+        <= TOL_CNF_GRAD_PARAMS, the draws' and the context rows' normwise <=
+        TOL_CNF_GRAD_INPUT, the limits of K10's Function (float32 and
+        float64 tiles may take different step sequences, and the adjoint's
+        error control allows 1e-5 of each accumulator a step). A Hutchinson
+        flow draws its probe's seed from ``gen``, and both sides take the
+        probe at the draws, as ``rsample_and_log_prob`` does. Returns
+        ``names`` -> (kernel, plain, operations, bytes) at these inputs: the
+        operations of the attempts the plain float32 version takes on each
+        tile, each input and output once."""
+        c0 = None if c is None else c[:1]
+        transform = flow.transform(c0) if flow.transform.exact else flow.transform(
+            c0, generator=gen)
+        params, probe, cfg = cnf_fused._flatten_cnf(flow, transform, c0)
+        params = [p.detach() for p in params]
+        F, C = cfg["F"], cfg["C"]
+        z = torch.randn(rows, F, generator=gen, device=dev)
+        eps = None if probe is None else probe(z)
+        with torch.no_grad():
+            x, _ = cnf_fused.cnf_sample(z, eps, params, c, cfg, True)
+        gx, glq = 2 * x / rows, torch.full((rows,), 1.0 / rows, device=dev)
+        p64 = [p.double() for p in params]
+        c64 = None if c is None else c.double()
+        kp32 = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+        kp64 = cnf_fused._kernel_params(p64[0::2], p64[1::2], c64, cfg)
+        widths, tile = cnf_fused._widths(kp32), cnf_fused.TILE
+        row_bias = c is not None and c.dim() == 2
+        P = sum(p.numel() for i, p in enumerate(kp32) if not (i == 2 and row_bias))
+        tiles = -(-rows // tile)
+        work = {}
+        for name, lq in zip(names, (None, glq)):
+            e = None if lq is None else eps
+            e64 = None if e is None else e.double()
+            u1, a1, g = cnf_fused.cnf_adjoint(x, gx, lq, e, params, c, cfg)
+            got = cnf_fused._cnf_bwd_finish(z, e, c, params, cfg, lq, u1, a1, g)
+            with torch.no_grad():
+                r_u, r_a, r_k = cnf_fused._cnf_tile_adjoint_math(
+                    x.double(), gx.double(), None if lq is None else lq.double(), e64, kp64, cfg)
+            want = cnf_fused._cnf_bwd_finish(
+                z.double(), e64, c64, p64, cfg, None if lq is None else lq.double(), r_u, r_a,
+                cnf_fused._flat_cotangents(r_k, p64, c64, cfg))
+            gates = [(u - z.double()).abs().amax(dim=1).max().item() for u in (u1.double(), r_u)]
+            inputs = [(got[0], want[0])] + ([(got[2], want[2])] if C else [])
+            normwise = max(((a.double() - b).norm() / b.norm().clamp_min(1e-30)).item()
+                           for a, b in inputs)
+            relative = max(((a.double() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                           for a, b in zip(got[3], want[3]))
+            err = max((a.double() - b).abs().max().item()
+                      for a, b in [*inputs, *zip(got[3], want[3])])
+            print(f"{label} K12 {name} at {rows} rows vs plain f64: gate max |u1 - z| kernel"
+                  f" {gates[0]:.3e} plain {gates[1]:.3e}; dz normwise {normwise:.3e},"
+                  f" parameters worst max-relative {relative:.3e}, max |diff| {err:.3e}")
+            check(all(bool(torch.isfinite(t).all()) for t in [got[0], *got[3]]),
+                  f"{label} {name}: a gradient is not finite")
+            check(max(gates) <= cnf_fused._REINT_ATOL, f"{label} {name}: the gate failed")
+            check(normwise <= TOL_CNF_GRAD_INPUT, f"{label} {name}: dz or the context vs plain")
+            check(relative <= TOL_CNF_GRAD_PARAMS, f"{label} {name}: parameters vs plain")
+            note_error(name, torch.tensor(err), rows)
+            with torch.no_grad():
+                _, _, _, attempts = cnf_fused._cnf_tile_adjoint_math(x, gx, lq, e, kp32, cfg,
+                                                                     counts=True)
+            last = rows - (tiles - 1) * tile
+            row_attempts = attempts[:-1].sum().item() * tile + attempts[-1].item() * last
+            trace = None if lq is None else cfg["exact"]
+            nbytes = 4 * (rows * (4 * F + (lq is not None) + (F if e is not None else 0)
+                                  + (2 * widths[1] if row_bias else 0)) + P * (1 + tiles))
+            work[name] = (
+                lambda lq=lq, e=e: cnf_fused.cnf_adjoint(x, gx, lq, e, params, c, cfg),
+                lambda lq=lq, e=e: cnf_fused._cnf_tile_adjoint_math(x, gx, lq, e, kp32, cfg),
+                row_attempts * cnf_adjoint_ops(widths, trace), nbytes)
+        return work
+
     # 12. repair: flows past the narrow tiers' limits, served through the
     # public API by the wide tier (and K5 past 32 bins, unfused), held against
     # plain float64 at their families' tolerances, each wide kernel timed
@@ -2005,6 +2161,14 @@ def main():
             del os.environ["ZUKO_TPU_TORCH_FUSED_DISPATCH"]
         else:
             os.environ["ZUKO_TPU_TORCH_FUSED_DISPATCH"] = before
+    # K12's wide tier: the wide CNFs' rsample and rsample_and_log_prob with
+    # a backward, at K12_WIDE_ROWS draws
+    for label, flow, C, rows in wide_cnf:
+        c = torch.randn(K12_WIDE_ROWS, C, generator=gen, device=dev) if C else None
+        for want in (False, True):
+            loss, grads = cnf_grad_request(flow, c, () if C else (K12_WIDE_ROWS,), want)
+            check(math.isfinite(loss.item()) and all(bool(torch.isfinite(g).all()) for g in grads),
+                  f"{label}: a gradient through K12 is not finite")
     torch.cuda.synchronize()
     repair_launches = {name: ops.LAUNCHES[name] for name in (*wide_names, "rqs_forward",
                                                              "rqs_inverse")}
@@ -2115,6 +2279,17 @@ def main():
             params, cfg = cnf_args(flow, c)
             with torch.no_grad():
                 time_wide(x.shape[0], cnf_work(params, cfg, x, c, z2, c))
+    # K12's wide tier held on both wide CNFs and timed once on each (the
+    # kernels line reports the first)
+    for i, (label, flow, C, rows) in enumerate(wide_cnf):
+        c = torch.randn(K12_WIDE_ROWS, C, generator=gen, device=dev) if C else None
+        work = hold_adjoint(label, flow, c, K12_WIDE_ROWS,
+                            names=tuple(f"{n}_wide" for n in ADJ_NAMES))
+        if i == 0:
+            time_wide(K12_WIDE_ROWS, {n: work[f"{n}_wide"] for n in ADJ_NAMES})
+        else:
+            for name, item in work.items():
+                time_kernel(name, K12_WIDE_ROWS, *item, note=label, runs=1)
     check(set(report_rows) >= set(wide_names), "a wide kernel was not timed")
 
     # 13. the continuous normalizing flow (CNF): K10 and K11 served, held
@@ -2126,6 +2301,7 @@ def main():
     ctruth = np.load(ROOT / "zuko_tpu_torch" / "assets" / "cnf_truth_f64.npz")
     torch.manual_seed(7)
     cnf_cond = zt.CNF(6, 4, device=dev)
+    cnf_hutch = zt.CNF(6, 4, exact=False, device=dev)
     n_ctruth = ctruth["x"].shape[0]
     # one request holds the truth rows first
     cx_big = torch.cat([torch.as_tensor(ctruth["x"], device=dev, dtype=torch.float32),
@@ -2254,6 +2430,80 @@ def main():
                         "cnf_sample_log_prob": CNF_SAMPLE_ROWS})
     print(f"CNF phase: {time.perf_counter() - t13:.1f} s")
 
+    # 14. CNF sampling with gradients: K11 forward, K12 (the continuous
+    # adjoint) backward. Served with a gradient, K12 held against plain
+    # float64 at the same rows, (l) trained, timed
+    t14 = time.perf_counter()
+    cc_grad = torch.randn(1024, 4, generator=gen, device=dev)
+    grad_requests = [("CNF", cnf_flagship, None, (CNF_RKL_ROWS,)),
+                     ("conditional CNF", cnf_cond, cc_grad, (4,)),
+                     ("Hutchinson CNF", cnf_hutch, cc_grad, (4,))]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for label, flow, c, shape in grad_requests:
+        for want in (True, False):
+            loss, grads = cnf_grad_request(flow, c, shape, want)
+            check(math.isfinite(loss.item()) and all(bool(torch.isfinite(g).all()) for g in grads),
+                  f"{label}: a gradient through K12 is not finite")
+    torch.cuda.synchronize()
+    adj_launches = {name: ops.LAUNCHES[name] for name in (*CNF_NAMES, *ADJ_NAMES)}
+    print(f"CNF sampling with gradients: {time.perf_counter() - t0:.3f} s,"
+          f" launches {adj_launches}")
+    check(adj_launches == {"cnf_density": 0, "cnf_sample": 3, "cnf_sample_log_prob": 3,
+                           "cnf_adjoint": 3, "cnf_adjoint_log_prob": 3},
+          f"CNF sampling with gradients: launches {adj_launches}")
+    check(all(count == 0 for name, count in ops.LAUNCHES.items() if name not in adj_launches),
+          "CNF sampling with gradients launched another kernel")
+    adj_work = hold_adjoint("CNF", cnf_flagship, None, CNF_RKL_ROWS)
+    hold_adjoint("conditional CNF", cnf_cond, cc_grad.repeat(4, 1), 4 * cc_grad.shape[0])
+    hold_adjoint("Hutchinson CNF", cnf_hutch, cc_grad.repeat(4, 1), 4 * cc_grad.shape[0])
+
+    # (l) reverse KL through K11 with log q and K12, on the ring energy
+    flow_l = zt.load_params(zt.CNF(6, device=dev),
+                            ROOT / "zuko_tpu_torch" / "assets" / "cnf_flagship.npz")
+    ops.reset_launches()
+    init_fn, step_fns["cnf_rkl"] = zt.make_reverse_kl_step(flow_l, ring, n_samples=CNF_RKL_ROWS,
+                                                            lr=1e-3)
+    check(isinstance(flow_l(None), FusedContinuousFlow), "(l) did not dispatch")
+    trained["cnf_rkl"], _ = run("(l) CNF reverse KL, continuous adjoint", step_fns["cnf_rkl"],
+                                init_fn(), generator, TRAIN_STEPS)
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    print(f"training (l) CNF reverse KL, continuous adjoint: launches {counts}")
+    check(counts == {"cnf_sample_log_prob": TRAIN_STEPS, "cnf_adjoint_log_prob": TRAIN_STEPS},
+          "(l): one cnf_sample_log_prob and one cnf_adjoint_log_prob launch a step, no other")
+    train_launches["cnf_adjoint_log_prob"] = ops.LAUNCHES["cnf_adjoint_log_prob"]
+    per_step["cnf_rkl"] = time_step(
+        "cnf_rkl", generator, lambda: flow_l(None).sample_and_log_prob((CNF_RKL_ROWS,), gen))
+
+    # times: K12 in both modes and K11 with log q at (l)'s rows; the served
+    # request with its backward
+    with torch.no_grad():
+        time_kernel("cnf_sample_log_prob", CNF_RKL_ROWS, *cnf_work(
+            cparams, ccfg, cx_big[:CNF_RKL_ROWS], None,
+            torch.randn(CNF_RKL_ROWS, 6, generator=gen, device=dev), None)["cnf_sample_log_prob"])
+    for name in ADJ_NAMES:
+        time_kernel(name, CNF_RKL_ROWS, *adj_work[name])
+        check(timed[name, CNF_RKL_ROWS, ""]["bound_by"] == "operations", f"{name}: bound by bytes")
+    # K12's two tiers on the flagship at (l)'s rows: the narrow tier (the
+    # weights in shared memory) against the wide one (through __ldg), which
+    # the flagship takes when the planner is told that it does not fit
+    fits = cnf_fused._fits_narrow
+    cnf_fused._fits_narrow = lambda widths, nf: False
+    try:
+        for name in ADJ_NAMES:
+            time_kernel(name, CNF_RKL_ROWS, *adj_work[name], note="flagship, wide tier")
+    finally:
+        cnf_fused._fits_narrow = fits
+    for want, name in ((True, "cnf_adjoint_log_prob"), (False, "cnf_adjoint")):
+        r_ms, r_runs = host_ms(lambda: cnf_grad_request(
+            cnf_flagship, None, (CNF_RKL_ROWS,), want), 3)
+        print(f"served request {'rsample_and_log_prob' if want else 'rsample'} + backward at"
+              f" {CNF_RKL_ROWS} rows: {r_ms:.3f} ms {fmt(r_runs)}, K12 share"
+              f" {timed[name, CNF_RKL_ROWS, '']['ms'] / r_ms:.3f}")
+    step_labels += (("cnf_rkl", "(l) CNF reverse KL, continuous adjoint"),)
+    report_rows.update({name: CNF_RKL_ROWS for name in ADJ_NAMES})
+    print(f"CNF gradient phase: {time.perf_counter() - t14:.1f} s")
+
     # a training step beside the kernels it launches (their times at the
     # step's shapes, times the launches of one step)
     for key, label in (("mle", "(a) MLE"), ("rkl", "(b) reverse KL, IFT"),
@@ -2261,7 +2511,7 @@ def main():
                        ("mle_unfused", "(d) MLE, unfused, per-op kernels"), *step_labels):
         s_ms, s_runs = step_ms[key]
         rows = {"naf_rkl": NAF_IFT_ROWS, "unaf_rkl": UNAF_IFT_ROWS,
-                "cnf_mle": CNF_TRAIN_ROWS}.get(key, GRAD_ROWS)
+                "cnf_mle": CNF_TRAIN_ROWS, "cnf_rkl": CNF_RKL_ROWS}.get(key, GRAD_ROWS)
         k_ms = sum(timed[name, rows, ""]["ms"] * count / (3 if name == "masked_linear" else 1)
                    for name, count in per_step[key].items())
         print(f"training step {label}: {s_ms:.3f} ms {fmt(s_runs)}, launches per step"
@@ -2289,6 +2539,7 @@ def main():
     launches.update(naf_launches)
     launches.update(unaf_launches)
     launches.update(cnf_launches)
+    launches["cnf_adjoint"] = adj_launches["cnf_adjoint"]
     launches.update({name: repair_launches[name] for name in wide_names})
     for name, (source, replaces) in origin.items():
         rows = report_rows.get(name, ROWS if name in launches else GRAD_ROWS)

@@ -44,7 +44,8 @@ PORTED = {
         "FusedStructureError", "extract_nsf_params", "fused_nsf_log_prob", "fused_nsf_sample"],
     "ops.gf_fused": ["extract_gf_params", "fused_gf_log_prob", "fused_gf_sample"],
     "ops.naf_fused": ["extract_naf_params", "fused_naf_log_prob", "fused_naf_sample"],
-    "ops.cnf_fused": ["extract_cnf_params", "fused_cnf_log_prob", "fused_cnf_sample"],
+    "ops.cnf_fused": [
+        "extract_cnf_params", "fused_cnf_log_prob", "fused_cnf_rsample", "fused_cnf_sample"],
     "ops.ift": [
         "fused_gf_rsample", "fused_gf_rsample_and_log_prob", "fused_naf_rsample",
         "fused_naf_rsample_and_log_prob", "fused_nsf_rsample", "fused_nsf_rsample_and_log_prob",

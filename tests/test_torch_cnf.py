@@ -38,7 +38,7 @@ from zuko_tpu_torch.distributions import NormalizingFlow
 from zuko_tpu_torch.ops import cnf_fused as torch_cnf
 from zuko_tpu_torch.ops.dispatch import FusedContinuousFlow
 from zuko_tpu_torch.ops.nsf_fused import FusedStructureError
-from zuko_tpu_torch.parallel import make_mle_step
+from zuko_tpu_torch.parallel import make_mle_step, make_reverse_kl_step
 from zuko_tpu_torch.serial import load_params, to_torch_name
 
 torch.set_num_threads(1)
@@ -83,6 +83,11 @@ CASES = {
     "cnf": (3, 0, {}),
     "cnf_context": (3, 2, {"hidden_features": (16, 16)}),
     "cnf_hutchinson": (3, 2, {"hidden_features": (16, 16), "exact": False}),
+    "cnf_hutchinson_plain": (3, 0, {"hidden_features": (16, 16), "exact": False}),
+    # a context's gradient differs between the two adjoints at solver
+    # tolerance: held at tolerances tight enough for 1e-5
+    "cnf_context_tight": (3, 2, {"hidden_features": (8, 8), "atol": 1e-8, "rtol": 1e-8,
+                                 "max_steps": 16384}),
 }
 _PAIRS = {}
 
@@ -222,35 +227,54 @@ def test_unfused_flow_matches_zuko_tpu(fused_rsample, monkeypatch):
     """The unfused CNF, dispatch off on both sides: ``log_prob`` and the
     sample of a fixed ``z`` to 1e-8, and the gradients of ``rsample`` (the
     discrete adjoint of ``odeint``) to every parameter and to the context,
-    1e-8. With ``fused_flow`` the port's flow dispatches to
-    ``FusedContinuousFlow``, whose ``rsample`` takes the unfused route: the
-    same numbers."""
-    jflow, tflow, F, C = _pair("cnf_context")
-    jc, tc = _context("cnf_context", True)
+    1e-8. With ``fused_flow`` dispatch is on on both sides: the port's
+    ``FusedContinuousFlow.rsample`` and ``zuko_tpu``'s ``fused_cnf_rsample``
+    (the base draws ``zuko_tpu`` makes from its key, handed to the port), both
+    the continuous adjoint, for the CNF without a context: the same
+    tolerances. (With a context the two adjoints' step controllers watch
+    different leaves, the context's gradient in ``zuko_tpu``'s CPU backend and
+    the folded first bias's in the tile adjoint, so they agree to solver
+    tolerance only: ``test_rsample_gradients_match_zuko_tpu``.)"""
+    name = "cnf" if fused_rsample else "cnf_context"
+    jflow, tflow, F, C = _pair(name)
+    jc, tc = _context(name, True)
     rng = np.random.default_rng(9)
     x, w = rng.standard_normal((6, F)), rng.standard_normal((6, F))
     generator = torch.Generator().manual_seed(4)
-    z = torch.randn((6, F), generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+    key = jax.random.PRNGKey(4)
     params, static = partition(jflow)
+    _dispatch(monkeypatch, fused_rsample)
+    if fused_rsample:
+        jdist = jflow(jc)
+        z = np.asarray(jax_cnf._prep_cnf_sample(jflow, jdist.transform, key, (6,), jc, False)[1])
+        monkeypatch.setattr(torch, "randn", lambda shape, **kw: torch.tensor(z).reshape(shape))
 
-    def jloss(p, c_):
-        return jnp.sum(combine(p, static)(c_).transform.inv(jnp.asarray(z.numpy())) * w)
+        def jloss(p, c_):
+            return jnp.sum(combine(p, static)(c_).rsample(key, (6,)) * w)
+    else:
+        z = torch.randn((6, F), generator=torch.Generator().manual_seed(4),
+                        dtype=torch.float64).numpy()
 
+        def jloss(p, c_):
+            return jnp.sum(combine(p, static)(c_).transform.inv(jnp.asarray(z)) * w)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1) if C else 0)(params, jc)
+    jgrads = jgrads if C else (jgrads,)
     _dispatch(monkeypatch, False)
     jdist = jflow(jc)
-    jgrads = jax.grad(jloss, argnums=(0, 1))(params, jc)
     _dispatch(monkeypatch, fused_rsample)
     tflow.zero_grad()
-    tcg = tc.clone().requires_grad_(True)
+    tcg = None if tc is None else tc.clone().requires_grad_(True)
     tdist = tflow(tcg)
     assert type(tdist) is (FusedContinuousFlow if fused_rsample else NormalizingFlow)
-    sample = tdist.rsample(generator=generator)
+    sample = tdist.rsample((6,) if tc is None else (), generator=generator)
     (sample * torch.as_tensor(w)).sum().backward()
-    _close(sample, jdist.transform.inv(jnp.asarray(z.numpy())), 1e-8)
+    _close(sample, jdist.transform.inv(jnp.asarray(z)), 1e-8)
     _dispatch(monkeypatch, False)
     with torch.no_grad():
         _close(tflow(tc).log_prob(torch.as_tensor(x)), jdist.log_prob(jnp.asarray(x)), 1e-8)
-    _close(tcg.grad, jgrads[1], 1e-8)
+    if C:
+        _close(tcg.grad, jgrads[1], 1e-8)
     got, want = _grads_by_name(jgrads[0], tflow)
     for k in got:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-8, atol=1e-8, err_msg=k)
@@ -426,6 +450,174 @@ def test_mle_steps_match_zuko_tpu(monkeypatch):
         assert tstate.step == step + 1
         np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-10, atol=1e-10)
         _assert_same_parameters(tflow, jstate.params, atol=1e-8)
+
+
+# ------------------------------------------------------------ the adjoint
+
+
+ADJOINT_CASES = {
+    "exact": ("cnf", False),
+    "one_context": ("cnf_context", False),
+    "batched_context": ("cnf_context", True),
+    "hutchinson": ("cnf_hutchinson", True),
+}
+
+
+@pytest.mark.parametrize("case", list(ADJOINT_CASES))
+def test_plain_adjoint_matches_zuko_tpus_tile_adjoint(case):
+    """The plain version of the adjoint kernel at ``tile=8`` over 21 rows
+    (tiles of 8, 8 and a ragged 5, each with its own steps) against
+    ``zuko_tpu``'s ``_cnf_tile_adjoint`` (the TPU kernel's math) on each
+    slice, with the log-q cotangent: ``u1``, ``a1`` and every parameter
+    cotangent (per tile; a context of rows as per-row first biases) to
+    1e-10."""
+    name, batched = ADJOINT_CASES[case]
+    jflow, tflow, F, C = _pair(name)
+    rows = 21
+    rng = np.random.default_rng(13)
+    x, a, eps = (rng.standard_normal((rows, F)) for _ in range(3))
+    a, glq = a / rows, rng.standard_normal(rows) / rows
+    c = None if not C else rng.standard_normal((rows, C) if batched else (C,))
+    jc = None if c is None else jnp.asarray(c)
+    tcv = None if c is None else torch.as_tensor(c)
+    jt = jflow.transform(jc, key=jax.random.PRNGKey(0))
+    ws, bs, jcp, _, cfg = jax_cnf.extract_cnf_params(jflow, jt, jc)
+    kp = jax_cnf._kernel_params(ws, bs, jcp, cfg)
+    tt = tflow.transform(tcv, generator=torch.Generator().manual_seed(0))
+    params, _, tcfg = torch_cnf._flatten_cnf(tflow, tt, tcv)
+    tkp = [p.detach() for p in torch_cnf._kernel_params(params[0::2], params[1::2], tcv, tcfg)]
+    eps_t = None if tcfg["exact"] else torch.as_tensor(eps)
+    u1, a1, gth, attempts = torch_cnf._cnf_tile_adjoint_math(
+        torch.as_tensor(x), torch.as_tensor(a), torch.as_tensor(glq), eps_t, tkp, tcfg, tile=8,
+        counts=True)
+    assert attempts.shape == (3,) and bool((attempts > 0).all())
+    for i, lo in enumerate(range(0, rows, 8)):
+        rs = slice(lo, min(lo + 8, rows))
+        tile = [kp[0], kp[1], kp[2][rs].T if batched else kp[2], *kp[3:]]
+        ju, ja, jg = jax_cnf._cnf_tile_adjoint(
+            jnp.asarray(x[rs].T), jnp.asarray(a[rs].T), jnp.asarray(glq[rs])[None, :],
+            None if tcfg["exact"] else jnp.asarray(eps[rs].T), tile, cfg, True)
+        _close(u1[rs], np.asarray(ju).T, 1e-10)
+        _close(a1[rs], np.asarray(ja).T, 1e-10)
+        for j, (got, want) in enumerate(zip(gth, jg)):
+            if j == 2 and batched:
+                _close(got[rs], np.asarray(want).T, 1e-10)
+            else:
+                _close(got[i], np.asarray(want).reshape(got[i].shape), 1e-10)
+
+
+RSAMPLE_CASES = {
+    "exact": ("cnf", False, 1e-10),
+    "hutchinson": ("cnf_hutchinson_plain", False, 1e-10),
+    "one_context": ("cnf_context_tight", False, 1e-5),
+    "batched_context": ("cnf_context_tight", True, 1e-5),
+}
+
+
+@pytest.mark.parametrize("case", list(RSAMPLE_CASES))
+def test_rsample_gradients_match_zuko_tpu(case, monkeypatch):
+    """``rsample_and_log_prob`` of ``FusedContinuousFlow`` (one tile holds
+    the batch: the plain adjoint) against ``zuko_tpu``'s
+    ``fused_cnf_rsample`` (dispatch on: its CPU backend, the same continuous
+    adjoint through ``odeint``) from the same base draws and probe: the loss
+    ``mean(lq) + mean(|x|^2)`` to 1e-10, and the gradients of every parameter
+    and of the context to 1e-10 without a context (exact and Hutchinson) and
+    1e-5 with one, where the two controllers watch different leaves (the
+    gap ``zuko_tpu``'s own ``test_cnf_tile_adjoint_matches_xla_backward``
+    allows, at tolerances of 1e-8)."""
+    name, batched, tol = RSAMPLE_CASES[case]
+    jflow, tflow, F, C = _pair(name)
+    jc, tcv = _context(name, batched, rows=4)
+    exact = CASES[name][2].get("exact", True)
+    key, hkey = jax.random.PRNGKey(4), jax.random.PRNGKey(5)
+    shape = (2,) if batched else (8,)
+    params, static = partition(jflow)
+
+    def build(p, c_):
+        flow = combine(p, static)
+        return flow(c_) if exact else flow(c_, key=hkey)
+
+    def jloss(p, c_):
+        x, lq = build(p, c_).rsample_and_log_prob(key, shape)
+        return jnp.mean(lq) + jnp.mean(jnp.sum(x**2, axis=-1))
+
+    _dispatch(monkeypatch, True)
+    jdist = build(params, jc)
+    assert type(jdist).__name__ == "FusedContinuousFlow"
+    _, z, eps, _, _ = jax_cnf._prep_cnf_sample(jflow, jdist.transform, key, shape, jc, True)
+    value, jgrads = jax.value_and_grad(jloss, argnums=(0, 1) if C else 0)(params, jc)
+    jgrads = jgrads if C else (jgrads,)
+    z, eps = np.asarray(z), np.asarray(eps)
+    monkeypatch.setattr(torch, "randn", lambda size, **kw: torch.tensor(z).reshape(size))
+    tflow.zero_grad()
+    tcg = None if tcv is None else tcv.clone().requires_grad_(True)
+    tdist = tflow(tcg) if exact else tflow(tcg, generator=torch.Generator().manual_seed(0))
+    assert type(tdist) is FusedContinuousFlow
+    if not exact:  # zuko_tpu's probe from its key
+        tparams, _, tcfg = tdist._flat
+        tdist._flat = (tparams, lambda like: torch.tensor(eps).reshape(like.shape), tcfg)
+    x, lq = tdist.rsample_and_log_prob(shape)
+    loss = lq.mean() + (x**2).sum(dim=-1).mean()
+    loss.backward()
+    _close(loss, value, 1e-10)
+    if C:
+        _close(tcg.grad, jgrads[1], tol)
+    got, want = _grads_by_name(jgrads[0], tflow)
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=tol, atol=tol, err_msg=k)
+
+
+def test_rsample_gate_and_budget_poison_the_gradients(monkeypatch):
+    """The solve-consistency gate and the step budget, as in ``zuko_tpu``
+    (``test_cnf_rsample_reint_gate_poisons``, ``..._budget_exhaustion_...``):
+    a healthy flow's gradients are finite; with ``_REINT_ATOL = -1`` every
+    row misses its base draw and every parameter's gradient is NaN; with
+    ``max_steps=2`` at tolerances of 1e-12 the sample is NaN and so is every
+    parameter's gradient."""
+    torch.manual_seed(0)
+
+    def grads(flow):
+        flow.zero_grad()
+        x, lq = flow(None).rsample_and_log_prob((8,))
+        (lq.mean() + (x**2).sum(dim=-1).mean()).backward()
+        return [p.grad for p in flow.parameters() if p.requires_grad]
+
+    _dispatch(monkeypatch, True)
+    flow = zt.CNF(3, hidden_features=(8, 8), device="cpu").double()
+    assert all(bool(torch.isfinite(g).all()) for g in grads(flow))
+    monkeypatch.setattr(torch_cnf, "_REINT_ATOL", -1.0)
+    assert all(bool(torch.isnan(g).all()) for g in grads(flow))
+    monkeypatch.undo()
+    _dispatch(monkeypatch, True)
+    starved = zt.CNF(3, hidden_features=(8, 8), max_steps=2, atol=1e-12, rtol=1e-12,
+                     device="cpu").double()
+    with torch.no_grad():
+        assert bool(torch.isnan(starved(None).rsample((4,))).all())
+    assert all(bool(torch.isnan(g).all()) for g in grads(starved))
+
+
+def test_reverse_kl_step_matches_zuko_tpu(monkeypatch):
+    """One Adam step of reverse KL (``make_reverse_kl_step``) of a CNF with
+    the exact trace, fused on both sides: the forward samples with log q,
+    the backward the continuous adjoint (one tile holds the batch), from the
+    base draws ``zuko_tpu`` makes from its key: the loss to 1e-9 and every
+    updated parameter to 1e-8."""
+    jflow, tflow = _build("cnf", key=2)
+    params, static = partition(jflow)
+    key, n = jax.random.PRNGKey(6), 16
+    _dispatch(monkeypatch, True)
+    jdist = combine(params, static)(None)
+    z = np.asarray(jax_cnf._prep_cnf_sample(jflow, jdist.transform, key, (n,), None, True)[1])
+    monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.tensor(z))
+    jinit, jstep = jax_train.make_reverse_kl_step(
+        static, zuko_tpu.data.ring_energy, n_samples=n, lr=1e-3)
+    jstate, jloss = jstep(jinit(params), key)
+    tinit, tstep = make_reverse_kl_step(tflow, zt.data.ring_energy, n_samples=n, lr=1e-3)
+    assert isinstance(tflow(None), FusedContinuousFlow)
+    tstate, tloss = tstep(tinit())
+    assert tstate.step == 1
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-9, atol=1e-9)
+    _assert_same_parameters(tflow, jstate.params, atol=1e-8)
 
 
 # ------------------------------------------------------ dispatch, structure

@@ -218,12 +218,38 @@ def test_cnf_wrappers_take_plain_versions_on_cpu(context):
     assert all(count == 0 for count in ops.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
+def test_cnf_adjoint_takes_its_plain_version_on_cpu_and_checks_shapes(context):
+    """``cnf_adjoint`` on CPU tensors is the plain version with its cotangents
+    reassembled (no launch counted); on tensors that lie on the GPU it checks
+    the shapes before anything else and raises for wrong ones."""
+    eps, params, c, cfg = _small_cnf(context)
+    x, gx, glq = torch.randn(16, 4), torch.randn(16, 4) / 16, torch.randn(16) / 16
+    kp = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+    ops.reset_launches()
+    u1, a1, g = cnf_fused.cnf_adjoint(x, gx, glq, eps, params, c, cfg)
+    pu, pa, pk = cnf_fused._cnf_tile_adjoint_math(x, gx, glq, eps, kp, cfg)
+    want = cnf_fused._flat_cotangents(pk, params, c, cfg)
+    for got, ref in zip([u1, a1, *g["w"], *g["b"]], [pu, pa, *want["w"], *want["b"]]):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert [w.shape for w in g["w"]] == [p.shape for p in params[0::2]]
+    assert (g["c"] is None) == (c is None) and (c is None or g["c"].shape == c.shape)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+    on_card = x.as_subclass(_OnCard)
+    for bad in (dict(gx=torch.randn(16, 5)), dict(glq=torch.randn(15)),
+                dict(eps=torch.randn(16, 3))):
+        args = {"gx": gx, "glq": glq, "eps": eps, **bad}
+        with pytest.raises(ValueError, match="expected contiguous"):
+            cnf_fused.cnf_adjoint(on_card, args["gx"], args["glq"], args["eps"], params, c, cfg)
+
+
 def test_cnf_kernel_is_built_and_counted_and_has_no_switch():
     """The CNF kernel source is one of the libraries the build compiles,
-    its entry points are declared, each wrapper counts its launches under
-    its name (and ``_wide``), the source uses no tensor-core or TF32
-    arithmetic, and no environment variable chooses a CNF route (the TPU
-    package reads ``ZUKO_TPU_IFT`` and ``ZUKO_TPU_CNF_ADJ``)."""
+    its entry points (the density, sampling and adjoint kernels) are
+    declared, each wrapper counts its launches under its name (and
+    ``_wide``), the source uses no tensor-core or TF32 arithmetic, and no
+    environment variable chooses a CNF route (the TPU package reads
+    ``ZUKO_TPU_IFT`` and ``ZUKO_TPU_CNF_ADJ``)."""
     source = (ROOT / "zuko_tpu_torch" / "ops" / "cnf_fused.py").read_text()
     assert "os.environ" not in source and "getenv" not in source
     for path in PORT_FILES:
@@ -231,15 +257,18 @@ def test_cnf_kernel_is_built_and_counted_and_has_no_switch():
         assert "ZUKO_TPU_IFT" not in text and "ZUKO_TPU_CNF_ADJ" not in text, path
     cu = ROOT / "zuko_tpu_torch" / "ops" / "csrc" / "cnf_fused.cu"
     assert cu in set(_build._CSRC.glob("*.cu"))
-    assert set(_build._SIGNATURES["cnf_fused"]) == {"cnf_density_f32", "cnf_sample_f32"}
+    assert set(_build._SIGNATURES["cnf_fused"]) == {
+        "cnf_density_f32", "cnf_sample_f32", "cnf_adjoint_f32"}
     text = cu.read_text()
     for entry in _build._SIGNATURES["cnf_fused"]:
         assert f'extern "C" int {entry}(' in text
     code = "\n".join(line.split("//")[0] for line in text.splitlines()).lower()
     for word in ("wmma", "mma", "tf32", "__half", "bfloat16", "#include <cu"):
         assert word not in code.replace("#include <cuda_runtime.h>", ""), word
-    names = {"cnf_density", "cnf_sample", "cnf_sample_log_prob"}
+    names = {"cnf_density", "cnf_sample", "cnf_sample_log_prob", "cnf_adjoint",
+             "cnf_adjoint_log_prob"}
     assert names | {f"{n}_wide" for n in names} <= set(ops.LAUNCHES)
+    assert ops.cnf_adjoint is cnf_fused.cnf_adjoint and "cnf_adjoint" in ops.__all__
 
 
 @pytest.mark.parametrize("context", [0, 3], ids=["plain", "batched_context"])
@@ -346,14 +375,19 @@ class _OnCard(torch.Tensor):
 @pytest.mark.parametrize(
     "op", ["masked_linear", "rqs_forward", "rqs_inverse", "gf_density", "gf_sample",
            "naf_density", "naf_sample", "unaf_density", "unaf_sample", "cnf_density",
-           "cnf_sample"])
+           "cnf_sample", "cnf_adjoint"])
 def test_gpu_tensors_reach_the_kernel_or_raise(op, dtype, error, match):
     """For a tensor on the GPU the unfused layers and the GF, NAF, UNAF and
     CNF wrappers go to their kernel whatever the type: float64 raises there, as
     the whole-flow NSF kernels do, and nothing gives way to the plain
     arithmetic."""
     torch.manual_seed(0)
-    if op.startswith("cnf_"):
+    if op == "cnf_adjoint":
+        eps, params, c, cfg = _small_cnf(3, dtype)
+        gx, glq = torch.randn(16, 4, dtype=dtype) / 16, torch.randn(16, dtype=dtype) / 16
+        fn = lambda v: cnf_fused.cnf_adjoint(v, gx, glq, eps, params, c, cfg)  # noqa: E731
+        x = torch.randn(16, 4, dtype=dtype)
+    elif op.startswith("cnf_"):
         eps, params, c, cfg = _small_cnf(3, dtype)
         wrapper = getattr(cnf_fused, op)
         fn, x = (lambda v: wrapper(v, eps, params, c, cfg)), torch.randn(16, 4, dtype=dtype)

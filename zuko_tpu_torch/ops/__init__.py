@@ -9,10 +9,12 @@ plain version for a CPU tensor."""
 from . import masked_linear, rqs
 from ._common import LAUNCHES, reset_launches
 from .cnf_fused import (
+    cnf_adjoint,
     cnf_density,
     cnf_sample,
     extract_cnf_params,
     fused_cnf_log_prob,
+    fused_cnf_rsample,
     fused_cnf_sample,
 )
 from .gf_fused import (
@@ -53,6 +55,7 @@ from .rqs import rqs_forward, rqs_inverse
 __all__ = [
     "FusedStructureError",
     "LAUNCHES",
+    "cnf_adjoint",
     "cnf_density",
     "cnf_sample",
     "extract_cnf_params",
@@ -60,6 +63,7 @@ __all__ = [
     "extract_naf_params",
     "extract_nsf_params",
     "fused_cnf_log_prob",
+    "fused_cnf_rsample",
     "fused_cnf_sample",
     "fused_gf_log_prob",
     "fused_gf_rsample",

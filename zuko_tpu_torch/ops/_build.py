@@ -45,6 +45,11 @@ _NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER
 # linears, frequencies and their count, atol, rtol, trace scale, max_steps,
 # trace mode, rows, the tier, stream)
 _CNF_FLOW = [_P, _P, _I, _I, _P, _F, _F, _F, _I, _I, _LL, *_TIER, _P]
+# (samples, their cotangent, log-q cotangent, probe, per-row first bias, u1,
+# a1, per-tile sums, per-row first bias's cotangent, weights, widths,
+# linears, frequencies and their count, atol, rtol, max_steps, trace mode,
+# rows, tile, the tier, stream)
+_CNF_ADJOINT = [_P] * 10 + [_P, _I, _I, _P, _F, _F, _I, _I, _LL, _I, *_TIER, _P]
 # argument types of every C entry point, by library; each library also has
 # ``<library>_error_string`` (declared by ``load_library``)
 _SIGNATURES = {
@@ -66,6 +71,7 @@ _SIGNATURES = {
     "cnf_fused": {
         "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW], _I),
         "cnf_sample_f32": ([_P, _P, _P, _P, _P, *_CNF_FLOW], _I),
+        "cnf_adjoint_f32": (_CNF_ADJOINT, _I),
     },
     "masked_linear": {
         "masked_linear_f32": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),

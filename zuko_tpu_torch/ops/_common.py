@@ -18,7 +18,7 @@ WHOLE_FLOW = (
     "gf_density", "gf_sample", "gf_sample_log_prob",
     "naf_density", "naf_sample", "naf_sample_log_prob",
     "naf_density_umnn", "naf_sample_umnn", "naf_sample_umnn_log_prob",
-    "cnf_density", "cnf_sample", "cnf_sample_log_prob",
+    "cnf_density", "cnf_sample", "cnf_sample_log_prob", "cnf_adjoint", "cnf_adjoint_log_prob",
 )
 
 #: Kernel launches per wrapper (and per mode and tier, the wide tier's under

@@ -1,7 +1,8 @@
-r"""Whole-flow continuous normalizing flow (CNF, FFJORD) density and sampling:
-plain PyTorch versions and the CUDA kernels that replace the TPU kernels.
+r"""Whole-flow continuous normalizing flow (CNF, FFJORD) density, sampling and
+the continuous adjoint of sampling: plain PyTorch versions and the CUDA
+kernels that replace the TPU kernels.
 
-Counterpart of ``zuko_tpu/ops/cnf_fused.py``. Two kernels, both in
+Counterpart of ``zuko_tpu/ops/cnf_fused.py``. Three kernels, all in
 ``csrc/cnf_fused.cu``:
 
 * ``cnf_density`` replaces ``_cnf_impl`` (:819, ``pallas_call`` at :863):
@@ -15,28 +16,38 @@ Counterpart of ``zuko_tpu/ops/cnf_fused.py``. Two kernels, both in
   same pass integrates the trace and returns ``log q = log N(z) - ladj``,
   without it ``x`` alone (the error control then runs over ``x`` only, as
   ``FreeFormJacobianTransform.inverse`` does).
+* ``cnf_adjoint`` replaces ``_cnf_adjoint_pallas`` (:957, ``pallas_call`` at
+  :1044): the backward of :func:`fused_cnf_rsample`, one continuous-adjoint
+  integration per tile of ``(u, a, g_theta)`` from the samples back to the
+  base draws (:func:`_cnf_tile_adjoint_math`), followed by the
+  solve-consistency gate (:func:`_cnf_bwd_finish`).
 
 Step control is per tile of :data:`TILE` rows, as in the TPU kernel: the
 rows of a tile share one sequence of accepted steps, the error ratio being
 the max over the tile's rows, over ``x`` and over the scaled ladj
-(``_cnf_tile_integrate`` :302, :413-427). Rows past the end of the input
-take no part in it (the TPU kernel pads its last tile with rows of zeros
-that do), and a tile that runs out of its ``4 max_steps`` attempts
-NaN-poisons its rows. The unfused flow controls its steps over the whole
-batch (:func:`~zuko_tpu_torch.utils.odeint`); the two agree to solver
-tolerance, and exactly when one tile holds the batch. The plain versions
-(:func:`_cnf_tile_math`, :func:`_cnf_tile_sample_math`) take the same tiles.
+(``_cnf_tile_integrate`` :302, :413-427), and for the adjoint over every
+leaf. Rows past the end of the input take no part in it (the TPU kernel
+pads its last tile with rows of zeros that do), and a tile that runs out of
+its ``4 max_steps`` attempts NaN-poisons its rows. The unfused flow controls
+its steps over the whole batch (:func:`~zuko_tpu_torch.utils.odeint`); the
+two agree to solver tolerance, and exactly when one tile holds the batch
+(for the adjoint: without a context, whose gradient ``zuko_tpu``'s CPU
+backend controls where the tile adjoint controls the folded first bias's).
+The plain versions (:func:`_cnf_tile_math`, :func:`_cnf_tile_sample_math`,
+:func:`_cnf_tile_adjoint_math`) take the same tiles.
 
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
-launches its kernel (or raises) for a CUDA tensor. :func:`plan_cnf` chooses
-the kernels' tier from the flow's shape. ``LAUNCHES`` counts the launches
-under ``cnf_density``, ``cnf_sample`` and ``cnf_sample_log_prob``, with
+launches its kernel (or raises) for a CUDA tensor. :func:`plan_cnf` and
+:func:`plan_cnf_adjoint` choose the kernels' tier from the flow's shape.
+``LAUNCHES`` counts the launches under ``cnf_density``, ``cnf_sample``,
+``cnf_sample_log_prob``, ``cnf_adjoint`` and ``cnf_adjoint_log_prob``, with
 ``_wide`` at the end for the wide tier. The density's backward is not a
 kernel: it is autograd over the global-step integration
 (:func:`_ref_log_prob`), as ``_cnf_bwd`` (:761) is a VJP of it. The TPU
 kernels' workarounds are not carried over: no tile shrinking for a wide
 flow (``_cnf_tb``), no VMEM gate (``_CNF_VMEM_BUDGET``), no ``exp``/``log``
-forms of ELU or of the step factor.
+forms of ELU or of the step factor, no second backend of the adjoint
+(``_CNF_ADJ``).
 """
 
 from __future__ import annotations
@@ -62,12 +73,15 @@ from .nsf_fused import FusedStructureError, _require_standard_base
 
 __all__ = [
     "TILE",
+    "cnf_adjoint",
     "cnf_density",
     "cnf_sample",
     "extract_cnf_params",
     "fused_cnf_log_prob",
+    "fused_cnf_rsample",
     "fused_cnf_sample",
     "plan_cnf",
+    "plan_cnf_adjoint",
 ]
 
 #: Rows of a tile: one CUDA block, one thread a row, one sequence of steps.
@@ -204,40 +218,60 @@ def _ref_log_prob(x, eps, ws, bs, c, cfg):
 # ------------------------------------------------------------ plain versions
 
 
+def _mm(x, W):
+    """``x @ W.T`` for weights ``W (out, in)`` shared by every tile, or tile
+    by tile for weights ``W (k, out, in)`` against ``x (k, ..., in)``."""
+    if W.dim() == 2:
+        return x @ W.T
+    return torch.einsum("k...i,koi->k...o", x, W)
+
+
+def _tile_f_and_tr(s, u, theta, eps, cfg, trace):
+    """The tiles' dynamics ``f (k, T, F)`` at times ``s (k,)`` and states
+    ``u (k, T, F)``, and the UNSCALED trace ``(k, T)`` (``None`` without a
+    trace), as a pure function of ``(u, theta)`` (counterpart of
+    ``_tile_f_and_tr`` :447): ``theta = [W1_x, W1_te, b1, W2, b2, ...]``,
+    each shared by the tiles or with a leading tile axis ``k`` (the first
+    bias ``(H1,)``, ``(k, H1)`` or per row ``(k, T, H1)``). The exact trace
+    takes, for each column ``j``, ``W1_x[:, j]`` through the hidden layers
+    (``v <- W (elu'(h) * v)``) and only row ``j`` of the last layer;
+    Hutchinson's (``trace`` False) takes the probe ``eps (k, T, F)`` through
+    once and dots the result with it."""
+    W1_x, W1_te, b1, rest = theta[0], theta[1], theta[2], theta[3:]
+    ft = s[:, None] * torch.tensor(cfg["freqs"], dtype=u.dtype, device=u.device)
+    te = _mm(torch.cat([torch.cos(ft), torch.sin(ft)], dim=1)[:, None, :], W1_te)
+    h = _mm(u, W1_x) + (b1[:, None, :] if b1.dim() == 2 else b1) + te
+    derivs = []
+    for W, b in zip(rest[0::2], rest[1::2]):
+        derivs.append(torch.where(h > 0, 1.0, torch.exp(h.clamp(max=0))))
+        h = _mm(Fn.elu(h), W) + (b[:, None, :] if b.dim() == 2 else b)
+    if trace is None:
+        return h, None
+    Ws = rest[0::2]
+    if trace and not Ws:
+        tr = torch.diagonal(W1_x, dim1=-2, dim2=-1).sum(dim=-1)
+        return h, (tr if tr.dim() == 0 else tr[:, None]).expand(h.shape[:-1])
+    if trace:  # exact: column j of W1_x, row j of the last layer
+        W1T = W1_x.mT if W1_x.dim() == 2 else W1_x.mT[:, None]
+        v = derivs[0][..., None, :] * W1T
+        for W, d in zip(Ws[:-1], derivs[1:]):
+            v = _mm(v, W) * d[..., None, :]
+        return h, torch.einsum("ktjh,jh->kt" if Ws[-1].dim() == 2 else "ktjh,kjh->kt", v, Ws[-1])
+    v = _mm(eps, W1_x)
+    for W, d in zip(Ws, derivs):
+        v = _mm(d * v, W)
+    return h, (v * eps).sum(dim=-1)
+
+
 def _tile_dynamics(s, xi, params, b1, eps, cfg, reverse, trace):
     """The tiles' dynamics at stage times ``s (k,)``, states ``xi (k, T, F)``:
     ``dx`` and ``trace_scale`` times the trace (``None`` without a trace),
     both negated for the reverse direction (the ``t1 - t0 = -1`` factor of
-    the normalized time). The exact trace takes, for each column ``j``,
-    ``W1_x[:, j]`` through the hidden layers (``v <- W (elu'(h) * v)``) and
-    only row ``j`` of the last layer; Hutchinson's takes ``eps`` through
-    once and dots the result with it (counterpart of ``f_aug`` in
-    ``_cnf_tile_integrate`` :341)."""
-    W1_x, W1_te, rest = params[0], params[1], params[3:]
-    tt = 1 - s if reverse else s
-    ft = tt[:, None] * torch.tensor(cfg["freqs"], dtype=xi.dtype, device=xi.device)
-    te = torch.cat([torch.cos(ft), torch.sin(ft)], dim=1) @ W1_te.T
-    h = xi @ W1_x.T + b1 + te[:, None, :]
-    derivs = []
-    for W, b in zip(rest[0::2], rest[1::2]):
-        derivs.append(torch.where(h > 0, 1.0, torch.exp(h.clamp(max=0))))
-        h = Fn.elu(h) @ W.T + b
-    tr = None
-    if trace is not None:
-        Ws = rest[0::2]
-        if trace:  # exact: column j of W1_x, row j of the last layer
-            if not Ws:
-                tr = torch.diagonal(W1_x).sum().expand(h.shape[:-1])
-            else:
-                v = derivs[0][..., None, :] * W1_x.T
-                for W, d in zip(Ws[:-1], derivs[1:]):
-                    v = (v @ W.T) * d[..., None, :]
-                tr = torch.einsum("ktjh,jh->kt", v, Ws[-1])
-        else:
-            v = eps @ W1_x.T
-            for W, d in zip(Ws, derivs):
-                v = (d * v) @ W.T
-            tr = (v * eps).sum(dim=-1)
+    the normalized time); :func:`_tile_f_and_tr` with the first bias ``b1``
+    (counterpart of ``f_aug`` in ``_cnf_tile_integrate`` :341)."""
+    h, tr = _tile_f_and_tr(1 - s if reverse else s, xi, [params[0], params[1], b1, *params[3:]],
+                           eps, cfg, trace)
+    if tr is not None:
         tr = tr * cfg["scale"]
     if reverse:
         return -h, None if tr is None else -tr
@@ -364,6 +398,107 @@ def _cnf_tile_sample_math(z, eps, params, cfg, want_log_prob=False, tile=None, c
     return (out, attempts) if counts else out
 
 
+def _cnf_tile_adjoint_math(x, a, glq, eps, params, cfg, tile=None, counts=False):
+    r"""Plain version of the adjoint kernel (counterpart of
+    ``_cnf_tile_adjoint`` :506): per tile of ``tile`` rows (default
+    :data:`TILE`), the continuous adjoint
+
+    .. math:: \dot u = f,\quad \dot a = -\partial_u(a^\top f - \bar L\,
+        \mathrm{tr}),\quad \dot g_\theta = -\partial_\theta(a^\top f - \bar L\,
+        \mathrm{tr})
+
+    integrated from the samples ``x (n, F)`` (t = 0) to the base draws (t =
+    1), ``a (n, F)`` the cotangent of ``x`` and ``glq (n,)`` that of log q
+    (:math:`\bar L`; ``None``: no trace term, the error control then runs
+    without it as ``_cnf_tile_adjoint``'s does). ``f`` and the unscaled
+    trace are :func:`_tile_f_and_tr`, the slopes autograd over it with each
+    tile's own copy of the parameters ``params`` (as
+    :func:`_kernel_params` gives them; ``eps (n, F)`` the Hutchinson probe).
+    Dormand-Prince 4(5) with the error ratio the max over every leaf (``u``,
+    ``a``, each parameter's accumulator; rows past ``n`` excluded), NaN a
+    rejection, at most ``4 max_steps`` attempts; an exhausted tile is NaN in
+    every leaf. Returns ``u1 (n, F)``, ``a1 (n, F)`` and the parameter
+    cotangents in the order of ``params``: ``(tiles, *shape)``, summed over
+    each tile's rows, and for a per-row first bias ``(n, H1)``. With
+    ``counts`` also the attempts of each tile."""
+    tile = TILE if tile is None else tile
+    n, F = x.shape
+    trace = None if glq is None else cfg["exact"]
+    row_bias = params[2].dim() == 2
+    valid = _tiles(torch.ones(n, dtype=torch.bool, device=x.device), tile)
+    E = _tiles(eps, tile) if trace is False else None
+    Lq = None if glq is None else _tiles(glq, tile)
+    B = _tiles(params[2], tile) if row_bias else None
+    k = valid.shape[0]
+    # each tile's state as one flat vector: u, a, then each parameter's
+    # accumulator (a per-row first bias with a row axis); rows past n are
+    # left out of the error control
+    shapes = [(tile, F), (tile, F)] + [(tile,) + p.shape[1:] if i == 2 and row_bias else p.shape
+                                       for i, p in enumerate(params)]
+    sizes = [math.prod(shape) for shape in shapes]
+    by_row = [0, 1] + ([4] if row_bias else [])
+    state = torch.cat([_tiles(x, tile).reshape(k, -1), _tiles(a, tile).reshape(k, -1),
+                       x.new_zeros(k, sum(sizes[2:]))], dim=1)
+    counted = torch.cat([valid.repeat_interleave(size // tile, dim=1) if j in by_row
+                         else valid.new_ones(k, size) for j, size in enumerate(sizes)], dim=1)
+    t, dt = x.new_zeros(k), x.new_ones(k)
+    attempts = torch.zeros(k, dtype=torch.long, device=x.device)
+    tiny = torch.finfo(x.dtype).tiny
+
+    def slopes(idx, s, flat):
+        m = idx.numel()
+        u, av = (v.reshape(m, tile, F) for v in flat[:, : 2 * sizes[0]].split(sizes[0], dim=1))
+        theta = [B[idx] if i == 2 and row_bias else p.expand((m,) + p.shape)
+                 for i, p in enumerate(params)]
+        with torch.enable_grad():
+            u = u.detach().requires_grad_()
+            th = [q.detach().requires_grad_() for q in theta]
+            f, tr = _tile_f_and_tr(s, u, th, None if E is None else E[idx], cfg, trace)
+            phi = (av * f).sum()
+            if tr is not None:
+                phi = phi - (Lq[idx] * tr).sum()
+            grads = torch.autograd.grad(phi, [u, *th], allow_unused=True)
+        return torch.cat([f.detach().reshape(m, -1)] + [
+            (-g if g is not None else torch.zeros_like(q)).reshape(m, -1)
+            for g, q in zip(grads, [u, *th])], dim=1)
+
+    while True:
+        idx = ((t < 1) & (attempts < 4 * cfg["max_steps"])).nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        y0, ta = state[idx], t[idx]
+        dta = torch.minimum(dt[idx], 1 - ta)
+        ks = []
+        for i in range(7):
+            yi = y0
+            for j, c in enumerate(_DP_A[i]):
+                if c != 0.0:
+                    yi = yi + (dta * c)[:, None] * ks[j]
+            ks.append(slopes(idx, ta + _DP_C[i] * dta, yi))
+        y, err = y0, torch.zeros_like(y0)
+        for i in range(7):
+            b5, d = _DP_B5[i], _DP_B5[i] - _DP_B4[i]
+            if b5 != 0.0:
+                y = y + (dta * b5)[:, None] * ks[i]
+            if d != 0.0:
+                err = err + (dta * d)[:, None] * ks[i]
+        r = err.abs() / (cfg["atol"] + cfg["rtol"] * torch.maximum(y0.abs(), y.abs()))
+        ratio = torch.where(counted[idx], r, 0.0).amax(dim=1)
+        ratio = torch.where(torch.isnan(ratio), math.inf, ratio)
+        accept = ratio <= 1
+        state[idx] = torch.where(accept[:, None], y, y0)
+        t[idx] = torch.where(accept, ta + dta, ta)
+        dt[idx] = dta * (0.9 * ratio.clamp(min=tiny) ** -0.2).clamp(0.1, 10.0)
+        attempts[idx] += 1
+    # a tile that ran out of attempts: NaN in every leaf
+    state[t < 1 - 64 * torch.finfo(torch.float32).eps] = math.nan
+    leaves = [v.reshape((k,) + shape) for v, shape in zip(state.split(sizes, dim=1), shapes)]
+    u1, a1 = (v.reshape(-1, F)[:n] for v in leaves[:2])
+    gth = [g.reshape(-1, g.shape[-1])[:n] if i == 2 and row_bias else g
+           for i, g in enumerate(leaves[2:])]
+    return (u1, a1, gth, attempts) if counts else (u1, a1, gth)
+
+
 # ---------------------------------------------------------- CUDA launches
 
 
@@ -371,6 +506,20 @@ def _widths(params):
     """``[F, H1, ..., F]``: the ODE network's input ``x`` width and the
     output width of each linear, from ``[W1_x, W1_te, b1, W2, b2, ...]``."""
     return [params[0].shape[1], params[0].shape[0], *(W.shape[0] for W in params[3::2])]
+
+
+def _weights(widths, nf):
+    """Floats of ``[W1_x, W1_te, b1, W2, b2, ...]`` for ``widths = [F, H1,
+    ..., F]`` under ``nf`` frequencies."""
+    return sum(o * (i + 1) for i, o in zip(widths[:-1], widths[1:])) + 2 * nf * widths[1]
+
+
+def _fits_narrow(widths, nf):
+    """Whether the narrow tier takes the network (the limits mirrored in
+    ``csrc/cnf_fused.cu``)."""
+    return (widths[0] <= _MAX_FEATURES and max(widths[1:-1], default=0) <= _MAX_WIDTH
+            and len(widths) - 1 <= _MAX_LINEAR and nf <= _MAX_FREQS
+            and _weights(widths, nf) <= _MAX_SHARED_FLOATS)
 
 
 def plan_cnf(widths, nf, rows):
@@ -382,14 +531,39 @@ def plan_cnf(widths, nf, rows):
     row (the fields of ``Row`` in ``csrc/cnf_fused.cu``), in launches of whole
     tiles, and a descriptor buffer of the widths, offsets and frequencies."""
     F, hidden, n_lin = widths[0], widths[1:-1], len(widths) - 1
-    weights = sum(o * (i + 1) for i, o in zip(widths[:-1], widths[1:])) + 2 * nf * widths[1]
-    if (F <= _MAX_FEATURES and max(hidden, default=0) <= _MAX_WIDTH and n_lin <= _MAX_LINEAR
-            and nf <= _MAX_FREQS and weights <= _MAX_SHARED_FLOATS):
+    if _fits_narrow(widths, nf):
         return narrow_plan(rows)
     slots = 3 * F + 7 * (F + 1) + sum(hidden) + 4 * max(hidden, default=1)
     most = max(TILE, WORKSPACE_BYTES // (4 * slots) // TILE * TILE)
     chunk = min(most, max(TILE, -(-rows // TILE) * TILE))
     return KernelPlan(True, slots, chunk, 4 * slots * chunk, 4 * (2 * n_lin + 1 + nf))
+
+
+def plan_cnf_adjoint(widths, nf, rows, trace, row_bias):
+    """The adjoint kernel's plan for a network of ``widths = [F, H1, ...,
+    F]`` under ``nf`` frequencies, ``trace`` (``None``, exact ``True`` or
+    Hutchinson ``False``) and a per-row first bias or not, from the shapes
+    alone: the tier as :func:`plan_cnf` picks it (narrow: the weights in
+    shared memory), and in both tiers a workspace of ``19 F + 4 sum(hidden)
+    + 2 max(widths) + 3 H1`` floats a row (the columns of ``AdjointRow`` in
+    ``csrc/cnf_fused.cu``) and, a tile, the increment and the error estimate
+    of each parameter's accumulator (``2 P``, ``P`` the parameters, the
+    first bias apart when it comes per row) and for each linear the per-row
+    vectors whose outer products sum to its gradient (``1 + F`` pairs a row
+    with the exact trace, 2 with Hutchinson's, 1 without a trace), in
+    launches of whole tiles of :data:`TILE` rows, at most
+    :data:`WORKSPACE_BYTES`."""
+    F, hidden = widths[0], widths[1:-1]
+    slots = 19 * F + 4 * sum(hidden) + 2 * max(widths) + 3 * widths[1]
+    P = _weights(widths, nf) - (widths[1] if row_bias else 0)
+    pairs = 1 + {None: 0, True: F, False: 1}[trace]
+    per_tile = slots * TILE + 2 * P + TILE * pairs * sum(i + o for i, o in zip(widths[:-1],
+                                                                              widths[1:]))
+    most = max(1, WORKSPACE_BYTES // (4 * per_tile)) * TILE
+    chunk = min(most, max(TILE, -(-rows // TILE) * TILE))
+    wide = not _fits_narrow(widths, nf)
+    desc = 4 * (2 * (len(widths) - 1) + 1 + nf) if wide else 0
+    return KernelPlan(wide, slots, chunk, 4 * per_tile * (chunk // TILE), desc)
 
 
 def _launch(fn, counter, x, eps, outs, params, cfg, trace):
@@ -495,6 +669,164 @@ def cnf_sample(z, eps, params, c, cfg, want_log_prob=False):
     return (x, lq) if want_log_prob else x
 
 
+def _adjoint_kernel(x, a, glq, eps, kp, cfg):
+    """Launch the adjoint kernel on ``x``, ``a (n, F)``, ``glq (n,)`` (or
+    ``None``) and the kernel parameters ``kp``; returns ``u1``, ``a1`` and
+    the parameter cotangents as :func:`_cnf_tile_adjoint_math` does."""
+    from ._build import check_launch, load_library
+
+    F, n = cfg["F"], x.shape[0]
+    trace = None if glq is None else cfg["exact"]
+    name = "cnf_adjoint" if glq is None else "cnf_adjoint_log_prob"
+    for t, shape in ((x, (n, F)), (a, (n, F)), (glq, (n,)), (eps if trace is False else None,
+                                                              (n, F))):
+        if t is not None and (tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected contiguous tensors x, a (n, {F}), glq (n,),"
+                             f" the Hutchinson probe (n, {F})")
+    if trace is False and eps is None:
+        raise ValueError(f"{name}: the Hutchinson trace needs a probe of shape (n, {F})")
+    row_bias = kp[2].dim() == 2
+    H1 = kp[0].shape[0]
+    if row_bias and tuple(kp[2].shape) != (n, H1):
+        raise ValueError(f"{name}: the per-row first bias must be (n, H1)")
+    extra = [t for t in (glq, eps if trace is False else None) if t is not None]
+    check_cuda_f32(name, [x, a, *kp, *extra])
+    widths = _widths(kp)
+    plan = plan_cnf_adjoint(widths, cfg["nf"], n, trace, row_bias)
+    packed = torch.cat([p.reshape(-1) for i, p in enumerate(kp) if not (i == 2 and row_bias)])
+    tiles = -(-n // TILE)
+    u1, a1 = torch.empty_like(x), torch.empty_like(x)
+    g = torch.empty(tiles, packed.numel(), device=x.device, dtype=torch.float32)
+    gb = torch.empty(n, H1, device=x.device, dtype=torch.float32) if row_bias else None
+    work = torch.empty(plan.workspace_bytes // 4, device=x.device, dtype=torch.float32)
+    desc = torch.empty(plan.desc_bytes, device=x.device, dtype=torch.uint8) if plan.wide else None
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    c_freqs = (ctypes.c_float * max(1, cfg["nf"]))(*cfg["freqs"])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = load_library("cnf_fused")
+    with torch.cuda.device(x.device):
+        rc = lib.cnf_adjoint_f32(
+            x.data_ptr(), a.data_ptr(), ptr(glq), ptr(eps if trace is False else None),
+            ptr(kp[2] if row_bias else None), u1.data_ptr(), a1.data_ptr(), g.data_ptr(), ptr(gb),
+            packed.data_ptr(), ctypes.addressof(c_widths), len(widths) - 1, cfg["nf"],
+            ctypes.addressof(c_freqs), cfg["atol"], cfg["rtol"], cfg["max_steps"],
+            _TRACE_CODE[trace], n, TILE, int(plan.wide), work.data_ptr(), work.numel(),
+            plan.chunk_rows, ptr(desc), plan.desc_bytes, torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(name, lib, "cnf_fused", rc)
+    LAUNCHES[name + ("_wide" if plan.wide else "")] += 1
+    gth, at = [], 0
+    for i, p in enumerate(kp):
+        if i == 2 and row_bias:
+            gth.append(gb)
+            continue
+        gth.append(g[:, at: at + p.numel()].reshape((tiles,) + p.shape))
+        at += p.numel()
+    return u1, a1, gth
+
+
+def cnf_adjoint(x, gx, glq, eps, params, c, cfg):
+    r"""The continuous adjoint of CNF sampling at the samples ``x (n, F)``
+    (counterpart of ``_cnf_adjoint_pallas`` :957): the ``cnf_adjoint``
+    kernel (``cnf_adjoint_log_prob`` with a log-q cotangent ``glq (n,)``)
+    for a CUDA tensor, :func:`_cnf_tile_adjoint_math` for a CPU tensor, with
+    the cotangent ``gx (n, F)`` of ``x``, the Hutchinson probe ``eps (n, F)``
+    (``None`` for the exact trace), the ODE network's ``params = [W, b, ...]``
+    and the context ``c`` (``(C,)``, rows ``(n, C)`` or ``None``). The tile
+    partials are summed here, ``W1``'s gradient is reassembled from its
+    time-embedding, ``x`` and context columns, and the context's recovered
+    from the folded first bias (:func:`_kernel_params`). Returns ``(u1, a1,
+    {"w": [...], "b": [...], "c": ...})``: the re-integrated base draws, the
+    cotangent of the draws (without the base term) and the parameters' and
+    the context's cotangents."""
+    with torch.no_grad():
+        kp = [p.contiguous() for p in _kernel_params(params[0::2], params[1::2], c, cfg)]
+        a = gx.to(x.dtype).contiguous()
+        glq = None if glq is None else glq.to(x.dtype).contiguous()
+        eps = None if eps is None else eps.contiguous()
+        if x.is_cuda:
+            u1, a1, gk = _adjoint_kernel(x.contiguous(), a, glq, eps, kp, cfg)
+        else:
+            u1, a1, gk = _cnf_tile_adjoint_math(x, a, glq, eps, kp, cfg)
+        return u1, a1, _flat_cotangents(gk, params, c, cfg)
+
+
+def _flat_cotangents(gk, params, c, cfg):
+    """The cotangents of the kernel parameters (per tile, a per-row first
+    bias per row; :func:`_cnf_tile_adjoint_math`) as those of the ODE
+    network's ``params`` and of the context ``c`` (counterpart of
+    :957-1101): the tiles summed, ``W1`` reassembled from its time-embedding,
+    ``x`` and context columns, the context's recovered from the folded first
+    bias (``W1_c^T gb1``, or per row ``gb1_rows W1_c``)."""
+    row_bias = c is not None and c.dim() == 2
+    g = [gi if i == 2 and row_bias else gi.sum(dim=0) for i, gi in enumerate(gk)]
+    F, C, nf = cfg["F"], cfg["C"], cfg["nf"]
+    gb1, cols, gc = g[2], [g[1], g[0]], None
+    if C:
+        W1_c = params[0][:, 2 * nf + F:]
+        cx = c.to(gb1.dtype)
+        if row_bias:
+            cols.append(gb1.T @ cx)
+            gc, gb1 = gb1 @ W1_c, gb1.sum(dim=0)
+        else:
+            cols.append(gb1[:, None] * cx[None, :])
+            gc = W1_c.T @ gb1
+    return {"w": [torch.cat(cols, dim=1), *g[3::2]], "b": [gb1, *g[4::2]], "c": gc}
+
+
+#: The solve-consistency gate of the adjoint (counterpart of ``_REINT_ATOL``
+#: :78): the largest gap allowed between the re-integrated base draw and
+#: the saved one.
+_REINT_ATOL = 1e-2
+
+
+def _cnf_bwd_finish(z, eps, c, params, cfg, glq, u1, a1, gth):
+    """The adjoint's tail (counterpart of ``_cnf_bwd_finish`` :1214): a row
+    whose re-integrated ``u1`` misses its base draw ``z`` by more than
+    :data:`_REINT_ATOL` NaN-poisons its ``dz``, and any such row every
+    parameter and context gradient (the parameters' cotangents are sums over
+    the rows); the base term ``dz = a1 - glq z`` of log q; a zero gradient
+    for the probe. Returns ``(dz, deps, dc, [dW, db, ...])``."""
+    zf = z.reshape(-1, cfg["F"])
+    ok = (u1 - zf).abs().amax(dim=-1) <= _REINT_ATOL
+    all_ok = ok.all()
+    dz = torch.where(ok[:, None], a1, math.nan)
+    if glq is not None:
+        dz = dz - glq.reshape(-1).to(dz.dtype)[:, None] * zf
+    dflat = []
+    for W, b, p, q in zip(gth["w"], gth["b"], params[0::2], params[1::2]):
+        dflat += [torch.where(all_ok, W, math.nan).to(p.dtype),
+                  torch.where(all_ok, b, math.nan).to(q.dtype)]
+    dc = None if gth["c"] is None else torch.where(all_ok, gth["c"], math.nan).to(c.dtype)
+    return (dz.reshape(z.shape).to(z.dtype), None if eps is None else torch.zeros_like(eps), dc,
+            dflat)
+
+
+class _CnfRsample(torch.autograd.Function):
+    """Differentiable CNF sampling (counterpart of ``_cnf_sample_op`` with
+    ``_cnf_sample_fwd`` and ``_cnf_sample_bwd`` :946-1212): the forward is
+    :func:`cnf_sample` (with log q when asked), the backward
+    :func:`cnf_adjoint` followed by :func:`_cnf_bwd_finish`."""
+
+    @staticmethod
+    def forward(ctx, z, eps, cfg, want_log_prob, c, *params):
+        out = cnf_sample(z, eps, params, c, cfg, want_log_prob)
+        ctx.cfg, ctx.want_log_prob = cfg, want_log_prob
+        ctx.save_for_backward(z, eps, c, out[0] if want_log_prob else out, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, gx, glq=None):
+        z, eps, c, x, *params = ctx.saved_tensors
+        glq = glq if ctx.want_log_prob else None
+        u1, a1, gth = cnf_adjoint(x, gx, glq, eps, params, c, ctx.cfg)
+        dz, deps, dc, dflat = _cnf_bwd_finish(z, eps, c, params, ctx.cfg, glq, u1, a1, gth)
+        return (dz, deps, None, None, dc, *dflat)
+
+
 # ------------------------------------------------------------ flow level
 
 
@@ -537,6 +869,30 @@ def fused_cnf_sample(flat, sample_shape=(), c=None, generator=None, want_log_pro
     if c is not None and c.dim() > 1:
         c = _rows(c, shape[:-1])
     out = cnf_sample(z.reshape(-1, F), eps, params, c, cfg, want_log_prob)
+    if want_log_prob:
+        x, lq = out
+        return x.reshape(shape), lq.reshape(shape[:-1])
+    return out.reshape(shape)
+
+
+def fused_cnf_rsample(flat, sample_shape=(), c=None, generator=None, want_log_prob=False):
+    r"""Differentiable :func:`fused_cnf_sample` (counterpart of
+    ``fused_cnf_rsample`` :915 with ``_prep_cnf_sample`` :874): the same
+    base draws, probe and forward (:func:`cnf_sample`), and as backward one
+    continuous-adjoint integration per tile from the samples back to the
+    base draws (:func:`cnf_adjoint`: the ``cnf_adjoint`` kernel on the card,
+    its plain version on the CPU) with the solve-consistency gate of
+    :func:`_cnf_bwd_finish`. Gradients flow to the ODE network's parameters,
+    to the context and to nothing else (the base draws are fixed)."""
+    params, probe, cfg = flat
+    F, W = cfg["F"], params[0]
+    cbatch = () if c is None else tuple(c.shape[:-1])
+    shape = tuple(sample_shape) + cbatch + (F,)
+    z = torch.randn(shape, generator=generator, device=W.device, dtype=W.dtype)
+    eps = None if probe is None or not want_log_prob else probe(z).reshape(-1, F)
+    if c is not None and c.dim() > 1:
+        c = _rows(c, shape[:-1])
+    out = _CnfRsample.apply(z.reshape(-1, F), eps, cfg, want_log_prob, c, *params)
     if want_log_prob:
         x, lq = out
         return x.reshape(shape), lq.reshape(shape[:-1])

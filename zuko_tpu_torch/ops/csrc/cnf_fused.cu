@@ -143,6 +143,8 @@ struct Column {
   float* p;
   long long stride;
   __device__ __forceinline__ float& operator[](int i) const { return p[i * stride]; }
+  // the same column from element `off` on
+  __device__ __forceinline__ Column at(int off) const { return {p + off * stride, stride}; }
 };
 
 template <bool kWide>
@@ -428,6 +430,453 @@ __global__ void __launch_bounds__(kTile)
                          : -0.5f * sq - F * kHalfLog2Pi + l / net.scale;
 }
 
+// ------------------------------------------------------------------------
+// cnf_adjoint: the continuous adjoint of cnf_sample (K12).
+//
+// Replaces zuko_tpu/ops/cnf_fused.py::_cnf_adjoint_pallas (pallas_call at
+// :1044; kernel body _cnf_adjoint_kernel :613, _cnf_tile_adjoint :506). Per
+// tile of rows it integrates, from the samples u(0) = x (t = 0) to the base
+// draws (t = 1),
+//   du/dt = f(t, u),   da/dt = -d/du Phi,   dg/dt = -d/dtheta Phi,
+//   Phi = a . f - Lbar tr(df/du)   (Lbar = the log-q cotangent glq, 0 without
+// it; tr unscaled), with theta = [W1_x, W1_te, b1, W2, b2, ...]: u and a per
+// row, g per tile (summed over the tile's rows; a per-row first bias has a
+// per-row accumulator instead). Dormand-Prince 4(5) with the error ratio the
+// max over every leaf, u, a, each accumulator entry (rows past n excluded),
+// the block max of K10 and its step rule; an exhausted tile is NaN in every
+// leaf.
+//
+// The pullback, written out (h_l the pre-activations, z_l = elu(h_l),
+// d_l = elu'(h_l), elu''(h_l) = d_l where h_l <= 0 and 0 where h_l > 0,
+// f = h_L; the primal cotangent of f is a):
+//   primal:  hbar_L = a; for l = L-1..1: Wbar_{l+1} += hbar_{l+1} (x) z_l,
+//            bbar_{l+1} += hbar_{l+1}, hbar_l = d_l o (W_{l+1}^T hbar_{l+1})
+//            + htan_l; Wbar1_x += hbar_1 (x) u, b1bar += hbar_1,
+//            W1_te bar += hbar_1 (x) [cos(f t), sin(f t)], ubar = W1_x^T hbar_1.
+//   trace:   the exact trace is sum_j (v^j_L)_j with v^j_1 = W1_x[:, j],
+//            v^j_{l+1} = W_{l+1} (d_l o v^j_l); Hutchinson's e . v_L with
+//            v_1 = W1_x e. Each tangent is pulled back from vbar_L = -Lbar e_j
+//            (or -Lbar e): for l = L-1..1, with w = W_{l+1}^T vbar_{l+1},
+//            Wbar_{l+1} += vbar_{l+1} (x) (d_l o v_l), htan_l += elu''(h_l)
+//            o v_l o w (d_l depends on h_l), vbar_l = d_l o w; then
+//            W1_x bar[:, j] += vbar_1 (exact) or Wbar1_x += vbar_1 (x) e.
+// The slopes are ka = -ubar, kg = -(the sums of the bars over the tile's rows).
+//
+// Layout: one block a tile (the tile taken from blockDim.x, as K10), one
+// thread a row. A row's state lives in columns of the workspace
+// ([slot][row], AdjointRow), in both tiers; the narrow tier stages the
+// weights in shared memory, the wide tier reads them through __ldg. Each
+// stage every thread writes its row's outer-product factors (left and right
+// vectors of each linear, 1 + F pairs with the exact trace) into the tile's
+// part of the workspace; after a barrier the threads reduce them, each
+// owning strips of eight entries of one column of a weight, summing over the
+// pairs and the rows in a fixed order: no atomics, so two runs agree.
+// Only the increment and the error estimate of each accumulator are kept
+// (the accumulators do not feed back into the dynamics), two floats an
+// entry, and stage 2 (b5 = b4 = 0) needs no reduction.
+//
+// What bounds it on an H100: operations. Per row and stage the network, F
+// tangent columns forward and back, and the outer products (about 4x K10's
+// work a row for the flagship 12-64-64-6); the simple design keeps every
+// vector in device memory (L1/L2) and one tile on one SM.
+
+// A row's columns of the adjoint's workspace, in this order (the slots
+// mirrored in cnf_fused.py plan_cnf_adjoint): u, a, the stage's inputs us
+// and as, the probe e, the 7 stage slopes of u and of a, z and d of every
+// hidden layer, the tangent part htan of every hidden layer's cotangent, the
+// tangent v of every hidden layer, two buffers of the largest width, and the
+// per-row first bias's accumulator with its increment and error.
+struct AdjointRow {
+  Column u, a, us, as, e, ku, ka, z, d, ht, v, c0, c1, gb, incb, errb;
+  __device__ __forceinline__ void init(int F, int sh, int mw, int H1, float* work,
+                                       long long stride, long long i) {
+    float* p = work + i;
+    const int widths[16] = {F, F, F, F, F, 7 * F, 7 * F, sh, sh, sh, sh, mw, mw, H1, H1, H1};
+    Column* cs[16] = {&u, &a, &us, &as, &e, &ku, &ka, &z, &d, &ht, &v, &c0, &c1, &gb, &incb, &errb};
+    for (int c = 0; c < 16; ++c) {
+      *cs[c] = {p, stride};
+      p += widths[c] * stride;
+    }
+  }
+};
+
+template <class N>
+__device__ __forceinline__ int sum_hidden(const N& net) {
+  int s = 0;
+  for (int i = 1; i < net.n_lin; ++i) s += net.w[i];
+  return s;
+}
+
+template <class N>
+__device__ __forceinline__ int max_width(const N& net) {
+  int m = 0;
+  for (int i = 0; i <= net.n_lin; ++i) m = net.w[i] > m ? net.w[i] : m;
+  return m;
+}
+
+// out(q, sum_o Wm[o, q] in[o]) for q < din: the transposed product, eight
+// outputs at a time.
+template <bool kWide, class V, class Out>
+__device__ __forceinline__ void matvec_t(const float* Wm, int din, int dout, const V& in, Out out) {
+  for (int q0 = 0; q0 < din; q0 += 8) {
+    float acc[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[b] = 0.0f;
+    for (int o = 0; o < dout; ++o) {
+      const float v = in[o];
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (q0 + b < din) acc[b] = fmaf(wt<kWide>(Wm + o * din + q0 + b), v, acc[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (q0 + b < din) out(q0 + b, acc[b]);
+  }
+}
+
+// a o b, element by element
+struct Product {
+  Column a, b;
+  __device__ __forceinline__ float operator[](int j) const { return a[j] * b[j]; }
+};
+
+// The tile's outer-product factors of linear li (inputs w[li], outputs
+// w[li + 1]): for pair p and row r, the left vector (outputs) and the right
+// vector (inputs), after those of the linears before it.
+struct Factors {
+  float* buf;
+  int pairs, tile;
+  template <class N>
+  __device__ __forceinline__ float* base(const N& net, int li) const {
+    long long off = 0;
+    for (int m = 0; m < li; ++m) off += (long long)pairs * tile * (net.w[m] + net.w[m + 1]);
+    return buf + off;
+  }
+  template <class N>
+  __device__ __forceinline__ float* left(const N& net, int li, int p, int r) const {
+    return base(net, li) + ((long long)p * tile + r) * net.w[li + 1];
+  }
+  template <class N>
+  __device__ __forceinline__ float* right(const N& net, int li, int p, int r) const {
+    return base(net, li) + (long long)pairs * tile * net.w[li + 1] +
+           ((long long)p * tile + r) * net.w[li];
+  }
+};
+
+// One row's slopes at stage s: ku[s] = f(us), ka[s] = -ubar, its factors of
+// every linear into fac, and for a per-row first bias its accumulator's
+// increment (cb5 = dt b5_s) and error (ce = dt (b5_s - b4_s)).
+template <int kTrace, bool kRowBias, bool kWide, class N>
+__device__ __forceinline__ void adjoint_row(const N& net, const float* W, const float* te,
+                                            const float* brow, float lbar, const AdjointRow& r,
+                                            int s, const Factors& fac, int row, int sh,
+                                            float cb5, float ce) {
+  const int F = net.F, L = net.n_lin, H1 = net.w[1];
+  const float* W1x = W + net.off[0];
+  const auto zero = [](int) { return 0.0f; };
+  // forward: z and d of the hidden layers, then f
+  matvec<kWide>(W1x, F, H1, r.us,
+                [&](int o) { return brow != nullptr ? te[o] + __ldg(brow + o) : te[o]; },
+                [&](int o, float acc) {
+                  if (L == 1) {
+                    r.ku[s * F + o] = acc;
+                  } else {
+                    r.z[o] = acc > 0.0f ? acc : expm1f(acc);
+                    r.d[o] = acc > 0.0f ? 1.0f : expf(acc);
+                  }
+                });
+  int hoff = 0;  // where the current hidden layer starts in z, d, ht, v
+  for (int i = 1; i < L; ++i) {
+    const int din = net.w[i], dout = net.w[i + 1];
+    const float* Wi = W + net.off[i];
+    const float* bi = Wi + dout * din;
+    const bool last = i == L - 1;
+    matvec<kWide>(Wi, din, dout, r.z.at(hoff), [&](int o) { return wt<kWide>(bi + o); },
+                  [&](int o, float acc) {
+                    if (last) {
+                      r.ku[s * F + o] = acc;
+                    } else {
+                      r.z[hoff + din + o] = acc > 0.0f ? acc : expm1f(acc);
+                      r.d[hoff + din + o] = acc > 0.0f ? 1.0f : expf(acc);
+                    }
+                  });
+    if (!last) hoff += din;
+  }
+  const int top = L > 1 ? sh - net.w[L - 1] : 0;  // where hidden layer L - 1 starts
+  // the trace's part: each tangent pulled back from -lbar e_j (or -lbar e)
+  if (kTrace != kNone) {
+    for (int q = 0; q < sh; ++q) r.ht[q] = 0.0f;
+    const int passes = kTrace == kExact ? F : 1;
+    for (int j = 0; j < passes; ++j) {
+      const int pair = 1 + j;
+      if (L > 1) {
+        if (kTrace == kExact) {
+          for (int o = 0; o < H1; ++o) r.v[o] = wt<kWide>(W1x + o * F + j);
+        } else {
+          matvec<kWide>(W1x, F, H1, r.e, zero, [&](int o, float acc) { r.v[o] = acc; });
+        }
+        int vo = 0;
+        for (int i = 1; i < L - 1; ++i) {
+          const int din = net.w[i], dout = net.w[i + 1];
+          matvec<kWide>(W + net.off[i], din, dout, Product{r.d.at(vo), r.v.at(vo)}, zero,
+                        [&](int o, float acc) { r.v[vo + din + o] = acc; });
+          vo += din;
+        }
+      }
+      Column cur = r.c0, nxt = r.c1;
+      for (int o = 0; o < F; ++o)
+        cur[o] = kTrace == kExact ? (o == j ? -lbar : 0.0f) : -lbar * r.e[o];
+      int lo = top;
+      for (int li = L - 1; li >= 1; --li) {
+        const int din = net.w[li], dout = net.w[li + 1];
+        float* left = fac.left(net, li, pair, row);
+        float* right = fac.right(net, li, pair, row);
+        for (int o = 0; o < dout; ++o) left[o] = cur[o];
+        for (int q = 0; q < din; ++q) right[q] = r.d[lo + q] * r.v[lo + q];
+        matvec_t<kWide>(W + net.off[li], din, dout, cur, [&](int q, float w) {
+          const float dq = r.d[lo + q];
+          r.ht[lo + q] = fmaf(r.z[lo + q] > 0.0f ? 0.0f : dq * r.v[lo + q], w, r.ht[lo + q]);
+          nxt[q] = dq * w;
+        });
+        const Column t = cur;
+        cur = nxt;
+        nxt = t;
+        if (li > 1) lo -= net.w[li - 1];
+      }
+      float* left = fac.left(net, 0, pair, row);
+      for (int o = 0; o < H1; ++o) left[o] = cur[o];
+      if (kTrace == kHutchinson) {
+        float* right = fac.right(net, 0, pair, row);
+        for (int q = 0; q < F; ++q) right[q] = r.e[q];
+      }
+    }
+  }
+  // the primal part, from hbar_L = a
+  Column cur = r.c0, nxt = r.c1;
+  for (int o = 0; o < F; ++o) cur[o] = r.as[o];
+  int lo = top;
+  for (int li = L - 1; li >= 1; --li) {
+    const int din = net.w[li], dout = net.w[li + 1];
+    float* left = fac.left(net, li, 0, row);
+    float* right = fac.right(net, li, 0, row);
+    for (int o = 0; o < dout; ++o) left[o] = cur[o];
+    for (int q = 0; q < din; ++q) right[q] = r.z[lo + q];
+    matvec_t<kWide>(W + net.off[li], din, dout, cur, [&](int q, float w) {
+      const float hq = r.d[lo + q] * w;
+      nxt[q] = kTrace != kNone ? hq + r.ht[lo + q] : hq;
+    });
+    const Column t = cur;
+    cur = nxt;
+    nxt = t;
+    if (li > 1) lo -= net.w[li - 1];
+  }
+  float* left = fac.left(net, 0, 0, row);
+  float* right = fac.right(net, 0, 0, row);
+  for (int o = 0; o < H1; ++o) left[o] = cur[o];
+  for (int q = 0; q < F; ++q) right[q] = r.us[q];
+  matvec_t<kWide>(W1x, F, H1, cur, [&](int q, float w) { r.ka[s * F + q] = -w; });
+  if (kRowBias)
+    for (int o = 0; o < H1; ++o) {
+      r.incb[o] = fmaf(cb5, -cur[o], r.incb[o]);
+      r.errb[o] = fmaf(ce, -cur[o], r.errb[o]);
+    }
+}
+
+// The tile's parameter slopes at stage time st from the factors: entry
+// (o, q) of a linear's weight sums left[o] right[q] over the pairs and the
+// rows (the exact trace's first-linear pairs have the unit vector e_{p-1} on
+// the right, not stored); a bias sums the primal left vectors, and W1_te's
+// entries are b1's sum times cos(f t) and sin(f t). Each accumulator entry
+// takes dt b5 and dt (b5 - b4) times its slope. Strips of eight outputs of
+// one input column, the columns fastest across the threads.
+template <int kTrace, bool kRowBias, bool kWide, class N>
+__device__ __forceinline__ void adjoint_reduce(const N& net, const Factors& fac, float* inc,
+                                               float* err, float cb5, float ce, float st) {
+  const int T = fac.tile, tid = threadIdx.x;
+  const auto add = [&](int e, float k) {
+    inc[e] = fmaf(cb5, k, inc[e]);
+    err[e] = fmaf(ce, k, err[e]);
+  };
+  for (int li = 0; li < net.n_lin; ++li) {
+    const int din = net.w[li], dout = net.w[li + 1];
+    const float* Lb = fac.left(net, li, 0, 0);
+    const float* Rb = fac.right(net, li, 0, 0);
+    const int strips = ((dout + 7) / 8) * din;
+    for (int sidx = tid; sidx < strips; sidx += T) {
+      const int q = sidx % din, o0 = (sidx / din) * 8;
+      float acc[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[b] = 0.0f;
+      for (int p = 0; p < fac.pairs; ++p) {
+        const float* Lp = Lb + (long long)p * T * dout;
+        if (li == 0 && kTrace == kExact && p > 0) {
+          if (q != p - 1) continue;
+          for (int row = 0; row < T; ++row)
+#pragma unroll
+            for (int b = 0; b < 8; ++b)
+              if (o0 + b < dout) acc[b] += Lp[(long long)row * dout + o0 + b];
+          continue;
+        }
+        const float* Rp = Rb + (long long)p * T * din;
+        for (int row = 0; row < T; ++row) {
+          const float rv = Rp[(long long)row * din + q];
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            if (o0 + b < dout) acc[b] = fmaf(Lp[(long long)row * dout + o0 + b], rv, acc[b]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (o0 + b < dout) add(net.off[li] + (o0 + b) * din + q, -acc[b]);
+    }
+    for (int o = tid; o < dout; o += T) {
+      float sum = 0.0f;
+      for (int row = 0; row < T; ++row) sum += Lb[(long long)row * dout + o];
+      if (li > 0) {
+        add(net.off[li] + dout * din + o, -sum);
+        continue;
+      }
+      if (!kRowBias) add(net.off_b1 + o, -sum);
+      const int nf = net.nf;
+      for (int k = 0; k < nf; ++k) {
+        const float ft = net.freqs[k] * st;
+        add(net.off_te + o * 2 * nf + k, -sum * cosf(ft));
+        add(net.off_te + o * 2 * nf + nf + k, -sum * sinf(ft));
+      }
+    }
+  }
+}
+
+template <int kTrace, bool kRowBias, bool kWide>
+__global__ void __launch_bounds__(kTile)
+    cnf_adjoint_kernel(const float* __restrict__ xin, const float* __restrict__ ain,
+                       const float* __restrict__ glq, const float* __restrict__ eps,
+                       const float* __restrict__ bias_rows, float* __restrict__ u_out,
+                       float* __restrict__ a_out, float* __restrict__ g_out,
+                       float* __restrict__ gb_out, const float* __restrict__ packed,
+                       const __grid_constant__ NetOf<kWide> net, float* work, long long stride,
+                       long long row_floats, long long tile_floats, long long row0,
+                       long long row_end) {
+  extern __shared__ float smem[];
+  const int F = net.F, H1 = net.w[1], P = net.total;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const long long i = (long long)blockIdx.x * T + tid;  // row in the chunk
+  const long long row = row0 + i;
+  const bool valid = row < row_end;
+  float* te = smem;
+  float* red = smem + H1;
+  const float* W = packed;
+  if (!kWide) {  // stage the weights
+    float* sw = smem + H1 + kRed;
+    for (int q = tid; q < net.total; q += T) sw[q] = packed[q];
+    W = sw;
+  }
+  const int sh = sum_hidden(net);
+  AdjointRow r;
+  r.init(F, sh, max_width(net), H1, work, stride, i);
+  // the tile's part of the workspace: the accumulators' increments and
+  // errors, then the factors
+  float* tw = work + row_floats * stride + (long long)blockIdx.x * tile_floats;
+  float* inc = tw;
+  float* err = tw + P;
+  const Factors fac{tw + 2LL * P, kTrace == kExact ? F + 1 : (kTrace == kHutchinson ? 2 : 1), T};
+  float* g = g_out + (row0 / T + blockIdx.x) * (long long)P;  // this tile's partial sums
+  for (int q = tid; q < P; q += T) g[q] = inc[q] = err[q] = 0.0f;
+  const float* brow = kRowBias && valid ? bias_rows + row * H1 : nullptr;
+  const float lbar = kTrace != kNone && valid ? glq[row] : 0.0f;
+  for (int f = 0; f < F; ++f) {
+    r.u[f] = valid ? xin[row * F + f] : 0.0f;
+    r.a[f] = valid ? ain[row * F + f] : 0.0f;
+    if (kTrace == kHutchinson) r.e[f] = valid ? eps[row * F + f] : 0.0f;
+  }
+  if (kRowBias)
+    for (int o = 0; o < H1; ++o) r.gb[o] = r.incb[o] = r.errb[o] = 0.0f;
+  float t = 0.0f, dt = 1.0f;
+  for (int attempt = 0; t < 1.0f && attempt < net.max_attempts; ++attempt) {
+    dt = fminf(dt, 1.0f - t);
+    for (int s = 0; s < 7; ++s) {
+      for (int f = 0; f < F; ++f) {
+        float vu = r.u[f], va = r.a[f];
+        for (int q = 0; q < s; ++q)
+          if (kDpA[s][q] != 0.0f) {
+            vu = fmaf(dt * kDpA[s][q], r.ku[q * F + f], vu);
+            va = fmaf(dt * kDpA[s][q], r.ka[q * F + f], va);
+          }
+        r.us[f] = vu;
+        r.as[f] = va;
+      }
+      const float st = t + kDpC[s] * dt;
+      const float cb5 = dt * kDpB5[s], ce = dt * kDpE[s];
+      time_embedding<kWide>(net, W, st, kRowBias, te);
+      adjoint_row<kTrace, kRowBias, kWide>(net, W, te, brow, lbar, r, s, fac, tid, sh, cb5, ce);
+      __syncthreads();
+      if (kDpB5[s] != 0.0f || kDpE[s] != 0.0f)
+        adjoint_reduce<kTrace, kRowBias, kWide>(net, fac, inc, err, cb5, ce, st);
+    }
+    __syncthreads();
+    // the row's error ratio over u, a (and its first bias), this thread's
+    // share of the tile's accumulators, then the tile's
+    float ratio = 0.0f;
+    const auto worst = [&](float x0, float y, float e) {
+      float q = fabsf(e) / (net.atol + net.rtol * fmaxf(fabsf(x0), fabsf(y)));
+      if (isnan(q)) q = INFINITY;
+      ratio = fmaxf(ratio, q);
+    };
+    if (valid) {
+      for (int f = 0; f < F; ++f) {
+        float yu = r.u[f], ya = r.a[f], eu = 0.0f, ea = 0.0f;
+        for (int q = 0; q < 7; ++q) {
+          if (kDpB5[q] != 0.0f) {
+            yu = fmaf(dt * kDpB5[q], r.ku[q * F + f], yu);
+            ya = fmaf(dt * kDpB5[q], r.ka[q * F + f], ya);
+          }
+          if (kDpE[q] != 0.0f) {
+            eu = fmaf(dt * kDpE[q], r.ku[q * F + f], eu);
+            ea = fmaf(dt * kDpE[q], r.ka[q * F + f], ea);
+          }
+        }
+        worst(r.u[f], yu, eu);
+        worst(r.a[f], ya, ea);
+      }
+      if (kRowBias)
+        for (int o = 0; o < H1; ++o) worst(r.gb[o], r.gb[o] + r.incb[o], r.errb[o]);
+    }
+    for (int q = tid; q < P; q += T) worst(g[q], g[q] + inc[q], err[q]);
+    ratio = block_max(ratio, red);
+    if (ratio <= 1.0f) {
+      if (valid)
+        for (int f = 0; f < F; ++f) {
+          float yu = r.u[f], ya = r.a[f];
+          for (int q = 0; q < 7; ++q)
+            if (kDpB5[q] != 0.0f) {
+              yu = fmaf(dt * kDpB5[q], r.ku[q * F + f], yu);
+              ya = fmaf(dt * kDpB5[q], r.ka[q * F + f], ya);
+            }
+          r.u[f] = yu;
+          r.a[f] = ya;
+        }
+      if (kRowBias)
+        for (int o = 0; o < H1; ++o) r.gb[o] += r.incb[o];
+      for (int q = tid; q < P; q += T) g[q] += inc[q];
+      t += dt;
+    }
+    for (int q = tid; q < P; q += T) inc[q] = err[q] = 0.0f;
+    if (kRowBias)
+      for (int o = 0; o < H1; ++o) r.incb[o] = r.errb[o] = 0.0f;
+    dt *= fminf(fmaxf(0.9f * powf(fmaxf(ratio, FLT_MIN), -0.2f), 0.1f), 10.0f);
+  }
+  const bool exhausted = t < 1.0f - 64.0f * FLT_EPSILON;
+  if (exhausted)
+    for (int q = tid; q < P; q += T) g[q] = NAN;
+  if (!valid) return;
+  for (int f = 0; f < F; ++f) {
+    u_out[row * F + f] = exhausted ? NAN : r.u[f];
+    a_out[row * F + f] = exhausted ? NAN : r.a[f];
+  }
+  if (kRowBias)
+    for (int o = 0; o < H1; ++o) gb_out[row * H1 + o] = exhausted ? NAN : r.gb[o];
+}
+
 // The network as the host describes it: the widths, the offsets of the
 // linears in the packed buffer, the frequencies, the tolerances.
 struct Desc {
@@ -500,6 +949,26 @@ Net narrow_net(const Desc& d) {
   return s;
 }
 
+// The wide tier's description: the widths, offsets and frequencies copied in
+// one transfer into the device buffer `desc` (a pageable source is staged
+// before cudaMemcpyAsync returns), the scalars in *s.
+int wide_net(const Desc& d, void* desc, long long desc_bytes, cudaStream_t stream, WideNet* s) {
+  const long long need = (2LL * d.n_lin + 1 + d.nf) * 4;
+  if (desc == nullptr || desc_bytes < need) return cudaErrorInvalidValue;
+  std::vector<unsigned char> image((size_t)need, 0);
+  int* iw = (int*)image.data();
+  for (int v : d.w) *iw++ = v;
+  for (int v : d.off) *iw++ = v;
+  memcpy(iw, d.freqs.data(), d.freqs.size() * sizeof(float));
+  const int rc = cudaMemcpyAsync(desc, image.data(), (size_t)need, cudaMemcpyHostToDevice, stream);
+  if (rc != cudaSuccess) return rc;
+  const int* dw = (const int*)desc;
+  *s = WideNet{d.F, d.nf, d.n_lin, d.off_te, d.off_b1, d.total, d.max_attempts,
+               d.atol, d.rtol, d.scale, dw, dw + d.n_lin + 1,
+               (const float*)(dw + 2 * d.n_lin + 1), d.sum_hidden, d.max_hidden};
+  return cudaSuccess;
+}
+
 // What a launch needs besides the network: the input, the probe, the per-row
 // first biases, the outputs, the packed weights, the rows, the tier, the wide
 // tier's workspace (work_floats floats, `stride` rows a launch) and
@@ -551,26 +1020,85 @@ int run_mode(const Launch& l, const Desc& d) {
     return row_bias ? launch<kTrace, kReverse, true, false>(l, s, l.n, smem)
                     : launch<kTrace, kReverse, false, false>(l, s, l.n, smem);
   }
-  const long long need = (2LL * d.n_lin + 1 + d.nf) * 4;
   const long long slots = 3LL * d.F + 7LL * (d.F + 1) + d.sum_hidden + 4LL * d.max_hidden;
-  if (l.desc == nullptr || l.desc_bytes < need || l.work == nullptr || l.stride < kTile ||
-      l.stride % kTile != 0 || slots * l.stride > l.work_floats)
+  if (l.work == nullptr || l.stride < kTile || l.stride % kTile != 0 ||
+      slots * l.stride > l.work_floats)
     return cudaErrorInvalidValue;
-  // the host image of the buffer (widths, offsets, frequencies), copied in
-  // one transfer; a pageable source is staged before cudaMemcpyAsync returns
-  std::vector<unsigned char> image((size_t)need, 0);
-  int* iw = (int*)image.data();
-  for (int v : d.w) *iw++ = v;
-  for (int v : d.off) *iw++ = v;
-  memcpy(iw, d.freqs.data(), d.freqs.size() * sizeof(float));
-  int rc = cudaMemcpyAsync(l.desc, image.data(), (size_t)need, cudaMemcpyHostToDevice, l.stream);
+  WideNet s;
+  const int rc = wide_net(d, l.desc, l.desc_bytes, l.stream, &s);
   if (rc != cudaSuccess) return rc;
-  const int* dw = (const int*)l.desc;
-  const WideNet s{d.F, d.nf, d.n_lin, d.off_te, d.off_b1, d.total, d.max_attempts,
-                  d.atol, d.rtol, d.scale, dw, dw + d.n_lin + 1,
-                  (const float*)(dw + 2 * d.n_lin + 1), d.sum_hidden, d.max_hidden};
   return row_bias ? launch<kTrace, kReverse, true, true>(l, s, l.stride, te)
                   : launch<kTrace, kReverse, false, true>(l, s, l.stride, te);
+}
+
+// What an adjoint launch needs: the inputs (samples, their cotangent, the
+// log-q cotangent, the probe, the per-row first biases), the outputs (u1, a1,
+// the per-tile partial sums, the per-row first bias's cotangent), the packed
+// weights, the rows, the tile, the tier, the workspace (`stride` rows a
+// launch) and the wide tier's descriptor buffer.
+struct AdjointLaunch {
+  const float *x, *a, *glq, *eps, *bias;
+  float *u1, *a1, *g, *gb;
+  const float* packed;
+  long long n;
+  int tile, wide;
+  float* work;
+  long long work_floats, stride;
+  void* desc;
+  long long desc_bytes;
+  cudaStream_t stream;
+};
+
+template <int kTrace, bool kRowBias, bool kWide>
+int launch_adjoint(const AdjointLaunch& l, const NetOf<kWide>& s, long long row_floats,
+                   long long tile_floats, size_t smem) {
+  auto kernel = cnf_adjoint_kernel<kTrace, kRowBias, kWide>;
+  if (smem > 48 * 1024) {
+    const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  for (long long row0 = 0; row0 < l.n; row0 += l.stride) {
+    const long long row_end = row0 + l.stride < l.n ? row0 + l.stride : l.n;
+    const unsigned blocks = (unsigned)((row_end - row0 + l.tile - 1) / l.tile);
+    kernel<<<blocks, l.tile, smem, l.stream>>>(l.x, l.a, l.glq, l.eps, l.bias, l.u1, l.a1, l.g,
+                                               l.gb, l.packed, s, l.work, l.stride, row_floats,
+                                               tile_floats, row0, row_end);
+    const int rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
+template <int kTrace>
+int run_adjoint(const AdjointLaunch& l, const Desc& d) {
+  const bool row_bias = l.bias != nullptr;
+  // the workspace (sized by cnf_fused.py plan_cnf_adjoint): the rows'
+  // columns, then each tile's accumulators and factors
+  const long long F = d.F, H1 = d.w[1];
+  long long mw = 0, pairs_width = 0;
+  for (int i = 0; i <= d.n_lin; ++i) mw = d.w[i] > mw ? d.w[i] : mw;
+  for (int i = 0; i < d.n_lin; ++i) pairs_width += d.w[i] + d.w[i + 1];
+  const long long pairs = kTrace == kExact ? F + 1 : (kTrace == kHutchinson ? 2 : 1);
+  const long long row_floats = 19 * F + 4LL * d.sum_hidden + 2 * mw + 3 * H1;
+  const long long tile_floats = 2LL * d.total + (long long)l.tile * pairs * pairs_width;
+  if (l.tile < 1 || l.tile > kTile || l.work == nullptr || l.stride < l.tile ||
+      l.stride % l.tile != 0 ||
+      row_floats * l.stride + tile_floats * (l.stride / l.tile) > l.work_floats)
+    return cudaErrorInvalidValue;
+  const size_t te = (size_t)(H1 + kRed) * sizeof(float);
+  if (!l.wide) {
+    if (!fits_narrow(d)) return cudaErrorInvalidValue;
+    const Net s = narrow_net(d);
+    const size_t smem = te + (size_t)d.total * sizeof(float);
+    return row_bias ? launch_adjoint<kTrace, true, false>(l, s, row_floats, tile_floats, smem)
+                    : launch_adjoint<kTrace, false, false>(l, s, row_floats, tile_floats, smem);
+  }
+  WideNet s;
+  const int rc = wide_net(d, l.desc, l.desc_bytes, l.stream, &s);
+  if (rc != cudaSuccess) return rc;
+  return row_bias ? launch_adjoint<kTrace, true, true>(l, s, row_floats, tile_floats, te)
+                  : launch_adjoint<kTrace, false, true>(l, s, row_floats, tile_floats, te);
 }
 
 }  // namespace
@@ -620,6 +1148,38 @@ extern "C" int cnf_sample_f32(const float* z, const float* eps, const float* bia
   if (trace == kNone) return run_mode<kNone, true>(l, d);
   if (trace == kExact) return run_mode<kExact, true>(l, d);
   if (trace == kHutchinson) return run_mode<kHutchinson, true>(l, d);
+  return cudaErrorInvalidValue;
+}
+
+// The continuous adjoint of cnf_sample at the samples x (n, F), with the
+// cotangent a (n, F) of x and, with trace 1 (exact) or 2 (Hutchinson, probe
+// eps), glq (n,) of log q (trace 0: glq null, no trace term): u1 (n, F) the
+// re-integrated base draws, a1 (n, F) the cotangent of the draws, g
+// (ceil(n / tile), P) each tile's sums of the cotangents of the packed
+// parameters (P floats, the layout of `packed`; cnf_density_f32), and with a
+// per-row first bias `bias` (n, H1) its cotangent gb (n, H1). One block of
+// `tile` threads (at most 256) a tile of rows. The workspace holds `stride`
+// rows a launch (a multiple of the tile): 19 F + 4 sum(hidden) + 2 max(widths)
+// + 3 H1 floats a row and 2 P + tile (1 + F | 2 | 1) sum_l (w_l + w_{l+1})
+// floats a tile.
+extern "C" int cnf_adjoint_f32(const float* x, const float* a, const float* glq, const float* eps,
+                               const float* bias, float* u1, float* a1, float* g, float* gb,
+                               const float* packed, const int* widths, int n_lin, int nf,
+                               const float* freqs, float atol, float rtol, int max_steps,
+                               int trace, long long n, int tile, int wide, float* work,
+                               long long work_floats, long long stride, void* desc,
+                               long long desc_bytes, void* stream) {
+  Desc d;
+  int rc = describe(&d, widths, n_lin, nf, freqs, atol, rtol, 1.0f, max_steps, bias != nullptr);
+  if (rc != cudaSuccess) return rc;
+  if (n < 0 || (trace == kHutchinson && eps == nullptr) || ((trace == kNone) != (glq == nullptr)) ||
+      ((bias == nullptr) != (gb == nullptr)))
+    return cudaErrorInvalidValue;
+  const AdjointLaunch l{x, a, glq, eps, bias, u1, a1, g, gb, packed, n, tile, wide, work,
+                        work_floats, stride, desc, desc_bytes, (cudaStream_t)stream};
+  if (trace == kNone) return run_adjoint<kNone>(l, d);
+  if (trace == kExact) return run_adjoint<kExact>(l, d);
+  if (trace == kHutchinson) return run_adjoint<kHutchinson>(l, d);
   return cudaErrorInvalidValue;
 }
 

@@ -7,7 +7,7 @@ represent it — the returned distribution routes ``log_prob``, ``sample`` and
 :mod:`zuko_tpu_torch.ops.gf_fused` (GF), :mod:`zuko_tpu_torch.ops.cnf_fused`
 (CNF) or :mod:`zuko_tpu_torch.ops.naf_fused` (NAF, UNAF), and ``rsample`` /
 ``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift` (a CNF's
-through the unfused transform path). An inverted
+through the continuous adjoint of :mod:`zuko_tpu_torch.ops.cnf_fused`). An inverted
 autoregressive flow, ``Flow(flow.transform.inv, flow.base)``, swaps the
 roles. A flow every extractor rejects with ``FusedStructureError`` keeps the
 unfused transform path.
@@ -27,7 +27,7 @@ import torch
 
 from ..distributions import NormalizingFlow
 from ..lazy import LazyInverse
-from .cnf_fused import _flatten_cnf, fused_cnf_log_prob, fused_cnf_sample
+from .cnf_fused import _flatten_cnf, fused_cnf_log_prob, fused_cnf_rsample, fused_cnf_sample
 from .gf_fused import _flatten_gf, fused_gf_log_prob, fused_gf_sample
 from .ift import (
     fused_gf_rsample,
@@ -137,12 +137,12 @@ class FusedContinuousFlow(NormalizingFlow):
     adaptive Dormand-Prince integration per tile of rows, with the
     log-Jacobian for ``log_prob`` and ``sample_and_log_prob``, without it for
     ``sample``. ``log_prob`` is differentiable (autograd over the global-step
-    integration). ``rsample`` and ``rsample_and_log_prob`` run the unfused
-    transform path, the discrete adjoint of
-    :func:`~zuko_tpu_torch.utils.odeint`: what ``zuko_tpu`` computes with its
-    IFT switch off (``zuko_tpu/ops/dispatch.py:226-243``), the same function
-    as its continuous-adjoint kernel to solver tolerance; that kernel (K12,
-    ``fused_cnf_rsample``) is not ported yet. ``flat`` is
+    integration). ``rsample`` and ``rsample_and_log_prob`` run the same
+    sampling forward with continuous-adjoint gradients
+    (:func:`~zuko_tpu_torch.ops.cnf_fused.fused_cnf_rsample`: one adjoint
+    integration per tile from the samples back to the base draws, the
+    ``cnf_adjoint`` kernel on the card), as ``zuko_tpu`` does by default
+    (``zuko_tpu/ops/dispatch.py:226-243``). ``flat`` is
     ``_flatten_cnf(flow, transform, c)``, taken once per ``flow(c)``."""
 
     def __init__(self, transform, base, flat, c):
@@ -158,6 +158,12 @@ class FusedContinuousFlow(NormalizingFlow):
 
     def sample_and_log_prob(self, sample_shape=(), generator=None):
         return fused_cnf_sample(self._flat, sample_shape, self._c, generator, want_log_prob=True)
+
+    def rsample(self, sample_shape=(), generator=None):
+        return fused_cnf_rsample(self._flat, sample_shape, self._c, generator)
+
+    def rsample_and_log_prob(self, sample_shape=(), generator=None):
+        return fused_cnf_rsample(self._flat, sample_shape, self._c, generator, want_log_prob=True)
 
 
 class FusedNeuralSamplingFlow(NormalizingFlow):

@@ -8,9 +8,10 @@ Run from the root of a checkout, with no arguments::
 It builds the CUDA kernels from ``zuko_tpu_torch/ops/csrc`` into ``build/``,
 then drives the port's main paths through the public API: the flagship NSF,
 the Gaussianization flow (GF), the neural autoregressive flow (NAF), the
-unconstrained one (UNAF) and the continuous normalizing flow (CNF) served and
-trained (the CNF by maximum likelihood and by reverse KL through its
-continuous adjoint), and flows past every kernel's narrow limits served
+unconstrained one (UNAF), the continuous normalizing flow (CNF), and the
+circular spline (NCSF), sum-of-squares (SOSPF) and Bernstein (BPF) flows
+served and trained (the CNF by maximum likelihood and by reverse KL through
+its continuous adjoint), and flows past every kernel's narrow limits served
 through the kernels' wide tier.
 
 **Serving**: the flagship NSF (D=6, 3 transforms, 64x64 MADE, K=8, float32,
@@ -126,7 +127,27 @@ max-relative <= 1e-3, the draws' and the context rows' gradients normwise
 log q and K12 at 16,384 draws a step on the ring energy, one launch of each
 a step and no other kernel. Phase 12 also drives K12's wide tier on both
 wide CNFs at 1,024 draws, holds it the same way and times it once on each;
-phase 14 times the flagship's K12 in both tiers.
+phase 14 times the flagship's K12 in both tiers. **NCSF, SOSPF and BPF**
+(phase 15): the flagships of ``zuko_tpu_torch/assets/{ncsf,sospf,bpf}_flagship.npz``
+(``NCSF(6)``, 8 bins; ``SOSPF(6)``, degree 4, 3 polynomials, softclips
+between the layers; ``BPF(6)``, degree 16; ``transforms=3``, 64x64 MADEs)
+and a conditional ``(6, 4)`` of each served through the ``crqs``, ``sosp``
+and ``bernstein`` modes of K1-K3 (density at 1M rows; sampling at 1M rows
+for NCSF, 262,144 for the polynomials, whose inverse is a bisection and
+Newton solve) and through their inverted flows; densities held against
+``assets/ncsf_truth_f64.npz``, ``assets/sospf_truth_f64.npz`` and
+``tools/bpf_truth_f64.npz`` (max <= 1e-4); every mode of K1, K2 and K3 (all
+three outputs) against its plain version in float64 at the same inputs
+(densities, log q, apply and raw sums max <= 1e-4; samples median <= 1e-5,
+99th percentile <= 1e-3, NCSF's on the circle and against float64
+continued on the kernel's side of the shifts' jumps, also at 16,384 rows
+placed at them, the polynomials' over the rows plain float64 solves, the
+pegged ones counted); K1's Function at the
+rows (m), (o), (q) train on and the IFT at (n), (p), (r)'s draws against
+float64; then **(m)**, **(o)**, **(q)** MLE at 65,536 rows a step on the NSF
+serving phase's samples (NCSF's wrapped into ``[-pi, pi)``) and **(n)**,
+**(p)**, **(r)** reverse KL through the IFT at 16,384 draws a step on the
+ring energy. Phase 12 serves one wide configuration of each mode.
 
 Then it times each kernel, its plain version (float32, on the card), its
 bound and, for ``masked_linear``, the one PyTorch call that computes the
@@ -257,6 +278,28 @@ CNF_NAMES = ("cnf_density", "cnf_sample", "cnf_sample_log_prob")
 # one block, and a wide tile takes seconds)
 CNF_RKL_ROWS, K12_WIDE_ROWS = 1 << 14, 1 << 10
 ADJ_NAMES = ("cnf_adjoint", "cnf_adjoint_log_prob")
+# Phase 15 (NCSF, SOSPF, BPF). NCSF's inverse is closed-form: sampled at
+# ROWS. The polynomials solve by bisection and Newton steps: sampled at
+# 262,144 rows and held against plain float64 at 65,536 draws; (m), (o), (q)
+# take 65,536 rows a step, (n), (p), (r) 16,384 draws. A polynomial solve
+# that plain float64 brings back to its target within POLY_SOLVED counts as
+# solved: the samples and their sums are held there, the others (targets
+# past a polynomial's range, pegged at its bracket) are counted.
+POLY_SAMPLE_ROWS, POLY_HOLD_ROWS, POLY_MLE_ROWS, POLY_RKL_ROWS = 1 << 18, 1 << 16, 1 << 16, 1 << 14
+POLY_SOLVED, TOL_POLY_SAMPLE_Q99 = 1e-4, 1e-3
+# A circular spline's shift, x -> (x mod 2 pi) - pi, jumps at x = 0 (mod 2
+# pi), and the sampler's, which shifts the spline's root back, where the
+# root is 0: where the solved x is pi or -pi. A value that float32 and
+# float64 round to the two sides of a jump comes out 2 pi apart, the same
+# angle, but the next layer's MADE then reads -pi where the other reads pi
+# and conditions every later feature differently (on an H100, at 1M draws of
+# the flagship: log q 0.17 off at one row, the apply's y 2 pi at another).
+# So the float64 reference of a circular spline flow is continued on the
+# side the kernel took: after each layer (each sweep of a solve), a float64
+# value within CIRCLE_SIDE of +-pi whose kernel value lies within it on the
+# other side moves by 2 pi, and every row is held.
+CIRCLE_SIDE = 1e-3
+NSF_KINDS = ("nsf_density", "nsf_apply", "nsf_sample", "nsf_sample_log_prob", "nsf_sample_raw")
 GF_NAMES = ("gf_density", "gf_sample", "gf_sample_log_prob")
 NAF_NAMES = ("naf_density", "naf_sample", "naf_sample_log_prob")
 UMNN_NAMES = ("naf_density_umnn", "naf_sample_umnn", "naf_sample_umnn_log_prob")
@@ -310,6 +353,50 @@ def spline_ops(univ, K):
     if univ == "affine":
         return 6
     return 4 * (3 * K - 1) + 4 * 2 * K + 3 * 2 * K + (K - 1) + rqs_ops(K)
+
+
+def univ_ops(univ, K, bound, what="forward"):
+    """Operations of one feature's univariate that the function needs, with
+    a multiply-add as 2 and a transcendental as 1: ``what`` is
+    ``"forward"`` (the value and its log-Jacobian), ``"cold"`` (a layer's
+    first sweep: the solve from [-B, B]) or ``"warm"`` (a later sweep: two
+    checks, then the short bisection). The affine map and the splines
+    (:func:`spline_ops`, and 4 for the circular shift) invert in one
+    evaluation. A polynomial is prepared once a feature and sweep, then
+    evaluated by Horner's rule, whatever the kernel does instead. The sum of
+    squares of P polynomials of L + 1 coefficients is one polynomial of
+    degree 2 L: the squares' (L + 1)(L + 2) / 2 distinct products a
+    multiply-add each, P additions of the 1, and its 2 L + 1 coefficients
+    and its integral's scaled once (4 L + 2); a value is x / B, Horner's 2 L
+    multiply-adds and a multiply for the integral, and the shift (4 L + 3);
+    the derivative the integrand by Horner (4 L). A Bernstein polynomial of
+    n + 1 = M + 5 coefficients: its coefficients 6 M + 20 (softmax, cumsum,
+    the pinned ends), scaled by the binomials (n + 1) and differenced for
+    the derivative (2 n); a value is u (2), the ends' tests (6), the ratio
+    u / (1 - u) or its inverse (3), Horner's n multiply-adds, the power (1
+    - u)^n or u^n (3) and the product (1); the derivative the same with n -
+    1 and the power divided once. A bisection step is an evaluation of the
+    value and 4 (midpoint, compare, select); a Newton step the value, the
+    derivative and 6; a solve ends with 4 Newton steps (a Bernstein
+    polynomial's also with its two ends, 6 each). The bisections:
+    ceil(log2(2B / 1e-3)) cold, 7 warm, as the kernels take them."""
+    if univ in ("affine", "rqs", "crqs"):
+        return spline_ops(univ, K) + (4 if univ == "crqs" else 0)
+    cold, warm = math.ceil(math.log2(2 * bound / 1e-3)), 7
+    if univ == "sosp":
+        P, L = K[0], K[1] - 1
+        prep = P * ((L + 1) * (L + 2) + 1) + 4 * L + 2
+        value, deriv, ends = 4 * L + 3, 4 * L, 0
+    else:
+        n = K + 4
+        prep = 6 * K + 20 + (n + 1) + 2 * n
+        value, deriv, ends = 2 * n + 15, 2 * (n - 1) + 4, 2 * 6
+    newton = value + deriv + 6
+    if what == "forward":
+        return prep + value + deriv + 1
+    if what == "cold":
+        return prep + cold * (value + 4) + 4 * newton + ends
+    return prep + 2 * value + 6 + warm * (value + 4) + 4 * newton + ends
 
 
 def rqs_ops(K):
@@ -522,10 +609,11 @@ def main():
     from zuko_tpu_torch.ops import (
         _build, cnf_fused, gf_fused, ift, masked_linear, naf_fused, nsf_fused, rqs,
     )
-    from zuko_tpu_torch.ops._common import WHOLE_FLOW
+    from zuko_tpu_torch.ops._common import NSF_MODES, WHOLE_FLOW
     from zuko_tpu_torch.ops.dispatch import (
         FusedAutoregressiveFlow,
         FusedContinuousFlow,
+        FusedDensityFlow,
         FusedGaussianizationFlow,
         FusedInvertedAutoregressiveFlow,
         FusedNeuralSamplingFlow,
@@ -616,10 +704,13 @@ def main():
     # 4-5. every whole-flow kernel (both univariate branches) against its
     # plain version, float64 on the card
     def plain_args(flow, dtype):
+        """``(params, layout, statics)`` of an autoregressive flow as the
+        wrappers take them, detached, in ``dtype``; the base is the last of
+        the statics."""
         params, layout, cfg = nsf_fused._flatten_flow(flow)
         params = [p.detach().to(dtype) for p in params]
         F = params[-3].shape[0] // nsf_fused._univ_size(cfg["univ"], cfg["bins"])
-        return params, layout, (F, cfg["bins"], cfg["bound"], cfg["slope"], cfg["univ"])
+        return params, layout, nsf_fused._statics(cfg, F)
 
     def leaves(ps0):
         # every third entry is a mask: no gradient
@@ -669,6 +760,181 @@ def main():
             values.append([lp.detach()])
         hold_values(f"{label} density", "nsf_density", values, [TOL_DENSITY])
         compare_grads(f"{label} density", *density)
+
+    def base_draws(rows, F, base):
+        """``rows`` draws of the base: standard normal, or uniform on a box."""
+        if base[0] == "box":
+            return base[1] + (base[2] - base[1]) * torch.rand(rows, F, generator=gen, device=dev)
+        return torch.randn(rows, F, generator=gen, device=dev)
+
+    def on_circle(diff):
+        return torch.remainder(diff + math.pi, 2 * math.pi) - math.pi
+
+    def circle_plain(kind, xc, params, p64, layout, st):
+        """Plain float64 of a circular spline flow's kernel at the rows
+        ``xc``, continued on the side of the shifts' jumps the kernel took
+        (CIRCLE_SIDE): ``kind`` is "apply" (K1 and K2) or K3's
+        ``want_log_prob``. The kernel's values after a layer are its output
+        on the flow's first layers (forward) or its last (inverse). Returns
+        ``(y or x, bare sum of forward ladjs, rows moved)``."""
+        F, n = st[0], len(layout)
+        check(all(e[0] != "softclip" for e in layout), "a circular spline flow has no softclip")
+        layers32, layers64 = (nsf_fused._split_layers(p, layout) for p in (params, p64))
+        forward = kind == "apply"
+
+        def kernel_after(l):
+            chosen = range(l + 1) if forward else range(l, n)
+            ps, lay = [p for j in chosen for p in layers32[j][0]], [layout[j] for j in chosen]
+            if forward:
+                return nsf_fused.nsf_apply(xc, ps, lay, *st)[0].double()
+            out = nsf_fused.nsf_sample(xc, ps, lay, *st, kind)
+            return (out[0] if kind else out).double()
+
+        def side(v, k):
+            near = (v.abs() > math.pi - CIRCLE_SIDE) & (k.abs() > math.pi - CIRCLE_SIDE)
+            flip = near & ((v > 0) != (k > 0))
+            return torch.where(flip, v + 2 * math.pi * torch.sign(k), v), flip.any(dim=1)
+
+        x, c = xc[:, :F].double(), xc[:, F:].double()
+        acc = torch.zeros_like(x[:, 0])
+        moved = torch.zeros_like(acc, dtype=torch.bool)
+        for l in range(n) if forward else reversed(range(n)):
+            ps, passes = layers64[l]
+            k = kernel_after(l)
+
+            def hyper(v):
+                return nsf_fused._hyper(torch.cat([v, c], dim=1), ps)
+
+            if forward:
+                y, ladj = nsf_fused._univ_forward(x, hyper(x), *st[:5])
+                x, flip = side(y, k)
+            else:
+                y = x
+                x = torch.zeros_like(y)
+                for _ in range(min(passes, F)):
+                    x, flip = side(nsf_fused._univ_inverse(y, hyper(x), *st[:5]), k)
+                _, ladj = nsf_fused._univ_forward(x, hyper(x), *st[:5])
+            moved |= flip
+            acc = acc + ladj.sum(dim=1)
+        return x, acc, moved
+
+    def plain_samples(zc, params, p64, layout, st):
+        """Plain float64 of K3 at the draws ``zc``, by mode (``want_log_prob``
+        False, True, "raw"): ``(x, bare sum of forward ladjs, held, moved)``.
+        ``held`` are the draws it is held on: for a polynomial those that
+        plain float64 brings back to the draw within POLY_SOLVED, else all;
+        ``moved``, a circular spline's rows continued on the kernel's side."""
+        F = st[0]
+        if st[4] == "crqs":
+            out = {}
+            for mode in (False, True, "raw"):
+                x, acc, moved = circle_plain(mode, zc, params, p64, layout, st)
+                out[mode] = (x, acc, torch.ones_like(moved), moved)
+            return out
+        zc64 = zc.double()
+        x, acc = nsf_fused._sample_math(zc64, p64, layout, *st, "raw")
+        held = torch.ones_like(acc, dtype=torch.bool)
+        if st[4] in ("sosp", "bernstein"):
+            back, _ = nsf_fused._full_math(torch.cat([x, zc64[:, F:]], dim=1), p64, layout, *st,
+                                           raw=True)
+            held = (back - zc64[:, :F]).abs().amax(dim=1) < POLY_SOLVED
+        return dict.fromkeys((False, True, "raw"), (x, acc, held, torch.zeros_like(held)))
+
+    def jump_rows(flow, rows):
+        """``(xc, zc)`` at a circular spline flow's jumps, from a generator of
+        their own: float32 rows whose first layer takes one feature each to
+        within 1e-9 of 0 (where the next layer's shift jumps), and the
+        float64 images, rounded to float32, of samples with one feature each
+        within 1e-8 of +-pi (where the sampler's shift jumps)."""
+        p64, layout, st = plain_args(flow, torch.float64)
+        F, g = st[0], torch.Generator(device=dev).manual_seed(15)
+        at = torch.arange(rows, device=dev)
+        f = torch.randint(0, F, (rows,), generator=g, device=dev)
+        sign = torch.randint(0, 2, (rows,), generator=g, device=dev).double() * 2 - 1
+
+        def uniform():
+            u = torch.rand(rows, F, generator=g, device=dev, dtype=torch.float64)
+            return (2 * u - 1) * math.pi
+
+        x, y0 = uniform(), uniform()
+        x[at, f], y0[at, f] = sign * (math.pi - 1e-8), sign * 1e-9
+        first = nsf_fused._split_layers(p64, layout)[0][0]
+        with torch.no_grad():
+            xc = nsf_fused._sample_math(y0, first, layout[:1], *st)
+            zc = nsf_fused._full_math(x, p64, layout, *st, raw=True)[0]
+        return xc.float(), zc.float()
+
+    def hold_nsf(label, flow, xc, zc, suffix=""):
+        """K1, K2 and K3 (all three outputs) of an autoregressive flow at the
+        rows ``xc`` and the draws ``zc`` (each beside its context) against
+        their plain versions in float64, errors noted under the names of the
+        flow's mode (and ``suffix``): densities, the apply's values and sums,
+        log q and the raw sums max <= TOL_DENSITY; samples median <=
+        TOL_SAMPLE_MEDIAN, and max <= TOL_SAMPLE_MAX for a closed-form
+        inverse, 99th percentile <= TOL_POLY_SAMPLE_Q99 for a polynomial's
+        solve or a circular spline's, the polynomials' over the draws plain
+        float64 solves (the others are counted, and their sums not held), a
+        circular spline's angles on the circle and every row against float64
+        continued on the kernel's side (:func:`circle_plain`). Returns the
+        mask of the draws held."""
+        params, layout, st = plain_args(flow, torch.float32)
+        p64, _, _ = plain_args(flow, torch.float64)
+        F, univ, base = st[0], st[4], st[5]
+        name = {k: nsf_fused._counter(k, univ) + suffix for k in NSF_KINDS}
+        poly, circle = univ in ("sosp", "bernstein"), univ == "crqs"
+        with torch.no_grad():
+            k_lp = nsf_fused.nsf_density(xc, params, layout, *st)
+            k_y, k_sl = nsf_fused.nsf_apply(xc, params, layout, *st)
+            k_x = nsf_fused.nsf_sample(zc, params, layout, *st)
+            k_xl, k_lq = nsf_fused.nsf_sample(zc, params, layout, *st, True)
+            k_u, k_rl = nsf_fused.nsf_sample(zc, params, layout, *st, "raw")
+            if circle:
+                r_y, r_sl, moved_y = circle_plain("apply", xc, params, p64, layout, st)
+                r_lp = r_sl + nsf_fused._base_log_prob(r_y, base)
+            else:
+                r_lp = nsf_fused._full_math(xc.double(), p64, layout, *st)
+                r_y, r_sl = nsf_fused._full_math(xc.double(), p64, layout, *st, raw=True)
+            ref = plain_samples(zc, params, p64, layout, st)
+        z_lp = nsf_fused._base_log_prob(zc[:, :F].double(), base)
+        solved = ref[True][2]
+        check(solved.float().mean().item() > 0.5, f"{label}: plain float64 solves too few draws")
+
+        def sample_diff(a, mode):
+            diff = a.double() - ref[mode][0]
+            return on_circle(diff).abs() if circle else diff.abs()[solved]
+
+        dx, dxl, du = (sample_diff(a, m) for a, m in ((k_x, False), (k_xl, True), (k_u, "raw")))
+        d = (k_lp.double() - r_lp).abs()
+        dyv = k_y.double() - r_y
+        dy = torch.maximum((on_circle(dyv) if circle else dyv).abs().amax(dim=1),
+                           (k_sl.double() - r_sl).abs())
+        dlq = (k_lq.double() - (ref[True][1] + z_lp)).abs()[solved]
+        drl = (k_rl.double() - ref["raw"][1]).abs()[solved]
+        if circle:
+            moved_z = ref[False][3] | ref[True][3] | ref["raw"][3]
+            print(f"{label}: rows continued on the kernel's side of the shift's jump, density"
+                  f" and apply {int(moved_y.sum().item())} of {xc.shape[0]}, draws"
+                  f" {int(moved_z.sum().item())} of {zc.shape[0]}")
+        print(f"{label} at {xc.shape[0]} / {zc.shape[0]} rows vs plain f64: density max"
+              f" {d.max().item():.3e}, apply max {dy.max().item():.3e}; draws not held:"
+              f" {int((~solved).sum().item())}; x median %.3e q95 %.3e q99 %.3e max"
+              " %.3e" % quantiles(dx) + f", log q max {dlq.max().item():.3e}, raw x max"
+              f" {du.max().item():.3e} sum ladj max {drl.max().item():.3e}")
+        check(d.max().item() <= TOL_DENSITY and dy.max().item() <= TOL_DENSITY,
+              f"{label} density or apply vs plain")
+        for diff in (dx, dxl, du):
+            med, _, q99, worst = quantiles(diff)
+            check(med <= TOL_SAMPLE_MEDIAN, f"{label} samples vs plain (median)")
+            check(q99 <= TOL_POLY_SAMPLE_Q99 if poly or circle else worst <= TOL_SAMPLE_MAX,
+                  f"{label} samples vs plain (tail)")
+        check(dlq.max().item() <= TOL_DENSITY and drl.max().item() <= TOL_DENSITY,
+              f"{label} log q or raw sum vs plain")
+        for kind, diff, rows in (("nsf_density", d, xc.shape[0]), ("nsf_apply", dy, xc.shape[0]),
+                                 ("nsf_sample", dx, zc.shape[0]),
+                                 ("nsf_sample_log_prob", dlq, zc.shape[0]),
+                                 ("nsf_sample_raw", drl, zc.shape[0])):
+            note_error(name[kind], diff, rows)
+        return solved
 
     for label, flow, xc in (
         ("flagship", flagship, x_big),
@@ -1030,6 +1296,8 @@ def main():
         "cnf_adjoint": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1044"),
         "cnf_adjoint_log_prob": (CSRC + "cnf_fused.cu", "zuko_tpu/ops/cnf_fused.py:1044"),
     }
+    for mode in NSF_MODES:
+        origin.update({nsf_fused._counter(k, mode): origin[k] for k in NSF_KINDS})
     origin.update({f"{name}_wide": origin[name] for name in WHOLE_FLOW})
 
     def flow_work(rows):
@@ -1041,38 +1309,46 @@ def main():
     def nsf_work(params, layout, st, x, z):
         """name -> (kernel, plain, operations, bytes) of the whole-flow NSF
         kernels at the rows ``x`` (with their context) and the draws ``z``
-        (with the same context)."""
-        F, K, univ = st[0], st[1], st[4]
+        (with the same context), under the names of the flow's mode. A
+        softclip costs 4 a feature (6 in the sampler with a sum)."""
+        F, K, bound, univ = st[0], st[1], st[2], st[4]
         rows = x.shape[0]
         z = torch.cat([z, x[:, F:]], dim=1)
         args = (params, layout, *st)
         weight_bytes = 4 * sum(p.numel() for i, p in enumerate(params) if i % 3 != 2)
-        passes = [(hyper_ops(ps) + F * spline_ops(univ, K), min(p, F))
-                  for ps, p in nsf_fused._split_layers(params, layout)]
-        density_ops = sum(n for n, _ in passes)
-        sample_ops = sum(n * sweeps for n, sweeps in passes)
+        clips = 4 * F * sum(1 for e in layout if e[0] == "softclip")
+        layers = [(hyper_ops(ps), min(p, F)) for ps, p in nsf_fused._split_layers(params, layout)]
+        forward = F * univ_ops(univ, K, bound)
+        density_ops = sum(h + forward for h, _ in layers) + clips
+        solve = [(h, F * univ_ops(univ, K, bound, "cold"), F * univ_ops(univ, K, bound, "warm"))
+                 for h, _ in layers]
+        sample_ops = sum(sweeps * h + cold + (sweeps - 1) * warm
+                         for (h, cold, warm), (_, sweeps) in zip(solve, layers)) + clips
         D0 = x.shape[1]
+        name = {k: nsf_fused._counter(k, univ) for k in NSF_KINDS}
         return {
-            "nsf_density": (
+            name["nsf_density"]: (
                 lambda: nsf_fused.nsf_density(x, *args),
                 lambda: nsf_fused._full_math(x, *args),
                 rows * density_ops, 4 * rows * (D0 + 1) + weight_bytes),
-            "nsf_apply": (
+            name["nsf_apply"]: (
                 lambda: nsf_fused.nsf_apply(x, *args),
                 lambda: nsf_fused._full_math(x, *args, raw=True),
                 rows * density_ops, 4 * rows * (D0 + F + 1) + weight_bytes),
-            "nsf_sample": (
+            name["nsf_sample"]: (
                 lambda: nsf_fused.nsf_sample(z, *args),
                 lambda: nsf_fused._sample_math(z, *args),
                 rows * sample_ops, 4 * rows * (D0 + F) + weight_bytes),
-            "nsf_sample_log_prob": (
-                lambda: nsf_fused.nsf_sample(z, *args, want_log_prob=True),
-                lambda: nsf_fused._sample_math(z, *args, want_log_prob=True),
-                rows * (sample_ops + density_ops), 4 * rows * (D0 + F + 1) + weight_bytes),
-            "nsf_sample_raw": (
-                lambda: nsf_fused.nsf_sample(z, *args, want_log_prob="raw"),
-                lambda: nsf_fused._sample_math(z, *args, want_log_prob="raw"),
-                rows * (sample_ops + density_ops), 4 * rows * (D0 + F + 1) + weight_bytes),
+            name["nsf_sample_log_prob"]: (
+                lambda: nsf_fused.nsf_sample(z, *args, True),
+                lambda: nsf_fused._sample_math(z, *args, True),
+                rows * (sample_ops + density_ops + clips // 2),
+                4 * rows * (D0 + F + 1) + weight_bytes),
+            name["nsf_sample_raw"]: (
+                lambda: nsf_fused.nsf_sample(z, *args, "raw"),
+                lambda: nsf_fused._sample_math(z, *args, "raw"),
+                rows * (sample_ops + density_ops + clips // 2),
+                4 * rows * (D0 + F + 1) + weight_bytes),
         }
 
     timed = {}  # (name, rows) -> dict of times
@@ -1080,10 +1356,11 @@ def main():
     # serving phase's (ROWS) or the training steps' (GRAD_ROWS)
     report_rows = {"naf_sample": NAF_SAMPLE_ROWS, "naf_sample_log_prob": NAF_SAMPLE_ROWS}
 
-    def time_kernel(name, rows, kernel, plain, n_ops, nbytes, library=None, note="", runs=5):
+    def time_kernel(name, rows, kernel, plain, n_ops, nbytes, library=None, note="", runs=5,
+                    plain_runs=None):
         """Time one kernel at one shape into ``timed[name, rows, note]``."""
         k_ms, k_runs = time_ms(kernel, runs)
-        p_ms, p_runs = time_ms(plain, max(3, runs // 2))
+        p_ms, p_runs = time_ms(plain, plain_runs or max(3, runs // 2))
         l_ms = None if library is None else time_ms(library, runs)[0]
         b_ms, b_by = bound(n_ops, nbytes)
         timed[name, rows, note] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -2041,7 +2318,9 @@ def main():
     # once at its configuration's shape. Built on the CPU from a seed and
     # moved to the card, so a CPU run makes the same weights. Scaled so that
     # float64 itself solves their draws and float32 can hold their values
-    # (CPU runs in float64, these seeds): the MAF's parameters by 0.3 (at
+    # (CPU runs in float64, these seeds): the new modes' parameters by 0.3
+    # (flatter softmaxes, smaller coefficients: at full scale NCSF's 40 bins
+    # leave float32 densities within 8e-5 of float64 at 16,384 rows); the MAF's by 0.3 (at
     # full scale 66 affine layers compound to densities of 1e10); the GFs'
     # by 0.1 (at 0.3 the 33 layers of GF(3, transforms=33) bring 17% of the
     # draws back to z, at 0.1 89%); the 72-feature NAF's monotone weights by
@@ -2068,6 +2347,15 @@ def main():
          built(lambda: zt.NSF(3, hidden_features=(16,) * 8, device="cpu"), 12), REPAIR_ROWS),
         ("MAF(2, transforms=66)", 0,
          built(lambda: zt.MAF(2, transforms=66, device="cpu"), 13, damp=0.3), REPAIR_ROWS),
+        # the new modes past their narrow limits: 40 bins; T = 8 * 16 + 1 =
+        # 129 parameters a feature; M + 5 = 66 Bernstein coefficients
+        ("NCSF(4, 2, bins=40)", 2,
+         built(lambda: zt.NCSF(4, 2, bins=40, device="cpu"), 22, damp=0.3), REPAIR_ROWS // 4),
+        ("SOSPF(4, polynomials=8, degree=15)", 0,
+         built(lambda: zt.SOSPF(4, polynomials=8, degree=15, device="cpu"), 23, damp=0.3),
+         REPAIR_ROWS // 4),
+        ("BPF(4, degree=60)", 0, built(lambda: zt.BPF(4, degree=60, device="cpu"), 24, damp=0.3),
+         REPAIR_ROWS // 4),
     ]
     spline48 = built(lambda: zt.NSF(4, bins=48, device="cpu"), 14)
     wide_gf = [
@@ -2182,39 +2470,11 @@ def main():
     # timed once, at the first configuration that drives it
     def hold_nsf_wide(label, flow, C, rows):
         params, layout, st = plain_args(flow, torch.float32)
-        p64, _, _ = plain_args(flow, torch.float64)
-        F = st[0]
+        F, base = st[0], st[5]
         xc = torch.randn(rows, F + C, generator=gen, device=dev)
-        zc = torch.cat([torch.randn(rows, F, generator=gen, device=dev), xc[:, F:]], dim=1)
-        with torch.no_grad():
-            d = (nsf_fused.nsf_density(xc, params, layout, *st).double()
-                 - nsf_fused._full_math(xc.double(), p64, layout, *st)).abs()
-            k_y, k_sl = nsf_fused.nsf_apply(xc, params, layout, *st)
-            r_y, r_sl = nsf_fused._full_math(xc.double(), p64, layout, *st, raw=True)
-            k_x = nsf_fused.nsf_sample(zc, params, layout, *st)
-            k_xl, k_lq = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=True)
-            k_u, k_rl = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob="raw")
-            r_x, r_lq = nsf_fused._sample_math(zc.double(), p64, layout, *st, want_log_prob=True)
-        z64 = zc[:, :F].double()
-        r_rl = r_lq + 0.5 * (z64**2).sum(dim=1) + 0.5 * F * math.log(2 * math.pi)
-        dy = torch.maximum((k_y.double() - r_y).abs().amax(dim=1), (k_sl.double() - r_sl).abs())
-        dx, dlq = (k_x.double() - r_x).abs(), (k_lq.double() - r_lq).abs()
-        du, drl = (k_u.double() - r_x).abs(), (k_rl.double() - r_rl).abs()
-        print(f"{label} at {rows} rows vs plain f64: density max {d.max().item():.3e}, apply max"
-              f" {dy.max().item():.3e}; x max {dx.max().item():.3e} median"
-              f" {dx.median().item():.3e}, log q max {dlq.max().item():.3e}, raw x max"
-              f" {du.max().item():.3e} sum ladj max {drl.max().item():.3e}")
-        check(d.max().item() <= TOL_DENSITY and dy.max().item() <= TOL_DENSITY,
-              f"{label} density or apply vs plain")
-        for diff in (dx, (k_xl.double() - r_x).abs(), du):
-            check_samples(f"{label} samples vs plain", diff)
-        check(dlq.max().item() <= TOL_DENSITY and drl.max().item() <= TOL_DENSITY,
-              f"{label} log q or raw sum vs plain")
-        for name, diff in (("nsf_density_wide", d), ("nsf_apply_wide", dy),
-                           ("nsf_sample_wide", dx), ("nsf_sample_log_prob_wide", dlq),
-                           ("nsf_sample_raw_wide", drl)):
-            note_error(name, diff, rows)
-        return nsf_work(params, layout, st, xc, torch.randn(rows, F, generator=gen, device=dev))
+        zc = torch.cat([base_draws(rows, F, base), xc[:, F:]], dim=1)
+        hold_nsf(label, flow, xc, zc, "_wide")
+        return nsf_work(params, layout, st, xc, base_draws(rows, F, base))
 
     def time_wide(rows, work):
         """Time the wide kernels of ``work`` not timed yet, once each."""
@@ -2504,6 +2764,216 @@ def main():
     report_rows.update({name: CNF_RKL_ROWS for name in ADJ_NAMES})
     print(f"CNF gradient phase: {time.perf_counter() - t14:.1f} s")
 
+    # 15. NCSF, SOSPF and BPF: the crqs, sosp and bernstein modes of K1-K3,
+    # served, held against float64 truth and plain float64, trained, timed
+    t15 = time.perf_counter()
+    assets = ROOT / "zuko_tpu_torch" / "assets"
+    families = {  # key -> (label, class, its keywords, truth, serving sample rows)
+        "ncsf": ("NCSF", zt.NCSF, {}, assets / "ncsf_truth_f64.npz", ROWS),
+        "sospf": ("SOSPF", zt.SOSPF, {}, assets / "sospf_truth_f64.npz", POLY_SAMPLE_ROWS),
+        "bpf": ("BPF", zt.BPF, {}, ROOT / "tools" / "bpf_truth_f64.npz", POLY_SAMPLE_ROWS),
+    }
+    fam_flagship, fam_cond, fam_launches = {}, {}, {}
+    for i, (key, (label, cls, kw, truth_path, sample_rows)) in enumerate(families.items()):
+        flow = zt.load_params(cls(6, 0, transforms=3, device=dev, **kw),
+                              assets / f"{key}_flagship.npz")
+        torch.manual_seed(30 + i)
+        cond = cls(6, 4, transforms=3, device=dev, **kw)
+        fam_flagship[key], fam_cond[key] = flow, cond
+        mode = nsf_fused._flatten_flow(flow)[2]["univ"]
+        names = {k: nsf_fused._counter(k, mode) for k in NSF_KINDS}
+        truth_f = np.load(truth_path)
+        n_truth = truth_f["x"].shape[0]
+        xs_rows = torch.remainder(x_big + math.pi, 2 * math.pi) - math.pi if key == "ncsf" \
+            else x_big
+        # one request holds the truth rows first
+        fx = torch.cat([torch.as_tensor(truth_f["x"], device=dev, dtype=torch.float32),
+                        xs_rows[: ROWS - n_truth]])
+        fc = torch.randn(ROWS, 4, generator=gen, device=dev)
+        fc_few = torch.randn(1024, 4, generator=gen, device=dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dist = flow(None)
+            f_lp = dist.log_prob(fx)
+            f_xs = dist.sample((sample_rows,), generator=gen)
+            f_xl, f_lq = dist.sample_and_log_prob((sample_rows,), generator=gen)
+            cdist = cond(fc)
+            c_lp = cdist.log_prob(xs_rows)
+            cfew = cond(fc_few)
+            c_xs = cfew.sample((4,), generator=gen)
+            c_xl, c_lq = cfew.sample_and_log_prob((4,), generator=gen)
+            inverted = Flow(flow.transform.inv, flow.base)(None)
+            i_y, i_lq = inverted.sample_and_log_prob((sample_rows,), generator=gen)
+            i_lp = inverted.log_prob(i_y)
+        torch.cuda.synchronize()
+        served_launches = {n: ops.LAUNCHES[n] for n in names.values()}
+        print(f"{label} serving phase: {time.perf_counter() - t0:.3f} s, launches"
+              f" {served_launches}")
+        want_class = FusedAutoregressiveFlow if key == "ncsf" else FusedDensityFlow
+        check(all(type(d) is want_class for d in (dist, cdist, cfew)),
+              f"{label}s on the GPU did not dispatch to {want_class.__name__}")
+        check(isinstance(inverted, FusedInvertedAutoregressiveFlow),
+              f"the inverted {label} did not dispatch")
+        check(served_launches == {names["nsf_density"]: 2, names["nsf_apply"]: 1,
+                                  names["nsf_sample"]: 2, names["nsf_sample_log_prob"]: 2,
+                                  names["nsf_sample_raw"]: 1},
+              f"{label} serving launches {served_launches}")
+        check(all(count == 0 for n, count in ops.LAUNCHES.items() if n not in names.values()),
+              f"the {label} path launched another kernel")
+        fam_launches.update(served_launches)
+        for t, shape in [
+            (f_lp, (ROWS,)), (f_xs, (sample_rows, 6)), (f_xl, (sample_rows, 6)),
+            (f_lq, (sample_rows,)), (c_lp, (ROWS,)), (c_xs, (4, 1024, 6)), (c_xl, (4, 1024, 6)),
+            (c_lq, (4, 1024)), (i_y, (sample_rows, 6)), (i_lq, (sample_rows,)),
+            (i_lp, (sample_rows,)),
+        ]:
+            check(tuple(t.shape) == shape, f"{label} shape {tuple(t.shape)} != {shape}")
+            check(bool(torch.isfinite(t).all()), f"non-finite values on the served {label} path")
+        if key == "ncsf":  # angles
+            check(bool((f_xs.abs() <= math.pi + 1e-5).all()), "NCSF samples off the circle")
+        err = (f_lp[:n_truth].double() - torch.as_tensor(truth_f["lp"], device=dev)).abs()
+        print(f"{label} log_prob vs f64 truth ({n_truth} rows): max {err.max().item():.3e}"
+              f" median {err.median().item():.3e}")
+        check(err.max().item() <= TOL_DENSITY, f"{label} density vs f64 truth")
+        d_inv = (i_lp - i_lq).abs()
+        print(f"inverted {label}: log_prob at its samples vs their log q: median"
+              f" {d_inv.median().item():.3e} max {d_inv.max().item():.3e}")
+        check(d_inv.median().item() <= TOL_DENSITY, f"inverted {label} log_prob vs log q")
+
+        # every mode against plain float64 at the same inputs: the served
+        # density rows, and draws of the base beside the context
+        params, layout, st = plain_args(flow, torch.float32)
+        base = st[5]
+        # the polynomials' samplers are held and timed at POLY_HOLD_ROWS
+        hold_rows = sample_rows if key == "ncsf" else POLY_HOLD_ROWS
+        hold_nsf(label, flow, fx, base_draws(hold_rows, 6, base))
+        if key == "ncsf":
+            hold_nsf(f"{label} at the shifts' jumps", flow, *jump_rows(flow, 1 << 14))
+        czc = torch.cat([base_draws(4096, 6, base), fc_few.repeat(4, 1)], dim=1)
+        hold_nsf(f"conditional {label}", cond, torch.cat([xs_rows, fc], dim=1), czc)
+        fam_work = nsf_work(params, layout, st, fx, base_draws(ROWS, 6, base))
+        with torch.no_grad():
+            time_kernel(names["nsf_density"], ROWS, *fam_work[names["nsf_density"]])
+            time_kernel(names["nsf_apply"], ROWS, *fam_work[names["nsf_apply"]])
+            sample_work = nsf_work(params, layout, st, fx[:hold_rows],
+                                   base_draws(hold_rows, 6, base))
+            for kind in NSF_KINDS[2:]:
+                time_kernel(names[kind], hold_rows, *sample_work[names[kind]],
+                            runs=5 if key == "ncsf" else 3, plain_runs=None if key == "ncsf" else 1)
+            report_rows.update({names["nsf_density"]: ROWS, names["nsf_apply"]: ROWS,
+                                **{names[k]: hold_rows for k in NSF_KINDS[2:]}})
+            r_ms, r_runs = host_ms(lambda: flow(None).log_prob(fx), 3)
+            print(f"served request {names['nsf_density']} at {ROWS} rows: {r_ms:.3f} ms"
+                  f" {fmt(r_runs)}, kernel share"
+                  f" {timed[names['nsf_density'], ROWS, '']['ms'] / r_ms:.3f}")
+            r_ms, r_runs = host_ms(lambda: flow(None).sample_and_log_prob(
+                (sample_rows,), generator=gen), 3)
+            print(f"served request {names['nsf_sample_log_prob']} at {sample_rows} rows:"
+                  f" {r_ms:.3f} ms {fmt(r_runs)}, {sample_rows / r_ms / 1e3:.3f} M rows/s")
+
+    # the Functions at the rows and draws the steps give them: K1's at (m),
+    # (o), (q)'s first batch, the IFT (K3 with log q, three sweeps back)
+    # at 16,384 draws against the same backward in float64 at the kernel's
+    # own root, over the draws plain float64 solves
+    fam_batches = {}
+    for key, flow in fam_flagship.items():
+        label, mode = families[key][0], nsf_fused._flatten_flow(flow)[2]["univ"]
+        rows = xs[: POLY_MLE_ROWS * 4] if key != "ncsf" else \
+            torch.remainder(xs[: POLY_MLE_ROWS * 4] + math.pi, 2 * math.pi) - math.pi
+        fam_batches[key] = rows.split(POLY_MLE_ROWS)
+        params, layout, st = plain_args(flow, torch.float32)
+        p64, _, _ = plain_args(flow, torch.float64)
+        base = st[5]
+        density, values = [], []
+        for fn, ps0, dtype in ((nsf_fused.nsf_density, params, torch.float32),
+                               (nsf_fused._full_math, p64, torch.float64)):
+            ps, xr = leaves(ps0), fam_batches[key][0].to(dtype, copy=True).requires_grad_(True)
+            lp = fn(xr, ps, layout, *st)
+            lp.mean().backward()
+            density.append([xr.grad] + grads_of(ps))
+            values.append(lp.detach())
+        d = (values[0].double() - values[1]).abs()
+        print(f"{label} density at (m, o, q)'s {POLY_MLE_ROWS} rows vs plain f64: max"
+              f" {d.max().item():.3e}")
+        check(d.max().item() <= TOL_DENSITY, f"{label} density at the steps' rows vs plain")
+        note_error(nsf_fused._counter("nsf_density", mode), d, POLY_MLE_ROWS)
+        compare_grads(f"{label} density at (m, o, q)'s rows", *density)
+        zg = base_draws(POLY_RKL_ROWS, 6, base)
+        with torch.no_grad():
+            _, r_rl, solved, _ = plain_samples(zg, params, p64, layout, st)[True]
+        r_lq = r_rl + nsf_fused._base_log_prob(zg.double(), base)
+        # the loss of (n), (p), (r)'s kind over the solved draws
+        w = solved.float() / POLY_RKL_ROWS
+        ps, zr = leaves(params), zg.clone().requires_grad_(True)
+        root, lq32 = ift._IFTFunction.apply(zr, (layout, *st), True, *ps)
+        ((lq32 + (root**2).sum(dim=1)) * w).sum().backward()
+        got = [zr.grad] + grads_of(ps)
+        x64, w64 = root.detach().double(), w.double()
+        dz, dps = ift._ift_bwd_math(zg.double(), x64, 2 * x64 * w64[:, None], w64, p64,
+                                    [i % 3 != 2 for i in range(len(p64))], layout, *st)
+        dlq = (lq32.detach().double() - r_lq).abs()[solved]
+        print(f"{label} IFT at {POLY_RKL_ROWS} draws: {int((~solved).sum().item())} not held"
+              f" (not solved by plain float64); log q vs plain f64 max"
+              f" {dlq.max().item():.3e}")
+        check(dlq.max().item() <= TOL_DENSITY, f"{label} IFT log q vs plain")
+        note_error(nsf_fused._counter("nsf_sample_log_prob", mode), dlq, POLY_RKL_ROWS)
+        compare_grads(f"{label} IFT (log q), at the kernel's root", got,
+                      [dz[:, :6]] + [g for g in dps if g is not None],
+                      tol_input=TOL_GRAD_SOLVE_INPUT)
+
+    # (m)-(r): MLE on the samples the NSF serving phase drew (NCSF's wrapped
+    # onto the circle) and reverse KL through the IFT on the ring energy,
+    # from seeded weights at the flagships' widths
+    fam_steps = {}
+    for i, (key, (label, cls, kw, _, _)) in enumerate(families.items()):
+        mode = nsf_fused._flatten_flow(fam_flagship[key])[2]["univ"]
+        names = {k: nsf_fused._counter(k, mode) for k in NSF_KINDS}
+        tags = {"ncsf": ("m", "n"), "sospf": ("o", "p"), "bpf": ("q", "r")}[key]
+        torch.manual_seed(40 + i)
+        flow_mle = cls(6, 0, transforms=3, device=dev, **kw)
+        flow_rkl = copy.deepcopy(flow_mle)
+        fam_batch = lambda j, key=key: (fam_batches[key][j % len(fam_batches[key])],)  # noqa: E731
+        ops.reset_launches()
+        init_fn, step_fns[f"{key}_mle"] = zt.make_mle_step(flow_mle, lr=1e-3)
+        trained[f"{key}_mle"], _ = run(f"({tags[0]}) {label} MLE", step_fns[f"{key}_mle"],
+                                       init_fn(), fam_batch, TRAIN_STEPS)
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"training ({tags[0]}) {label} MLE: launches {counts}")
+        check(counts == {names["nsf_density"]: TRAIN_STEPS},
+              f"({tags[0]}): one {names['nsf_density']} launch a step, no other")
+        train_launches[names["nsf_density"]] = ops.LAUNCHES[names["nsf_density"]]
+        ops.reset_launches()
+        init_fn, step_fns[f"{key}_rkl"] = zt.make_reverse_kl_step(
+            flow_rkl, ring, n_samples=POLY_RKL_ROWS, lr=1e-3)
+        trained[f"{key}_rkl"], _ = run(f"({tags[1]}) {label} reverse KL, IFT",
+                                       step_fns[f"{key}_rkl"], init_fn(), generator, TRAIN_STEPS)
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"training ({tags[1]}) {label} reverse KL, IFT: launches {counts}")
+        check(counts == {names["nsf_sample_log_prob"]: TRAIN_STEPS},
+              f"({tags[1]}): one {names['nsf_sample_log_prob']} launch a step, no other")
+        train_launches[names["nsf_sample_log_prob"]] = ops.LAUNCHES[names["nsf_sample_log_prob"]]
+        per_step[f"{key}_mle"] = time_step(
+            f"{key}_mle", fam_batch, lambda f=flow_mle, key=key: f(None).log_prob(
+                fam_batches[key][0]).mean())
+        per_step[f"{key}_rkl"] = time_step(
+            f"{key}_rkl", generator, lambda f=flow_rkl: f(None).sample_and_log_prob(
+                (POLY_RKL_ROWS,), gen))
+        # the kernels at the steps' shapes
+        params, layout, st = plain_args(fam_flagship[key], torch.float32)
+        with torch.no_grad():
+            work = nsf_work(params, layout, st, fam_batches[key][0],
+                            base_draws(POLY_MLE_ROWS, 6, st[5]))
+            time_kernel(names["nsf_density"], POLY_MLE_ROWS, *work[names["nsf_density"]])
+            work = nsf_work(params, layout, st, fam_batches[key][0][:POLY_RKL_ROWS],
+                            base_draws(POLY_RKL_ROWS, 6, st[5]))
+            time_kernel(names["nsf_sample_log_prob"], POLY_RKL_ROWS,
+                        *work[names["nsf_sample_log_prob"]], runs=3, plain_runs=1)
+        step_labels += ((f"{key}_mle", f"({tags[0]}) {label} MLE"),
+                        (f"{key}_rkl", f"({tags[1]}) {label} reverse KL, IFT"))
+        fam_steps.update({f"{key}_mle": POLY_MLE_ROWS, f"{key}_rkl": POLY_RKL_ROWS})
+    print(f"NCSF, SOSPF and BPF phase: {time.perf_counter() - t15:.1f} s")
+
     # a training step beside the kernels it launches (their times at the
     # step's shapes, times the launches of one step)
     for key, label in (("mle", "(a) MLE"), ("rkl", "(b) reverse KL, IFT"),
@@ -2511,7 +2981,7 @@ def main():
                        ("mle_unfused", "(d) MLE, unfused, per-op kernels"), *step_labels):
         s_ms, s_runs = step_ms[key]
         rows = {"naf_rkl": NAF_IFT_ROWS, "unaf_rkl": UNAF_IFT_ROWS,
-                "cnf_mle": CNF_TRAIN_ROWS, "cnf_rkl": CNF_RKL_ROWS}.get(key, GRAD_ROWS)
+                "cnf_mle": CNF_TRAIN_ROWS, "cnf_rkl": CNF_RKL_ROWS, **fam_steps}.get(key, GRAD_ROWS)
         k_ms = sum(timed[name, rows, ""]["ms"] * count / (3 if name == "masked_linear" else 1)
                    for name, count in per_step[key].items())
         print(f"training step {label}: {s_ms:.3f} ms {fmt(s_runs)}, launches per step"
@@ -2541,6 +3011,7 @@ def main():
     launches.update(cnf_launches)
     launches["cnf_adjoint"] = adj_launches["cnf_adjoint"]
     launches.update({name: repair_launches[name] for name in wide_names})
+    launches.update(fam_launches)
     for name, (source, replaces) in origin.items():
         rows = report_rows.get(name, ROWS if name in launches else GRAD_ROWS)
         kernels.append({

@@ -17,22 +17,25 @@ PORTED = {
         "MonotonicMLP", "Residual", "TwoWayELU",
     ],
     "transforms": [
-        "AdditiveTransform", "AutoregressiveTransform", "ComposedTransform", "DependentTransform",
-        "FreeFormJacobianTransform", "GaussianizationTransform", "Inverse", "MonotonicAffineTransform",
-        "MonotonicRQSTransform", "MonotonicTransform", "RotationTransform", "SoftclipTransform",
-        "Transform", "UnconstrainedMonotonicTransform",
+        "AdditiveTransform", "AutoregressiveTransform", "BernsteinTransform",
+        "BoundedBernsteinTransform", "CircularShiftTransform", "ComposedTransform",
+        "DependentTransform", "FreeFormJacobianTransform", "GaussianizationTransform", "Inverse",
+        "MonotonicAffineTransform", "MonotonicRQSTransform", "MonotonicTransform",
+        "RotationTransform", "SOSPolynomialTransform", "SoftclipTransform", "Transform",
+        "UnconstrainedMonotonicTransform",
     ],
-    "distributions": ["DiagNormal", "Distribution", "NormalizingFlow"],
+    "distributions": ["BoxUniform", "DiagNormal", "Distribution", "NormalizingFlow"],
     "lazy": [
         "Flow", "LazyComposedTransform", "LazyDistribution", "LazyInverse", "LazyTransform",
         "UnconditionalDistribution", "UnconditionalTransform",
     ],
     "flows": [
-        "CNF", "ElementWiseTransform", "FFJTransform", "Flow", "GF", "MAF", "MNN",
-        "MaskedAutoregressiveTransform", "NAF", "NSF", "UMNN", "UNAF",
+        "BPF", "CNF", "ElementWiseTransform", "FFJTransform", "Flow", "GF", "MAF", "MNN",
+        "MaskedAutoregressiveTransform", "NAF", "NCSF", "NSF", "SOSPF", "UMNN", "UNAF",
     ],
     "flows.autoregressive": ["MAF", "MaskedAutoregressiveTransform"],
-    "flows.spline": ["NSF"],
+    "flows.spline": ["CircularRQSTransform", "NCSF", "NSF"],
+    "flows.polynomial": ["BPF", "SOSPF", "ShiftedSOSPTransform"],
     "flows.gaussianization": ["ElementWiseTransform", "GF"],
     "flows.neural": ["MNN", "NAF", "UMNN", "UNAF"],
     "flows.continuous": ["CNF", "FFJTransform"],
@@ -51,7 +54,8 @@ PORTED = {
         "fused_naf_rsample_and_log_prob", "fused_nsf_rsample", "fused_nsf_rsample_and_log_prob",
     ],
     "ops.dispatch": [
-        "FusedAutoregressiveFlow", "FusedContinuousFlow", "FusedGaussianizationFlow",
+        "FusedAutoregressiveFlow", "FusedContinuousFlow", "FusedDensityFlow",
+        "FusedGaussianizationFlow",
         "FusedInvertedAutoregressiveFlow", "FusedNeuralSamplingFlow", "fused_dispatch_enabled",
         "maybe_fused_flow",
     ],

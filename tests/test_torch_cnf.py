@@ -16,6 +16,7 @@ they equal the global-step integration to roundoff. Several tiles are held
 against ``zuko_tpu``'s own tile math, one tile at a time.
 """
 
+import functools
 import io
 
 from pathlib import Path
@@ -115,6 +116,19 @@ def _context(name, batched, seed=3, rows=6):
         return None, None
     c = np.random.default_rng(seed).standard_normal((rows, C) if batched else (C,))
     return jnp.asarray(c), torch.as_tensor(c)
+
+
+def _tile_fn(name, cfg, *statics):
+    """``zuko_tpu``'s tile function ``jax_cnf.<name>`` under ``jax.jit``,
+    ``cfg`` and the trailing arguments ``statics`` fixed: traced once per
+    configuration and shape, and shared by the tiles and the cases."""
+    return _jit_tile_fn(name, tuple(sorted(cfg.items())), statics)
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_tile_fn(name, cfg_items, statics):
+    fn, cfg = getattr(jax_cnf, name), dict(cfg_items)
+    return jax.jit(lambda *arrays: fn(*arrays, cfg, *statics))
 
 
 def _grads_by_name(jgrads, tflow):
@@ -411,9 +425,9 @@ def test_tiles_match_zuko_tpus_tile_math(name, rows):
         rs = slice(lo, min(lo + 8, rows))
         tile = [kp[0], kp[1], kp[2][rs].T, *kp[3:]]
         xT, eT = jnp.asarray(x[rs].T), jnp.asarray(eps[rs].T)
-        _close(lp[rs], jax_cnf._cnf_tile_math(xT, eT, tile, cfg)[0], 1e-10)
-        _close(xs[rs], jax_cnf._cnf_tile_sample_math(xT, eT, tile, cfg, False).T, 1e-10)
-        jxl, jlq = jax_cnf._cnf_tile_sample_math(xT, eT, tile, cfg, True)
+        _close(lp[rs], _tile_fn("_cnf_tile_math", cfg)(xT, eT, tile)[0], 1e-10)
+        _close(xs[rs], _tile_fn("_cnf_tile_sample_math", cfg, False)(xT, eT, tile).T, 1e-10)
+        jxl, jlq = _tile_fn("_cnf_tile_sample_math", cfg, True)(xT, eT, tile)
         _close(xl[rs], jxl.T, 1e-10)
         _close(lq[rs], jlq[0], 1e-10)
 
@@ -494,9 +508,9 @@ def test_plain_adjoint_matches_zuko_tpus_tile_adjoint(case):
     for i, lo in enumerate(range(0, rows, 8)):
         rs = slice(lo, min(lo + 8, rows))
         tile = [kp[0], kp[1], kp[2][rs].T if batched else kp[2], *kp[3:]]
-        ju, ja, jg = jax_cnf._cnf_tile_adjoint(
+        ju, ja, jg = _tile_fn("_cnf_tile_adjoint", cfg, True)(
             jnp.asarray(x[rs].T), jnp.asarray(a[rs].T), jnp.asarray(glq[rs])[None, :],
-            None if tcfg["exact"] else jnp.asarray(eps[rs].T), tile, cfg, True)
+            None if tcfg["exact"] else jnp.asarray(eps[rs].T), tile)
         _close(u1[rs], np.asarray(ju).T, 1e-10)
         _close(a1[rs], np.asarray(ja).T, 1e-10)
         for j, (got, want) in enumerate(zip(gth, jg)):

@@ -122,7 +122,7 @@ def test_sample_math_matches_sample_core(name, want_log_prob, tmp_path):
     with torch.no_grad():
         got = torch_fused._sample_math(
             torch.as_tensor(zc), params, tlayout, F, tcfg["bins"], tcfg["bound"],
-            tcfg["slope"], tcfg["univ"], want_log_prob,
+            tcfg["slope"], tcfg["univ"], want_log_prob=want_log_prob,
         )
     if not want_log_prob:
         expected, got = (expected,), (got,)

@@ -334,6 +334,94 @@ def test_naf_wrappers_never_call_their_plain_versions_for_gpu_tensors(monkeypatc
     assert all(count == 0 for count in ops.LAUNCHES.values())
 
 
+def _small_family(family, dtype=torch.float32):
+    """``(flat, statics)`` of a small NCSF, SOSPF or BPF (F = 3, a
+    context of 2) as the NSF wrappers take them."""
+    torch.manual_seed(0)
+    kwargs = {"NCSF": {"bins": 4}, "SOSPF": {"degree": 2, "polynomials": 2},
+              "BPF": {"degree": 4}}[family]
+    flow = getattr(zt, family)(3, 2, transforms=2, hidden_features=(16, 16), device="cpu",
+                               **kwargs).to(dtype)
+    params, layout, cfg = nsf_fused._flatten_flow(flow)
+    return (params, layout), nsf_fused._statics(cfg, 3)
+
+
+@pytest.mark.parametrize("family", ["NCSF", "SOSPF", "BPF"])
+def test_new_mode_wrappers_take_plain_versions_on_cpu(family):
+    """The circular-spline, sum-of-squares and Bernstein modes of the three
+    NSF kernels take their plain versions for CPU tensors, bit for bit, and
+    count no launch; the raw sum is log q less the base term."""
+    (params, layout), statics = _small_family(family)
+    zc = torch.cat([torch.rand(16, 3) * 6 - 3, torch.randn(16, 2)], dim=1)
+    ops.reset_launches()
+    with torch.no_grad():
+        lp = nsf_fused.nsf_density(zc, params, layout, *statics)
+        y, ly = nsf_fused.nsf_apply(zc, params, layout, *statics)
+        x = nsf_fused.nsf_sample(zc, params, layout, *statics)
+        xl, lq = nsf_fused.nsf_sample(zc, params, layout, *statics, True)
+        xr, lr = nsf_fused.nsf_sample(zc, params, layout, *statics, "raw")
+        for a, b in ((lp, nsf_fused._full_math(zc, params, layout, *statics)),
+                     ((y, ly), nsf_fused._full_math(zc, params, layout, *statics, raw=True)),
+                     ((xl, lq), nsf_fused._sample_math(zc, params, layout, *statics, True))):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for other in (xl, xr):
+            torch.testing.assert_close(x, other, rtol=0, atol=0)
+        torch.testing.assert_close(lq, lr + nsf_fused._base_log_prob(zc[:, :3], statics[-1]))
+    assert lp.shape == lq.shape == ly.shape == (16,) and x.shape == y.shape == (16, 3)
+    assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("family", ["NCSF", "SOSPF", "BPF"])
+def test_new_mode_wrappers_never_call_their_plain_versions_for_gpu_tensors(family, monkeypatch):
+    """For a tensor on the GPU the new modes go to the launch path, which
+    raises here on the CPU weights (float32) or at the dtype check (float64);
+    the plain versions are never reached and nothing is counted."""
+    def plain(*a, **k):
+        raise AssertionError("plain version called for a GPU tensor")
+
+    monkeypatch.setattr(nsf_fused, "_full_math", plain)
+    monkeypatch.setattr(nsf_fused, "_sample_math", plain)
+    for dtype, error, match in ((torch.float32, ValueError, "on the GPU"),
+                                (torch.float64, TypeError, "float32 only")):
+        (params, layout), statics = _small_family(family, dtype)
+        xc = torch.randn(16, 5, dtype=dtype).as_subclass(_OnCard)
+        ops.reset_launches()
+        for call in (lambda: nsf_fused.nsf_density(xc, params, layout, *statics),
+                     lambda: nsf_fused.nsf_apply(xc, params, layout, *statics),
+                     lambda: nsf_fused.nsf_sample(xc, params, layout, *statics),
+                     lambda: nsf_fused.nsf_sample(xc, params, layout, *statics, True),
+                     lambda: nsf_fused.nsf_sample(xc, params, layout, *statics, "raw")):
+            with pytest.raises(error, match=match):
+                call()
+        assert all(count == 0 for count in ops.LAUNCHES.values())
+
+
+def test_new_modes_are_built_and_counted_and_have_no_switch():
+    """The kernel source's univariate codes are the wrapper's, each new mode
+    of each kernel counts its launches under a name of its own (and
+    ``_wide``), the ctypes signature takes the softclip bounds, the
+    Gauss-Legendre rule and the box, and no environment variable chooses the
+    polynomial solve's warm starts (the TPU package reads
+    ``ZUKO_TPU_POLY_WARM``)."""
+    source = (ROOT / "zuko_tpu_torch" / "ops" / "nsf_fused.py").read_text()
+    assert "os.environ" not in source and "getenv" not in source
+    for path in PORT_FILES:
+        assert "ZUKO_TPU_POLY_WARM" not in (ROOT / path).read_text(), path
+    text = (ROOT / "zuko_tpu_torch" / "ops" / "csrc" / "nsf_fused.cu").read_text()
+    assert ("enum Univariate { kAffine = 0, kRQS = 1, kCRQS = 2, kSOSP = 3, kBernstein = 4 };"
+            in text)
+    assert nsf_fused._UNIV_CODE == {"affine": 0, "rqs": 1, "crqs": 2, "sosp": 3, "bernstein": 4}
+    for entry in _build._SIGNATURES["nsf_fused"]:
+        assert f'extern "C" int {entry}(' in text
+    # input, output; the flow (20); the tier; the stream
+    argtypes = _build._SIGNATURES["nsf_fused"]["nsf_density_f32"][0]
+    assert len(argtypes) == 2 + 20 + len(_build._TIER) + 1
+    for mode in ("crqs", "sosp", "bernstein"):
+        for name in (f"nsf_density_{mode}", f"nsf_apply_{mode}", f"nsf_sample_{mode}",
+                     f"nsf_sample_{mode}_log_prob", f"nsf_sample_{mode}_raw"):
+            assert name in ops.LAUNCHES and f"{name}_wide" in ops.LAUNCHES
+
+
 def test_cpu_tensors_keep_the_default_arithmetic():
     """On the CPU ``MaskedLinear`` and the spline keep their own arithmetic
     bit for bit, and never reach the per-op wrappers."""
@@ -530,14 +618,14 @@ def test_kernel_limits_raise_before_launch(kwargs, widths, slots):
     kernels raise no more: the flow packs, and the planner gives it the wide
     tier with a workspace of ``F + C + F + 2 max(widths) + T + 3 (K + 1)``
     floats a row, in one launch of whole blocks of rows, and a descriptor
-    buffer of its widths and passes."""
+    buffer of its widths, passes and softclip bounds."""
     torch.manual_seed(0)
     flow = zt.NSF(3, 0, transforms=1, device="cpu", **kwargs)
     params, layout, cfg = nsf_fused._flatten_flow(flow)
     _, got, passes = nsf_fused._pack_weights(params, layout, 3, 0, cfg["bins"], cfg["univ"])
     assert got == widths
     plan = nsf_fused.plan_nsf(widths, cfg["bins"], cfg["univ"], len(passes), 1000)
-    assert plan == (True, slots, 1024, 4 * slots * 1024, 4 * (len(widths) + 1))
+    assert plan == (True, slots, 1024, 4 * slots * 1024, 4 * (len(widths) + 2))
 
 
 @pytest.mark.parametrize("kwargs, slots, stages", [

@@ -243,7 +243,9 @@ def test_log_prob_matches_zuko_tpu(case, fused, monkeypatch):
     _dispatch(monkeypatch, fused)
     jdist = jflow(jc)
     assert (type(jdist).__name__ == "FusedNeuralSamplingFlow") == fused
-    expected = np.asarray(jdist.log_prob(jnp.asarray(x)))
+    # traced once, as a whole: the same arithmetic as op by op, a fraction
+    # of the time
+    expected = np.asarray(jax.jit(lambda x_, c_: jflow(c_).log_prob(x_))(jnp.asarray(x), jc))
     tdist = tflow(tc)
     assert type(tdist) is (FusedNeuralSamplingFlow if fused else NormalizingFlow)
     with torch.no_grad():
@@ -289,7 +291,7 @@ def test_unaf_density_gradients_match_zuko_tpu(case, monkeypatch):
         return jnp.sum(jax_naf.fused_naf_log_prob(combine(p, static), x_, c_) * w)
 
     argnums = (0, 1, 2) if C else (0, 1)
-    jgrads = jax.grad(jloss, argnums=argnums)(params, jnp.asarray(x), jc)
+    jgrads = jax.jit(jax.grad(jloss, argnums=argnums))(params, jnp.asarray(x), jc)
     _dispatch(monkeypatch, True)
     tflow.zero_grad()
     tx = torch.tensor(x, requires_grad=True)
@@ -332,7 +334,8 @@ def test_unaf_sample_matches_zuko_tpu(name, monkeypatch):
 
     stages, cfg = jax_naf.extract_naf_params(jflow)
     jflat, jlayout = jax_naf._stage_layout(stages, F, S)
-    jx, jlq = jax_naf._naf_sample_core(jlayout, F, C, S, True, jnp.asarray(zc), list(jflat))
+    jx, jlq = jax.jit(lambda zc_: jax_naf._naf_sample_core(jlayout, F, C, S, True, zc_,
+                                                            list(jflat)))(jnp.asarray(zc))
     np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0, atol=1e-8)
     np.testing.assert_allclose(lq.numpy(), np.asarray(jlq), rtol=0, atol=1e-10)
 
@@ -412,7 +415,8 @@ def test_ift_gradients_match_zuko_tpu(case, monkeypatch):
     _dispatch(monkeypatch, True)
     assert type(jflow(jc)).__name__ == "FusedNeuralSamplingFlow"
     argnums = (0, 1) if C else 0
-    (jvalue, (jx, jlq)), jgrads = jax.value_and_grad(jloss, argnums, has_aux=True)(params, jc)
+    (jvalue, (jx, jlq)), jgrads = jax.jit(jax.value_and_grad(jloss, argnums, has_aux=True))(
+        params, jc)
     jgp = jgrads[0] if C else jgrads
     z = np.asarray(jax_naf._prep_naf_sample(jflow, key, shape, jc)[3])[:, :F]
     monkeypatch.setattr(torch, "randn", lambda shape, **kw: torch.tensor(z).reshape(shape))
@@ -585,8 +589,8 @@ def test_flagship_truth_regenerates_from_zuko_tpu(monkeypatch):
                        ASSETS / "unaf_flagship.npz")
     for fused, want in ((False, lp), (True, lp16)):
         _dispatch(monkeypatch, fused)
-        np.testing.assert_allclose(np.asarray(jflow(None).log_prob(jnp.asarray(x[rows]))),
-                                   want[rows], rtol=0, atol=1e-12)
+        jlp = jax.jit(lambda x_: jflow(None).log_prob(x_))(jnp.asarray(x[rows]))
+        np.testing.assert_allclose(np.asarray(jlp), want[rows], rtol=0, atol=1e-12)
         with torch.no_grad():
             got = flow(None).log_prob(torch.as_tensor(x[rows])).numpy()
         np.testing.assert_allclose(got, want[rows], rtol=0, atol=1e-10)

@@ -20,18 +20,21 @@ Example:
 
 from . import data, parallel
 from .distributions import NormalizingFlow
-from .flows import CNF, GF, MAF, NAF, NSF, UNAF, Flow
+from .flows import BPF, CNF, GF, MAF, NAF, NCSF, NSF, SOSPF, UNAF, Flow
 from .parallel import make_mle_step, make_reverse_kl_step, train_mle
 from .serial import load_params
 
 __all__ = [
+    "BPF",
     "CNF",
     "Flow",
     "GF",
     "MAF",
     "NAF",
+    "NCSF",
     "NSF",
     "NormalizingFlow",
+    "SOSPF",
     "UNAF",
     "data",
     "load_params",

@@ -1,7 +1,8 @@
 r"""Distributions: the flow engine and its base.
 
 Counterpart of ``zuko_tpu/distributions.py``: :class:`Distribution` :147,
-:class:`NormalizingFlow` :1126 and :class:`DiagNormal` :1505. Sampling takes
+:class:`NormalizingFlow` :1126, :class:`DiagNormal` :1505 and :class:`BoxUniform`
+:1529 (with the elementwise ``Uniform`` :256 folded in). Sampling takes
 a ``torch.Generator`` instead of a PRNG key: ``sample(sample_shape=(),
 generator=None)``. ``sample`` runs without gradients; ``rsample`` is
 differentiable.
@@ -15,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["DiagNormal", "Distribution", "NormalizingFlow"]
+__all__ = ["BoxUniform", "DiagNormal", "Distribution", "NormalizingFlow"]
 
 Shape = Tuple[int, ...]
 
@@ -80,6 +81,49 @@ class DiagNormal(Distribution):
     def expand(self, batch_shape: Shape):
         shape = tuple(batch_shape) + self.event_shape
         return DiagNormal(self.loc.expand(shape), self.scale.expand(shape))
+
+
+class BoxUniform(Distribution):
+    r"""Uniform over the box :math:`[lower, upper]`, the base of NCSF
+    (reference: zuko/distributions.py:366-396). The rightmost ``ndims``
+    dimensions of ``lower``/``upper`` are the event. ``log_prob`` is
+    :math:`-\sum \log(upper - lower)` inside the box, bounds included, and
+    ``-inf`` outside; ``rsample`` is ``lower + (upper - lower) * U`` with
+    :math:`U` from ``torch.rand``.
+
+    Example:
+        >>> d = BoxUniform(-torch.ones(2), torch.ones(2))
+        >>> d.log_prob(torch.zeros(2))
+        tensor(-1.3863)
+    """
+
+    def __init__(self, lower: torch.Tensor, upper: torch.Tensor, ndims: int = 1):
+        self.lower, self.upper = torch.broadcast_tensors(lower, upper)
+        self.ndims = int(ndims)
+
+    @property
+    def batch_shape(self) -> Shape:
+        return tuple(self.lower.shape[: self.lower.dim() - self.ndims])
+
+    @property
+    def event_shape(self) -> Shape:
+        return tuple(self.lower.shape[self.lower.dim() - self.ndims :])
+
+    def log_prob(self, x):
+        inside = (x >= self.lower) & (x <= self.upper)
+        lp = torch.where(inside, -torch.log(self.upper - self.lower), -math.inf)
+        return lp.sum(dim=tuple(range(-self.ndims, 0)))
+
+    def rsample(self, sample_shape: Shape = (), generator=None):
+        u = torch.rand(
+            tuple(sample_shape) + tuple(self.lower.shape), generator=generator,
+            device=self.lower.device, dtype=self.lower.dtype,
+        )
+        return self.lower + (self.upper - self.lower) * u
+
+    def expand(self, batch_shape: Shape):
+        shape = tuple(batch_shape) + self.event_shape
+        return BoxUniform(self.lower.expand(shape), self.upper.expand(shape), self.ndims)
 
 
 class NormalizingFlow(Distribution):

@@ -30,9 +30,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # a whole-flow kernel's tier: wide, workspace, its floats, rows a launch,
 # descriptor buffer, its bytes
 _TIER = [_I, _P, _LL, _LL, _P, _LL]
-# (input, one or two outputs, weights, widths, passes, 6 ints, 2 floats, rows,
-# the tier, stream)
-_NSF_FLOW = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _LL, *_TIER, _P]
+# (input, one or two outputs, weights, widths, passes, softclip bounds, n_lin,
+# n_ar, F, C, K, K2, univariate, bound, log-slope, slope, Gauss-Legendre rule,
+# box, lo, hi, log(hi - lo), rows, the tier, stream)
+_NSF_FLOW = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _I, _F, _F, _F, _LL,
+             *_TIER, _P]
 _NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_FLOW], _I)
 # (packed, kinds, Ks, offs, shifts, raws, row strides, feature strides,
 # stages, F, rows, the tier, stream)

@@ -8,13 +8,19 @@ from typing import NamedTuple
 import torch
 
 __all__ = [
-    "LAUNCHES", "KernelPlan", "PlainBackward", "RowChunkedBackward", "WORKSPACE_BYTES",
-    "check_cuda_f32", "narrow_plan", "reset_launches", "wide_plan", "workspace",
+    "LAUNCHES", "KernelPlan", "NSF_MODES", "PlainBackward", "RowChunkedBackward",
+    "WORKSPACE_BYTES", "check_cuda_f32", "narrow_plan", "reset_launches", "wide_plan", "workspace",
 ]
+
+#: The NSF kernels' univariate modes that count under names of their own.
+NSF_MODES = ("crqs", "sosp", "bernstein")
 
 #: The whole-flow kernels (and their modes), each in a narrow and a wide tier.
 WHOLE_FLOW = (
     "nsf_density", "nsf_apply", "nsf_sample", "nsf_sample_log_prob", "nsf_sample_raw",
+    *(name for mode in NSF_MODES for name in (
+        f"nsf_density_{mode}", f"nsf_apply_{mode}", f"nsf_sample_{mode}",
+        f"nsf_sample_{mode}_log_prob", f"nsf_sample_{mode}_raw")),
     "gf_density", "gf_sample", "gf_sample_log_prob",
     "naf_density", "naf_sample", "naf_sample_log_prob",
     "naf_density_umnn", "naf_sample_umnn", "naf_sample_umnn_log_prob",

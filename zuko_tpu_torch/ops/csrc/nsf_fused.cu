@@ -3,13 +3,15 @@
 // nsf_density replaces the TPU kernel zuko_tpu/ops/nsf_fused.py::_fused_impl
 // (pallas_call at :1842; math _full_math_T :1268): log_prob of an
 // autoregressive flow, every MADE hyper pass, every univariate forward and
-// its log-Jacobian, plus the standard-normal base term, in one launch.
+// its log-Jacobian, the softclips between the layers, plus the base term
+// (standard normal, or a constant box), in one launch.
 //
 // nsf_sample replaces zuko_tpu/ops/nsf_fused.py::_sample_core (pallas_call at
 // :1658; math _sample_math_T :1348): the whole autoregressive inversion,
 // layers in reverse, min(passes, F) Jacobi sweeps per layer (each sweep
 // evaluates the hyper-net on the whole current iterate, then inverts every
-// feature in closed form), and with kLogQ the log-density of the returned
+// feature: in closed form for the affine map and the splines, by bisection
+// and Newton steps for the polynomials), and with kLogQ the log-density of the returned
 // point, base(z) + the forward ladj of every layer at its solved x. In its
 // raw mode (kRawLadj) the sum starts at zero instead of base(z): the bare
 // sum of forward ladjs at the solved point, which is what the density of an
@@ -54,11 +56,41 @@
 // small device buffer. The wrapper allocates both; the rows run in chunks of
 // `stride`, one launch each, so the workspace stays bounded.
 //
+// The univariates (Univariate, one per flow): the affine map (MAF), the
+// rational-quadratic spline (NSF), the circular spline (NCSF: the spline on
+// [-pi, pi] after the shift x -> (x mod 2 pi) - pi, the sampler's root
+// shifted back), the sum-of-squares polynomial (SOSPF: the mean of P squared
+// polynomials of degree L in x / B plus the minimum slope, integrated from 0
+// by the L + 1 Gauss-Legendre nodes and weights the wrapper hands in, plus a
+// shift) and the bounds-pinned Bernstein polynomial (BPF: M + 5 increasing
+// coefficients from the softmax of the M raw ones, De Casteljau's lerps for
+// the value and, on the coefficients' differences, for the derivative; the
+// line of slope 1 through the bounds outside them). The polynomials have no
+// closed-form inverse: the sampler bisects [-B, B] ceil(log2(2B / 1e-3))
+// times in a layer's first sweep, and in the later ones ceil(log2(2 * 0.0625
+// / 1e-3)) = 7 times from a bracket of radius 0.0625 around the previous
+// sweep's root (the full bracket for a row where two evaluations say it does
+// not hold the root), then takes 4 Newton steps with the forward's own
+// derivative, each clipped to [-B, B]; a Bernstein target beyond the ends
+// takes the closed form of the line (zuko_tpu/ops/nsf_fused.py
+// _poly_inverse_F :849). A feature's coefficients (the Bernstein softmax and
+// cumsum) are made once a sweep, before its solve, not at every evaluation.
+// The kernels are instantiated per family of univariates (Family): the
+// closed-form ones (affine, spline) over the standard normal, the circular
+// spline over its box, the polynomials over the standard normal; so the
+// affine and spline kernels carry neither the shift's fmodf nor the
+// polynomials' state. The NSF kernels' speed is sensitive to what else the
+// sampler's body holds (measured on an H100 with chip_ab.py, a tree without
+// the new modes against this file): the spline's knots stay in arrays of the
+// call that uses them, and the softclip's inverse is a call, not inlined.
+//
 // Each C entry point checks its arguments, launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <string.h>
 
 #include <type_traits>
 #include <vector>
@@ -70,37 +102,64 @@ namespace {
 // the narrow tier's limits, mirrored in zuko_tpu_torch/ops/nsf_fused.py
 constexpr int kMaxWidth = 256;  // widest hyper layer, F + C inputs included
 constexpr int kMaxBins = 32;
-constexpr int kMaxT = 3 * kMaxBins - 1;
+constexpr int kMaxT = 3 * kMaxBins - 1;  // a feature's raw parameters
+constexpr int kMaxTheta = 64;            // Bernstein coefficients, M + 5
+constexpr int kMaxNodes = 32;            // Gauss-Legendre nodes, L + 1
 constexpr int kMaxLinear = 8;
 constexpr int kMaxLayers = 64;
 constexpr int kThreads = 128;
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
+// the polynomial inverse (zuko_tpu/ops/nsf_fused.py _POLY_WARM_R :987)
+constexpr float kWarmR = 0.0625f;
+constexpr int kNewton = 4;
+constexpr float kBernsteinEps = 1e-6f;
 
-enum Univariate { kAffine = 0, kRQS = 1 };
+enum Univariate { kAffine = 0, kRQS = 1, kCRQS = 2, kSOSP = 3, kBernstein = 4 };
+
+// The kernels' instantiations: the closed-form univariates (affine, RQS), the
+// circular spline (its base the box), the polynomials (SOSP, Bernstein).
+enum Family { kClosed = 0, kCircular = 1, kPolynomial = 2 };
+
+constexpr int family_of(int univ) {
+  return univ == kCRQS ? kCircular : (univ == kSOSP || univ == kBernstein) ? kPolynomial : kClosed;
+}
 
 // The narrow tier's description of the flow, by value.
 struct Shape {
   int n_lin;         // linears per hyper-net
   int n_ar;          // autoregressive layers
-  int F, C, K, T;    // features, context, bins, parameters per feature
+  int F, C, K, T;    // features, context, bins (SOSP: polynomials; Bernstein: M), parameters
+  int K2;            // SOSP: Gauss-Legendre nodes, L + 1
+  int kn;            // floats of each of a feature's three knot/coefficient arrays
   int univ;          // Univariate
   int layer_floats;  // floats of one layer's packed [W0, b0, W1, b1, ...]
   int last_off;      // offset of the last linear's weights in a layer
-  float bound, log_s;
+  float bound, log_s, slope;
+  int box;           // base: 0 standard normal, 1 the box [lo, hi]^F
+  float lo, hi, log_box;
+  int n_cold, n_warm;  // the polynomial solve's bisection steps
   int w_max;         // widest hyper layer but the last
   int widths[kMaxLinear + 1];
   int passes[kMaxLayers];
+  float clips[kMaxLayers];  // softclip bound after each layer, 0 for none
+  float nodes[kMaxNodes], weights[kMaxNodes];
 };
 
 // The wide tier's: the same fields, the arrays in the device buffer `desc`.
 struct WideShape {
-  int n_lin, n_ar, F, C, K, T, univ;
+  int n_lin, n_ar, F, C, K, T, K2, kn, univ;
   long long layer_floats;
   int last_off;
-  float bound, log_s;
+  float bound, log_s, slope;
+  int box;
+  float lo, hi, log_box;
+  int n_cold, n_warm;
   int w_max;
   const int* widths;
   const int* passes;
+  const float* clips;
+  const float* nodes;
+  const float* weights;
 };
 
 template <bool kWide>
@@ -121,17 +180,17 @@ using Vec = typename std::conditional<kWide, Column, float*>::type;
 
 // The wide tier's state of a row: xcv = [x, c], the current iterate (or
 // input) with its context; the sampler's target y; the hyper-net's
-// activations; one feature's raw parameters and its knots; as columns of
-// the workspace from column i on, in this order (the slots mirrored in
-// nsf_fused.py plan_nsf): F + C, F, 2 w_max, T and 3 (K + 1). The narrow
-// tier keeps the same arrays in the thread (local memory).
+// activations; one feature's raw parameters and its three knot (or
+// coefficient) arrays; as columns of the workspace from column i on, in this
+// order (the slots mirrored in nsf_fused.py plan_nsf): F + C, F, 2 w_max, T
+// and 3 kn. The narrow tier keeps the same arrays in the thread (local
+// memory).
 struct WideRow {
   Column xcv, y, a, b, p, xs, ys, ds;
   __device__ __forceinline__ void init(const WideShape& s, float* work, long long stride,
                                        long long i) {
     float* q = work + i;
-    const long long widths[8] = {s.F + s.C, s.F, s.w_max, s.w_max, s.T, s.K + 1, s.K + 1,
-                                 s.K + 1};
+    const long long widths[8] = {s.F + s.C, s.F, s.w_max, s.w_max, s.T, s.kn, s.kn, s.kn};
     Column* cs[8] = {&xcv, &y, &a, &b, &p, &xs, &ys, &ds};
     for (int k = 0; k < 8; ++k) {
       *cs[k] = {q, stride};
@@ -149,6 +208,14 @@ __device__ __forceinline__ Vec<kWide> pick(const Column& column, float* local) {
     return local;
   }
 }
+
+// A feature's three knot arrays: the spline's xs, ys, ds; the Bernstein
+// polynomial's coefficients, their differences times the order, and the De
+// Casteljau scratch.
+template <bool kWide>
+struct Knots {
+  Vec<kWide> xs, ys, ds;
+};
 
 // A weight: from shared memory (narrow) or through the read-only cache (wide).
 template <bool kWide>
@@ -249,19 +316,29 @@ __device__ __forceinline__ float affine_log_scale(const V& p, float ls) {
   return p[1] / (1.0f + fabsf(p[1] / ls));
 }
 
-// Univariate forward of one feature from its raw parameters p (overwritten);
-// the knots in the thread (narrow) or in the row's columns (wide).
-template <bool kWide, class Sh>
-__device__ __forceinline__ float univ_forward(float x, Vec<kWide> p, const Sh& s, float* ladj,
-                                              const WideRow& wr) {
-  if (s.univ == kAffine) {
+// (x mod 2B) - B: the circular shift, its own inverse on the circle.
+__device__ __forceinline__ float circular_wrap(float x, float B) {
+  float r = fmodf(x, 2.0f * B);
+  if (r < 0.0f) r += 2.0f * B;
+  return r - B;
+}
+
+// Spline (kCircular: after the shift) or affine forward of one feature from
+// its raw parameters p (overwritten); the knots in the row's columns k
+// (wide) or in arrays of the call (narrow: the compiler sees that they
+// alias nothing, which the NSF sampler's speed depends on).
+template <bool kWide, bool kCircular, class Sh>
+__device__ __forceinline__ float closed_forward(float x, Vec<kWide> p, const Sh& s,
+                                                const Knots<kWide>& k, float* ladj) {
+  if (!kCircular && s.univ == kAffine) {
     const float lsc = affine_log_scale(p, s.log_s);
     *ladj = lsc;
     return x * expf(lsc) + p[0];
   }
+  if (kCircular) x = circular_wrap(x, s.bound);
   if constexpr (kWide) {
-    rqs_knots(p, s, wr.xs, wr.ys, wr.ds);
-    return rqs::forward(x, wr.xs, wr.ys, wr.ds, s.K, ladj);
+    rqs_knots(p, s, k.xs, k.ys, k.ds);
+    return rqs::forward(x, k.xs, k.ys, k.ds, s.K, ladj);
   } else {
     float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
     rqs_knots(p, s, xs, ys, ds);
@@ -269,32 +346,229 @@ __device__ __forceinline__ float univ_forward(float x, Vec<kWide> p, const Sh& s
   }
 }
 
-template <bool kWide, class Sh>
-__device__ __forceinline__ float univ_inverse(float y, Vec<kWide> p, const Sh& s,
-                                              const WideRow& wr) {
-  if (s.univ == kAffine) {
+template <bool kWide, bool kCircular, class Sh>
+__device__ __forceinline__ float closed_inverse(float y, Vec<kWide> p, const Sh& s,
+                                                const Knots<kWide>& k) {
+  if (!kCircular && s.univ == kAffine) {
     return (y - p[0]) / expf(affine_log_scale(p, s.log_s));
   }
+  float x;
   if constexpr (kWide) {
-    rqs_knots(p, s, wr.xs, wr.ys, wr.ds);
-    return rqs::inverse<false>(y, wr.xs, wr.ys, wr.ds, s.K, nullptr);
+    rqs_knots(p, s, k.xs, k.ys, k.ds);
+    x = rqs::inverse<false>(y, k.xs, k.ys, k.ds, s.K, nullptr);
   } else {
     float xs[kMaxBins + 1], ys[kMaxBins + 1], ds[kMaxBins + 1];
     rqs_knots(p, s, xs, ys, ds);
-    return rqs::inverse<false>(y, xs, ys, ds, s.K, nullptr);
+    x = rqs::inverse<false>(y, xs, ys, ds, s.K, nullptr);
   }
+  return kCircular ? circular_wrap(x, s.bound) : x;
+}
+
+// The Bernstein coefficients of one feature from its M raw parameters p
+// (overwritten by their exponentials): k.xs = theta (M + 5, increasing from
+// -B to B), k.ys = order * (theta_{i+1} - theta_i) (M + 4), taken from the
+// steps themselves, which are positive, rather than from differences of
+// theta (zuko_tpu/ops/nsf_fused.py _bernstein_forward_F :764).
+template <bool kWide, class Sh>
+__device__ __forceinline__ void bernstein_coefficients(Vec<kWide> p, const Sh& s,
+                                                       const Knots<kWide>& k) {
+  const int M = s.K;
+  const float B = s.bound, d = (2.0f * B) / (M + 4), scale = 2.0f * B - 4.0f * d;
+  const float order = (float)(M + 4);
+  float mx = -INFINITY;
+  for (int j = 0; j < M; ++j) mx = fmaxf(mx, p[j]);
+  float sum = 0.0f;
+  for (int j = 0; j < M; ++j) {
+    p[j] = expf(p[j] - mx);
+    sum += p[j];
+  }
+  const float inv = 1.0f / sum;
+  k.xs[0] = -B;
+  k.xs[1] = -B + d;
+  k.xs[2] = -B + 2.0f * d;
+  k.ys[0] = order * d;
+  k.ys[1] = order * d;
+  float run = 0.0f;
+  for (int j = 0; j < M; ++j) {
+    const float sm = p[j] * inv;
+    run += sm;
+    k.xs[3 + j] = (-B + 2.0f * d) + scale * run;
+    k.ys[2 + j] = order * scale * sm;
+  }
+  k.xs[M + 3] = B - d;
+  k.xs[M + 4] = B;
+  k.ys[M + 2] = order * d;
+  k.ys[M + 3] = order * d;
+}
+
+// De Casteljau: the Bezier sum of c[0 .. n) at u, lerps in the scratch sc.
+template <class V>
+__device__ __forceinline__ float decasteljau(const V& c, int n, float u, const V& sc) {
+  for (int i = 0; i < n; ++i) sc[i] = c[i];
+  for (int m = n - 1; m > 0; --m) {
+    for (int i = 0; i < m; ++i) sc[i] = fmaf(u, sc[i + 1] - sc[i], sc[i]);
+  }
+  return sc[0];
+}
+
+// The sum-of-squares integrand g(v) = mean_k (1 + p_k(v / B))^2 + slope,
+// p_k's L + 1 coefficients at p[k (L + 1) ...], by Horner's rule.
+template <class V, class Sh>
+__device__ __forceinline__ float sosp_integrand(float v, const V& p, const Sh& s) {
+  const int P = s.K, L1 = s.K2;
+  const float u = v / s.bound;
+  float acc = 0.0f;
+  for (int k = 0; k < P; ++k) {
+    float q = p[k * L1 + L1 - 1];
+    for (int l = L1 - 2; l >= 0; --l) q = fmaf(q, u, p[k * L1 + l]);
+    q += 1.0f;
+    acc = fmaf(q, q, acc);
+  }
+  return acc / P + s.slope;
+}
+
+// A polynomial univariate at x, its coefficients made (poly_prepare): the
+// value and, with kGrad, the derivative dy/dx in *dydx.
+template <bool kGrad, bool kWide, class Sh>
+__device__ __forceinline__ float poly_eval(float x, const Vec<kWide>& p, const Sh& s,
+                                           const Knots<kWide>& k, float* dydx) {
+  if (s.univ == kSOSP) {
+    const int L1 = s.K2;
+    float quad = 0.0f;
+    for (int t = 0; t < L1; ++t) {
+      quad = fmaf(s.weights[t], sosp_integrand(x * (0.5f * (s.nodes[t] + 1.0f)), p, s), quad);
+    }
+    if (kGrad) *dydx = sosp_integrand(x, p, s);
+    return 0.5f * x * quad + p[s.K * L1];
+  }
+  const float B = s.bound, u = (x + B) / (2.0f * B);
+  if (u <= kBernsteinEps) {
+    if (kGrad) *dydx = 1.0f;
+    return 2.0f * B * (u - kBernsteinEps) - B;
+  }
+  if (u >= 1.0f - kBernsteinEps) {
+    if (kGrad) *dydx = 1.0f;
+    return 2.0f * B * (u - 1.0f + kBernsteinEps) + B;
+  }
+  const int N = s.K + 5;
+  if (kGrad) *dydx = decasteljau(k.ys, N - 1, u, k.ds) / (2.0f * B);
+  return decasteljau(k.xs, N, u, k.ds);
+}
+
+// Once a feature and sweep: what the polynomial's evaluations share.
+template <bool kWide, class Sh>
+__device__ __forceinline__ void poly_prepare(Vec<kWide> p, const Sh& s, const Knots<kWide>& k) {
+  if (s.univ == kBernstein) bernstein_coefficients<kWide>(p, s, k);
+}
+
+// Solve the prepared polynomial for y; x0 is the previous sweep's root
+// (sweep > 0).
+template <bool kWide, class Sh>
+__device__ __forceinline__ float poly_inverse(float y, float x0, int sweep, const Vec<kWide>& p,
+                                              const Sh& s, const Knots<kWide>& k) {
+  const float B = s.bound;
+  float lo = -B, hi = B;
+  int iters = s.n_cold;
+  if (sweep > 0) {
+    const float lo0 = fminf(fmaxf(x0 - kWarmR, -B), B), hi0 = fminf(fmaxf(x0 + kWarmR, -B), B);
+    if (poly_eval<false, kWide>(lo0, p, s, k, nullptr) < y &&
+        y < poly_eval<false, kWide>(hi0, p, s, k, nullptr)) {
+      lo = lo0;
+      hi = hi0;
+    }
+    iters = s.n_warm;
+  }
+  for (int it = 0; it < iters; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    if (poly_eval<false, kWide>(mid, p, s, k, nullptr) < y) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  float x = 0.5f * (lo + hi);
+  for (int it = 0; it < kNewton; ++it) {
+    float g;
+    const float v = poly_eval<true, kWide>(x, p, s, k, &g);
+    x = fminf(fmaxf(x - (v - y) / g, -B), B);
+  }
+  if (s.univ == kBernstein) {
+    float g;
+    const float f_hi = poly_eval<true, kWide>(B, p, s, k, &g);
+    if (y > f_hi) x = B + (y - f_hi) / g;
+    const float f_lo = poly_eval<true, kWide>(-B, p, s, k, &g);
+    if (y < f_lo) x = -B + (y - f_lo) / g;
+  }
+  return x;
+}
+
+// Univariate forward of one feature from its raw parameters p (overwritten);
+// *ladj its log-Jacobian.
+template <bool kWide, int kFam, class Sh>
+__device__ __forceinline__ float univ_forward(float x, Vec<kWide> p, const Sh& s,
+                                              const Knots<kWide>& k, float* ladj) {
+  if constexpr (kFam == kPolynomial) {
+    poly_prepare<kWide>(p, s, k);
+    float g;
+    const float y = poly_eval<true, kWide>(x, p, s, k, &g);
+    *ladj = logf(g);
+    return y;
+  } else {
+    return closed_forward<kWide, kFam == kCircular>(x, p, s, k, ladj);
+  }
+}
+
+// A softclip x / (1 + |x / B|) in place, its log-Jacobian -2 log1p(|x / B|)
+// added to *acc.
+template <class V>
+__device__ __forceinline__ void softclip(const V& x, int F, float B, float* acc) {
+  for (int f = 0; f < F; ++f) {
+    const float q = fabsf(x[f] / B);
+    *acc -= 2.0f * log1pf(q);
+    x[f] = x[f] / (1.0f + q);
+  }
+}
+
+// The softclip's closed-form inverse y / (1 - |y / B|) in place, and with
+// `ladj` its forward log-Jacobian at the result added to *acc. Not inlined:
+// inlined into the sampler's body it cost the NSF sampler with log q 17%
+// (227 against 193 ms at 1M rows), though no NSF has a softclip.
+template <bool kWide>
+__device__ __noinline__ void softclip_inverse(Vec<kWide> y, int F, float B, bool ladj,
+                                              float* acc) {
+  for (int f = 0; f < F; ++f) {
+    const float x = y[f] / (1.0f - fabsf(y[f] / B));
+    if (ladj) *acc -= 2.0f * log1pf(fabsf(x / B));
+    y[f] = x;
+  }
+}
+
+// The base's log-density of the F values of v: the box (kBox) or the
+// standard normal.
+template <bool kBox, class V, class Sh>
+__device__ __forceinline__ float base_log_prob(const V& v, const Sh& s) {
+  if (kBox) {
+    bool inside = true;
+    for (int f = 0; f < s.F; ++f) inside = inside && v[f] >= s.lo && v[f] <= s.hi;
+    return inside ? -s.F * s.log_box : -INFINITY;
+  }
+  float sq = 0.0f;
+  for (int f = 0; f < s.F; ++f) sq = fmaf(v[f], v[f], sq);
+  return -0.5f * sq - s.F * kHalfLog2Pi;
 }
 
 // kRaw false: out[row] = log_prob. kRaw true (nsf_apply): y[row, :] = T(x)
 // and out[row] = the bare sum of ladjs. Rows [row0, row_end) of the launch;
 // thread i takes row row0 + i, and in the wide tier workspace column i.
-template <bool kWide, bool kRaw>
+template <bool kWide, bool kRaw, int kFam>
 __global__ void __launch_bounds__(kThreads)
 nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ y,
                    float* __restrict__ out, const float* __restrict__ params,
-                   const ShapeOf<kWide> s, float* __restrict__ work, long long stride,
-                   long long row0, long long row_end) {
+                   const __grid_constant__ ShapeOf<kWide> s, float* __restrict__ work,
+                   long long stride, long long row0, long long row_end) {
   extern __shared__ float smem[];
+  // the polynomials' coefficients (the splines keep their knots in the call)
+  constexpr int kKnots = kFam == kPolynomial ? kMaxTheta : 1;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = row0 + i;
   const bool active = row < row_end;
@@ -302,10 +576,13 @@ nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ y,
   const int D0 = s.F + s.C;
   float xcv_l[kWide ? 1 : kMaxWidth], a_l[kWide ? 1 : kMaxWidth], b_l[kWide ? 1 : kMaxWidth];
   float p_l[kWide ? 1 : kMaxT];
+  float xs_l[kWide ? 1 : kKnots], ys_l[kWide ? 1 : kKnots], ds_l[kWide ? 1 : kKnots];
   WideRow wr;
   if constexpr (kWide) wr.init(s, work, stride, i);
   const Vec<kWide> xcv = pick<kWide>(wr.xcv, xcv_l), a = pick<kWide>(wr.a, a_l),
                    b = pick<kWide>(wr.b, b_l), p = pick<kWide>(wr.p, p_l);
+  const Knots<kWide> k{pick<kWide>(wr.xs, xs_l), pick<kWide>(wr.ys, ys_l),
+                       pick<kWide>(wr.ds, ds_l)};
   if (active) {
     for (int j = 0; j < D0; ++j) xcv[j] = xc[row * D0 + j];
   }
@@ -324,18 +601,17 @@ nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ y,
     for (int f = 0; f < s.F; ++f) {
       feature_params<kWide>(w + s.last_off, s, h, f, p);
       float ladj;
-      xcv[f] = univ_forward<kWide>(xcv[f], p, s, &ladj, wr);
+      xcv[f] = univ_forward<kWide, kFam>(xcv[f], p, s, k, &ladj);
       acc += ladj;
     }
+    if (s.clips[l] > 0.0f) softclip(xcv, s.F, s.clips[l], &acc);
   }
   if (!active) return;
   if (kRaw) {
     for (int f = 0; f < s.F; ++f) y[row * s.F + f] = xcv[f];
     out[row] = acc;
   } else {
-    float sq = 0.0f;
-    for (int f = 0; f < s.F; ++f) sq = fmaf(xcv[f], xcv[f], sq);
-    out[row] = acc - 0.5f * sq - s.F * kHalfLog2Pi;
+    out[row] = acc + base_log_prob<kFam == kCircular>(xcv, s);
   }
 }
 
@@ -343,13 +619,15 @@ nsf_density_kernel(const float* __restrict__ xc, float* __restrict__ y,
 // the forward ladjs), or the bare forward ladjs.
 enum SampleMode { kNoLadj = 0, kLogQ = 1, kRawLadj = 2 };
 
-template <bool kWide, int kMode>
+template <bool kWide, int kMode, int kFam>
 __global__ void __launch_bounds__(kThreads)
 nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
                   float* __restrict__ logq, const float* __restrict__ params,
-                  const ShapeOf<kWide> s, float* __restrict__ work, long long stride,
-                  long long row0, long long row_end) {
+                  const __grid_constant__ ShapeOf<kWide> s, float* __restrict__ work,
+                  long long stride, long long row0, long long row_end) {
   extern __shared__ float smem[];
+  // the polynomials' coefficients (the splines keep their knots in the call)
+  constexpr int kKnots = kFam == kPolynomial ? kMaxTheta : 1;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = row0 + i;
   const bool active = row < row_end;
@@ -358,20 +636,19 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   // xcv = [x, c] is the current iterate with its context; y the target
   float xcv_l[kWide ? 1 : kMaxWidth], y_l[kWide ? 1 : kMaxWidth], a_l[kWide ? 1 : kMaxWidth];
   float b_l[kWide ? 1 : kMaxWidth], p_l[kWide ? 1 : kMaxT];
+  float xs_l[kWide ? 1 : kKnots], ys_l[kWide ? 1 : kKnots], ds_l[kWide ? 1 : kKnots];
   WideRow wr;
   if constexpr (kWide) wr.init(s, work, stride, i);
   const Vec<kWide> xcv = pick<kWide>(wr.xcv, xcv_l), y = pick<kWide>(wr.y, y_l),
                    a = pick<kWide>(wr.a, a_l), b = pick<kWide>(wr.b, b_l),
                    p = pick<kWide>(wr.p, p_l);
+  const Knots<kWide> k{pick<kWide>(wr.xs, xs_l), pick<kWide>(wr.ys, ys_l),
+                       pick<kWide>(wr.ds, ds_l)};
   float acc = 0.0f;
   if (active) {
     for (int j = 0; j < s.F; ++j) y[j] = zc[row * D0 + j];
     for (int j = s.F; j < D0; ++j) xcv[j] = zc[row * D0 + j];
-    if (kMode == kLogQ) {
-      float sq = 0.0f;
-      for (int f = 0; f < s.F; ++f) sq = fmaf(y[f], y[f], sq);
-      acc = -0.5f * sq - s.F * kHalfLog2Pi;
-    }
+    if (kMode == kLogQ) acc = base_log_prob<kFam == kCircular>(y, s);
   }
   for (int l = s.n_ar - 1; l >= 0; --l) {
     const float* w = kWide ? params + (size_t)l * s.layer_floats : smem;
@@ -381,6 +658,8 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
       __syncthreads();
       if (!active) continue;
     }
+    const float B = s.clips[l];
+    if (B > 0.0f) softclip_inverse<kWide>(y, s.F, B, kMode != kNoLadj, &acc);
     for (int f = 0; f < s.F; ++f) xcv[f] = 0.0f;
     const int sweeps = min(s.passes[l], s.F);
     for (int sweep = 0; sweep < sweeps; ++sweep) {
@@ -389,7 +668,12 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
       // Jacobi: h was computed from the whole previous iterate
       for (int f = 0; f < s.F; ++f) {
         feature_params<kWide>(w + s.last_off, s, h, f, p);
-        xcv[f] = univ_inverse<kWide>(y[f], p, s, wr);
+        if constexpr (kFam == kPolynomial) {
+          poly_prepare<kWide>(p, s, k);
+          xcv[f] = poly_inverse<kWide>(y[f], xcv[f], sweep, p, s, k);
+        } else {
+          xcv[f] = closed_inverse<kWide, kFam == kCircular>(y[f], p, s, k);
+        }
       }
     }
     if (kMode != kNoLadj) {
@@ -398,7 +682,7 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
       for (int f = 0; f < s.F; ++f) {
         feature_params<kWide>(w + s.last_off, s, h, f, p);
         float ladj;
-        univ_forward<kWide>(xcv[f], p, s, &ladj, wr);
+        univ_forward<kWide, kFam>(xcv[f], p, s, k, &ladj);
         acc += ladj;
       }
     }
@@ -412,21 +696,43 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
 
 // The flow's description as the wrapper hands it over, checked.
 struct Desc {
-  int n_lin, n_ar, F, C, K, T, univ;
+  int n_lin, n_ar, F, C, K, T, K2, kn, univ;
   long long layer_floats;
   int last_off;
-  float bound, log_s;
+  float bound, log_s, slope;
+  int box;
+  float lo, hi, log_box;
+  int n_cold, n_warm;
   int w_max;
   std::vector<int> widths, passes;
+  std::vector<float> clips, nodes, weights;
+};
+
+// The base and the solver's settings: box, lo, hi, log(hi - lo), and the
+// Gauss-Legendre nodes then weights (K2 of each).
+struct Extras {
+  float slope;
+  const float* clips;
+  const float* rule;
+  int box;
+  float lo, hi, log_box;
 };
 
 int describe(Desc* d, const int* widths, const int* passes, int n_lin, int n_ar, int F, int C,
-             int K, int univ, float bound, float log_s) {
-  if (n_lin < 1 || n_ar < 1 || F < 1 || C < 0 || (univ != kAffine && univ != kRQS) ||
-      (univ == kRQS && K < 1))
+             int K, int K2, int univ, float bound, float log_s, const Extras& e) {
+  if (n_lin < 1 || n_ar < 1 || F < 1 || C < 0 || univ < kAffine || univ > kBernstein ||
+      ((univ == kRQS || univ == kCRQS || univ == kBernstein) && K < 1) ||
+      (univ == kSOSP && (K < 1 || K2 < 1)) || !(bound > 0.0f) || (e.box && !(e.hi > e.lo)) ||
+      (e.box != 0) != (univ == kCRQS))  // the box is the circular spline's base, and only its
     return cudaErrorInvalidValue;
-  const int T = univ == kRQS ? 3 * K - 1 : 2;
-  *d = Desc{n_lin, n_ar, F, C, K, T, univ, 0, 0, bound, log_s, 0, {}, {}};
+  int T = 2, kn = K + 1;
+  if (univ == kRQS || univ == kCRQS) T = 3 * K - 1;
+  if (univ == kSOSP) T = K * K2 + 1, kn = 0;
+  if (univ == kBernstein) T = K, kn = K + 5;
+  *d = Desc{n_lin, n_ar, F, C, K, T, univ == kSOSP ? K2 : 0, kn, univ, 0, 0, bound, log_s,
+            e.slope, e.box, e.lo, e.hi, e.log_box,
+            (int)ceil(log2(2.0 * bound / 1e-3)), (int)ceil(log2(2.0 * kWarmR / 1e-3)), 0,
+            {}, {}, {}, {}, {}};
   if (widths[0] != F + C || widths[n_lin] != F * T) return cudaErrorInvalidValue;
   long long floats = 0;
   for (int i = 0; i <= n_lin; ++i) {
@@ -441,33 +747,58 @@ int describe(Desc* d, const int* widths, const int* passes, int n_lin, int n_ar,
   if (floats > 0x7fffffffLL) return cudaErrorInvalidValue;  // offsets in a layer are ints
   d->layer_floats = floats;
   for (int l = 0; l < n_ar; ++l) {
-    if (passes[l] < 1) return cudaErrorInvalidValue;
+    if (passes[l] < 1 || !(e.clips[l] >= 0.0f)) return cudaErrorInvalidValue;
     d->passes.push_back(passes[l]);
+    d->clips.push_back(e.clips[l]);
+  }
+  for (int t = 0; t < d->K2; ++t) {
+    d->nodes.push_back(e.rule[t]);
+    d->weights.push_back(e.rule[d->K2 + t]);
   }
   return cudaSuccess;
 }
 
 bool fits_narrow(const Desc& d) {
+  bool arrays = true;
+  if (d.univ == kRQS || d.univ == kCRQS) arrays = d.K <= kMaxBins;
+  if (d.univ == kSOSP) arrays = d.T <= kMaxT && d.K2 <= kMaxNodes;
+  if (d.univ == kBernstein) arrays = d.T <= kMaxT && d.K + 5 <= kMaxTheta;
   return d.n_lin <= kMaxLinear && d.n_ar <= kMaxLayers && d.w_max <= kMaxWidth &&
-         d.F <= kMaxWidth && (d.univ != kRQS || d.K <= kMaxBins);
+         d.F <= kMaxWidth && arrays;
 }
 
 Shape narrow_shape(const Desc& d) {
-  Shape s;
+  Shape s{};
   s.n_lin = d.n_lin;
   s.n_ar = d.n_ar;
   s.F = d.F;
   s.C = d.C;
   s.K = d.K;
   s.T = d.T;
+  s.K2 = d.K2;
+  s.kn = d.kn;
   s.univ = d.univ;
   s.layer_floats = (int)d.layer_floats;
   s.last_off = d.last_off;
   s.bound = d.bound;
   s.log_s = d.log_s;
+  s.slope = d.slope;
+  s.box = d.box;
+  s.lo = d.lo;
+  s.hi = d.hi;
+  s.log_box = d.log_box;
+  s.n_cold = d.n_cold;
+  s.n_warm = d.n_warm;
   s.w_max = d.w_max;
   for (int i = 0; i <= d.n_lin; ++i) s.widths[i] = d.widths[i];
-  for (int l = 0; l < d.n_ar; ++l) s.passes[l] = d.passes[l];
+  for (int l = 0; l < d.n_ar; ++l) {
+    s.passes[l] = d.passes[l];
+    s.clips[l] = d.clips[l];
+  }
+  for (int t = 0; t < d.K2; ++t) {
+    s.nodes[t] = d.nodes[t];
+    s.weights[t] = d.weights[t];
+  }
   return s;
 }
 
@@ -492,7 +823,7 @@ struct Launch {
 // modes as SampleMode + 2.
 enum Op { kDensity = 0, kApply = 1, kSample = 2, kSampleLogQ = 3, kSampleRaw = 4 };
 
-template <bool kWide>
+template <bool kWide, int kFam>
 int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, size_t smem) {
   for (long long row0 = 0; row0 < l.n; row0 += stride) {
     const long long row_end = row0 + stride < l.n ? row0 + stride : l.n;
@@ -502,11 +833,11 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, s
                                                     stride, row0, row_end);
     };
     switch (op) {
-      case kDensity: args(nsf_density_kernel<kWide, false>); break;
-      case kApply: args(nsf_density_kernel<kWide, true>); break;
-      case kSample: args(nsf_sample_kernel<kWide, kNoLadj>); break;
-      case kSampleLogQ: args(nsf_sample_kernel<kWide, kLogQ>); break;
-      default: args(nsf_sample_kernel<kWide, kRawLadj>); break;
+      case kDensity: args(nsf_density_kernel<kWide, false, kFam>); break;
+      case kApply: args(nsf_density_kernel<kWide, true, kFam>); break;
+      case kSample: args(nsf_sample_kernel<kWide, kNoLadj, kFam>); break;
+      case kSampleLogQ: args(nsf_sample_kernel<kWide, kLogQ, kFam>); break;
+      default: args(nsf_sample_kernel<kWide, kRawLadj, kFam>); break;
     }
     const int rc = cudaGetLastError();
     if (rc != cudaSuccess) return rc;
@@ -519,48 +850,72 @@ int allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <int kFam>
+int run_narrow(int op, const Launch& l, const Desc& d) {
+  const Shape s = narrow_shape(d);
+  const size_t smem = (size_t)s.layer_floats * sizeof(float);
+  int rc;
+  switch (op) {
+    case kDensity: rc = allow_smem(nsf_density_kernel<false, false, kFam>, smem); break;
+    case kApply: rc = allow_smem(nsf_density_kernel<false, true, kFam>, smem); break;
+    case kSample: rc = allow_smem(nsf_sample_kernel<false, kNoLadj, kFam>, smem); break;
+    case kSampleLogQ: rc = allow_smem(nsf_sample_kernel<false, kLogQ, kFam>, smem); break;
+    default: rc = allow_smem(nsf_sample_kernel<false, kRawLadj, kFam>, smem); break;
+  }
+  if (rc != cudaSuccess) return rc;
+  return launch<false, kFam>(op, l, s, l.n > 0 ? l.n : 1, smem);
+}
+
 int run(int op, const Launch& l, const Desc& d) {
   if (l.n < 0) return cudaErrorInvalidValue;
+  const int fam = family_of(d.univ);
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
-    const Shape s = narrow_shape(d);
-    const size_t smem = (size_t)s.layer_floats * sizeof(float);
-    int rc;
-    switch (op) {
-      case kDensity: rc = allow_smem(nsf_density_kernel<false, false>, smem); break;
-      case kApply: rc = allow_smem(nsf_density_kernel<false, true>, smem); break;
-      case kSample: rc = allow_smem(nsf_sample_kernel<false, kNoLadj>, smem); break;
-      case kSampleLogQ: rc = allow_smem(nsf_sample_kernel<false, kLogQ>, smem); break;
-      default: rc = allow_smem(nsf_sample_kernel<false, kRawLadj>, smem); break;
-    }
-    if (rc != cudaSuccess) return rc;
-    return launch<false>(op, l, s, l.n > 0 ? l.n : 1, smem);
+    if (fam == kCircular) return run_narrow<kCircular>(op, l, d);
+    return fam == kPolynomial ? run_narrow<kPolynomial>(op, l, d) : run_narrow<kClosed>(op, l, d);
   }
-  // the device buffer: widths, then passes (ints)
-  const long long need = (long long)(d.n_lin + 1 + d.n_ar) * (long long)sizeof(int);
-  const long long slots = (long long)(d.F + d.C) + d.F + 2LL * d.w_max + d.T + 3LL * (d.K + 1);
+  // the device buffer: widths, passes (ints), clips, nodes, weights (floats)
+  const long long words = (long long)(d.n_lin + 1) + 2LL * d.n_ar + 2LL * d.K2;
+  const long long need = words * 4;
+  const long long slots = (long long)(d.F + d.C) + d.F + 2LL * d.w_max + d.T + 3LL * d.kn;
   if (l.desc == nullptr || l.desc_bytes < need || l.work == nullptr || l.stride < 1 ||
       slots * l.stride > l.work_floats)
     return cudaErrorInvalidValue;
   // a pageable source is staged before cudaMemcpyAsync returns
   std::vector<int> image(d.widths);
   image.insert(image.end(), d.passes.begin(), d.passes.end());
+  for (const std::vector<float>* part : {&d.clips, &d.nodes, &d.weights}) {
+    for (float v : *part) {
+      int bits;
+      memcpy(&bits, &v, sizeof bits);
+      image.push_back(bits);
+    }
+  }
   const int rc = cudaMemcpyAsync(l.desc, image.data(), (size_t)need, cudaMemcpyHostToDevice,
                                  l.stream);
   if (rc != cudaSuccess) return rc;
-  const int* dw = (const int*)l.desc;
-  const WideShape ws{d.n_lin, d.n_ar,   d.F,     d.C,   d.K,     d.T, d.univ, d.layer_floats,
-                     d.last_off, d.bound, d.log_s, d.w_max, dw, dw + d.n_lin + 1};
-  return launch<true>(op, l, ws, l.stride, 0);
+  const int* di = (const int*)l.desc;
+  const float* df = (const float*)l.desc;
+  const int off = d.n_lin + 1 + d.n_ar;
+  const WideShape ws{d.n_lin,  d.n_ar,    d.F,     d.C,      d.K,      d.T,      d.K2,
+                     d.kn,     d.univ,    d.layer_floats,    d.last_off,         d.bound,
+                     d.log_s,  d.slope,   d.box,   d.lo,     d.hi,     d.log_box, d.n_cold,
+                     d.n_warm, d.w_max,   di,      di + d.n_lin + 1,   df + off,
+                     df + off + d.n_ar,   df + off + d.n_ar + d.K2};
+  if (fam == kCircular) return launch<true, kCircular>(op, l, ws, l.stride, 0);
+  return fam == kPolynomial ? launch<true, kPolynomial>(op, l, ws, l.stride, 0)
+                            : launch<true, kClosed>(op, l, ws, l.stride, 0);
 }
 
 int entry(int op, const float* in, float* out0, float* out1, const float* params,
-          const int* widths, const int* passes, int n_lin, int n_ar, int F, int C, int K,
-          int univ, float bound, float log_s, long long n, int wide, float* work,
-          long long work_floats, long long stride, void* desc, long long desc_bytes,
-          void* stream) {
+          const int* widths, const int* passes, const float* clips, int n_lin, int n_ar, int F,
+          int C, int K, int K2, int univ, float bound, float log_s, float slope,
+          const float* rule, int box, float lo, float hi, float log_box, long long n, int wide,
+          float* work, long long work_floats, long long stride, void* desc,
+          long long desc_bytes, void* stream) {
   Desc d;
-  const int rc = describe(&d, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s);
+  const int rc = describe(&d, widths, passes, n_lin, n_ar, F, C, K, K2, univ, bound, log_s,
+                          Extras{slope, clips, rule, box, lo, hi, log_box});
   if (rc != cudaSuccess) return rc;
   return run(op,
              {in, out0, out1, params, n, wide, work, work_floats, stride, desc, desc_bytes,
@@ -571,17 +926,23 @@ int entry(int op, const float* in, float* out0, float* out1, const float* params
 }  // namespace
 
 // Each entry point takes the flow as the wrapper packs it (per AR layer
-// [M*W_0, b_0, M*W_1, b_1, ...], `widths` of the hyper-net, `passes` per
-// layer), then the tier: wide 0, the narrow tier (work and desc unused);
-// wide 1, the wide tier, with a workspace of work_floats floats for `stride`
-// rows a launch and a descriptor buffer of desc_bytes bytes on the device.
-#define NSF_FLOW                                                                           \
-  const float *params, const int *widths, const int *passes, int n_lin, int n_ar, int F, \
-      int C, int K, int univ, float bound, float log_s, long long n, int wide, float *work, \
-      long long work_floats, long long stride, void *desc, long long desc_bytes, void *stream
-#define NSF_ARGS                                                                            \
-  params, widths, passes, n_lin, n_ar, F, C, K, univ, bound, log_s, n, wide, work,       \
-      work_floats, stride, desc, desc_bytes, stream
+// [M*W_0, b_0, M*W_1, b_1, ...], `widths` of the hyper-net, `passes` and the
+// softclip bound after each layer (0 for none), the univariate's code and
+// sizes K, K2, its bound, log-slope and slope, the SOSP Gauss-Legendre rule
+// (K2 nodes, then K2 weights), the base (box 0: standard normal; 1: the box
+// [lo, hi]^F, log_box = log(hi - lo))), then the tier: wide 0, the narrow
+// tier (work and desc unused); wide 1, the wide tier, with a workspace of
+// work_floats floats for `stride` rows a launch and a descriptor buffer of
+// desc_bytes bytes on the device.
+#define NSF_FLOW                                                                               \
+  const float *params, const int *widths, const int *passes, const float *clips, int n_lin,  \
+      int n_ar, int F, int C, int K, int K2, int univ, float bound, float log_s, float slope, \
+      const float *rule, int box, float lo, float hi, float log_box, long long n, int wide,   \
+      float *work, long long work_floats, long long stride, void *desc, long long desc_bytes, \
+      void *stream
+#define NSF_ARGS                                                                              \
+  params, widths, passes, clips, n_lin, n_ar, F, C, K, K2, univ, bound, log_s, slope, rule, \
+      box, lo, hi, log_box, n, wide, work, work_floats, stride, desc, desc_bytes, stream
 
 // out (n,) = log_prob of xc (n, F + C).
 extern "C" int nsf_density_f32(const float* xc, float* out, NSF_FLOW) {

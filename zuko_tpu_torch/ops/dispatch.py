@@ -3,7 +3,8 @@ r"""Automatic fused-kernel dispatch for the flows.
 Counterpart of ``zuko_tpu/ops/dispatch.py``: when a :class:`~zuko_tpu_torch.lazy.Flow`
 is called, its structure is inspected and — if the whole-flow kernels can
 represent it — the returned distribution routes ``log_prob``, ``sample`` and
-``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused` (NSF, MAF),
+``sample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.nsf_fused` (NSF, MAF,
+NCSF, and SOSPF and BPF as :class:`FusedDensityFlow`),
 :mod:`zuko_tpu_torch.ops.gf_fused` (GF), :mod:`zuko_tpu_torch.ops.cnf_fused`
 (CNF) or :mod:`zuko_tpu_torch.ops.naf_fused` (NAF, UNAF), and ``rsample`` /
 ``rsample_and_log_prob`` through :mod:`zuko_tpu_torch.ops.ift` (a CNF's
@@ -47,6 +48,7 @@ from .nsf_fused import (
 __all__ = [
     "FusedAutoregressiveFlow",
     "FusedContinuousFlow",
+    "FusedDensityFlow",
     "FusedGaussianizationFlow",
     "FusedInvertedAutoregressiveFlow",
     "FusedNeuralSamplingFlow",
@@ -98,6 +100,16 @@ class FusedAutoregressiveFlow(NormalizingFlow):
         return fused_nsf_rsample(
             self._flat, sample_shape, self._c, generator, want_log_prob=True
         )
+
+
+class FusedDensityFlow(FusedAutoregressiveFlow):
+    r"""The polynomial families' (SOSPF, BPF) :class:`FusedAutoregressiveFlow`
+    (counterpart of ``FusedDensityFlow`` :126): the density through the
+    whole-flow kernel, sampling through its iterative inverse (a bisection
+    on the exact forward, then Newton steps whose derivative the forward
+    gives for free), and ``rsample`` through the same solve with
+    implicit-function-theorem gradients, exact at the solved point to the
+    solver's tolerance."""
 
 
 class FusedGaussianizationFlow(NormalizingFlow):
@@ -247,9 +259,13 @@ def maybe_fused_flow(module, transform, base, c):
             return None  # an inverted flow of another structure stays unfused
         return FusedInvertedAutoregressiveFlow(transform, base, flat, c)
     try:
-        return FusedAutoregressiveFlow(transform, base, _flatten_flow(module), c)
+        flat = _flatten_flow(module)
     except FusedStructureError:
         pass
+    else:
+        if flat[2]["univ"] in ("sosp", "bernstein"):
+            return FusedDensityFlow(transform, base, flat, c)
+        return FusedAutoregressiveFlow(transform, base, flat, c)
     try:
         return FusedGaussianizationFlow(transform, base, _flatten_gf(module, c, transform))
     except FusedStructureError:

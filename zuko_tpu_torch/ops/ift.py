@@ -68,7 +68,7 @@ def _solve_consistency_mask(zhat, z, xbar, lbar, atol=_SOLVE_ATOL):
 
 
 def _ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, K, bound, slope,
-                  univ, raw=False):
+                  univ, base=nf._NORMAL, raw=False):
     """The IFT backward on flat rows (counterpart of ``_ift_bwd_math``
     :238): cotangents ``xbar (n, F)`` and ``lbar (n,)`` (or ``None``, no
     log-density cotangent) -> ``(dzc (n, F + C), dparams)``, with ``None``
@@ -77,21 +77,22 @@ def _ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, K, bound, slope,
     Three sweeps share one linearisation per layer. Each layer splits as
     ``y = S(x, h)``, ``h = H(x, c)``: ``S`` is the univariate map, diagonal
     in ``x`` at fixed ``h`` (feature ``f`` reads ``x_f`` and ``h[f * T : (f
-    + 1) * T]`` only), ``H`` the masked hyper-net.
+    + 1) * T]`` only), ``H`` the masked hyper-net. A softclip is diagonal
+    and has no parameters.
 
-    1. **march**: ``x_l = T_l(x_{l-1})``, keeping each layer's two graphs,
-       the diagonal ``d = dy/dx`` at fixed ``h`` and ``G[f * T + t] = dy_f /
+    1. **march**: ``x_l = T_l(x_{l-1})``, keeping each stage's graphs, the
+       diagonal ``d = dy/dx`` at fixed ``h`` and ``G[f * T + t] = dy_f /
        dh_{f, t}`` (one pullback of ones gives both);
     2. **density backward** (with ``lbar``): ``g_l = d(lbar · log q) /
-       dx_l`` runs from the base back through the same graphs;
-    3. **solves**: ``v = xbar + g_0`` chains through one transposed
-       triangular solve per layer, ``Jᵀu = d·u + H'(x)ᵀ(G ⊙ repeat(u))``
-       (the hyper outputs are feature-major, so ``u`` repeats ``T`` times
-       per feature), and each layer takes one merged parameter pullback with
-       cotangents ``(g_l - u_l, lbar)``."""
+       dx_l`` runs from the base back through the same graphs; the box base
+       is flat inside, so its cotangent is zero, as the raw mode's is;
+    3. **solves**: ``v = xbar + g_0`` chains through ``u = v / d`` per
+       softclip and one transposed triangular solve per layer, ``Jᵀu = d·u +
+       H'(x)ᵀ(G ⊙ repeat(u))`` (the hyper outputs are feature-major, so
+       ``u`` repeats ``T`` times per feature), and each layer takes one
+       merged parameter pullback with cotangents ``(g_l - u_l, lbar)``."""
     z, c = zc[:, :F], zc[:, F:].detach().requires_grad_(zc.shape[1] > F)
     T = nf._univ_size(univ, K)
-    per_layer = nf._split_layers(list(params), layout)
     dparams = [None] * len(params)
 
     def grad(outputs, inputs, cotangents):
@@ -101,28 +102,38 @@ def _ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, K, bound, slope,
         # ---- sweep 1: march and linearise
         recs = []
         xcur = x.detach()
-        for ps, passes in per_layer:
-            ps = [p.detach().requires_grad_(i % 3 != 2) for i, p in enumerate(ps)]
-            xh = xcur.requires_grad_(True)
-            h = nf._hyper(torch.cat([xh, c], dim=1), ps)
-            xs, hs = xcur.detach().requires_grad_(True), h.detach().requires_grad_(True)
-            y, ladj = nf._univ_forward(xs, hs, F, K, bound, slope, univ)
-            d, G = grad(y, (xs, hs), torch.ones_like(y))
-            recs.append((ps, passes, xh, h, xs, hs, y, ladj, d, G))
+        for stage in nf._stages(list(params), layout):
+            xs = xcur.detach().requires_grad_(True)
+            if stage[0] == "softclip":
+                y, ladj = nf._softclip(xs, stage[1])
+                (d,) = grad(y, xs, torch.ones_like(y))
+                recs.append((None, None, None, None, xs, None, y, ladj, d, None))
+            else:
+                ps = [p.detach().requires_grad_(i % 3 != 2) for i, p in enumerate(stage[0])]
+                xh = xcur.detach().requires_grad_(True)
+                h = nf._hyper(torch.cat([xh, c], dim=1), ps)
+                hs = h.detach().requires_grad_(True)
+                y, ladj = nf._univ_forward(xs, hs, F, K, bound, slope, univ)
+                d, G = grad(y, (xs, hs), torch.ones_like(y))
+                recs.append((ps, stage[1], xh, h, xs, hs, y, ladj, d, G))
             xcur = y.detach()
 
         # rows whose solve failed contribute nothing
         xbar, lrow = _solve_consistency_mask(xcur, z, xbar, lbar)
 
-        # ---- sweep 2: g_out[i], the log-density cotangent at layer i's output
+        # ---- sweep 2: g_out[i], the log-density cotangent at stage i's output
         g_out = [None] * len(recs)
         v = xbar
         if lrow is not None:
-            # raw mode: lbar is the cotangent of the bare sum of ladjs
-            g = torch.zeros_like(xcur) if raw else -xcur * lrow
+            # raw mode: lbar is the cotangent of the bare sum of ladjs; a
+            # box base is flat: zero, as zuko_tpu (ift.py:351-354)
+            g = torch.zeros_like(xcur) if raw or base[0] != "normal" else -xcur * lrow
             for i in reversed(range(len(recs))):
                 g_out[i] = g
                 _, _, xh, h, xs, hs, y, ladj, _, _ = recs[i]
+                if h is None:
+                    (g,) = grad((y, ladj), xs, (g, lrow.expand_as(ladj)))
+                    continue
                 gxs, gh = grad((y, ladj), (xs, hs), (g, lrow.expand_as(ladj)))
                 (gxh,) = grad(h, xh, gh)
                 g = gxs + gxh
@@ -136,6 +147,9 @@ def _ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, K, bound, slope,
             # J) for the application alike; the first iteration, from u = 0,
             # is v / d, and min(passes, F) in all are exact by nilpotency
             u = v / d
+            if ps is None:  # a softclip: diagonal, no parameters
+                v = u
+                continue
             for _ in range(min(passes, F) - 1):
                 (lower,) = grad(h, xh, G * u.repeat_interleave(T, dim=1))
                 u = (v - lower) / d
@@ -165,7 +179,7 @@ class _IFTFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, zc, statics, want_log_prob, *params):
-        out = nf.nsf_sample(zc, params, *statics, want_log_prob)
+        out = nf.nsf_sample(zc, params, *statics, want_log_prob=want_log_prob)
         ctx.statics, ctx.want_log_prob = statics, want_log_prob
         ctx.save_for_backward(zc, out[0] if want_log_prob else out, *params)
         ctx.set_materialize_grads(False)
@@ -197,7 +211,7 @@ def fused_nsf_rsample(flat, sample_shape=(), c=None, generator=None,
     gradients match differentiating the unfused inverse sweeps. With
     ``want_log_prob`` also returns the equally differentiable ``log q(x)``,
     the reverse-KL pair."""
-    shape, zc = nf._base_draws(flat, sample_shape, c, generator)
+    shape, zc = nf._base_draws(flat, sample_shape, c, generator, flat[2]["base"])
     out = _ift(zc, flat, shape[-1], want_log_prob)
     if want_log_prob:
         x, lq = out

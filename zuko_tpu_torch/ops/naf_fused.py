@@ -70,6 +70,8 @@ from .nsf_fused import (
     _base_draws,
     _extract_mlp_linears,
     _require_standard_base,
+    _softclip,
+    _softclip_entry,
     _with_context,
 )
 
@@ -191,7 +193,6 @@ def extract_naf_params(flow):
     :class:`FusedStructureError`."""
     from ..flows.autoregressive import MaskedAutoregressiveTransform
     from ..lazy import LazyComposedTransform, UnconditionalTransform
-    from ..transforms import SoftclipTransform
 
     if not isinstance(getattr(flow, "transform", None), LazyComposedTransform):
         raise FusedStructureError(
@@ -201,11 +202,7 @@ def extract_naf_params(flow):
     stages, S, F, kind = [], None, None, None
     for t in flow.transform.transforms:
         if isinstance(t, UnconditionalTransform):
-            if t.f is not SoftclipTransform or t.args or set(t.kwargs) - {"bound"}:
-                raise FusedStructureError(
-                    f"fused NAF kernels support SoftclipTransform interleaves only, got {t.f}"
-                )
-            stages.append(("softclip", float(t.kwargs.get("bound", 1.0))))
+            stages.append(_softclip_entry(t))
             continue
         if type(t) is not MaskedAutoregressiveTransform:
             raise FusedStructureError(
@@ -381,12 +378,6 @@ def _ar_layer(x, h, kind, mono_w, mono_b, F, S):
     else:
         y, g = _mono(x, pre1, w1x, mono_w, mono_b, grad=True)
     return y + shift, torch.log(g)
-
-
-def _softclip(x, bound):
-    """``(x / (1 + |x / B|), -2 log1p(|x / B|))`` per element."""
-    q = (x / bound).abs()
-    return x / (1 + q), -2 * torch.log1p(q)
 
 
 def _naf_density_math(xc, params, layout, F, S):

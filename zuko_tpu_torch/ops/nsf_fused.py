@@ -6,11 +6,12 @@ Counterpart of ``zuko_tpu/ops/nsf_fused.py``. Three kernels, all in
 
 * ``nsf_density`` replaces ``_fused_impl`` (:1793, ``pallas_call`` at :1842):
   the whole-flow autoregressive ``log_prob`` — every MADE hyper pass, every
-  univariate forward and its log-Jacobian, and the standard-normal base
-  term — in one launch, with no intermediate in device memory.
+  univariate forward and its log-Jacobian, the softclips between the layers
+  and the base term — in one launch, with no intermediate in device memory.
 * ``nsf_sample`` replaces ``_sample_core`` (:1575, ``pallas_call`` at :1658):
   the whole autoregressive inversion (layers in reverse, ``min(passes, F)``
-  Jacobi sweeps each, closed-form univariate inverses) and optionally
+  Jacobi sweeps each; closed-form inverses for the affine map and the
+  splines, a bisection and Newton solve for the polynomials) and optionally
   ``log q`` at the returned point, or (raw mode) the bare sum of the forward
   log-Jacobians there.
 * ``nsf_apply`` replaces ``_apply_impl`` (:2134, ``pallas_call`` at :2183):
@@ -25,11 +26,31 @@ workspace in device memory) beyond them. ``LAUNCHES`` counts the kernel
 launches, one per call that reaches a kernel, the wide tier's under
 ``<name>_wide``.
 
+Five univariates (``univ``), one flow's layers sharing one: ``affine``
+(MAF), ``rqs`` (NSF), ``crqs`` (NCSF: the spline on ``(x mod 2π) - π``),
+``sosp`` (SOSPF: a sum-of-squares polynomial integrated by ``L + 1``
+Gauss-Legendre nodes, plus a shift) and ``bernstein`` (BPF: a bounds-pinned
+Bernstein polynomial by De Casteljau). The base is a standard normal
+(``("normal",)``) or, for NCSF, a constant box (``("box", lo, hi)``). The
+launch counts of the three new modes carry the mode in their names:
+``nsf_density_<mode>``, ``nsf_apply_<mode>``, ``nsf_sample_<mode>``,
+``nsf_sample_<mode>_log_prob`` and ``nsf_sample_<mode>_raw``.
+
+The polynomials' inverse is ``zuko_tpu``'s (``_poly_inverse_F`` :849), with
+its warm-started later sweeps as the default: no switch. The first sweep
+bisects ``[-B, B]`` ``ceil(log2(2B / 1e-3))`` times on the exact forward;
+later sweeps bracket the previous sweep's root by ``_POLY_WARM_R`` (checked
+by two evaluations; a row whose root left the bracket takes ``[-B, B]``) and
+bisect ``ceil(log2(2r / 1e-3))`` times. Four Newton steps follow, each by the
+forward's own derivative and clipped to ``[-B, B]``; a Bernstein polynomial's
+targets beyond its ends take the closed form of its linear extension.
+
 The TPU kernels' layout choices are not carried over: the batch is
 row-major ``(n, F + C)`` and the hyper-net's last layer keeps the MADE's
-feature-major output order ``[f * T + t]`` (``T = 3K - 1`` for the spline,
-2 for the affine), which suits a kernel that handles one feature's ``T``
-parameters at a time. Everything runs in full float32; there is no
+feature-major output order ``[f * T + t]`` (``T = 3K - 1`` for the splines,
+``P (L + 1) + 1`` for the sum-of-squares polynomial, ``M`` for the Bernstein
+one, 2 for the affine), which suits a kernel that handles one feature's
+``T`` parameters at a time. Everything runs in full float32; there is no
 counterpart of the TPU's compensated logs or bf16 weight splits.
 """
 
@@ -39,13 +60,19 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
-from ..distributions import DiagNormal
+from ..distributions import BoxUniform, DiagNormal
 from ..flows.autoregressive import MaskedAutoregressiveTransform
-from ..lazy import LazyComposedTransform, UnconditionalDistribution
+from ..lazy import LazyComposedTransform, UnconditionalDistribution, UnconditionalTransform
 from ..nn import Activation, MaskedLinear
-from ..transforms import MonotonicAffineTransform, MonotonicRQSTransform
+from ..transforms import (
+    BoundedBernsteinTransform,
+    MonotonicAffineTransform,
+    MonotonicRQSTransform,
+    SoftclipTransform,
+)
 from ._common import (
     LAUNCHES,
     check_cuda_f32,
@@ -70,16 +97,27 @@ __all__ = [
 ]
 
 # The narrow tier's limits (mirrored in csrc/nsf_fused.cu): the widest hyper
-# layer, including the F + C inputs; the spline bins; linears per hyper-net;
+# layer, including the F + C inputs; the spline bins; a feature's raw
+# parameters (the thread's array of them); the Bernstein coefficients (M + 5
+# De Casteljau entries) and the Gauss-Legendre nodes; linears per hyper-net;
 # autoregressive layers per flow; and one layer's weights in a block's shared
 # memory (the card's opt-in limit). Beyond any of them the wide tier takes the
 # flow.
 _MAX_WIDTH = 256
 _MAX_BINS = 32
+_MAX_T = 3 * _MAX_BINS - 1
+_MAX_THETA = 64
+_MAX_NODES = 32
 _MAX_LINEAR = 8
 _MAX_LAYERS = 64
 _SMEM_OPTIN = 232448  # bytes an H100 block may opt into
-_UNIV_CODE = {"affine": 0, "rqs": 1}
+_UNIV_CODE = {"affine": 0, "rqs": 1, "crqs": 2, "sosp": 3, "bernstein": 4}
+_NORMAL = ("normal",)
+# the polynomial inverse (``_poly_inverse_F`` :849, ``_POLY_WARM_R`` :987):
+# bisection to 1e-3, the warm sweeps' bracket radius, Newton steps
+_POLY_XTOL = 1e-3
+_POLY_WARM_R = 0.0625
+_POLY_NEWTON = 4
 
 
 class FusedStructureError(ValueError):
@@ -104,11 +142,19 @@ def _univ_config(univariate, shapes):
         kw = {**func.keywords, **kw}
         func = func.func
 
+    from ..flows.polynomial import ShiftedSOSPTransform
+    from ..flows.spline import CircularRQSTransform
+
     shapes = tuple(tuple(s) for s in shapes)
-    if func is MonotonicRQSTransform:
+    if func is MonotonicRQSTransform or func is CircularRQSTransform:
         K = shapes[0][0] if len(shapes) == 3 and shapes[0] else 0
         if K < 1 or shapes != ((K,), (K,), (K - 1,)):
             raise FusedStructureError(f"unexpected RQS shapes {shapes}")
+        if func is CircularRQSTransform:
+            # a circular shift, then the spline on [-pi, pi]
+            if set(kw) - {"slope"}:
+                raise FusedStructureError(f"unsupported NCSF kwargs {set(kw) - {'slope'}}")
+            return "crqs", K, math.pi, float(kw.get("slope", 1e-3))
         if set(kw) - {"bound", "slope"}:
             raise FusedStructureError(f"unsupported RQS kwargs {set(kw)}")
         return "rqs", K, float(kw.get("bound", 5.0)), float(kw.get("slope", 1e-3))
@@ -118,10 +164,24 @@ def _univ_config(univariate, shapes):
         if set(kw) - {"slope"}:
             raise FusedStructureError(f"unsupported affine kwargs {set(kw)}")
         return "affine", 0, 5.0, float(kw.get("slope", 1e-3))
-    # circular splines, SOSP and Bernstein polynomials come with their
-    # flows' slices of the port
+    if func is ShiftedSOSPTransform:
+        # K is the pair (polynomials, degree + 1); the bound is the
+        # MonotonicTransform domain's
+        if len(shapes) != 2 or len(shapes[0]) != 2 or shapes[1] != () or not all(shapes[0]):
+            raise FusedStructureError(f"unexpected SOSP shapes {shapes}")
+        if set(kw) - {"slope"}:
+            raise FusedStructureError(f"unsupported SOSP kwargs {set(kw) - {'slope'}}")
+        return "sosp", tuple(shapes[0]), 10.0, float(kw.get("slope", 1e-3))
+    if func is BoundedBernsteinTransform:
+        # K is the raw coefficient count M
+        if len(shapes) != 1 or len(shapes[0]) != 1 or shapes[0][0] < 1:
+            raise FusedStructureError(f"unexpected Bernstein shapes {shapes}")
+        if kw:
+            raise FusedStructureError(f"unsupported Bernstein kwargs {set(kw)}")
+        return "bernstein", shapes[0][0], 5.0, 1e-3
     raise FusedStructureError(
-        f"fused kernels support RQS and affine univariates, got {func}"
+        f"fused kernels support RQS, circular RQS, affine, SOSP and Bernstein univariates,"
+        f" got {func}"
     )
 
 
@@ -183,17 +243,70 @@ def _require_standard_base(flow, features):
         raise FusedStructureError("fused kernels assume a standard-normal base")
 
 
+def _base_config(flow, features, univ):
+    """The base as the kernels take it (counterpart of ``_base_config``
+    :232): ``("normal",)`` for a standard ``DiagNormal``, ``("box", lo,
+    hi)`` for the constant ``BoxUniform`` of a circular spline flow.
+    Anything else raises :class:`FusedStructureError`."""
+    if univ != "crqs":
+        _require_standard_base(flow, features)
+        return _NORMAL
+    base = getattr(flow, "base", None)
+    if not isinstance(base, UnconditionalDistribution) or base.f is not BoxUniform:
+        raise FusedStructureError(
+            "fused circular-spline kernels require an UnconditionalDistribution(BoxUniform)"
+            f" base, got {type(base).__name__}"
+        )
+    if base.kwargs or len(base.args) != 2:
+        raise FusedStructureError("fused kernels support BoxUniform(lower, upper) bases only")
+    lo, hi = base.args
+    if not (torch.is_tensor(lo) and torch.is_tensor(hi)):
+        raise FusedStructureError("base bounds must be tensors")
+    if lo.requires_grad or hi.requires_grad:
+        raise FusedStructureError(
+            "base bounds are trainable; fused kernels support constant boxes only")
+    if lo.shape != (features,) or hi.shape != (features,):
+        raise FusedStructureError(
+            f"base bounds must have shape ({features},), got"
+            f" {tuple(lo.shape)}/{tuple(hi.shape)}"
+        )
+    if bool(lo.min() != lo.max()) or bool(hi.min() != hi.max()):
+        raise FusedStructureError("fused kernels support per-feature-constant boxes only")
+    return ("box", float(lo[0]), float(hi[0]))
+
+
 def _univ_size(univ, K):
-    return 3 * K - 1 if univ == "rqs" else 2
+    """``T``, the raw parameters of one feature (counterpart of
+    ``_univ_size`` :1338)."""
+    if univ in ("rqs", "crqs"):
+        return 3 * K - 1
+    if univ == "sosp":
+        return K[0] * K[1] + 1  # (polynomials, degree + 1) coefficients and the shift
+    if univ == "bernstein":
+        return K
+    return 2
+
+
+def _softclip_entry(t):
+    """``("softclip", B)`` of an unconditional ``SoftclipTransform(bound=B)``
+    interleave, else :class:`FusedStructureError`."""
+    if t.f is not SoftclipTransform or t.args or set(t.kwargs) - {"bound"}:
+        raise FusedStructureError(
+            f"fused AR kernels support SoftclipTransform(bound=...) interleaves only, got {t.f}"
+        )
+    return ("softclip", float(t.kwargs.get("bound", 1.0)))
 
 
 def extract_nsf_params(flow):
-    """Pull the per-layer (weights, biases, masks, passes) out of an NSF/MAF
-    flow module, strictly verifying the supported structure (plain ReLU MADE
-    hyper-nets of one shape, RQS or affine univariates of one configuration,
-    a standard DiagNormal base). Anything else raises
-    :class:`FusedStructureError`. Returns ``(layers, cfg)`` with
-    ``cfg = {bins, univ, bound, slope}``."""
+    """Pull the per-layer (weights, biases, masks, passes) out of an
+    autoregressive flow module (NSF, MAF, NCSF, SOSPF, BPF), strictly
+    verifying the supported structure: plain ReLU MADE hyper-nets of one
+    shape, univariates of one configuration, ``SoftclipTransform``
+    interleaves each right after an autoregressive layer, and a standard
+    ``DiagNormal`` base (a constant ``BoxUniform`` one for NCSF). Anything
+    else raises :class:`FusedStructureError`. Returns ``(layers, cfg)``:
+    ``layers`` holds a dict per autoregressive layer and ``("softclip", B)``
+    per interleave, ``cfg = {bins, univ, bound, slope, base}``."""
     if not isinstance(getattr(flow, "transform", None), LazyComposedTransform):
         raise FusedStructureError(
             "fused kernels require a LazyComposedTransform flow, got"
@@ -201,7 +314,13 @@ def extract_nsf_params(flow):
         )
     layers, cfg, shapes = [], None, None
     for t in flow.transform.transforms:
-        # softclip interleaves (SOSPF) come with that flow's slice
+        if isinstance(t, UnconditionalTransform):
+            # the kernels apply a softclip as the tail of the layer before it
+            if not layers or not isinstance(layers[-1], dict):
+                raise FusedStructureError(
+                    "fused AR kernels take a softclip only right after an autoregressive layer")
+            layers.append(_softclip_entry(t))
+            continue
         if type(t) is not MaskedAutoregressiveTransform:
             raise FusedStructureError(
                 "fused AR kernels support MaskedAutoregressiveTransform layers"
@@ -230,31 +349,45 @@ def extract_nsf_params(flow):
         raise FusedStructureError("flow has no transform layers")
 
     univ, K, bound, slope = cfg
-    _require_standard_base(flow, shapes[-1][0] // _univ_size(univ, K))
-    return layers, {"bins": K, "univ": univ, "bound": bound, "slope": slope}
+    base = _base_config(flow, shapes[-1][0] // _univ_size(univ, K), univ)
+    return layers, {"bins": K, "univ": univ, "bound": bound, "slope": slope, "base": base}
 
 
 def _flatten_flow(flow):
     """``(params, layout, cfg)``: ``params`` is the flat list
     ``[W, b, M, ...]`` over every AR layer's linears, ``layout`` one
-    ``(n_linear, passes)`` entry per layer (counterpart of
-    ``nsf_fused._flatten_flow`` :1473, without its param-major permutation)."""
+    ``(n_linear, passes)`` entry per AR layer and ``("softclip", B)`` per
+    interleave (counterpart of ``nsf_fused._flatten_flow`` :1473, without its
+    param-major permutation)."""
     layers, cfg = extract_nsf_params(flow)
     params, layout = [], []
     for layer in layers:
+        if not isinstance(layer, dict):
+            layout.append(layer)
+            continue
         layout.append((len(layer["weights"]), layer["passes"]))
         for W, b, M in zip(layer["weights"], layer["biases"], layer["masks"]):
             params += [W, b, M]
     return params, tuple(layout), cfg
 
 
-def _split_layers(params, layout):
-    """``[(ps, passes), ...]`` per AR layer, ``ps = [W, b, M, ...]``."""
+def _stages(params, layout):
+    """``[(ps, passes) | ("softclip", B), ...]`` in the flow's order, ``ps =
+    [W, b, M, ...]`` an AR layer's linears."""
     out, idx = [], 0
-    for n_lin, passes in layout:
+    for entry in layout:
+        if entry[0] == "softclip":
+            out.append(entry)
+            continue
+        n_lin, passes = entry
         out.append((params[idx : idx + 3 * n_lin], passes))
         idx += 3 * n_lin
     return out
+
+
+def _split_layers(params, layout):
+    """``[(ps, passes), ...]`` per AR layer, ``ps = [W, b, M, ...]``."""
+    return [st for st in _stages(params, layout) if st[0] != "softclip"]
 
 
 # ------------------------------------------------------------ plain versions
@@ -281,60 +414,221 @@ class _PlainRQS(MonotonicRQSTransform):
     inverse_and_ladj = MonotonicRQSTransform._inverse_math
 
 
-def _univariate(h, F, K, bound, slope, univ):
-    phi = h.reshape(h.shape[0], F, -1)
-    if univ == "rqs":
-        return _PlainRQS(
-            phi[..., :K], phi[..., K : 2 * K], phi[..., 2 * K :],
-            bound=bound, slope=slope,
-        )
-    return MonotonicAffineTransform(phi[..., 0], phi[..., 1], slope=slope)
+def _circular_wrap(x, B):
+    """``(x mod 2B) - B``: the circular shift, ladj 0, its own inverse on the
+    circle."""
+    return torch.remainder(x, 2 * B) - B
 
 
-def _univ_forward(x, h, F, K, bound, slope, univ):
+def _spline(phi, K, bound, slope):
+    return _PlainRQS(
+        phi[..., :K], phi[..., K : 2 * K], phi[..., 2 * K :], bound=bound, slope=slope)
+
+
+def _sosp_forward(x, phi, PL, bound, slope, ladj=True):
+    """The shifted sum-of-squares polynomial of every feature (counterpart
+    of ``_sosp_forward_F`` :728): ``g(v) = mean_k (1 + p_k(v / B))^2 +
+    slope`` with ``p_k`` of degree ``L`` by Horner's rule, integrated from 0
+    to ``x`` exactly by the ``(L + 1)``-point Gauss-Legendre rule, plus the
+    shift; the log-Jacobian is ``log g(x)``. ``phi (n, F, P (L + 1) + 1)``:
+    coefficient ``(k, l)`` at ``k (L + 1) + l``, the shift last."""
+    P, L1 = PL
+    a = phi[..., : P * L1].reshape(phi.shape[:-1] + (P, L1))
+
+    def g(v):
+        u = (v / bound)[..., None]
+        p = a[..., L1 - 1]
+        for l in range(L1 - 2, -1, -1):
+            p = p * u + a[..., l]
+        return torch.sum((1 + p) ** 2, dim=-1) / P + slope
+
+    nodes, weights = np.polynomial.legendre.leggauss(L1)
+    quad = 0.0
+    for t, w in zip(nodes.tolist(), weights.tolist()):
+        quad = quad + w * g(x * (0.5 * (t + 1.0)))
+    y = 0.5 * x * quad + phi[..., P * L1]
+    return y, (torch.log(g(x)) if ladj else None)
+
+
+def _decasteljau(theta, u):
+    """The Bezier sum of ``theta (..., N)`` at ``u (...)`` by repeated lerps."""
+    u = u[..., None]
+    while theta.shape[-1] > 1:
+        theta = theta[..., :-1] + u * (theta[..., 1:] - theta[..., :-1])
+    return theta[..., 0]
+
+
+def _bernstein_theta(phi, B):
+    """The ``M + 5`` increasing coefficients of the bounds-pinned Bernstein
+    polynomial from its ``M`` raw ones: ``-B``, two steps of ``d = 2B / (M +
+    4)``, the softmax scaled to ``2B - 4d`` and two steps of ``d``,
+    cumsummed."""
+    M = phi.shape[-1]
+    d = (2 * B) / (M + 4)
+    run = torch.cumsum(torch.softmax(phi, dim=-1), dim=-1)
+    ones = torch.ones_like(phi[..., :1])
+    return torch.cat([
+        -B * ones, (-B + d) * ones, (-B + 2 * d) * ones,
+        (-B + 2 * d) + (2 * B - 4 * d) * run, (B - d) * ones, B * ones,
+    ], dim=-1)
+
+
+def _bernstein_forward(x, phi, B, ladj=True, eps=1e-6):
+    """The bounds-pinned Bernstein polynomial of every feature (counterpart
+    of ``_bernstein_forward_F`` :764) on ``u = (x + B) / 2B``, De Casteljau
+    for the value and for its derivative (of the coefficients' differences
+    times the order); the line of slope 1 through ``(+-B, +-B)`` outside
+    ``[eps, 1 - eps]``, with log-Jacobian 0 there."""
+    theta = _bernstein_theta(phi, B)
+    u = (x + B) / (2 * B)
+    lower, upper = u <= eps, u >= 1 - eps
+    extrap = lower | upper
+    u_safe = torch.where(extrap, 0.5, u)
+    y = _decasteljau(theta, u_safe)
+    y = torch.where(lower, 2 * B * (u - eps) - B, y)
+    y = torch.where(upper, 2 * B * (u - 1 + eps) + B, y)
+    if not ladj:
+        return y, None
+    order = theta.shape[-1] - 1
+    dy = _decasteljau(order * (theta[..., 1:] - theta[..., :-1]), u_safe)
+    return y, torch.where(extrap, 0.0, torch.log(dy) - math.log(2 * B))
+
+
+def _univ_forward(x, h, F, K, bound, slope, univ, ladj=True):
     """One layer's univariate forward from its hyper outputs ``h (n, F *
     T)``: ``(y (n, F), ladj (n, F))``, the log-Jacobian per element
-    (counterpart of ``_univ_forward_F`` :823). Feature ``f`` of ``y``
-    depends on ``x[:, f]`` and on ``h[:, f * T : (f + 1) * T]`` only."""
-    return _univariate(h, F, K, bound, slope, univ).call_and_ladj(x)
+    (counterpart of ``_univ_forward_F`` :823; without ``ladj`` the
+    polynomials skip it and return ``None``). Feature ``f`` of ``y`` depends
+    on ``x[:, f]`` and on ``h[:, f * T : (f + 1) * T]`` only."""
+    phi = h.reshape(h.shape[0], F, -1)
+    if univ == "rqs":
+        return _spline(phi, K, bound, slope).call_and_ladj(x)
+    if univ == "crqs":
+        return _spline(phi, K, bound, slope).call_and_ladj(_circular_wrap(x, bound))
+    if univ == "sosp":
+        return _sosp_forward(x, phi, K, bound, slope, ladj)
+    if univ == "bernstein":
+        return _bernstein_forward(x, phi, bound, ladj)
+    return MonotonicAffineTransform(phi[..., 0], phi[..., 1], slope=slope).call_and_ladj(x)
 
 
-def _full_math(xc, params, layout, F, K, bound, slope, univ, raw=False):
+def _poly_inverse(y, h, F, K, bound, slope, univ, x0=None):
+    """The polynomials' inverse (counterpart of ``_poly_inverse_F`` :849):
+    bisection on the exact forward, cold on ``[-B, B]`` or (``x0``, a later
+    sweep) warm around the previous root with the full bracket for the rows
+    it does not hold; then Newton steps with the forward's own derivative
+    ``exp(ladj)``, each clipped to ``[-B, B]``; a Bernstein target beyond
+    the ends by the closed form of the linear extension."""
+    def fwd(x, ladj=True):
+        return _univ_forward(x, h, F, K, bound, slope, univ, ladj)
+
+    full_lo, full_hi = torch.full_like(y, -bound), torch.full_like(y, bound)
+    if x0 is None:
+        lo, hi = full_lo, full_hi
+        n_iters = math.ceil(math.log2(2 * bound / _POLY_XTOL))
+    else:
+        lo0 = torch.clamp(x0 - _POLY_WARM_R, -bound, bound)
+        hi0 = torch.clamp(x0 + _POLY_WARM_R, -bound, bound)
+        ok = (fwd(lo0, False)[0] < y) & (y < fwd(hi0, False)[0])
+        lo, hi = torch.where(ok, lo0, full_lo), torch.where(ok, hi0, full_hi)
+        n_iters = math.ceil(math.log2(2 * _POLY_WARM_R / _POLY_XTOL))
+    for _ in range(n_iters):
+        mid = 0.5 * (lo + hi)
+        right = fwd(mid, False)[0] < y
+        lo, hi = torch.where(right, mid, lo), torch.where(right, hi, mid)
+    x = 0.5 * (lo + hi)
+    for _ in range(_POLY_NEWTON):
+        fv, ladj = fwd(x)
+        x = torch.clamp(x - (fv - y) * torch.exp(-ladj), -bound, bound)
+    if univ == "bernstein":
+        f_hi, ladj_hi = fwd(full_hi)
+        f_lo, ladj_lo = fwd(full_lo)
+        x = torch.where(y > f_hi, bound + (y - f_hi) * torch.exp(-ladj_hi), x)
+        x = torch.where(y < f_lo, -bound + (y - f_lo) * torch.exp(-ladj_lo), x)
+    return x
+
+
+def _univ_inverse(y, h, F, K, bound, slope, univ, x0=None):
+    """One layer's univariate inverse at fixed hyper outputs (counterpart of
+    ``_univ_inverse_F`` :910); ``x0`` warm-starts a polynomial's solve."""
+    if univ in ("sosp", "bernstein"):
+        return _poly_inverse(y, h, F, K, bound, slope, univ, x0)
+    phi = h.reshape(h.shape[0], F, -1)
+    if univ == "rqs":
+        return _spline(phi, K, bound, slope).inverse(y)
+    if univ == "crqs":
+        return _circular_wrap(_spline(phi, K, bound, slope).inverse(y), bound)
+    return MonotonicAffineTransform(phi[..., 0], phi[..., 1], slope=slope).inverse(y)
+
+
+def _softclip(x, B):
+    """``(x / (1 + |x / B|), -2 log1p(|x / B|))`` per element."""
+    q = (x / B).abs()
+    return x / (1 + q), -2 * torch.log1p(q)
+
+
+def _base_log_prob(z, base):
+    """The base's log-density of rows ``z (n, F)`` (counterpart of
+    ``_base_log_prob_T`` :1246): standard normal, or the constant box, ``-F
+    log(hi - lo)`` inside (bounds included) and ``-inf`` outside."""
+    F = z.shape[1]
+    if base[0] == "normal":
+        return -0.5 * torch.sum(z**2, dim=1) - 0.5 * F * math.log(2 * math.pi)
+    _, lo, hi = base
+    inside = ((z >= lo) & (z <= hi)).all(dim=1)
+    return torch.full_like(z[:, 0], -F * math.log(hi - lo)).masked_fill(~inside, -math.inf)
+
+
+def _full_math(xc, params, layout, F, K, bound, slope, univ, base=_NORMAL, raw=False):
     """Plain version of the density kernel (counterpart of ``_full_math_T``
     :1268): ``xc (n, F + C) -> log_prob (n,)``. With ``raw`` it is the plain
     version of the apply kernel instead: ``(y (n, F), sum_ladj (n,))``, the
     transformed points and the bare sum of log-Jacobians, no base term."""
     x, c = xc[:, :F], xc[:, F:]
     acc = 0.0
-    for ps, _ in _split_layers(params, layout):
-        h = _hyper(torch.cat([x, c], dim=1), ps)
-        x, ladj = _univ_forward(x, h, F, K, bound, slope, univ)
+    for stage in _stages(params, layout):
+        if stage[0] == "softclip":
+            x, ladj = _softclip(x, stage[1])
+        else:
+            h = _hyper(torch.cat([x, c], dim=1), stage[0])
+            x, ladj = _univ_forward(x, h, F, K, bound, slope, univ)
         acc = acc + ladj
     if raw:
         return x, torch.sum(acc, dim=1)
-    return torch.sum(acc - 0.5 * x**2, dim=1) - 0.5 * F * math.log(2 * math.pi)
+    if base[0] == "normal":
+        return torch.sum(acc - 0.5 * x**2, dim=1) - 0.5 * F * math.log(2 * math.pi)
+    return torch.sum(acc, dim=1) + _base_log_prob(x, base)
 
 
-def _sample_math(zc, params, layout, F, K, bound, slope, univ,
+def _sample_math(zc, params, layout, F, K, bound, slope, univ, base=_NORMAL,
                  want_log_prob=False):
     """Plain version of the sampling kernel (counterpart of
     ``_sample_math_T`` :1348): ``zc (n, F + C)`` base draws (+ context) ->
     ``x (n, F)``, and ``log q (n,) = base(z) + sum of forward ladjs`` with
     ``want_log_prob``; with ``want_log_prob="raw"`` the sum starts at zero
-    instead of ``base(z)``: the bare sum of forward ladjs at ``x``. Layers
-    run in reverse, each with ``min(passes, F)`` Jacobi sweeps: every sweep
-    evaluates the hyper-net on the whole current iterate, then inverts every
-    feature."""
+    instead of ``base(z)``: the bare sum of forward ladjs at ``x``. Stages
+    run in reverse: a softclip inverts in closed form; an AR layer by
+    ``min(passes, F)`` Jacobi sweeps, every sweep evaluating the hyper-net
+    on the whole current iterate, then inverting every feature (a
+    polynomial's later sweeps warm-started at the previous iterate)."""
     y, c = zc[:, :F], zc[:, F:]
     if want_log_prob == "raw":
         acc = torch.zeros_like(y[:, 0])
     elif want_log_prob:
-        acc = -0.5 * torch.sum(y**2, dim=1) - 0.5 * F * math.log(2 * math.pi)
-    for ps, passes in reversed(_split_layers(params, layout)):
+        acc = _base_log_prob(y, base)
+    poly = univ in ("sosp", "bernstein")
+    for stage in reversed(_stages(params, layout)):
+        if stage[0] == "softclip":
+            x = y / (1 - (y / stage[1]).abs())
+            if want_log_prob:
+                acc = acc + _softclip(x, stage[1])[1].sum(dim=1)
+            y = x
+            continue
+        ps, passes = stage
         x = torch.zeros_like(y)
-        for _ in range(min(passes, F)):
+        for sweep in range(min(passes, F)):
             h = _hyper(torch.cat([x, c], dim=1), ps)
-            x = _univariate(h, F, K, bound, slope, univ).inverse(y)
+            x = _univ_inverse(y, h, F, K, bound, slope, univ, x if poly and sweep else None)
         if want_log_prob:
             h = _hyper(torch.cat([x, c], dim=1), ps)
             _, ladj = _univ_forward(x, h, F, K, bound, slope, univ)
@@ -346,24 +640,50 @@ def _sample_math(zc, params, layout, F, K, bound, slope, univ,
 # ---------------------------------------------------------- CUDA launches
 
 
+def _knot_slots(univ, K):
+    """Floats of each of a row's three knot columns in the wide tier: the
+    spline's ``K + 1`` knots (xs, ys, ds), or the Bernstein coefficients,
+    their differences and a De Casteljau scratch of ``M + 5``; none for the
+    sum-of-squares polynomial (the ``Row`` fields of ``csrc/nsf_fused.cu``)."""
+    if univ == "bernstein":
+        return K + 5
+    if univ == "sosp":
+        return 0
+    return K + 1
+
+
+def _fits_arrays(univ, K):
+    """Whether one feature's parameters and solver state fit the narrow
+    tier's per-thread arrays."""
+    T = _univ_size(univ, K)
+    if univ in ("rqs", "crqs"):
+        return K <= _MAX_BINS
+    if univ == "sosp":
+        return T <= _MAX_T and K[1] <= _MAX_NODES
+    if univ == "bernstein":
+        return T <= _MAX_T and K + 5 <= _MAX_THETA
+    return True
+
+
 def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN):
     """The tier of the NSF kernels for a flow of this shape (what the
     wrappers launch, from the shapes alone): the narrow tier within its
     limits, one layer's weights in ``smem_limit`` bytes of shared memory;
     else the wide tier with a workspace of ``F + C + F + 2 max(widths) + T +
-    3 (K + 1)`` floats a row (the fields of ``Row`` in
-    ``csrc/nsf_fused.cu``) and a descriptor buffer of the widths and
-    passes."""
+    3 k`` floats a row, ``k`` of :func:`_knot_slots` (the fields of ``Row``
+    in ``csrc/nsf_fused.cu``), and a descriptor buffer of the widths, the
+    passes, the softclip bounds and the Gauss-Legendre nodes and weights."""
     n_lin = len(widths) - 1
     F = widths[-1] // _univ_size(univ, K)
     w_max = max(widths[:-1])
     layer_floats = sum(o * (i + 1) for i, o in zip(widths[:-1], widths[1:]))
     if (n_lin <= _MAX_LINEAR and n_ar <= _MAX_LAYERS and w_max <= _MAX_WIDTH
-            and F <= _MAX_WIDTH and (univ != "rqs" or K <= _MAX_BINS)
+            and F <= _MAX_WIDTH and _fits_arrays(univ, K)
             and 4 * layer_floats <= smem_limit):
         return narrow_plan(rows)
-    slots = widths[0] + F + 2 * w_max + _univ_size(univ, K) + 3 * (K + 1)
-    return wide_plan(slots, rows, 4 * (n_lin + 1 + n_ar))
+    slots = widths[0] + F + 2 * w_max + _univ_size(univ, K) + 3 * _knot_slots(univ, K)
+    nodes = K[1] if univ == "sosp" else 0
+    return wide_plan(slots, rows, 4 * (n_lin + 1 + 2 * n_ar + 2 * nodes))
 
 
 def _pack_weights(params, layout, F, C, K, univ):
@@ -386,11 +706,38 @@ def _pack_weights(params, layout, F, C, K, univ):
     return packed, widths, [p for _, p in layers]
 
 
-def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ):
+def _softclip_bounds(layout):
+    """Per AR layer, the bound of the softclip right after it (0 for none),
+    as the kernels take the interleaves."""
+    clips = []
+    for entry in layout:
+        if entry[0] != "softclip":
+            clips.append(0.0)
+        elif not clips or clips[-1]:
+            raise ValueError("the kernels take a softclip only right after an AR layer")
+        else:
+            clips[-1] = entry[1]
+    return clips
+
+
+def _counter(name, univ):
+    """The launch count of kernel mode ``name`` for univariate ``univ``: the
+    three new modes carry their name, ``nsf_sample_<univ>_log_prob`` and
+    ``nsf_sample_<univ>_raw`` after the sampler's own."""
+    if univ in ("affine", "rqs"):
+        return name
+    if name.startswith("nsf_sample_"):
+        return f"nsf_sample_{univ}_{name[len('nsf_sample_'):]}"
+    return f"{name}_{univ}"
+
+
+def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, base):
     """Common launch path of the kernels: check, pack, plan the tier (with
     the card's shared memory), call the C entry point with the input, the
-    output pointers ``outs`` and the packed weights on the current stream,
-    raise on a CUDA error, count (the wide tier under ``<counter>_wide``)."""
+    output pointers ``outs``, the packed weights, the softclip bounds, the
+    base and (for the sum-of-squares polynomial) the Gauss-Legendre nodes
+    and weights on the current stream, raise on a CUDA error, count (the
+    wide tier under ``<counter>_wide``)."""
     from ._build import check_launch, load_library
 
     if xc.dim() != 2 or not xc.is_contiguous():
@@ -398,38 +745,48 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ):
     check_cuda_f32(counter, [xc, *params])
     C = xc.shape[1] - F
     packed, widths, passes = _pack_weights(params, layout, F, C, K, univ)
+    clips = _softclip_bounds(layout)
     lib = load_library("nsf_fused")
     plan = plan_nsf(widths, K, univ, len(passes), xc.shape[0],
                     lib.nsf_max_shared_bytes(xc.device.index))
     work, desc = workspace(plan, xc.device)
+    K1, K2 = K if univ == "sosp" else (K, 0)
+    nodes = np.concatenate(np.polynomial.legendre.leggauss(K2)) if K2 else []
+    box = base[0] == "box"
+    lo, hi = base[1:] if box else (0.0, 0.0)
     c_widths = (ctypes.c_int * len(widths))(*widths)
     c_passes = (ctypes.c_int * len(passes))(*passes)
+    c_clips = (ctypes.c_float * len(clips))(*clips)
+    c_nodes = (ctypes.c_float * max(1, len(nodes)))(*nodes)
     with torch.cuda.device(xc.device):
         rc = getattr(lib, fn)(
             xc.data_ptr(), *outs, packed.data_ptr(),
-            ctypes.addressof(c_widths), ctypes.addressof(c_passes),
-            len(widths) - 1, len(passes), F, C, K, _UNIV_CODE[univ],
-            bound, math.log(slope), xc.shape[0], int(plan.wide),
+            ctypes.addressof(c_widths), ctypes.addressof(c_passes), ctypes.addressof(c_clips),
+            len(widths) - 1, len(passes), F, C, K1, K2, _UNIV_CODE[univ],
+            bound, math.log(slope), slope, ctypes.addressof(c_nodes),
+            int(box), lo, hi, math.log(hi - lo) if box else 0.0,
+            xc.shape[0], int(plan.wide),
             None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
             plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
+    counter = _counter(counter, univ)
     check_launch(counter, lib, "nsf_fused", rc)
     LAUNCHES[counter + ("_wide" if plan.wide else "")] += 1
 
 
-def _density_kernel(xc, params, layout, F, K, bound, slope, univ):
+def _density_kernel(xc, params, layout, F, K, bound, slope, univ, base=_NORMAL):
     out = torch.empty(xc.shape[0], device=xc.device, dtype=torch.float32)
     _launch("nsf_density_f32", "nsf_density", xc, [out.data_ptr()],
-            params, layout, F, K, bound, slope, univ)
+            params, layout, F, K, bound, slope, univ, base)
     return out
 
 
-def _apply_kernel(xc, params, layout, F, K, bound, slope, univ):
+def _apply_kernel(xc, params, layout, F, K, bound, slope, univ, base=_NORMAL):
     y = torch.empty(xc.shape[0], F, device=xc.device, dtype=torch.float32)
     ladj = torch.empty(xc.shape[0], device=xc.device, dtype=torch.float32)
     _launch("nsf_apply_f32", "nsf_apply", xc, [y.data_ptr(), ladj.data_ptr()],
-            params, layout, F, K, bound, slope, univ)
+            params, layout, F, K, bound, slope, univ, base)
     return y, ladj
 
 
@@ -479,26 +836,26 @@ class _ApplyFunction(torch.autograd.Function):
         return _plain_backward(ctx, (gy, gl), raw=True)
 
 
-def nsf_density(xc, params, layout, F, K, bound, slope, univ):
+def nsf_density(xc, params, layout, F, K, bound, slope, univ, base=_NORMAL):
     r"""Whole-flow log-density ``xc (n, F + C) -> (n,)``: the ``nsf_density``
     kernel for a CUDA tensor (differentiable through its
     ``autograd.Function``), the plain version for a CPU tensor."""
     if not xc.is_cuda:
-        return _full_math(xc, params, layout, F, K, bound, slope, univ)
+        return _full_math(xc, params, layout, F, K, bound, slope, univ, base)
     return _DensityFunction.apply(
-        xc.contiguous(), (layout, F, K, bound, slope, univ), *params
+        xc.contiguous(), (layout, F, K, bound, slope, univ, base), *params
     )
 
 
-def nsf_apply(xc, params, layout, F, K, bound, slope, univ):
+def nsf_apply(xc, params, layout, F, K, bound, slope, univ, base=_NORMAL):
     r"""Whole-flow forward map ``xc (n, F + C) -> (T(x) (n, F), sum_ladj
     (n,))``, no base term: the ``nsf_apply`` kernel for a CUDA tensor
     (differentiable through its ``autograd.Function``), the plain version
     for a CPU tensor."""
     if not xc.is_cuda:
-        return _full_math(xc, params, layout, F, K, bound, slope, univ, raw=True)
+        return _full_math(xc, params, layout, F, K, bound, slope, univ, base, raw=True)
     return _ApplyFunction.apply(
-        xc.contiguous(), (layout, F, K, bound, slope, univ), *params
+        xc.contiguous(), (layout, F, K, bound, slope, univ, base), *params
     )
 
 
@@ -510,7 +867,8 @@ _SAMPLE_MODES = {
 }
 
 
-def nsf_sample(zc, params, layout, F, K, bound, slope, univ, want_log_prob=False):
+def nsf_sample(zc, params, layout, F, K, bound, slope, univ, base=_NORMAL,
+               want_log_prob=False):
     r"""Whole-flow inversion ``zc (n, F + C) -> x (n, F)``, and with
     ``want_log_prob`` also ``log q (n,)`` or (``"raw"``) the bare sum of the
     forward log-Jacobians at ``x``: the ``nsf_sample`` kernel for a CUDA
@@ -518,7 +876,7 @@ def nsf_sample(zc, params, layout, F, K, bound, slope, univ, want_log_prob=False
     differentiable form is :mod:`zuko_tpu_torch.ops.ift`."""
     if not zc.is_cuda:
         with torch.no_grad():
-            return _sample_math(zc, params, layout, F, K, bound, slope, univ,
+            return _sample_math(zc, params, layout, F, K, bound, slope, univ, base,
                                 want_log_prob)
     fn, counter = _SAMPLE_MODES[want_log_prob]
     zc = zc.contiguous()
@@ -527,7 +885,7 @@ def nsf_sample(zc, params, layout, F, K, bound, slope, univ, want_log_prob=False
         if want_log_prob else None
     _launch(
         fn, counter, zc, [x.data_ptr(), None if lq is None else lq.data_ptr()],
-        params, layout, F, K, bound, slope, univ,
+        params, layout, F, K, bound, slope, univ, base,
     )
     return (x, lq) if want_log_prob else x
 
@@ -536,7 +894,9 @@ def nsf_sample(zc, params, layout, F, K, bound, slope, univ, want_log_prob=False
 
 
 def _statics(cfg, F):
-    return F, cfg["bins"], cfg["bound"], cfg["slope"], cfg["univ"]
+    """The wrappers' arguments after ``layout``: ``(F, K, bound, slope, univ,
+    base)``."""
+    return F, cfg["bins"], cfg["bound"], cfg["slope"], cfg["univ"], cfg["base"]
 
 
 def _with_context(x, c):
@@ -582,25 +942,30 @@ def fused_nsf_sample(flat, sample_shape=(), c=None, generator=None,
     _flatten_flow(flow)``. The standard-normal base draws come from
     ``torch.randn(..., generator=generator)``, so a caller can hand the
     same draws to the plain version."""
-    shape, zc = _base_draws(flat, sample_shape, c, generator)
+    shape, zc = _base_draws(flat, sample_shape, c, generator, flat[2]["base"])
     params, layout, cfg = flat
-    out = nsf_sample(zc, params, layout, *_statics(cfg, shape[-1]), want_log_prob)
+    out = nsf_sample(zc, params, layout, *_statics(cfg, shape[-1]), want_log_prob=want_log_prob)
     if want_log_prob:
         x, lq = out
         return x.reshape(shape), lq.reshape(shape[:-1])
     return out.reshape(shape)
 
 
-def _base_draws(flat, sample_shape, c, generator):
+def _base_draws(flat, sample_shape, c, generator, base=_NORMAL):
     """The sampling preamble (counterpart of ``_prep_sample`` :1503):
     ``(shape, zc)`` with ``shape = sample_shape + batch + (F,)`` and ``zc
-    (n, F + C)`` the standard-normal draws beside the broadcast context."""
+    (n, F + C)`` the base draws beside the broadcast context: standard
+    normal, or ``lo + (hi - lo) U`` for a box (``_prep_sample`` :1527)."""
     W0 = flat[0][0]
     C = 0 if c is None else c.shape[-1]
     F = W0.shape[1] - C
     cbatch = () if c is None else tuple(c.shape[:-1])
     shape = tuple(sample_shape) + cbatch + (F,)
-    z = torch.randn(shape, generator=generator, device=W0.device, dtype=W0.dtype)
+    if base[0] == "box":
+        u = torch.rand(shape, generator=generator, device=W0.device, dtype=W0.dtype)
+        z = base[1] + (base[2] - base[1]) * u
+    else:
+        z = torch.randn(shape, generator=generator, device=W0.device, dtype=W0.dtype)
     zc = z.reshape(-1, F)
     if c is not None:
         cf = c.to(z.dtype).expand(tuple(sample_shape) + cbatch + (C,))

@@ -2,11 +2,14 @@ r"""Bijective transformations with fused log-Jacobians.
 
 Counterpart of ``zuko_tpu/transforms.py``: :class:`Transform` :95,
 :class:`ComposedTransform` :197, :class:`DependentTransform` :284,
-:class:`SoftclipTransform` :505, :class:`MonotonicAffineTransform` :584,
+:class:`SoftclipTransform` :505, :class:`CircularShiftTransform` :529,
+:class:`MonotonicAffineTransform` :584,
 :class:`MonotonicRQSTransform` :612,
 :class:`AdditiveTransform` :563, :class:`MonotonicTransform` :724,
+:class:`BernsteinTransform` :793, :class:`BoundedBernsteinTransform` :882,
 :class:`GaussianizationTransform` :910,
 :class:`UnconstrainedMonotonicTransform` :966,
+:class:`SOSPolynomialTransform` :1005,
 :class:`AutoregressiveTransform` :1033, :class:`FreeFormJacobianTransform`
 :1131 and :class:`RotationTransform` :1292.
 Transforms are plain objects built per call by the lazy modules; they hold
@@ -31,6 +34,9 @@ from .utils import _empty_phi, gauss_legendre, newton_bisection, odeint
 __all__ = [
     "AdditiveTransform",
     "AutoregressiveTransform",
+    "BernsteinTransform",
+    "BoundedBernsteinTransform",
+    "CircularShiftTransform",
     "ComposedTransform",
     "DependentTransform",
     "FreeFormJacobianTransform",
@@ -40,6 +46,7 @@ __all__ = [
     "MonotonicRQSTransform",
     "MonotonicTransform",
     "RotationTransform",
+    "SOSPolynomialTransform",
     "SoftclipTransform",
     "Transform",
     "UnconstrainedMonotonicTransform",
@@ -234,6 +241,26 @@ class SoftclipTransform(Transform):
         return x, -self._ladj(x)
 
 
+class CircularShiftTransform(Transform):
+    r""":math:`f(x) = (x \bmod 2B) - B`, a circular shift of :math:`[-B, B)`
+    by :math:`B`, its own inverse on the circle (reference:
+    zuko/transforms.py:319-351). The log-Jacobian is zero."""
+
+    def __init__(self, bound: float = 1.0):
+        self.bound = float(bound)
+
+    def forward(self, x):
+        return torch.remainder(x, 2 * self.bound) - self.bound
+
+    inverse = forward
+
+    def call_and_ladj(self, x):
+        return self.forward(x), torch.zeros_like(x)
+
+    def inverse_and_ladj(self, y):
+        return self.inverse(y), torch.zeros_like(y)
+
+
 class AdditiveTransform(Transform):
     r""":math:`f(x) = x + b`, the NICE coupling law (reference:
     zuko/transforms.py:381-409); UMNN adds its per-feature constant with it."""
@@ -423,6 +450,103 @@ class MonotonicTransform(Transform):
         return x, -ladj
 
 
+class BernsteinTransform(MonotonicTransform):
+    r"""Monotonic Bernstein polynomial transformation (reference:
+    zuko/transforms.py:640-777), the ingredient of BPF.
+
+    The raw coefficients are made increasing by softplus and cumsum, with the
+    end differences repeated so that the bounds are smooth. The polynomial is
+    the Bezier sum :math:`\sum_i \theta_i b_{i, M}(u)` on :math:`u = (x + B)
+    / 2B`, evaluated by De Casteljau's repeated lerps; outside :math:`[\epsilon,
+    1 - \epsilon]` it extends linearly with matching offset and slope, and the
+    inverse is that line's closed form there. The coefficients are the
+    ``phi`` of the inverse's implicit-function backward.
+
+    Arguments:
+        theta: unconstrained coefficients, shape ``(*, M - 2)``.
+        bound: the domain bound :math:`B`.
+    """
+
+    def __init__(self, theta, bound: float = 5.0, eps: float = 1e-6):
+        super().__init__(None, bound=bound, eps=eps)
+        self.theta = self._constrain_theta(theta)
+        self._setup_extrapolation()
+        self.phi = (self.theta, *self.offset, *self.slope)
+
+    @property
+    def order(self) -> int:
+        return self.theta.shape[-1] - 1
+
+    def _constrain_theta(self, utheta):
+        # reference: zuko/transforms.py:703-727
+        shift = math.log(2.0) * utheta.shape[-1] / 2
+        rest = utheta[..., 1:]
+        rest = torch.cat([rest[..., :1], rest, rest[..., -1:]], dim=-1)
+        diffs = torch.cat([utheta[..., :1], F.softplus(rest)], dim=-1)
+        return torch.cumsum(diffs, dim=-1) - shift
+
+    @staticmethod
+    def _poly(u, theta):
+        """De Casteljau: the Bezier sum of ``theta`` at ``u``."""
+        u = u[..., None]
+        while theta.shape[-1] > 1:
+            theta = theta[..., :-1] + u * (theta[..., 1:] - theta[..., :-1])
+        return theta[..., 0]
+
+    def _setup_extrapolation(self):
+        dtheta = self.order * (self.theta[..., 1:] - self.theta[..., :-1])
+        lo = torch.full(self.theta.shape[:-1], self.eps, dtype=self.theta.dtype,
+                        device=self.theta.device)
+        self.offset = (self._poly(lo, self.theta), self._poly(1 - lo, self.theta))
+        self.slope = (self._poly(lo, dtheta), self._poly(1 - lo, dtheta))
+
+    def f(self, x):
+        u = (x + self.bound) / (2 * self.bound)
+        lower, upper = u <= self.eps, u >= 1 - self.eps
+        y = self._poly(torch.where(lower | upper, 0.5, u), self.theta)
+        y = torch.where(lower, self.slope[0] * (u - self.eps) + self.offset[0], y)
+        return torch.where(upper, self.slope[1] * (u - 1 + self.eps) + self.offset[1], y)
+
+    def inverse(self, y):
+        # the closed form in the extrapolated regions (zuko/transforms.py:762-777)
+        x = super().inverse(y)
+        B, eps = self.bound, self.eps
+        x0 = ((y - self.offset[0]) / self.slope[0] + eps) * 2 * B - B
+        x1 = ((y - self.offset[1]) / self.slope[1] - eps + 1) * 2 * B - B
+        x = torch.where(y <= self.offset[0], x0, x)
+        return torch.where(y >= self.offset[1], x1, x)
+
+
+class BoundedBernsteinTransform(BernsteinTransform):
+    r"""Bernstein polynomial pinned to :math:`[-B, B] \to [-B, B]`, with slope
+    1 and no curvature at the bounds, so that layers chain (reference:
+    zuko/transforms.py:780-831), the univariate of BPF: the coefficients are
+    :math:`-B`, two steps of :math:`d = 2B / (M + 4)`, the softmax of the raw
+    ones scaled to fill :math:`2B - 4d`, and two steps of :math:`d` again,
+    cumsummed; outside the bounds it is the identity's line.
+
+    Arguments:
+        theta: unconstrained coefficients, shape ``(*, M - 5)``.
+    """
+
+    def _constrain_theta(self, utheta):
+        # reference: zuko/transforms.py:797-818
+        d = (2 * self.bound) / (utheta.shape[-1] + 4)
+        diffs = torch.softmax(utheta, dim=-1) * (2 * self.bound - 4 * d)
+        ones = torch.ones_like(utheta[..., :1])
+        diffs = torch.cat([-self.bound * ones, d * ones, d * ones, diffs, d * ones, d * ones],
+                          dim=-1)
+        return torch.cumsum(diffs, dim=-1)
+
+    def _setup_extrapolation(self):
+        # fixed offsets and slopes (reference: zuko/transforms.py:820-831)
+        def const(v):
+            return torch.tensor(v, dtype=self.theta.dtype, device=self.theta.device)
+
+        self.offset = (const(-self.bound), const(self.bound))
+        self.slope = (const(2 * self.bound), const(2 * self.bound))
+
+
 class GaussianizationTransform(MonotonicTransform):
     r"""Gaussianization: :math:`f(x) = \Phi^{-1}(\frac{1}{K}\sum_i
     \Phi(\exp(a_i) x + b_i))` (reference: zuko/transforms.py:834-875), the
@@ -490,6 +614,31 @@ class UnconstrainedMonotonicTransform(MonotonicTransform):
     def inverse_and_ladj(self, y):
         x = self.inverse(y)
         return x, -torch.log(self.g(x))
+
+
+class SOSPolynomialTransform(UnconstrainedMonotonicTransform):
+    r"""Sum-of-squares polynomial transformation (reference:
+    zuko/transforms.py:927-963), the univariate of SOSPF: the integrand is
+    the mean of :math:`K` squared polynomials of degree :math:`L` in
+    :math:`x / B`, plus the minimum slope, integrated exactly by the
+    :math:`(L + 1)`-point Gauss-Legendre rule.
+
+    Arguments:
+        a: polynomial coefficients, shape ``(*, K, L + 1)``.
+        slope: minimum slope.
+    """
+
+    def __init__(self, a, slope: float = 1e-3, **kwargs):
+        super().__init__(None, n=a.shape[-1], phi=(a,), **kwargs)
+        self.a = a
+        self.slope = float(slope)
+
+    def g(self, x):
+        u = (x / self.bound)[..., None]
+        p = self.a[..., -1]  # Horner's rule over the degrees
+        for l in range(self.a.shape[-1] - 2, -1, -1):
+            p = p * u + self.a[..., l]
+        return torch.mean((1 + p) ** 2, dim=-1) + self.slope
 
 
 class RotationTransform(Transform):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-r"""Time the flagship NSF kernels of two checkouts on one GPU, in turns.
+r"""Time the kernels of two checkouts on one GPU, in turns.
 
 Run from the root of a checkout, with the parent's checkout (``git archive``
 unpacked into a directory ``.gitignore`` lists) as the argument::
@@ -7,12 +7,23 @@ unpacked into a directory ``.gitignore`` lists) as the argument::
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR]
 
 It builds the kernels of each tree with that tree's own ``ops/_build.py``
-(both trees at once) into that tree's ``build/``, then times the flagship NSF's
-``nsf_density`` and ``nsf_sample`` (without log q, with it, raw) at 1M and
-262,144 rows in a process of its own for each tree, in the order parent,
-change, change, parent: the median of 5 CUDA-event timings after a warm-up
-(``chip_smoke.time_ms``), one JSON line a process. ``CHANGE_DIR`` defaults to this checkout. Two trees
-are compared only within one call, on one card.
+(both trees at once) into that tree's ``build/``, then, in a process of its
+own for each tree, in the order parent, change, change, parent, times with
+``chip_smoke.time_ms`` (the median after a warm-up), one JSON line a
+process:
+
+* the flagship NSF's ``nsf_density`` and ``nsf_sample`` (without log q, with
+  it, raw) at 1M and 262,144 rows, 5 runs;
+* ``masked_linear`` at the flagship MADE's three layer shapes at 262,144
+  rows: 21 runs of 20 queued calls (``ml_...``) and 21 runs of one call
+  (``ml_..._single``);
+* the flagship UNAF's ``naf_sample`` without and with log q at 65,536 and
+  16,384 rows, and its ``naf_density`` at 262,144, 3 runs;
+* the flagship NAF's ``naf_sample`` without and with log q at 65,536 rows,
+  3 runs.
+
+``CHANGE_DIR`` defaults to this checkout. Two trees are compared only within
+one call, on one card.
 """
 
 import json
@@ -35,7 +46,7 @@ def build(trees):
 
 
 def time_tree(tree):
-    """One JSON line: the tree's NSF kernel times (ms)."""
+    """One JSON line: the tree's kernel times (ms)."""
     import torch
 
     from chip_smoke import time_ms  # this checkout's, before the tree joins the path
@@ -44,28 +55,52 @@ def time_tree(tree):
 
     import zuko_tpu_torch as zt
 
-    from zuko_tpu_torch.ops import _build, nsf_fused
+    from zuko_tpu_torch.ops import _build, masked_linear, naf_fused, nsf_fused
 
     assert Path(_build.__file__).resolve().is_relative_to(tree), _build.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    flow = zt.load_params(zt.NSF(6, 0, transforms=3, device=dev),
-                          tree / "zuko_tpu_torch" / "assets" / "nsf_flagship.npz")
+    assets = tree / "zuko_tpu_torch" / "assets"
+    flow = zt.load_params(zt.NSF(6, 0, transforms=3, device=dev), assets / "nsf_flagship.npz")
     params, layout, cfg = nsf_fused._flatten_flow(flow)
     st = nsf_fused._statics(cfg, 6)
     ps = [p.detach() for p in params]
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"tree": str(tree)}
-    for rows in (1 << 20, 1 << 18):
-        x = torch.randn(rows, 6, generator=gen, device=dev)
-        for name, mode in (("density", None), ("sample", False), ("sample_log_prob", True),
-                           ("sample_raw", "raw")):
-            def fn():
-                if mode is None:
-                    return nsf_fused.nsf_density(x, ps, layout, *st)
-                return nsf_fused.nsf_sample(x, ps, layout, *st, want_log_prob=mode)
+    with torch.no_grad():
+        for rows in (1 << 20, 1 << 18):
+            x = torch.randn(rows, 6, generator=gen, device=dev)
+            for name, mode in (("density", None), ("sample", False), ("sample_log_prob", True),
+                               ("sample_raw", "raw")):
+                def fn():
+                    if mode is None:
+                        return nsf_fused.nsf_density(x, ps, layout, *st)
+                    return nsf_fused.nsf_sample(x, ps, layout, *st, want_log_prob=mode)
 
-            out[f"{name}@{rows}"] = round(time_ms(fn, 5)[0], 3)
+                out[f"{name}@{rows}"] = round(time_ms(fn, 5)[0], 3)
+        lins = [m for m in flow.transform.transforms[0].hyper.modules()
+                if type(m).__name__ == "MaskedLinear"]
+        for lin in lins:
+            W, M, b = lin.weight.detach(), lin.mask, lin.bias.detach()
+            x = torch.randn(1 << 18, W.shape[1], generator=gen, device=dev)
+            key = f"ml_{W.shape[1]}->{W.shape[0]}"
+            out[key] = round(time_ms(lambda: masked_linear.masked_linear(x, W, M, b), 21, 20)[0], 4)
+            out[key + "_single"] = round(
+                time_ms(lambda: masked_linear.masked_linear(x, W, M, b), 21)[0], 4)
+        for label, cls in (("unaf", zt.UNAF), ("naf", zt.NAF)):
+            nflow = zt.load_params(cls(6, 0, transforms=3, signal=16, device=dev),
+                                   assets / f"{label}_flagship.npz")
+            nps, nlayout, F, S = naf_fused._flatten_naf(nflow)
+            nps = [p.detach() for p in nps]
+            for rows in ((1 << 16, 1 << 14) if label == "unaf" else (1 << 16,)):
+                z = torch.randn(rows, 6, generator=gen, device=dev)
+                for name, want in (("sample", False), ("sample_log_prob", True)):
+                    out[f"{label}_{name}@{rows}"] = round(time_ms(
+                        lambda: naf_fused.naf_sample(z, nps, nlayout, F, S, want), 3)[0], 3)
+            if label == "unaf":
+                x = torch.randn(1 << 18, 6, generator=gen, device=dev)
+                out[f"unaf_density@{1 << 18}"] = round(time_ms(
+                    lambda: naf_fused.naf_density(x, nps, nlayout, F, S), 3)[0], 3)
     print(json.dumps(out), flush=True)
 
 

@@ -39,8 +39,11 @@ It checks:
   spline's minimum slope 1e-3 can amplify float32 rounding a thousandfold in
   the inverse); log q also against the density kernel at the returned
   points; the raw-mode solve also by its round trip through the apply
-  kernel; ``masked_linear`` at the flagship's three layer shapes and a
-  ragged one, relative to each output's magnitude sum |x||W| + |b| <= 1e-5;
+  kernel; ``masked_linear`` at the flagship's three layer shapes, a ragged
+  one, a row count that is no multiple of its tile, an x one float past an
+  aligned address and weights past its planned shared memory (chunks of
+  inputs, chunks of outputs), relative to each output's magnitude sum
+  |x||W| + |b| <= 1e-5;
   ``rqs_forward`` / ``rqs_inverse`` at 6M elements, a tenth of them outside
   the spline's domain, and their round trip; and each of them again, under
   the same tolerances, at the 262,144 rows the training steps give it;
@@ -95,9 +98,12 @@ NAF(32), held against ``assets/naf_truth_f64.npz`` and plain float64, then
 (g) MLE and (h) reverse KL through the NAF IFT; K6's and K8's Functions are
 also held at the rows (e) and (g) train on. **The UNAF** (phase 11): the
 same for ``UNAF(6, 0, transforms=3, signal=16)`` of ``assets/unaf_flagship.npz``
-and a conditional UNAF(6, 4), through the UMNN mode of K8 and K9, against
-``assets/unaf_truth_f64.npz`` (its GL-16 and GL-32 columns), then (i) MLE
-and (j) reverse KL. **The repair** (phase 12): configurations past every
+and a conditional UNAF(6, 4), through the UMNN mode of K8 and K9 (the
+sampler's narrow tier is the tiled kernel), against
+``assets/unaf_truth_f64.npz`` (its GL-16 and GL-32 columns) and plain
+float64, also at a ragged row count, and a UNAF of three hidden layers of 128
+(past the tiled sampler's shared memory) through the wide tier, then (i)
+MLE and (j) reverse KL. **The repair** (phase 12): configurations past every
 narrow limit (widths, bins, linears, layers, features, components, stages,
 signal, shared memory) served through the public API by the wide tier of
 K1-K3 and K6-K11 and by K5 at 48 bins, held against plain float64 at their
@@ -151,7 +157,9 @@ ring energy. Phase 12 serves one wide configuration of each mode.
 
 Then it times each kernel, its plain version (float32, on the card), its
 bound and, for ``masked_linear``, the one PyTorch call that computes the
-same function (the GF kernels also with per-row parameters at 1M rows); one
+same function, with their ratio (the per-op kernels as 20 calls queued a
+run, a call alone beside; the GF kernels also with per-row parameters at 1M
+rows); one
 training step of each of (a)-(l) and a served request on the host clock; and
 prints the card's name and power limit, one JSON line ``{"kernels": [...]}``
 (every kernel, mode and tier) and, last, ``{"ok": true, "device": {...}}``.
@@ -179,8 +187,11 @@ ROWS = 1 << 20
 GRAD_ROWS = 1 << 18
 TRAIN_STEPS, UNFUSED_STEPS = 20, 5
 # the per-op kernels take a fraction of a millisecond, and the card's clock
-# is still rising over the first few launches after host work: more runs
+# is still rising over the first few launches after host work: more runs,
+# each of PER_OP_REPS calls queued back to back (one call alone waits on
+# the host's launch latency, 20-40 us); a call alone is timed beside them
 PER_OP_RUNS = 21
+PER_OP_REPS = 20
 # NVIDIA H100 SXM data sheet (700 W): float32 outside the tensor cores, and
 # HBM3. The bound of a kernel is the larger of its operations over the first
 # and its bytes (inputs read once, outputs written once) over the second.
@@ -252,6 +263,9 @@ NAF_SAMPLE_ROWS, NAF_IFT_ROWS, NAF_WIDE_ROWS = 1 << 18, 1 << 16, 1 << 16
 # times K9's a sample row: the density is served at 262,144 rows (and (i)
 # trains on GRAD_ROWS); sampling is served at 65,536 rows and (j) draws 16,384.
 UNAF_DENSITY_ROWS, UNAF_SAMPLE_ROWS, UNAF_IFT_ROWS = 1 << 18, 1 << 16, 1 << 14
+# A UNAF past the tiled sampler's shared memory samples 1,024 rows through
+# the wide tier (one thread a row, its state in device memory).
+UNAF_WIDE_ROWS = 1 << 10
 # The flows past the narrow tiers' limits are served at 65,536 rows (the
 # widest at 16,384); a NAF of 72 features samples 256 rows (72 sweeps of 72
 # solves a layer), one of a signal of 72 and networks of width 160 1,024.
@@ -311,9 +325,11 @@ def check(ok, message):
         raise RuntimeError(f"chip_smoke: {message}")
 
 
-def time_ms(fn, runs):
+def time_ms(fn, runs, reps=1):
     """Per-run device times (CUDA events, each run synchronised) after one
-    warm-up run, and their median."""
+    warm-up run, and their median; with ``reps`` a run is that many calls
+    queued back to back, and its time is over the count (a short kernel's
+    own time, not the host's launch latency)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -321,10 +337,11 @@ def time_ms(fn, runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times), times
 
 
@@ -1063,14 +1080,38 @@ def main():
         xin = [x_big[:rows]] + [torch.randn(rows, 64, generator=gen, device=dev) for _ in "12"]
         return [(name, x, W, M, b) for x, (name, W, M, b) in zip(xin, layer_shapes)]
 
+    def misaligned(rows, in_f):
+        """x of ``rows`` rows that starts one float past an aligned address."""
+        return torch.randn(rows * in_f + 1, generator=gen, device=dev)[1:].view(rows, in_f)
+
+    big_w = torch.randn(64, 2048, generator=gen, device=dev) / 32
+    big_m = (torch.rand(64, 2048, generator=gen, device=dev) < 0.5).float()
+    wide_w = torch.randn(300, 64, generator=gen, device=dev)
+    wide_m = (torch.rand(300, 64, generator=gen, device=dev) < 0.5).float()
     with torch.no_grad():
         cases = [(ROWS, *case) for case in linear_inputs(ROWS)] + [
             # leading batch dimensions, nothing a multiple of a tile, no bias
             (ROWS, "ragged 7x14289x37->91",
              torch.randn(7, 14289, 37, generator=gen, device=dev), ragged_w, ragged_m, None),
-        ] + [(GRAD_ROWS, *case) for case in linear_inputs(GRAD_ROWS)]
+        ] + [(GRAD_ROWS, *case) for case in linear_inputs(GRAD_ROWS)] + [
+            # a row count that is no multiple of a tile, x one float past an
+            # aligned address, weights past the block's planned shared memory
+            (GRAD_ROWS - 37, "64->138 ragged", torch.randn(GRAD_ROWS - 37, 64, generator=gen,
+                                                          device=dev), *layer_shapes[2][1:]),
+            (GRAD_ROWS, "6->64 misaligned", misaligned(GRAD_ROWS, 6), *layer_shapes[0][1:]),
+            (GRAD_ROWS, "64->138 misaligned", misaligned(GRAD_ROWS, 64), *layer_shapes[2][1:]),
+            (4096, "2048->64 in chunks of inputs", misaligned(4096, 2048), big_w, big_m,
+             layer_shapes[1][3]),
+            (4096, "64->300 in chunks of outputs", torch.randn(4096, 64, generator=gen,
+                                                                device=dev), wide_w, wide_m, None),
+        ]
         for rows, name, x, W, M, b in cases:
-            name = f"{name} at {rows} rows"
+            plan = masked_linear.plan_masked_linear(
+                x.numel() // x.shape[-1], W.shape[1], W.shape[0], torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
+            if "chunks" in name:
+                check(not plan.resident, f"masked_linear {name}: the weights fit after all")
+            name = f"{name} at {rows} rows ({plan})"
             k_y = masked_linear.masked_linear(x, W, M, b)
             bias64 = 0.0 if b is None else b.double()
             r_y = x.double() @ (M * W).double().T + bias64
@@ -1357,26 +1398,39 @@ def main():
     report_rows = {"naf_sample": NAF_SAMPLE_ROWS, "naf_sample_log_prob": NAF_SAMPLE_ROWS}
 
     def time_kernel(name, rows, kernel, plain, n_ops, nbytes, library=None, note="", runs=5,
-                    plain_runs=None):
-        """Time one kernel at one shape into ``timed[name, rows, note]``."""
-        k_ms, k_runs = time_ms(kernel, runs)
-        p_ms, p_runs = time_ms(plain, plain_runs or max(3, runs // 2))
-        l_ms = None if library is None else time_ms(library, runs)[0]
+                    plain_runs=None, reps=1):
+        """Time one kernel at one shape into ``timed[name, rows, note]``;
+        with ``reps``, each run is that many calls queued (kernel, plain and
+        library alike), and a call alone is timed beside (``single_ms``,
+        ``library_single_ms``: the host's launch latency included)."""
+        k_ms, k_runs = time_ms(kernel, runs, reps)
+        p_ms, p_runs = time_ms(plain, plain_runs or max(3, runs // 2), reps)
+        l_ms = None if library is None else time_ms(library, runs, reps)[0]
         b_ms, b_by = bound(n_ops, nbytes)
         timed[name, rows, note] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                                    "bound_by": b_by, "library_ms": l_ms}
-        print(f"{' '.join(filter(None, [name, note]))} at {rows} rows: kernel {k_ms:.3f} ms {fmt(k_runs)},"
+        single = ""
+        if reps > 1:
+            timed[name, rows, note]["single_ms"] = time_ms(kernel, runs)[0]
+            single = f" (a call alone {timed[name, rows, note]['single_ms']:.4f} ms"
+            if library is not None:
+                timed[name, rows, note]["library_single_ms"] = time_ms(library, runs)[0]
+                single += f", the library's {timed[name, rows, note]['library_single_ms']:.4f} ms"
+            single += ")"
+        print(f"{' '.join(filter(None, [name, note]))} at {rows} rows: kernel {k_ms:.4f} ms {fmt(k_runs)},"
               f" plain {p_ms:.3f} ms {fmt(p_runs)},"
-              + ("" if l_ms is None else f" library {l_ms:.3f} ms,")
+              + ("" if l_ms is None else f" library {l_ms:.4f} ms (kernel / library"
+                 f" {k_ms / l_ms:.3f}),")
               + f" bound {b_ms:.4f} ms ({b_by}: {n_ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB),"
-              f" {rows / k_ms / 1e3:.2f} M rows/s")
+              f" {rows / k_ms / 1e3:.2f} M rows/s" + single)
 
     with torch.no_grad():
         for rows in (ROWS, GRAD_ROWS):
             for name, work in flow_work(rows).items():
                 time_kernel(name, rows, *work)
         # one hyper-net pass of the unfused step: the three layer shapes
-        linear_total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        linear_total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                        "single_ms": 0.0, "library_single_ms": 0.0}
         for name, x, W, M, b in linear_inputs(GRAD_ROWS):
             out_f, in_f = W.shape
             time_kernel(
@@ -1386,15 +1440,18 @@ def main():
                 GRAD_ROWS * (2 * int(M.sum().item()) + out_f),
                 4 * (GRAD_ROWS * (in_f + out_f) + 2 * W.numel() + out_f),
                 library=lambda: torch.nn.functional.linear(x, M * W, b), note=name,
-                runs=PER_OP_RUNS,
+                runs=PER_OP_RUNS, reps=PER_OP_REPS,
             )
             for key in linear_total:
                 linear_total[key] += timed["masked_linear", GRAD_ROWS, name][key]
         # the bytes bound every shape, so the sum's bound is the bytes' too
-        timed["masked_linear", GRAD_ROWS, ""] = {**linear_total, "bound_by": "bytes"}
+        timed["masked_linear", GRAD_ROWS, ""] = {
+            **linear_total, "bound_by": "bytes",
+            "shapes": {name: timed["masked_linear", GRAD_ROWS, name] for name, *_ in layer_shapes}}
         check(all(timed["masked_linear", GRAD_ROWS, name]["bound_by"] == "bytes"
                   for name, *_ in layer_shapes), "masked_linear: a shape is bound by operations")
-        print(f"masked_linear, the three shapes together: {linear_total}")
+        print(f"masked_linear, the three shapes together: {linear_total}, kernel / library"
+              f" {linear_total['ms'] / linear_total['library_ms']:.3f}")
         # the spline of one layer of the unfused step: rows x F elements
         spline = MonotonicRQSTransform(
             torch.randn(GRAD_ROWS, F, K, generator=gen, device=dev),
@@ -1409,7 +1466,7 @@ def main():
             time_kernel(name, GRAD_ROWS, lambda: fn(x_el, *knots),
                         lambda: rqs._math_nd(x_el, *knots, inverse),
                         m * rqs_ops(K), 4 * m * (1 + 3 * (K + 1) + 2),
-                        note=f"({m} elements)", runs=PER_OP_RUNS)
+                        note=f"({m} elements)", runs=PER_OP_RUNS, reps=PER_OP_REPS)
     timed.update({(name, GRAD_ROWS, ""): timed[name, GRAD_ROWS, f"({m} elements)"]
                   for name in ("rqs_forward", "rqs_inverse")})
     ms = {name: timed[name, ROWS, ""]["ms"] for name in served}
@@ -2057,6 +2114,35 @@ def main():
                  names=UMNN_NAMES)
         hold_naf("conditional UNAF", unaf_cond, x_big[:UNAF_DENSITY_ROWS], uc_big,
                  torch.randn(4096, 6, generator=gen, device=dev), uc_few.repeat(4, 1), names=None)
+        # a row count that is no multiple of the tiled sampler's tile
+        hold_naf("UNAF, ragged", unaf_flagship, ux_big[:4096], None,
+                 torch.randn(UNAF_SAMPLE_ROWS - 37, 6, generator=gen, device=dev), None,
+                 names=None)
+
+    # a UNAF within the narrow limits whose tiled sampler would not fit in
+    # shared memory (three hidden layers of 128: 279 KB at tiles of 64 rows)
+    # samples through the wide tier; its density stays narrow
+    torch.manual_seed(6)
+    unaf_deep = zt.UNAF(6, 0, transforms=3, signal=16, network={"hidden_features": (128,) * 3},
+                        device=dev)
+    dparams, dlayout, _, dS = naf_args(unaf_deep, torch.float32)
+    _, d_made, d_mono = naf_fused._widths(dparams, dlayout, 6, 0, dS)
+    check(naf_fused.plan_naf(d_made, d_mono, 6, 0, dS, len(dlayout), UNAF_WIDE_ROWS,
+                             umnn_sample=True).wide,
+          "the deep UNAF's sampler plans the tiled tier")
+    ops.reset_launches()
+    with torch.no_grad():
+        ddist = unaf_deep(None)
+        d_xs = ddist.sample((UNAF_WIDE_ROWS,), generator=gen)
+        d_xl, d_lq = ddist.sample_and_log_prob((UNAF_WIDE_ROWS,), generator=gen)
+    deep_launches = {name: count for name, count in ops.LAUNCHES.items() if count}
+    print(f"deep UNAF served through the wide tier: launches {deep_launches}")
+    check(deep_launches == {"naf_sample_umnn_wide": 1, "naf_sample_umnn_log_prob_wide": 1},
+          f"deep UNAF launches {deep_launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in (d_xs, d_xl, d_lq)), "deep UNAF: not finite")
+    with torch.no_grad():
+        hold_naf("deep UNAF (wide tier)", unaf_deep, ux_big[:4096], None,
+                 torch.randn(UNAF_WIDE_ROWS, 6, generator=gen, device=dev), None, names=None)
 
     # at the training steps' shapes: K8's UMNN Function at (i)'s rows, K9's
     # UMNN mode with log q and the IFT backward at (j)'s
@@ -2110,10 +2196,17 @@ def main():
             for name in names:
                 time_kernel(name, rows, *work[name], runs=NAF_RUNS)
                 check(timed[name, rows, ""]["bound_by"] == "operations", f"{name}: bound by bytes")
-        r_ms, r_runs = host_ms(lambda: unaf_flagship(None).log_prob(ux_big), NAF_RUNS)
-        print(f"served request naf_density_umnn at {UNAF_DENSITY_ROWS} rows: {r_ms:.3f} ms"
-              f" {fmt(r_runs)}, kernel share"
-              f" {timed['naf_density_umnn', UNAF_DENSITY_ROWS, '']['ms'] / r_ms:.3f}")
+        unaf_requests = {
+            "naf_density_umnn": (UNAF_DENSITY_ROWS, lambda: unaf_flagship(None).log_prob(ux_big)),
+            "naf_sample_umnn": (UNAF_SAMPLE_ROWS, lambda: unaf_flagship(None).sample(
+                (UNAF_SAMPLE_ROWS,), generator=gen)),
+            "naf_sample_umnn_log_prob": (UNAF_SAMPLE_ROWS, lambda: unaf_flagship(
+                None).sample_and_log_prob((UNAF_SAMPLE_ROWS,), generator=gen)),
+        }
+        for name, (rows, request) in unaf_requests.items():
+            r_ms, r_runs = host_ms(request, NAF_RUNS)
+            print(f"served request {name} at {rows} rows: {r_ms:.3f} ms {fmt(r_runs)},"
+                  f" kernel share {timed[name, rows, '']['ms'] / r_ms:.3f}")
     step_labels += (("unaf_mle", "(i) UNAF MLE"), ("unaf_rkl", "(j) UNAF reverse KL, IFT"))
     report_rows.update({"naf_density_umnn": UNAF_DENSITY_ROWS,
                         "naf_sample_umnn": UNAF_SAMPLE_ROWS,

@@ -1,0 +1,201 @@
+r"""Launch plans of the redesigned kernels, held without a GPU: the tiled
+UMNN sampler's tier and tile (``ops/naf_fused.py`` ``plan_naf``,
+``umnn_tile_rows``, ``_umnn_tile_floats``, mirrored in ``csrc/naf_fused.cu``
+``tile_plan``) and the ``masked_linear`` kernel's persistent launch
+(``ops/masked_linear.py`` ``plan_masked_linear``, mirrored in
+``csrc/masked_linear.cu``), and that the wrappers hand those plans to the C
+entry points: a library that records its calls stands in for the built one,
+and the tensors say they lie on the GPU."""
+
+import contextlib
+import types
+
+import pytest
+import torch
+
+import zuko_tpu_torch as zt
+
+from zuko_tpu_torch import ops
+from zuko_tpu_torch.ops import _build, _common, masked_linear, naf_fused
+
+torch.set_num_threads(1)
+
+SHARED = 232448  # a block's shared memory on an H100
+
+
+@pytest.fixture(autouse=True)
+def _leave_torch_globals_as_found():
+    """Other tests of the suite draw from torch's global generator unseeded
+    and set its default dtype: run on float32 defaults, and hand both back
+    as they were."""
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float32)
+    with torch.random.fork_rng(devices=[]):
+        yield
+    torch.set_default_dtype(dtype)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the GPU."""
+
+    is_cuda = property(lambda self: True)
+
+
+def _unaf_shapes(context=0, **kwargs):
+    torch.manual_seed(0)
+    flow = zt.UNAF(6, context, transforms=3, signal=16, device="cpu", **kwargs)
+    params, layout, F, S = naf_fused._flatten_naf(flow)
+    kind, made_w, mono_w = naf_fused._widths(params, layout, F, context, S)
+    assert kind == "umnn"
+    return made_w, mono_w, F, S, len(layout)
+
+
+@pytest.mark.parametrize("context, floats", [(0, 36348), (4, 36604)],
+                         ids=["flagship", "conditional"])
+def test_umnn_sampler_plans_the_tiled_tier(context, floats):
+    """The flagship UNAF and the conditional UNAF(6, 4) sample through the
+    tiled kernel whatever the rows: its shared memory at tiles of 64 rows
+    (MADE 64 x 64, integrand 17-64-64-1: 145 KB for the flagship) is within
+    227 KB. Each array starts on a 16-byte boundary."""
+    made_w, mono_w, F, S, n_stages = _unaf_shapes(context)
+    assert made_w == [6 + context, 64, 64, 102] and mono_w == [17, 64, 64, 1]
+    got = naf_fused._umnn_tile_floats(made_w, mono_w, F, context, S, 64)
+    # xc, a, b, y, sig, pre1, xp, g; act [64][256 + 4]; W2 [64][64] and its
+    # bias; the x column, the last layer, its bias and the GL rules
+    R = 64
+    want = ((F + context) * R + 2 * 64 * R + F * R + 17 * R + 64 * R + 2 * R + 17 * R
+            + 64 * 260 + 64 * 64 + 64 + (64 + 64 + 60))
+    assert got == want == floats and 4 * got <= SHARED
+    for rows in (1, 1 << 14, 1 << 16):
+        plan = naf_fused.plan_naf(made_w, mono_w, F, context, S, n_stages, rows, umnn_sample=True)
+        assert plan == _common.narrow_plan(rows)
+
+
+@pytest.mark.parametrize("kwargs, sample_wide, density_wide", [
+    ({"network": {"hidden_features": (128, 128)}}, False, False),
+    ({"network": {"hidden_features": (128, 128, 128)}}, True, False),
+    ({"hidden_features": (256, 256)}, True, False),
+    ({"network": {"hidden_features": (130, 130)}}, True, True),
+], ids=["two_128", "three_128", "made_256", "past_narrow"])
+def test_umnn_sampler_past_its_shared_memory_plans_the_wide_tier(kwargs, sample_wide,
+                                                                 density_wide):
+    """A UNAF within the narrow limits whose tiled sampler would need more
+    than 227 KB (three hidden layers of 128: 279 KB; MADE widths of 256: 244
+    KB) samples through the wide tier, while its density stays narrow; past
+    the narrow limits (widths of 130) both go wide. Two layers of 128 fit
+    (213 KB: fewer node rows a chunk, 128)."""
+    made_w, mono_w, F, S, n_stages = _unaf_shapes(**kwargs)
+    fits = 4 * naf_fused._umnn_tile_floats(made_w, mono_w, F, 0, S, 64) <= SHARED
+    sample = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16, umnn_sample=True)
+    density = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16)
+    assert (sample.wide, density.wide) == (sample_wide, density_wide)
+    assert fits == (not sample_wide) or density_wide
+    if sample.wide:
+        assert sample.workspace_bytes <= _common.WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("rows, sms, tile", [
+    (1 << 16, 132, 64), (1 << 14, 132, 64), (132 * 64, 132, 64), (131 * 64, 132, 32),
+    (132 * 32, 132, 32), (4096, 132, 16), (37, 132, 16), (1, 1, 64),
+])
+def test_umnn_tile_rows(rows, sms, tile):
+    """Tiles of 64 rows as long as they cover every SM once (the tiled
+    sampler runs one block an SM), else 32, else 16."""
+    assert naf_fused.umnn_tile_rows(rows, sms) == tile
+
+
+@pytest.mark.parametrize("n, in_f, out_f, plan", [
+    # the flagship MADE at 262,144 rows: the split weights resident, two
+    # blocks an SM, two x tiles; one warp across 64 outputs, two across 138
+    ((1 << 18), 6, 64, (8, 1, 128, 6, 264, 16640, True)),
+    ((1 << 18), 64, 64, (8, 1, 128, 64, 264, 102656, True)),
+    ((1 << 18), 64, 138, (9, 2, 64, 64, 264, 109120, True)),
+    ((1 << 18) - 37, 64, 138, (9, 2, 64, 64, 264, 109120, True)),
+    (100, 37, 91, (6, 2, 64, 37, 2, 53632, True)),
+    # resident at one block an SM
+    (1 << 18, 96, 64, (8, 1, 128, 96, 132, 151808, True)),
+    # past the planned shared memory: chunks of inputs, or of 256 outputs
+    (4096, 2048, 64, (8, 1, 128, 104, 32, 108800, False)),
+    (4096, 64, 300, (16, 2, 64, 64, 64, 149504, False)),
+    (1000, 4096, 1000, (16, 2, 64, 48, 16, 112640, False)),
+], ids=["6_64", "64_64", "64_138", "ragged", "odd", "one_block", "wide_in", "wide_out", "both"])
+def test_masked_linear_plan(n, in_f, out_f, plan):
+    """``(nt, wc, rows, kc, blocks, shared bytes, resident)``: two blocks
+    an SM where their shared memory fits (1 KB reserved a block), else one,
+    at most one a tile; past the shared memory, chunks of inputs that are
+    multiples of 8 (the k-steps of mma.sync.m16n8k8); outputs past 256 in
+    chunks."""
+    got = masked_linear.plan_masked_linear(n, in_f, out_f, 132)
+    assert tuple(got) == plan
+    per_sm = 2 if got.shared_bytes <= (233472 - 2048) // 2 else 1
+    assert got.blocks <= per_sm * 132 and got.shared_bytes <= (233472 - per_sm * 1024) // per_sm
+    if got.kc < in_f:
+        assert got.kc % 8 == 0
+
+
+def _recorder(calls):
+    """A stand-in for the built libraries: every entry point records its
+    arguments and returns success."""
+    def entry(name):
+        return lambda *args: calls.append((name, args)) or 0
+    return types.SimpleNamespace(**{name: entry(name) for library in _build._SIGNATURES.values()
+                                    for name in library})
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    calls = []
+    lib = _recorder(calls)
+    monkeypatch.setattr(_build, "load_library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *args: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_common, "_sm_count", lambda index: 132)
+    ops.reset_launches()
+    yield calls
+    ops.reset_launches()
+
+
+@pytest.mark.parametrize("n, in_f, out_f", [(1 << 18, 64, 138), (4096, 2048, 64), (300, 37, 91)])
+def test_masked_linear_hands_its_plan_to_the_kernel(recorded, n, in_f, out_f):
+    """The wrapper launches with the plan's chunk of inputs and blocks (no
+    copy of a contiguous x, whatever its offset), counts one launch, and
+    returns an (n, out_f) tensor."""
+    torch.manual_seed(0)
+    x = torch.randn(n * in_f + 1)[1:].view(n, in_f).as_subclass(_OnCard)
+    W, M, b = (t.as_subclass(_OnCard)
+               for t in (torch.randn(out_f, in_f), torch.ones(out_f, in_f), torch.randn(out_f)))
+    with torch.no_grad():
+        y = masked_linear.masked_linear(x, W, M, b)
+    plan = masked_linear.plan_masked_linear(n, in_f, out_f, 132)
+    [(name, args)] = recorded
+    assert name == "masked_linear_f32"
+    assert args[0] == x.data_ptr() and args[5:8] == (n, in_f, out_f)
+    assert args[8:10] == (plan.kc, plan.blocks)
+    assert y.shape == (n, out_f) and ops.LAUNCHES["masked_linear"] == 1
+
+
+@pytest.mark.parametrize("rows", [1 << 16, 4096])
+def test_naf_sampler_hands_the_tile_to_the_kernel(recorded, rows):
+    """A UNAF's sampler launches its narrow tier (the tiled kernel) with
+    the tile rows of ``umnn_tile_rows``; the density takes no tile argument;
+    the counts stay under their names."""
+    torch.manual_seed(0)
+    flow = zt.UNAF(6, 0, transforms=3, signal=16, device="cpu")
+    params, layout, F, S = naf_fused._flatten_naf(flow)
+    params = [p.detach().as_subclass(_OnCard) for p in params]
+    z = torch.randn(rows, 6).as_subclass(_OnCard)
+    naf_fused.naf_sample(z, params, layout, F, S)
+    naf_fused.naf_sample(z, params, layout, F, S, want_log_prob=True)
+    naf_fused.naf_density(z, params, layout, F, S)
+    names = [name for name, _ in recorded]
+    assert names == ["naf_sample_f32", "naf_sample_f32", "naf_density_f32"]
+    sig = _build._SIGNATURES["naf_fused"]
+    for name, args in recorded:
+        assert len(args) == len(sig[name][0])
+    for _, args in recorded[:2]:
+        assert args[-8] == 0  # the narrow tier
+        assert args[-2] == naf_fused.umnn_tile_rows(rows, 132)
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "naf_sample_umnn": 1, "naf_sample_umnn_log_prob": 1, "naf_density_umnn": 1}

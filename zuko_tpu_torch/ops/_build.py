@@ -41,7 +41,8 @@ _NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_FLOW], _I)
 _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
 # (packed, kinds, passes, bounds, offsets, stages, MADE widths, MADE linears,
 # network widths, network linears, F, C, S, mode, rows, then the tier: wide,
-# workspace, its floats, rows a launch, descriptor buffer, its bytes; stream)
+# workspace, its floats, rows a launch, descriptor buffer, its bytes; stream;
+# the sampler takes the tiled UMNN sampler's tile rows before the stream)
 _NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER, _P]
 # (input, probe, per-row first bias, one or two outputs, weights, widths,
 # linears, frequencies and their count, atol, rtol, trace scale, max_steps,
@@ -68,7 +69,7 @@ _SIGNATURES = {
     },
     "naf_fused": {
         "naf_density_f32": ([_P, _P, *_NAF_FLOW], _I),
-        "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW], _I),
+        "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW[:-1], _I, _P], _I),
     },
     "cnf_fused": {
         "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW], _I),
@@ -76,7 +77,7 @@ _SIGNATURES = {
         "cnf_adjoint_f32": (_CNF_ADJOINT, _I),
     },
     "masked_linear": {
-        "masked_linear_f32": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
+        "masked_linear_f32": ([_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
     },
     "rqs": {
         "rqs_f32": ([_P, _P, _P, _P, _P, _P, _I, _LL, _I, _P], _I),

@@ -3,13 +3,16 @@ the plan of a whole-flow kernel's tier."""
 
 from __future__ import annotations
 
+import functools
+
 from typing import NamedTuple
 
 import torch
 
 __all__ = [
-    "LAUNCHES", "KernelPlan", "NSF_MODES", "PlainBackward", "RowChunkedBackward",
-    "WORKSPACE_BYTES", "check_cuda_f32", "narrow_plan", "reset_launches", "wide_plan", "workspace",
+    "LAUNCHES", "KernelPlan", "NSF_MODES", "PlainBackward", "RowChunkedBackward", "SHARED_BYTES",
+    "WORKSPACE_BYTES", "check_cuda_f32", "narrow_plan", "reset_launches", "sm_count", "wide_plan",
+    "workspace",
 ]
 
 #: The NSF kernels' univariate modes that count under names of their own.
@@ -41,6 +44,19 @@ LAUNCHES = {
 #: bytes (one block of rows more when a row alone is larger).
 WORKSPACE_BYTES = 1 << 30
 _BLOCK = 128  # rows of a block in every whole-flow kernel
+#: The shared memory one block may take on an H100 (227 KB, with
+#: ``cudaFuncSetAttribute`` past 48 KB).
+SHARED_BYTES = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA ``device`` (read once)."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 class KernelPlan(NamedTuple):

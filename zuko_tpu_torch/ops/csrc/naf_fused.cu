@@ -48,19 +48,22 @@
 // address at the same time, one broadcast per warp. The MADE's F * T outputs
 // are never stored together: a feature computes its T values from the last
 // hidden layer when it needs them. Float32 throughout (expf, expm1f, logf,
-// log1pf); no tensor cores, no TF32.
+// log1pf); no tensor cores, no TF32. The UMNN sampler's narrow tier is the
+// tiled kernel below (naf_sample_umnn_tiled), not one thread a row.
 //
 // Two tiers, chosen by the wrapper from the flow's shape alone
 // (zuko_tpu_torch/ops/naf_fused.py plan_naf). The narrow tier (kWide false)
 // keeps a row's state in per-thread arrays (local memory) of fixed size and
 // the flow's description in the kernel parameter (__grid_constant__): up to
 // kMaxF features, a signal of kMaxS, MADE widths of kMaxMade, network widths
-// of kMaxMono, kMaxLinear linears a network, kMaxStages stages. The wide tier
-// takes any shape: a row's state lives in a workspace in device memory, one
-// column of `stride` rows per value (slot), so neighbouring threads touch
-// neighbouring addresses as in local memory; the layer widths and the stages
-// lie in a small device buffer. The wrapper allocates both; the rows run in
-// chunks of `stride`, one launch each, so the workspace stays bounded.
+// of kMaxMono, kMaxLinear linears a network, kMaxStages stages; the tiled
+// UMNN sampler takes the same limits and, besides, a shared-memory plan
+// within 227 KB. The wide tier takes any shape: a row's state lives in a
+// workspace in device memory, one column of `stride` rows per value (slot),
+// so neighbouring threads touch neighbouring addresses as in local memory;
+// the layer widths and the stages lie in a small device buffer. The wrapper
+// allocates both; the rows run in chunks of `stride`, one launch each, so
+// the workspace stays bounded.
 //
 // Each C entry point checks its arguments, launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
@@ -534,6 +537,383 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   if (kLogQ) logq[row] = acc;
 }
 
+// ------------------------------------------------------- the tiled UMNN sampler
+//
+// naf_sample_umnn_tiled is K9's narrow tier in UMNN mode: the same function
+// as naf_sample_kernel<kWide, kUMNN, *> (the same stages in reverse, sweeps,
+// brackets, warm window and its checks, bisections, Newton steps, rules,
+// clamps and kDfFloor), with every sum in the same order. With one thread a
+// row, each multiply-add of the 64 x 64 hidden layer takes a weight and an
+// activation from memory, and the loads bound it; but the nodes of a step,
+// over the rows of a tile, are evaluations of one network: a matrix product.
+// A block of 512 threads owns a tile of R rows (64, or 32 or 16 at few rows,
+// from the wrapper) for the whole inversion:
+// - a row's bracket, iterate and target stay in the registers of thread r
+//   (r < R), which updates them between the steps;
+// - the MADE pass, the T signal values and the hoisted first layer pre1 of
+//   a feature are small tile products from shared memory, laid out [unit][row];
+// - the evaluations of one solver step (R rows x 4 nodes in a bisection, 8
+//   for the warm window's two checks, 8 + 1 in a Newton step, 16 + 1 in the
+//   last; g(x) is one more node) are the rows of an M x H activation matrix
+//   u = elu(w1x x_m + pre1[row]) in shared memory, M <= 256 node rows a
+//   chunk. Each hidden-to-hidden layer is then a register-tiled float32
+//   product: a thread holds a 4 x 8 patch (rows 4 rg .. 4 rg + 3, outputs
+//   cg + j ncg), its operands from shared memory in 16-byte loads (the
+//   feature's weights, staged transposed once per feature and sweep with a
+//   thread's outputs side by side), and writes the ELU back in place; one
+//   thread a node row then takes the last layer's dot and
+//   g = exp(d / (1 + |d / 7|)), and the row's thread the Gauss-Legendre sum.
+// The activations' row stride is M + 4 (M a multiple of 32), so the in-place
+// write-back of a quarter warp's patches falls on distinct banks. 16 warps
+// a block (one block an SM, by its shared memory) keep the SM issuing. Full
+// float32 on the CUDA cores.
+
+constexpr int kTileThreads = 512;
+constexpr int kMaxNodes = 17;   // evaluations a row in one solver step: GL-16 and g(x)
+constexpr int kNodeRows = 256;  // node rows a chunk, at most
+constexpr int kMaxShared = 232448;  // a block's shared memory on an H100 (227 KB)
+
+// A tile's arrays in dynamic shared memory, as float offsets, and its chunk
+// of node rows (tile_plan; mirrored in ops/naf_fused.py _umnn_tile_floats).
+struct Tile {
+  int R, lr;    // rows of a tile (16, 32 or 64) and log2 R
+  int M, Ms;    // node rows a chunk and the activations' row stride, M + 4
+  int xc;       // [F + C][R]: the iterate, then the context
+  int a, b;     // [MADE hidden][R], ping-pong
+  int y;        // [F][R]: the stage's targets
+  int sig;      // [T][R]: a feature's MADE outputs
+  int pre1;     // [H1][R]: its hoisted first layer
+  int xp;       // [2][R]: the step's evaluation points
+  int g;        // [kMaxNodes][R]: the step's integrand values, node-major
+  int act;      // [H][Ms]: node activations
+  int wt;       // per middle layer [din][dout rounded to 8] and its bias
+  int misc;     // the x column, the last layer and its bias, the GL rules
+  int floats;
+};
+
+__host__ __device__ __forceinline__ int round8(int v) { return (v + 7) & ~7; }
+
+// The MADE's hidden layers on the tile; returns the last hidden
+// activations (or the input, without hidden layers). Ends synchronised.
+__device__ __forceinline__ const float* made_tile(const float* __restrict__ w, const Shape& s,
+                                                  const Tile& tl, const float* xc, float* a,
+                                                  float* b) {
+  const int R = tl.R, lr = tl.lr;
+  const float* cur = xc;
+  float* bufs[2] = {a, b};
+  for (int i = 0; i < s.n_made - 1; ++i) {
+    const int din = s.made_w[i], dout = s.made_w[i + 1];
+    const float* W = w + s.made_off[i];
+    const float* bias = W + dout * din;
+    float* nxt = bufs[i & 1];
+    for (int e = threadIdx.x; e < dout * R; e += kTileThreads) {
+      const int o = e >> lr, r = e & (R - 1);
+      const float* row = W + o * din;
+      float acc = ld(bias + o);
+      for (int j = 0; j < din; ++j) acc = fmaf(ld(row + j), cur[j * R + r], acc);
+      nxt[e] = fmaxf(acc, 0.0f);
+    }
+    __syncthreads();
+    cur = nxt;
+  }
+  return cur;
+}
+
+// Feature f: its T MADE outputs (the signal, then the constant), its
+// network's weights into shared memory (the x column, each middle layer
+// transposed with its bias, the last layer and its bias) and the hoisted
+// first layer pre1[k][r] = b1[k] + W1[k, 1:] s. Ends synchronised.
+__device__ __forceinline__ void hoist_tile(const float* __restrict__ w, const Shape& s,
+                                           const Tile& tl, const float* h, int f, float* sm) {
+  const int R = tl.R, lr = tl.lr, T = s.S + 1;
+  const int H1 = s.mono_w[1], HL = s.mono_w[s.n_mono - 1], in1 = s.mono_w[0];
+  float* sig = sm + tl.sig;
+  float* w1x = sm + tl.misc;
+  float* wl = w1x + H1;
+  __syncthreads();  // the previous feature's solve is done with them
+  {
+    const int din = s.made_w[s.n_made - 1];
+    const float* W = w + s.made_off[s.n_made - 1];
+    const float* bias = W + s.made_w[s.n_made] * din;
+    for (int e = threadIdx.x; e < T * R; e += kTileThreads) {
+      const int o = f * T + (e >> lr), r = e & (R - 1);
+      const float* row = W + o * din;
+      float acc = ld(bias + o);
+      for (int j = 0; j < din; ++j) acc = fmaf(ld(row + j), h[j * R + r], acc);
+      sig[e] = acc;
+    }
+  }
+  const float* W1 = w + s.mono_off[0] + f * H1 * in1;
+  const float* b1 = w + s.mono_off[0] + s.F * H1 * in1 + f * H1;
+  for (int k = threadIdx.x; k < H1; k += kTileThreads) w1x[k] = ld(W1 + k * in1);
+  float* wt = sm + tl.wt;
+  for (int i = 1; i + 1 < s.n_mono; ++i) {
+    const int din = s.mono_w[i], dout = s.mono_w[i + 1], dp = round8(dout);
+    const float* W = w + s.mono_off[i] + f * dout * din;
+    const float* bias = w + s.mono_off[i] + s.F * dout * din + f * dout;
+    // output o = cg + j ncg of a thread's patch at 4 ncg (j / 4) + 4 cg + j % 4,
+    // so its 8 outputs are two 16-byte pieces
+    const int ncg = dp >> 3;
+    for (int e = threadIdx.x; e < dout * din; e += kTileThreads) {
+      const int o = e / din, i = e - o * din, j = o / ncg;
+      wt[i * dp + (j >> 2) * 4 * ncg + 4 * (o - j * ncg) + (j & 3)] = ld(W + e);
+    }
+    for (int o = threadIdx.x; o < dout; o += kTileThreads) wt[din * dp + o] = ld(bias + o);
+    wt += din * dp + dp;
+  }
+  const float* WL = w + s.mono_off[s.n_mono - 1] + f * HL;
+  for (int k = threadIdx.x; k < HL; k += kTileThreads) wl[k] = ld(WL + k);
+  if (threadIdx.x == 0) wl[HL] = ld(w + s.mono_off[s.n_mono - 1] + s.F * HL + f);
+  __syncthreads();
+  float* pre1 = sm + tl.pre1;
+  for (int e = threadIdx.x; e < H1 * R; e += kTileThreads) {
+    const int k = e >> lr, r = e & (R - 1);
+    const float* row = W1 + k * in1 + 1;
+    float acc = ld(b1 + k);
+    for (int t = 0; t < s.S; ++t) acc = fmaf(ld(row + t), sig[t * R + r], acc);
+    pre1[e] = acc;
+  }
+  __syncthreads();
+}
+
+// One hidden-to-hidden layer din -> dout on the chunk's Mc node rows, in
+// place in act: a thread's 4 x 8 patch accumulates from the bias in the
+// order of the inputs, then its ELU replaces the layer's input.
+__device__ __forceinline__ void tile_layer(float* act, int Ms, const float* wt, int din,
+                                           int dout, int Mc) {
+  const int dp = round8(dout), ncg = dp >> 3;
+  const int rg = threadIdx.x / ncg, cg = threadIdx.x - rg * ncg;
+  const bool active = rg * 4 < Mc;
+  float acc[4][8];
+  if (active) {
+    const float* bias = wt + din * dp;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float bv = bias[cg + j * ncg];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = bv;
+    }
+    const float* ap = act + rg * 4;
+    const float* bp = wt + 4 * cg;  // the patch's outputs, permuted by hoist_tile
+#pragma unroll 2
+    for (int k = 0; k < din; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(ap + k * Ms);
+      const float4 b0 = *reinterpret_cast<const float4*>(bp + k * dp);
+      const float4 b1 = *reinterpret_cast<const float4*>(bp + k * dp + 4 * ncg);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  __syncthreads();  // every patch has read the layer's input
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = cg + j * ncg;
+      if (col < dout) {
+        *reinterpret_cast<float4*>(act + col * Ms + rg * 4) =
+            make_float4(elu(acc[0][j]), elu(acc[1][j]), elu(acc[2][j]), elu(acc[3][j]));
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The integrand at every node of a solver step, for every row of the tile:
+// P points xp[p][r], each by the N-point rule (nodes xp * t_k), and with
+// `grad` the point xp[0][r] itself as node P * N. Leaves g[node][r].
+// Ends synchronised.
+__device__ __forceinline__ void tile_nodes(const Shape& s, const Tile& tl, float* sm, int P,
+                                           int N, bool grad) {
+  const int R = tl.R, lr = tl.lr, M = tl.M, Ms = tl.Ms;
+  const int H1 = s.mono_w[1], HL = s.mono_w[s.n_mono - 1];
+  const float* xp = sm + tl.xp;
+  const float* pre1 = sm + tl.pre1;
+  const float* w1x = sm + tl.misc;
+  const float* wl = w1x + H1;
+  const float* glp = wl + HL + 4;
+  float* act = sm + tl.act;
+  float* gv = sm + tl.g;
+  const int pn = P * N, total = (pn + (grad ? 1 : 0)) << lr;
+  const int at = N - 4, ln = N == 16 ? 4 : N == 8 ? 3 : 2;  // 4 -> 0, 8 -> 4, 16 -> 12
+  const int tid = threadIdx.x;
+  // the first layer: node row tid % kNodeRows, half of the units each
+  const int mi = tid % kNodeRows, kh = (H1 + 1) / 2, k0 = tid / kNodeRows * kh;
+  const int k1 = k0 + kh < H1 ? k0 + kh : H1;
+  for (int m0 = 0; m0 < total; m0 += M) {
+    const int Mc = total - m0 < M ? total - m0 : M;
+    if (mi < Mc) {
+      const int m = m0 + mi, node = m >> lr, r = m & (R - 1);
+      const float x =
+          node < pn ? xp[((node >> ln) << lr) + r] * glp[at + (node & (N - 1))] : xp[r];
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) act[k * Ms + mi] = elu(fmaf(w1x[k], x, pre1[(k << lr) + r]));
+    }
+    __syncthreads();
+    const float* wt = sm + tl.wt;
+    for (int i = 1; i + 1 < s.n_mono; ++i) {
+      const int din = s.mono_w[i], dout = s.mono_w[i + 1];
+      tile_layer(act, Ms, wt, din, dout, Mc);
+      wt += din * round8(dout) + round8(dout);
+    }
+    if (tid < Mc) {
+      float d = wl[HL];
+#pragma unroll 4
+      for (int k = 0; k < HL; ++k) d = fmaf(wl[k], act[k * Ms + tid], d);
+      gv[m0 + tid] = expf(d / (1.0f + fabsf(d / 7.0f)));
+    }
+    __syncthreads();
+  }
+}
+
+// Row r's (thread r's) integral of g from 0 to xp[p][r] by the N-point rule,
+// from the values tile_nodes left.
+__device__ __forceinline__ float tile_integral(const Tile& tl, const float* sm, const float* glw,
+                                               int p, int N) {
+  const int r = threadIdx.x, at = N - 4;
+  const float* gv = sm + tl.g + ((p * N) << tl.lr) + r;
+  float acc = 0.0f;
+  for (int k = 0; k < N; ++k) acc += glw[at + k] * gv[k << tl.lr];
+  return 0.5f * sm[tl.xp + p * tl.R + r] * acc;
+}
+
+template <bool kLogQ>
+__global__ void __launch_bounds__(kTileThreads, 1)
+naf_sample_umnn_tiled(const float* __restrict__ zc, float* __restrict__ xout,
+                      float* __restrict__ logq, const float* __restrict__ packed,
+                      const __grid_constant__ Shape s, const __grid_constant__ Tile tl,
+                      long long n) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, R = tl.R, lr = tl.lr;
+  const bool own = tid < R;  // thread r keeps row r's solver state
+  const long long row0 = (long long)blockIdx.x * R;
+  const int F = s.F, D0 = s.F + s.C, S = s.S;
+  const int H1 = s.mono_w[1], HL = s.mono_w[s.n_mono - 1];
+  float* xc = sm + tl.xc;
+  float* y = sm + tl.y;
+  float* xp = sm + tl.xp;
+  const float* gv = sm + tl.g;
+  float* glp = sm + tl.misc + H1 + HL + 4;
+  float* glw = glp + 28;
+  for (int e = tid; e < R * D0; e += kTileThreads) {
+    const int r = e / D0, j = e - r * D0;
+    const long long row = row0 + r;
+    const float v = row < n ? zc[row * D0 + j] : 0.0f;
+    if (j < F) {
+      y[j * R + r] = v;
+    } else {
+      xc[j * R + r] = v;
+    }
+  }
+  for (int e = tid; e < 28; e += kTileThreads) {
+    glp[e] = kGLPoint[e];
+    glw[e] = kGLWeight[e];
+  }
+  for (int e = tl.wt + tid; e < tl.misc; e += kTileThreads) sm[e] = 0.0f;  // padded outputs
+  __syncthreads();
+  float acc = 0.0f;
+  if (kLogQ && own) {
+    float sq = 0.0f;
+    for (int f = 0; f < F; ++f) sq = fmaf(y[f * R + tid], y[f * R + tid], sq);
+    acc = -0.5f * sq - F * kHalfLog2Pi;
+  }
+  for (int si = s.n_stages - 1; si >= 0; --si) {
+    const Stage& st = s.st[si];
+    if (st.kind == kSoftclip) {
+      if (own) {
+        for (int f = 0; f < F; ++f) {
+          float v = y[f * R + tid];
+          v = v / (1.0f - fabsf(v / st.bound));
+          y[f * R + tid] = v;
+          if (kLogQ) acc -= 2.0f * log1pf(fabsf(v / st.bound));
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+    const float* w = packed + st.off;
+    for (int e = tid; e < F * R; e += kTileThreads) xc[e] = 0.0f;
+    const int sweeps = min(st.passes, F);
+    for (int sweep = 0; sweep < sweeps; ++sweep) {
+      __syncthreads();
+      // Jacobi: h holds the MADE outputs of the whole previous iterate
+      const float* h = made_tile(w, s, tl, xc, sm + tl.a, sm + tl.b);
+      for (int f = 0; f < F; ++f) {
+        hoist_tile(w, s, tl, h, f, sm);
+        float target = 0.0f, lo = -kBound, hi = kBound, x = 0.0f;
+        if (own) target = y[f * R + tid] - sm[tl.sig + S * R + tid];
+        int iters = kCoarse;
+        if (sweep > 0) {
+          if (own) {
+            const float x0 = xc[f * R + tid];
+            xp[tid] = x0 - kWarmR;
+            xp[R + tid] = x0 + kWarmR;
+          }
+          __syncthreads();
+          tile_nodes(s, tl, sm, 2, 4, false);
+          if (own) {
+            const float flo = tile_integral(tl, sm, glw, 0, 4);
+            const float fhi = tile_integral(tl, sm, glw, 1, 4);
+            if (flo < target && target < fhi) {
+              lo = xp[tid];
+              hi = xp[R + tid];
+            }
+          }
+          iters = kWarm;
+        }
+        for (int it = 0; it < iters; ++it) {
+          if (own) xp[tid] = 0.5f * (lo + hi);
+          __syncthreads();
+          tile_nodes(s, tl, sm, 1, 4, false);
+          if (own) {
+            if (tile_integral(tl, sm, glw, 0, 4) < target) {
+              lo = xp[tid];
+            } else {
+              hi = xp[tid];
+            }
+          }
+        }
+        if (own) x = 0.5f * (lo + hi);
+        const int steps = sweep == 0 ? kNewtonUMNN : kNewtonUMNN - 1;
+        for (int it = 0; it < steps; ++it) {
+          const int N = it < steps - 1 ? 8 : 16;
+          if (own) xp[tid] = x;
+          __syncthreads();
+          tile_nodes(s, tl, sm, 1, N, true);
+          if (own) {
+            const float v = tile_integral(tl, sm, glw, 0, N);
+            const float g = gv[(N << lr) + tid];
+            x = fminf(fmaxf(x - (v - target) / fmaxf(g, kDfFloor), -kBound), kBound);
+          }
+        }
+        if (own) xc[f * R + tid] = x;
+      }
+    }
+    if (kLogQ) {
+      __syncthreads();
+      const float* h = made_tile(w, s, tl, xc, sm + tl.a, sm + tl.b);
+      for (int f = 0; f < F; ++f) {
+        hoist_tile(w, s, tl, h, f, sm);
+        if (own) xp[tid] = xc[f * R + tid];
+        __syncthreads();
+        tile_nodes(s, tl, sm, 0, 4, true);
+        if (own) acc += logf(gv[tid]);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < F * R; e += kTileThreads) y[e] = xc[e];
+    __syncthreads();
+  }
+  for (int e = tid; e < R * F; e += kTileThreads) {
+    const int r = e / F, f = e - r * F;
+    if (row0 + r < n) xout[(row0 + r) * F + f] = y[f * R + r];
+  }
+  if (kLogQ && own && row0 + tid < n) logq[row0 + tid] = acc;
+}
+
 // The flow's description as the wrapper hands it over, checked; the tiers'
 // shapes are made from it.
 struct Desc {
@@ -604,6 +984,46 @@ Shape narrow_shape(const Desc& d) {
   return s;
 }
 
+// The tiled sampler's shared memory for tiles of R rows (each array from a
+// 16-byte boundary; mirrored in ops/naf_fused.py _umnn_tile_floats). The
+// node rows of a chunk: at most 256, and at most one 4 x 8 patch a thread
+// in the widest middle layer.
+Tile tile_plan(const Desc& d, int R) {
+  Tile t{};
+  t.R = R;
+  t.lr = R == 64 ? 6 : R == 32 ? 5 : 4;
+  int mh = 0, hmax = 0, hp = 8, wt = 0;
+  for (int i = 1; i < d.n_made; ++i) mh = d.made_w[i] > mh ? d.made_w[i] : mh;
+  for (int i = 1; i < d.n_mono; ++i) hmax = d.mono_w[i] > hmax ? d.mono_w[i] : hmax;
+  for (int i = 1; i + 1 < d.n_mono; ++i) {
+    const int dp = round8(d.mono_w[i + 1]);
+    hp = dp > hp ? dp : hp;
+    wt += d.mono_w[i] * dp + dp;
+  }
+  t.M = 16384 / hp / 32 * 32;
+  t.M = t.M < kNodeRows ? t.M : kNodeRows;
+  t.Ms = t.M + 4;
+  int at = 0;
+  auto take = [&at](int floats) {
+    const int off = at;
+    at += (floats + 3) / 4 * 4;
+    return off;
+  };
+  t.xc = take((d.F + d.C) * R);
+  t.a = take(mh * R);
+  t.b = take(mh * R);
+  t.y = take(d.F * R);
+  t.sig = take(d.T * R);
+  t.pre1 = take(d.mono_w[1] * R);
+  t.xp = take(2 * R);
+  t.g = take(kMaxNodes * R);
+  t.act = take(hmax * t.Ms);
+  t.wt = take(wt);
+  t.misc = take(d.mono_w[1] + d.mono_w[d.n_mono - 1] + 4 + 56);
+  t.floats = at;
+  return t;
+}
+
 // What a launch needs besides the flow: the input, the outputs, the packed
 // parameters, the rows, the tier, the wide tier's workspace (work_floats
 // floats, `stride` rows a launch) and descriptor buffer (desc_bytes bytes).
@@ -632,17 +1052,36 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride) {
     if (op == kDensity) {
       naf_density_kernel<kWide, kMode><<<blocks, kThreads, 0, l.stream>>>(
           l.in, l.out0, l.packed, s, l.work, stride, row0, row_end);
-    } else if (op == kSampleLogQ) {
-      naf_sample_kernel<kWide, kMode, true><<<blocks, kThreads, 0, l.stream>>>(
-          l.in, l.out0, l.out1, l.packed, s, l.work, stride, row0, row_end);
-    } else {
-      naf_sample_kernel<kWide, kMode, false><<<blocks, kThreads, 0, l.stream>>>(
-          l.in, l.out0, nullptr, l.packed, s, l.work, stride, row0, row_end);
+    } else if constexpr (kWide || kMode == kMNN) {  // the narrow UMNN sampler is tiled
+      if (op == kSampleLogQ) {
+        naf_sample_kernel<kWide, kMode, true><<<blocks, kThreads, 0, l.stream>>>(
+            l.in, l.out0, l.out1, l.packed, s, l.work, stride, row0, row_end);
+      } else {
+        naf_sample_kernel<kWide, kMode, false><<<blocks, kThreads, 0, l.stream>>>(
+            l.in, l.out0, nullptr, l.packed, s, l.work, stride, row0, row_end);
+      }
     }
     const int rc = cudaGetLastError();
     if (rc != cudaSuccess) return rc;
   }
   return cudaSuccess;
+}
+
+// The tiled UMNN sampler: one block of kTileThreads a tile of R rows, its
+// shared memory from tile_plan.
+int launch_tiled(int op, const Launch& l, const Desc& d, const Shape& s, int R) {
+  if (R != 16 && R != 32 && R != 64) return cudaErrorInvalidValue;
+  const Tile t = tile_plan(d, R);
+  const int bytes = 4 * t.floats;
+  const long long blocks = (l.n + R - 1) / R;
+  if (bytes > kMaxShared || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  if (l.n == 0) return cudaSuccess;
+  auto kernel = op == kSampleLogQ ? naf_sample_umnn_tiled<true> : naf_sample_umnn_tiled<false>;
+  const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<(unsigned)blocks, kTileThreads, bytes, l.stream>>>(l.in, l.out0, l.out1, l.packed, s,
+                                                              t, l.n);
+  return cudaGetLastError();
 }
 
 // Bytes of the wide tier's descriptor buffer: made_w, mono_w, made_off,
@@ -653,11 +1092,12 @@ long long stage_at(const Desc& d) {
   return (ints * (long long)sizeof(int) + 15) / 16 * 16;
 }
 
-int run(int op, int mode, const Launch& l, const Desc& d) {
+int run(int op, int mode, const Launch& l, const Desc& d, int tile) {
   if (l.n < 0) return cudaErrorInvalidValue;
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
     const Shape s = narrow_shape(d);
+    if (mode == kUMNN && op != kDensity) return launch_tiled(op, l, d, s, tile);
     return mode == kUMNN ? launch<false, kUMNN>(op, l, s, l.n)
                          : launch<false, kMNN>(op, l, s, l.n);
   }
@@ -711,18 +1151,20 @@ extern "C" int naf_density_f32(const float* xc, float* out, const float* packed,
   return run(kDensity, mode,
              {xc, out, nullptr, packed, n, wide, work, work_floats, stride, desc, desc_bytes,
               (cudaStream_t)stream},
-             d);
+             d, 0);
 }
 
 // xout (n, F) = T^-1(z) of zc = [z, c] (n, F + C), and logq (n,) = log q(xout)
-// unless logq is null; the other arguments as naf_density_f32's.
+// unless logq is null; `tile` is the rows of a tile of the narrow UMNN
+// sampler (16, 32 or 64; unused otherwise); the other arguments as
+// naf_density_f32's.
 extern "C" int naf_sample_f32(const float* zc, float* xout, float* logq, const float* packed,
                               const int* kinds, const int* passes, const float* bounds,
                               const long long* offs, int n_stages, const int* made_w,
                               int n_made, const int* mono_w, int n_mono, int F, int C, int S,
                               int mode, long long n, int wide, float* work,
                               long long work_floats, long long stride, void* desc,
-                              long long desc_bytes, void* stream) {
+                              long long desc_bytes, int tile, void* stream) {
   Desc d;
   const int rc = describe(&d, kinds, passes, bounds, offs, n_stages, made_w, n_made, mono_w,
                           n_mono, F, C, S, mode);
@@ -730,7 +1172,7 @@ extern "C" int naf_sample_f32(const float* zc, float* xout, float* logq, const f
   return run(logq != nullptr ? kSampleLogQ : kSample, mode,
              {zc, xout, logq, packed, n, wide, work, work_floats, stride, desc, desc_bytes,
               (cudaStream_t)stream},
-             d);
+             d, tile);
 }
 
 extern "C" const char* naf_fused_error_string(int code) {

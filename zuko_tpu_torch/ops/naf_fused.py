@@ -32,7 +32,10 @@ kernels, both in ``csrc/naf_fused.cu``, each with a mode per univariate:
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. :func:`plan_naf` chooses
 the kernels' tier from the flow's shape: the narrow tier within its limits,
-the wide tier (a workspace in device memory) beyond them. ``LAUNCHES`` counts
+the wide tier (a workspace in device memory) beyond them. The UMNN sampler's
+narrow tier is a tiled kernel (a block a tile of rows, the nodes of a solver
+step batched into products from shared memory), whose shared memory must
+also fit; :func:`umnn_tile_rows` sets its tile. ``LAUNCHES`` counts
 the launches under ``naf_density``, ``naf_sample`` and
 ``naf_sample_log_prob``, with ``_umnn`` after ``naf_density`` or
 ``naf_sample`` for a UNAF and ``_wide`` at the end for the wide tier.
@@ -59,9 +62,11 @@ import torch.nn.functional as Fn
 
 from ._common import (
     LAUNCHES,
+    SHARED_BYTES,
     RowChunkedBackward,
     check_cuda_f32,
     narrow_plan,
+    sm_count,
     wide_plan,
     workspace,
 )
@@ -82,6 +87,7 @@ __all__ = [
     "naf_density",
     "naf_sample",
     "plan_naf",
+    "umnn_tile_rows",
 ]
 
 # The narrow tier's limits (mirrored in csrc/naf_fused.cu): features, signal
@@ -493,18 +499,48 @@ def _widths(params, layout, F, C, S):
     return kind, made_w, mono_w
 
 
-def plan_naf(made_w, mono_w, F, C, S, n_stages, rows):
+def _umnn_tile_floats(made_w, mono_w, F, C, S, R):
+    """Floats of shared memory of the tiled UMNN sampler at tiles of ``R``
+    rows (``tile_plan`` in ``csrc/naf_fused.cu``, each array from a 16-byte
+    boundary): the iterate and context, two MADE buffers, the targets, a
+    feature's T outputs and hoisted first layer, the evaluation points and
+    the 17 integrand values of a row, the node activations (256 node rows a
+    chunk, fewer for middle layers wider than 64, the row stride 4 more), the
+    feature's middle layers (outputs rounded up to 8) with their biases, and
+    the x column, the last layer and the Gauss-Legendre rules."""
+    mids = [(mono_w[i], -(-mono_w[i + 1] // 8) * 8) for i in range(1, len(mono_w) - 2)]
+    hp = max([8] + [dp for _, dp in mids])
+    M = min(256, 16384 // hp // 32 * 32)
+    mh = max(made_w[1:-1], default=0)
+    sizes = [(F + C) * R, mh * R, mh * R, F * R, (S + 1) * R, mono_w[1] * R, 2 * R, 17 * R,
+             max(mono_w[1:-1]) * (M + 4), sum(din * dp + dp for din, dp in mids),
+             mono_w[1] + mono_w[-2] + 60]
+    return sum(-(-v // 4) * 4 for v in sizes)
+
+
+def umnn_tile_rows(rows, sms):
+    """Rows of a tile of the tiled UMNN sampler: 64, or 32 or 16 at so few
+    rows that tiles of 64 leave a streaming multiprocessor idle (the kernel
+    runs one block an SM)."""
+    return next((R for R in (64, 32) if -(-rows // R) >= sms), 16)
+
+
+def plan_naf(made_w, mono_w, F, C, S, n_stages, rows, umnn_sample=False):
     """The tier of the NAF kernels for a flow of this shape (what the
     wrappers launch, from the shapes alone): the narrow tier within its
     limits, else the wide tier with a workspace of ``F + C + 2 max(MADE
     widths) + S + 1 + 5 max(network widths) + F`` floats a row (the
     fields of ``Row`` in ``csrc/naf_fused.cu``) and a descriptor buffer of
-    the widths, their offsets and 24 bytes a stage, rounded up."""
+    the widths, their offsets and 24 bytes a stage, rounded up. For a UNAF's
+    sampler (``umnn_sample``) the narrow tier is the tiled kernel, which
+    also needs its shared memory at tiles of 64 rows within 227 KB."""
     n_made, n_mono = len(made_w) - 1, len(mono_w) - 1
     made_max, mono_max = max(made_w[:-1]), max(mono_w[1:-1])
     if (F <= _MAX_FEATURES and S <= _MAX_SIGNAL and n_stages <= _MAX_STAGES
             and max(n_made, n_mono) <= _MAX_LINEAR and made_max <= _MAX_MADE_WIDTH
-            and mono_max <= _MAX_MONO_WIDTH):
+            and mono_max <= _MAX_MONO_WIDTH and (
+                not umnn_sample
+                or 4 * _umnn_tile_floats(made_w, mono_w, F, C, S, 64) <= SHARED_BYTES)):
         return narrow_plan(rows)
     slots = (F + C) + 2 * made_max + (S + 1) + 5 * mono_max + F
     desc = -(-4 * (2 * (n_made + n_mono) + 2) // 16) * 16 + 24 * n_stages
@@ -524,7 +560,11 @@ def _launch(fn, counter, xc, outs, params, layout, F, S):
     C = xc.shape[1] - F
     kind, made_w, mono_w = _widths(params, layout, F, C, S)
     check_cuda_f32(counter, [xc, *params])
-    plan = plan_naf(made_w, mono_w, F, C, S, len(layout), xc.shape[0])
+    sample = fn == "naf_sample_f32"
+    plan = plan_naf(made_w, mono_w, F, C, S, len(layout), xc.shape[0],
+                    umnn_sample=sample and kind == "umnn")
+    # the tiled UMNN sampler's tile rows, an argument of the sampler only
+    tile = [umnn_tile_rows(xc.shape[0], sm_count(xc.device))] if sample else []
     chunks, table, floats = [], [], 0
     for entry, made, mw, mb in _stages(params, layout):
         if entry[0] == "softclip":
@@ -551,7 +591,7 @@ def _launch(fn, counter, xc, outs, params, layout, F, S):
             F, C, S, _MODE_CODE[kind], xc.shape[0], int(plan.wide),
             None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
             plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
-            torch.cuda.current_stream().cuda_stream,
+            *tile, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(counter, lib, "naf_fused", rc)
     if kind == "umnn":

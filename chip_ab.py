@@ -19,8 +19,13 @@ process:
   (``ml_..._single``);
 * the flagship UNAF's ``naf_sample`` without and with log q at 65,536 and
   16,384 rows, and its ``naf_density`` at 262,144, 3 runs;
-* the flagship NAF's ``naf_sample`` without and with log q at 65,536 rows,
-  3 runs.
+* the flagship NAF's ``naf_sample`` without and with log q at 65,536 and
+  262,144 rows, 3 runs;
+* the flagship CNF's ``cnf_adjoint`` with the log-q cotangent and without a
+  trace at 16,384 rows, the inputs of a step of (l) (``chip_smoke.py``):
+  samples ``cnf_sample`` draws with log q from seeded base draws, the
+  cotangents of ``mean(lq) - mean(ring(x))``, 5 runs; its ``cnf_density``
+  at 65,536 rows and ``cnf_sample`` with log q at 16,384, 3 runs.
 
 ``CHANGE_DIR`` defaults to this checkout. Two trees are compared only within
 one call, on one card.
@@ -55,7 +60,7 @@ def time_tree(tree):
 
     import zuko_tpu_torch as zt
 
-    from zuko_tpu_torch.ops import _build, masked_linear, naf_fused, nsf_fused
+    from zuko_tpu_torch.ops import _build, cnf_fused, masked_linear, naf_fused, nsf_fused
 
     assert Path(_build.__file__).resolve().is_relative_to(tree), _build.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,7 +97,7 @@ def time_tree(tree):
                                    assets / f"{label}_flagship.npz")
             nps, nlayout, F, S = naf_fused._flatten_naf(nflow)
             nps = [p.detach() for p in nps]
-            for rows in ((1 << 16, 1 << 14) if label == "unaf" else (1 << 16,)):
+            for rows in (1 << 16, 1 << 14 if label == "unaf" else 1 << 18):
                 z = torch.randn(rows, 6, generator=gen, device=dev)
                 for name, want in (("sample", False), ("sample_log_prob", True)):
                     out[f"{label}_{name}@{rows}"] = round(time_ms(
@@ -101,6 +106,25 @@ def time_tree(tree):
                 x = torch.randn(1 << 18, 6, generator=gen, device=dev)
                 out[f"unaf_density@{1 << 18}"] = round(time_ms(
                     lambda: naf_fused.naf_density(x, nps, nlayout, F, S), 3)[0], 3)
+        cflow = zt.load_params(zt.CNF(6, device=dev), assets / "cnf_flagship.npz")
+        cps, _, ccfg = cnf_fused._flatten_cnf(cflow, cflow.transform(None), None)
+        cps = [p.detach() for p in cps]
+        x = torch.randn(1 << 16, 6, generator=gen, device=dev)
+        out[f"cnf_density@{1 << 16}"] = round(time_ms(
+            lambda: cnf_fused.cnf_density(x, None, cps, None, ccfg), 3)[0], 3)
+        rows = 1 << 14
+        z = torch.randn(rows, 6, generator=gen, device=dev)
+        out[f"cnf_sample_log_prob@{rows}"] = round(time_ms(
+            lambda: cnf_fused.cnf_sample(z, None, cps, None, ccfg, True), 3)[0], 3)
+        x, _ = cnf_fused.cnf_sample(z, None, cps, None, ccfg, True)
+    # (l)'s cotangents: mean(lq) - mean(ring(x)), ring(x) = -(|x| - 2)^2 / 0.1
+    xr = x.clone().requires_grad_(True)
+    (((xr.norm(dim=-1) - 2.0) ** 2 / 0.1).mean()).backward()
+    gx, glq = xr.grad.contiguous(), torch.full((rows,), 1.0 / rows, device=dev)
+    with torch.no_grad():
+        for name, lq in (("cnf_adjoint_log_prob", glq), ("cnf_adjoint", None)):
+            out[f"{name}@{rows}"] = round(time_ms(
+                lambda: cnf_fused.cnf_adjoint(x, gx, lq, None, cps, None, ccfg), 5)[0], 3)
     print(json.dumps(out), flush=True)
 
 

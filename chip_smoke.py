@@ -94,8 +94,11 @@ ring energy. Its checks:
 
 **The NAF** (phase 10): ``NAF(6, 0, transforms=3, signal=16)`` of
 ``zuko_tpu_torch/assets/naf_flagship.npz``, a conditional NAF(6, 4) and a
-NAF(32), held against ``assets/naf_truth_f64.npz`` and plain float64, then
-(g) MLE and (h) reverse KL through the NAF IFT; K6's and K8's Functions are
+NAF(32), held against ``assets/naf_truth_f64.npz`` and plain float64 (the
+sampler's narrow tier is the tiled kernel: also at a ragged row count, and
+against the wide tier on the same inputs, the difference printed), a NAF
+with MADE widths of 256 (past the tiled sampler's shared memory) through
+the wide tier, then (g) MLE and (h) reverse KL through the NAF IFT; K6's and K8's Functions are
 also held at the rows (e) and (g) train on. **The UNAF** (phase 11): the
 same for ``UNAF(6, 0, transforms=3, signal=16)`` of ``assets/unaf_flagship.npz``
 and a conditional UNAF(6, 4), through the UMNN mode of K8 and K9 (the
@@ -263,8 +266,8 @@ NAF_SAMPLE_ROWS, NAF_IFT_ROWS, NAF_WIDE_ROWS = 1 << 18, 1 << 16, 1 << 16
 # times K9's a sample row: the density is served at 262,144 rows (and (i)
 # trains on GRAD_ROWS); sampling is served at 65,536 rows and (j) draws 16,384.
 UNAF_DENSITY_ROWS, UNAF_SAMPLE_ROWS, UNAF_IFT_ROWS = 1 << 18, 1 << 16, 1 << 14
-# A UNAF past the tiled sampler's shared memory samples 1,024 rows through
-# the wide tier (one thread a row, its state in device memory).
+# A NAF or UNAF past its tiled sampler's shared memory samples 1,024 rows
+# through the wide tier (one thread a row, its state in device memory).
 UNAF_WIDE_ROWS = 1 << 10
 # The flows past the narrow tiers' limits are served at 65,536 rows (the
 # widest at 16,384); a NAF of 72 features samples 256 rows (72 sweeps of 72
@@ -669,6 +672,7 @@ def main():
     maf = zt.MAF(6, 0, transforms=3, device=dev)  # the kernels' affine branch
     truth = np.load(ROOT / "tools" / "nsf_truth_f64.npz")
     gen = torch.Generator(device=dev).manual_seed(0)
+    gen_tiers = torch.Generator(device=dev).manual_seed(11)
     x_truth = torch.as_tensor(truth["x"], device=dev)
     x_big = torch.randn(ROWS, 6, generator=gen, device=dev)
     cx_big = torch.randn(ROWS, 3, generator=gen, device=dev)
@@ -1906,6 +1910,41 @@ def main():
         hold_naf("NAF(32, transforms=2)", naf_wide, nw_x, None,
                  torch.randn(NAF_WIDE_ROWS // 4, 32, generator=gen, device=dev), None,
                  log_q=False, names=None)
+        # a row count that is no multiple of the tiled sampler's tile (the
+        # checks added with the tiled NAF sampler and the adjoint's cluster
+        # tier draw from gen_tiers, so that every later check keeps its draws)
+        hold_naf("NAF, ragged", naf_flagship, nx_big[:4096], None,
+                 torch.randn(NAF_SAMPLE_ROWS - 37, 6, generator=gen_tiers, device=dev), None,
+                 names=None)
+
+    # a NAF within the narrow limits whose tiled sampler would not fit in
+    # shared memory (MADE widths of 256, the flagship's monotone networks:
+    # 386 KB at tiles of 128 rows) samples through the wide tier; its
+    # density stays narrow
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(7)
+        naf_made256 = zt.NAF(6, 0, transforms=3, signal=16, hidden_features=(256, 256),
+                             device=dev)
+    wparams, wlayout, _, wS = naf_args(naf_made256, torch.float32)
+    _, w_made, w_mono = naf_fused._widths(wparams, wlayout, 6, 0, wS)
+    check(naf_fused.plan_naf(w_made, w_mono, 6, 0, wS, len(wlayout), UNAF_WIDE_ROWS,
+                             mnn_sample=True).wide,
+          "the NAF with MADE widths of 256 plans the tiled tier")
+    ops.reset_launches()
+    with torch.no_grad():
+        wdist = naf_made256(None)
+        w_xs = wdist.sample((UNAF_WIDE_ROWS,), generator=gen_tiers)
+        w_xl, w_lq = wdist.sample_and_log_prob((UNAF_WIDE_ROWS,), generator=gen_tiers)
+    w_launches = {name: count for name, count in ops.LAUNCHES.items() if count}
+    print(f"NAF with MADE widths of 256 served through the wide tier: launches {w_launches}")
+    check(w_launches == {"naf_sample_wide": 1, "naf_sample_log_prob_wide": 1},
+          f"NAF with MADE widths of 256: launches {w_launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in (w_xs, w_xl, w_lq)),
+          "NAF with MADE widths of 256: not finite")
+    with torch.no_grad():
+        hold_naf("NAF, MADE widths of 256 (wide tier)", naf_made256, nx_big[:4096], None,
+                 torch.randn(UNAF_WIDE_ROWS, 6, generator=gen_tiers, device=dev), None,
+                 names=None)
 
     # at the training steps' shapes, through the tensors the gradient checks
     # build: K8's Function (kernel forward, float32 plain backward) against
@@ -1915,6 +1954,24 @@ def main():
     # against the same sweeps in float64 at the kernel's own root
     nparams, nlayout, _, nS = naf_args(naf_flagship, torch.float32)
     n64 = [p.double() for p in nparams]
+
+    # the tiled narrow tier against the wide tier on the same inputs, at
+    # (h)'s rows: the same function, with every sum in the same order
+    plan_naf = naf_fused.plan_naf
+    with torch.no_grad():
+        zw = torch.randn(NAF_IFT_ROWS, 6, generator=gen_tiers, device=dev)
+        tiers = [naf_fused.naf_sample(zw, nparams, nlayout, 6, nS, True)]
+        naf_fused.plan_naf = lambda made_w, mono_w, F, C, S, n_stages, rows, **k: plan_naf(
+            made_w, mono_w, F, C, S, naf_fused._MAX_STAGES + 1, rows)
+        try:
+            tiers.append(naf_fused.naf_sample(zw, nparams, nlayout, 6, nS, True))
+        finally:
+            naf_fused.plan_naf = plan_naf
+    dx, dlq = ((a - b).abs() for a, b in zip(*tiers))
+    print(f"NAF sampler at {NAF_IFT_ROWS} rows, tiled tier vs wide tier (the same inputs):"
+          f" x max |diff| {dx.max().item():.3e}, log q max |diff| {dlq.max().item():.3e}")
+    check(quantiles(dx)[2] <= TOL_NAF_SAMPLE_Q99 and quantiles(dlq)[0] <= TOL_NAF_MEDIAN,
+          "NAF sampler: the tiled tier and the wide tier differ")
 
     def naf_leaves(ps0):
         return [p.detach().clone().requires_grad_(True) for p in ps0]
@@ -2328,7 +2385,7 @@ def main():
         loss.backward()
         return loss.detach(), [p.grad for p in flow.parameters() if p.grad is not None]
 
-    def hold_adjoint(label, flow, c, rows, names=ADJ_NAMES):
+    def hold_adjoint(label, flow, c, rows, names=ADJ_NAMES, generator=None):
         """K12 against its plain version in float64 at the same tiles, both
         modes (``names``: without and with the log-q cotangent), on the
         samples K11 draws from ``rows`` base draws (context rows ``c``) under
@@ -2338,18 +2395,20 @@ def main():
         TOL_CNF_GRAD_INPUT, the limits of K10's Function (float32 and
         float64 tiles may take different step sequences, and the adjoint's
         error control allows 1e-5 of each accumulator a step). A Hutchinson
-        flow draws its probe's seed from ``gen``, and both sides take the
-        probe at the draws, as ``rsample_and_log_prob`` does. Returns
+        flow draws its probe's seed from ``generator`` (default ``gen``), as do
+        the base draws, and both sides take the probe at the draws, as
+        ``rsample_and_log_prob`` does. Returns
         ``names`` -> (kernel, plain, operations, bytes) at these inputs: the
         operations of the attempts the plain float32 version takes on each
         tile, each input and output once."""
+        generator = gen if generator is None else generator
         c0 = None if c is None else c[:1]
         transform = flow.transform(c0) if flow.transform.exact else flow.transform(
-            c0, generator=gen)
+            c0, generator=generator)
         params, probe, cfg = cnf_fused._flatten_cnf(flow, transform, c0)
         params = [p.detach() for p in params]
         F, C = cfg["F"], cfg["C"]
-        z = torch.randn(rows, F, generator=gen, device=dev)
+        z = torch.randn(rows, F, generator=generator, device=dev)
         eps = None if probe is None else probe(z)
         with torch.no_grad():
             x, _ = cnf_fused.cnf_sample(z, eps, params, c, cfg, True)
@@ -2810,6 +2869,11 @@ def main():
     adj_work = hold_adjoint("CNF", cnf_flagship, None, CNF_RKL_ROWS)
     hold_adjoint("conditional CNF", cnf_cond, cc_grad.repeat(4, 1), 4 * cc_grad.shape[0])
     hold_adjoint("Hutchinson CNF", cnf_hutch, cc_grad.repeat(4, 1), 4 * cc_grad.shape[0])
+    # a ragged last tile, and a last tile with one valid row (three of its
+    # cluster's four blocks hold none)
+    hold_adjoint("CNF, ragged", cnf_flagship, None, CNF_RKL_ROWS - 37, generator=gen_tiers)
+    hold_adjoint("CNF, one row in the last tile", cnf_flagship, None, 16 * cnf_fused.TILE + 1,
+                 generator=gen_tiers)
 
     # (l) reverse KL through K11 with log q and K12, on the ring energy
     flow_l = zt.load_params(zt.CNF(6, device=dev),

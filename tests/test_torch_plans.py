@@ -1,11 +1,13 @@
 r"""Launch plans of the redesigned kernels, held without a GPU: the tiled
-UMNN sampler's tier and tile (``ops/naf_fused.py`` ``plan_naf``,
-``umnn_tile_rows``, ``_umnn_tile_floats``, mirrored in ``csrc/naf_fused.cu``
-``tile_plan``) and the ``masked_linear`` kernel's persistent launch
-(``ops/masked_linear.py`` ``plan_masked_linear``, mirrored in
-``csrc/masked_linear.cu``), and that the wrappers hand those plans to the C
-entry points: a library that records its calls stands in for the built one,
-and the tensors say they lie on the GPU."""
+samplers' tier and tile, UMNN and MNN (``ops/naf_fused.py`` ``plan_naf``,
+``umnn_tile_rows``, ``mnn_tile_rows``, ``_tile_floats``, mirrored in
+``csrc/naf_fused.cu`` ``tile_plan``), the ``masked_linear`` kernel's
+persistent launch (``ops/masked_linear.py`` ``plan_masked_linear``, mirrored
+in ``csrc/masked_linear.cu``) and the CNF adjoint's cluster tier
+(``ops/cnf_fused.py`` ``plan_cnf_adjoint``, ``_padded_weights``, mirrored in
+``csrc/cnf_fused.cu`` ``adjoint_plan``), and that the wrappers hand those
+plans to the C entry points: a library that records its calls stands in for
+the built one, and the tensors say they lie on the GPU."""
 
 import contextlib
 import types
@@ -16,7 +18,7 @@ import torch
 import zuko_tpu_torch as zt
 
 from zuko_tpu_torch import ops
-from zuko_tpu_torch.ops import _build, _common, masked_linear, naf_fused
+from zuko_tpu_torch.ops import _build, _common, cnf_fused, masked_linear, naf_fused
 
 torch.set_num_threads(1)
 
@@ -199,3 +201,173 @@ def test_naf_sampler_hands_the_tile_to_the_kernel(recorded, rows):
         assert args[-2] == naf_fused.umnn_tile_rows(rows, 132)
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "naf_sample_umnn": 1, "naf_sample_umnn_log_prob": 1, "naf_density_umnn": 1}
+
+
+def _naf_shapes(features=6, context=0, **kwargs):
+    torch.manual_seed(0)
+    flow = zt.NAF(features, context, signal=16, device="cpu", **{"transforms": 3, **kwargs})
+    params, layout, F, S = naf_fused._flatten_naf(flow)
+    kind, made_w, mono_w = naf_fused._widths(params, layout, F, context, S)
+    assert kind == "mnn"
+    return made_w, mono_w, F, S, len(layout)
+
+
+@pytest.mark.parametrize("features, context, kwargs, floats", [
+    (6, 0, {}, 49732), (6, 4, {}, 50244), (32, 0, {"transforms": 2}, 56388),
+], ids=["flagship", "conditional", "features_32"])
+def test_mnn_sampler_plans_the_tiled_tier(features, context, kwargs, floats):
+    """The flagship NAF, the conditional NAF(6, 4) and NAF(32) sample
+    through the tiled kernel whatever the rows: its shared memory at tiles
+    of 128 rows (MADE 64 x 64, monotone networks 17-64-64-1: 194 KB for the
+    flagship, 220 KB for 32 features) is within 227 KB. Each array starts
+    on a 16-byte boundary; a chunk holds 128 value rows and their tangent
+    rows, 2 x 128 + 4 slots."""
+    made_w, mono_w, F, S, n_stages = _naf_shapes(features, context, **kwargs)
+    assert made_w == [F + context, 64, 64, 16 * F] and mono_w == [17, 64, 64, 1]
+    got = naf_fused._tile_floats("mnn", made_w, mono_w, F, context, S, 128)
+    # xc, a, b, y, sig, pre1, xp, g (two values and a derivative a row);
+    # act [64][2 x 128 + 4]; W2 [64][64] and its bias; the x column, the
+    # last layer and its bias
+    R = 128
+    want = ((F + context) * R + 2 * 64 * R + F * R + 16 * R + 64 * R + 2 * R + 3 * R
+            + 64 * 260 + 64 * 64 + 64 + (64 + 64 + 4))
+    assert got == want == floats and 4 * got <= SHARED
+    for rows in (1, 1 << 14, 1 << 18):
+        plan = naf_fused.plan_naf(made_w, mono_w, F, context, S, n_stages, rows, mnn_sample=True)
+        assert plan == _common.narrow_plan(rows)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"network": {"hidden_features": (128, 128)}}, {"hidden_features": (256, 256)},
+], ids=["net_128", "made_256"])
+def test_mnn_sampler_past_its_shared_memory_plans_the_wide_tier(kwargs):
+    """A NAF within the narrow limits whose tiled sampler would need more
+    than 227 KB at tiles of 128 rows (monotone networks of 128: 276 KB, a
+    chunk of 64 value rows; MADE widths of 256: 386 KB) samples through the
+    wide tier, while its density stays narrow."""
+    made_w, mono_w, F, S, n_stages = _naf_shapes(**kwargs)
+    assert 4 * naf_fused._tile_floats("mnn", made_w, mono_w, F, 0, S, 128) > SHARED
+    sample = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16, mnn_sample=True)
+    density = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16)
+    assert sample.wide and not density.wide
+    assert sample.workspace_bytes <= _common.WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("rows, sms, tile", [
+    (1 << 18, 132, 128), (1 << 16, 132, 128), (132 * 128, 132, 128), (131 * 128, 132, 64),
+    (1 << 14, 132, 64), (4096, 132, 32), (37, 132, 32), (1, 1, 128),
+])
+def test_mnn_tile_rows(rows, sms, tile):
+    """Tiles of 128 rows as long as they cover every SM once (one block an
+    SM), else 64, else 32."""
+    assert naf_fused.mnn_tile_rows(rows, sms) == tile
+
+
+@pytest.mark.parametrize("rows", [1 << 16, 4096])
+def test_naf_sampler_hands_the_mnn_tile_to_the_kernel(recorded, rows):
+    """A NAF's sampler launches its narrow tier (the tiled kernel) with the
+    tile rows of ``mnn_tile_rows``; the counts stay under their names."""
+    torch.manual_seed(0)
+    flow = zt.NAF(6, 0, transforms=3, signal=16, device="cpu")
+    params, layout, F, S = naf_fused._flatten_naf(flow)
+    params = [p.detach().as_subclass(_OnCard) for p in params]
+    z = torch.randn(rows, 6).as_subclass(_OnCard)
+    naf_fused.naf_sample(z, params, layout, F, S)
+    naf_fused.naf_sample(z, params, layout, F, S, want_log_prob=True)
+    assert [name for name, _ in recorded] == ["naf_sample_f32"] * 2
+    for _, args in recorded:
+        assert len(args) == len(_build._SIGNATURES["naf_fused"]["naf_sample_f32"][0])
+        assert args[-8] == 0 and args[-2] == naf_fused.mnn_tile_rows(rows, 132)
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "naf_sample": 1, "naf_sample_log_prob": 1}
+
+
+def _cnf_widths(make):
+    torch.manual_seed(0)
+    transform = make().transform
+    linears = transform.ode.layers[0::2]
+    F = linears[-1].out_features
+    return [F] + [layer.out_features for layer in linears], transform.freqs.numel()
+
+
+@pytest.mark.parametrize("make, row_bias, plan", [
+    (lambda: zt.CNF(6, device="cpu"), False, (84, 16384, 16527360, 214520, True, True)),
+    (lambda: zt.CNF(6, 4, device="cpu"), True, (276, 16384, 28979200, 214520, True, True)),
+    (lambda: zt.CNF(6, 4, exact=False, device="cpu"), True,
+     (276, 16384, 28979200, 214520, True, True)),
+    (lambda: zt.CNF(8, hidden_features=(128, 96), device="cpu"), False,
+     (1304, 16384, 116342784, 113280, True, False)),
+], ids=["flagship", "conditional", "hutchinson", "rows_in_workspace"])
+def test_cnf_adjoint_plans_a_cluster_a_tile(make, row_bias, plan):
+    """The adjoint's narrow tier: a tile of 256 rows is a cluster of 4
+    blocks of 64 rows. Shared memory holds the padded linears (``in
+    pad8(out) + out pad8(in)`` each: 9,984 floats for the flagship), the
+    time-embedding term and the block max, and the rows' columns (``5 F + 4
+    sum(hidden) + 2 max(widths)``, 670 floats for the flagship, at a stride
+    of 65): 214,520 bytes; a network whose columns do not fit keeps them in
+    the workspace. The workspace: ``14 F`` floats a row (``3 H1`` more with
+    a per-row first bias, the columns where shared memory does not hold
+    them) and ``2 P`` a block."""
+    widths, nf = _cnf_widths(make)
+    slots, chunk, work, shared, weights_shared, rows_shared = plan
+    got = cnf_fused.plan_cnf_adjoint(widths, nf, 1 << 14, True, row_bias)
+    assert got == (False, slots, chunk, work, 0, 4, 64, shared, weights_shared, rows_shared)
+    F, hidden, H1 = widths[0], widths[1:-1], widths[1]
+    pairs = list(zip(widths[:-1], widths[1:]))
+    padded = sum(i * -(-o // 8) * 8 + o * -(-i // 8) * 8 for i, o in pairs)
+    hot = 5 * F + 4 * sum(hidden) + 2 * max(widths)
+    assert shared == 4 * (padded + H1 + 32 + (65 * hot if rows_shared else 0)) <= SHARED
+    P = cnf_fused._weights(widths, nf) - (H1 if row_bias else 0)
+    assert slots == 14 * F + (3 * H1 if row_bias else 0) + (0 if rows_shared else hot)
+    assert work == 4 * (slots * chunk + 2 * P * chunk // 64) <= _common.WORKSPACE_BYTES
+    # the same without a trace, and past the narrow limits the wide tier
+    assert cnf_fused.plan_cnf_adjoint(widths, nf, 1 << 14, None, row_bias) == got
+    assert cnf_fused.plan_cnf_adjoint([F, 256, 256, F], nf, 1 << 14, True, row_bias).wide
+
+
+def test_padded_weights_hold_each_linear_transposed_and_padded():
+    """``_padded_weights``: per linear of the kernel parameters (``W1_x``,
+    then ``W2``, ``W3``), ``W^T`` with its rows padded to a multiple of 8,
+    then ``W`` likewise, zeros in the padding."""
+    torch.manual_seed(0)
+    W1x, W2, W3 = torch.randn(64, 6), torch.randn(64, 64), torch.randn(6, 64)
+    kp = [W1x, torch.randn(64, 6), torch.randn(64), W2, torch.randn(64), W3, torch.randn(6)]
+    got = cnf_fused._padded_weights(kp)
+    at = 0
+    for W in (W1x, W2, W3):
+        for M in (W.T, W):
+            block = got[at: at + M.shape[0] * -(-M.shape[1] // 8) * 8].view(M.shape[0], -1)
+            assert torch.equal(block[:, : M.shape[1]], M)
+            assert not block[:, M.shape[1]:].any()
+            at += block.numel()
+    assert at == got.numel() == 6 * 64 + 64 * 8 + 2 * 64 * 64 + 64 * 8 + 6 * 64
+
+
+@pytest.mark.parametrize("context", [None, "rows"], ids=["flagship", "conditional"])
+def test_cnf_adjoint_hands_its_plan_to_the_kernel(recorded, context):
+    """The adjoint launches its narrow tier with the padded linears, the
+    tile of ``TILE`` rows and the plan's workspace; with log q it counts
+    under ``cnf_adjoint_log_prob``, without under ``cnf_adjoint``."""
+    torch.manual_seed(0)
+    n = 300
+    flow = zt.CNF(6, 0 if context is None else 4, device="cpu")
+    c = None if context is None else torch.randn(n, 4)
+    params, _, cfg = cnf_fused._flatten_cnf(flow, flow.transform(c), c)
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    x, gx = torch.randn(n, 6).as_subclass(_OnCard), torch.randn(n, 6).as_subclass(_OnCard)
+    glq = torch.randn(n).as_subclass(_OnCard)
+    cc = None if c is None else c.as_subclass(_OnCard)
+    with torch.no_grad():
+        cnf_fused.cnf_adjoint(x, gx, glq, None, card, cc, cfg)
+        cnf_fused.cnf_adjoint(x, gx, None, None, card, cc, cfg)
+    assert [name for name, _ in recorded] == ["cnf_adjoint_f32"] * 2
+    kp = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+    plan = cnf_fused.plan_cnf_adjoint(cnf_fused._widths(kp), cfg["nf"], n, True, c is not None)
+    for _, args in recorded:
+        assert len(args) == len(_build._SIGNATURES["cnf_fused"]["cnf_adjoint_f32"][0])
+        assert args[10] is not None  # the padded linears
+        assert args[19:22] == (n, cnf_fused.TILE, 0)
+        assert args[23:25] == (plan.workspace_bytes // 4, plan.chunk_rows)
+        assert (args[4] is None) == (c is None)
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "cnf_adjoint": 1, "cnf_adjoint_log_prob": 1}

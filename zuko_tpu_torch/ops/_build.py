@@ -49,10 +49,10 @@ _NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER
 # trace mode, rows, the tier, stream)
 _CNF_FLOW = [_P, _P, _I, _I, _P, _F, _F, _F, _I, _I, _LL, *_TIER, _P]
 # (samples, their cotangent, log-q cotangent, probe, per-row first bias, u1,
-# a1, per-tile sums, per-row first bias's cotangent, weights, widths,
-# linears, frequencies and their count, atol, rtol, max_steps, trace mode,
-# rows, tile, the tier, stream)
-_CNF_ADJOINT = [_P] * 10 + [_P, _I, _I, _P, _F, _F, _I, _I, _LL, _I, *_TIER, _P]
+# a1, per-tile sums, per-row first bias's cotangent, weights, the padded
+# linears, widths, linears, frequencies and their count, atol, rtol,
+# max_steps, trace mode, rows, tile, the tier, stream)
+_CNF_ADJOINT = [_P] * 11 + [_P, _I, _I, _P, _F, _F, _I, _I, _LL, _I, *_TIER, _P]
 # argument types of every C entry point, by library; each library also has
 # ``<library>_error_string`` (declared by ``load_library``)
 _SIGNATURES = {

@@ -55,6 +55,8 @@ from __future__ import annotations
 import ctypes
 import math
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as Fn
 
@@ -62,6 +64,7 @@ from ..transforms import ComposedTransform, FreeFormJacobianTransform
 from ..utils import _DP_A, _DP_B4, _DP_B5, _DP_C, broadcast
 from ._common import (
     LAUNCHES,
+    SHARED_BYTES,
     WORKSPACE_BYTES,
     KernelPlan,
     PlainBackward,
@@ -73,6 +76,7 @@ from .nsf_fused import FusedStructureError, _require_standard_base
 
 __all__ = [
     "TILE",
+    "AdjointPlan",
     "cnf_adjoint",
     "cnf_density",
     "cnf_sample",
@@ -539,31 +543,101 @@ def plan_cnf(widths, nf, rows):
     return KernelPlan(True, slots, chunk, 4 * slots * chunk, 4 * (2 * n_lin + 1 + nf))
 
 
+class AdjointPlan(NamedTuple):
+    """How the adjoint kernel takes a call, from the shapes alone: the tier
+    (``wide``), the floats a row in the workspace (``slots``), the rows of
+    one launch (``chunk_rows``, whole tiles), the workspace's bytes and those
+    of the wide tier's descriptor buffer; for the narrow tier also the
+    blocks of a tile's cluster, the rows of a block, the block's shared
+    memory, and whether the padded weights and the rows' columns lie in
+    it."""
+
+    wide: bool
+    slots: int
+    chunk_rows: int
+    workspace_bytes: int
+    desc_bytes: int
+    cluster: int = 0
+    block_rows: int = 0
+    shared_bytes: int = 0
+    weights_shared: bool = False
+    rows_shared: bool = False
+
+
+#: Rows of a block of the adjoint's narrow tier: a tile is a cluster of
+#: ``TILE // 64`` blocks (``kAdjRows`` in ``csrc/cnf_fused.cu``).
+_ADJ_BLOCK_ROWS = 64
+_RED = 32  # floats of the block max (kRed)
+
+
+def _pad8(v):
+    return -(-v // 8) * 8
+
+
 def plan_cnf_adjoint(widths, nf, rows, trace, row_bias):
     """The adjoint kernel's plan for a network of ``widths = [F, H1, ...,
     F]`` under ``nf`` frequencies, ``trace`` (``None``, exact ``True`` or
     Hutchinson ``False``) and a per-row first bias or not, from the shapes
-    alone: the tier as :func:`plan_cnf` picks it (narrow: the weights in
-    shared memory), and in both tiers a workspace of ``19 F + 4 sum(hidden)
-    + 2 max(widths) + 3 H1`` floats a row (the columns of ``AdjointRow`` in
-    ``csrc/cnf_fused.cu``) and, a tile, the increment and the error estimate
-    of each parameter's accumulator (``2 P``, ``P`` the parameters, the
-    first bias apart when it comes per row) and for each linear the per-row
-    vectors whose outer products sum to its gradient (``1 + F`` pairs a row
-    with the exact trace, 2 with Hutchinson's, 1 without a trace), in
-    launches of whole tiles of :data:`TILE` rows, at most
-    :data:`WORKSPACE_BYTES`."""
-    F, hidden = widths[0], widths[1:-1]
-    slots = 19 * F + 4 * sum(hidden) + 2 * max(widths) + 3 * widths[1]
-    P = _weights(widths, nf) - (widths[1] if row_bias else 0)
-    pairs = 1 + {None: 0, True: F, False: 1}[trace]
-    per_tile = slots * TILE + 2 * P + TILE * pairs * sum(i + o for i, o in zip(widths[:-1],
-                                                                              widths[1:]))
+    alone, in launches of whole tiles of :data:`TILE` rows, at most
+    :data:`WORKSPACE_BYTES` (``adjoint_plan`` in ``csrc/cnf_fused.cu``).
+
+    The narrow tier (within :func:`plan_cnf`'s limits): a tile is a cluster
+    of ``TILE / rb`` blocks of ``rb = min(TILE, 64)`` rows. A block's shared
+    memory holds the linears padded (``sum_l in_l pad8(out_l) + out_l
+    pad8(in_l)`` floats), the time-embedding term (``pad8(H1)``) and the
+    block max (32) when they fit in 227 KB, and then, if they fit too, the
+    rows' columns: ``5 F + 4 sum(hidden) + 2 max(widths)`` floats a row at a
+    stride of ``rb + 1``. The workspace: ``14 F`` floats a row (the stage
+    slopes), ``3 H1`` more with a per-row first bias, the columns where
+    shared memory does not hold them, and ``2 P`` floats a block (its
+    increments and errors; ``P`` the parameters, the first bias apart when
+    it comes per row).
+
+    The wide tier: ``19 F + 4 sum(hidden) + 2 max(widths) + 3 H1`` floats
+    a row (the columns of ``AdjointRow``) and, a tile, the increment and the
+    error estimate of each parameter's accumulator (``2 P``) and for each
+    linear the per-row vectors whose outer products sum to its gradient
+    (``1 + F`` pairs a row with the exact trace, 2 with Hutchinson's, 1
+    without a trace), and a descriptor buffer."""
+    F, hidden, H1 = widths[0], widths[1:-1], widths[1]
+    P = _weights(widths, nf) - (H1 if row_bias else 0)
+    pairs = list(zip(widths[:-1], widths[1:]))
+    if _fits_narrow(widths, nf):
+        rb = min(TILE, _ADJ_BLOCK_ROWS)
+        cluster = TILE // rb
+        weights = sum(i * _pad8(o) + o * _pad8(i) for i, o in pairs)
+        hot = 5 * F + 4 * sum(hidden) + 2 * max(widths)
+        base = _pad8(H1) + _RED
+        weights_shared = 4 * (weights + base) <= SHARED_BYTES
+        rows_shared = weights_shared and 4 * (weights + base + hot * (rb + 1)) <= SHARED_BYTES
+        shared = 4 * ((weights if weights_shared else 0) + base
+                      + (hot * (rb + 1) if rows_shared else 0))
+        slots = 14 * F + (3 * H1 if row_bias else 0) + (0 if rows_shared else hot)
+        per_tile = slots * TILE + cluster * 2 * P
+        most = max(1, WORKSPACE_BYTES // (4 * per_tile)) * TILE
+        chunk = min(most, max(TILE, -(-rows // TILE) * TILE))
+        return AdjointPlan(False, slots, chunk, 4 * per_tile * (chunk // TILE), 0, cluster, rb,
+                           shared, weights_shared, rows_shared)
+    slots = 19 * F + 4 * sum(hidden) + 2 * max(widths) + 3 * H1
+    n_pairs = 1 + {None: 0, True: F, False: 1}[trace]
+    per_tile = slots * TILE + 2 * P + TILE * n_pairs * sum(i + o for i, o in pairs)
     most = max(1, WORKSPACE_BYTES // (4 * per_tile)) * TILE
     chunk = min(most, max(TILE, -(-rows // TILE) * TILE))
-    wide = not _fits_narrow(widths, nf)
-    desc = 4 * (2 * (len(widths) - 1) + 1 + nf) if wide else 0
-    return KernelPlan(wide, slots, chunk, 4 * per_tile * (chunk // TILE), desc)
+    desc = 4 * (2 * (len(widths) - 1) + 1 + nf)
+    return AdjointPlan(True, slots, chunk, 4 * per_tile * (chunk // TILE), desc)
+
+
+def _padded_weights(kp):
+    """The linears of the kernel parameters ``kp`` (``W1_x``, ``W2``, ...),
+    each as ``W^T`` of shape ``(in, pad8(out))`` then ``W`` of shape
+    ``(out, pad8(in))``, zero-padded, in one flat tensor: the adjoint's
+    narrow tier reads a thread's eight outputs in two 16-byte loads."""
+    parts = []
+    for W in [kp[0], *kp[3::2]]:
+        out, inp = W.shape
+        parts += [Fn.pad(W.T, (0, _pad8(out) - out)).reshape(-1),
+                  Fn.pad(W, (0, _pad8(inp) - inp)).reshape(-1)]
+    return torch.cat(parts)
 
 
 def _launch(fn, counter, x, eps, outs, params, cfg, trace):
@@ -694,6 +768,7 @@ def _adjoint_kernel(x, a, glq, eps, kp, cfg):
     widths = _widths(kp)
     plan = plan_cnf_adjoint(widths, cfg["nf"], n, trace, row_bias)
     packed = torch.cat([p.reshape(-1) for i, p in enumerate(kp) if not (i == 2 and row_bias)])
+    padded = None if plan.wide else _padded_weights(kp)
     tiles = -(-n // TILE)
     u1, a1 = torch.empty_like(x), torch.empty_like(x)
     g = torch.empty(tiles, packed.numel(), device=x.device, dtype=torch.float32)
@@ -711,8 +786,8 @@ def _adjoint_kernel(x, a, glq, eps, kp, cfg):
         rc = lib.cnf_adjoint_f32(
             x.data_ptr(), a.data_ptr(), ptr(glq), ptr(eps if trace is False else None),
             ptr(kp[2] if row_bias else None), u1.data_ptr(), a1.data_ptr(), g.data_ptr(), ptr(gb),
-            packed.data_ptr(), ctypes.addressof(c_widths), len(widths) - 1, cfg["nf"],
-            ctypes.addressof(c_freqs), cfg["atol"], cfg["rtol"], cfg["max_steps"],
+            packed.data_ptr(), ptr(padded), ctypes.addressof(c_widths), len(widths) - 1,
+            cfg["nf"], ctypes.addressof(c_freqs), cfg["atol"], cfg["rtol"], cfg["max_steps"],
             _TRACE_CODE[trace], n, TILE, int(plan.wide), work.data_ptr(), work.numel(),
             plan.chunk_rows, ptr(desc), plan.desc_bytes, torch.cuda.current_stream().cuda_stream,
         )

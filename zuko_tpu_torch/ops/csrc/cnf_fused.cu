@@ -65,6 +65,9 @@
 
 #include <cuda_runtime.h>
 #include <float.h>
+#ifdef __CUDACC__
+#include <cooperative_groups.h>
+#endif
 #include <math.h>
 #include <string.h>
 
@@ -462,23 +465,24 @@ __global__ void __launch_bounds__(kTile)
 //            W1_x bar[:, j] += vbar_1 (exact) or Wbar1_x += vbar_1 (x) e.
 // The slopes are ka = -ubar, kg = -(the sums of the bars over the tile's rows).
 //
-// Layout: one block a tile (the tile taken from blockDim.x, as K10), one
-// thread a row. A row's state lives in columns of the workspace
-// ([slot][row], AdjointRow), in both tiers; the narrow tier stages the
-// weights in shared memory, the wide tier reads them through __ldg. Each
-// stage every thread writes its row's outer-product factors (left and right
-// vectors of each linear, 1 + F pairs with the exact trace) into the tile's
-// part of the workspace; after a barrier the threads reduce them, each
-// owning strips of eight entries of one column of a weight, summing over the
-// pairs and the rows in a fixed order: no atomics, so two runs agree.
-// Only the increment and the error estimate of each accumulator are kept
-// (the accumulators do not feed back into the dynamics), two floats an
-// entry, and stage 2 (b5 = b4 = 0) needs no reduction.
+// The wide tier (cnf_adjoint_kernel): one block a tile (the tile taken from
+// blockDim.x, as K10), one thread a row. A row's state lives in columns of
+// the workspace ([slot][row], AdjointRow); the weights are read through
+// __ldg. Each stage every thread writes its row's outer-product factors
+// (left and right vectors of each linear, 1 + F pairs with the exact trace)
+// into the tile's part of the workspace; after a barrier the threads reduce
+// them, each owning strips of eight entries of one column of a weight,
+// summing over the pairs and the rows in a fixed order: no atomics, so two
+// runs agree. Only the increment and the error estimate of each
+// accumulator are kept (the accumulators do not feed back into the
+// dynamics), two floats an entry, and stage 2 (b5 = b4 = 0) needs no
+// reduction. The narrow tier (cnf_adjoint_cluster, below) spreads a tile
+// over a cluster of blocks and keeps the rows' vectors and the factors out
+// of device memory.
 //
 // What bounds it on an H100: operations. Per row and stage the network, F
 // tangent columns forward and back, and the outer products (about 4x K10's
-// work a row for the flagship 12-64-64-6); the simple design keeps every
-// vector in device memory (L1/L2) and one tile on one SM.
+// work a row for the flagship 12-64-64-6).
 
 // A row's columns of the adjoint's workspace, in this order (the slots
 // mirrored in cnf_fused.py plan_cnf_adjoint): u, a, the stage's inputs us
@@ -566,7 +570,7 @@ struct Factors {
 // One row's slopes at stage s: ku[s] = f(us), ka[s] = -ubar, its factors of
 // every linear into fac, and for a per-row first bias its accumulator's
 // increment (cb5 = dt b5_s) and error (ce = dt (b5_s - b4_s)).
-template <int kTrace, bool kRowBias, bool kWide, class N>
+template <int kTrace, bool kRowBias, class N>
 __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const float* te,
                                             const float* brow, float lbar, const AdjointRow& r,
                                             int s, const Factors& fac, int row, int sh,
@@ -575,7 +579,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
   const float* W1x = W + net.off[0];
   const auto zero = [](int) { return 0.0f; };
   // forward: z and d of the hidden layers, then f
-  matvec<kWide>(W1x, F, H1, r.us,
+  matvec<true>(W1x, F, H1, r.us,
                 [&](int o) { return brow != nullptr ? te[o] + __ldg(brow + o) : te[o]; },
                 [&](int o, float acc) {
                   if (L == 1) {
@@ -591,7 +595,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
     const float* Wi = W + net.off[i];
     const float* bi = Wi + dout * din;
     const bool last = i == L - 1;
-    matvec<kWide>(Wi, din, dout, r.z.at(hoff), [&](int o) { return wt<kWide>(bi + o); },
+    matvec<true>(Wi, din, dout, r.z.at(hoff), [&](int o) { return wt<true>(bi + o); },
                   [&](int o, float acc) {
                     if (last) {
                       r.ku[s * F + o] = acc;
@@ -611,14 +615,14 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
       const int pair = 1 + j;
       if (L > 1) {
         if (kTrace == kExact) {
-          for (int o = 0; o < H1; ++o) r.v[o] = wt<kWide>(W1x + o * F + j);
+          for (int o = 0; o < H1; ++o) r.v[o] = wt<true>(W1x + o * F + j);
         } else {
-          matvec<kWide>(W1x, F, H1, r.e, zero, [&](int o, float acc) { r.v[o] = acc; });
+          matvec<true>(W1x, F, H1, r.e, zero, [&](int o, float acc) { r.v[o] = acc; });
         }
         int vo = 0;
         for (int i = 1; i < L - 1; ++i) {
           const int din = net.w[i], dout = net.w[i + 1];
-          matvec<kWide>(W + net.off[i], din, dout, Product{r.d.at(vo), r.v.at(vo)}, zero,
+          matvec<true>(W + net.off[i], din, dout, Product{r.d.at(vo), r.v.at(vo)}, zero,
                         [&](int o, float acc) { r.v[vo + din + o] = acc; });
           vo += din;
         }
@@ -633,7 +637,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
         float* right = fac.right(net, li, pair, row);
         for (int o = 0; o < dout; ++o) left[o] = cur[o];
         for (int q = 0; q < din; ++q) right[q] = r.d[lo + q] * r.v[lo + q];
-        matvec_t<kWide>(W + net.off[li], din, dout, cur, [&](int q, float w) {
+        matvec_t<true>(W + net.off[li], din, dout, cur, [&](int q, float w) {
           const float dq = r.d[lo + q];
           r.ht[lo + q] = fmaf(r.z[lo + q] > 0.0f ? 0.0f : dq * r.v[lo + q], w, r.ht[lo + q]);
           nxt[q] = dq * w;
@@ -661,7 +665,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
     float* right = fac.right(net, li, 0, row);
     for (int o = 0; o < dout; ++o) left[o] = cur[o];
     for (int q = 0; q < din; ++q) right[q] = r.z[lo + q];
-    matvec_t<kWide>(W + net.off[li], din, dout, cur, [&](int q, float w) {
+    matvec_t<true>(W + net.off[li], din, dout, cur, [&](int q, float w) {
       const float hq = r.d[lo + q] * w;
       nxt[q] = kTrace != kNone ? hq + r.ht[lo + q] : hq;
     });
@@ -674,7 +678,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
   float* right = fac.right(net, 0, 0, row);
   for (int o = 0; o < H1; ++o) left[o] = cur[o];
   for (int q = 0; q < F; ++q) right[q] = r.us[q];
-  matvec_t<kWide>(W1x, F, H1, cur, [&](int q, float w) { r.ka[s * F + q] = -w; });
+  matvec_t<true>(W1x, F, H1, cur, [&](int q, float w) { r.ka[s * F + q] = -w; });
   if (kRowBias)
     for (int o = 0; o < H1; ++o) {
       r.incb[o] = fmaf(cb5, -cur[o], r.incb[o]);
@@ -689,7 +693,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
 // entries are b1's sum times cos(f t) and sin(f t). Each accumulator entry
 // takes dt b5 and dt (b5 - b4) times its slope. Strips of eight outputs of
 // one input column, the columns fastest across the threads.
-template <int kTrace, bool kRowBias, bool kWide, class N>
+template <int kTrace, bool kRowBias, class N>
 __device__ __forceinline__ void adjoint_reduce(const N& net, const Factors& fac, float* inc,
                                                float* err, float cb5, float ce, float st) {
   const int T = fac.tile, tid = threadIdx.x;
@@ -747,14 +751,15 @@ __device__ __forceinline__ void adjoint_reduce(const N& net, const Factors& fac,
   }
 }
 
-template <int kTrace, bool kRowBias, bool kWide>
+// The wide tier's kernel (the narrow tier is cnf_adjoint_cluster below).
+template <int kTrace, bool kRowBias>
 __global__ void __launch_bounds__(kTile)
     cnf_adjoint_kernel(const float* __restrict__ xin, const float* __restrict__ ain,
                        const float* __restrict__ glq, const float* __restrict__ eps,
                        const float* __restrict__ bias_rows, float* __restrict__ u_out,
                        float* __restrict__ a_out, float* __restrict__ g_out,
                        float* __restrict__ gb_out, const float* __restrict__ packed,
-                       const __grid_constant__ NetOf<kWide> net, float* work, long long stride,
+                       const __grid_constant__ WideNet net, float* work, long long stride,
                        long long row_floats, long long tile_floats, long long row0,
                        long long row_end) {
   extern __shared__ float smem[];
@@ -766,11 +771,6 @@ __global__ void __launch_bounds__(kTile)
   float* te = smem;
   float* red = smem + H1;
   const float* W = packed;
-  if (!kWide) {  // stage the weights
-    float* sw = smem + H1 + kRed;
-    for (int q = tid; q < net.total; q += T) sw[q] = packed[q];
-    W = sw;
-  }
   const int sh = sum_hidden(net);
   AdjointRow r;
   r.init(F, sh, max_width(net), H1, work, stride, i);
@@ -807,11 +807,11 @@ __global__ void __launch_bounds__(kTile)
       }
       const float st = t + kDpC[s] * dt;
       const float cb5 = dt * kDpB5[s], ce = dt * kDpE[s];
-      time_embedding<kWide>(net, W, st, kRowBias, te);
-      adjoint_row<kTrace, kRowBias, kWide>(net, W, te, brow, lbar, r, s, fac, tid, sh, cb5, ce);
+      time_embedding<true>(net, W, st, kRowBias, te);
+      adjoint_row<kTrace, kRowBias>(net, W, te, brow, lbar, r, s, fac, tid, sh, cb5, ce);
       __syncthreads();
       if (kDpB5[s] != 0.0f || kDpE[s] != 0.0f)
-        adjoint_reduce<kTrace, kRowBias, kWide>(net, fac, inc, err, cb5, ce, st);
+        adjoint_reduce<kTrace, kRowBias>(net, fac, inc, err, cb5, ce, st);
     }
     __syncthreads();
     // the row's error ratio over u, a (and its first bias), this thread's
@@ -875,6 +875,562 @@ __global__ void __launch_bounds__(kTile)
   }
   if (kRowBias)
     for (int o = 0; o < H1; ++o) gb_out[row * H1 + o] = exhausted ? NAN : r.gb[o];
+}
+
+// ------------------------------------------------------------------------
+// The narrow tier of cnf_adjoint: a tile over a cluster of blocks, every
+// row's vectors in shared memory, the outer products reduced from there.
+//
+// The same function as cnf_adjoint_kernel (the same tile of rows, stages,
+// error ratio over every leaf, step rule and NaN-poisoning); only the order
+// of the float32 sums over the rows and pairs changes. What it does about
+// what held the one-block design back:
+// - a tile of `tile` rows (256) is a cluster of cl blocks of rb = 64 rows
+//   (4 blocks on neighbouring SMs: 64 tiles fill 256 blocks, not 64), four
+//   threads a row (a quad of one warp), which share out each product's
+//   outputs eight at a time and every loop over a row's elements; the
+//   tile's step decision is the max of the blocks' ratios through
+//   distributed shared memory and a cluster barrier;
+// - a row's vectors (u, a, the stage's inputs, the probe, z and d of every
+//   hidden layer, the tangents and their cotangents) are columns [slot][row]
+//   in the block's shared memory, when they fit (else in the workspace);
+//   the stage slopes ku, ka and a per-row first bias's accumulator stay in
+//   the workspace (a few touches a stage);
+// - the weights are staged padded, W^T [in][out rounded to 8] for the
+//   products and W [out][in rounded to 8] for the pullbacks, so that a
+//   thread's eight outputs come in two 16-byte loads (the wrapper builds
+//   them, _padded_weights in ops/cnf_fused.py);
+// - no factor reaches device memory: at each pullback step the block
+//   (after a barrier) sums left (x) right over its rows straight from the
+//   columns, a thread a patch of 4 x 8 entries in registers, and adds dt b5
+//   and dt (b5 - b4) times the sum to its block's increments and errors;
+//   at the end of an attempt rank k of the cluster sums the cl blocks'
+//   increments and errors (in rank order) over its share of the entries,
+//   takes their error ratio and, on an accepted step, adds them to the
+//   tile's g;
+// - what is zero is skipped: the exact trace's column j enters the last
+//   linear as -Lbar e_j, so only row j of that linear is pulled back and
+//   reduced, and its first-linear pairs add the left vector to column j.
+
+constexpr int kAdjRows = 64;    // rows of a block of the narrow tier
+constexpr int kQuad = 4;        // threads of a row, neighbours in one warp
+constexpr int kMaxCluster = 8;  // blocks of a cluster (portable)
+constexpr int kMaxShared = 232448;  // a block's shared memory on an H100 (227 KB)
+
+__host__ __device__ __forceinline__ int pad8(int v) { return (v + 7) & ~7; }
+
+// This thread's place in its row's quad, and the quad's barrier.
+__device__ __forceinline__ int quad_lane() { return threadIdx.x % kQuad; }
+__device__ __forceinline__ void quad_sync() { __syncwarp(); }
+
+// Where linear li's padded copies start in `padded`: per linear W^T then W.
+template <class N>
+__device__ __forceinline__ int padded_at(const N& net, int li) {
+  int off = 0;
+  for (int m = 0; m < li; ++m)
+    off += net.w[m] * pad8(net.w[m + 1]) + net.w[m + 1] * pad8(net.w[m]);
+  return off;
+}
+
+// out(o, init(o) + sum_j W[o, j] in[j]) for o < dout from WT = W^T [din]
+// [pad8(dout)]: eight outputs at a time, their weights in two 16-byte loads,
+// each sum in the order of j, one fmaf a term (as matvec); the quad's
+// threads take every fourth eight.
+template <class V, class Init, class Out>
+__device__ __forceinline__ void tmatvec(const float* WT, int din, int dout, const V& in, Init init,
+                                        Out out) {
+  const int dp = pad8(dout);
+  for (int o0 = 8 * quad_lane(); o0 < dout; o0 += 8 * kQuad) {
+    float acc[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[b] = o0 + b < dout ? init(o0 + b) : 0.0f;
+    const float* wp = WT + o0;
+#pragma unroll 4
+    for (int j = 0; j < din; ++j) {
+      const float v = in[j];
+      const float4 w0 = *reinterpret_cast<const float4*>(wp + j * dp);
+      const float4 w1 = *reinterpret_cast<const float4*>(wp + j * dp + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[b] = fmaf(wv[b], v, acc[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (o0 + b < dout) out(o0 + b, acc[b]);
+  }
+}
+
+// out(q, sum_o W[o, q] in[o]) for q < din from Wp = W [dout][pad8(din)]:
+// the transposed product, eight outputs at a time (as matvec_t), shared out
+// as tmatvec's.
+template <class V, class Out>
+__device__ __forceinline__ void tmatvec_t(const float* Wp, int din, int dout, const V& in, Out out) {
+  const int dp = pad8(din);
+  for (int q0 = 8 * quad_lane(); q0 < din; q0 += 8 * kQuad) {
+    float acc[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[b] = 0.0f;
+    const float* wp = Wp + q0;
+#pragma unroll 4
+    for (int o = 0; o < dout; ++o) {
+      const float v = in[o];
+      const float4 w0 = *reinterpret_cast<const float4*>(wp + o * dp);
+      const float4 w1 = *reinterpret_cast<const float4*>(wp + o * dp + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[b] = fmaf(wv[b], v, acc[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (q0 + b < din) out(q0 + b, acc[b]);
+  }
+}
+
+// The block's rows as columns: element (slot, r) of row r of the block at
+// p[slot * stride + r], in shared memory or in the workspace.
+struct Block {
+  float* p;
+  long long stride;
+  int rows;
+  __device__ __forceinline__ float operator()(int slot, int r) const { return p[slot * stride + r]; }
+  // this thread's row (its quad's), from `slot` on
+  __device__ __forceinline__ Column row(int slot) const {
+    return {p + slot * stride + threadIdx.x / kQuad, stride};
+  }
+};
+
+// G(o, q) = sum over the block's rows r, in order, of L(o, r) R(q, r) for
+// o in [o_lo, o_hi), q < din; then inc[e] += cb5 (-G) and err[e] += ce (-G)
+// at e = at + o * ld + q. A thread a patch of 4 x 8 entries in registers.
+template <class Lf, class Rf>
+__device__ __forceinline__ void reduce_outer(int o_lo, int o_hi, int din, int rows, Lf L, Rf R,
+                                             int at, int ld, float* inc, float* err, float cb5,
+                                             float ce) {
+  constexpr int PO = 4, PQ = 8;
+  const int no = (o_hi - o_lo + PO - 1) / PO, nq = (din + PQ - 1) / PQ;
+  for (int p = threadIdx.x; p < no * nq; p += blockDim.x) {
+    const int o0 = o_lo + (p / nq) * PO, q0 = (p % nq) * PQ;
+    float acc[PO][PQ];
+#pragma unroll
+    for (int i = 0; i < PO; ++i)
+#pragma unroll
+      for (int j = 0; j < PQ; ++j) acc[i][j] = 0.0f;
+    for (int r = 0; r < rows; ++r) {
+      float lv[PO], rv[PQ];
+#pragma unroll
+      for (int i = 0; i < PO; ++i) lv[i] = o0 + i < o_hi ? L(o0 + i, r) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < PQ; ++j) rv[j] = q0 + j < din ? R(q0 + j, r) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < PO; ++i)
+#pragma unroll
+        for (int j = 0; j < PQ; ++j) acc[i][j] = fmaf(lv[i], rv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < PO; ++i)
+#pragma unroll
+      for (int j = 0; j < PQ; ++j)
+        if (o0 + i < o_hi && q0 + j < din) {
+          const int e = at + (o0 + i) * ld + q0 + j;
+          inc[e] = fmaf(cb5, -acc[i][j], inc[e]);
+          err[e] = fmaf(ce, -acc[i][j], err[e]);
+        }
+  }
+}
+
+// The cluster's barrier (the block's with one block a cluster), and a float
+// in the shared memory of block `rank` of the cluster.
+__device__ __forceinline__ void cluster_sync(int cl) {
+#ifdef __CUDA_ARCH__
+  if (cl > 1) {
+    cooperative_groups::this_cluster().sync();
+    return;
+  }
+#endif
+  __syncthreads();
+}
+
+__device__ __forceinline__ float cluster_peer(float* p, int rank) {
+#ifdef __CUDA_ARCH__
+  return *cooperative_groups::this_cluster().map_shared_rank(p, rank);
+#else
+  return *p;
+#endif
+}
+
+// The narrow tier's plan of a launch (adjoint_plan; mirrored in
+// ops/cnf_fused.py plan_cnf_adjoint): the cluster and its blocks, the shared
+// memory (the padded weights, the time-embedding term, the block max, the
+// rows' columns), the workspace (per row and per block).
+struct AdjTile {
+  int cl, rb, rbs;          // blocks a tile, rows a block, the columns' stride in shared memory
+  int hot;                  // floats of a row's columns (u ... c1)
+  int weights;              // floats of the padded weights
+  int weights_shared, rows_shared;
+  int smem_floats;
+  long long row_floats;     // floats a row in the workspace: ku, ka, [gb, incb, errb], [columns]
+};
+
+// A row's columns, from slot 0: u, a, us, as, e (F each), z, d, ht, v (the
+// hidden layers' sum each), c0, c1 (the largest width each).
+struct HotSlots {
+  int u, a, us, as, e, z, d, ht, v, c0, c1, total;
+  __host__ __device__ HotSlots(int F, int sh, int mw)
+      : u(0), a(F), us(2 * F), as(3 * F), e(4 * F), z(5 * F), d(5 * F + sh), ht(5 * F + 2 * sh),
+        v(5 * F + 3 * sh), c0(5 * F + 4 * sh), c1(5 * F + 4 * sh + mw),
+        total(5 * F + 4 * sh + 2 * mw) {}
+};
+
+// One stage of the tile's adjoint for every row of the block: the row's
+// slopes ku[s] = f(us) and ka[s] = -ubar, and, when `reduce`, the block's
+// share of the parameters' slopes times dt b5 (inc) and dt (b5 - b4) (err);
+// a per-row first bias's accumulator per row. W the padded weights, packed
+// the biases and W1_te (through the read-only cache). A quad's threads share
+// out each product and loop (quad_lane), with the quad's barrier before a
+// row's vector is read whole.
+template <int kTrace, bool kRowBias>
+__device__ __forceinline__ void adjoint_tile_stage(const Net& net, const float* W,
+                                                   const float* __restrict__ packed,
+                                                   const float* te, const float* brow, float lbar,
+                                                   const Block& blk, const HotSlots& hs,
+                                                   const Column& ku, const Column& ka,
+                                                   const Column& incb, const Column& errb, int s,
+                                                   bool reduce, float* inc, float* err, float cb5,
+                                                   float ce, float st) {
+  const int F = net.F, L = net.n_lin, H1 = net.w[1], rows = blk.rows, tid = threadIdx.x;
+  const int ql = quad_lane(), sh = hs.ht - hs.d;
+  const Column us = blk.row(hs.us), as = blk.row(hs.as), e = blk.row(hs.e);
+  const Column z = blk.row(hs.z), d = blk.row(hs.d), ht = blk.row(hs.ht), v = blk.row(hs.v);
+  const float* WT0 = W + padded_at(net, 0);
+  const float* Wp0 = WT0 + F * pad8(H1);
+  const auto zero = [](int) { return 0.0f; };
+  // forward: z and d of the hidden layers, then f
+  tmatvec(WT0, F, H1, us,
+          [&](int o) { return brow != nullptr ? te[o] + __ldg(brow + o) : te[o]; },
+          [&](int o, float acc) {
+            if (L == 1) {
+              ku[s * F + o] = acc;
+            } else {
+              z[o] = acc > 0.0f ? acc : expm1f(acc);
+              d[o] = acc > 0.0f ? 1.0f : expf(acc);
+            }
+          });
+  int hoff = 0;
+  for (int i = 1; i < L; ++i) {
+    const int din = net.w[i], dout = net.w[i + 1];
+    const float* bi = packed + net.off[i] + dout * din;
+    const bool last = i == L - 1;
+    quad_sync();
+    tmatvec(W + padded_at(net, i), din, dout, z.at(hoff), [&](int o) { return __ldg(bi + o); },
+            [&](int o, float acc) {
+              if (last) {
+                ku[s * F + o] = acc;
+              } else {
+                z[hoff + din + o] = acc > 0.0f ? acc : expm1f(acc);
+                d[hoff + din + o] = acc > 0.0f ? 1.0f : expf(acc);
+              }
+            });
+    if (!last) hoff += din;
+  }
+  const int top = L > 1 ? sh - net.w[L - 1] : 0;  // where hidden layer L - 1 starts
+  const auto one = [](int, int) { return 1.0f; };
+  // the trace's part: each tangent pulled back from -lbar e_j (or -lbar e)
+  if (kTrace != kNone) {
+    for (int q = ql; q < sh; q += kQuad) ht[q] = 0.0f;
+    const int passes = kTrace == kExact ? F : 1;
+    for (int j = 0; j < passes; ++j) {
+      quad_sync();  // z, d, ht; the previous pair's v and cotangents are read no more
+      if (L > 1) {
+        if (kTrace == kExact) {
+          for (int o = ql; o < H1; o += kQuad) v[o] = Wp0[o * pad8(F) + j];
+        } else {
+          tmatvec(WT0, F, H1, e, zero, [&](int o, float acc) { v[o] = acc; });
+        }
+        int vo = 0;
+        for (int i = 1; i < L - 1; ++i) {
+          const int din = net.w[i], dout = net.w[i + 1];
+          quad_sync();
+          tmatvec(W + padded_at(net, i), din, dout, Product{d.at(vo), v.at(vo)}, zero,
+                  [&](int o, float acc) { v[vo + din + o] = acc; });
+          vo += din;
+        }
+      }
+      int cs = hs.c0, ns = hs.c1;
+      {
+        const Column cur = blk.row(cs);
+        for (int o = ql; o < F; o += kQuad)
+          cur[o] = kTrace == kExact ? (o == j ? -lbar : 0.0f) : -lbar * e[o];
+      }
+      int lo = top;
+      for (int li = L - 1; li >= 1; --li) {
+        const int din = net.w[li], dout = net.w[li + 1];
+        // only row j of the last linear with the exact trace
+        const bool row_j = kTrace == kExact && li == L - 1;
+        const float* Wp = W + padded_at(net, li) + din * pad8(dout);
+        quad_sync();
+        if (reduce) {
+          __syncthreads();
+          reduce_outer(row_j ? j : 0, row_j ? j + 1 : dout, din, rows,
+                       [&](int o, int r) { return blk(cs + o, r); },
+                       [&](int q, int r) { return blk(hs.d + lo + q, r) * blk(hs.v + lo + q, r); },
+                       net.off[li], din, inc, err, cb5, ce);
+        }
+        const Column cur = blk.row(cs), nxt = blk.row(ns);
+        const auto pull = [&](int q, float w) {
+          const float dq = d[lo + q];
+          ht[lo + q] = fmaf(z[lo + q] > 0.0f ? 0.0f : dq * v[lo + q], w, ht[lo + q]);
+          nxt[q] = dq * w;
+        };
+        if (row_j) {
+          const float cj = cur[j];
+          for (int q = ql; q < din; q += kQuad) pull(q, Wp[j * pad8(din) + q] * cj);
+        } else {
+          tmatvec_t(Wp, din, dout, cur, pull);
+        }
+        const int t = cs;
+        cs = ns;
+        ns = t;
+        if (li > 1) lo -= net.w[li - 1];
+      }
+      quad_sync();
+      if (reduce) {
+        __syncthreads();
+        if (kTrace == kExact) {  // the right vector is e_j: column j
+          reduce_outer(0, H1, 1, rows, [&](int o, int r) { return blk(cs + o, r); }, one,
+                       net.off[0] + j, F, inc, err, cb5, ce);
+        } else {
+          reduce_outer(0, H1, F, rows, [&](int o, int r) { return blk(cs + o, r); },
+                       [&](int q, int r) { return blk(hs.e + q, r); }, net.off[0], F, inc, err,
+                       cb5, ce);
+        }
+        __syncthreads();  // before the next pullback writes its first cotangent
+      }
+    }
+  }
+  // the primal part, from hbar_L = a
+  int cs = hs.c0, ns = hs.c1;
+  quad_sync();
+  {
+    const Column cur = blk.row(cs);
+    for (int o = ql; o < F; o += kQuad) cur[o] = as[o];
+  }
+  int lo = top;
+  for (int li = L - 1; li >= 1; --li) {
+    const int din = net.w[li], dout = net.w[li + 1];
+    quad_sync();
+    if (reduce) {
+      __syncthreads();
+      const auto left = [&](int o, int r) { return blk(cs + o, r); };
+      reduce_outer(0, dout, din, rows, left, [&](int q, int r) { return blk(hs.z + lo + q, r); },
+                   net.off[li], din, inc, err, cb5, ce);
+      reduce_outer(0, dout, 1, rows, left, one, net.off[li] + dout * din, 1, inc, err, cb5, ce);
+    }
+    const Column cur = blk.row(cs), nxt = blk.row(ns);
+    tmatvec_t(W + padded_at(net, li) + din * pad8(dout), din, dout, cur, [&](int q, float w) {
+      const float hq = d[lo + q] * w;
+      nxt[q] = kTrace != kNone ? hq + ht[lo + q] : hq;
+    });
+    const int t = cs;
+    cs = ns;
+    ns = t;
+    if (li > 1) lo -= net.w[li - 1];
+  }
+  quad_sync();
+  const Column cur = blk.row(cs);
+  if (reduce) {
+    __syncthreads();
+    reduce_outer(0, H1, F, rows, [&](int o, int r) { return blk(cs + o, r); },
+                 [&](int q, int r) { return blk(hs.us + q, r); }, net.off[0], F, inc, err, cb5,
+                 ce);
+    // the first bias (unless per row) and W1_te from the rows' sums
+    for (int o = tid; o < H1; o += blockDim.x) {
+      float sum = 0.0f;
+      for (int r = 0; r < rows; ++r) sum += blk(cs + o, r);
+      const auto add = [&](int at, float k) {
+        inc[at] = fmaf(cb5, k, inc[at]);
+        err[at] = fmaf(ce, k, err[at]);
+      };
+      if (!kRowBias) add(net.off_b1 + o, -sum);
+      const int nf = net.nf;
+      for (int k = 0; k < nf; ++k) {
+        const float ft = net.freqs[k] * st;
+        add(net.off_te + o * 2 * nf + k, -sum * cosf(ft));
+        add(net.off_te + o * 2 * nf + nf + k, -sum * sinf(ft));
+      }
+    }
+  }
+  tmatvec_t(Wp0, F, H1, cur, [&](int q, float w) { ka[s * F + q] = -w; });
+  if (kRowBias)
+    for (int o = ql; o < H1; o += kQuad) {
+      incb[o] = fmaf(cb5, -cur[o], incb[o]);
+      errb[o] = fmaf(ce, -cur[o], errb[o]);
+    }
+  quad_sync();                  // ka, before the next stage's inputs read it
+  if (reduce) __syncthreads();  // the rows' columns are read no more this stage
+}
+
+template <int kTrace, bool kRowBias>
+__global__ void __launch_bounds__(kAdjRows * kQuad)
+    cnf_adjoint_cluster(const float* __restrict__ xin, const float* __restrict__ ain,
+                        const float* __restrict__ glq, const float* __restrict__ eps,
+                        const float* __restrict__ bias_rows, float* __restrict__ u_out,
+                        float* __restrict__ a_out, float* __restrict__ g_out,
+                        float* __restrict__ gb_out, const float* __restrict__ packed,
+                        const float* __restrict__ padded, const __grid_constant__ Net net,
+                        const __grid_constant__ AdjTile at, float* work, long long stride,
+                        long long row0, long long row_end) {
+  extern __shared__ __align__(16) float smem[];
+  const int F = net.F, H1 = net.w[1], P = net.total, tid = threadIdx.x, nt = blockDim.x;
+  const int cl = at.cl, rb = at.rb, rank = blockIdx.x % cl, ql = quad_lane();
+  const long long i0 = (long long)blockIdx.x * rb, i = i0 + tid / kQuad;  // rows in the chunk
+  const long long row = row0 + i;
+  const bool valid = row < row_end;
+  // shared memory: [padded weights][te][red][the rows' columns]
+  float* te = smem + (at.weights_shared ? at.weights : 0);
+  float* red = te + pad8(H1);
+  const float* W = padded;
+  if (at.weights_shared) {
+    for (int q = tid; q < at.weights; q += nt) smem[q] = padded[q];
+    W = smem;
+  }
+  const int sh = sum_hidden(net);
+  const HotSlots hs(F, sh, max_width(net));
+  // the workspace: per row ku, ka, [gb, incb, errb], [the columns]; then per
+  // block the increments and errors of the parameters' accumulators
+  const auto wcol = [&](long long slot) { return Column{work + slot * stride + i, stride}; };
+  const Column ku = wcol(0), ka = wcol(7LL * F);
+  const Column gb = wcol(14LL * F), incb = wcol(14LL * F + H1), errb = wcol(14LL * F + 2 * H1);
+  const long long hot_at = 14LL * F + (kRowBias ? 3LL * H1 : 0);
+  const Block blk = at.rows_shared ? Block{red + kRed, at.rbs, rb}
+                                   : Block{work + hot_at * stride + i0, stride, rb};
+  float* inc = work + at.row_floats * stride + (long long)blockIdx.x * 2 * P;
+  float* err = inc + P;
+  const long long tile0 = (long long)blockIdx.x - rank;  // the tile's first block
+  float* g = g_out + (row0 / ((long long)rb * cl) + blockIdx.x / cl) * (long long)P;
+  // this rank's share of the tile's accumulators
+  const int e0 = (int)((long long)P * rank / cl), e1 = (int)((long long)P * (rank + 1) / cl);
+  for (int q = tid; q < P; q += nt) inc[q] = err[q] = 0.0f;
+  for (int q = e0 + tid; q < e1; q += nt) g[q] = 0.0f;
+  const float* brow = kRowBias && valid ? bias_rows + row * H1 : nullptr;
+  const float lbar = kTrace != kNone && valid ? glq[row] : 0.0f;
+  const Column u = blk.row(hs.u), a = blk.row(hs.a), e = blk.row(hs.e);
+  for (int f = ql; f < F; f += kQuad) {
+    u[f] = valid ? xin[row * F + f] : 0.0f;
+    a[f] = valid ? ain[row * F + f] : 0.0f;
+    if (kTrace == kHutchinson) e[f] = valid ? eps[row * F + f] : 0.0f;
+  }
+  if (kRowBias)
+    for (int o = ql; o < H1; o += kQuad) gb[o] = incb[o] = errb[o] = 0.0f;
+  __syncthreads();
+  const Column us = blk.row(hs.us), as = blk.row(hs.as);
+  // the tile's accumulators' increments and errors at entry q: the blocks'
+  // in rank order
+  const auto tile_sum = [&](int q, float* k_err) {
+    float si = 0.0f, se = 0.0f;
+    for (int b = 0; b < cl; ++b) {
+      const float* ib = work + at.row_floats * stride + (tile0 + b) * 2LL * P;
+      si += ib[q];
+      se += ib[P + q];
+    }
+    *k_err = se;
+    return si;
+  };
+  float t = 0.0f, dt = 1.0f;
+  for (int attempt = 0; t < 1.0f && attempt < net.max_attempts; ++attempt) {
+    dt = fminf(dt, 1.0f - t);
+    for (int s = 0; s < 7; ++s) {
+      for (int f = ql; f < F; f += kQuad) {
+        float vu = u[f], va = a[f];
+        for (int q = 0; q < s; ++q)
+          if (kDpA[s][q] != 0.0f) {
+            vu = fmaf(dt * kDpA[s][q], ku[q * F + f], vu);
+            va = fmaf(dt * kDpA[s][q], ka[q * F + f], va);
+          }
+        us[f] = vu;
+        as[f] = va;
+      }
+      const float st = t + kDpC[s] * dt;
+      time_embedding<true>(net, packed, st, kRowBias, te);  // and the block's barrier
+      adjoint_tile_stage<kTrace, kRowBias>(net, W, packed, te, brow, lbar, blk, hs, ku, ka, incb,
+                                           errb, s, kDpB5[s] != 0.0f || kDpE[s] != 0.0f, inc,
+                                           err, dt * kDpB5[s], dt * kDpE[s], st);
+    }
+    __threadfence();
+    cluster_sync(cl);  // every block's increments and errors are in
+    // the row's error ratio over u, a (and its first bias), this rank's
+    // share of the tile's accumulators, then the tile's
+    float ratio = 0.0f;
+    const auto worst = [&](float x0, float y, float e) {
+      float q = fabsf(e) / (net.atol + net.rtol * fmaxf(fabsf(x0), fabsf(y)));
+      if (isnan(q)) q = INFINITY;
+      ratio = fmaxf(ratio, q);
+    };
+    if (valid) {
+      for (int f = ql; f < F; f += kQuad) {
+        float yu = u[f], ya = a[f], eu = 0.0f, ea = 0.0f;
+        for (int q = 0; q < 7; ++q) {
+          if (kDpB5[q] != 0.0f) {
+            yu = fmaf(dt * kDpB5[q], ku[q * F + f], yu);
+            ya = fmaf(dt * kDpB5[q], ka[q * F + f], ya);
+          }
+          if (kDpE[q] != 0.0f) {
+            eu = fmaf(dt * kDpE[q], ku[q * F + f], eu);
+            ea = fmaf(dt * kDpE[q], ka[q * F + f], ea);
+          }
+        }
+        worst(u[f], yu, eu);
+        worst(a[f], ya, ea);
+      }
+      if (kRowBias)
+        for (int o = ql; o < H1; o += kQuad) worst(gb[o], gb[o] + incb[o], errb[o]);
+    }
+    for (int q = e0 + tid; q < e1; q += nt) {
+      float ke;
+      const float ki = tile_sum(q, &ke);
+      worst(g[q], g[q] + ki, ke);
+    }
+    ratio = block_max(ratio, red);
+    if (cl > 1) {
+      if (tid == 0) red[kRed - 1] = ratio;
+      cluster_sync(cl);
+      for (int b = 0; b < cl; ++b) ratio = fmaxf(ratio, cluster_peer(red + kRed - 1, b));
+    }
+    if (ratio <= 1.0f) {
+      if (valid)
+        for (int f = ql; f < F; f += kQuad) {
+          float yu = u[f], ya = a[f];
+          for (int q = 0; q < 7; ++q)
+            if (kDpB5[q] != 0.0f) {
+              yu = fmaf(dt * kDpB5[q], ku[q * F + f], yu);
+              ya = fmaf(dt * kDpB5[q], ka[q * F + f], ya);
+            }
+          u[f] = yu;
+          a[f] = ya;
+        }
+      if (kRowBias)
+        for (int o = ql; o < H1; o += kQuad) gb[o] += incb[o];
+      for (int q = e0 + tid; q < e1; q += nt) {
+        float ke;
+        g[q] += tile_sum(q, &ke);
+      }
+      t += dt;
+    }
+    cluster_sync(cl);  // every rank has read the blocks' increments and its peers' max
+    for (int q = tid; q < P; q += nt) inc[q] = err[q] = 0.0f;
+    if (kRowBias)
+      for (int o = ql; o < H1; o += kQuad) incb[o] = errb[o] = 0.0f;
+    dt *= fminf(fmaxf(0.9f * powf(fmaxf(ratio, FLT_MIN), -0.2f), 0.1f), 10.0f);
+  }
+  const bool exhausted = t < 1.0f - 64.0f * FLT_EPSILON;
+  if (exhausted)
+    for (int q = e0 + tid; q < e1; q += nt) g[q] = NAN;
+  if (!valid) return;
+  for (int f = ql; f < F; f += kQuad) {
+    u_out[row * F + f] = exhausted ? NAN : u[f];
+    a_out[row * F + f] = exhausted ? NAN : a[f];
+  }
+  if (kRowBias)
+    for (int o = ql; o < H1; o += kQuad) gb_out[row * H1 + o] = exhausted ? NAN : gb[o];
 }
 
 // The network as the host describes it: the widths, the offsets of the
@@ -1039,7 +1595,7 @@ int run_mode(const Launch& l, const Desc& d) {
 struct AdjointLaunch {
   const float *x, *a, *glq, *eps, *bias;
   float *u1, *a1, *g, *gb;
-  const float* packed;
+  const float *packed, *padded;
   long long n;
   int tile, wide;
   float* work;
@@ -1049,10 +1605,10 @@ struct AdjointLaunch {
   cudaStream_t stream;
 };
 
-template <int kTrace, bool kRowBias, bool kWide>
-int launch_adjoint(const AdjointLaunch& l, const NetOf<kWide>& s, long long row_floats,
+template <int kTrace, bool kRowBias>
+int launch_adjoint(const AdjointLaunch& l, const WideNet& s, long long row_floats,
                    long long tile_floats, size_t smem) {
-  auto kernel = cnf_adjoint_kernel<kTrace, kRowBias, kWide>;
+  auto kernel = cnf_adjoint_kernel<kTrace, kRowBias>;
   if (smem > 48 * 1024) {
     const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem);
@@ -1070,35 +1626,107 @@ int launch_adjoint(const AdjointLaunch& l, const NetOf<kWide>& s, long long row_
   return cudaSuccess;
 }
 
+// The narrow tier's plan for tiles of `tile` rows (cl = 0: no plan).
+AdjTile adjoint_plan(const Desc& d, int tile, bool row_bias) {
+  AdjTile at{};
+  at.rb = tile < kAdjRows ? tile : kAdjRows;
+  if (tile < 1 || tile % at.rb != 0 || tile / at.rb > kMaxCluster) return at;
+  at.cl = tile / at.rb;
+  at.rbs = at.rb + 1;  // consecutive slots of one row fall on other banks
+  int mw = 0;
+  for (int i = 0; i <= d.n_lin; ++i) {
+    mw = d.w[i] > mw ? d.w[i] : mw;
+    if (i < d.n_lin) at.weights += d.w[i] * pad8(d.w[i + 1]) + d.w[i + 1] * pad8(d.w[i]);
+  }
+  at.hot = HotSlots(d.F, d.sum_hidden, mw).total;
+  const int base = pad8(d.w[1]) + kRed;  // te and the block max
+  at.weights_shared = 4LL * (at.weights + base) <= kMaxShared;
+  at.rows_shared = at.weights_shared &&
+                   4LL * (at.weights + base + (long long)at.hot * at.rbs) <= kMaxShared;
+  at.smem_floats =
+      (at.weights_shared ? at.weights : 0) + base + (at.rows_shared ? at.hot * at.rbs : 0);
+  at.row_floats = 14LL * d.F + (row_bias ? 3LL * d.w[1] : 0) + (at.rows_shared ? 0 : at.hot);
+  return at;
+}
+
+// The rows in chunks of `stride` (whole tiles), one launch each: a cluster
+// of at.cl blocks of at.rb rows (a quad of threads a row) a tile.
+template <int kTrace, bool kRowBias>
+int launch_cluster(const AdjointLaunch& l, const Net& s, const AdjTile& at) {
+  auto kernel = cnf_adjoint_cluster<kTrace, kRowBias>;
+  const size_t smem = 4 * (size_t)at.smem_floats;
+  if (smem > 48 * 1024) {
+    const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  for (long long row0 = 0; row0 < l.n; row0 += l.stride) {
+    const long long row_end = row0 + l.stride < l.n ? row0 + l.stride : l.n;
+    const unsigned blocks = (unsigned)((row_end - row0 + l.tile - 1) / l.tile * at.cl);
+#ifdef __CUDACC__
+    if (at.cl > 1) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(blocks);
+      cfg.blockDim = dim3((unsigned)(at.rb * kQuad));
+      cfg.dynamicSmemBytes = smem;
+      cfg.stream = l.stream;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = (unsigned)at.cl;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      const int rc = cudaLaunchKernelEx(&cfg, kernel, l.x, l.a, l.glq, l.eps, l.bias, l.u1, l.a1,
+                                        l.g, l.gb, l.packed, l.padded, s, at, l.work, l.stride,
+                                        row0, row_end);
+      if (rc != cudaSuccess) return rc;
+    } else
+#endif
+    {
+      kernel<<<blocks, at.rb * kQuad, smem, l.stream>>>(l.x, l.a, l.glq, l.eps, l.bias, l.u1,
+                                                        l.a1, l.g, l.gb, l.packed, l.padded, s,
+                                                        at, l.work, l.stride, row0, row_end);
+    }
+    const int rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
+}
+
 template <int kTrace>
 int run_adjoint(const AdjointLaunch& l, const Desc& d) {
   const bool row_bias = l.bias != nullptr;
-  // the workspace (sized by cnf_fused.py plan_cnf_adjoint): the rows'
-  // columns, then each tile's accumulators and factors
   const long long F = d.F, H1 = d.w[1];
+  if (l.tile < 1 || l.tile > kTile || l.work == nullptr || l.stride < l.tile ||
+      l.stride % l.tile != 0)
+    return cudaErrorInvalidValue;
+  if (!l.wide) {
+    // the workspace (sized by cnf_fused.py plan_cnf_adjoint): the rows'
+    // columns, then each block's increments and errors
+    const AdjTile at = adjoint_plan(d, l.tile, row_bias);
+    if (!fits_narrow(d) || l.padded == nullptr || at.cl == 0 ||
+        at.row_floats * l.stride + 2LL * d.total * (l.stride / at.rb) > l.work_floats)
+      return cudaErrorInvalidValue;
+    const Net s = narrow_net(d);
+    return row_bias ? launch_cluster<kTrace, true>(l, s, at) : launch_cluster<kTrace, false>(l, s, at);
+  }
+  // the wide tier's workspace: the rows' columns, then each tile's
+  // accumulators and factors
   long long mw = 0, pairs_width = 0;
   for (int i = 0; i <= d.n_lin; ++i) mw = d.w[i] > mw ? d.w[i] : mw;
   for (int i = 0; i < d.n_lin; ++i) pairs_width += d.w[i] + d.w[i + 1];
   const long long pairs = kTrace == kExact ? F + 1 : (kTrace == kHutchinson ? 2 : 1);
   const long long row_floats = 19 * F + 4LL * d.sum_hidden + 2 * mw + 3 * H1;
   const long long tile_floats = 2LL * d.total + (long long)l.tile * pairs * pairs_width;
-  if (l.tile < 1 || l.tile > kTile || l.work == nullptr || l.stride < l.tile ||
-      l.stride % l.tile != 0 ||
-      row_floats * l.stride + tile_floats * (l.stride / l.tile) > l.work_floats)
+  if (row_floats * l.stride + tile_floats * (l.stride / l.tile) > l.work_floats)
     return cudaErrorInvalidValue;
   const size_t te = (size_t)(H1 + kRed) * sizeof(float);
-  if (!l.wide) {
-    if (!fits_narrow(d)) return cudaErrorInvalidValue;
-    const Net s = narrow_net(d);
-    const size_t smem = te + (size_t)d.total * sizeof(float);
-    return row_bias ? launch_adjoint<kTrace, true, false>(l, s, row_floats, tile_floats, smem)
-                    : launch_adjoint<kTrace, false, false>(l, s, row_floats, tile_floats, smem);
-  }
   WideNet s;
   const int rc = wide_net(d, l.desc, l.desc_bytes, l.stream, &s);
   if (rc != cudaSuccess) return rc;
-  return row_bias ? launch_adjoint<kTrace, true, true>(l, s, row_floats, tile_floats, te)
-                  : launch_adjoint<kTrace, false, true>(l, s, row_floats, tile_floats, te);
+  return row_bias ? launch_adjoint<kTrace, true>(l, s, row_floats, tile_floats, te)
+                  : launch_adjoint<kTrace, false>(l, s, row_floats, tile_floats, te);
 }
 
 }  // namespace
@@ -1157,14 +1785,20 @@ extern "C" int cnf_sample_f32(const float* z, const float* eps, const float* bia
 // re-integrated base draws, a1 (n, F) the cotangent of the draws, g
 // (ceil(n / tile), P) each tile's sums of the cotangents of the packed
 // parameters (P floats, the layout of `packed`; cnf_density_f32), and with a
-// per-row first bias `bias` (n, H1) its cotangent gb (n, H1). One block of
-// `tile` threads (at most 256) a tile of rows. The workspace holds `stride`
-// rows a launch (a multiple of the tile): 19 F + 4 sum(hidden) + 2 max(widths)
-// + 3 H1 floats a row and 2 P + tile (1 + F | 2 | 1) sum_l (w_l + w_{l+1})
-// floats a tile.
+// per-row first bias `bias` (n, H1) its cotangent gb (n, H1). A tile is
+// `tile` rows (at most 256). The narrow tier (wide 0) takes `padded`, the
+// linears W1_x, W2, ... each as W^T [in][out rounded to 8] then W [out][in
+// rounded to 8], zero-padded, and a workspace of `stride` rows a launch (a
+// multiple of the tile): 14 F (+ 3 H1 with a per-row bias) floats a row, and
+// the row's columns where shared memory cannot hold them (adjoint_plan),
+// then 2 P floats a block of min(tile, 64) rows. The wide tier (wide 1;
+// padded unused): one block of `tile` threads a tile, 19 F + 4 sum(hidden) +
+// 2 max(widths) + 3 H1 floats a row and 2 P + tile (1 + F | 2 | 1) sum_l (w_l
+// + w_{l+1}) floats a tile.
 extern "C" int cnf_adjoint_f32(const float* x, const float* a, const float* glq, const float* eps,
                                const float* bias, float* u1, float* a1, float* g, float* gb,
-                               const float* packed, const int* widths, int n_lin, int nf,
+                               const float* packed, const float* padded, const int* widths,
+                               int n_lin, int nf,
                                const float* freqs, float atol, float rtol, int max_steps,
                                int trace, long long n, int tile, int wide, float* work,
                                long long work_floats, long long stride, void* desc,
@@ -1175,7 +1809,7 @@ extern "C" int cnf_adjoint_f32(const float* x, const float* a, const float* glq,
   if (n < 0 || (trace == kHutchinson && eps == nullptr) || ((trace == kNone) != (glq == nullptr)) ||
       ((bias == nullptr) != (gb == nullptr)))
     return cudaErrorInvalidValue;
-  const AdjointLaunch l{x, a, glq, eps, bias, u1, a1, g, gb, packed, n, tile, wide, work,
+  const AdjointLaunch l{x, a, glq, eps, bias, u1, a1, g, gb, packed, padded, n, tile, wide, work,
                         work_floats, stride, desc, desc_bytes, (cudaStream_t)stream};
   if (trace == kNone) return run_adjoint<kNone>(l, d);
   if (trace == kExact) return run_adjoint<kExact>(l, d);

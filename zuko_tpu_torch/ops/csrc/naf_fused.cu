@@ -42,14 +42,15 @@
 // density row about 2.7M (306 integrand evaluations of ~8.4K), a sample row
 // about 54M (84 evaluations a feature in the cold sweep, 55 in a warm one).
 //
-// Design (simple and right first): one thread per row, blocks of 128 rows,
-// no shared memory and no synchronisation. Weights are read through the
-// read-only data cache (__ldg): every thread of a warp reads the same
-// address at the same time, one broadcast per warp. The MADE's F * T outputs
-// are never stored together: a feature computes its T values from the last
-// hidden layer when it needs them. Float32 throughout (expf, expm1f, logf,
-// log1pf); no tensor cores, no TF32. The UMNN sampler's narrow tier is the
-// tiled kernel below (naf_sample_umnn_tiled), not one thread a row.
+// Design (simple and right first): the density, and the sampler's wide tier,
+// take one thread per row, blocks of 128 rows, no shared memory and no
+// synchronisation. Weights are read through the read-only data cache
+// (__ldg): every thread of a warp reads the same address at the same time,
+// one broadcast per warp. The MADE's F * T outputs are never stored
+// together: a feature computes its T values from the last hidden layer when
+// it needs them. Float32 throughout (expf, expm1f, logf, log1pf); no tensor
+// cores, no TF32. The sampler's narrow tier, in both modes, is the tiled
+// kernel below (naf_sample_tiled), not one thread a row.
 //
 // Two tiers, chosen by the wrapper from the flow's shape alone
 // (zuko_tpu_torch/ops/naf_fused.py plan_naf). The narrow tier (kWide false)
@@ -57,8 +58,8 @@
 // the flow's description in the kernel parameter (__grid_constant__): up to
 // kMaxF features, a signal of kMaxS, MADE widths of kMaxMade, network widths
 // of kMaxMono, kMaxLinear linears a network, kMaxStages stages; the tiled
-// UMNN sampler takes the same limits and, besides, a shared-memory plan
-// within 227 KB. The wide tier takes any shape: a row's state lives in a
+// sampler takes the same limits and, besides, a shared-memory plan within
+// 227 KB. The wide tier takes any shape: a row's state lives in a
 // workspace in device memory, one column of `stride` rows per value (slot),
 // so neighbouring threads touch neighbouring addresses as in local memory;
 // the layer widths and the stages lie in a small device buffer. The wrapper
@@ -469,26 +470,21 @@ __device__ __forceinline__ float solve(float target, float x0, int sweep,
   return x;
 }
 
-template <bool kWide, int kMode, bool kLogQ>
+// The sampler's wide tier (the narrow tier is naf_sample_tiled): one thread a
+// row, its state and its current stage's target y in the workspace.
+template <int kMode, bool kLogQ>
 __global__ void __launch_bounds__(kThreads)
 naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
                   float* __restrict__ logq, const float* __restrict__ packed,
-                  const __grid_constant__ ShapeOf<kWide> s, float* __restrict__ work,
+                  const __grid_constant__ WideShape s, float* __restrict__ work,
                   long long stride, long long row0, long long row_end) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = row0 + i;
   if (row >= row_end) return;
   const int F = s.F, D0 = s.F + s.C;
-  Row<kWide> r;
+  Row<true> r;
   r.init(s, work, stride, i);
-  // the current stage's target
-  float y_local[kWide ? 1 : kMaxF];
-  Vec<kWide> y;
-  if constexpr (kWide) {
-    y = r.y;
-  } else {
-    y = y_local;
-  }
+  const Column y = r.y;
   float acc = 0.0f;
   for (int f = 0; f < F; ++f) y[f] = zc[row * D0 + f];
   for (int j = F; j < D0; ++j) r.xc[j] = zc[row * D0 + j];
@@ -510,18 +506,18 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
     for (int f = 0; f < F; ++f) r.xc[f] = 0.0f;
     const int sweeps = min(st.passes, F);
     for (int sweep = 0; sweep < sweeps; ++sweep) {
-      const Vec<kWide> h = made_pass(w, s, r);
+      const Column h = made_pass(w, s, r);
       // Jacobi: h holds the MADE outputs of the whole previous iterate
       for (int f = 0; f < F; ++f) {
-        signal_and_hoist<kWide, kMode>(w, s, h, f, r);
+        signal_and_hoist<true, kMode>(w, s, h, f, r);
         const float target = kMode == kUMNN ? y[f] - r.sig[s.S] : y[f];
         r.xc[f] = solve<kMode>(target, r.xc[f], sweep, w, s, f, r);
       }
     }
     if (kLogQ) {
-      const Vec<kWide> h = made_pass(w, s, r);
+      const Column h = made_pass(w, s, r);
       for (int f = 0; f < F; ++f) {
-        signal_and_hoist<kWide, kMode>(w, s, h, f, r);
+        signal_and_hoist<true, kMode>(w, s, h, f, r);
         float g;
         if (kMode == kMNN) {
           monotone_net<true>(r.xc[f], w, s, f, r, &g);
@@ -537,57 +533,66 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   if (kLogQ) logq[row] = acc;
 }
 
-// ------------------------------------------------------- the tiled UMNN sampler
+// ------------------------------------------------------------ the tiled sampler
 //
-// naf_sample_umnn_tiled is K9's narrow tier in UMNN mode: the same function
-// as naf_sample_kernel<kWide, kUMNN, *> (the same stages in reverse, sweeps,
-// brackets, warm window and its checks, bisections, Newton steps, rules,
-// clamps and kDfFloor), with every sum in the same order. With one thread a
-// row, each multiply-add of the 64 x 64 hidden layer takes a weight and an
-// activation from memory, and the loads bound it; but the nodes of a step,
+// naf_sample_tiled is K9's narrow tier in both modes: the same function as
+// naf_sample_kernel<kMode, *> (the same stages in reverse, sweeps, brackets,
+// warm window and its checks, bisections, Newton steps, rules, clamps and
+// kDfFloor), with every sum in the same order. With one thread a row, each
+// multiply-add of the 64 x 64 hidden layer takes a weight and an activation
+// from memory, and the loads bound it; but the evaluations of a solver step,
 // over the rows of a tile, are evaluations of one network: a matrix product.
-// A block of 512 threads owns a tile of R rows (64, or 32 or 16 at few rows,
-// from the wrapper) for the whole inversion:
+// A block of 512 threads owns a tile of R rows for the whole inversion (UMNN
+// 64, or 32 or 16 at few rows; MNN 128, or 64 or 32; from the wrapper):
 // - a row's bracket, iterate and target stay in the registers of thread r
 //   (r < R), which updates them between the steps;
 // - the MADE pass, the T signal values and the hoisted first layer pre1 of
 //   a feature are small tile products from shared memory, laid out [unit][row];
-// - the evaluations of one solver step (R rows x 4 nodes in a bisection, 8
-//   for the warm window's two checks, 8 + 1 in a Newton step, 16 + 1 in the
-//   last; g(x) is one more node) are the rows of an M x H activation matrix
-//   u = elu(w1x x_m + pre1[row]) in shared memory, M <= 256 node rows a
-//   chunk. Each hidden-to-hidden layer is then a register-tiled float32
-//   product: a thread holds a 4 x 8 patch (rows 4 rg .. 4 rg + 3, outputs
-//   cg + j ncg), its operands from shared memory in 16-byte loads (the
-//   feature's weights, staged transposed once per feature and sweep with a
-//   thread's outputs side by side), and writes the ELU back in place; one
-//   thread a node row then takes the last layer's dot and
-//   g = exp(d / (1 + |d / 7|)), and the row's thread the Gauss-Legendre sum.
-// The activations' row stride is M + 4 (M a multiple of 32), so the in-place
-// write-back of a quarter warp's patches falls on distinct banks. 16 warps
-// a block (one block an SM, by its shared memory) keep the SM issuing. Full
-// float32 on the CUDA cores.
+// - the evaluations of one solver step are the rows of an activation matrix
+//   in shared memory, [unit][node row], M node rows a chunk; each
+//   hidden-to-hidden layer is then a register-tiled float32 product
+//   (tile_layer): a thread holds a patch of 4 (or 2) rows x 8 outputs
+//   (outputs cg + j ncg), its operands from shared memory in 16-byte loads
+//   (the feature's weights, staged transposed once per feature and sweep
+//   with a thread's outputs side by side), and writes the activation back in
+//   place; one thread a node row then takes the last layer's dot.
+// UMNN (tile_nodes): R rows x 4 nodes in a bisection, 8 for the warm
+// window's two checks, 8 + 1 in a Newton step, 16 + 1 in the last (g(x) one
+// more node); a node row is u = elu(w1x x_m + pre1[row]), the last dot gives
+// g = exp(d / (1 + |d / 7|)), and the row's thread takes the Gauss-Legendre
+// sum. The activations' row stride is M + 4 (M a multiple of 32), so the
+// in-place write-back of a quarter warp's patches falls on distinct banks.
+// MNN (tile_mnn): a step has few evaluations a row (one in a bisection, two
+// in the warm check, one with its x-derivative in a Newton step), hence the
+// larger tile; a patch is 2 rows of TwoWayELU values or, with the derivative,
+// 2 value rows and their 2 tangent rows, which ride the same product:
+// dnxt = elu'(z) (W dcur), elu' taken at the value row's pre-activation, in
+// the same thread. The stride is 2 M + 4 slots (M a multiple of 16).
+// 16 warps a block (one block an SM, by its shared memory) keep the SM
+// issuing. Full float32 on the CUDA cores.
 
 constexpr int kTileThreads = 512;
-constexpr int kMaxNodes = 17;   // evaluations a row in one solver step: GL-16 and g(x)
-constexpr int kNodeRows = 256;  // node rows a chunk, at most
+constexpr int kMaxNodes = 17;   // UMNN evaluations a row in one solver step: GL-16 and g(x)
+constexpr int kNodeRows = 256;  // UMNN node rows a chunk, at most
+constexpr int kMnnRows = 128;   // MNN value rows a chunk, at most
 constexpr int kMaxShared = 232448;  // a block's shared memory on an H100 (227 KB)
 
 // A tile's arrays in dynamic shared memory, as float offsets, and its chunk
-// of node rows (tile_plan; mirrored in ops/naf_fused.py _umnn_tile_floats).
+// of node rows (tile_plan; mirrored in ops/naf_fused.py _tile_floats).
 struct Tile {
-  int R, lr;    // rows of a tile (16, 32 or 64) and log2 R
-  int M, Ms;    // node rows a chunk and the activations' row stride, M + 4
+  int R, lr;    // rows of a tile and log2 R
+  int M, Ms;    // node rows a chunk and the activations' row stride
   int xc;       // [F + C][R]: the iterate, then the context
   int a, b;     // [MADE hidden][R], ping-pong
   int y;        // [F][R]: the stage's targets
   int sig;      // [T][R]: a feature's MADE outputs
   int pre1;     // [H1][R]: its hoisted first layer
   int xp;       // [2][R]: the step's evaluation points
-  int g;        // [kMaxNodes][R]: the step's integrand values, node-major
+  int g;        // UMNN [kMaxNodes][R]: the step's integrand values, node-major;
+                // MNN [3][R]: the values at the points, then the derivative
   int act;      // [H][Ms]: node activations
   int wt;       // per middle layer [din][dout rounded to 8] and its bias
-  int misc;     // the x column, the last layer and its bias, the GL rules
+  int misc;     // the x column, the last layer and its bias (UMNN: the GL rules)
   int floats;
 };
 
@@ -619,13 +624,14 @@ __device__ __forceinline__ const float* made_tile(const float* __restrict__ w, c
   return cur;
 }
 
-// Feature f: its T MADE outputs (the signal, then the constant), its
+// Feature f: its T MADE outputs (the signal, then a UMNN's constant), its
 // network's weights into shared memory (the x column, each middle layer
 // transposed with its bias, the last layer and its bias) and the hoisted
 // first layer pre1[k][r] = b1[k] + W1[k, 1:] s. Ends synchronised.
+template <int kMode>
 __device__ __forceinline__ void hoist_tile(const float* __restrict__ w, const Shape& s,
                                            const Tile& tl, const float* h, int f, float* sm) {
-  const int R = tl.R, lr = tl.lr, T = s.S + 1;
+  const int R = tl.R, lr = tl.lr, T = s.S + (kMode == kUMNN);
   const int H1 = s.mono_w[1], HL = s.mono_w[s.n_mono - 1], in1 = s.mono_w[0];
   float* sig = sm + tl.sig;
   float* w1x = sm + tl.misc;
@@ -677,33 +683,45 @@ __device__ __forceinline__ void hoist_tile(const float* __restrict__ w, const Sh
 }
 
 // One hidden-to-hidden layer din -> dout on the chunk's Mc node rows, in
-// place in act: a thread's 4 x 8 patch accumulates from the bias in the
-// order of the inputs, then its ELU replaces the layer's input.
+// place in act. A thread's patch of kPR rows x 8 outputs accumulates from the
+// bias in the order of the inputs, then its activation replaces the layer's
+// input: UMNN 4 rows, ELU; MNN 2 rows, TwoWayELU; MNN with kGrad 2 value rows
+// and, in the patch's rows 2 and 3, their tangents, which accumulate from 0
+// and take elu' at their value row's pre-activation.
+template <int kMode, bool kGrad>
 __device__ __forceinline__ void tile_layer(float* act, int Ms, const float* wt, int din,
                                            int dout, int Mc) {
+  constexpr int kPR = (kMode == kUMNN || kGrad) ? 4 : 2;  // slots of a patch
+  constexpr int kVR = kMode == kUMNN ? 4 : 2;             // node rows of a patch
   const int dp = round8(dout), ncg = dp >> 3;
   const int rg = threadIdx.x / ncg, cg = threadIdx.x - rg * ncg;
-  const bool active = rg * 4 < Mc;
-  float acc[4][8];
+  const bool active = rg * kVR < Mc;
+  float acc[kPR][8];
   if (active) {
     const float* bias = wt + din * dp;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float bv = bias[cg + j * ncg];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = bv;
+      for (int i = 0; i < kPR; ++i) acc[i][j] = i < kVR ? bv : 0.0f;
     }
-    const float* ap = act + rg * 4;
+    const float* ap = act + rg * kPR;
     const float* bp = wt + 4 * cg;  // the patch's outputs, permuted by hoist_tile
 #pragma unroll 2
     for (int k = 0; k < din; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(ap + k * Ms);
+      float av[kPR];
+      if constexpr (kPR == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(ap + k * Ms);
+        av[0] = a.x, av[1] = a.y, av[2] = a.z, av[3] = a.w;
+      } else {
+        const float2 a = *reinterpret_cast<const float2*>(ap + k * Ms);
+        av[0] = a.x, av[1] = a.y;
+      }
       const float4 b0 = *reinterpret_cast<const float4*>(bp + k * dp);
       const float4 b1 = *reinterpret_cast<const float4*>(bp + k * dp + 4 * ncg);
-      const float av[4] = {a.x, a.y, a.z, a.w};
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kPR; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
@@ -713,9 +731,20 @@ __device__ __forceinline__ void tile_layer(float* act, int Ms, const float* wt, 
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = cg + j * ncg;
-      if (col < dout) {
-        *reinterpret_cast<float4*>(act + col * Ms + rg * 4) =
+      if (col >= dout) continue;
+      float* out = act + col * Ms + rg * kPR;
+      if constexpr (kMode == kUMNN) {
+        *reinterpret_cast<float4*>(out) =
             make_float4(elu(acc[0][j]), elu(acc[1][j]), elu(acc[2][j]), elu(acc[3][j]));
+      } else if constexpr (kGrad) {
+        float d0, d1;
+        const float v0 = two_way_elu(acc[0][j], col, dout, &d0);
+        const float v1 = two_way_elu(acc[1][j], col, dout, &d1);
+        *reinterpret_cast<float4*>(out) = make_float4(v0, v1, d0 * acc[2][j], d1 * acc[3][j]);
+      } else {
+        float d;
+        *reinterpret_cast<float2*>(out) = make_float2(two_way_elu(acc[0][j], col, dout, &d),
+                                                      two_way_elu(acc[1][j], col, dout, &d));
       }
     }
   }
@@ -756,7 +785,7 @@ __device__ __forceinline__ void tile_nodes(const Shape& s, const Tile& tl, float
     const float* wt = sm + tl.wt;
     for (int i = 1; i + 1 < s.n_mono; ++i) {
       const int din = s.mono_w[i], dout = s.mono_w[i + 1];
-      tile_layer(act, Ms, wt, din, dout, Mc);
+      tile_layer<kUMNN, false>(act, Ms, wt, din, dout, Mc);
       wt += din * round8(dout) + round8(dout);
     }
     if (tid < Mc) {
@@ -780,24 +809,156 @@ __device__ __forceinline__ float tile_integral(const Tile& tl, const float* sm, 
   return 0.5f * sm[tl.xp + p * tl.R + r] * acc;
 }
 
-template <bool kLogQ>
+// The monotone network at P points xp[p][r] of every row of the tile: the
+// values into g[p][r] and, with kGrad (P = 1), the x-derivatives into
+// g[2][r] by forward mode. Value row m of a chunk lies in slot m, or with
+// kGrad in slot 2 m - m % 2 with its tangent two slots on (a patch's rows
+// 2 and 3). Ends synchronised.
+template <bool kGrad>
+__device__ __forceinline__ void tile_mnn(const Shape& s, const Tile& tl, float* sm, int P) {
+  const int R = tl.R, lr = tl.lr, M = tl.M, Ms = tl.Ms;
+  const int H1 = s.mono_w[1], HL = s.mono_w[s.n_mono - 1];
+  const float* xp = sm + tl.xp;
+  const float* pre1 = sm + tl.pre1;
+  const float* w1x = sm + tl.misc;
+  const float* wl = w1x + H1;
+  float* act = sm + tl.act;
+  float* gv = sm + tl.g;
+  const int total = P << lr, tid = threadIdx.x;
+  const auto slot = [](int m) { return kGrad ? 2 * m - (m & 1) : m; };
+  // the first layer: node row tid % M, a share of the units each
+  const int mi = tid % M, groups = kTileThreads / M, kh = (H1 + groups - 1) / groups;
+  const int k0 = tid / M * kh, k1 = k0 + kh < H1 ? k0 + kh : H1;
+  for (int m0 = 0; m0 < total; m0 += M) {
+    const int Mc = total - m0 < M ? total - m0 : M;
+    if (mi < Mc) {
+      const int m = m0 + mi, sv = slot(mi);
+      const float x = xp[m];  // point m >> lr, row m & (R - 1)
+      const float* pr = pre1 + (m & (R - 1));
+      for (int k = k0; k < k1; ++k) {
+        const float wx = w1x[k];
+        float d;
+        act[k * Ms + sv] = two_way_elu(fmaf(wx, x, pr[k << lr]), k, H1, &d);
+        if (kGrad) act[k * Ms + sv + 2] = d * wx;
+      }
+    }
+    __syncthreads();
+    const float* wt = sm + tl.wt;
+    for (int i = 1; i + 1 < s.n_mono; ++i) {
+      const int din = s.mono_w[i], dout = s.mono_w[i + 1];
+      tile_layer<kMNN, kGrad>(act, Ms, wt, din, dout, Mc);
+      wt += din * round8(dout) + round8(dout);
+    }
+    if (tid < Mc) {
+      const float* ap = act + slot(tid);
+      float v = wl[HL], g = 0.0f;
+      for (int k = 0; k < HL; ++k) {
+        v = fmaf(wl[k], ap[k * Ms], v);
+        if (kGrad) g = fmaf(wl[k], ap[k * Ms + 2], g);
+      }
+      gv[m0 + tid] = v;
+      if (kGrad) gv[2 * R + m0 + tid] = g;
+    }
+    __syncthreads();
+  }
+}
+
+// Row r's (thread r's, `own`) solve of its f(x) = target at feature f's
+// hoisted layer, as solve() takes it: the warm window from its previous root
+// x0 (sweep > 0), the bisection, the Newton steps; every thread takes part in
+// the tile's evaluations. A UMNN integrates by GL-4 in the bisection and the
+// checks, GL-8 in the Newton steps but the last and GL-16 in the last.
+template <int kMode>
+__device__ __forceinline__ float tile_solve(const Shape& s, const Tile& tl, float* sm, bool own,
+                                            float target, float x0, int sweep) {
+  const int R = tl.R, tid = threadIdx.x;
+  float* xp = sm + tl.xp;
+  const float* gv = sm + tl.g;
+  const float* glw = sm + tl.misc + s.mono_w[1] + s.mono_w[s.n_mono - 1] + 4 + 28;
+  // f at the P points of xp, read back at point p
+  const auto values = [&](int P) {
+    if constexpr (kMode == kUMNN) {
+      tile_nodes(s, tl, sm, P, 4, false);
+    } else {
+      tile_mnn<false>(s, tl, sm, P);
+    }
+  };
+  const auto value = [&](int p) {
+    if constexpr (kMode == kUMNN) {
+      return tile_integral(tl, sm, glw, p, 4);
+    } else {
+      return gv[p * R + tid];
+    }
+  };
+  float lo = -kBound, hi = kBound, x = 0.0f;
+  int iters = kCoarse;
+  if (sweep > 0) {
+    if (own) {
+      xp[tid] = x0 - kWarmR;
+      xp[R + tid] = x0 + kWarmR;
+    }
+    __syncthreads();
+    values(2);
+    if (own) {
+      const float flo = value(0), fhi = value(1);
+      if (flo < target && target < fhi) {
+        lo = xp[tid];
+        hi = xp[R + tid];
+      }
+    }
+    iters = kWarm;
+  }
+  for (int it = 0; it < iters; ++it) {
+    if (own) xp[tid] = 0.5f * (lo + hi);
+    __syncthreads();
+    values(1);
+    if (own) {
+      if (value(0) < target) {
+        lo = xp[tid];
+      } else {
+        hi = xp[tid];
+      }
+    }
+  }
+  if (own) x = 0.5f * (lo + hi);
+  const int steps = kMode == kMNN ? kNewton : (sweep == 0 ? kNewtonUMNN : kNewtonUMNN - 1);
+  for (int it = 0; it < steps; ++it) {
+    if (own) xp[tid] = x;
+    __syncthreads();
+    float v = 0.0f, g = 0.0f;
+    if constexpr (kMode == kUMNN) {
+      const int N = it < steps - 1 ? 8 : 16;
+      tile_nodes(s, tl, sm, 1, N, true);
+      if (own) {
+        v = tile_integral(tl, sm, glw, 0, N);
+        g = gv[(N << tl.lr) + tid];
+      }
+    } else {
+      tile_mnn<true>(s, tl, sm, 1);
+      if (own) {
+        v = gv[tid];
+        g = gv[2 * R + tid];
+      }
+    }
+    if (own) x = fminf(fmaxf(x - (v - target) / fmaxf(g, kDfFloor), -kBound), kBound);
+  }
+  return x;
+}
+
+template <int kMode, bool kLogQ>
 __global__ void __launch_bounds__(kTileThreads, 1)
-naf_sample_umnn_tiled(const float* __restrict__ zc, float* __restrict__ xout,
-                      float* __restrict__ logq, const float* __restrict__ packed,
-                      const __grid_constant__ Shape s, const __grid_constant__ Tile tl,
-                      long long n) {
+naf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
+                 float* __restrict__ logq, const float* __restrict__ packed,
+                 const __grid_constant__ Shape s, const __grid_constant__ Tile tl, long long n) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, R = tl.R, lr = tl.lr;
   const bool own = tid < R;  // thread r keeps row r's solver state
   const long long row0 = (long long)blockIdx.x * R;
   const int F = s.F, D0 = s.F + s.C, S = s.S;
-  const int H1 = s.mono_w[1], HL = s.mono_w[s.n_mono - 1];
   float* xc = sm + tl.xc;
   float* y = sm + tl.y;
   float* xp = sm + tl.xp;
   const float* gv = sm + tl.g;
-  float* glp = sm + tl.misc + H1 + HL + 4;
-  float* glw = glp + 28;
   for (int e = tid; e < R * D0; e += kTileThreads) {
     const int r = e / D0, j = e - r * D0;
     const long long row = row0 + r;
@@ -808,9 +969,12 @@ naf_sample_umnn_tiled(const float* __restrict__ zc, float* __restrict__ xout,
       xc[j * R + r] = v;
     }
   }
-  for (int e = tid; e < 28; e += kTileThreads) {
-    glp[e] = kGLPoint[e];
-    glw[e] = kGLWeight[e];
+  if (kMode == kUMNN) {
+    float* glp = sm + tl.misc + s.mono_w[1] + s.mono_w[s.n_mono - 1] + 4;
+    for (int e = tid; e < 28; e += kTileThreads) {
+      glp[e] = kGLPoint[e];
+      glp[28 + e] = kGLWeight[e];
+    }
   }
   for (int e = tl.wt + tid; e < tl.misc; e += kTileThreads) sm[e] = 0.0f;  // padded outputs
   __syncthreads();
@@ -842,53 +1006,13 @@ naf_sample_umnn_tiled(const float* __restrict__ zc, float* __restrict__ xout,
       // Jacobi: h holds the MADE outputs of the whole previous iterate
       const float* h = made_tile(w, s, tl, xc, sm + tl.a, sm + tl.b);
       for (int f = 0; f < F; ++f) {
-        hoist_tile(w, s, tl, h, f, sm);
-        float target = 0.0f, lo = -kBound, hi = kBound, x = 0.0f;
-        if (own) target = y[f * R + tid] - sm[tl.sig + S * R + tid];
-        int iters = kCoarse;
-        if (sweep > 0) {
-          if (own) {
-            const float x0 = xc[f * R + tid];
-            xp[tid] = x0 - kWarmR;
-            xp[R + tid] = x0 + kWarmR;
-          }
-          __syncthreads();
-          tile_nodes(s, tl, sm, 2, 4, false);
-          if (own) {
-            const float flo = tile_integral(tl, sm, glw, 0, 4);
-            const float fhi = tile_integral(tl, sm, glw, 1, 4);
-            if (flo < target && target < fhi) {
-              lo = xp[tid];
-              hi = xp[R + tid];
-            }
-          }
-          iters = kWarm;
+        hoist_tile<kMode>(w, s, tl, h, f, sm);
+        float target = 0.0f, x0 = 0.0f;
+        if (own) {
+          target = y[f * R + tid] - (kMode == kUMNN ? sm[tl.sig + S * R + tid] : 0.0f);
+          x0 = xc[f * R + tid];
         }
-        for (int it = 0; it < iters; ++it) {
-          if (own) xp[tid] = 0.5f * (lo + hi);
-          __syncthreads();
-          tile_nodes(s, tl, sm, 1, 4, false);
-          if (own) {
-            if (tile_integral(tl, sm, glw, 0, 4) < target) {
-              lo = xp[tid];
-            } else {
-              hi = xp[tid];
-            }
-          }
-        }
-        if (own) x = 0.5f * (lo + hi);
-        const int steps = sweep == 0 ? kNewtonUMNN : kNewtonUMNN - 1;
-        for (int it = 0; it < steps; ++it) {
-          const int N = it < steps - 1 ? 8 : 16;
-          if (own) xp[tid] = x;
-          __syncthreads();
-          tile_nodes(s, tl, sm, 1, N, true);
-          if (own) {
-            const float v = tile_integral(tl, sm, glw, 0, N);
-            const float g = gv[(N << lr) + tid];
-            x = fminf(fmaxf(x - (v - target) / fmaxf(g, kDfFloor), -kBound), kBound);
-          }
-        }
+        const float x = tile_solve<kMode>(s, tl, sm, own, target, x0, sweep);
         if (own) xc[f * R + tid] = x;
       }
     }
@@ -896,11 +1020,16 @@ naf_sample_umnn_tiled(const float* __restrict__ zc, float* __restrict__ xout,
       __syncthreads();
       const float* h = made_tile(w, s, tl, xc, sm + tl.a, sm + tl.b);
       for (int f = 0; f < F; ++f) {
-        hoist_tile(w, s, tl, h, f, sm);
+        hoist_tile<kMode>(w, s, tl, h, f, sm);
         if (own) xp[tid] = xc[f * R + tid];
         __syncthreads();
-        tile_nodes(s, tl, sm, 0, 4, true);
-        if (own) acc += logf(gv[tid]);
+        if constexpr (kMode == kUMNN) {
+          tile_nodes(s, tl, sm, 0, 4, true);
+          if (own) acc += logf(gv[tid]);
+        } else {
+          tile_mnn<true>(s, tl, sm, 1);
+          if (own) acc += logf(gv[2 * R + tid]);
+        }
       }
     }
     __syncthreads();
@@ -917,7 +1046,7 @@ naf_sample_umnn_tiled(const float* __restrict__ zc, float* __restrict__ xout,
 // The flow's description as the wrapper hands it over, checked; the tiers'
 // shapes are made from it.
 struct Desc {
-  int F, C, S, T, n_stages, n_made, n_mono, made_max, mono_max;
+  int mode, F, C, S, T, n_stages, n_made, n_mono, made_max, mono_max;
   std::vector<int> made_w, mono_w, made_off, mono_off;
   std::vector<Stage> st;
 };
@@ -928,7 +1057,8 @@ int describe(Desc* d, const int* kinds, const int* passes, const float* bounds,
   if (F < 1 || C < 0 || S < 1 || n_stages < 1 || n_made < 1 || n_mono < 2 ||
       (mode != kMNN && mode != kUMNN))
     return cudaErrorInvalidValue;
-  *d = Desc{F, C, S, S + (mode == kUMNN), n_stages, n_made, n_mono, 0, 0, {}, {}, {}, {}, {}};
+  *d = Desc{mode, F, C, S, S + (mode == kUMNN), n_stages, n_made, n_mono, 0, 0,
+            {}, {}, {}, {}, {}};
   if (made_w[0] != F + C || made_w[n_made] != F * d->T || mono_w[0] != 1 + S ||
       mono_w[n_mono] != 1)
     return cudaErrorInvalidValue;
@@ -985,13 +1115,14 @@ Shape narrow_shape(const Desc& d) {
 }
 
 // The tiled sampler's shared memory for tiles of R rows (each array from a
-// 16-byte boundary; mirrored in ops/naf_fused.py _umnn_tile_floats). The
-// node rows of a chunk: at most 256, and at most one 4 x 8 patch a thread
-// in the widest middle layer.
+// 16-byte boundary; mirrored in ops/naf_fused.py _tile_floats). The node
+// rows of a chunk: UMNN at most 256, MNN at most 128 value rows (their
+// tangent rows beside them), and at most one patch a thread in the widest
+// middle layer.
 Tile tile_plan(const Desc& d, int R) {
   Tile t{};
   t.R = R;
-  t.lr = R == 64 ? 6 : R == 32 ? 5 : 4;
+  while ((1 << t.lr) < R) ++t.lr;
   int mh = 0, hmax = 0, hp = 8, wt = 0;
   for (int i = 1; i < d.n_made; ++i) mh = d.made_w[i] > mh ? d.made_w[i] : mh;
   for (int i = 1; i < d.n_mono; ++i) hmax = d.mono_w[i] > hmax ? d.mono_w[i] : hmax;
@@ -1000,9 +1131,16 @@ Tile tile_plan(const Desc& d, int R) {
     hp = dp > hp ? dp : hp;
     wt += d.mono_w[i] * dp + dp;
   }
-  t.M = 16384 / hp / 32 * 32;
-  t.M = t.M < kNodeRows ? t.M : kNodeRows;
-  t.Ms = t.M + 4;
+  const bool umnn = d.mode == kUMNN;
+  if (umnn) {
+    t.M = 16384 / hp / 32 * 32;
+    t.M = t.M < kNodeRows ? t.M : kNodeRows;
+    t.Ms = t.M + 4;
+  } else {
+    t.M = 8192 / hp / 16 * 16;
+    t.M = t.M < kMnnRows ? t.M : kMnnRows;
+    t.Ms = 2 * t.M + 4;
+  }
   int at = 0;
   auto take = [&at](int floats) {
     const int off = at;
@@ -1016,10 +1154,10 @@ Tile tile_plan(const Desc& d, int R) {
   t.sig = take(d.T * R);
   t.pre1 = take(d.mono_w[1] * R);
   t.xp = take(2 * R);
-  t.g = take(kMaxNodes * R);
+  t.g = take((umnn ? kMaxNodes : 3) * R);
   t.act = take(hmax * t.Ms);
   t.wt = take(wt);
-  t.misc = take(d.mono_w[1] + d.mono_w[d.n_mono - 1] + 4 + 56);
+  t.misc = take(d.mono_w[1] + d.mono_w[d.n_mono - 1] + 4 + (umnn ? 56 : 0));
   t.floats = at;
   return t;
 }
@@ -1052,12 +1190,12 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride) {
     if (op == kDensity) {
       naf_density_kernel<kWide, kMode><<<blocks, kThreads, 0, l.stream>>>(
           l.in, l.out0, l.packed, s, l.work, stride, row0, row_end);
-    } else if constexpr (kWide || kMode == kMNN) {  // the narrow UMNN sampler is tiled
+    } else if constexpr (kWide) {  // the narrow sampler is tiled
       if (op == kSampleLogQ) {
-        naf_sample_kernel<kWide, kMode, true><<<blocks, kThreads, 0, l.stream>>>(
+        naf_sample_kernel<kMode, true><<<blocks, kThreads, 0, l.stream>>>(
             l.in, l.out0, l.out1, l.packed, s, l.work, stride, row0, row_end);
       } else {
-        naf_sample_kernel<kWide, kMode, false><<<blocks, kThreads, 0, l.stream>>>(
+        naf_sample_kernel<kMode, false><<<blocks, kThreads, 0, l.stream>>>(
             l.in, l.out0, nullptr, l.packed, s, l.work, stride, row0, row_end);
       }
     }
@@ -1067,16 +1205,19 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride) {
   return cudaSuccess;
 }
 
-// The tiled UMNN sampler: one block of kTileThreads a tile of R rows, its
-// shared memory from tile_plan.
+// The tiled sampler: one block of kTileThreads a tile of R rows (UMNN 16, 32
+// or 64, MNN 32, 64 or 128), its shared memory from tile_plan.
+template <int kMode>
 int launch_tiled(int op, const Launch& l, const Desc& d, const Shape& s, int R) {
-  if (R != 16 && R != 32 && R != 64) return cudaErrorInvalidValue;
+  if (kMode == kUMNN ? (R != 16 && R != 32 && R != 64) : (R != 32 && R != 64 && R != 128))
+    return cudaErrorInvalidValue;
   const Tile t = tile_plan(d, R);
   const int bytes = 4 * t.floats;
   const long long blocks = (l.n + R - 1) / R;
   if (bytes > kMaxShared || blocks > 2147483647LL) return cudaErrorInvalidValue;
   if (l.n == 0) return cudaSuccess;
-  auto kernel = op == kSampleLogQ ? naf_sample_umnn_tiled<true> : naf_sample_umnn_tiled<false>;
+  auto kernel =
+      op == kSampleLogQ ? naf_sample_tiled<kMode, true> : naf_sample_tiled<kMode, false>;
   const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return rc;
   kernel<<<(unsigned)blocks, kTileThreads, bytes, l.stream>>>(l.in, l.out0, l.out1, l.packed, s,
@@ -1097,7 +1238,9 @@ int run(int op, int mode, const Launch& l, const Desc& d, int tile) {
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
     const Shape s = narrow_shape(d);
-    if (mode == kUMNN && op != kDensity) return launch_tiled(op, l, d, s, tile);
+    if (op != kDensity)
+      return mode == kUMNN ? launch_tiled<kUMNN>(op, l, d, s, tile)
+                           : launch_tiled<kMNN>(op, l, d, s, tile);
     return mode == kUMNN ? launch<false, kUMNN>(op, l, s, l.n)
                          : launch<false, kMNN>(op, l, s, l.n);
   }
@@ -1155,9 +1298,9 @@ extern "C" int naf_density_f32(const float* xc, float* out, const float* packed,
 }
 
 // xout (n, F) = T^-1(z) of zc = [z, c] (n, F + C), and logq (n,) = log q(xout)
-// unless logq is null; `tile` is the rows of a tile of the narrow UMNN
-// sampler (16, 32 or 64; unused otherwise); the other arguments as
-// naf_density_f32's.
+// unless logq is null; `tile` is the rows of a tile of the narrow tier's
+// tiled sampler (UMNN 16, 32 or 64; MNN 32, 64 or 128; unused by the wide
+// tier); the other arguments as naf_density_f32's.
 extern "C" int naf_sample_f32(const float* zc, float* xout, float* logq, const float* packed,
                               const int* kinds, const int* passes, const float* bounds,
                               const long long* offs, int n_stages, const int* made_w,

@@ -32,10 +32,11 @@ kernels, both in ``csrc/naf_fused.cu``, each with a mode per univariate:
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. :func:`plan_naf` chooses
 the kernels' tier from the flow's shape: the narrow tier within its limits,
-the wide tier (a workspace in device memory) beyond them. The UMNN sampler's
-narrow tier is a tiled kernel (a block a tile of rows, the nodes of a solver
-step batched into products from shared memory), whose shared memory must
-also fit; :func:`umnn_tile_rows` sets its tile. ``LAUNCHES`` counts
+the wide tier (a workspace in device memory) beyond them. The sampler's
+narrow tier, in both modes, is a tiled kernel (a block a tile of rows, the
+evaluations of a solver step batched into products from shared memory),
+whose shared memory must also fit; :func:`umnn_tile_rows` and
+:func:`mnn_tile_rows` set its tile. ``LAUNCHES`` counts
 the launches under ``naf_density``, ``naf_sample`` and
 ``naf_sample_log_prob``, with ``_umnn`` after ``naf_density`` or
 ``naf_sample`` for a UNAF and ``_wide`` at the end for the wide tier.
@@ -84,6 +85,7 @@ __all__ = [
     "extract_naf_params",
     "fused_naf_log_prob",
     "fused_naf_sample",
+    "mnn_tile_rows",
     "naf_density",
     "naf_sample",
     "plan_naf",
@@ -499,23 +501,37 @@ def _widths(params, layout, F, C, S):
     return kind, made_w, mono_w
 
 
-def _umnn_tile_floats(made_w, mono_w, F, C, S, R):
-    """Floats of shared memory of the tiled UMNN sampler at tiles of ``R``
-    rows (``tile_plan`` in ``csrc/naf_fused.cu``, each array from a 16-byte
+def _tile_floats(kind, made_w, mono_w, F, C, S, R):
+    """Floats of shared memory of the tiled sampler at tiles of ``R`` rows
+    (``tile_plan`` in ``csrc/naf_fused.cu``, each array from a 16-byte
     boundary): the iterate and context, two MADE buffers, the targets, a
-    feature's T outputs and hoisted first layer, the evaluation points and
-    the 17 integrand values of a row, the node activations (256 node rows a
-    chunk, fewer for middle layers wider than 64, the row stride 4 more), the
-    feature's middle layers (outputs rounded up to 8) with their biases, and
-    the x column, the last layer and the Gauss-Legendre rules."""
+    feature's T outputs and hoisted first layer, the evaluation points, the
+    node activations, the feature's middle layers (outputs rounded up to 8)
+    with their biases, and the x column, the last layer and its bias. A UMNN
+    (``kind``) keeps the 17 integrand values of a row, 256 node rows a chunk
+    (fewer for middle layers wider than 64) at a row stride of 4 more, and
+    the Gauss-Legendre rules; a monotone network the values at two points
+    and a derivative a row, 128 value rows a chunk (fewer past 64) in twice
+    as many slots (their tangent rows) and 4 more."""
     mids = [(mono_w[i], -(-mono_w[i + 1] // 8) * 8) for i in range(1, len(mono_w) - 2)]
     hp = max([8] + [dp for _, dp in mids])
-    M = min(256, 16384 // hp // 32 * 32)
+    if kind == "umnn":
+        M = min(256, 16384 // hp // 32 * 32)
+        stride, values, rules = M + 4, 17, 56
+    else:
+        M = min(128, 8192 // hp // 16 * 16)
+        stride, values, rules = 2 * M + 4, 3, 0
     mh = max(made_w[1:-1], default=0)
-    sizes = [(F + C) * R, mh * R, mh * R, F * R, (S + 1) * R, mono_w[1] * R, 2 * R, 17 * R,
-             max(mono_w[1:-1]) * (M + 4), sum(din * dp + dp for din, dp in mids),
-             mono_w[1] + mono_w[-2] + 60]
+    T = S + (kind == "umnn")
+    sizes = [(F + C) * R, mh * R, mh * R, F * R, T * R, mono_w[1] * R, 2 * R, values * R,
+             max(mono_w[1:-1]) * stride, sum(din * dp + dp for din, dp in mids),
+             mono_w[1] + mono_w[-2] + 4 + rules]
     return sum(-(-v // 4) * 4 for v in sizes)
+
+
+def _umnn_tile_floats(made_w, mono_w, F, C, S, R):
+    """:func:`_tile_floats` of a UNAF's tiled sampler."""
+    return _tile_floats("umnn", made_w, mono_w, F, C, S, R)
 
 
 def umnn_tile_rows(rows, sms):
@@ -525,22 +541,37 @@ def umnn_tile_rows(rows, sms):
     return next((R for R in (64, 32) if -(-rows // R) >= sms), 16)
 
 
-def plan_naf(made_w, mono_w, F, C, S, n_stages, rows, umnn_sample=False):
+def mnn_tile_rows(rows, sms):
+    """Rows of a tile of the tiled MNN sampler: 128, so that a bisection
+    step's one evaluation a row gives each of the block's 512 threads a
+    patch, or 64 or 32 at so few rows that larger tiles leave a streaming
+    multiprocessor idle (one block an SM)."""
+    return next((R for R in (128, 64) if -(-rows // R) >= sms), 32)
+
+
+#: The largest tile of each kind's tiled sampler, at which its shared memory
+#: is planned.
+_MAX_TILE = {"umnn": 64, "mnn": 128}
+
+
+def plan_naf(made_w, mono_w, F, C, S, n_stages, rows, umnn_sample=False, mnn_sample=False):
     """The tier of the NAF kernels for a flow of this shape (what the
     wrappers launch, from the shapes alone): the narrow tier within its
     limits, else the wide tier with a workspace of ``F + C + 2 max(MADE
     widths) + S + 1 + 5 max(network widths) + F`` floats a row (the
     fields of ``Row`` in ``csrc/naf_fused.cu``) and a descriptor buffer of
-    the widths, their offsets and 24 bytes a stage, rounded up. For a UNAF's
-    sampler (``umnn_sample``) the narrow tier is the tiled kernel, which
-    also needs its shared memory at tiles of 64 rows within 227 KB."""
+    the widths, their offsets and 24 bytes a stage, rounded up. For a
+    sampler (``umnn_sample`` for a UNAF's, ``mnn_sample`` for a NAF's) the
+    narrow tier is the tiled kernel, which also needs its shared memory at
+    its largest tile (64 rows for a UNAF, 128 for a NAF) within 227 KB."""
     n_made, n_mono = len(made_w) - 1, len(mono_w) - 1
     made_max, mono_max = max(made_w[:-1]), max(mono_w[1:-1])
+    tiled = "umnn" if umnn_sample else "mnn" if mnn_sample else None
     if (F <= _MAX_FEATURES and S <= _MAX_SIGNAL and n_stages <= _MAX_STAGES
             and max(n_made, n_mono) <= _MAX_LINEAR and made_max <= _MAX_MADE_WIDTH
-            and mono_max <= _MAX_MONO_WIDTH and (
-                not umnn_sample
-                or 4 * _umnn_tile_floats(made_w, mono_w, F, C, S, 64) <= SHARED_BYTES)):
+            and mono_max <= _MAX_MONO_WIDTH
+            and (tiled is None or 4 * _tile_floats(tiled, made_w, mono_w, F, C, S,
+                                                   _MAX_TILE[tiled]) <= SHARED_BYTES)):
         return narrow_plan(rows)
     slots = (F + C) + 2 * made_max + (S + 1) + 5 * mono_max + F
     desc = -(-4 * (2 * (n_made + n_mono) + 2) // 16) * 16 + 24 * n_stages
@@ -562,9 +593,10 @@ def _launch(fn, counter, xc, outs, params, layout, F, S):
     check_cuda_f32(counter, [xc, *params])
     sample = fn == "naf_sample_f32"
     plan = plan_naf(made_w, mono_w, F, C, S, len(layout), xc.shape[0],
-                    umnn_sample=sample and kind == "umnn")
-    # the tiled UMNN sampler's tile rows, an argument of the sampler only
-    tile = [umnn_tile_rows(xc.shape[0], sm_count(xc.device))] if sample else []
+                    umnn_sample=sample and kind == "umnn", mnn_sample=sample and kind == "mnn")
+    # the tiled sampler's tile rows, an argument of the sampler only
+    rows_of = umnn_tile_rows if kind == "umnn" else mnn_tile_rows
+    tile = [rows_of(xc.shape[0], sm_count(xc.device))] if sample else []
     chunks, table, floats = [], [], 0
     for entry, made, mw, mb in _stages(params, layout):
         if entry[0] == "softclip":

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-r"""Time the kernels of two checkouts on one GPU, in turns.
+r"""Time the kernels and the IFT training steps of checkouts on one GPU, in turns.
 
 Run from the root of a checkout, with the parent's checkout (``git archive``
 unpacked into a directory ``.gitignore`` lists) as the argument::
 
-    python3 chip_ab.py PARENT_DIR [CHANGE_DIR]
+    python3 chip_ab.py [--steps] PARENT_DIR [CHANGE_DIR ...]
 
 It builds the kernels of each tree with that tree's own ``ops/_build.py``
-(both trees at once) into that tree's ``build/``, then, in a process of its
-own for each tree, in the order parent, change, change, parent, times with
+(all trees at once) into that tree's ``build/``, prints each tree's ptxas
+report of the NAF kernels, then, in a process of its own for each tree, in
+the order given and back (parent, change, change, parent), times with
 ``chip_smoke.time_ms`` (the median after a warm-up), one JSON line a
 process:
 
@@ -20,15 +21,24 @@ process:
 * the flagship UNAF's ``naf_sample`` without and with log q at 65,536 and
   16,384 rows, and its ``naf_density`` at 262,144, 3 runs;
 * the flagship NAF's ``naf_sample`` without and with log q at 65,536 and
-  262,144 rows, 3 runs;
+  262,144 rows, and its ``naf_density`` at 1M and 262,144 rows, 3 runs;
 * the flagship CNF's ``cnf_adjoint`` with the log-q cotangent and without a
   trace at 16,384 rows, the inputs of a step of (l) (``chip_smoke.py``):
   samples ``cnf_sample`` draws with log q from seeded base draws, the
   cotangents of ``mean(lq) - mean(ring(x))``, 5 runs; its ``cnf_density``
-  at 65,536 rows and ``cnf_sample`` with log q at 16,384, 3 runs.
+  at 65,536 rows and ``cnf_sample`` with log q at 16,384, 3 runs;
+* on the host clock between synchronisations (``chip_smoke.host_ms``, the
+  median of 9 after a warm-up), a training step through each IFT from the
+  flagship's weights: the reverse-KL steps of ``chip_smoke.py`` on its ring
+  energy, (b) NSF at 262,144 draws, (h) NAF at 65,536, (j) UNAF, (n) NCSF,
+  (p) SOSPF and (r) BPF at 16,384 (``step_...``).
 
-``CHANGE_DIR`` defaults to this checkout. Two trees are compared only within
-one call, on one card.
+``CHANGE_DIR`` defaults to this checkout; with more than one, each is timed
+in turn after the parent. With ``--steps`` first it times the steps alone,
+three times in that order and back (parent, change, change, parent, parent,
+...: six processes a tree), whose host-clock times vary between processes
+more than the kernels' do. Trees are compared only within one call, on one
+card.
 """
 
 import json
@@ -42,19 +52,27 @@ ROOT = Path(__file__).resolve().parent
 
 def build(trees):
     """Every tree's kernels into its build/, by its own ``_build.build_all``,
-    all trees at once."""
-    jobs = [subprocess.Popen([sys.executable, "-c",
-                              "from zuko_tpu_torch.ops import _build; _build.build_all()"],
-                             cwd=tree) for tree in trees]
-    if any(job.wait() != 0 for job in jobs):
-        raise SystemExit("chip_ab: a build failed")
+    all trees at once; prints each tree's ptxas report of the NAF kernels
+    (registers, spills and stack frame of each entry point)."""
+    report = ("from zuko_tpu_torch.ops import _build;"
+              " print(_build.build_all(force=True).get('naf_fused', ''))")
+    jobs = [subprocess.Popen([sys.executable, "-c", report], cwd=tree, stdout=subprocess.PIPE,
+                             text=True) for tree in trees]
+    for tree, job in zip(trees, jobs):
+        log, _ = job.communicate()
+        if job.returncode != 0:
+            raise SystemExit("chip_ab: a build failed")
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"{tree.name}: {line.strip()}")
 
 
-def time_tree(tree):
-    """One JSON line: the tree's kernel times (ms)."""
+def time_tree(tree, steps_only=False):
+    """One JSON line: the tree's kernel and step times (ms), or with
+    ``steps_only`` its step times alone."""
     import torch
 
-    from chip_smoke import time_ms  # this checkout's, before the tree joins the path
+    from chip_smoke import host_ms, time_ms  # this checkout's, before the tree joins the path
 
     sys.path.insert(0, str(tree))
 
@@ -66,6 +84,10 @@ def time_tree(tree):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     assets = tree / "zuko_tpu_torch" / "assets"
+    if steps_only:
+        print(json.dumps({"tree": str(tree), **time_ift_steps(zt, assets, dev, host_ms)}),
+              flush=True)
+        return
     flow = zt.load_params(zt.NSF(6, 0, transforms=3, device=dev), assets / "nsf_flagship.npz")
     params, layout, cfg = nsf_fused._flatten_flow(flow)
     st = nsf_fused._statics(cfg, 6)
@@ -102,9 +124,9 @@ def time_tree(tree):
                 for name, want in (("sample", False), ("sample_log_prob", True)):
                     out[f"{label}_{name}@{rows}"] = round(time_ms(
                         lambda: naf_fused.naf_sample(z, nps, nlayout, F, S, want), 3)[0], 3)
-            if label == "unaf":
-                x = torch.randn(1 << 18, 6, generator=gen, device=dev)
-                out[f"unaf_density@{1 << 18}"] = round(time_ms(
+            for rows in (1 << 18,) if label == "unaf" else (1 << 20, 1 << 18):
+                x = torch.randn(rows, 6, generator=gen, device=dev)
+                out[f"{label}_density@{rows}"] = round(time_ms(
                     lambda: naf_fused.naf_density(x, nps, nlayout, F, S), 3)[0], 3)
         cflow = zt.load_params(zt.CNF(6, device=dev), assets / "cnf_flagship.npz")
         cps, _, ccfg = cnf_fused._flatten_cnf(cflow, cflow.transform(None), None)
@@ -125,14 +147,46 @@ def time_tree(tree):
         for name, lq in (("cnf_adjoint_log_prob", glq), ("cnf_adjoint", None)):
             out[f"{name}@{rows}"] = round(time_ms(
                 lambda: cnf_fused.cnf_adjoint(x, gx, lq, None, cps, None, ccfg), 5)[0], 3)
+    out.update(time_ift_steps(zt, assets, dev, host_ms))
     print(json.dumps(out), flush=True)
+
+
+def time_ift_steps(zt, assets, dev, host_ms):
+    """The reverse-KL steps through the IFT (ms), from the flagships'
+    weights, on ``chip_smoke.py``'s ring energy."""
+    import torch
+
+    def ring(x):
+        return -((x.norm(dim=-1) - 2.0) ** 2) / 0.1
+
+    out = {}
+    for tag, key, make, rows in (
+            ("b", "nsf", lambda: zt.NSF(6, 0, transforms=3, device=dev), 1 << 18),
+            ("h", "naf", lambda: zt.NAF(6, 0, transforms=3, signal=16, device=dev), 1 << 16),
+            ("j", "unaf", lambda: zt.UNAF(6, 0, transforms=3, signal=16, device=dev), 1 << 14),
+            ("n", "ncsf", lambda: zt.NCSF(6, 0, transforms=3, device=dev), 1 << 14),
+            ("p", "sospf", lambda: zt.SOSPF(6, 0, transforms=3, device=dev), 1 << 14),
+            ("r", "bpf", lambda: zt.BPF(6, 0, transforms=3, device=dev), 1 << 14)):
+        flow = zt.load_params(make(), assets / f"{key}_flagship.npz")
+        init_fn, step_fn = zt.make_reverse_kl_step(flow, ring, n_samples=rows, lr=1e-3)
+        state, gen = init_fn(), torch.Generator(device=dev).manual_seed(0)
+
+        def one():
+            nonlocal state
+            state, _ = step_fn(state, gen)
+
+        out[f"step_{tag}_{key}@{rows}"] = round(host_ms(one, 9)[0], 3)
+    return out
 
 
 def main():
     if len(sys.argv) >= 3 and sys.argv[1] == "--time":
-        time_tree(Path(sys.argv[2]).resolve())
+        time_tree(Path(sys.argv[2]).resolve(), sys.argv[3:] == ["--steps"])
         return 0
-    if len(sys.argv) not in (2, 3):
+    args = sys.argv[1:]
+    steps_only = args[:1] == ["--steps"]
+    args = args[steps_only:]
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -140,14 +194,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 1
-    parent = Path(sys.argv[1]).resolve()
-    change = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else ROOT
+    trees = [Path(arg).resolve() for arg in args] + ([ROOT] if len(args) == 1 else [])
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
-    build([parent, change])
-    for tree in (parent, change, change, parent):
-        subprocess.run([sys.executable, __file__, "--time", str(tree)], check=True)
+    build(trees)
+    for tree in (trees + trees[::-1]) * (3 if steps_only else 1):
+        subprocess.run([sys.executable, __file__, "--time", str(tree)]
+                       + ["--steps"] * steps_only, check=True)
     return 0
 
 

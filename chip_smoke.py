@@ -95,18 +95,22 @@ ring energy. Its checks:
 **The NAF** (phase 10): ``NAF(6, 0, transforms=3, signal=16)`` of
 ``zuko_tpu_torch/assets/naf_flagship.npz``, a conditional NAF(6, 4) and a
 NAF(32), held against ``assets/naf_truth_f64.npz`` and plain float64 (the
-sampler's narrow tier is the tiled kernel: also at a ragged row count, and
-against the wide tier on the same inputs, the difference printed), a NAF
-with MADE widths of 256 (past the tiled sampler's shared memory) through
-the wide tier, then (g) MLE and (h) reverse KL through the NAF IFT; K6's and K8's Functions are
-also held at the rows (e) and (g) train on. **The UNAF** (phase 11): the
-same for ``UNAF(6, 0, transforms=3, signal=16)`` of ``assets/unaf_flagship.npz``
-and a conditional UNAF(6, 4), through the UMNN mode of K8 and K9 (the
-sampler's narrow tier is the tiled kernel), against
-``assets/unaf_truth_f64.npz`` (its GL-16 and GL-32 columns) and plain
-float64, also at a ragged row count, and a UNAF of three hidden layers of 128
-(past the tiled sampler's shared memory) through the wide tier, then (i)
-MLE and (j) reverse KL. **The repair** (phase 12): configurations past every
+narrow tier of the sampler and the density is the tiled kernel: also at a
+ragged row count, and against the wide tier on the same inputs, the
+density also at a ragged tile and a last tile of one valid row, the
+difference printed), a NAF whose MADE has no hidden layer (scaled by 0.3)
+served and held the same way, a NAF with MADE widths of 256 (past the tiled
+sampler's shared memory) sampled through the wide tier, its density tiled
+at tiles of 32 rows, then (g) MLE and (h) reverse KL through the NAF IFT;
+K6's and K8's Functions are also held at the rows (e) and (g) train on.
+**The UNAF** (phase 11): the same for ``UNAF(6, 0, transforms=3,
+signal=16)`` of ``assets/unaf_flagship.npz`` and a conditional UNAF(6, 4),
+through the UMNN mode of K8 and K9, against ``assets/unaf_truth_f64.npz``
+(its GL-16 and GL-32 columns) and plain float64, also at a ragged row
+count, and a UNAF of three hidden layers of 128 (past the tiled sampler's
+shared memory) sampled through the wide tier, its density tiled at tiles
+of 16 rows, then (i) MLE and (j) reverse KL; the UMNN density is timed at
+each of its tiles. **The repair** (phase 12): configurations past every
 narrow limit (widths, bins, linears, layers, features, components, stages,
 signal, shared memory) served through the public API by the wide tier of
 K1-K3 and K6-K11 and by K5 at 48 bins, held against plain float64 at their
@@ -153,7 +157,10 @@ continued on the kernel's side of the shifts' jumps, also at 16,384 rows
 placed at them, the polynomials' over the rows plain float64 solves, the
 pegged ones counted); K1's Function at the
 rows (m), (o), (q) train on and the IFT at (n), (p), (r)'s draws against
-float64; then **(m)**, **(o)**, **(q)** MLE at 65,536 rows a step on the NSF
+float64 (BPF's at four draw sets, each beside the backward with every
+ReLU side from the float32 march, whose worst set is taken apart: the
+parameter, the row, its slopes and kink margins, the cancellation ratio);
+then **(m)**, **(o)**, **(q)** MLE at 65,536 rows a step on the NSF
 serving phase's samples (NCSF's wrapped into ``[-pi, pi)``) and **(n)**,
 **(p)**, **(r)** reverse KL through the IFT at 16,384 draws a step on the
 ring energy. Phase 12 serves one wide configuration of each mode.
@@ -170,6 +177,7 @@ Any failed check raises, so the script exits non-zero and prints no result;
 it also fails without a CUDA device and outside a checkout of the repository.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -258,6 +266,12 @@ TOL_NAF_SAMPLE_Q99 = 1e-3
 # log q against K8 at the returned points: the same functions at the same x,
 # one through the solver's sweeps; the median to 1e-4.
 TOL_NAF_SELF = 1e-4
+# The tiled density against the wide tier on the same inputs: the MNN mode
+# sums in the same order, bit for bit; the UMNN mode's GL sum differs in
+# nvcc's contractions, one float32 ulp of a log-density in [32, 64) (3.8e-6)
+# at most on an H100. A row of a tile read or written wrongly is off by far
+# more.
+TOL_UMNN_TIERS = 8e-6
 # K9 costs about 30 times K3 a row: sampling is served at 262,144 rows, the
 # reverse-KL step (h) draws 65,536; the 32-feature flow (F^2 sweeps and
 # solves a layer) is served at 65,536 rows (density) and 16,384 (samples).
@@ -673,6 +687,9 @@ def main():
     truth = np.load(ROOT / "tools" / "nsf_truth_f64.npz")
     gen = torch.Generator(device=dev).manual_seed(0)
     gen_tiers = torch.Generator(device=dev).manual_seed(11)
+    # the checks added with the tiled density (phases 10-11) draw from a
+    # generator of their own, so that every other check keeps its draws
+    gen_density = torch.Generator(device=dev).manual_seed(12)
     x_truth = torch.as_tensor(truth["x"], device=dev)
     x_big = torch.randn(ROWS, 6, generator=gen, device=dev)
     cx_big = torch.randn(ROWS, 3, generator=gen, device=dev)
@@ -1920,26 +1937,30 @@ def main():
     # a NAF within the narrow limits whose tiled sampler would not fit in
     # shared memory (MADE widths of 256, the flagship's monotone networks:
     # 386 KB at tiles of 128 rows) samples through the wide tier; its
-    # density stays narrow
+    # density takes the tiled tier at tiles of 32 rows (161 KB)
     with torch.random.fork_rng(devices=[dev]):
         torch.manual_seed(7)
         naf_made256 = zt.NAF(6, 0, transforms=3, signal=16, hidden_features=(256, 256),
                              device=dev)
     wparams, wlayout, _, wS = naf_args(naf_made256, torch.float32)
     _, w_made, w_mono = naf_fused._widths(wparams, wlayout, 6, 0, wS)
-    check(naf_fused.plan_naf(w_made, w_mono, 6, 0, wS, len(wlayout), UNAF_WIDE_ROWS,
-                             mnn_sample=True).wide,
-          "the NAF with MADE widths of 256 plans the tiled tier")
+    check(naf_fused.plan_naf("mnn", w_made, w_mono, 6, 0, wS, len(wlayout), UNAF_WIDE_ROWS,
+                             sample=True).wide,
+          "the NAF with MADE widths of 256 plans the tiled sampler")
+    check(naf_fused.density_tile_rows("mnn", w_made, w_mono, 6, 0, wS, NAF_IFT_ROWS, 132) == 32,
+          "the NAF with MADE widths of 256: its density's tile")
     ops.reset_launches()
     with torch.no_grad():
         wdist = naf_made256(None)
         w_xs = wdist.sample((UNAF_WIDE_ROWS,), generator=gen_tiers)
         w_xl, w_lq = wdist.sample_and_log_prob((UNAF_WIDE_ROWS,), generator=gen_tiers)
+        w_lp = wdist.log_prob(x_big[:NAF_IFT_ROWS])
     w_launches = {name: count for name, count in ops.LAUNCHES.items() if count}
-    print(f"NAF with MADE widths of 256 served through the wide tier: launches {w_launches}")
-    check(w_launches == {"naf_sample_wide": 1, "naf_sample_log_prob_wide": 1},
+    print(f"NAF with MADE widths of 256 served (samples through the wide tier, the density"
+          f" tiled): launches {w_launches}")
+    check(w_launches == {"naf_sample_wide": 1, "naf_sample_log_prob_wide": 1, "naf_density": 1},
           f"NAF with MADE widths of 256: launches {w_launches}")
-    check(all(bool(torch.isfinite(t).all()) for t in (w_xs, w_xl, w_lq)),
+    check(all(bool(torch.isfinite(t).all()) for t in (w_xs, w_xl, w_lq, w_lp)),
           "NAF with MADE widths of 256: not finite")
     with torch.no_grad():
         hold_naf("NAF, MADE widths of 256 (wide tier)", naf_made256, nx_big[:4096], None,
@@ -1955,23 +1976,98 @@ def main():
     nparams, nlayout, _, nS = naf_args(naf_flagship, torch.float32)
     n64 = [p.double() for p in nparams]
 
-    # the tiled narrow tier against the wide tier on the same inputs, at
-    # (h)'s rows: the same function, with every sum in the same order
-    plan_naf = naf_fused.plan_naf
-    with torch.no_grad():
-        zw = torch.randn(NAF_IFT_ROWS, 6, generator=gen_tiers, device=dev)
-        tiers = [naf_fused.naf_sample(zw, nparams, nlayout, 6, nS, True)]
-        naf_fused.plan_naf = lambda made_w, mono_w, F, C, S, n_stages, rows, **k: plan_naf(
-            made_w, mono_w, F, C, S, naf_fused._MAX_STAGES + 1, rows)
+    @contextlib.contextmanager
+    def wide_tier():
+        """The NAF kernels' wide tier for the calls within, whatever the
+        flow's shape."""
+        plan_naf = naf_fused.plan_naf
+        naf_fused.plan_naf = lambda kind, made_w, mono_w, F, C, S, n_stages, rows, **k: plan_naf(
+            kind, made_w, mono_w, F, C, S, naf_fused._MAX_STAGES + 1, rows)
         try:
-            tiers.append(naf_fused.naf_sample(zw, nparams, nlayout, 6, nS, True))
+            yield
         finally:
             naf_fused.plan_naf = plan_naf
-    dx, dlq = ((a - b).abs() for a, b in zip(*tiers))
-    print(f"NAF sampler at {NAF_IFT_ROWS} rows, tiled tier vs wide tier (the same inputs):"
-          f" x max |diff| {dx.max().item():.3e}, log q max |diff| {dlq.max().item():.3e}")
-    check(quantiles(dx)[2] <= TOL_NAF_SAMPLE_Q99 and quantiles(dlq)[0] <= TOL_NAF_MEDIAN,
-          "NAF sampler: the tiled tier and the wide tier differ")
+
+    def hold_tiers(label, flow, x=None, z=None):
+        """The tiled narrow tier against the wide tier on the same inputs,
+        the density at the rows ``x`` (the MNN mode bit for bit, the UMNN
+        mode within ``TOL_UMNN_TIERS``) and the sampler with log q from the
+        draws ``z`` (any difference printed and held at the NAF limits)."""
+        params, layout, F, S = naf_args(flow, torch.float32)
+        kind = next(entry[4] for entry in layout if entry[0] != "softclip")
+        tol = max(1.0, F / 6)
+        outs = []
+        with torch.no_grad():
+            for tier in (contextlib.nullcontext(), wide_tier()):
+                with tier:
+                    outs.append((
+                        None if x is None else naf_fused.naf_density(x, params, layout, F, S),
+                        None if z is None else naf_fused.naf_sample(z, params, layout, F, S, True)))
+        (d_tiled, s_tiled), (d_wide, s_wide) = outs
+        if x is not None:
+            d = (d_tiled - d_wide).abs()
+            print(f"{label} density at {x.shape[0]} rows, tiled tier vs wide tier (the same"
+                  f" inputs): max |diff| {d.max().item():.3e}, rows that differ"
+                  f" {int((d > 0).sum().item())}")
+            check(d.max().item() <= (TOL_UMNN_TIERS if kind == "umnn" else 0.0),
+                  f"{label} density: the tiled tier and the wide tier differ")
+        if z is not None:
+            dx, dlq = ((a - b).abs() for a, b in zip(s_tiled, s_wide))
+            print(f"{label} sampler at {z.shape[0]} rows, tiled tier vs wide tier (the same"
+                  f" inputs): x max |diff| {dx.max().item():.3e}, log q max |diff|"
+                  f" {dlq.max().item():.3e}")
+            check(quantiles(dx)[2] <= TOL_NAF_SAMPLE_Q99
+                  and quantiles(dlq)[0] <= tol * TOL_NAF_MEDIAN,
+                  f"{label} sampler: the tiled tier and the wide tier differ")
+
+    # the tiled sampler against its wide tier at (h)'s rows
+    hold_tiers("NAF", naf_flagship,
+               z=torch.randn(NAF_IFT_ROWS, 6, generator=gen_tiers, device=dev))
+    # the tiled density against its wide tier: tiles of 128 rows, a ragged
+    # last tile, and 4,097 rows (tiles of 32, the last with one valid row)
+    x_tiers = torch.randn(NAF_IFT_ROWS, 6, generator=gen_density, device=dev)
+    for rows in (NAF_IFT_ROWS, NAF_IFT_ROWS - 37, 4097):
+        hold_tiers("NAF", naf_flagship, x=x_tiers[:rows])
+
+    def built(make, seed, damp=1.0, mono=1.0):
+        """A flow made on the CPU from ``seed`` (so a CPU run makes the same
+        weights), its univariates' weights scaled by ``mono`` and every other
+        parameter by ``damp``, on the card."""
+        torch.manual_seed(seed)
+        flow = make()
+        with torch.no_grad():
+            for name, p in flow.named_parameters():
+                p.mul_(mono if "univariate" in name and "weight" in name else damp)
+        return flow.to(dev)
+
+    def hold_flat(label, cls, seed, names, sample_rows):
+        """A flow of ``cls`` whose MADE has no hidden layer (the tiled
+        sampler's kFlat instantiation), served: its density at 65,536 rows and its
+        samples through the tiled kernels, held against plain float64 and
+        against the wide tier. Its MADE and biases are scaled by 0.3: at full
+        scale most of the NAF's draws peg at the bracket, in float64 as in
+        float32 (on an H100 the round trip's median was 3.8; at 0.3,
+        1.9e-7)."""
+        with torch.random.fork_rng(devices=[dev]):
+            flow = built(lambda: cls(6, 0, transforms=3, signal=16, hidden_features=(),
+                                     device="cpu"), seed, damp=0.3)
+        x = torch.randn(NAF_IFT_ROWS, 6, generator=gen_density, device=dev)
+        ops.reset_launches()
+        with torch.no_grad():
+            dist = flow(None)
+            lp = dist.log_prob(x)
+            xs = dist.sample((sample_rows,), generator=gen_density)
+            xl, lq = dist.sample_and_log_prob((sample_rows,), generator=gen_density)
+        counts = {name: count for name, count in ops.LAUNCHES.items() if count}
+        print(f"{label} served: launches {counts}")
+        check(counts == dict.fromkeys(names, 1), f"{label}: launches {counts}")
+        check(all(bool(torch.isfinite(t).all()) for t in (lp, xs, xl, lq)), f"{label}: not finite")
+        z = torch.randn(sample_rows, 6, generator=gen_density, device=dev)
+        with torch.no_grad():
+            hold_naf(label, flow, x, None, z, None, names=None)
+        hold_tiers(label, flow, x, z)
+
+    hold_flat("NAF without a hidden MADE layer", zt.NAF, 8, NAF_NAMES, NAF_SAMPLE_ROWS // 16)
 
     def naf_leaves(ps0):
         return [p.detach().clone().requires_grad_(True) for p in ps0]
@@ -2176,27 +2272,41 @@ def main():
                  torch.randn(UNAF_SAMPLE_ROWS - 37, 6, generator=gen, device=dev), None,
                  names=None)
 
+    # the tiled UMNN density against its wide tier: tiles of 64 rows, a
+    # ragged last tile, and 4,097 rows (tiles of 16, the last with one valid
+    # row); a UNAF whose MADE has no hidden layer
+    for rows in (NAF_IFT_ROWS, NAF_IFT_ROWS - 37, 4097):
+        hold_tiers("UNAF", unaf_flagship, x=x_tiers[:rows])
+    hold_flat("UNAF without a hidden MADE layer", zt.UNAF, 9, UMNN_NAMES, UNAF_IFT_ROWS // 4)
+
     # a UNAF within the narrow limits whose tiled sampler would not fit in
     # shared memory (three hidden layers of 128: 279 KB at tiles of 64 rows)
-    # samples through the wide tier; its density stays narrow
+    # samples through the wide tier; its density takes the tiled tier at
+    # tiles of 16 rows (220 KB)
     torch.manual_seed(6)
     unaf_deep = zt.UNAF(6, 0, transforms=3, signal=16, network={"hidden_features": (128,) * 3},
                         device=dev)
     dparams, dlayout, _, dS = naf_args(unaf_deep, torch.float32)
     _, d_made, d_mono = naf_fused._widths(dparams, dlayout, 6, 0, dS)
-    check(naf_fused.plan_naf(d_made, d_mono, 6, 0, dS, len(dlayout), UNAF_WIDE_ROWS,
-                             umnn_sample=True).wide,
+    check(naf_fused.plan_naf("umnn", d_made, d_mono, 6, 0, dS, len(dlayout), UNAF_WIDE_ROWS,
+                             sample=True).wide,
           "the deep UNAF's sampler plans the tiled tier")
+    check(naf_fused.density_tile_rows("umnn", d_made, d_mono, 6, 0, dS, UNAF_WIDE_ROWS, 1) == 16,
+          "the deep UNAF: its density's tile")
     ops.reset_launches()
     with torch.no_grad():
         ddist = unaf_deep(None)
         d_xs = ddist.sample((UNAF_WIDE_ROWS,), generator=gen)
         d_xl, d_lq = ddist.sample_and_log_prob((UNAF_WIDE_ROWS,), generator=gen)
+        d_lp = ddist.log_prob(x_tiers[:4096])
     deep_launches = {name: count for name, count in ops.LAUNCHES.items() if count}
-    print(f"deep UNAF served through the wide tier: launches {deep_launches}")
-    check(deep_launches == {"naf_sample_umnn_wide": 1, "naf_sample_umnn_log_prob_wide": 1},
+    print(f"deep UNAF served (samples through the wide tier, the density tiled): launches"
+          f" {deep_launches}")
+    check(deep_launches == {"naf_sample_umnn_wide": 1, "naf_sample_umnn_log_prob_wide": 1,
+                            "naf_density_umnn": 1},
           f"deep UNAF launches {deep_launches}")
-    check(all(bool(torch.isfinite(t).all()) for t in (d_xs, d_xl, d_lq)), "deep UNAF: not finite")
+    check(all(bool(torch.isfinite(t).all()) for t in (d_xs, d_xl, d_lq, d_lp)),
+          "deep UNAF: not finite")
     with torch.no_grad():
         hold_naf("deep UNAF (wide tier)", unaf_deep, ux_big[:4096], None,
                  torch.randn(UNAF_WIDE_ROWS, 6, generator=gen, device=dev), None, names=None)
@@ -2264,6 +2374,19 @@ def main():
             r_ms, r_runs = host_ms(request, NAF_RUNS)
             print(f"served request {name} at {rows} rows: {r_ms:.3f} ms {fmt(r_runs)},"
                   f" kernel share {timed[name, rows, '']['ms'] / r_ms:.3f}")
+        # the tiled UMNN density at each tile: a tile of R rows is 17 R node
+        # rows, in chunks of 256 (64: 4.25 chunks, 32: 2.125, 16: 1.0625)
+        tile_rows = naf_fused.density_tile_rows
+        x_tile = ux_big[:UNAF_DENSITY_ROWS]
+        try:
+            for R in (16, 32, 64):
+                naf_fused.density_tile_rows = lambda *a, R=R: R
+                t_ms, t_runs = time_ms(
+                    lambda: naf_fused.naf_density(x_tile, uparams, ulayout, 6, uS), NAF_RUNS)
+                print(f"naf_density_umnn at {UNAF_DENSITY_ROWS} rows, tiles of {R} rows:"
+                      f" {t_ms:.3f} ms {fmt(t_runs)}")
+        finally:
+            naf_fused.density_tile_rows = tile_rows
     step_labels += (("unaf_mle", "(i) UNAF MLE"), ("unaf_rkl", "(j) UNAF reverse KL, IFT"))
     report_rows.update({"naf_density_umnn": UNAF_DENSITY_ROWS,
                         "naf_sample_umnn": UNAF_SAMPLE_ROWS,
@@ -2481,14 +2604,6 @@ def main():
     # UNAF's MADE and biases by 0.3 (at full scale a quarter of the NAF's
     # draws fail the fixed-step solve, and its float32 density sums 160
     # products of large terms: median error 8.8e-6 against 2.5e-6).
-    def built(make, seed, damp=1.0, mono=1.0):
-        torch.manual_seed(seed)
-        flow = make()
-        with torch.no_grad():
-            for name, p in flow.named_parameters():
-                p.mul_(mono if "univariate" in name and "weight" in name else damp)
-        return flow.to(dev)
-
     wide_nsf = [
         ("NSF(6, hidden_features=(256, 256))", 0,
          built(lambda: zt.NSF(6, hidden_features=(256, 256), device="cpu"), 10), REPAIR_ROWS),
@@ -2921,6 +3036,139 @@ def main():
     report_rows.update({name: CNF_RKL_ROWS for name in ADJ_NAMES})
     print(f"CNF gradient phase: {time.perf_counter() - t14:.1f} s")
 
+    # the IFT backward at a kink of a MADE's ReLU (ROADMAP Queue 3 item 4)
+    @contextlib.contextmanager
+    def float32_sides():
+        """The IFT backward with every ReLU's side from its own float32
+        march within (as it was before it marched rows in float64)."""
+        made = ift._made_sided
+        ift._made_sided = lambda xc, linears, kinks: made(xc, linears, None)
+        try:
+            yield
+        finally:
+            ift._made_sided = made
+
+    def one_float32_pass(zs, root, w, params, needs, layout, st, rows=None):
+        """Parameter gradients of the IFT's loss by one float32 pass of the
+        backward, every side from its own march, over the ``rows`` (all by
+        default) of the draws ``zs``."""
+        rows = slice(None) if rows is None else rows
+        x, ws = root[rows], w[rows]
+        with float32_sides():
+            return ift._ift_bwd_math(zs[rows], x, 2 * x * ws[:, None], ws, params, needs, layout,
+                                     *st)[1]
+
+    def kink_rows(root, params, layout, st):
+        """The rows the float32 backward marches in float64 for their ReLUs'
+        sides: a MADE's hidden pre-activation, on the float32 march from the
+        root, within ``ift._KINK_RTOL`` of its scale of 0."""
+        x, rows = root, torch.zeros(root.shape[0], dtype=torch.bool, device=dev)
+        for ps, _ in nsf_fused._split_layers(params, layout):
+            h = ift._made_near(x, ift._linears(ps), rows)
+            with torch.no_grad():
+                x = nsf_fused._univ_forward(x, h, *st[:5])[0]
+        return rows
+
+    def ift_row_diagnosis(label, zs, root, w, params, p64, needs, layout, st):
+        """Where one float32 pass of the IFT backward parts from float64 at
+        the draws ``zs`` (an unconditional flow without softclips): the
+        parameter and element of the worst max-relative error, the row that
+        sets it (chunks of rows bisected), that row's slopes and the MADE
+        pre-activations nearest a kink in each layer (float64 and float32
+        marches from the root), and the element's cancellation ratio: the
+        sum of its rows' |terms| over |their sum| (the terms from the
+        cotangents at the linear's output in the float64 backward's
+        parameter pullback)."""
+        every = torch.arange(root.shape[0], device=dev)
+
+        def grads64(rows):
+            x, ws = root[rows].double(), w[rows].double()
+            return ift._ift_bwd_math(zs[rows].double(), x, 2 * x * ws[:, None], ws, p64, needs,
+                                     layout, *st)[1]
+
+        full = grads64(every)
+        wanted = [i for i, g in enumerate(full) if g is not None]
+
+        def errs(rows):
+            got = one_float32_pass(zs, root, w, params, needs, layout, st, rows)
+            want = grads64(rows)
+            return {i: (got[i].double() - want[i]).abs().max().item()
+                    / full[i].abs().max().item() for i in wanted}
+
+        e = errs(every)
+        worst = max(e, key=e.get)
+        diff = (one_float32_pass(zs, root, w, params, needs, layout, st)[worst].double()
+                - full[worst]).abs()
+        element = np.unravel_index(diff.argmax().item(), tuple(diff.shape))
+        rows = every
+        while len(rows) > 1:
+            parts = rows.split(max(1, len(rows) // 16))
+            part_errs = [errs(part)[worst] for part in parts]
+            rows = parts[max(range(len(parts)), key=part_errs.__getitem__)]
+        r = rows.item()
+        n_lin = layout[0][0]
+        stage, (lin, kind) = divmod(worst, 3 * n_lin)[0], divmod(worst % (3 * n_lin), 3)
+        print(f"{label} IFT, one float32 pass: worst parameter {worst} (layer {stage}, MADE"
+              f" linear {lin}, {'weight' if kind == 0 else 'bias'}) element"
+              f" {tuple(int(i) for i in element)}, max-relative {e[worst]:.3e}; set by row {r}"
+              f" (that row alone: {errs(rows)[worst]:.3e}), root {root[r].tolist()}")
+        # that row's slopes and kink margins, layer by layer
+        x64, x32 = root[r:r + 1].double(), root[r:r + 1]
+        for l, ((ps64, _), (ps32, _)) in enumerate(zip(nsf_fused._split_layers(p64, layout),
+                                                       nsf_fused._split_layers(params, layout))):
+            h64, h32, margins = x64, x32, []
+            for i in range(n_lin - 1):
+                W64, b64, M64 = ps64[3 * i: 3 * i + 3]
+                W32, b32, M32 = ps32[3 * i: 3 * i + 3]
+                z64 = torch.addmm(b64, h64, (M64 * W64).T)
+                z32 = torch.addmm(b32, h32, (M32 * W32).T)
+                scale = torch.addmm(b64.abs(), h64.abs(), (M64 * W64).abs().T)
+                u = (z64.abs() / scale).argmin().item()
+                flips = ((z64 > 0) != (z32 > 0)).nonzero()[:, 1].tolist()
+                margins.append(f"hidden {i}: nearest unit {u} at {z64[0, u].item():.3e}"
+                               f" (f32 {z32[0, u].item():.3e}, |z|/scale"
+                               f" {(z64.abs() / scale)[0, u].item():.3e}), sides differ at"
+                               f" units {flips}")
+                h64, h32 = torch.relu(z64), torch.relu(z32)
+            xs = x64.clone().requires_grad_(True)
+            with torch.enable_grad():  # the univariates' slopes, at fixed MADE outputs
+                y, _ = nsf_fused._univ_forward(xs, nsf_fused._hyper(x64, ps64), *st[:5])
+                (slope,) = torch.autograd.grad(y, xs, torch.ones_like(y))
+            print(f"  layer {l}: slopes {[round(v, 6) for v in slope[0].tolist()]};"
+                  f" {'; '.join(margins)}")
+            x64 = y.detach()
+            x32 = nsf_fused._univ_forward(x32, nsf_fused._hyper(x32, ps32), *st[:5])[0]
+        # the element's terms, row by row: the cotangent at the linear's
+        # output in the parameter pullback (the last pass through its graph)
+        # times its input
+        records, made = [], ift._made_sided
+
+        def recording_made(xc, linears, kinks):
+            h, slots = xc, []
+            for i, (W, b) in enumerate(linears):
+                z = torch.addmm(b, h, W.T)
+                slots.append([h.detach(), None])
+                if z.requires_grad:
+                    z.register_hook(lambda g, slot=slots[-1]: slot.__setitem__(1, g))
+                h = torch.relu(z) if i < len(linears) - 1 else z
+            records.append(slots)
+            return h
+
+        ift._made_sided = recording_made
+        try:
+            grads64(every)
+        finally:
+            ift._made_sided = made
+        a, g = records[stage][lin]
+        o = int(element[0])
+        terms = g[:, o] * (a[:, int(element[1])] * p64[worst + 2 - kind][element]
+                           if kind == 0 else 1.0)
+        total = terms.sum()
+        print(f"  cancellation ratio of element {tuple(int(i) for i in element)}: sum |terms|"
+              f" / |sum| = {(terms.abs().sum() / total.abs()).item():.1f} (sum {total.item():.3e},"
+              f" the gradient {full[worst][element].item():.3e}; row {r}'s term"
+              f" {terms[r].item():.3e}, largest |term| {terms.abs().max().item():.3e})")
+
     # 15. NCSF, SOSPF and BPF: the crqs, sosp and bernstein modes of K1-K3,
     # served, held against float64 truth and plain float64, trained, timed
     t15 = time.perf_counter()
@@ -3056,28 +3304,59 @@ def main():
         check(d.max().item() <= TOL_DENSITY, f"{label} density at the steps' rows vs plain")
         note_error(nsf_fused._counter("nsf_density", mode), d, POLY_MLE_ROWS)
         compare_grads(f"{label} density at (m, o, q)'s rows", *density)
+        needs = [i % 3 != 2 for i in range(len(p64))]
+
+        def hold_ift(zg, what=""):
+            """The IFT (K3 with log q, the Function's backward) at the draws
+            ``zg`` against the same sweeps in float64 at the kernel's root;
+            returns ``(root, loss weights, float64 parameter gradients)``."""
+            with torch.no_grad():
+                _, r_rl, solved, _ = plain_samples(zg, params, p64, layout, st)[True]
+            r_lq = r_rl + nsf_fused._base_log_prob(zg.double(), base)
+            # the loss of (n), (p), (r)'s kind over the solved draws
+            w = solved.float() / POLY_RKL_ROWS
+            ps, zr = leaves(params), zg.clone().requires_grad_(True)
+            root, lq32 = ift._IFTFunction.apply(zr, (layout, *st), True, *ps)
+            ((lq32 + (root**2).sum(dim=1)) * w).sum().backward()
+            got = [zr.grad] + grads_of(ps)
+            x64, w64 = root.detach().double(), w.double()
+            dz, dps = ift._ift_bwd_math(zg.double(), x64, 2 * x64 * w64[:, None], w64, p64,
+                                        needs, layout, *st)
+            dlq = (lq32.detach().double() - r_lq).abs()[solved]
+            print(f"{label} IFT at {POLY_RKL_ROWS} draws{what}: {int((~solved).sum().item())}"
+                  f" not held (not solved by plain float64); log q vs plain f64 max"
+                  f" {dlq.max().item():.3e}")
+            check(dlq.max().item() <= TOL_DENSITY, f"{label} IFT log q vs plain")
+            note_error(nsf_fused._counter("nsf_sample_log_prob", mode), dlq, POLY_RKL_ROWS)
+            compare_grads(f"{label} IFT (log q){what}, at the kernel's root", got,
+                          [dz[:, :6]] + [g for g in dps if g is not None],
+                          tol_input=TOL_GRAD_SOLVE_INPUT)
+            return root.detach(), w, dps
+
         zg = base_draws(POLY_RKL_ROWS, 6, base)
-        with torch.no_grad():
-            _, r_rl, solved, _ = plain_samples(zg, params, p64, layout, st)[True]
-        r_lq = r_rl + nsf_fused._base_log_prob(zg.double(), base)
-        # the loss of (n), (p), (r)'s kind over the solved draws
-        w = solved.float() / POLY_RKL_ROWS
-        ps, zr = leaves(params), zg.clone().requires_grad_(True)
-        root, lq32 = ift._IFTFunction.apply(zr, (layout, *st), True, *ps)
-        ((lq32 + (root**2).sum(dim=1)) * w).sum().backward()
-        got = [zr.grad] + grads_of(ps)
-        x64, w64 = root.detach().double(), w.double()
-        dz, dps = ift._ift_bwd_math(zg.double(), x64, 2 * x64 * w64[:, None], w64, p64,
-                                    [i % 3 != 2 for i in range(len(p64))], layout, *st)
-        dlq = (lq32.detach().double() - r_lq).abs()[solved]
-        print(f"{label} IFT at {POLY_RKL_ROWS} draws: {int((~solved).sum().item())} not held"
-              f" (not solved by plain float64); log q vs plain f64 max"
-              f" {dlq.max().item():.3e}")
-        check(dlq.max().item() <= TOL_DENSITY, f"{label} IFT log q vs plain")
-        note_error(nsf_fused._counter("nsf_sample_log_prob", mode), dlq, POLY_RKL_ROWS)
-        compare_grads(f"{label} IFT (log q), at the kernel's root", got,
-                      [dz[:, :6]] + [g for g in dps if g is not None],
-                      tol_input=TOL_GRAD_SOLVE_INPUT)
+        root, w, dps = hold_ift(zg)
+        if key == "bpf":
+            # ROADMAP Queue 3 item 4: three more draw sets, each from a
+            # generator of its own; beside each, one float32 pass of the
+            # backward with every ReLU's side from the float32 march, whose
+            # worst set is taken apart
+            sets = [(zg, root, w, dps)]
+            for seed in (21, 22, 23):
+                g_set = torch.Generator(device=dev).manual_seed(seed)
+                zs = torch.randn(POLY_RKL_ROWS, 6, generator=g_set, device=dev)
+                sets.append((zs, *hold_ift(zs, f" (draw set of seed {seed})")))
+            one_pass = []
+            for zs, root_s, w_s, dps_s in sets:
+                one_pass.append(one_float32_pass(zs, root_s, w_s, params, needs, layout, st))
+                rel = max(((a.double() - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(one_pass[-1], dps_s) if b is not None)
+                print(f"{label} IFT, every side from the float32 march: parameters worst"
+                      f" max-relative {rel:.3e}; rows the backward marches in float64:"
+                      f" {int(kink_rows(root_s, params, layout, st).sum().item())}")
+            worst = max(range(len(sets)), key=lambda k: max(
+                ((a.double() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(one_pass[k], sets[k][3]) if b is not None))
+            ift_row_diagnosis(label, *sets[worst][:3], params, p64, needs, layout, st)
 
     # (m)-(r): MLE on the samples the NSF serving phase drew (NCSF's wrapped
     # onto the circle) and reverse KL through the IFT on the ring energy,

@@ -517,7 +517,7 @@ def test_kernel_limits_raise_before_launch(kwargs, made_w, mono_w, slots):
     with torch.no_grad():
         params, layout, F, S = torch_naf._flatten_naf(flow)
         assert torch_naf._widths(params, layout, F, 0, S) == ("mnn", made_w, mono_w)
-        plan = torch_naf.plan_naf(made_w, mono_w, F, 0, S, len(layout), 1000)
+        plan = torch_naf.plan_naf("mnn", made_w, mono_w, F, 0, S, len(layout), 1000)
         # 10 ints of widths and offsets in 48 bytes, 24 a stage
         assert plan == (True, slots, 1024, 4 * slots * 1024, 48 + 24 * len(layout))
         xc = torch.randn(4, F)

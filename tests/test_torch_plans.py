@@ -1,7 +1,8 @@
 r"""Launch plans of the redesigned kernels, held without a GPU: the tiled
-samplers' tier and tile, UMNN and MNN (``ops/naf_fused.py`` ``plan_naf``,
-``umnn_tile_rows``, ``mnn_tile_rows``, ``_tile_floats``, mirrored in
-``csrc/naf_fused.cu`` ``tile_plan``), the ``masked_linear`` kernel's
+samplers' and the tiled density's tier and tile, UMNN and MNN
+(``ops/naf_fused.py`` ``plan_naf``, ``umnn_tile_rows``, ``mnn_tile_rows``,
+``density_tile_rows``, ``_tile_floats``, mirrored in ``csrc/naf_fused.cu``
+``tile_plan``), the ``masked_linear`` kernel's
 persistent launch (``ops/masked_linear.py`` ``plan_masked_linear``, mirrored
 in ``csrc/masked_linear.cu``) and the CNF adjoint's cluster tier
 (``ops/cnf_fused.py`` ``plan_cnf_adjoint``, ``_padded_weights``, mirrored in
@@ -69,7 +70,8 @@ def test_umnn_sampler_plans_the_tiled_tier(context, floats):
             + 64 * 260 + 64 * 64 + 64 + (64 + 64 + 60))
     assert got == want == floats and 4 * got <= SHARED
     for rows in (1, 1 << 14, 1 << 16):
-        plan = naf_fused.plan_naf(made_w, mono_w, F, context, S, n_stages, rows, umnn_sample=True)
+        plan = naf_fused.plan_naf("umnn", made_w, mono_w, F, context, S, n_stages, rows,
+                                  sample=True)
         assert plan == _common.narrow_plan(rows)
 
 
@@ -83,13 +85,14 @@ def test_umnn_sampler_past_its_shared_memory_plans_the_wide_tier(kwargs, sample_
                                                                  density_wide):
     """A UNAF within the narrow limits whose tiled sampler would need more
     than 227 KB (three hidden layers of 128: 279 KB; MADE widths of 256: 244
-    KB) samples through the wide tier, while its density stays narrow; past
-    the narrow limits (widths of 130) both go wide. Two layers of 128 fit
-    (213 KB: fewer node rows a chunk, 128)."""
+    KB) samples through the wide tier, while its density stays narrow (the
+    tiled density at a smaller tile); past the narrow limits (widths of 130)
+    both go wide. Two layers of 128 fit (213 KB: fewer node rows a chunk,
+    128)."""
     made_w, mono_w, F, S, n_stages = _unaf_shapes(**kwargs)
     fits = 4 * naf_fused._umnn_tile_floats(made_w, mono_w, F, 0, S, 64) <= SHARED
-    sample = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16, umnn_sample=True)
-    density = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16)
+    sample = naf_fused.plan_naf("umnn", made_w, mono_w, F, 0, S, n_stages, 1 << 16, sample=True)
+    density = naf_fused.plan_naf("umnn", made_w, mono_w, F, 0, S, n_stages, 1 << 16)
     assert (sample.wide, density.wide) == (sample_wide, density_wide)
     assert fits == (not sample_wide) or density_wide
     if sample.wide:
@@ -181,8 +184,8 @@ def test_masked_linear_hands_its_plan_to_the_kernel(recorded, n, in_f, out_f):
 @pytest.mark.parametrize("rows", [1 << 16, 4096])
 def test_naf_sampler_hands_the_tile_to_the_kernel(recorded, rows):
     """A UNAF's sampler launches its narrow tier (the tiled kernel) with
-    the tile rows of ``umnn_tile_rows``; the density takes no tile argument;
-    the counts stay under their names."""
+    the tile rows of ``umnn_tile_rows``; the density too takes a tile
+    argument; the counts stay under their names."""
     torch.manual_seed(0)
     flow = zt.UNAF(6, 0, transforms=3, signal=16, device="cpu")
     params, layout, F, S = naf_fused._flatten_naf(flow)
@@ -233,7 +236,8 @@ def test_mnn_sampler_plans_the_tiled_tier(features, context, kwargs, floats):
             + 64 * 260 + 64 * 64 + 64 + (64 + 64 + 4))
     assert got == want == floats and 4 * got <= SHARED
     for rows in (1, 1 << 14, 1 << 18):
-        plan = naf_fused.plan_naf(made_w, mono_w, F, context, S, n_stages, rows, mnn_sample=True)
+        plan = naf_fused.plan_naf("mnn", made_w, mono_w, F, context, S, n_stages, rows,
+                                  sample=True)
         assert plan == _common.narrow_plan(rows)
 
 
@@ -244,11 +248,12 @@ def test_mnn_sampler_past_its_shared_memory_plans_the_wide_tier(kwargs):
     """A NAF within the narrow limits whose tiled sampler would need more
     than 227 KB at tiles of 128 rows (monotone networks of 128: 276 KB, a
     chunk of 64 value rows; MADE widths of 256: 386 KB) samples through the
-    wide tier, while its density stays narrow."""
+    wide tier, while its density stays narrow (the tiled density at a
+    smaller tile)."""
     made_w, mono_w, F, S, n_stages = _naf_shapes(**kwargs)
     assert 4 * naf_fused._tile_floats("mnn", made_w, mono_w, F, 0, S, 128) > SHARED
-    sample = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16, mnn_sample=True)
-    density = naf_fused.plan_naf(made_w, mono_w, F, 0, S, n_stages, 1 << 16)
+    sample = naf_fused.plan_naf("mnn", made_w, mono_w, F, 0, S, n_stages, 1 << 16, sample=True)
+    density = naf_fused.plan_naf("mnn", made_w, mono_w, F, 0, S, n_stages, 1 << 16)
     assert sample.wide and not density.wide
     assert sample.workspace_bytes <= _common.WORKSPACE_BYTES
 
@@ -280,6 +285,94 @@ def test_naf_sampler_hands_the_mnn_tile_to_the_kernel(recorded, rows):
         assert args[-8] == 0 and args[-2] == naf_fused.mnn_tile_rows(rows, 132)
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "naf_sample": 1, "naf_sample_log_prob": 1}
+
+
+def _shapes(cls, context=0, **kwargs):
+    torch.manual_seed(0)
+    flow = cls(6, context, signal=16, device="cpu", **{"transforms": 3, **kwargs})
+    params, layout, F, S = naf_fused._flatten_naf(flow)
+    kind, made_w, mono_w = naf_fused._widths(params, layout, F, context, S)
+    return flow, kind, made_w, mono_w, F, S, len(layout)
+
+
+@pytest.mark.parametrize("cls, context, tile, floats", [
+    (zt.NAF, 0, 128, 49732), (zt.NAF, 4, 128, 50244), (zt.UNAF, 0, 64, 36348),
+    (zt.UNAF, 4, 64, 36604),
+], ids=["naf", "naf_conditional", "unaf", "unaf_conditional"])
+def test_density_plans_the_largest_tile(cls, context, tile, floats):
+    """The flagship NAF and UNAF and their conditional (6, 4) forms take the
+    tiled density at the largest tile of their kind (128 rows a NAF, 64 a
+    UNAF), the sampler's plan at that tile (its floats pinned against
+    ``tile_plan``'s sum in the sampler's tests), at most the tile that keeps
+    every SM busy: at 4,096 rows 32 and 16."""
+    _, kind, made_w, mono_w, F, S, n_stages = _shapes(cls, context)
+    assert naf_fused.density_tile_rows(kind, made_w, mono_w, F, context, S, 1 << 20, 132) == tile
+    assert naf_fused._tile_floats(kind, made_w, mono_w, F, context, S, tile) == floats
+    assert 4 * floats <= SHARED
+    small = naf_fused.density_tile_rows(kind, made_w, mono_w, F, context, S, 4096, 132)
+    assert small == (32 if kind == "mnn" else 16)
+    for rows in (1, 1 << 18, 1 << 20):
+        assert naf_fused.plan_naf(kind, made_w, mono_w, F, context, S, n_stages, rows) \
+            == _common.narrow_plan(rows)
+
+
+@pytest.mark.parametrize("cls, kwargs, tile, nbytes", [
+    (zt.NAF, {"hidden_features": (256, 256)}, 32, 161680),
+    (zt.UNAF, {"hidden_features": (256, 256)}, 32, 163824),
+    (zt.NAF, {"network": {"hidden_features": (128, 128)}}, 64, 208656),
+    (zt.UNAF, {"network": {"hidden_features": (128,) * 3}}, 16, 220400),
+], ids=["naf_made_256", "unaf_made_256", "naf_net_128", "unaf_three_128"])
+def test_density_takes_a_smaller_tile_where_the_largest_does_not_fit(cls, kwargs, tile, nbytes):
+    """Where the largest tile's shared memory passes 227 KB (MADE widths of
+    256, networks of 128), the density takes the largest tile that fits; the
+    sampler of the same flow goes wide."""
+    _, kind, made_w, mono_w, F, S, n_stages = _shapes(cls, **kwargs)
+    assert naf_fused.density_tile_rows(kind, made_w, mono_w, F, 0, S, 1 << 20, 132) == tile
+    assert 4 * naf_fused._tile_floats(kind, made_w, mono_w, F, 0, S, tile) == nbytes <= SHARED
+    larger = [R for R in naf_fused._TILES[kind] if R > tile]
+    assert all(4 * naf_fused._tile_floats(kind, made_w, mono_w, F, 0, S, R) > SHARED
+               for R in larger)
+    assert not naf_fused.plan_naf(kind, made_w, mono_w, F, 0, S, n_stages, 1 << 16).wide
+    assert naf_fused.plan_naf(kind, made_w, mono_w, F, 0, S, n_stages, 1 << 16, sample=True).wide
+
+
+@pytest.mark.parametrize("cls, kwargs", [
+    (zt.NAF, {"network": {"hidden_features": (128,) * 3}}),
+    (zt.UNAF, {"network": {"hidden_features": (128,) * 4}}),
+], ids=["naf_three_128", "unaf_four_128"])
+def test_density_that_fits_no_tile_plans_the_wide_tier(cls, kwargs):
+    """Within the narrow limits, a flow whose tiled density fits at no tile
+    (its networks' weights and activations alone pass 227 KB) takes the
+    wide tier."""
+    _, kind, made_w, mono_w, F, S, n_stages = _shapes(cls, **kwargs)
+    smallest = naf_fused._TILES[kind][0]
+    assert 4 * naf_fused._tile_floats(kind, made_w, mono_w, F, 0, S, smallest) > SHARED
+    assert naf_fused.density_tile_rows(kind, made_w, mono_w, F, 0, S, 1 << 20, 132) is None
+    plan = naf_fused.plan_naf(kind, made_w, mono_w, F, 0, S, n_stages, 1 << 16)
+    assert plan.wide and plan.workspace_bytes <= _common.WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("cls, kwargs, rows, tile, counter", [
+    (zt.NAF, {}, 1 << 16, 128, "naf_density"),
+    (zt.NAF, {}, 4096, 32, "naf_density"),
+    (zt.UNAF, {}, 1 << 16, 64, "naf_density_umnn"),
+    (zt.UNAF, {"network": {"hidden_features": (128,) * 3}}, 1 << 16, 16, "naf_density_umnn"),
+    (zt.UNAF, {"network": {"hidden_features": (128,) * 4}}, 1 << 16, 0, "naf_density_umnn_wide"),
+], ids=["naf", "naf_few_rows", "unaf", "unaf_small_tile", "unaf_wide"])
+def test_density_hands_its_tile_to_the_kernel(recorded, cls, kwargs, rows, tile, counter):
+    """The density launches its narrow tier with the tile of
+    ``density_tile_rows`` (the wide tier, where none fits, with 0) and
+    counts under its name."""
+    flow, *_ = _shapes(cls, **kwargs)
+    params, layout, F, S = naf_fused._flatten_naf(flow)
+    params = [p.detach().as_subclass(_OnCard) for p in params]
+    x = torch.randn(rows, 6).as_subclass(_OnCard)
+    naf_fused.naf_density(x, params, layout, F, S)
+    [(name, args)] = recorded
+    assert name == "naf_density_f32"
+    assert len(args) == len(_build._SIGNATURES["naf_fused"]["naf_density_f32"][0])
+    assert args[-8] == int(tile == 0) and args[-2] == tile
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {counter: 1}
 
 
 def _cnf_widths(make):

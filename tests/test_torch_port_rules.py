@@ -676,9 +676,10 @@ def test_flagship_shapes_plan_the_narrow_tier(family):
     else:
         flow = getattr(zt, family)(6, 0, transforms=3, signal=16, device="cpu")
         params, layout, F, S = naf_fused._flatten_naf(flow)
-        _, made_w, mono_w = naf_fused._widths(params, layout, F, 0, S)
-        plan = [naf_fused.plan_naf(made_w, mono_w, F, 0, S, len(layout), n) for n in (1, 1 << 20)]
-        wider = naf_fused.plan_naf(made_w, mono_w[:1] + [130] + mono_w[2:], F, 0, S, len(layout),
-                                   1 << 20)
+        kind, made_w, mono_w = naf_fused._widths(params, layout, F, 0, S)
+        plan = [naf_fused.plan_naf(kind, made_w, mono_w, F, 0, S, len(layout), n)
+                for n in (1, 1 << 20)]
+        wider = naf_fused.plan_naf(kind, made_w, mono_w[:1] + [130] + mono_w[2:], F, 0, S,
+                                   len(layout), 1 << 20)
     assert plan == [(False, 0, 1, 0, 0), (False, 0, 1 << 20, 0, 0)]
     assert wider.wide and wider.workspace_bytes <= (1 << 30)

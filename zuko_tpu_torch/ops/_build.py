@@ -41,9 +41,9 @@ _NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_FLOW], _I)
 _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
 # (packed, kinds, passes, bounds, offsets, stages, MADE widths, MADE linears,
 # network widths, network linears, F, C, S, mode, rows, then the tier: wide,
-# workspace, its floats, rows a launch, descriptor buffer, its bytes; stream;
-# the sampler takes the tiled UMNN sampler's tile rows before the stream)
-_NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER, _P]
+# workspace, its floats, rows a launch, descriptor buffer, its bytes; the
+# narrow tier's tile rows; stream)
+_NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER, _I, _P]
 # (input, probe, per-row first bias, one or two outputs, weights, widths,
 # linears, frequencies and their count, atol, rtol, trace scale, max_steps,
 # trace mode, rows, the tier, stream)
@@ -69,7 +69,7 @@ _SIGNATURES = {
     },
     "naf_fused": {
         "naf_density_f32": ([_P, _P, *_NAF_FLOW], _I),
-        "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW[:-1], _I, _P], _I),
+        "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW], _I),
     },
     "cnf_fused": {
         "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW], _I),

@@ -42,29 +42,27 @@
 // density row about 2.7M (306 integrand evaluations of ~8.4K), a sample row
 // about 54M (84 evaluations a feature in the cold sweep, 55 in a warm one).
 //
-// Design (simple and right first): the density, and the sampler's wide tier,
-// take one thread per row, blocks of 128 rows, no shared memory and no
-// synchronisation. Weights are read through the read-only data cache
-// (__ldg): every thread of a warp reads the same address at the same time,
-// one broadcast per warp. The MADE's F * T outputs are never stored
-// together: a feature computes its T values from the last hidden layer when
-// it needs them. Float32 throughout (expf, expm1f, logf, log1pf); no tensor
-// cores, no TF32. The sampler's narrow tier, in both modes, is the tiled
-// kernel below (naf_sample_tiled), not one thread a row.
-//
 // Two tiers, chosen by the wrapper from the flow's shape alone
-// (zuko_tpu_torch/ops/naf_fused.py plan_naf). The narrow tier (kWide false)
-// keeps a row's state in per-thread arrays (local memory) of fixed size and
-// the flow's description in the kernel parameter (__grid_constant__): up to
-// kMaxF features, a signal of kMaxS, MADE widths of kMaxMade, network widths
-// of kMaxMono, kMaxLinear linears a network, kMaxStages stages; the tiled
-// sampler takes the same limits and, besides, a shared-memory plan within
-// 227 KB. The wide tier takes any shape: a row's state lives in a
-// workspace in device memory, one column of `stride` rows per value (slot),
-// so neighbouring threads touch neighbouring addresses as in local memory;
-// the layer widths and the stages lie in a small device buffer. The wrapper
-// allocates both; the rows run in chunks of `stride`, one launch each, so
-// the workspace stays bounded.
+// (zuko_tpu_torch/ops/naf_fused.py plan_naf). The narrow tier of both
+// kernels, in both modes, is tiled (naf_density_tiled, naf_sample_tiled
+// below): a block of 512 threads owns a tile of rows, and the network
+// evaluations of a step over the tile's rows are products from shared
+// memory. It takes the flow's description in the kernel parameter
+// (__grid_constant__), up to kMaxF features, a signal of kMaxS, MADE widths
+// of kMaxMade, network widths of kMaxMono, kMaxLinear linears a network and
+// kMaxStages stages, and a shared-memory plan within 227 KB at its tile. The
+// wide tier takes any shape: one thread a row, blocks of 128 rows, no shared
+// memory and no synchronisation; a row's state lives in a workspace in
+// device memory, one column of `stride` rows per value (slot), so
+// neighbouring threads touch neighbouring addresses; the layer widths and
+// the stages lie in a small device buffer. Its weights are read through the
+// read-only data cache (__ldg): every thread of a warp reads the same
+// address at the same time, one broadcast per warp; the MADE's F * T
+// outputs are never stored together: a feature computes its T values from
+// the last hidden layer when it needs them. The wrapper allocates the
+// workspace and the buffer; the rows run in chunks of `stride`, one launch
+// each, so the workspace stays bounded. Float32 throughout (expf, expm1f,
+// logf, log1pf); no tensor cores, no TF32.
 //
 // Each C entry point checks its arguments, launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
@@ -73,7 +71,6 @@
 #include <math.h>
 #include <string.h>
 
-#include <type_traits>
 #include <vector>
 
 namespace {
@@ -85,7 +82,7 @@ constexpr int kMaxMono = 128;   // univariate-network hidden widths
 constexpr int kMaxMade = 256;   // MADE widths, the F + C inputs included
 constexpr int kMaxLinear = 8;   // linears per network
 constexpr int kMaxStages = 64;  // autoregressive layers and softclips together
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;   // the wide tier's rows a block
 
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 // the solve (zuko_tpu/ops/naf_fused.py:62-85, 385-406, 603-654)
@@ -160,9 +157,6 @@ struct WideShape {
   const Stage* st;
 };
 
-template <bool kWide>
-using ShapeOf = typename std::conditional<kWide, WideShape, Shape>::type;
-
 // A slot column of the wide tier's workspace: one of a row's arrays,
 // `stride` floats between consecutive elements.
 struct Column {
@@ -171,29 +165,13 @@ struct Column {
   __device__ __forceinline__ float& operator[](int i) const { return p[i * stride]; }
 };
 
-// What indexes one of a row's arrays: a pointer into a per-thread array
-// (narrow) or a workspace column (wide).
-template <bool kWide>
-using Vec = typename std::conditional<kWide, Column, float*>::type;
-
-// The state of a row: the current iterate (or input) with its context, the
-// MADE's activations, one feature's T outputs, its hoisted first layer and
-// its network's activations (with their derivatives, MNN). Narrow: per-thread
-// arrays (local memory); the sampler keeps its target apart.
-template <bool kWide>
+// The state of a row in the wide tier: the current iterate (or input) with
+// its context, the MADE's activations, one feature's T outputs (the signal,
+// then a UMNN's constant), its hoisted first layer, its network's
+// activations (with their derivatives, MNN) and the sampler's target y, as
+// columns of the workspace from column i on, in this order (the slots
+// mirrored in naf_fused.py plan_naf).
 struct Row {
-  // sig holds a UMNN's constant after the signal; 3 more floats keep the
-  // arrays after it 16-byte aligned, so that 4 neighbours load at once
-  float xc[kMaxMade], a[kMaxMade], b[kMaxMade], sig[kMaxS + 4];
-  float pre1[kMaxMono], u[kMaxMono], du[kMaxMono], t[kMaxMono], dt[kMaxMono];
-  __device__ __forceinline__ void init(const Shape&, float*, long long, long long) {}
-};
-
-// Wide: the same fields and the sampler's target y as columns of the
-// workspace, from column i on, in this order (the slots mirrored in
-// naf_fused.py plan_naf).
-template <>
-struct Row<true> {
   Column xc, a, b, sig, pre1, u, du, t, dt, y;
   __device__ __forceinline__ void init(const WideShape& s, float* work, long long stride,
                                        long long i) {
@@ -212,9 +190,9 @@ __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
 // The MADE's hidden ReLU layers on a[0 .. made_w[0]); returns the array that
 // holds the last hidden activations (a or b).
-template <class Sh, class V>
-__device__ __forceinline__ V made_hidden(const float* __restrict__ w, const Sh& s, V a, V b) {
-  V cur = a, nxt = b;
+__device__ __forceinline__ Column made_hidden(const float* __restrict__ w, const WideShape& s,
+                                              Column a, Column b) {
+  Column cur = a, nxt = b;
   for (int i = 0; i < s.n_made - 1; ++i) {
     const int din = s.made_w[i], dout = s.made_w[i + 1];
     const float* W = w + s.made_off[i];
@@ -225,7 +203,7 @@ __device__ __forceinline__ V made_hidden(const float* __restrict__ w, const Sh& 
       for (int j = 0; j < din; ++j) acc = fmaf(ld(row + j), cur[j], acc);
       nxt[o] = fmaxf(acc, 0.0f);
     }
-    const V t = cur;
+    const Column t = cur;
     cur = nxt;
     nxt = t;
   }
@@ -235,9 +213,9 @@ __device__ __forceinline__ V made_hidden(const float* __restrict__ w, const Sh& 
 // Feature f's T outputs f*T .. f*T + T - 1 of the MADE's last linear into
 // r.sig (the signal, then a UMNN's constant), and from the signal the hoisted
 // first network layer r.pre1[k] = b1[k] + W1[k, 1:] s.
-template <bool kWide, int kMode, class Sh>
-__device__ __forceinline__ void signal_and_hoist(const float* __restrict__ w, const Sh& s,
-                                                 const Vec<kWide> h, int f, Row<kWide>& r) {
+template <int kMode>
+__device__ __forceinline__ void signal_and_hoist(const float* __restrict__ w, const WideShape& s,
+                                                 const Column h, int f, Row& r) {
   const int T = s.S + (kMode == kUMNN);
   const int din = s.made_w[s.n_made - 1], dout = s.made_w[s.n_made];
   const float* W = w + s.made_off[s.n_made - 1];
@@ -276,9 +254,9 @@ __device__ __forceinline__ float elu(float z) { return z > 0.0f ? z : expm1f(z);
 // Feature f's monotone network at x from its hoisted first layer; with kGrad
 // also its x-derivative in *g (forward mode: dz1/dx is the x column). The
 // activations ping-pong between (u, du) and (t, dt).
-template <bool kGrad, bool kWide, class Sh>
-__device__ __forceinline__ float monotone_net(float x, const float* __restrict__ w, const Sh& s,
-                                              int f, Row<kWide>& r, float* g) {
+template <bool kGrad>
+__device__ __forceinline__ float monotone_net(float x, const float* __restrict__ w,
+                                              const WideShape& s, int f, Row& r, float* g) {
   const int in1 = s.mono_w[0], H1 = s.mono_w[1];
   const float* W1 = w + s.mono_off[0] + f * H1 * in1;
   for (int k = 0; k < H1; ++k) {
@@ -287,7 +265,7 @@ __device__ __forceinline__ float monotone_net(float x, const float* __restrict__
     r.u[k] = two_way_elu(fmaf(wx, x, r.pre1[k]), k, H1, &d);
     if (kGrad) r.du[k] = d * wx;
   }
-  Vec<kWide> cur = r.u, dcur = r.du, nxt = r.t, dnxt = r.dt;
+  Column cur = r.u, dcur = r.du, nxt = r.t, dnxt = r.dt;
   for (int i = 1; i < s.n_mono - 1; ++i) {
     const int din = s.mono_w[i], dout = s.mono_w[i + 1];
     const float* W = w + s.mono_off[i] + f * dout * din;
@@ -304,7 +282,7 @@ __device__ __forceinline__ float monotone_net(float x, const float* __restrict__
       nxt[o] = two_way_elu(acc, o, dout, &d);
       if (kGrad) dnxt[o] = d * dacc;
     }
-    Vec<kWide> tmp = cur;
+    Column tmp = cur;
     cur = nxt;
     nxt = tmp;
     tmp = dcur;
@@ -326,13 +304,12 @@ __device__ __forceinline__ float monotone_net(float x, const float* __restrict__
 // Feature f's UMNN integrand g(x) = exp(d / (1 + |d / 7|)), d the ELU
 // network's output at [x, s], from the hoisted first layer. The activations
 // ping-pong between u and t.
-template <bool kWide, class Sh>
-__device__ __forceinline__ float integrand(float x, const float* __restrict__ w, const Sh& s,
-                                           int f, Row<kWide>& r) {
+__device__ __forceinline__ float integrand(float x, const float* __restrict__ w,
+                                           const WideShape& s, int f, Row& r) {
   const int in1 = s.mono_w[0], H1 = s.mono_w[1];
   const float* W1 = w + s.mono_off[0] + f * H1 * in1;
   for (int k = 0; k < H1; ++k) r.u[k] = elu(fmaf(ld(W1 + k * in1), x, r.pre1[k]));
-  Vec<kWide> cur = r.u, nxt = r.t;
+  Column cur = r.u, nxt = r.t;
   for (int i = 1; i < s.n_mono - 1; ++i) {
     const int din = s.mono_w[i], dout = s.mono_w[i + 1];
     const float* W = w + s.mono_off[i] + f * dout * din;
@@ -343,7 +320,7 @@ __device__ __forceinline__ float integrand(float x, const float* __restrict__ w,
       for (int j = 0; j < din; ++j) acc = fmaf(ld(row + j), cur[j], acc);
       nxt[o] = elu(acc);
     }
-    const Vec<kWide> tmp = cur;
+    const Column tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
@@ -356,9 +333,9 @@ __device__ __forceinline__ float integrand(float x, const float* __restrict__ w,
 
 // Feature f's integral of g from 0 to x by the N-point Gauss-Legendre rule
 // (N = 4, 8 or 16).
-template <int N, bool kWide, class Sh>
+template <int N>
 __device__ __forceinline__ float umnn_integral(float x, const float* __restrict__ w,
-                                               const Sh& s, int f, Row<kWide>& r) {
+                                               const WideShape& s, int f, Row& r) {
   constexpr int at = N - 4;  // 4 -> 0, 8 -> 4, 16 -> 12
   float acc = 0.0f;
   for (int k = 0; k < N; ++k) {
@@ -369,9 +346,9 @@ __device__ __forceinline__ float umnn_integral(float x, const float* __restrict_
 
 // The univariate's value (without a UMNN's constant) and, with kGrad, its
 // derivative: a monotone network, or a UMNN integral by GL-N and g(x).
-template <int kMode, int N, bool kGrad, bool kWide, class Sh>
-__device__ __forceinline__ float univariate(float x, const float* __restrict__ w, const Sh& s,
-                                            int f, Row<kWide>& r, float* g) {
+template <int kMode, int N, bool kGrad>
+__device__ __forceinline__ float univariate(float x, const float* __restrict__ w,
+                                            const WideShape& s, int f, Row& r, float* g) {
   if (kMode == kMNN) return monotone_net<kGrad>(x, w, s, f, r, g);
   const float v = umnn_integral<N>(x, w, s, f, r);
   if (kGrad) *g = integrand(x, w, s, f, r);
@@ -380,25 +357,25 @@ __device__ __forceinline__ float univariate(float x, const float* __restrict__ w
 
 // MADE pass on the row's xc; copies it first, so xc may change while the
 // hidden activations are read.
-template <bool kWide, class Sh>
-__device__ __forceinline__ Vec<kWide> made_pass(const float* __restrict__ w, const Sh& s,
-                                                Row<kWide>& r) {
+__device__ __forceinline__ Column made_pass(const float* __restrict__ w, const WideShape& s,
+                                            Row& r) {
   for (int j = 0; j < s.F + s.C; ++j) r.a[j] = r.xc[j];
-  return made_hidden<Sh, Vec<kWide>>(w, s, r.a, r.b);
+  return made_hidden(w, s, r.a, r.b);
 }
 
-// Rows [row0, row_end) of the launch; thread i takes row row0 + i, and in the
-// wide tier workspace column i.
-template <bool kWide, int kMode>
+// The density's wide tier (the narrow tier is naf_density_tiled): rows
+// [row0, row_end) of the launch; thread i takes row row0 + i and workspace
+// column i.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 naf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
-                   const float* __restrict__ packed, const __grid_constant__ ShapeOf<kWide> s,
+                   const float* __restrict__ packed, const __grid_constant__ WideShape s,
                    float* __restrict__ work, long long stride, long long row0, long long row_end) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = row0 + i;
   if (row >= row_end) return;
   const int F = s.F, D0 = s.F + s.C;
-  Row<kWide> r;
+  Row r;
   r.init(s, work, stride, i);
   for (int j = 0; j < D0; ++j) r.xc[j] = xc[row * D0 + j];
   float acc = 0.0f;
@@ -413,9 +390,9 @@ naf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
       continue;
     }
     const float* w = packed + st.off;
-    const Vec<kWide> h = made_pass(w, s, r);
+    const Column h = made_pass(w, s, r);
     for (int f = 0; f < F; ++f) {
-      signal_and_hoist<kWide, kMode>(w, s, h, f, r);
+      signal_and_hoist<kMode>(w, s, h, f, r);
       float g;
       const float v = univariate<kMode, 16, true>(r.xc[f], w, s, f, r, &g);
       r.xc[f] = kMode == kUMNN ? v + r.sig[s.S] : v;
@@ -431,10 +408,10 @@ naf_density_kernel(const float* __restrict__ xc, float* __restrict__ out,
 // sweep's root (sweep > 0). The bisection evaluates the univariate without
 // its derivative (a UMNN by GL-4), the Newton steps with it (a UMNN by GL-8,
 // the last one by GL-16).
-template <int kMode, bool kWide, class Sh>
+template <int kMode>
 __device__ __forceinline__ float solve(float target, float x0, int sweep,
-                                       const float* __restrict__ w, const Sh& s, int f,
-                                       Row<kWide>& r) {
+                                       const float* __restrict__ w, const WideShape& s, int f,
+                                       Row& r) {
   float lo = -kBound, hi = kBound;
   int iters = kCoarse;
   if (sweep > 0) {
@@ -482,7 +459,7 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   const long long row = row0 + i;
   if (row >= row_end) return;
   const int F = s.F, D0 = s.F + s.C;
-  Row<true> r;
+  Row r;
   r.init(s, work, stride, i);
   const Column y = r.y;
   float acc = 0.0f;
@@ -509,7 +486,7 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
       const Column h = made_pass(w, s, r);
       // Jacobi: h holds the MADE outputs of the whole previous iterate
       for (int f = 0; f < F; ++f) {
-        signal_and_hoist<true, kMode>(w, s, h, f, r);
+        signal_and_hoist<kMode>(w, s, h, f, r);
         const float target = kMode == kUMNN ? y[f] - r.sig[s.S] : y[f];
         r.xc[f] = solve<kMode>(target, r.xc[f], sweep, w, s, f, r);
       }
@@ -517,7 +494,7 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
     if (kLogQ) {
       const Column h = made_pass(w, s, r);
       for (int f = 0; f < F; ++f) {
-        signal_and_hoist<true, kMode>(w, s, h, f, r);
+        signal_and_hoist<kMode>(w, s, h, f, r);
         float g;
         if (kMode == kMNN) {
           monotone_net<true>(r.xc[f], w, s, f, r, &g);
@@ -533,7 +510,7 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   if (kLogQ) logq[row] = acc;
 }
 
-// ------------------------------------------------------------ the tiled sampler
+// ------------------------------------------------------------ the tiled kernels
 //
 // naf_sample_tiled is K9's narrow tier in both modes: the same function as
 // naf_sample_kernel<kMode, *> (the same stages in reverse, sweeps, brackets,
@@ -569,7 +546,18 @@ naf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
 // dnxt = elu'(z) (W dcur), elu' taken at the value row's pre-activation, in
 // the same thread. The stride is 2 M + 4 slots (M a multiple of 16).
 // 16 warps a block (one block an SM, by its shared memory) keep the SM
-// issuing. Full float32 on the CUDA cores.
+// issuing. Full float32 on the CUDA cores. A flow whose MADE has no hidden
+// layer takes its own instantiation (kFlat), whose sweeps read a copy of
+// the iterate, so that the others' code is not touched by it.
+//
+// naf_density_tiled is K8's narrow tier in both modes, on the same engine
+// and plan: the same function as naf_density_kernel<kMode>, with every sum in
+// the same order. It is the sampler's log-q pass without the solve: per
+// autoregressive layer a MADE pass on the tile, then per feature the hoist
+// and one evaluation with its derivative at the feature's input column
+// (tile_mnn<true>: a value row and its tangent row a row of the tile;
+// tile_nodes: the 16 Gauss-Legendre nodes and g(x), 17 node rows a row, and
+// the row's GL-16 sum).
 
 constexpr int kTileThreads = 512;
 constexpr int kMaxNodes = 17;   // UMNN evaluations a row in one solver step: GL-16 and g(x)
@@ -945,7 +933,21 @@ __device__ __forceinline__ float tile_solve(const Shape& s, const Tile& tl, floa
   return x;
 }
 
-template <int kMode, bool kLogQ>
+// What a tiled kernel stages once: a UMNN's Gauss-Legendre rules, and zeros
+// in the padded outputs of the middle layers' weights (no barrier).
+template <int kMode>
+__device__ __forceinline__ void tile_setup(const Shape& s, const Tile& tl, float* sm) {
+  if (kMode == kUMNN) {
+    float* glp = sm + tl.misc + s.mono_w[1] + s.mono_w[s.n_mono - 1] + 4;
+    for (int e = threadIdx.x; e < 28; e += kTileThreads) {
+      glp[e] = kGLPoint[e];
+      glp[28 + e] = kGLWeight[e];
+    }
+  }
+  for (int e = tl.wt + threadIdx.x; e < tl.misc; e += kTileThreads) sm[e] = 0.0f;
+}
+
+template <int kMode, bool kLogQ, bool kFlat>
 __global__ void __launch_bounds__(kTileThreads, 1)
 naf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
                  float* __restrict__ logq, const float* __restrict__ packed,
@@ -969,14 +971,7 @@ naf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
       xc[j * R + r] = v;
     }
   }
-  if (kMode == kUMNN) {
-    float* glp = sm + tl.misc + s.mono_w[1] + s.mono_w[s.n_mono - 1] + 4;
-    for (int e = tid; e < 28; e += kTileThreads) {
-      glp[e] = kGLPoint[e];
-      glp[28 + e] = kGLWeight[e];
-    }
-  }
-  for (int e = tl.wt + tid; e < tl.misc; e += kTileThreads) sm[e] = 0.0f;  // padded outputs
+  tile_setup<kMode>(s, tl, sm);
   __syncthreads();
   float acc = 0.0f;
   if (kLogQ && own) {
@@ -1003,8 +998,17 @@ naf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
     const int sweeps = min(st.passes, F);
     for (int sweep = 0; sweep < sweeps; ++sweep) {
       __syncthreads();
-      // Jacobi: h holds the MADE outputs of the whole previous iterate
-      const float* h = made_tile(w, s, tl, xc, sm + tl.a, sm + tl.b);
+      // Jacobi: h holds the MADE outputs of the whole previous iterate;
+      // without a hidden layer that is the iterate itself, copied into a
+      // (as made_pass does; hoist_tile's first barrier orders the copy)
+      // before the sweep writes the new one into xc
+      const float* h;
+      if constexpr (kFlat) {
+        for (int e = tid; e < D0 * R; e += kTileThreads) sm[tl.a + e] = xc[e];
+        h = sm + tl.a;
+      } else {
+        h = made_tile(w, s, tl, xc, sm + tl.a, sm + tl.b);
+      }
       for (int f = 0; f < F; ++f) {
         hoist_tile<kMode>(w, s, tl, h, f, sm);
         float target = 0.0f, x0 = 0.0f;
@@ -1041,6 +1045,78 @@ naf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
     if (row0 + r < n) xout[(row0 + r) * F + f] = y[f * R + r];
   }
   if (kLogQ && own && row0 + tid < n) logq[row0 + tid] = acc;
+}
+
+// The tiled density: thread r < R keeps row r's sum of log-Jacobians. A
+// feature's output goes to y, not to xc, which the later features' inputs
+// and MADE outputs (made_tile's result) still read; y replaces xc after the
+// layer's last feature. Rows past n read zeros and are not written.
+template <int kMode>
+__global__ void __launch_bounds__(kTileThreads, 1)
+naf_density_tiled(const float* __restrict__ xin, float* __restrict__ out,
+                  const float* __restrict__ packed, const __grid_constant__ Shape s,
+                  const __grid_constant__ Tile tl, long long n) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, R = tl.R;
+  const bool own = tid < R;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int F = s.F, D0 = s.F + s.C, S = s.S;
+  float* xc = sm + tl.xc;
+  float* y = sm + tl.y;
+  float* xp = sm + tl.xp;
+  const float* gv = sm + tl.g;
+  const float* glw = sm + tl.misc + s.mono_w[1] + s.mono_w[s.n_mono - 1] + 4 + 28;
+  for (int e = tid; e < R * D0; e += kTileThreads) {
+    const int r = e / D0, j = e - r * D0;
+    const long long row = row0 + r;
+    xc[j * R + r] = row < n ? xin[row * D0 + j] : 0.0f;
+  }
+  tile_setup<kMode>(s, tl, sm);
+  __syncthreads();
+  float acc = 0.0f;
+  for (int si = 0; si < s.n_stages; ++si) {
+    const Stage& st = s.st[si];
+    if (st.kind == kSoftclip) {
+      if (own) {
+        for (int f = 0; f < F; ++f) {
+          const float v = xc[f * R + tid];
+          const float q = fabsf(v / st.bound);
+          acc -= 2.0f * log1pf(q);
+          xc[f * R + tid] = v / (1.0f + q);
+        }
+      }
+      __syncthreads();
+      continue;
+    }
+    const float* w = packed + st.off;
+    const float* h = made_tile(w, s, tl, xc, sm + tl.a, sm + tl.b);
+    for (int f = 0; f < F; ++f) {
+      hoist_tile<kMode>(w, s, tl, h, f, sm);
+      if (own) xp[tid] = xc[f * R + tid];
+      __syncthreads();
+      if constexpr (kMode == kUMNN) {
+        tile_nodes(s, tl, sm, 1, 16, true);
+        if (own) {
+          y[f * R + tid] = tile_integral(tl, sm, glw, 0, 16) + sm[tl.sig + S * R + tid];
+          acc += logf(gv[(16 << tl.lr) + tid]);
+        }
+      } else {
+        tile_mnn<true>(s, tl, sm, 1);
+        if (own) {
+          y[f * R + tid] = gv[tid];
+          acc += logf(gv[2 * R + tid]);
+        }
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < F * R; e += kTileThreads) xc[e] = y[e];
+    __syncthreads();
+  }
+  if (own && row0 + tid < n) {
+    float sq = 0.0f;
+    for (int f = 0; f < F; ++f) sq = fmaf(xc[f * R + tid], xc[f * R + tid], sq);
+    out[row0 + tid] = acc - 0.5f * sq - F * kHalfLog2Pi;
+  }
 }
 
 // The flow's description as the wrapper hands it over, checked; the tiers'
@@ -1114,7 +1190,7 @@ Shape narrow_shape(const Desc& d) {
   return s;
 }
 
-// The tiled sampler's shared memory for tiles of R rows (each array from a
+// The tiled kernels' shared memory for tiles of R rows (each array from a
 // 16-byte boundary; mirrored in ops/naf_fused.py _tile_floats). The node
 // rows of a chunk: UMNN at most 256, MNN at most 128 value rows (their
 // tangent rows beside them), and at most one patch a thread in the widest
@@ -1148,7 +1224,7 @@ Tile tile_plan(const Desc& d, int R) {
     return off;
   };
   t.xc = take((d.F + d.C) * R);
-  t.a = take(mh * R);
+  t.a = take((mh > 0 ? mh : d.F + d.C) * R);  // without hidden layers, the sampler's copy
   t.b = take(mh * R);
   t.y = take(d.F * R);
   t.sig = take(d.T * R);
@@ -1181,16 +1257,16 @@ struct Launch {
 
 enum Op { kDensity = 0, kSample = 1, kSampleLogQ = 2 };
 
-// The rows in chunks of `stride`, one launch each.
-template <bool kWide, int kMode>
-int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride) {
+// The wide tier: the rows in chunks of `stride`, one launch each.
+template <int kMode>
+int launch_wide(int op, const Launch& l, const WideShape& s, long long stride) {
   for (long long row0 = 0; row0 < l.n; row0 += stride) {
     const long long row_end = row0 + stride < l.n ? row0 + stride : l.n;
     const unsigned blocks = (unsigned)((row_end - row0 + kThreads - 1) / kThreads);
     if (op == kDensity) {
-      naf_density_kernel<kWide, kMode><<<blocks, kThreads, 0, l.stream>>>(
+      naf_density_kernel<kMode><<<blocks, kThreads, 0, l.stream>>>(
           l.in, l.out0, l.packed, s, l.work, stride, row0, row_end);
-    } else if constexpr (kWide) {  // the narrow sampler is tiled
+    } else {
       if (op == kSampleLogQ) {
         naf_sample_kernel<kMode, true><<<blocks, kThreads, 0, l.stream>>>(
             l.in, l.out0, l.out1, l.packed, s, l.work, stride, row0, row_end);
@@ -1205,8 +1281,13 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride) {
   return cudaSuccess;
 }
 
-// The tiled sampler: one block of kTileThreads a tile of R rows (UMNN 16, 32
+// The narrow tier: one block of kTileThreads a tile of R rows (UMNN 16, 32
 // or 64, MNN 32, 64 or 128), its shared memory from tile_plan.
+template <int kMode, bool kFlat>
+auto sample_tiled(bool log_q) {
+  return log_q ? naf_sample_tiled<kMode, true, kFlat> : naf_sample_tiled<kMode, false, kFlat>;
+}
+
 template <int kMode>
 int launch_tiled(int op, const Launch& l, const Desc& d, const Shape& s, int R) {
   if (kMode == kUMNN ? (R != 16 && R != 32 && R != 64) : (R != 32 && R != 64 && R != 128))
@@ -1216,9 +1297,18 @@ int launch_tiled(int op, const Launch& l, const Desc& d, const Shape& s, int R) 
   const long long blocks = (l.n + R - 1) / R;
   if (bytes > kMaxShared || blocks > 2147483647LL) return cudaErrorInvalidValue;
   if (l.n == 0) return cudaSuccess;
-  auto kernel =
-      op == kSampleLogQ ? naf_sample_tiled<kMode, true> : naf_sample_tiled<kMode, false>;
-  const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int rc;
+  if (op == kDensity) {
+    rc = cudaFuncSetAttribute(naf_density_tiled<kMode>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != cudaSuccess) return rc;
+    naf_density_tiled<kMode><<<(unsigned)blocks, kTileThreads, bytes, l.stream>>>(
+        l.in, l.out0, l.packed, s, t, l.n);
+    return cudaGetLastError();
+  }
+  auto kernel = s.n_made == 1 ? sample_tiled<kMode, true>(op == kSampleLogQ)
+                              : sample_tiled<kMode, false>(op == kSampleLogQ);
+  rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) return rc;
   kernel<<<(unsigned)blocks, kTileThreads, bytes, l.stream>>>(l.in, l.out0, l.out1, l.packed, s,
                                                               t, l.n);
@@ -1238,11 +1328,8 @@ int run(int op, int mode, const Launch& l, const Desc& d, int tile) {
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
     const Shape s = narrow_shape(d);
-    if (op != kDensity)
-      return mode == kUMNN ? launch_tiled<kUMNN>(op, l, d, s, tile)
-                           : launch_tiled<kMNN>(op, l, d, s, tile);
-    return mode == kUMNN ? launch<false, kUMNN>(op, l, s, l.n)
-                         : launch<false, kMNN>(op, l, s, l.n);
+    return mode == kUMNN ? launch_tiled<kUMNN>(op, l, d, s, tile)
+                         : launch_tiled<kMNN>(op, l, d, s, tile);
   }
   const long long at = stage_at(d);
   const long long need = at + (long long)d.n_stages * (long long)sizeof(Stage);
@@ -1267,8 +1354,8 @@ int run(int op, int mode, const Launch& l, const Desc& d, int tile) {
                      dw, dw + d.n_made + 1, dw + d.n_made + d.n_mono + 2,
                      dw + 2 * d.n_made + d.n_mono + 2,
                      (const Stage*)((const unsigned char*)l.desc + at)};
-  return mode == kUMNN ? launch<true, kUMNN>(op, l, ws, l.stride)
-                       : launch<true, kMNN>(op, l, ws, l.stride);
+  return mode == kUMNN ? launch_wide<kUMNN>(op, l, ws, l.stride)
+                       : launch_wide<kMNN>(op, l, ws, l.stride);
 }
 
 }  // namespace
@@ -1277,16 +1364,17 @@ int run(int op, int mode, const Launch& l, const Desc& d, int tile) {
 // layer's parameters at offs[i] in the layout of Shape; kinds[i] is 0 for a
 // softclip of bound bounds[i], 1 for an autoregressive layer of passes[i].
 // mode 0: monotone networks (NAF), 1: UMNN integrands (UNAF). wide 0: the
-// narrow tier (work and desc unused); 1: the wide tier, with a workspace of
-// work_floats floats for `stride` rows a launch and a descriptor buffer of
-// desc_bytes bytes, both on the device.
+// narrow tier, the tiled kernel with tiles of `tile` rows (UMNN 16, 32 or 64;
+// MNN 32, 64 or 128; work and desc unused); 1: the wide tier, with a
+// workspace of work_floats floats for `stride` rows a launch and a
+// descriptor buffer of desc_bytes bytes, both on the device (tile unused).
 extern "C" int naf_density_f32(const float* xc, float* out, const float* packed,
                                const int* kinds, const int* passes, const float* bounds,
                                const long long* offs, int n_stages, const int* made_w,
                                int n_made, const int* mono_w, int n_mono, int F, int C, int S,
                                int mode, long long n, int wide, float* work,
                                long long work_floats, long long stride, void* desc,
-                               long long desc_bytes, void* stream) {
+                               long long desc_bytes, int tile, void* stream) {
   Desc d;
   const int rc = describe(&d, kinds, passes, bounds, offs, n_stages, made_w, n_made, mono_w,
                           n_mono, F, C, S, mode);
@@ -1294,13 +1382,11 @@ extern "C" int naf_density_f32(const float* xc, float* out, const float* packed,
   return run(kDensity, mode,
              {xc, out, nullptr, packed, n, wide, work, work_floats, stride, desc, desc_bytes,
               (cudaStream_t)stream},
-             d, 0);
+             d, tile);
 }
 
 // xout (n, F) = T^-1(z) of zc = [z, c] (n, F + C), and logq (n,) = log q(xout)
-// unless logq is null; `tile` is the rows of a tile of the narrow tier's
-// tiled sampler (UMNN 16, 32 or 64; MNN 32, 64 or 128; unused by the wide
-// tier); the other arguments as naf_density_f32's.
+// unless logq is null; the arguments as naf_density_f32's.
 extern "C" int naf_sample_f32(const float* zc, float* xout, float* logq, const float* packed,
                               const int* kinds, const int* passes, const float* bounds,
                               const long long* offs, int n_stages, const int* made_w,

@@ -34,6 +34,8 @@ the three sweeps.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from . import gf_fused as gf
@@ -57,6 +59,116 @@ __all__ = [
 # identity; it stands guard for the iterative families: a GF's bisection
 # pegs at its bracket for tail targets the saturated erf mixture cannot reach.
 _SOLVE_ATOL = 1e-2
+
+
+# A MADE's hidden ReLUs have a kink at 0. At a row whose pre-activation lies
+# within float32 rounding of it, the float32 march can take the other side
+# than the exact function at the same root, and the row's parameter term
+# then comes from the other branch; a reverse-KL gradient, whose rows' terms
+# cancel, shows it (on an H100, a BPF flagship row whose unit lay 8.3e-9
+# above 0 in float64 and 2.5e-7 below it in float32 moved an element whose
+# terms cancel 45-fold: chip_smoke.py phase 15). The float32 march keeps a
+# pre-activation within a quarter of _KINK_RTOL of its scale |b| + |W| |a|
+# of float64's (tests/test_torch_ift_kinks.py holds it on the flagships).
+# So a float32 backward finds the rows with one within _KINK_RTOL of its
+# scale of 0 as it marches (about 5% of the flagships' rows), marches them
+# through the flow once in float64 and takes their ReLUs' sides from there.
+# The arithmetic stays float32.
+_KINK_RTOL = 1e-4
+
+
+def _made_near(xc, linears, near):
+    """The MADE ``linears`` (``[(M ⊙ W, b), ...]``, the last without a ReLU)
+    on ``xc``, without gradients. Where ``near`` (``(n,)`` bool) is given,
+    marks in it the rows at which a hidden pre-activation lies within
+    ``_KINK_RTOL`` of its scale ``|b| + |W| |a|`` of 0."""
+    with torch.no_grad():
+        h = xc
+        for W, b in linears[:-1]:
+            z = torch.addmm(b, h, W.T)
+            if near is not None:
+                scale = torch.addmm(b.abs(), h.abs(), W.abs().T)
+                near |= (z.abs() < _KINK_RTOL * scale).any(dim=1)
+            h = torch.relu(z)
+        W, b = linears[-1]
+        return torch.addmm(b, h, W.T)
+
+
+def _made_and_sides(xc, linears):
+    """The MADE ``linears`` on ``xc``: its output and each hidden ReLU's
+    side (``z > 0``)."""
+    h, sides = xc, []
+    for W, b in linears[:-1]:
+        z = torch.addmm(b, h, W.T)
+        sides.append(z > 0)
+        h = torch.relu(z)
+    W, b = linears[-1]
+    return torch.addmm(b, h, W.T), sides
+
+
+def _made_sided(xc, linears, kinks):
+    """The MADE ``linears`` on ``xc``, differentiable, each hidden ReLU as
+    ``z (z > 0)``, but at the rows of ``kinks = (rows, sides)`` (from
+    :func:`_kinks`, or ``None``) on the sides given."""
+    h = xc
+    for i, (W, b) in enumerate(linears):
+        z = torch.addmm(b, h, W.T)
+        if i < len(linears) - 1:
+            on = z > 0
+            if kinks is not None:
+                on = on.index_put((kinks[0],), kinks[1][i])
+            z = z * on.to(z.dtype)
+        h = z
+    return h
+
+
+def _kinks(near, sides64):
+    """Per autoregressive layer, ``(rows, sides)``: the rows marked in
+    ``near`` (one host sync) and their hidden ReLUs' sides ``sides64(rows)``
+    on the float64 march; ``None`` for each where there are none."""
+    rows = None if near is None else near.nonzero()[:, 0]
+    if rows is None or rows.numel() == 0:
+        return itertools.repeat(None)
+    with torch.no_grad():
+        return [(rows, sides) for sides in sides64(rows)]
+
+
+def _nsf_sides64(x, c, params, layout, F, K, bound, slope, univ):
+    """Per autoregressive layer (``nf._stages``), the hidden ReLUs' sides of
+    its MADE on the float64 march from the roots ``x`` with context ``c``."""
+    x64, c64, out = x.double(), c.double(), []
+    for stage in nf._stages([p.double() for p in params], layout):
+        if stage[0] == "softclip":
+            x64 = nf._softclip(x64, stage[1])[0]
+        else:
+            h, sides = _made_and_sides(torch.cat([x64, c64], dim=1), _linears(stage[0]))
+            x64 = nf._univ_forward(x64, h, F, K, bound, slope, univ, ladj=False)[0]
+            out.append(sides)
+    return out
+
+
+def _naf_sides64(x, c, params, layout, F, S):
+    """:func:`_nsf_sides64` over NAF stages (``naf._stages``)."""
+    x64, c64, out = x.double(), c.double(), []
+    for entry, made, mono_w, mono_b in naf._stages([p.double() for p in params], layout):
+        if entry[0] == "softclip":
+            x64 = naf._softclip(x64, entry[1])[0]
+        else:
+            h, sides = _made_and_sides(torch.cat([x64, c64], dim=1),
+                                       list(zip(made[0::2], made[1::2])))
+            shift, pre1, w1x = naf._univariates(h, entry[4], mono_w, mono_b, F, S)
+            if entry[4] == "umnn":
+                y = naf._umnn(x64, pre1, w1x, mono_w, mono_b, naf._UMNN_FINE_N)
+            else:
+                y = naf._mono(x64, pre1, w1x, mono_w, mono_b)
+            x64 = y + shift
+            out.append(sides)
+    return out
+
+
+def _linears(ps):
+    """``[(M ⊙ W, b), ...]`` of an NSF-tier MADE's ``[W, b, M, ...]``."""
+    return [(M * W, b) for W, b, M in zip(*[iter(ps)] * 3)]
 
 
 def _solve_consistency_mask(zhat, z, xbar, lbar, atol=_SOLVE_ATOL):
@@ -94,6 +206,8 @@ def _ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, K, bound, slope,
     z, c = zc[:, :F], zc[:, F:].detach().requires_grad_(zc.shape[1] > F)
     T = nf._univ_size(univ, K)
     dparams = [None] * len(params)
+    # the rows near a MADE's kink, marked as a float32 backward marches
+    near = torch.zeros_like(x[:, 0], dtype=torch.bool) if x.dtype == torch.float32 else None
 
     def grad(outputs, inputs, cotangents):
         return torch.autograd.grad(outputs, inputs, cotangents, retain_graph=True)
@@ -111,12 +225,18 @@ def _ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, K, bound, slope,
             else:
                 ps = [p.detach().requires_grad_(i % 3 != 2) for i, p in enumerate(stage[0])]
                 xh = xcur.detach().requires_grad_(True)
-                h = nf._hyper(torch.cat([xh, c], dim=1), ps)
-                hs = h.detach().requires_grad_(True)
+                hs = _made_near(torch.cat([xcur, c.detach()], dim=1), _linears(ps), near)
+                hs.requires_grad_(True)
                 y, ladj = nf._univ_forward(xs, hs, F, K, bound, slope, univ)
                 d, G = grad(y, (xs, hs), torch.ones_like(y))
-                recs.append((ps, stage[1], xh, h, xs, hs, y, ladj, d, G))
+                recs.append([ps, stage[1], xh, None, xs, hs, y, ladj, d, G])
             xcur = y.detach()
+
+        # each MADE's graph, its ReLUs at the rows near a kink on float64's sides
+        kinks = _kinks(near, lambda rows: _nsf_sides64(
+            x[rows], c[rows], params, layout, F, K, bound, slope, univ))
+        for rec, k in zip([r for r in recs if r[0] is not None], kinks):
+            rec[3] = _made_sided(torch.cat([rec[2], c], dim=1), _linears(rec[0]), k)
 
         # rows whose solve failed contribute nothing
         xbar, lrow = _solve_consistency_mask(xcur, z, xbar, lbar)
@@ -266,6 +386,7 @@ def _naf_ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, S):
        monotone networks' parameters, the MADE's and the context."""
     z, c = zc[:, :F], zc[:, F:].detach().requires_grad_(zc.shape[1] > F)
     dparams = [None] * len(params)
+    near = torch.zeros_like(x[:, 0], dtype=torch.bool) if x.dtype == torch.float32 else None
 
     def grad(outputs, inputs, cotangents):
         return torch.autograd.grad(outputs, inputs, cotangents, retain_graph=True)
@@ -285,15 +406,23 @@ def _naf_ift_bwd_math(zc, x, xbar, lbar, params, needs, layout, F, S):
                 ps = [p.detach().requires_grad_(needs[idx + j])
                       for j, p in enumerate(made + mono_w + mono_b)]
                 xh = xcur.detach().requires_grad_(True)
-                h = naf._made(torch.cat([xh, c], dim=1), ps[: len(made)])
-                hs = h.detach().requires_grad_(True)
+                linears = list(zip(ps[: len(made): 2], ps[1: len(made): 2]))
+                hs = _made_near(torch.cat([xcur, c.detach()], dim=1), linears, near)
+                hs.requires_grad_(True)
                 mono = ps[len(made):]
                 y, ladj = naf._ar_layer(
                     xs, hs, entry[4], mono[: len(mono_w)], mono[len(mono_w):], F, S)
                 d, G = grad(y, (xs, hs), torch.ones_like(y))
-                recs.append((entry, (idx, ps, len(made), xh, h, hs, G), xs, y, ladj, d))
+                recs.append((entry, [idx, ps, len(made), xh, None, hs, G], xs, y, ladj, d))
                 idx += count
             xcur = y.detach()
+
+        # each MADE's graph, its ReLUs at the rows near a kink on float64's sides
+        kinks = _kinks(near, lambda rows: _naf_sides64(x[rows], c[rows], params, layout, F, S))
+        for ar, k in zip([rec[1] for rec in recs if rec[1] is not None], kinks):
+            _, ps, n_made, xh = ar[:4]
+            ar[4] = _made_sided(torch.cat([xh, c], dim=1),
+                                list(zip(ps[:n_made:2], ps[1:n_made:2])), k)
 
         # rows whose solve failed contribute nothing
         xbar, lrow = _solve_consistency_mask(xcur, z, xbar, lbar)

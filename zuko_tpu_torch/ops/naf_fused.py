@@ -32,11 +32,12 @@ kernels, both in ``csrc/naf_fused.cu``, each with a mode per univariate:
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. :func:`plan_naf` chooses
 the kernels' tier from the flow's shape: the narrow tier within its limits,
-the wide tier (a workspace in device memory) beyond them. The sampler's
-narrow tier, in both modes, is a tiled kernel (a block a tile of rows, the
-evaluations of a solver step batched into products from shared memory),
-whose shared memory must also fit; :func:`umnn_tile_rows` and
-:func:`mnn_tile_rows` set its tile. ``LAUNCHES`` counts
+the wide tier (a workspace in device memory) beyond them. The narrow tier of
+both kernels, in both modes, is tiled (a block a tile of rows, the network
+evaluations of a step batched into products from shared memory), and its
+shared memory must also fit; :func:`umnn_tile_rows` and
+:func:`mnn_tile_rows` set the sampler's tile, :func:`density_tile_rows` the
+density's. ``LAUNCHES`` counts
 the launches under ``naf_density``, ``naf_sample`` and
 ``naf_sample_log_prob``, with ``_umnn`` after ``naf_density`` or
 ``naf_sample`` for a UNAF and ``_wide`` at the end for the wide tier.
@@ -82,6 +83,7 @@ from .nsf_fused import (
 )
 
 __all__ = [
+    "density_tile_rows",
     "extract_naf_params",
     "fused_naf_log_prob",
     "fused_naf_sample",
@@ -502,15 +504,17 @@ def _widths(params, layout, F, C, S):
 
 
 def _tile_floats(kind, made_w, mono_w, F, C, S, R):
-    """Floats of shared memory of the tiled sampler at tiles of ``R`` rows
+    """Floats of shared memory of the tiled kernels at tiles of ``R`` rows
     (``tile_plan`` in ``csrc/naf_fused.cu``, each array from a 16-byte
-    boundary): the iterate and context, two MADE buffers, the targets, a
-    feature's T outputs and hoisted first layer, the evaluation points, the
-    node activations, the feature's middle layers (outputs rounded up to 8)
-    with their biases, and the x column, the last layer and its bias. A UMNN
-    (``kind``) keeps the 17 integrand values of a row, 256 node rows a chunk
-    (fewer for middle layers wider than 64) at a row stride of 4 more, and
-    the Gauss-Legendre rules; a monotone network the values at two points
+    boundary): the iterate and context, two MADE buffers (the first holds
+    the sampler's copy of the iterate where the MADE has no hidden layer),
+    the targets (the density's outputs), a feature's T outputs and hoisted
+    first layer, the evaluation points, the node activations, the feature's
+    middle layers (outputs rounded up to 8) with their biases, and the x
+    column, the last layer and its bias. A UMNN (``kind``) keeps the 17
+    integrand values of a row, 256 node rows a chunk (fewer for middle
+    layers wider than 64) at a row stride of 4 more, and the Gauss-Legendre
+    rules; a monotone network the values at two points
     and a derivative a row, 128 value rows a chunk (fewer past 64) in twice
     as many slots (their tangent rows) and 4 more."""
     mids = [(mono_w[i], -(-mono_w[i + 1] // 8) * 8) for i in range(1, len(mono_w) - 2)]
@@ -523,8 +527,8 @@ def _tile_floats(kind, made_w, mono_w, F, C, S, R):
         stride, values, rules = 2 * M + 4, 3, 0
     mh = max(made_w[1:-1], default=0)
     T = S + (kind == "umnn")
-    sizes = [(F + C) * R, mh * R, mh * R, F * R, T * R, mono_w[1] * R, 2 * R, values * R,
-             max(mono_w[1:-1]) * stride, sum(din * dp + dp for din, dp in mids),
+    sizes = [(F + C) * R, (mh or F + C) * R, mh * R, F * R, T * R, mono_w[1] * R, 2 * R,
+             values * R, max(mono_w[1:-1]) * stride, sum(din * dp + dp for din, dp in mids),
              mono_w[1] + mono_w[-2] + 4 + rules]
     return sum(-(-v // 4) * 4 for v in sizes)
 
@@ -549,29 +553,43 @@ def mnn_tile_rows(rows, sms):
     return next((R for R in (128, 64) if -(-rows // R) >= sms), 32)
 
 
-#: The largest tile of each kind's tiled sampler, at which its shared memory
-#: is planned.
-_MAX_TILE = {"umnn": 64, "mnn": 128}
+#: The tiles of each kind's tiled kernels, in rows; the sampler's shared
+#: memory is planned at the largest.
+_TILES = {"umnn": (16, 32, 64), "mnn": (32, 64, 128)}
 
 
-def plan_naf(made_w, mono_w, F, C, S, n_stages, rows, umnn_sample=False, mnn_sample=False):
-    """The tier of the NAF kernels for a flow of this shape (what the
-    wrappers launch, from the shapes alone): the narrow tier within its
-    limits, else the wide tier with a workspace of ``F + C + 2 max(MADE
-    widths) + S + 1 + 5 max(network widths) + F`` floats a row (the
+def _tile_fits(kind, made_w, mono_w, F, C, S, R):
+    return 4 * _tile_floats(kind, made_w, mono_w, F, C, S, R) <= SHARED_BYTES
+
+
+def density_tile_rows(kind, made_w, mono_w, F, C, S, rows, sms):
+    """Rows of a tile of the tiled density: the largest of its kind's tiles
+    whose shared memory fits in 227 KB, and at most the sampler's tile at
+    these rows (:func:`umnn_tile_rows`, :func:`mnn_tile_rows`: tiles that
+    leave no streaming multiprocessor idle); ``None`` where none fits (the
+    wide tier takes the flow)."""
+    most = (umnn_tile_rows if kind == "umnn" else mnn_tile_rows)(rows, sms)
+    fits = [R for R in _TILES[kind] if R <= most and _tile_fits(kind, made_w, mono_w, F, C, S, R)]
+    return fits[-1] if fits else None
+
+
+def plan_naf(kind, made_w, mono_w, F, C, S, n_stages, rows, sample=False):
+    """The tier of the density (or with ``sample`` the sampler) for a flow of
+    this kind (``"umnn"`` or ``"mnn"``) and shape, what the wrappers launch,
+    from the shapes alone: the narrow tier, the tiled kernel, within its
+    limits and where its shared memory fits in 227 KB (the sampler's at its
+    largest tile, 64 rows for a UNAF and 128 for a NAF; the density's at its
+    smallest, 16 or 32), else the wide tier with a workspace of ``F + C + 2
+    max(MADE widths) + S + 1 + 5 max(network widths) + F`` floats a row (the
     fields of ``Row`` in ``csrc/naf_fused.cu``) and a descriptor buffer of
-    the widths, their offsets and 24 bytes a stage, rounded up. For a
-    sampler (``umnn_sample`` for a UNAF's, ``mnn_sample`` for a NAF's) the
-    narrow tier is the tiled kernel, which also needs its shared memory at
-    its largest tile (64 rows for a UNAF, 128 for a NAF) within 227 KB."""
+    the widths, their offsets and 24 bytes a stage, rounded up."""
     n_made, n_mono = len(made_w) - 1, len(mono_w) - 1
     made_max, mono_max = max(made_w[:-1]), max(mono_w[1:-1])
-    tiled = "umnn" if umnn_sample else "mnn" if mnn_sample else None
+    tile = _TILES[kind][-1 if sample else 0]
     if (F <= _MAX_FEATURES and S <= _MAX_SIGNAL and n_stages <= _MAX_STAGES
             and max(n_made, n_mono) <= _MAX_LINEAR and made_max <= _MAX_MADE_WIDTH
             and mono_max <= _MAX_MONO_WIDTH
-            and (tiled is None or 4 * _tile_floats(tiled, made_w, mono_w, F, C, S,
-                                                   _MAX_TILE[tiled]) <= SHARED_BYTES)):
+            and _tile_fits(kind, made_w, mono_w, F, C, S, tile)):
         return narrow_plan(rows)
     slots = (F + C) + 2 * made_max + (S + 1) + 5 * mono_max + F
     desc = -(-4 * (2 * (n_made + n_mono) + 2) // 16) * 16 + 24 * n_stages
@@ -591,12 +609,13 @@ def _launch(fn, counter, xc, outs, params, layout, F, S):
     C = xc.shape[1] - F
     kind, made_w, mono_w = _widths(params, layout, F, C, S)
     check_cuda_f32(counter, [xc, *params])
-    sample = fn == "naf_sample_f32"
-    plan = plan_naf(made_w, mono_w, F, C, S, len(layout), xc.shape[0],
-                    umnn_sample=sample and kind == "umnn", mnn_sample=sample and kind == "mnn")
-    # the tiled sampler's tile rows, an argument of the sampler only
-    rows_of = umnn_tile_rows if kind == "umnn" else mnn_tile_rows
-    tile = [rows_of(xc.shape[0], sm_count(xc.device))] if sample else []
+    sample, rows, sms = fn == "naf_sample_f32", xc.shape[0], sm_count(xc.device)
+    plan = plan_naf(kind, made_w, mono_w, F, C, S, len(layout), rows, sample=sample)
+    # the narrow tier's tile rows (unused by the wide tier)
+    if sample:
+        tile = (umnn_tile_rows if kind == "umnn" else mnn_tile_rows)(rows, sms)
+    else:
+        tile = density_tile_rows(kind, made_w, mono_w, F, C, S, rows, sms) or 0
     chunks, table, floats = [], [], 0
     for entry, made, mw, mb in _stages(params, layout):
         if entry[0] == "softclip":
@@ -623,7 +642,7 @@ def _launch(fn, counter, xc, outs, params, layout, F, S):
             F, C, S, _MODE_CODE[kind], xc.shape[0], int(plan.wide),
             None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
             plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
-            *tile, torch.cuda.current_stream().cuda_stream,
+            tile, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(counter, lib, "naf_fused", rc)
     if kind == "umnn":

@@ -8,13 +8,19 @@ unpacked into a directory ``.gitignore`` lists) as the argument::
 
 It builds the kernels of each tree with that tree's own ``ops/_build.py``
 (all trees at once) into that tree's ``build/``, prints each tree's ptxas
-report of the NAF kernels, then, in a process of its own for each tree, in
+report of the NSF and CNF kernels (registers, spills, stack frame and
+shared memory of each entry point), then, in a process of its own for each
+tree, in
 the order given and back (parent, change, change, parent), times with
 ``chip_smoke.time_ms`` (the median after a warm-up), one JSON line a
 process:
 
-* the flagship NSF's ``nsf_density`` and ``nsf_sample`` (without log q, with
-  it, raw) at 1M and 262,144 rows, 5 runs;
+* the flagship NSF's ``nsf_density``, ``nsf_apply`` and ``nsf_sample``
+  (without log q, with it, raw) at 1M and 262,144 rows, and a seeded
+  MAF(6)'s ``nsf_sample`` in the three modes at 1M rows, 5 runs;
+* the NCSF, SOSPF and BPF flagships' ``nsf_sample`` with log q (the
+  ``crqs``, ``sosp`` and ``bernstein`` modes of K3) at 262,144, 65,536 and
+  65,536 rows, 3 runs;
 * ``masked_linear`` at the flagship MADE's three layer shapes at 262,144
   rows: 21 runs of 20 queued calls (``ml_...``) and 21 runs of one call
   (``ml_..._single``);
@@ -26,12 +32,15 @@ process:
   trace at 16,384 rows, the inputs of a step of (l) (``chip_smoke.py``):
   samples ``cnf_sample`` draws with log q from seeded base draws, the
   cotangents of ``mean(lq) - mean(ring(x))``, 5 runs; its ``cnf_density``
-  at 65,536 rows and ``cnf_sample`` with log q at 16,384, 3 runs;
+  at 262,144 and 65,536 rows and ``cnf_sample`` with log q at 262,144 and
+  16,384, 3 runs;
 * on the host clock between synchronisations (``chip_smoke.host_ms``, the
   median of 9 after a warm-up), a training step through each IFT from the
   flagship's weights: the reverse-KL steps of ``chip_smoke.py`` on its ring
   energy, (b) NSF at 262,144 draws, (h) NAF at 65,536, (j) UNAF, (n) NCSF,
-  (p) SOSPF and (r) BPF at 16,384 (``step_...``).
+  (p) SOSPF and (r) BPF at 16,384 (``step_...``); and step (k), the
+  flagship CNF's maximum-likelihood step at 65,536 seeded standard-normal
+  rows.
 
 ``CHANGE_DIR`` defaults to this checkout; with more than one, each is timed
 in turn after the parent. With ``--steps`` first it times the steps alone,
@@ -52,10 +61,11 @@ ROOT = Path(__file__).resolve().parent
 
 def build(trees):
     """Every tree's kernels into its build/, by its own ``_build.build_all``,
-    all trees at once; prints each tree's ptxas report of the NAF kernels
-    (registers, spills and stack frame of each entry point)."""
-    report = ("from zuko_tpu_torch.ops import _build;"
-              " print(_build.build_all(force=True).get('naf_fused', ''))")
+    all trees at once; prints each tree's ptxas report of the NSF and CNF
+    kernels (registers, spills, stack frame and shared memory of each entry
+    point)."""
+    report = ("from zuko_tpu_torch.ops import _build; r = _build.build_all(force=True);"
+              " print(r.get('nsf_fused', '') + r.get('cnf_fused', ''))")
     jobs = [subprocess.Popen([sys.executable, "-c", report], cwd=tree, stdout=subprocess.PIPE,
                              text=True) for tree in trees]
     for tree, job in zip(trees, jobs):
@@ -63,7 +73,7 @@ def build(trees):
         if job.returncode != 0:
             raise SystemExit("chip_ab: a build failed")
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
                 print(f"{tree.name}: {line.strip()}")
 
 
@@ -97,14 +107,33 @@ def time_tree(tree, steps_only=False):
     with torch.no_grad():
         for rows in (1 << 20, 1 << 18):
             x = torch.randn(rows, 6, generator=gen, device=dev)
-            for name, mode in (("density", None), ("sample", False), ("sample_log_prob", True),
-                               ("sample_raw", "raw")):
+            for name, mode in (("density", None), ("apply", "apply"), ("sample", False),
+                               ("sample_log_prob", True), ("sample_raw", "raw")):
                 def fn():
                     if mode is None:
                         return nsf_fused.nsf_density(x, ps, layout, *st)
+                    if mode == "apply":
+                        return nsf_fused.nsf_apply(x, ps, layout, *st)
                     return nsf_fused.nsf_sample(x, ps, layout, *st, want_log_prob=mode)
 
                 out[f"{name}@{rows}"] = round(time_ms(fn, 5)[0], 3)
+        torch.manual_seed(0)
+        maf = zt.MAF(6, 0, transforms=3, device=dev)
+        mps, mlayout, mcfg = nsf_fused._flatten_flow(maf)
+        mps, mst = [p.detach() for p in mps], nsf_fused._statics(mcfg, 6)
+        x = torch.randn(1 << 20, 6, generator=gen, device=dev)
+        for name, mode in (("sample", False), ("sample_log_prob", True), ("sample_raw", "raw")):
+            out[f"maf_{name}@{1 << 20}"] = round(time_ms(
+                lambda: nsf_fused.nsf_sample(x, mps, mlayout, *mst, want_log_prob=mode), 5)[0], 3)
+        for key, make, rows in (("ncsf", zt.NCSF, 1 << 18), ("sospf", zt.SOSPF, 1 << 16),
+                                ("bpf", zt.BPF, 1 << 16)):
+            pflow = zt.load_params(make(6, 0, transforms=3, device=dev),
+                                   assets / f"{key}_flagship.npz")
+            pps, playout, pcfg = nsf_fused._flatten_flow(pflow)
+            pps, pst = [p.detach() for p in pps], nsf_fused._statics(pcfg, 6)
+            z = torch.randn(rows, 6, generator=gen, device=dev)
+            out[f"{key}_sample_log_prob@{rows}"] = round(time_ms(
+                lambda: nsf_fused.nsf_sample(z, pps, playout, *pst, want_log_prob=True), 3)[0], 3)
         lins = [m for m in flow.transform.transforms[0].hyper.modules()
                 if type(m).__name__ == "MaskedLinear"]
         for lin in lins:
@@ -131,9 +160,13 @@ def time_tree(tree, steps_only=False):
         cflow = zt.load_params(zt.CNF(6, device=dev), assets / "cnf_flagship.npz")
         cps, _, ccfg = cnf_fused._flatten_cnf(cflow, cflow.transform(None), None)
         cps = [p.detach() for p in cps]
-        x = torch.randn(1 << 16, 6, generator=gen, device=dev)
-        out[f"cnf_density@{1 << 16}"] = round(time_ms(
-            lambda: cnf_fused.cnf_density(x, None, cps, None, ccfg), 3)[0], 3)
+        for rows in (1 << 18, 1 << 16):
+            x = torch.randn(rows, 6, generator=gen, device=dev)
+            out[f"cnf_density@{rows}"] = round(time_ms(
+                lambda: cnf_fused.cnf_density(x, None, cps, None, ccfg), 3)[0], 3)
+        z = torch.randn(1 << 18, 6, generator=gen, device=dev)
+        out[f"cnf_sample_log_prob@{1 << 18}"] = round(time_ms(
+            lambda: cnf_fused.cnf_sample(z, None, cps, None, ccfg, True), 3)[0], 3)
         rows = 1 << 14
         z = torch.randn(rows, 6, generator=gen, device=dev)
         out[f"cnf_sample_log_prob@{rows}"] = round(time_ms(
@@ -176,6 +209,17 @@ def time_ift_steps(zt, assets, dev, host_ms):
             state, _ = step_fn(state, gen)
 
         out[f"step_{tag}_{key}@{rows}"] = round(host_ms(one, 9)[0], 3)
+    # (k): maximum likelihood on the flagship CNF
+    flow = zt.load_params(zt.CNF(6, device=dev), assets / "cnf_flagship.npz")
+    init_fn, step_fn = zt.make_mle_step(flow, lr=1e-3)
+    state = init_fn()
+    x = torch.randn(1 << 16, 6, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def mle():
+        nonlocal state
+        state, _ = step_fn(state, x)
+
+    out[f"step_k_cnf@{1 << 16}"] = round(host_ms(mle, 9)[0], 3)
     return out
 
 

@@ -47,6 +47,12 @@ It checks:
   ``rqs_forward`` / ``rqs_inverse`` at 6M elements, a tenth of them outside
   the spline's domain, and their round trip; and each of them again, under
   the same tolerances, at the 262,144 rows the training steps give it;
+* K3's tiled tier (the closed-form sampler's narrow tier) for the flagship,
+  the conditional NSF(3, 5) and the MAF, planned at tiles of 128 rows, in
+  its three modes at 1M rows, 262,144 - 37 and a last tile of one valid
+  row, one tiled launch each, against plain float64 and against the wide
+  tier on the same draws, both at the limits above (whether it is the wide
+  tier's bit for bit is printed);
 * the gradient through each ``autograd.Function`` (kernel forward, plain
   float32 backward) against float64 plain autograd at 262,144 rows, and K1's
   again at the parameters and rows step (a) trains on: each parameter's
@@ -124,7 +130,12 @@ at 262,144 rows, held against ``assets/cnf_truth_f64.npz`` (density median
 <= 1e-4, max <= 1e-3; samples 99th percentile <= 1e-4; log q median <= 1e-4,
 max <= 1e-3) and against plain float64 at the same tiles (density and log q
 median <= 1e-4, max <= 1e-3; samples median <= 1e-5, 99th percentile <= 1e-4;
-log q against K10 at the returned points median <= 1e-3); K10's Function
+log q against K10 at the returned points median <= 1e-3); K10's cluster
+tier (its narrow tier) planned as a cluster a tile and held against plain
+float64 at the same tiles and against the wide tier on the same rows, at
+the density's limits (bit for bit printed), for the flagship, the
+conditional CNF(6, 4) with a first bias a row, a Hutchinson CNF, a ragged
+tile and a last tile of one valid row, one cluster launch each; K10's Function
 held at (k)'s parameters and rows against the float64 gradient of the
 global-step integration (parameters max-relative <= 1e-3, input normwise
 <= 1e-2); **(k)** MLE at 65,536 rows a step on the NSF's samples. **Sampling
@@ -1086,6 +1097,75 @@ def main():
             compare_grads(f"{label} IFT ({'raw' if mode == 'raw' else 'log q'})",
                           got, [torch.cat(zgrads)] + grads_of(ps),
                           tol_input=TOL_GRAD_SOLVE_INPUT)
+
+    # K3's tiled tier (the closed-form sampler's narrow tier since it was
+    # redesigned): planned for the three flows; at 1M rows, 262,144 - 37 and
+    # a last tile of one valid row, each mode against plain float64 and
+    # against the wide tier on the same draws (which sum in the same order:
+    # the difference is printed, with whether it is bit for bit), one
+    # tiled launch each; draws from a generator of their own
+    @contextlib.contextmanager
+    def wide_nsf():
+        """The NSF kernels' wide tier: the planner told that no shared
+        memory is there."""
+        plan = nsf_fused.plan_nsf
+        nsf_fused.plan_nsf = lambda *a, sample=False: plan(*a[:5], 0, sample=sample)
+        try:
+            yield
+        finally:
+            nsf_fused.plan_nsf = plan
+
+    gen_k3 = torch.Generator(device=dev).manual_seed(13)
+    t_k3 = time.perf_counter()
+    for label, flow in (("flagship", flagship), ("conditional", conditional), ("maf", maf)):
+        params, layout, st = plain_args(flow, torch.float32)
+        p64, _, _ = plain_args(flow, torch.float64)
+        F, C = st[0], params[0].shape[1] - st[0]
+        _, widths, passes = nsf_fused._pack_weights(params, layout, F, C, st[1], st[4])
+        plan = nsf_fused.plan_nsf(widths, st[1], st[4], len(passes), ROWS,
+                                  _build.load_library("nsf_fused").nsf_max_shared_bytes(
+                                      dev.index or 0), sample=True)
+        print(f"{label} sampler plan: {plan}")
+        check(not plan.wide and plan.tile_rows == 128, f"{label}: the tiled sampler at 128 rows")
+        for rows in (ROWS, GRAD_ROWS - 37, 16 * plan.tile_rows + 1):
+            zc = torch.randn(rows, F + C, generator=gen_k3, device=dev)
+            with torch.no_grad():
+                r_x, r_lq = nsf_fused._sample_math(zc.double(), p64, layout, *st,
+                                                   want_log_prob=True)
+            z64 = zc[:, :F].double()
+            r_rl = r_lq + 0.5 * (z64**2).sum(dim=1) + 0.5 * F * math.log(2 * math.pi)
+            for mode, name in ((False, "nsf_sample"), (True, "nsf_sample_log_prob"),
+                               ("raw", "nsf_sample_raw")):
+                ops.reset_launches()
+                with torch.no_grad():
+                    tiled = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
+                    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+                    with wide_nsf():
+                        wide = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
+                check(launched == {name: 1}, f"{label} {name}: one tiled launch, {launched}")
+                tiled = tiled if isinstance(tiled, tuple) else (tiled,)
+                wide = wide if isinstance(wide, tuple) else (wide,)
+                refs = (r_x, None if mode is False else r_lq if mode is True else r_rl)
+                same = all(torch.equal(a, b) for a, b in zip(tiled, wide))
+                dx = (tiled[0].double() - r_x).abs()
+                dw = (tiled[0] - wide[0]).abs()
+                line = (f"{label} {name} tiled at {rows} rows: x vs plain f64 max"
+                        f" {dx.max().item():.3e} median {dx.median().item():.3e}, vs wide tier"
+                        f" max {dw.max().item():.3e}")
+                check_samples(f"{label} {name} tiled at {rows} rows vs plain", dx)
+                check_samples(f"{label} {name} tiled at {rows} rows vs the wide tier", dw)
+                if mode is not False:
+                    dl = (tiled[1].double() - refs[1]).abs()
+                    dlw = (tiled[1] - wide[1]).abs()
+                    line += (f"; sum vs plain f64 max {dl.max().item():.3e}, vs wide tier max"
+                             f" {dlw.max().item():.3e}")
+                    check(dl.max().item() <= TOL_DENSITY and dlw.max().item() <= TOL_DENSITY,
+                          f"{label} {name} tiled at {rows} rows: log q or raw sum")
+                    note_error(name, dl, rows)
+                else:
+                    note_error(name, dx, rows)
+                print(line + f"; bit for bit the wide tier's: {same}")
+    print(f"K3 tiled tier checks: {time.perf_counter() - t_k3:.1f} s")
 
     # 6. the per-op kernels against their plain versions, float64 on the card
     fparams, flayout, fst = plain_args(flagship, torch.float32)
@@ -2894,6 +2974,64 @@ def main():
     hold_cnf("conditional CNF", cnf_cond, x_big[:CNF_ROWS], cc_big, cc_lp,
              cc_zs.reshape(-1, 6), cc_xs.reshape(-1, 6), cc_zl.reshape(-1, 6),
              cc_xl.reshape(-1, 6), cc_lq.reshape(-1), cc_few.repeat(4, 1))
+
+    # K10's cluster tier (its narrow tier since it was redesigned): planned
+    # as a cluster a tile; against plain float64 at the same tiles and
+    # against the wide tier on the same rows (the same tiles and sums: the
+    # difference is printed, with whether it is bit for bit): the flagship
+    # at the serving rows (the truth's rows first), the conditional CNF(6, 4)
+    # with a first bias a row, a Hutchinson CNF, a ragged tile, a last tile
+    # of one valid row; one cluster launch each; draws from a generator of
+    # their own
+    gen_k10 = torch.Generator(device=dev).manual_seed(14)
+    t_k10 = time.perf_counter()
+    hparams, _, hcfg = cnf_fused._flatten_cnf(
+        cnf_hutch, cnf_hutch.transform(cc_big[:1], generator=gen_k10), cc_big[:1])
+    hparams = [p.detach() for p in hparams]
+    kcparams, kccfg = cnf_args(cnf_cond, cc_big[:1])
+    k10_cases = [
+        ("CNF", cparams, ccfg, cx_big, None, None),
+        ("conditional CNF", kcparams, kccfg, x_big[:CNF_ROWS], cc_big, None),
+        ("Hutchinson CNF", hparams, hcfg, x_big[:CNF_TRAIN_ROWS], cc_big[:CNF_TRAIN_ROWS],
+         torch.randn(CNF_TRAIN_ROWS, 6, generator=gen_k10, device=dev)),
+        ("CNF, ragged", cparams, ccfg,
+         torch.randn(CNF_TRAIN_ROWS - 37, 6, generator=gen_k10, device=dev), None, None),
+        ("CNF, one row in the last tile", cparams, ccfg,
+         torch.randn(16 * cnf_fused.TILE + 1, 6, generator=gen_k10, device=dev), None, None),
+    ]
+    for label, params, cfg, x, c, eps in k10_cases:
+        kx = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+        plan = cnf_fused.plan_cnf(cnf_fused._widths(kx), cfg["nf"], x.shape[0], density=True,
+                                  exact=cfg["exact"])
+        check(not plan.wide and plan.cluster * plan.block_rows == cnf_fused.TILE,
+              f"{label}: K10 planned as a cluster a tile, {plan}")
+        ops.reset_launches()
+        with torch.no_grad():
+            lp = cnf_fused.cnf_density(x, eps, params, c, cfg)
+            launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+            fits = cnf_fused._fits_narrow
+            cnf_fused._fits_narrow = lambda widths, nf: False
+            try:
+                lp_wide = cnf_fused.cnf_density(x, eps, params, c, cfg)
+            finally:
+                cnf_fused._fits_narrow = fits
+            p64 = [p.double() for p in params]
+            k64 = cnf_fused._kernel_params(p64[0::2], p64[1::2],
+                                           None if c is None else c.double(), cfg)
+            r_lp = cnf_fused._cnf_tile_math(x.double(), None if eps is None else eps.double(),
+                                            k64, cfg)
+        check(launched == {"cnf_density": 1}, f"{label}: one cluster launch, {launched}")
+        d, dw = (lp.double() - r_lp).abs(), (lp - lp_wide).abs()
+        print(f"{label} K10 cluster tier ({plan.cluster} blocks of {plan.block_rows} rows,"
+              f" {plan.columns} tangent columns a pass, {plan.shared_bytes} B) at {x.shape[0]}"
+              " rows: vs plain f64 median %.3e q95 %.3e q99 %.3e max %.3e" % quantiles(d)
+              + f"; vs wide tier max {dw.max().item():.3e}, bit for bit"
+              f" {bool(torch.equal(lp, lp_wide))}")
+        for diff in (d, dw):
+            check(bool(torch.isfinite(diff).all()) and quantiles(diff)[0] <= TOL_CNF_MEDIAN
+                  and diff.max().item() <= TOL_CNF_MAX, f"{label} K10 cluster tier")
+        note_error("cnf_density", d, CNF_ROWS)
+    print(f"K10 cluster tier checks: {time.perf_counter() - t_k10:.1f} s")
 
     # K10's Function at (k)'s parameters and rows (the NSF's samples): the
     # kernel forward, the float32 gradient of the global-step integration,

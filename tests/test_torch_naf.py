@@ -437,12 +437,25 @@ def test_mle_steps_match_zuko_tpu(name, monkeypatch):
             _assert_same_parameters(tflow, jstate.params, atol=1e-8)
 
 
-def test_reverse_kl_steps_match_zuko_tpu(monkeypatch):
-    """One Adam step of reverse KL on the ring energy through the NAF tier of
-    the IFT, then two more from the same base draws, fused on both sides:
-    the loss to 1e-6 and the updated parameters to 1e-8 after the first and
-    the third step. Adam's first step is ``lr * g / (|g| + 1e-8)``, so a
-    gradient agreeing to 1e-6 of itself moves a parameter by far less."""
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_reverse_kl_steps_match_zuko_tpu(fused, monkeypatch):
+    """One Adam step of reverse KL on the ring energy, then two more from
+    the same base draws, on both sides through the NAF tier of the IFT
+    (fused) or through the solves' implicit backward (unfused): the loss to
+    1e-6 and the updated parameters to 1e-8 after the first and the third
+    step. Adam's first step is ``lr * g / (|g| + 1e-8)``, so a gradient
+    agreeing to 1e-6 of itself moves a parameter by far less. In the
+    unfused case the solves of both packages end anywhere within ``eps`` =
+    1e-6 of the root once every element has moved by less, so a roundoff
+    that changes when the loop stops moves a sample by up to that much. At
+    these draws (jitted or not) one element of
+    ``zuko_tpu``'s solve converges, has Newton's step refused by the
+    progress test (``|2 r| <= |dx_old f'|`` with a last step of 1e-17)
+    and bisects away while other elements keep the loop running: it ends
+    5.9e-7 from its root, where the port's ends on it. Adam's normalised
+    step takes that to 1.3e-8 (2.1e-8 after the third step) on one
+    weight of the last MADE layer whose gradient is small, so the
+    unfused parameters are held to 3e-8."""
     CASES["naf2"] = (2, 0, 2, 4)
     try:
         jflow, tflow = _build("naf2")
@@ -451,22 +464,23 @@ def test_reverse_kl_steps_match_zuko_tpu(monkeypatch):
     params, static = partition(jflow)
     key, n = jax.random.PRNGKey(2), 32
     z = np.asarray(jax_naf._prep_naf_sample(jflow, key, (n,), None)[3])
+    np.testing.assert_array_equal(np.asarray(jflow(None).base.sample(key, (n,))), z)
     monkeypatch.setattr(torch, "randn", lambda shape, **kw: torch.tensor(z).reshape(shape))
 
-    _dispatch(monkeypatch, True)
+    _dispatch(monkeypatch, fused)
     jinit, jstep = jax_train.make_reverse_kl_step(
         static, zuko_tpu.data.ring_energy, n_samples=n, lr=1e-3)
     jstate = jinit(params)
     tinit, tstep = make_reverse_kl_step(tflow, zt.data.ring_energy, n_samples=n, lr=1e-3)
     tstate = tinit()
-    assert isinstance(tflow(None), FusedNeuralSamplingFlow)
+    assert type(tflow(None)) is (FusedNeuralSamplingFlow if fused else NormalizingFlow)
     for step in range(3):
         jstate, jloss = jstep(jstate, key)
         tstate, tloss = tstep(tstate)
         assert tstate.step == step + 1
         np.testing.assert_allclose(float(tloss), float(jloss), rtol=0, atol=1e-6)
         if step in (0, 2):
-            _assert_same_parameters(tflow, jstate.params, atol=1e-8)
+            _assert_same_parameters(tflow, jstate.params, atol=1e-8 if fused else 3e-8)
 
 
 # ------------------------------------------------- dispatch, structure, limits

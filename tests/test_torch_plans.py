@@ -6,7 +6,12 @@ samplers' and the tiled density's tier and tile, UMNN and MNN
 persistent launch (``ops/masked_linear.py`` ``plan_masked_linear``, mirrored
 in ``csrc/masked_linear.cu``) and the CNF adjoint's cluster tier
 (``ops/cnf_fused.py`` ``plan_cnf_adjoint``, ``_padded_weights``, mirrored in
-``csrc/cnf_fused.cu`` ``adjoint_plan``), and that the wrappers hand those
+``csrc/cnf_fused.cu`` ``adjoint_plan``), the closed-form NSF sampler's tile
+(``ops/nsf_fused.py`` ``plan_nsf(..., sample=True)``, ``sample_tile_rows``,
+``_sample_tile_floats``, ``_tiled_weights``, mirrored in
+``csrc/nsf_fused.cu`` ``tile_plan``), the CNF density's cluster tier
+(``plan_cnf(..., density=True)``, mirrored in ``density_plan``), and that
+the wrappers hand those
 plans to the C entry points: a library that records its calls stands in for
 the built one, and the tensors say they lie on the GPU."""
 
@@ -19,7 +24,7 @@ import torch
 import zuko_tpu_torch as zt
 
 from zuko_tpu_torch import ops
-from zuko_tpu_torch.ops import _build, _common, cnf_fused, masked_linear, naf_fused
+from zuko_tpu_torch.ops import _build, _common, cnf_fused, masked_linear, naf_fused, nsf_fused
 
 torch.set_num_threads(1)
 
@@ -464,3 +469,167 @@ def test_cnf_adjoint_hands_its_plan_to_the_kernel(recorded, context):
         assert (args[4] is None) == (c is None)
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "cnf_adjoint": 1, "cnf_adjoint_log_prob": 1}
+
+
+def _nsf_shapes(make):
+    torch.manual_seed(0)
+    flow = make()
+    params, layout, cfg = nsf_fused._flatten_flow(flow)
+    F = params[-3].shape[0] // nsf_fused._univ_size(cfg["univ"], cfg["bins"])
+    C = params[0].shape[1] - F
+    _, widths, passes = nsf_fused._pack_weights(params, layout, F, C, cfg["bins"], cfg["univ"])
+    return flow, params, layout, cfg, F, widths, len(passes)
+
+
+@pytest.mark.parametrize("make, widths, tile, nbytes", [
+    (lambda: zt.NSF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 138], 128, 201280),
+    (lambda: zt.NSF(3, 5, transforms=3, device="cpu"), [8, 64, 64, 69], 128, 145696),
+    (lambda: zt.MAF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 12], 128, 102464),
+    (lambda: zt.NSF(6, 0, transforms=3, hidden_features=(128, 128), device="cpu"),
+     [6, 128, 128, 138], 32, 196672),
+], ids=["flagship", "conditional", "maf", "hidden_128"])
+def test_nsf_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
+    """The closed-form sampler's narrow tier is the tiled kernel: a tile of
+    128 rows where its shared memory fits 227 KB (the flagship NSF: one
+    layer's linears as ``W^T [in][pad8(out)]`` and padded biases, 13,968
+    floats, then ``[F + C][R]``, ``[F][R]``, two hidden buffers ``[64][R]``
+    and the last linear's outputs ``[144][R]``: 201,280 bytes), else 64 or
+    32 (hidden widths of 128: 32). The density keeps its own plan."""
+    _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
+    assert got == widths
+    K, univ = cfg["bins"], cfg["univ"]
+    T = nsf_fused._univ_size(univ, K)
+    weights = sum(i * -(-o // 8) * 8 + -(-o // 8) * 8 for i, o in zip(widths[:-1], widths[1:]))
+    hp = -(-max(widths[1:-1]) // 8) * 8
+    floats = weights + (widths[0] + F + 2 * hp + -(-F * T // 8) * 8) * tile
+    assert nsf_fused._sample_tile_floats(widths, T, tile) == floats and 4 * floats == nbytes
+    assert nbytes <= SHARED and nsf_fused.sample_tile_rows(widths, K, univ) == tile
+    for rows in (1, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED, sample=True)
+        assert plan == (False, 0, rows, 0, 0, tile, nbytes)
+        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == (False, 0, rows, 0, 0)
+
+
+def test_nsf_sampler_that_fits_no_tile_plans_the_wide_tier():
+    """Hidden widths of 256: one layer's staged linears alone (418 KB) pass
+    227 KB, so no tile fits and the sampler takes the wide tier, as the
+    density does; the polynomial and circular samplers keep their narrow
+    kernel (no tile)."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(
+        lambda: zt.NSF(6, 0, transforms=3, hidden_features=(256, 256), device="cpu"))
+    assert widths == [6, 256, 256, 138]
+    assert nsf_fused.sample_tile_rows(widths, 8, "rqs") is None
+    plan = nsf_fused.plan_nsf(widths, 8, "rqs", n_ar, 1 << 16, SHARED, sample=True)
+    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
+    assert plan == nsf_fused.plan_nsf(widths, 8, "rqs", n_ar, 1 << 16, SHARED)
+    circular = nsf_fused.plan_nsf([6, 64, 64, 138], 8, "crqs", 3, 1 << 16, SHARED, sample=True)
+    assert circular == _common.narrow_plan(1 << 16)
+
+
+def test_tiled_weights_hold_each_linear_transposed_and_padded():
+    """``_tiled_weights``: per AR layer and linear, ``(M ⊙ W)^T`` with its
+    outputs padded to a multiple of 8, then the bias padded likewise, zeros
+    in the padding."""
+    flow, params, layout, cfg, F, widths, _ = _nsf_shapes(
+        lambda: zt.NSF(6, 0, transforms=2, device="cpu"))
+    got = nsf_fused._tiled_weights(params, layout)
+    at = 0
+    for ps, _ in nsf_fused._split_layers(params, layout):
+        for i in range(len(ps) // 3):
+            W, b, M = ps[3 * i: 3 * i + 3]
+            out, inp = W.shape
+            dp = -(-out // 8) * 8
+            block = got[at: at + inp * dp].view(inp, dp)
+            assert torch.equal(block[:, :out], (M * W).T) and not block[:, out:].any()
+            bias = got[at + inp * dp: at + inp * dp + dp]
+            assert torch.equal(bias[:out], b) and not bias[out:].any()
+            at += inp * dp + dp
+    assert at == got.numel()
+
+
+@pytest.mark.parametrize("mode, name, counter", [
+    (False, "nsf_sample_f32", "nsf_sample"),
+    (True, "nsf_sample_f32", "nsf_sample_log_prob"),
+    ("raw", "nsf_sample_raw_f32", "nsf_sample_raw"),
+], ids=["sample", "log_prob", "raw"])
+def test_nsf_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, mode, name, counter):
+    """The closed-form sampler launches its narrow tier with the staged
+    weights of ``_tiled_weights`` and the tile of 128 rows (the last two
+    arguments, after the stream), and counts under its name; the density
+    takes neither."""
+    flow, params, layout, cfg, F, widths, _ = _nsf_shapes(
+        lambda: zt.NSF(6, 0, transforms=3, device="cpu"))
+    lib = _build.load_library("nsf_fused")
+    monkeypatch.setattr(lib, "nsf_max_shared_bytes", lambda device: SHARED)
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    z = torch.randn(300, 6).as_subclass(_OnCard)
+    st = nsf_fused._statics(cfg, F)
+    nsf_fused.nsf_sample(z, card, layout, *st, want_log_prob=mode)
+    nsf_fused.nsf_density(z, card, layout, *st)
+    [(first, args), (second, dargs)] = recorded
+    assert (first, second) == (name, "nsf_density_f32")
+    assert len(args) == len(_build._SIGNATURES["nsf_fused"][name][0])
+    assert len(dargs) == len(_build._SIGNATURES["nsf_fused"]["nsf_density_f32"][0])
+    assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
+    assert args[-2] is not None and args[-1] == 128
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {counter: 1, "nsf_density": 1}
+
+
+@pytest.mark.parametrize("make, plan", [
+    (lambda: zt.CNF(6, device="cpu"), (4, 64, 6, 186752)),
+    (lambda: zt.CNF(6, 4, device="cpu"), (4, 64, 6, 186752)),
+    (lambda: zt.CNF(6, 4, exact=False, device="cpu"), (4, 64, 1, 104832)),
+    (lambda: zt.CNF(8, hidden_features=(128, 96), device="cpu"), (4, 64, 1, 204416)),
+    (lambda: zt.CNF(16, hidden_features=(128, 128), device="cpu"), (8, 32, 4, 220800)),
+], ids=["flagship", "conditional", "hutchinson", "one_column", "blocks_of_32"])
+def test_cnf_density_plans_a_cluster_a_tile(make, plan):
+    """K10's narrow tier: a tile of 256 rows is a cluster of 4 blocks of 64
+    rows (8 of 32 where 64 do not fit). Shared memory holds each linear's
+    ``W^T [in][pad8(out)]`` (4,992 floats for the flagship), the
+    time-embedding term and the block max, then the rows' columns (``3 F +
+    1 + 7 (F + 1) + pad8(widest hidden) + sum(hidden) + F``, 266 for the
+    flagship) and the exact trace's tangents, ``pad8(widest hidden)`` rows
+    of ``nc rb`` columns: all F columns in one pass for the flagship, one
+    with Hutchinson's trace, fewer a pass where 227 KB cannot hold them.
+    The sampler (K11) keeps its plan."""
+    torch.manual_seed(0)
+    transform = make().transform
+    widths, nf = _cnf_widths(make)
+    cluster, rb, nc, nbytes = plan
+    got = cnf_fused.plan_cnf(widths, nf, 1 << 14, density=True, exact=transform.exact)
+    assert got == (False, 0, 1 << 14, 0, 0, cluster, rb, nc, nbytes)
+    F, hidden = widths[0], widths[1:-1]
+    hp = -(-max(hidden) // 8) * 8
+    weights = sum(i * -(-o // 8) * 8 for i, o in zip(widths[:-1], widths[1:]))
+    rows = 3 * F + 1 + 7 * (F + 1) + hp + sum(hidden) + F
+    assert nbytes == 4 * (weights + widths[1] + 32 + rows * rb + hp * nc * rb) <= SHARED
+    assert cnf_fused.plan_cnf(widths, nf, 1 << 14) == _common.narrow_plan(1 << 14)
+    wide = cnf_fused.plan_cnf([F, 256, 256, F], nf, 1 << 14, density=True)
+    assert wide.wide and wide.cluster == 0
+
+
+@pytest.mark.parametrize("context", [None, "rows"], ids=["flagship", "conditional"])
+def test_cnf_density_hands_its_cluster_to_the_kernel(recorded, context):
+    """The density launches its cluster tier with the padded linears and
+    the tile of ``TILE`` rows (the last two arguments), counted under
+    ``cnf_density``; the sampler takes neither."""
+    torch.manual_seed(0)
+    n = 300
+    flow = zt.CNF(6, 0 if context is None else 4, device="cpu")
+    c = None if context is None else torch.randn(n, 4)
+    params, _, cfg = cnf_fused._flatten_cnf(flow, flow.transform(c), c)
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    x = torch.randn(n, 6).as_subclass(_OnCard)
+    cc = None if c is None else c.as_subclass(_OnCard)
+    with torch.no_grad():
+        cnf_fused.cnf_density(x, None, card, cc, cfg)
+        cnf_fused.cnf_sample(x, None, card, cc, cfg, True)
+    [(first, args), (second, sargs)] = recorded
+    assert (first, second) == ("cnf_density_f32", "cnf_sample_f32")
+    sig = _build._SIGNATURES["cnf_fused"]
+    assert len(args) == len(sig[first][0]) and len(sargs) == len(sig[second][0])
+    assert args[-9] == 0 and args[-2] is not None and args[-1] == cnf_fused.TILE
+    assert (args[2] is None) == (c is None)  # a per-row first bias
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "cnf_density": 1, "cnf_sample_log_prob": 1}

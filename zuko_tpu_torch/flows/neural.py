@@ -27,10 +27,23 @@ from ..transforms import (
     SoftclipTransform,
     UnconstrainedMonotonicTransform,
 )
-from ..utils import broadcast, resolve_device
+from ..utils import broadcast, gauss_legendre, resolve_device
 from .autoregressive import MaskedAutoregressiveTransform
 
 __all__ = ["MNN", "NAF", "UMNN", "UNAF"]
+
+
+def _net_at(network, x, signal):
+    """``network([x, s])[..., 0]``, the signal broadcast beside each ``x``."""
+    u = torch.cat(broadcast(x[..., None], signal, ignore=1), dim=-1)
+    return network(u)[..., 0]
+
+
+def _with_params(module, params):
+    """``module`` as a function of ``u`` with ``params`` in place of its
+    parameters, in ``module.parameters()``'s order."""
+    names = [name for name, _ in module.named_parameters()]
+    return lambda u: torch.func.functional_call(module, dict(zip(names, params)), (u,))
 
 
 class _MonotonicNetTransform(MonotonicTransform):
@@ -45,8 +58,11 @@ class _MonotonicNetTransform(MonotonicTransform):
         self.signal = signal
 
     def f(self, x):
-        u = torch.cat(broadcast(x[..., None], self.signal, ignore=1), dim=-1)
-        return self.network(u)[..., 0]
+        return _net_at(self.network, x, self.signal)
+
+    def f_phi(self, x, phi):
+        signal, *params = phi
+        return _net_at(_with_params(self.network, params), x, signal)
 
 
 class MNN(nn.Module):
@@ -80,8 +96,18 @@ class _UMNNTransform(UnconstrainedMonotonicTransform):
         self.signal = signal
 
     def g(self, x):
-        u = torch.cat(broadcast(x[..., None], self.signal, ignore=1), dim=-1)
-        d = self.integrand(u)[..., 0]
+        return self._g(self.integrand, x, self.signal)
+
+    def f_phi(self, x, phi):
+        signal, *params = phi
+        integrand = _with_params(self.integrand, params)
+        return gauss_legendre(
+            lambda u: self._g(integrand, u, signal), torch.zeros_like(x), x, n=self.n
+        )
+
+    @staticmethod
+    def _g(integrand, x, signal):
+        d = _net_at(integrand, x, signal)
         return torch.exp(d / (1 + torch.abs(d / 7)))
 
 

@@ -36,6 +36,8 @@ _TIER = [_I, _P, _LL, _LL, _P, _LL]
 _NSF_FLOW = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _I, _F, _F, _F, _LL,
              *_TIER, _P]
 _NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_FLOW], _I)
+# the samplers: then the closed-form tiled tier's staged weights and tile rows
+_NSF_SAMPLE = ([_P, _P, _P, *_NSF_FLOW, _P, _I], _I)
 # (packed, kinds, Ks, offs, shifts, raws, row strides, feature strides,
 # stages, F, rows, the tier, stream)
 _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
@@ -48,6 +50,7 @@ _NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER
 # linears, frequencies and their count, atol, rtol, trace scale, max_steps,
 # trace mode, rows, the tier, stream)
 _CNF_FLOW = [_P, _P, _I, _I, _P, _F, _F, _F, _I, _I, _LL, *_TIER, _P]
+# the density: then its cluster tier's padded linears and tile rows
 # (samples, their cotangent, log-q cotangent, probe, per-row first bias, u1,
 # a1, per-tile sums, per-row first bias's cotangent, weights, the padded
 # linears, widths, linears, frequencies and their count, atol, rtol,
@@ -59,8 +62,8 @@ _SIGNATURES = {
     "nsf_fused": {
         "nsf_density_f32": ([_P, _P, *_NSF_FLOW], _I),
         "nsf_apply_f32": _NSF_TWO_OUTPUTS,
-        "nsf_sample_f32": _NSF_TWO_OUTPUTS,
-        "nsf_sample_raw_f32": _NSF_TWO_OUTPUTS,
+        "nsf_sample_f32": _NSF_SAMPLE,
+        "nsf_sample_raw_f32": _NSF_SAMPLE,
         "nsf_max_shared_bytes": ([_I], _I),
     },
     "gf_fused": {
@@ -72,7 +75,7 @@ _SIGNATURES = {
         "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW], _I),
     },
     "cnf_fused": {
-        "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW], _I),
+        "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW, _P, _I], _I),
         "cnf_sample_f32": ([_P, _P, _P, _P, _P, *_CNF_FLOW], _I),
         "cnf_adjoint_f32": (_CNF_ADJOINT, _I),
     },

@@ -22,7 +22,8 @@
 //
 // Step control is per tile, as on the TPU: one block is one tile of rows, one
 // thread a row (kTile = 256 on the card; the kernel takes its tile from
-// blockDim.x). Every attempt the block max-reduces the row's error ratio,
+// blockDim.x); the density's narrow tier spreads a tile over a cluster of
+// blocks (cnf_density_cluster, below). Every attempt the block max-reduces the row's error ratio,
 // max |err| / (atol + rtol max(|x|, |y|)) over x and l, NaN counting as
 // infinite (warp shuffles, then shared memory), so every thread takes the
 // same accept decision and the same next step 0.9 ratio^(-1/5) clipped to
@@ -47,8 +48,9 @@
 // each about 5K multiply-adds for the values and 25K for the 6 tangent
 // columns of the exact trace, against 28 bytes a row in and out.
 //
-// Design (simple and right first): the narrow tier stages the weights in
-// shared memory and keeps a row's state in per-thread arrays (local memory);
+// Design (simple and right first): the sampler's narrow tier stages the
+// weights in shared memory and keeps a row's state in per-thread arrays
+// (local memory); the density's is cnf_density_cluster;
 // its limits are kMaxF features, hidden widths of kMaxWidth, kMaxLinear
 // linears, kMaxFreqs frequencies and kMaxSharedFloats floats of weights. The
 // wide tier takes any shape: a row's state in a workspace in device memory,
@@ -1433,6 +1435,378 @@ __global__ void __launch_bounds__(kAdjRows * kQuad)
     for (int o = ql; o < H1; o += kQuad) gb_out[row * H1 + o] = exhausted ? NAN : gb[o];
 }
 
+// ------------------------------------------------------------------------
+// The narrow tier of cnf_density (K10): cnf_density_cluster, a tile over a
+// cluster of blocks, as K12's cnf_adjoint_cluster.
+//
+// The same function as cnf_kernel<trace, false, row bias, kWide> (the same
+// tile of rows, stages, error ratio, step rule and NaN-poisoning); only the
+// order of float32 sums could change, and it does not: every sum keeps the
+// one-thread-a-row order. What held the per-thread design back (a row's
+// 1,060 floats in local memory, one shared-memory load a multiply-add, the
+// exact trace's chain repeated F times a row) it does so:
+// - a tile of `tile` rows (256) is a cluster of cl blocks of rb = 64 rows,
+//   256 threads a block; the tile's step decision is the max of the
+//   blocks' ratios through distributed shared memory and a cluster barrier;
+// - the rows' state are columns [slot][row] of the block's shared memory:
+//   x, the stage inputs, the probe, the 7 stage slopes of x and l, the
+//   hidden activations (one buffer, each layer written over its input), the
+//   ELU derivatives of every hidden layer, the tangents; the padded weights
+//   W^T [in][pad8(out)] (_padded_weights in ops/cnf_fused.py, K12's) beside
+//   them (W^T only), the biases and W1_te through the read-only cache;
+// - each product is register-blocked from shared memory (den_product): a
+//   thread owns 4 rows (columns of the tile) x 8 outputs, its operands in
+//   three 16-byte loads for 32 multiply-adds, each sum from its init in the
+//   order of the inputs;
+// - the exact trace's F tangent columns v <- W (d o v) ride the same
+//   products as extra columns, nc = F of them a pass where shared memory
+//   holds them (the flagship) and fewer a pass, down to one, where it does
+//   not (density_plan); only row j of the last layer is taken for column j;
+//   Hutchinson's trace takes the probe as one column.
+
+constexpr int kDenRows = 64;      // rows of a block
+constexpr int kDenThreads = 384;  // threads of a block
+
+// The narrow tier's plan of a launch (density_plan; mirrored in
+// ops/cnf_fused.py plan_cnf): the cluster and its blocks, the tangent
+// columns a pass, and the block's shared memory as float offsets (every one
+// a multiple of 4).
+struct DenTile {
+  int cl, rb, lr, nc;  // blocks a tile, rows a block and log2 of it, tangent columns a pass
+  int weights;  // the padded weights, from offset 0
+  int te, red, x, xs, e, l, k, act, d, tj, v;
+  int smem_floats;
+};
+
+// Where linear li's W^T starts among the staged weights (W^T of each linear,
+// one after another).
+__device__ __forceinline__ int den_at(const Net& net, int li) {
+  int off = 0;
+  for (int m = 0; m < li; ++m) off += net.w[m] * pad8(net.w[m + 1]);
+  return off;
+}
+
+// out(o, c0, acc) for the patch's kPC columns c0 .. c0 + kPC - 1, acc[i] =
+// init(o, c0 + i) + sum_q W[o, q] in[q][c0 + i] in the order of q (one fmaf
+// a term), for o < dout and the ncols columns of `in` ([din][ld]); W from
+// WT = W^T [din][pad8(dout)]. A thread a patch of kPC columns x 8 outputs.
+// A round takes whole column groups, the column groups fastest within a
+// warp (the weights a broadcast, the columns' loads and out's vector stores
+// conflict-free), and writes after the round's barrier, so out may write
+// over in. Ends synchronised.
+template <int kPC, class Init, class Out>
+__device__ __forceinline__ void den_product(const float* in, int din, int ld, const float* WT,
+                                            int dout, int ncols, Init init, Out out) {
+  const int dp = pad8(dout), ncg = dp >> 3, groups = ncols / kPC;
+  const int per_round = min(groups, kDenThreads / ncg), tid = threadIdx.x;
+  for (int g0 = 0; g0 < groups; g0 += per_round) {
+    const int og = tid / per_round, g = g0 + tid - og * per_round;
+    const bool mine = og < ncg && g < groups;
+    const int c0 = g * kPC;
+    float acc[8][kPC];
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < kPC; ++i) acc[j][i] = 8 * og + j < dout ? init(8 * og + j, c0 + i) : 0.0f;
+      const float* ap = in + c0;
+      const float* wp = WT + 8 * og;
+#pragma unroll 4
+      for (int k = 0; k < din; ++k) {
+        float av[kPC];
+        if constexpr (kPC == 4) {
+          const float4 a = *reinterpret_cast<const float4*>(ap + k * ld);
+          av[0] = a.x, av[1] = a.y, av[2] = a.z, av[3] = a.w;
+        } else if constexpr (kPC == 2) {
+          const float2 a = *reinterpret_cast<const float2*>(ap + k * ld);
+          av[0] = a.x, av[1] = a.y;
+        } else {
+          av[0] = ap[k * ld];
+        }
+        const float4 b0 = *reinterpret_cast<const float4*>(wp + k * dp);
+        const float4 b1 = *reinterpret_cast<const float4*>(wp + k * dp + 4);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < kPC; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j][i] = fmaf(bv[j], av[i], acc[j][i]);
+      }
+    }
+    __syncthreads();  // the round's columns are read
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (8 * og + j < dout) out(8 * og + j, c0, acc[j]);
+    }
+  }
+  __syncthreads();
+}
+
+// kPC floats of v from v[0], and a store of kPC floats, in one access.
+template <int kPC>
+__device__ __forceinline__ void vload(const float* p, float* v) {
+  if constexpr (kPC == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else if constexpr (kPC == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int kPC>
+__device__ __forceinline__ void vstore(float* p, const float* v) {
+  if constexpr (kPC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kPC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// A hidden layer's post: its ELU into act and elu' into d, kPC columns.
+template <int kPC>
+__device__ __forceinline__ void elu_out(float* act, float* d, const float* acc) {
+  float z[kPC], e[kPC];
+#pragma unroll
+  for (int i = 0; i < kPC; ++i) {
+    z[i] = acc[i] > 0.0f ? acc[i] : expm1f(acc[i]);
+    e[i] = acc[i] > 0.0f ? 1.0f : expf(acc[i]);
+  }
+  vstore<kPC>(act, z);
+  vstore<kPC>(d, e);
+}
+
+// A tangent's post: v = elu'(h) o (W v), kPC columns.
+template <int kPC>
+__device__ __forceinline__ void tangent_out(float* v, const float* d, const float* acc) {
+  float dv[kPC], r[kPC];
+  vload<kPC>(d, dv);
+#pragma unroll
+  for (int i = 0; i < kPC; ++i) r[i] = dv[i] * acc[i];
+  vstore<kPC>(v, r);
+}
+
+// One evaluation of the dynamics for the block's rows at their stage inputs
+// xs, into slope slot s: F values, then trace_scale times the trace. W the
+// padded weights in shared memory, packed the biases (read-only cache), te
+// the tile's time-embedding term, brows the block's first per-row biases
+// (or null).
+template <int kTrace, bool kRowBias>
+__device__ __forceinline__ void den_stage(const Net& net, const float* W,
+                                          const float* __restrict__ packed, const DenTile& tl,
+                                          float* sm, const float* brows, int rows, int s) {
+  const int F = net.F, L = net.n_lin, H1 = net.w[1], rb = tl.rb, tid = threadIdx.x;
+  const float* te = sm + tl.te;
+  float* act = sm + tl.act;
+  float* d = sm + tl.d;
+  float* k = sm + tl.k + s * (F + 1) * rb;  // slot s: [F + 1][rb]
+  const float* WT0 = W + padded_at(net, 0);
+  // rows past n (c >= rows) have no first bias of their own
+  const auto first = [&](int o, int c) {
+    return kRowBias && c < rows ? te[o] + __ldg(brows + (long long)c * H1 + o) : te[o];
+  };
+  if (L == 1) {
+    den_product<2>(sm + tl.xs, F, rb, WT0, F, rb, first,
+                   [&](int o, int c, const float* a) { vstore<2>(k + o * rb + c, a); });
+  } else {
+    den_product<2>(sm + tl.xs, F, rb, WT0, H1, rb, first, [&](int o, int c, const float* a) {
+      elu_out<2>(act + o * rb + c, d + o * rb + c, a);
+    });
+  }
+  int dofs = 0;  // where elu' of the current hidden layer starts in d
+  for (int i = 1; i < L; ++i) {
+    const int din = net.w[i], dout = net.w[i + 1];
+    const float* WTi = W + den_at(net, i);
+    const float* bi = packed + net.off[i] + dout * din;
+    const auto bias = [&](int o, int) { return __ldg(bi + o); };
+    if (i == L - 1) {
+      den_product<1>(act, din, rb, WTi, dout, rb, bias,
+                     [&](int o, int c, const float* a) { k[o * rb + c] = a[0]; });
+    } else {
+      const int at = dofs + din;
+      den_product<2>(act, din, rb, WTi, dout, rb, bias, [&](int o, int c, const float* a) {
+        elu_out<2>(act + o * rb + c, d + (at + o) * rb + c, a);
+      });
+      dofs += din;
+    }
+  }
+  const float* e = sm + tl.e;
+  float* tj = sm + tl.tj;
+  if (L == 1) {
+    if (tid < rb) {
+      float tr = 0.0f;
+      const int dp = pad8(F);
+      for (int j = 0; j < F; ++j) {
+        if (kTrace == kExact) {
+          tr += WT0[j * dp + j];
+        } else {
+          float acc = 0.0f;
+          for (int q = 0; q < F; ++q) acc = fmaf(WT0[q * dp + j], e[q * rb + tid], acc);
+          tr = fmaf(e[j * rb + tid], acc, tr);
+        }
+      }
+      k[F * rb + tid] = tr * net.scale;
+    }
+    __syncthreads();
+    return;
+  }
+  float* v = sm + tl.v;
+  const int dl = net.w[L - 1], dpl = pad8(F), dp1 = pad8(H1);
+  const float* WTL = W + den_at(net, L - 1);
+  const int cols = kTrace == kExact ? tl.nc : 1, ldv = cols * rb;
+  for (int j0 = 0; j0 < (kTrace == kExact ? F : 1); j0 += cols) {
+    const int nc = kTrace == kExact ? min(cols, F - j0) : 1, nv = nc * rb;
+    // v = elu'(h1) o W1_x[:, j] (exact) or elu'(h1) o (W1_x e)
+    if (kTrace == kExact) {
+      const int r = tid & (rb - 1);
+      for (int jj = 0; jj < nc; ++jj)
+        for (int o = tid >> tl.lr; o < H1; o += kDenThreads >> tl.lr)
+          v[o * ldv + jj * rb + r] = d[o * rb + r] * WT0[(j0 + jj) * dp1 + o];
+      __syncthreads();
+    } else {
+      den_product<4>(e, F, rb, WT0, H1, rb, [](int, int) { return 0.0f; },
+                     [&](int o, int c, const float* u) {
+                       tangent_out<4>(v + o * ldv + c, d + o * rb + c, u);
+                     });
+    }
+    int dv = 0;
+    for (int i = 1; i < L - 1; ++i) {
+      const int din = net.w[i], dout = net.w[i + 1];
+      dv += din;
+      den_product<4>(v, din, ldv, W + den_at(net, i), dout, nv, [](int, int) { return 0.0f; },
+                     [&](int o, int c, const float* a) {
+                       tangent_out<4>(v + o * ldv + c, d + (dv + o) * rb + (c & (rb - 1)), a);
+                     });
+    }
+    // exact: row j of the last layer for column j; Hutchinson: every row
+    const int outs = kTrace == kExact ? nv : F * rb;
+    for (int q = tid; q < outs; q += kDenThreads) {
+      const int r = q & (rb - 1), j = (kTrace == kExact ? j0 : 0) + (q >> tl.lr);
+      const int c = kTrace == kExact ? q : r;
+      float acc = 0.0f;
+      for (int p = 0; p < dl; ++p) acc = fmaf(WTL[p * dpl + j], v[p * ldv + c], acc);
+      tj[j * rb + r] = acc;
+    }
+    __syncthreads();
+  }
+  if (tid < rb) {
+    float tr = 0.0f;
+    for (int j = 0; j < F; ++j) {
+      if (kTrace == kExact) {
+        tr += tj[j * rb + tid];
+      } else {
+        tr = fmaf(e[j * rb + tid], tj[j * rb + tid], tr);
+      }
+    }
+    k[F * rb + tid] = tr * net.scale;
+  }
+  __syncthreads();
+}
+
+template <int kTrace, bool kRowBias>
+__global__ void __launch_bounds__(kDenThreads, 1)
+    cnf_density_cluster(const float* __restrict__ xin, const float* __restrict__ eps,
+                        const float* __restrict__ bias_rows, float* __restrict__ out_lp,
+                        const float* __restrict__ packed, const float* __restrict__ padded,
+                        const __grid_constant__ Net net, const __grid_constant__ DenTile tl,
+                        long long n) {
+  extern __shared__ __align__(16) float sm[];
+  const int F = net.F, H1 = net.w[1], rb = tl.rb, cl = tl.cl, tid = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * rb;  // the block's first row
+  // each linear's W^T from the padded copies (W^T, then W, per linear)
+  for (int i = 0, at = 0; i < net.n_lin; ++i) {
+    const int size = net.w[i] * pad8(net.w[i + 1]);
+    const float4* src = reinterpret_cast<const float4*>(padded + padded_at(net, i));
+    float4* dst = reinterpret_cast<float4*>(sm + at);
+    for (int q = tid; q < (size >> 2); q += kDenThreads) dst[q] = src[q];
+    at += size;
+  }
+  float* te = sm + tl.te;
+  float* red = sm + tl.red;
+  float* x = sm + tl.x;
+  float* xs = sm + tl.xs;
+  float* lrow = sm + tl.l;
+  const float* k = sm + tl.k;
+  const float* brows = kRowBias ? bias_rows + row0 * H1 : nullptr;
+  const int rows = n - row0 < rb ? (int)(n - row0) : rb;  // of this block, below n
+  const int lr = tl.lr;
+  for (int q = tid; q < F * rb; q += kDenThreads) {
+    const int f = q >> lr, r = q & (rb - 1);
+    const bool valid = row0 + r < n;
+    x[q] = valid ? xin[(row0 + r) * F + f] : 0.0f;
+    if (kTrace == kHutchinson) sm[tl.e + q] = valid ? eps[(row0 + r) * F + f] : 0.0f;
+  }
+  for (int r = tid; r < rb; r += kDenThreads) lrow[r] = 0.0f;
+  __syncthreads();
+  const int ne = F + 1;  // x and l: K10 always carries a trace
+  float t = 0.0f, dt = 1.0f;
+  for (int attempt = 0; t < 1.0f && attempt < net.max_attempts; ++attempt) {
+    dt = fminf(dt, 1.0f - t);
+    for (int s = 0; s < 7; ++s) {
+      for (int q = tid; q < F * rb; q += kDenThreads) {
+        const int f = q >> lr, r = q & (rb - 1);
+        float v = x[q];
+        for (int p = 0; p < s; ++p)
+          if (kDpA[s][p] != 0.0f) v = fmaf(dt * kDpA[s][p], k[(p * ne + f) * rb + r], v);
+        xs[q] = v;
+      }
+      const float st = t + kDpC[s] * dt;
+      time_embedding<true>(net, packed, st, kRowBias, te);  // and the block's barriers
+      den_stage<kTrace, kRowBias>(net, sm, packed, tl, sm, brows, rows, s);
+    }
+    // the rows' error ratios, then the tile's
+    float ratio = 0.0f;
+    for (int q = tid; q < ne * rb; q += kDenThreads) {
+      const int f = q >> lr, r = q & (rb - 1);
+      if (row0 + r >= n) continue;
+      const float x0 = f < F ? x[q] : lrow[r];
+      float err = 0.0f, y = x0;
+      for (int p = 0; p < 7; ++p) {
+        if (kDpE[p] != 0.0f) err = fmaf(dt * kDpE[p], k[(p * ne + f) * rb + r], err);
+        if (kDpB5[p] != 0.0f) y = fmaf(dt * kDpB5[p], k[(p * ne + f) * rb + r], y);
+      }
+      float e = fabsf(err) / (net.atol + net.rtol * fmaxf(fabsf(x0), fabsf(y)));
+      if (isnan(e)) e = INFINITY;
+      ratio = fmaxf(ratio, e);
+    }
+    ratio = block_max(ratio, red);
+    if (cl > 1) {
+      if (tid == 0) red[kRed - 1] = ratio;
+      cluster_sync(cl);
+      for (int b = 0; b < cl; ++b) ratio = fmaxf(ratio, cluster_peer(red + kRed - 1, b));
+    }
+    if (ratio <= 1.0f) {
+      for (int q = tid; q < ne * rb; q += kDenThreads) {
+        const int f = q >> lr, r = q & (rb - 1);
+        float y = f < F ? x[q] : lrow[r];
+        for (int p = 0; p < 7; ++p)
+          if (kDpB5[p] != 0.0f) y = fmaf(dt * kDpB5[p], k[(p * ne + f) * rb + r], y);
+        if (f < F) {
+          x[q] = y;
+        } else {
+          lrow[r] = y;
+        }
+      }
+      t += dt;
+    }
+    cluster_sync(cl);  // every rank has read its peers' max; x and l are whole
+    dt *= fminf(fmaxf(0.9f * powf(fmaxf(ratio, FLT_MIN), -0.2f), 0.1f), 10.0f);
+  }
+  if (tid >= rb || row0 + tid >= n) return;
+  const bool exhausted = t < 1.0f - 64.0f * FLT_EPSILON;
+  float sq = 0.0f;
+  for (int f = 0; f < F; ++f) {
+    const float v = exhausted ? NAN : x[f * rb + tid];
+    sq = fmaf(v, v, sq);
+  }
+  const float l = exhausted ? NAN : lrow[tid];
+  out_lp[row0 + tid] = -0.5f * sq - F * kHalfLog2Pi + l / net.scale;
+}
+
 // The network as the host describes it: the widths, the offsets of the
 // linears in the packed buffer, the frequencies, the tolerances.
 struct Desc {
@@ -1543,6 +1917,8 @@ struct Launch {
   void* desc;
   long long desc_bytes;
   cudaStream_t stream;
+  const float* padded;  // the density's narrow tier: the padded linears (_padded_weights)
+  int tile;             // and its tile rows
 };
 
 // The rows in chunks of `stride`, one launch each, a block a tile.
@@ -1565,6 +1941,92 @@ int launch(const Launch& l, const NetOf<kWide>& s, long long stride, size_t smem
   return cudaSuccess;
 }
 
+// The narrow tier of cnf_density for tiles of `tile` rows (cl = 0: no plan):
+// a cluster of tile / rb blocks of rb = min(tile, 64) rows, or of 32 where
+// 64 do not fit; shared memory holds the linears W^T [in][pad8(out)] one
+// after another, the time-embedding term and the block max, then
+// [slot][row] columns: x, the stage inputs and the probe (F each), l (1),
+// the stage slopes (7 (F + 1)), the hidden activations (pad8(widest
+// hidden)), the ELU derivatives (sum of the hidden widths), the trace's
+// terms (F) and the tangents, pad8(widest hidden) rows of nc rb columns:
+// nc = F (exact) or 1 (Hutchinson), fewer where 227 KB cannot hold them.
+DenTile density_plan(const Desc& d, int tile, int trace) {
+  int hidden = 0, weights = 0;
+  for (int i = 0; i < d.n_lin; ++i) {
+    weights += d.w[i] * pad8(d.w[i + 1]);
+    if (i > 0) hidden = d.w[i] > hidden ? d.w[i] : hidden;
+  }
+  hidden = pad8(hidden);
+  for (int rb = kDenRows; rb >= kDenRows / 2; rb /= 2) {
+    DenTile t{};
+    t.rb = tile < rb ? tile : rb;
+    if (tile < 4 || tile % t.rb != 0 || (t.rb & (t.rb - 1)) != 0 || tile / t.rb > kMaxCluster)
+      continue;
+    while ((1 << t.lr) < t.rb) ++t.lr;
+    const int F = d.F;
+    t.weights = weights;
+    int at = weights;
+    t.te = at, at += pad8(d.w[1]);
+    t.red = at, at += kRed;
+    t.x = at, at += F * t.rb;
+    t.xs = at, at += F * t.rb;
+    t.e = at, at += F * t.rb;
+    t.l = at, at += t.rb;
+    t.k = at, at += 7 * (F + 1) * t.rb;
+    t.act = at, at += hidden * t.rb;
+    t.d = at, at += d.sum_hidden * t.rb;
+    t.tj = at, at += F * t.rb;
+    t.v = at;
+    for (int nc = trace == kExact ? F : 1; nc >= 1; --nc) {
+      if (4LL * (at + (long long)hidden * nc * t.rb) <= kMaxShared) {
+        t.nc = nc;
+        t.smem_floats = at + hidden * nc * t.rb;
+        t.cl = tile / t.rb;
+        return t;
+      }
+    }
+  }
+  return DenTile{};
+}
+
+// The rows in one launch: a cluster of t.cl blocks of t.rb rows a tile.
+template <int kTrace, bool kRowBias>
+int launch_density(const Launch& l, const Net& s, const DenTile& t, int tile) {
+  auto kernel = cnf_density_cluster<kTrace, kRowBias>;
+  const size_t smem = 4 * (size_t)t.smem_floats;
+  if (smem > 48 * 1024) {
+    const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  if (l.n == 0) return cudaSuccess;
+  const unsigned blocks = (unsigned)((l.n + tile - 1) / tile * t.cl);
+#ifdef __CUDACC__
+  if (t.cl > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3((unsigned)kDenThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = l.stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)t.cl;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const int rc = cudaLaunchKernelEx(&cfg, kernel, l.in, l.eps, l.bias, l.out_lp, l.packed,
+                                      l.padded, s, t, l.n);
+    if (rc != cudaSuccess) return rc;
+  } else
+#endif
+  {
+    kernel<<<blocks, kDenThreads, smem, l.stream>>>(l.in, l.eps, l.bias, l.out_lp, l.packed,
+                                                    l.padded, s, t, l.n);
+  }
+  return cudaGetLastError();
+}
+
 template <int kTrace, bool kReverse>
 int run_mode(const Launch& l, const Desc& d) {
   const bool row_bias = l.bias != nullptr;
@@ -1572,9 +2034,16 @@ int run_mode(const Launch& l, const Desc& d) {
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
     const Net s = narrow_net(d);
-    const size_t smem = te + (size_t)d.total * sizeof(float);
-    return row_bias ? launch<kTrace, kReverse, true, false>(l, s, l.n, smem)
-                    : launch<kTrace, kReverse, false, false>(l, s, l.n, smem);
+    if constexpr (!kReverse) {  // the density's narrow tier: cnf_density_cluster
+      const DenTile t = density_plan(d, l.tile, kTrace);
+      if (t.cl == 0 || l.padded == nullptr) return cudaErrorInvalidValue;
+      return row_bias ? launch_density<kTrace, true>(l, s, t, l.tile)
+                      : launch_density<kTrace, false>(l, s, t, l.tile);
+    } else {
+      const size_t smem = te + (size_t)d.total * sizeof(float);
+      return row_bias ? launch<kTrace, kReverse, true, false>(l, s, l.n, smem)
+                      : launch<kTrace, kReverse, false, false>(l, s, l.n, smem);
+    }
   }
   const long long slots = 3LL * d.F + 7LL * (d.F + 1) + d.sum_hidden + 4LL * d.max_hidden;
   if (l.work == nullptr || l.stride < kTile || l.stride % kTile != 0 ||
@@ -1739,19 +2208,23 @@ int run_adjoint(const AdjointLaunch& l, const Desc& d) {
 // ints); freqs the nf frequencies. wide 0: the narrow tier (work and desc
 // unused); 1: the wide tier, with a workspace of work_floats floats for
 // `stride` rows a launch (a multiple of 256) and a descriptor buffer of
-// desc_bytes bytes, both on the device.
+// desc_bytes bytes, both on the device. The narrow tier also takes `padded`,
+// the linears W1_x, W2, ... each as W^T [in][pad8(out)] then W [out]
+// [pad8(in)] (cnf_adjoint_f32's), and tiles of `tile` rows (256, a cluster
+// of blocks of 64).
 extern "C" int cnf_density_f32(const float* x, const float* eps, const float* bias, float* out,
                                const float* packed, const int* widths, int n_lin, int nf,
                                const float* freqs, float atol, float rtol, float scale,
                                int max_steps, int trace, long long n, int wide, float* work,
                                long long work_floats, long long stride, void* desc,
-                               long long desc_bytes, void* stream) {
+                               long long desc_bytes, void* stream, const float* padded,
+                               int tile) {
   Desc d;
   int rc = describe(&d, widths, n_lin, nf, freqs, atol, rtol, scale, max_steps, bias != nullptr);
   if (rc != cudaSuccess) return rc;
   if (n < 0 || (trace == kHutchinson && eps == nullptr)) return cudaErrorInvalidValue;
   const Launch l{x, eps, bias, nullptr, out, packed, n, wide, work, work_floats, stride,
-                 desc, desc_bytes, (cudaStream_t)stream};
+                 desc, desc_bytes, (cudaStream_t)stream, padded, tile};
   if (trace == kExact) return run_mode<kExact, false>(l, d);
   if (trace == kHutchinson) return run_mode<kHutchinson, false>(l, d);
   return cudaErrorInvalidValue;
@@ -1772,7 +2245,7 @@ extern "C" int cnf_sample_f32(const float* z, const float* eps, const float* bia
   if (n < 0 || (trace == kHutchinson && eps == nullptr) || ((trace == kNone) != (logq == nullptr)))
     return cudaErrorInvalidValue;
   const Launch l{z, eps, bias, xout, logq, packed, n, wide, work, work_floats, stride,
-                 desc, desc_bytes, (cudaStream_t)stream};
+                 desc, desc_bytes, (cudaStream_t)stream, nullptr, 0};
   if (trace == kNone) return run_mode<kNone, true>(l, d);
   if (trace == kExact) return run_mode<kExact, true>(l, d);
   if (trace == kHutchinson) return run_mode<kHutchinson, true>(l, d);

@@ -47,7 +47,9 @@
 // (zuko_tpu_torch/ops/nsf_fused.py plan_nsf). The narrow tier (kWide false)
 // is the design above, within its limits: widths of kMaxWidth, kMaxBins
 // bins, kMaxLinear linears, kMaxLayers layers, and one layer's weights in a
-// block's shared memory (227 KB on an H100). The wide tier takes any shape:
+// block's shared memory (227 KB on an H100); but the closed-form family's
+// sampler (affine and RQS, all three modes) is the tiled nsf_sample_tiled
+// (below), within the same limits where its tile fits. The wide tier takes any shape:
 // the weights are read through the read-only data cache (__ldg), one address
 // per warp at a time, as the NAF kernels read theirs; a row's activations,
 // raw parameters and knots live in a workspace in device memory, one column
@@ -108,6 +110,7 @@ constexpr int kMaxNodes = 32;            // Gauss-Legendre nodes, L + 1
 constexpr int kMaxLinear = 8;
 constexpr int kMaxLayers = 64;
 constexpr int kThreads = 128;
+constexpr int kMaxShared = 232448;  // a block's shared memory on an H100 (227 KB)
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 // the polynomial inverse (zuko_tpu/ops/nsf_fused.py _POLY_WARM_R :987)
 constexpr float kWarmR = 0.0625f;
@@ -694,6 +697,270 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
   }
 }
 
+// ------------------------------------------------------------------------
+// The narrow tier of the closed-form sampler (affine and RQS, all three
+// modes): nsf_sample_tiled, a block a tile of R rows (128, or 64 or 32 where
+// a flow's tile passes 227 KB at 128) for the whole inversion.
+//
+// The same function as nsf_sample_kernel<kWide = true, mode, kClosed>, with
+// every float32 sum in the same order: the layers in reverse, the softclip's
+// inverse, min(passes, F) Jacobi sweeps a layer, the log-q (or raw) forward
+// pass at the solved point. What held the per-thread design back (one thread
+// a row, its activations in local memory that spilled to L2, one shared
+// weight and one local activation loaded a multiply-add, the features solved
+// one after another) it does so:
+// - the tile's iterate and context [F + C][R], its targets [F][R], the
+//   MADE's hidden activations ping-ponged [H][R] and the last linear's
+//   outputs [pad8(F T)][R] live in shared memory beside the layer's weights,
+//   staged once a layer as W^T [in][pad8(out)] and a padded bias (the
+//   wrapper builds them: _tiled_weights in ops/nsf_fused.py);
+// - each linear is a register-blocked product: a thread owns a patch of 4
+//   rows x 8 outputs, whose 4 activations and 8 weights come in three
+//   16-byte loads for 32 multiply-adds; the 32 patches of a warp are 32
+//   row groups of the same outputs (the weights a broadcast, the
+//   activations and the write-back conflict-free); each sum from the bias
+//   in the order of the inputs, one fmaf a term, as the wide tier's;
+// - the spline's inverse and its forward log-Jacobian run one thread a
+//   (row, feature) pair, F R pairs over the block: the pair's raw
+//   parameters are normalised in place in its column of the outputs, and
+//   the knots are streamed in registers (the bin is the last knot below the
+//   value, the cumulative sums those of rqs_knots), so no knot array exists;
+// - thread r < R owns row r's running sum (base, softclips, the layers'
+//   log-Jacobians, in the wide tier's order) and its softclip inverse.
+// The masked products are dense (the masks' zeros are multiplied as in the
+// wide tier, so the sums match it bit for bit).
+
+constexpr int kSampleThreads = 256;
+
+__host__ __device__ __forceinline__ int pad8(int v) { return (v + 7) & ~7; }
+
+// A tile's arrays in dynamic shared memory, as float offsets (tile_plan;
+// mirrored in ops/nsf_fused.py _sample_tile_floats). Every offset is a
+// multiple of 4 floats.
+struct SampleTile {
+  int R, lr;     // rows of a tile, log2 R
+  int wfloats;   // one layer's staged weights, from offset 0
+  int xc;        // [F + C][R]: the iterate, then the context
+  int y;         // [F][R]: the layer's targets
+  int a, b;      // [pad8(widest hidden)][R], ping-pong
+  int p;         // [pad8(F T)][R]: the last linear's outputs
+  int floats;
+};
+
+// Element t of a (row, feature) pair's column: p[t * R].
+struct Strided {
+  float* p;
+  int R;
+  __device__ __forceinline__ float& operator[](int t) const { return p[t * R]; }
+};
+
+// out[o][r] = act(b[o] + sum_k W[o, k] in[k][r]) for the pad8(dout) = dp
+// outputs o and the R rows r, from wt = W^T [din][dp] then b [dp]; ReLU when
+// kRelu. A patch of 4 rows x 8 outputs a thread.
+template <bool kRelu>
+__device__ __forceinline__ void tile_linear(const float* in, int din, const float* wt, int dp,
+                                            float* out, int R, int lr) {
+  const int nrg = R >> 2, ncg = dp >> 3;
+  for (int q = threadIdx.x; q < nrg * ncg; q += kSampleThreads) {
+    const int cg = q >> (lr - 2), rg = q & (nrg - 1);
+    const float* bias = wt + din * dp + 8 * cg;
+    float acc[4][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float bv = bias[j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = bv;
+    }
+    const float* ap = in + 4 * rg;
+    const float* bp = wt + 8 * cg;
+#pragma unroll 4
+    for (int k = 0; k < din; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(ap + k * R);
+      const float4 b0 = *reinterpret_cast<const float4*>(bp + k * dp);
+      const float4 b1 = *reinterpret_cast<const float4*>(bp + k * dp + 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(bv[j], av[i], acc[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float4 o;
+      o.x = kRelu ? fmaxf(acc[0][j], 0.0f) : acc[0][j];
+      o.y = kRelu ? fmaxf(acc[1][j], 0.0f) : acc[1][j];
+      o.z = kRelu ? fmaxf(acc[2][j], 0.0f) : acc[2][j];
+      o.w = kRelu ? fmaxf(acc[3][j], 0.0f) : acc[3][j];
+      *reinterpret_cast<float4*>(out + (8 * cg + j) * R + 4 * rg) = o;
+    }
+  }
+}
+
+// The hyper-net on the tile's iterate: the hidden ReLU layers, then the last
+// linear into the outputs p. Ends synchronised.
+__device__ __forceinline__ void made_tiled(const Shape& s, const SampleTile& tl, float* sm) {
+  const float* in = sm + tl.xc;
+  const float* w = sm;
+  int din = s.widths[0];
+  for (int i = 0; i < s.n_lin; ++i) {
+    const int dp = pad8(s.widths[i + 1]);
+    const bool last = i == s.n_lin - 1;
+    float* out = sm + (last ? tl.p : (i & 1) ? tl.b : tl.a);
+    if (last) {
+      tile_linear<false>(in, din, w, dp, out, tl.R, tl.lr);
+    } else {
+      tile_linear<true>(in, din, w, dp, out, tl.R, tl.lr);
+    }
+    __syncthreads();
+    w += din * dp + dp;
+    in = out;
+    din = s.widths[i + 1];
+  }
+}
+
+__device__ __forceinline__ float knot_slope(float d, float ls) {
+  return expf(d / (1.0f + fabsf(d / ls)));
+}
+
+// The spline of one (row, feature) pair from its raw parameters p
+// (normalised in place, as rqs_knots does), at v: the inverse (kInverse) or
+// the forward with its log-Jacobian in *ladj. The knots are streamed: the
+// bin is the last knot below v, which is what find_bin counts, the knots
+// nondecreasing.
+template <bool kInverse>
+__device__ __forceinline__ float spline_streamed(float v, const Strided& p, const Shape& s,
+                                                 float* ladj) {
+  const int K = s.K;
+  const float B = s.bound, ls = s.log_s;
+  float mw = -INFINITY, mh = -INFINITY;
+  for (int j = 0; j < K; ++j) {
+    float w = p[j], h = p[K + j];
+    w = w / (1.0f + fabsf(2.0f * w / ls));
+    h = h / (1.0f + fabsf(2.0f * h / ls));
+    p[j] = w;
+    p[K + j] = h;
+    mw = fmaxf(mw, w);
+    mh = fmaxf(mh, h);
+  }
+  float sw = 0.0f, sh = 0.0f;
+  for (int j = 0; j < K; ++j) {
+    p[j] = expf(p[j] - mw);
+    p[K + j] = expf(p[K + j] - mh);
+    sw += p[j];
+    sh += p[K + j];
+  }
+  float cw = 0.0f, ch = 0.0f, x0 = -B, y0 = -B, x1 = -B, y1 = -B;
+  int k = -B < v ? 0 : -1;
+  for (int j = 0; j < K; ++j) {
+    cw += p[j] / sw;
+    ch += p[K + j] / sh;
+    const float xn = B * (2.0f * cw - 1.0f), yn = B * (2.0f * ch - 1.0f);
+    if (k == j) {
+      x1 = xn;
+      y1 = yn;
+    }
+    if ((kInverse ? yn : xn) < v) {
+      k = j + 1;
+      x0 = xn;
+      y0 = yn;
+    }
+  }
+  if (k < 0 || k >= K) {  // out of domain: identity, ladj 0
+    if (!kInverse) *ladj = 0.0f;
+    return v;
+  }
+  const float d0 = k == 0 ? 1.0f : knot_slope(p[2 * K + k - 1], ls);
+  const float d1 = k + 1 == K ? 1.0f : knot_slope(p[2 * K + k], ls);
+  if (kInverse) return rqs::inverse_in_bin<false>(v, x0, x1, y0, y1, d0, d1, nullptr);
+  return rqs::forward_in_bin(v, x0, x1, y0, y1, d0, d1, ladj);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kSampleThreads, 1)
+    nsf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
+                     float* __restrict__ logq, const float* __restrict__ tiled,
+                     const __grid_constant__ Shape s, const __grid_constant__ SampleTile tl,
+                     long long n) {
+  extern __shared__ __align__(16) float sm[];
+  const int R = tl.R, lr = tl.lr, tid = threadIdx.x, F = s.F, D0 = s.F + s.C, T = s.T;
+  const long long row0 = (long long)blockIdx.x * R;
+  float* xc = sm + tl.xc;
+  float* y = sm + tl.y;
+  float* P = sm + tl.p;
+  for (int e = tid; e < D0 * R; e += kSampleThreads) {
+    const int j = e >> lr, r = e & (R - 1);
+    const float v = row0 + r < n ? zc[(row0 + r) * D0 + j] : 0.0f;
+    if (j < F) {
+      y[e] = v;
+    } else {
+      xc[e] = v;
+    }
+  }
+  __syncthreads();
+  // thread r < R owns row r's sum
+  const bool owner = tid < R;
+  float acc = 0.0f;
+  if (kMode == kLogQ && owner) acc = base_log_prob<false>(Strided{y + tid, R}, s);
+  for (int l = s.n_ar - 1; l >= 0; --l) {
+    __syncthreads();  // every thread is done with the previous layer's weights
+    {
+      const float4* src = reinterpret_cast<const float4*>(tiled + (size_t)l * tl.wfloats);
+      float4* dst = reinterpret_cast<float4*>(sm);
+      for (int q = tid; q < (tl.wfloats >> 2); q += kSampleThreads) dst[q] = src[q];
+    }
+    if (owner) {
+      const float B = s.clips[l];
+      if (B > 0.0f) {
+        for (int f = 0; f < F; ++f) {
+          const float v = y[f * R + tid];
+          const float x = v / (1.0f - fabsf(v / B));
+          if (kMode != kNoLadj) acc -= 2.0f * log1pf(fabsf(x / B));
+          y[f * R + tid] = x;
+        }
+      }
+      for (int f = 0; f < F; ++f) xc[f * R + tid] = 0.0f;
+    }
+    __syncthreads();
+    const int sweeps = min(s.passes[l], F);
+    for (int sweep = 0; sweep < sweeps; ++sweep) {
+      made_tiled(s, tl, sm);  // Jacobi: every feature's parameters from the same iterate
+      for (int e = tid; e < F * R; e += kSampleThreads) {
+        const int f = e >> lr, r = e & (R - 1);
+        const Strided p{P + f * T * R + r, R};
+        xc[e] = s.univ == kAffine ? (y[e] - p[0]) / expf(affine_log_scale(p, s.log_s))
+                                  : spline_streamed<true>(y[e], p, s, nullptr);
+      }
+      __syncthreads();
+    }
+    if (kMode != kNoLadj) {
+      made_tiled(s, tl, sm);
+      for (int e = tid; e < F * R; e += kSampleThreads) {
+        const int f = e >> lr, r = e & (R - 1);
+        const Strided p{P + f * T * R + r, R};
+        float ladj;
+        if (s.univ == kAffine) {
+          ladj = affine_log_scale(p, s.log_s);
+        } else {
+          spline_streamed<false>(xc[e], p, s, &ladj);
+        }
+        p[0] = ladj;  // the pair's column is read no more
+      }
+      __syncthreads();
+      if (owner)
+        for (int f = 0; f < F; ++f) acc += P[f * T * R + tid];
+    }
+    if (owner)
+      for (int f = 0; f < F; ++f) y[f * R + tid] = xc[f * R + tid];
+  }
+  __syncthreads();
+  for (int e = tid; e < F * R; e += kSampleThreads) {
+    const int f = e >> lr, r = e & (R - 1);
+    if (row0 + r < n) xout[(row0 + r) * F + f] = y[e];
+  }
+  if (kMode != kNoLadj && owner && row0 + tid < n) logq[row0 + tid] = acc;
+}
+
 // The flow's description as the wrapper hands it over, checked.
 struct Desc {
   int n_lin, n_ar, F, C, K, T, K2, kn, univ;
@@ -817,6 +1084,8 @@ struct Launch {
   void* desc;
   long long desc_bytes;
   cudaStream_t stream;
+  const float* tiled;  // the closed-form sampler's staged weights (_tiled_weights)
+  int tile;            // and its tile rows
 };
 
 // kDensity, kApply: the density kernel without or with kRaw; the sample
@@ -835,9 +1104,19 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, s
     switch (op) {
       case kDensity: args(nsf_density_kernel<kWide, false, kFam>); break;
       case kApply: args(nsf_density_kernel<kWide, true, kFam>); break;
-      case kSample: args(nsf_sample_kernel<kWide, kNoLadj, kFam>); break;
-      case kSampleLogQ: args(nsf_sample_kernel<kWide, kLogQ, kFam>); break;
-      default: args(nsf_sample_kernel<kWide, kRawLadj, kFam>); break;
+      default:
+        // the closed-form family's narrow sampler is nsf_sample_tiled
+        if constexpr (kWide || kFam != kClosed) {
+          if (op == kSample) {
+            args(nsf_sample_kernel<kWide, kNoLadj, kFam>);
+          } else if (op == kSampleLogQ) {
+            args(nsf_sample_kernel<kWide, kLogQ, kFam>);
+          } else {
+            args(nsf_sample_kernel<kWide, kRawLadj, kFam>);
+          }
+        } else {
+          return cudaErrorInvalidValue;
+        }
     }
     const int rc = cudaGetLastError();
     if (rc != cudaSuccess) return rc;
@@ -858,12 +1137,60 @@ int run_narrow(int op, const Launch& l, const Desc& d) {
   switch (op) {
     case kDensity: rc = allow_smem(nsf_density_kernel<false, false, kFam>, smem); break;
     case kApply: rc = allow_smem(nsf_density_kernel<false, true, kFam>, smem); break;
-    case kSample: rc = allow_smem(nsf_sample_kernel<false, kNoLadj, kFam>, smem); break;
-    case kSampleLogQ: rc = allow_smem(nsf_sample_kernel<false, kLogQ, kFam>, smem); break;
-    default: rc = allow_smem(nsf_sample_kernel<false, kRawLadj, kFam>, smem); break;
+    default:
+      if constexpr (kFam != kClosed) {
+        if (op == kSample) {
+          rc = allow_smem(nsf_sample_kernel<false, kNoLadj, kFam>, smem);
+        } else if (op == kSampleLogQ) {
+          rc = allow_smem(nsf_sample_kernel<false, kLogQ, kFam>, smem);
+        } else {
+          rc = allow_smem(nsf_sample_kernel<false, kRawLadj, kFam>, smem);
+        }
+      } else {
+        return cudaErrorInvalidValue;
+      }
   }
   if (rc != cudaSuccess) return rc;
   return launch<false, kFam>(op, l, s, l.n > 0 ? l.n : 1, smem);
+}
+
+// The closed-form sampler's tile of R rows (SampleTile; R = 0: no plan).
+SampleTile tile_plan(const Desc& d, int R) {
+  SampleTile t{};
+  if (R != 32 && R != 64 && R != 128) return t;
+  t.R = R;
+  t.lr = R == 32 ? 5 : R == 64 ? 6 : 7;
+  int hidden = 0;
+  for (int i = 0; i < d.n_lin; ++i) {
+    t.wfloats += d.widths[i] * pad8(d.widths[i + 1]) + pad8(d.widths[i + 1]);
+    if (i > 0) hidden = d.widths[i] > hidden ? d.widths[i] : hidden;
+  }
+  t.xc = t.wfloats;
+  t.y = t.xc + (d.F + d.C) * R;
+  t.a = t.y + d.F * R;
+  t.b = t.a + pad8(hidden) * R;
+  t.p = t.b + pad8(hidden) * R;
+  t.floats = t.p + pad8(d.F * d.T) * R;
+  return t;
+}
+
+// The closed-form family's narrow sampler: a block a tile of l.tile rows.
+int run_tiled(int op, const Launch& l, const Desc& d) {
+  const SampleTile t = tile_plan(d, l.tile);
+  const size_t smem = 4 * (size_t)t.floats;
+  if (t.R == 0 || l.tiled == nullptr || smem > (size_t)kMaxShared) return cudaErrorInvalidValue;
+  if (l.n == 0) return cudaSuccess;
+  const Shape s = narrow_shape(d);
+  const unsigned blocks = (unsigned)((l.n + t.R - 1) / t.R);
+  const auto go = [&](auto kernel) {
+    const int rc = allow_smem(kernel, smem);
+    if (rc != cudaSuccess) return rc;
+    kernel<<<blocks, kSampleThreads, smem, l.stream>>>(l.in, l.out0, l.out1, l.tiled, s, t, l.n);
+    return (int)cudaGetLastError();
+  };
+  if (op == kSample) return go(nsf_sample_tiled<kNoLadj>);
+  if (op == kSampleLogQ) return go(nsf_sample_tiled<kLogQ>);
+  return go(nsf_sample_tiled<kRawLadj>);
 }
 
 int run(int op, const Launch& l, const Desc& d) {
@@ -871,6 +1198,7 @@ int run(int op, const Launch& l, const Desc& d) {
   const int fam = family_of(d.univ);
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
+    if (fam == kClosed && op >= kSample) return run_tiled(op, l, d);
     if (fam == kCircular) return run_narrow<kCircular>(op, l, d);
     return fam == kPolynomial ? run_narrow<kPolynomial>(op, l, d) : run_narrow<kClosed>(op, l, d);
   }
@@ -912,14 +1240,14 @@ int entry(int op, const float* in, float* out0, float* out1, const float* params
           int C, int K, int K2, int univ, float bound, float log_s, float slope,
           const float* rule, int box, float lo, float hi, float log_box, long long n, int wide,
           float* work, long long work_floats, long long stride, void* desc,
-          long long desc_bytes, void* stream) {
+          long long desc_bytes, void* stream, const float* tiled = nullptr, int tile = 0) {
   Desc d;
   const int rc = describe(&d, widths, passes, n_lin, n_ar, F, C, K, K2, univ, bound, log_s,
                           Extras{slope, clips, rule, box, lo, hi, log_box});
   if (rc != cudaSuccess) return rc;
   return run(op,
              {in, out0, out1, params, n, wide, work, work_floats, stride, desc, desc_bytes,
-              (cudaStream_t)stream},
+              (cudaStream_t)stream, tiled, tile},
              d);
 }
 
@@ -954,16 +1282,22 @@ extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, NSF_FLOW) {
   return entry(kApply, xc, y, ladj, NSF_ARGS);
 }
 
-// x (n, F) = T^-1(z) of zc = [z, c]; logq may be null: the solve alone.
-extern "C" int nsf_sample_f32(const float* zc, float* x, float* logq, NSF_FLOW) {
-  return entry(logq != nullptr ? kSampleLogQ : kSample, zc, x, logq, NSF_ARGS);
+// x (n, F) = T^-1(z) of zc = [z, c]; logq may be null: the solve alone. The
+// closed-form univariates' narrow tier (wide 0, affine or RQS) takes `tiled`,
+// each layer's linears as W^T [in][pad8(out)] then the bias padded to
+// pad8(out), zero-filled, and its tile of `tile` rows (32, 64 or 128); the
+// other samplers ignore both.
+extern "C" int nsf_sample_f32(const float* zc, float* x, float* logq, NSF_FLOW,
+                              const float* tiled, int tile) {
+  return entry(logq != nullptr ? kSampleLogQ : kSample, zc, x, logq, NSF_ARGS, tiled, tile);
 }
 
 // The raw mode: ladj (n,) = the bare sum of the forward log-Jacobians at the
 // solved x, with no base term.
-extern "C" int nsf_sample_raw_f32(const float* zc, float* x, float* ladj, NSF_FLOW) {
+extern "C" int nsf_sample_raw_f32(const float* zc, float* x, float* ladj, NSF_FLOW,
+                                  const float* tiled, int tile) {
   if (ladj == nullptr) return cudaErrorInvalidValue;
-  return entry(kSampleRaw, zc, x, ladj, NSF_ARGS);
+  return entry(kSampleRaw, zc, x, ladj, NSF_ARGS, tiled, tile);
 }
 
 // Shared memory a block may opt into on `device` (bytes), or -1.

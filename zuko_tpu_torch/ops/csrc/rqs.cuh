@@ -34,6 +34,17 @@ __device__ __forceinline__ float jacobian(float z, float d0, float d1, float s, 
          (*denom * *denom);
 }
 
+// The forward map inside the bin [x0, x1) -> [y0, y1) with end derivatives
+// d0, d1, and its log-Jacobian in *ladj.
+__device__ __forceinline__ float forward_in_bin(float x, float x0, float x1, float y0, float y1,
+                                                float d0, float d1, float* ladj) {
+  const float s = (y1 - y0) / (x1 - x0);
+  const float z = (x - x0) / (x1 - x0);
+  float denom;
+  *ladj = logf(jacobian(z, d0, d1, s, &denom));
+  return y0 + (y1 - y0) * (s * z * z + d0 * (z * (1.0f - z))) / denom;
+}
+
 template <class V>
 __device__ __forceinline__ float forward(float x, const V& xs, const V& ys, const V& ds, int K,
                                          float* ladj) {
@@ -42,28 +53,15 @@ __device__ __forceinline__ float forward(float x, const V& xs, const V& ys, cons
     *ladj = 0.0f;
     return x;
   }
-  const float x0 = xs[k], x1 = xs[k + 1], y0 = ys[k], y1 = ys[k + 1];
-  const float d0 = ds[k], d1 = ds[k + 1];
-  const float s = (y1 - y0) / (x1 - x0);
-  const float z = (x - x0) / (x1 - x0);
-  float denom;
-  *ladj = logf(jacobian(z, d0, d1, s, &denom));
-  return y0 + (y1 - y0) * (s * z * z + d0 * (z * (1.0f - z))) / denom;
+  return forward_in_bin(x, xs[k], xs[k + 1], ys[k], ys[k + 1], ds[k], ds[k + 1], ladj);
 }
 
-// Closed-form quadratic root (zuko_tpu/ops/nsf_fused.py _spline_inverse_F).
-// With kLadj, *ladj is the log-Jacobian of the inverse map at y: minus the
-// forward one at the returned x.
-template <bool kLadj, class V>
-__device__ __forceinline__ float inverse(float y, const V& xs, const V& ys, const V& ds, int K,
-                                         float* ladj) {
-  const int k = find_bin(ys, K, y);
-  if (k < 0 || k >= K) {
-    if (kLadj) *ladj = 0.0f;
-    return y;
-  }
-  const float x0 = xs[k], x1 = xs[k + 1], y0 = ys[k], y1 = ys[k + 1];
-  const float d0 = ds[k], d1 = ds[k + 1];
+// The closed-form quadratic root inside the bin (zuko_tpu/ops/nsf_fused.py
+// _spline_inverse_F); with kLadj, *ladj is the log-Jacobian of the inverse
+// map at y: minus the forward one at the returned x.
+template <bool kLadj>
+__device__ __forceinline__ float inverse_in_bin(float y, float x0, float x1, float y0, float y1,
+                                                float d0, float d1, float* ladj) {
   const float s = (y1 - y0) / (x1 - x0);
   const float y_ = y - y0;
   const float t = d0 + d1 - 2.0f * s;
@@ -77,6 +75,17 @@ __device__ __forceinline__ float inverse(float y, const V& xs, const V& ys, cons
     *ladj = -logf(jacobian(z, d0, d1, s, &denom));
   }
   return x0 + z * (x1 - x0);
+}
+
+template <bool kLadj, class V>
+__device__ __forceinline__ float inverse(float y, const V& xs, const V& ys, const V& ds, int K,
+                                         float* ladj) {
+  const int k = find_bin(ys, K, y);
+  if (k < 0 || k >= K) {
+    if (kLadj) *ladj = 0.0f;
+    return y;
+  }
+  return inverse_in_bin<kLadj>(y, xs[k], xs[k + 1], ys[k], ys[k + 1], ds[k], ds[k + 1], ladj);
 }
 
 }  // namespace rqs

@@ -22,7 +22,9 @@ Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. :func:`plan_nsf` chooses
 the kernels' tier from the flow's shape: the narrow tier within its limits,
 the wide tier (weights through the read-only cache, a row's state in a
-workspace in device memory) beyond them. ``LAUNCHES`` counts the kernel
+workspace in device memory) beyond them. The closed-form sampler's narrow
+tier (affine and RQS) is tiled: a block a tile of rows, planned with
+:class:`SamplePlan`. ``LAUNCHES`` counts the kernel
 launches, one per call that reaches a kernel, the wide tier's under
 ``<name>_wide``.
 
@@ -60,6 +62,8 @@ import ctypes
 import functools
 import math
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -85,6 +89,7 @@ from ._common import (
 __all__ = [
     "FusedStructureError",
     "LAUNCHES",
+    "SamplePlan",
     "extract_nsf_params",
     "fused_nsf_apply",
     "fused_nsf_log_prob",
@@ -94,6 +99,7 @@ __all__ = [
     "nsf_sample",
     "plan_nsf",
     "reset_launches",
+    "sample_tile_rows",
 ]
 
 # The narrow tier's limits (mirrored in csrc/nsf_fused.cu): the widest hyper
@@ -665,21 +671,76 @@ def _fits_arrays(univ, K):
     return True
 
 
-def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN):
+def _pad8(v):
+    return -(-v // 8) * 8
+
+
+#: The tiles of the closed-form sampler's narrow tier, in rows, largest
+#: first (``nsf_sample_tiled``, a block of 256 threads a tile).
+_SAMPLE_TILES = (128, 64, 32)
+
+
+class SamplePlan(NamedTuple):
+    """The closed-form sampler's tiled narrow tier: the fields of
+    :class:`~zuko_tpu_torch.ops._common.KernelPlan`, then the rows of its
+    tile and the block's shared memory."""
+
+    wide: bool
+    slots: int
+    chunk_rows: int
+    workspace_bytes: int
+    desc_bytes: int
+    tile_rows: int
+    shared_bytes: int
+
+
+def _sample_tile_floats(widths, T, R):
+    """Floats of shared memory of the closed-form sampler's tile of ``R``
+    rows (``tile_plan`` in ``csrc/nsf_fused.cu``): one layer's linears as
+    ``W^T [in][pad8(out)]`` and a bias of ``pad8(out)``, the iterate and
+    context ``[F + C][R]``, the targets ``[F][R]``, two hidden buffers of
+    ``pad8(widest hidden)`` rows and the last linear's outputs
+    ``[pad8(F T)][R]``."""
+    F = widths[-1] // T
+    weights = sum(i * _pad8(o) + _pad8(o) for i, o in zip(widths[:-1], widths[1:]))
+    hidden = _pad8(max(widths[1:-1], default=0))
+    return weights + (widths[0] + F + 2 * hidden + _pad8(F * T)) * R
+
+
+def sample_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
+    """Rows of the closed-form sampler's tile: the largest of
+    :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
+    where none does."""
+    T = _univ_size(univ, K)
+    return next((R for R in _SAMPLE_TILES
+                 if 4 * _sample_tile_floats(widths, T, R) <= smem_limit), None)
+
+
+def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
     """The tier of the NSF kernels for a flow of this shape (what the
     wrappers launch, from the shapes alone): the narrow tier within its
     limits, one layer's weights in ``smem_limit`` bytes of shared memory;
     else the wide tier with a workspace of ``F + C + F + 2 max(widths) + T +
     3 k`` floats a row, ``k`` of :func:`_knot_slots` (the fields of ``Row``
     in ``csrc/nsf_fused.cu``), and a descriptor buffer of the widths, the
-    passes, the softclip bounds and the Gauss-Legendre nodes and weights."""
+    passes, the softclip bounds and the Gauss-Legendre nodes and weights.
+
+    With ``sample``, the closed-form univariates (affine, RQS) plan the
+    tiled sampler instead of the one-layer limit: within the same limits,
+    a :class:`SamplePlan` of :func:`sample_tile_rows` rows and its shared
+    memory, else the wide tier."""
     n_lin = len(widths) - 1
     F = widths[-1] // _univ_size(univ, K)
     w_max = max(widths[:-1])
     layer_floats = sum(o * (i + 1) for i, o in zip(widths[:-1], widths[1:]))
-    if (n_lin <= _MAX_LINEAR and n_ar <= _MAX_LAYERS and w_max <= _MAX_WIDTH
-            and F <= _MAX_WIDTH and _fits_arrays(univ, K)
-            and 4 * layer_floats <= smem_limit):
+    within = (n_lin <= _MAX_LINEAR and n_ar <= _MAX_LAYERS and w_max <= _MAX_WIDTH
+              and F <= _MAX_WIDTH and _fits_arrays(univ, K))
+    if sample and univ in ("affine", "rqs"):
+        R = sample_tile_rows(widths, K, univ, smem_limit) if within else None
+        if R is not None:
+            T = _univ_size(univ, K)
+            return SamplePlan(*narrow_plan(rows), R, 4 * _sample_tile_floats(widths, T, R))
+    elif within and 4 * layer_floats <= smem_limit:
         return narrow_plan(rows)
     slots = widths[0] + F + 2 * w_max + _univ_size(univ, K) + 3 * _knot_slots(univ, K)
     nodes = K[1] if univ == "sosp" else 0
@@ -704,6 +765,21 @@ def _pack_weights(params, layout, F, C, K, univ):
             chunks += [(M * W).reshape(-1), b]
     packed = torch.cat(chunks).detach().contiguous()
     return packed, widths, [p for _, p in layers]
+
+
+def _tiled_weights(params, layout):
+    """Per AR layer, each linear of the hyper-net as ``(M ⊙ W)^T`` of shape
+    ``(in, pad8(out))`` then its bias padded to ``pad8(out)``, zero-filled,
+    in one contiguous buffer: what the closed-form sampler's tiled tier
+    stages (a thread's eight outputs in two 16-byte loads)."""
+    chunks = []
+    for ps, _ in _split_layers(params, layout):
+        for i in range(len(ps) // 3):
+            W, b, M = ps[3 * i : 3 * i + 3]
+            pad = _pad8(W.shape[0]) - W.shape[0]
+            chunks += [torch.nn.functional.pad((M * W).T, (0, pad)).reshape(-1),
+                       torch.nn.functional.pad(b, (0, pad))]
+    return torch.cat(chunks).detach().contiguous()
 
 
 def _softclip_bounds(layout):
@@ -747,9 +823,14 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, bas
     packed, widths, passes = _pack_weights(params, layout, F, C, K, univ)
     clips = _softclip_bounds(layout)
     lib = load_library("nsf_fused")
+    sample = fn.startswith("nsf_sample")
     plan = plan_nsf(widths, K, univ, len(passes), xc.shape[0],
-                    lib.nsf_max_shared_bytes(xc.device.index))
+                    lib.nsf_max_shared_bytes(xc.device.index), sample=sample)
     work, desc = workspace(plan, xc.device)
+    # the closed-form sampler's tiled tier: its staged weights and tile rows
+    tile = getattr(plan, "tile_rows", 0)
+    tiled = _tiled_weights(params, layout) if tile else None
+    tail = [None if tiled is None else tiled.data_ptr(), tile] if sample else []
     K1, K2 = K if univ == "sosp" else (K, 0)
     nodes = np.concatenate(np.polynomial.legendre.leggauss(K2)) if K2 else []
     box = base[0] == "box"
@@ -768,7 +849,7 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, bas
             xc.shape[0], int(plan.wide),
             None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
             plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, *tail,
         )
     counter = _counter(counter, univ)
     check_launch(counter, lib, "nsf_fused", rc)

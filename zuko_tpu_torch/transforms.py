@@ -410,8 +410,13 @@ class MonotonicTransform(Transform):
     (:func:`zuko_tpu_torch.utils.newton_bisection`) of at most
     :math:`n = \lceil \log_2(2B/\epsilon) \rceil + 4` steps; ``phi`` holds
     the tensors ``f`` depends on, which receive their gradients by implicit
-    differentiation. The log-Jacobian differentiates ``f``.
+    differentiation. The log-Jacobian differentiates ``f``. A subclass whose
+    ``phi`` depend on one another defines ``f_phi(x, phi)``, ``f`` with
+    ``phi`` explicit, for the solve's backward
+    (:func:`~zuko_tpu_torch.utils.newton_bisection`).
     """
+
+    f_phi = None
 
     def __init__(
         self,
@@ -432,7 +437,8 @@ class MonotonicTransform(Transform):
     def inverse(self, y):
         n = int(math.ceil(math.log2(2 * self.bound / self.eps))) + 4
         return newton_bisection(
-            self.f, y, -self.bound, self.bound, n=n, xtol=self.eps, phi=self.phi
+            self.f, y, -self.bound, self.bound, n=n, xtol=self.eps, phi=self.phi,
+            f_phi=self.f_phi,
         )
 
     def call_and_ladj(self, x):

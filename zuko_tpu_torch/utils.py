@@ -72,11 +72,17 @@ def _implicit_backward(ctx, grad_x, needs):
     ``_bisection_bwd`` :157): ``f(x*, phi) = y`` gives ``dx/dy = 1 / f'(x*)``,
     and the parameters receive the pullback of ``-grad_y`` through ``f`` at
     the solved point. ``needs`` says which of ``phi`` want a gradient.
-    Returns ``(grad_y, grad_phi)``."""
+    With ``ctx.f_phi``, ``f`` is evaluated at copies of ``phi`` cut from
+    their history, so the pullback is ``f``'s partial derivative in each
+    entry and walks no graph beyond ``phi``. Returns ``(grad_y, grad_phi)``."""
     phi = ctx.saved_tensors
     with torch.enable_grad():
         x = ctx.x.detach().requires_grad_()
-        y = ctx.f(x)
+        if ctx.f_phi is None:
+            y = ctx.f(x)
+        else:
+            phi = [p.detach().requires_grad_(need) for p, need in zip(phi, needs)]
+            y = ctx.f_phi(x, phi)
     (jacobian,) = torch.autograd.grad(y, x, torch.ones_like(y), retain_graph=True)
     grad_y = grad_x / jacobian
     wanted = [p for p, need in zip(phi, needs) if need]
@@ -95,7 +101,7 @@ class _Bisection(torch.autograd.Function):
             mask = f(c) < y
             a = torch.where(mask, c, a)
             b = torch.where(mask, b, c)
-        ctx.f, ctx.x = f, (a + b) / 2
+        ctx.f, ctx.f_phi, ctx.x = f, None, (a + b) / 2
         ctx.save_for_backward(*phi)
         return ctx.x
 
@@ -115,7 +121,7 @@ class _NewtonBisection(torch.autograd.Function):
     converged."""
 
     @staticmethod
-    def forward(ctx, f, n, xtol, y, a, b, *phi):
+    def forward(ctx, f, f_phi, n, xtol, y, a, b, *phi):
         lo, hi = a, b
         x, dxold = (a + b) / 2, b - a
         for _ in range(n):
@@ -136,14 +142,14 @@ class _NewtonBisection(torch.autograd.Function):
             )
             x_new = torch.where(ok, xn, (lo + hi) / 2)
             x, dxold = x_new, x_new - x
-        ctx.f, ctx.x = f, x
+        ctx.f, ctx.f_phi, ctx.x = f, f_phi, x
         ctx.save_for_backward(*phi)
         return x
 
     @staticmethod
     def backward(ctx, grad_x):
-        grad_y, grad_phi = _implicit_backward(ctx, grad_x, ctx.needs_input_grad[6:])
-        return (None, None, None, grad_y, None, None, *grad_phi)
+        grad_y, grad_phi = _implicit_backward(ctx, grad_x, ctx.needs_input_grad[7:])
+        return (None, None, None, None, grad_y, None, None, *grad_phi)
 
 
 def _solver_inputs(y, a, b):
@@ -188,6 +194,7 @@ def newton_bisection(
     n: int = 32,
     xtol: float = 1e-8,
     phi: Iterable[torch.Tensor] = (),
+    f_phi: Callable = None,
 ) -> torch.Tensor:
     r"""Solve ``f(x) = y`` for an elementwise increasing ``f`` with
     safeguarded Newton iterations: each step takes the Newton update when it
@@ -195,13 +202,20 @@ def newton_bisection(
     steps, fewer once every element moves by less than ``xtol``. Gradients
     use the same implicit-function rule as :func:`bisection`.
 
+    ``f_phi(x, phi)``, when given, is ``f`` with ``phi`` explicit: the
+    backward differentiates it at copies of ``phi`` cut from their history.
+    Give it when one entry of ``phi`` depends on another (a NAF's network
+    parameters lie upstream of a later sweep's signal): ``f``'s closure would
+    pull the gradient back through that history as well, into the caller's
+    graph, and free it.
+
     Example:
         >>> f = lambda x: x**3 + x
         >>> x = newton_bisection(f, torch.tensor(10.0), -3.0, 3.0)
         >>> bool(torch.allclose(f(x), torch.tensor(10.0), atol=1e-6))
         True
     """
-    return _NewtonBisection.apply(f, n, float(xtol), *_solver_inputs(y, a, b), *phi)
+    return _NewtonBisection.apply(f, f_phi, n, float(xtol), *_solver_inputs(y, a, b), *phi)
 
 
 # ---------------------------------------------------------------- quadrature

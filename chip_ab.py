@@ -20,7 +20,8 @@ process:
   MAF(6)'s ``nsf_sample`` in the three modes at 1M rows, 5 runs;
 * the NCSF, SOSPF and BPF flagships' ``nsf_sample`` with log q (the
   ``crqs``, ``sosp`` and ``bernstein`` modes of K3) at 262,144, 65,536 and
-  65,536 rows, 3 runs;
+  65,536 rows, SOSPF's also at 262,144, and BPF's in the three modes
+  (without log q, with it, raw) at 262,144 and 16,384, 3 runs;
 * ``masked_linear`` at the flagship MADE's three layer shapes at 262,144
   rows: 21 runs of 20 queued calls (``ml_...``) and 21 runs of one call
   (``ml_..._single``);
@@ -32,15 +33,23 @@ process:
   trace at 16,384 rows, the inputs of a step of (l) (``chip_smoke.py``):
   samples ``cnf_sample`` draws with log q from seeded base draws, the
   cotangents of ``mean(lq) - mean(ring(x))``, 5 runs; its ``cnf_density``
-  at 262,144 and 65,536 rows and ``cnf_sample`` with log q at 262,144 and
-  16,384, 3 runs;
+  at 262,144 and 65,536 rows and ``cnf_sample`` without and with log q at
+  262,144 and 16,384, 3 runs;
+* K10's log-densities on seeded inputs, the cases of ``chip_smoke.py``
+  phase 13: the flagship at 262,144 rows, a seeded CNF(6, 4) with a
+  context a row at 65,536, the same with Hutchinson's trace and a probe,
+  the flagship at a ragged 65,499 rows and at 4,097 (one row in the last
+  tile); saved in the tree's ``build/``, and once every tree has run, each
+  case's largest difference from the first tree's (the parent's) is
+  printed with whether it is bit for bit;
 * on the host clock between synchronisations (``chip_smoke.host_ms``, the
   median of 9 after a warm-up), a training step through each IFT from the
   flagship's weights: the reverse-KL steps of ``chip_smoke.py`` on its ring
   energy, (b) NSF at 262,144 draws, (h) NAF at 65,536, (j) UNAF, (n) NCSF,
-  (p) SOSPF and (r) BPF at 16,384 (``step_...``); and step (k), the
-  flagship CNF's maximum-likelihood step at 65,536 seeded standard-normal
-  rows.
+  (p) SOSPF and (r) BPF at 16,384 (``step_...``); step (l), reverse KL
+  through the flagship CNF's sampler with log q and its continuous adjoint
+  at 16,384 draws; and step (k), the flagship CNF's maximum-likelihood step
+  at 65,536 seeded standard-normal rows.
 
 ``CHANGE_DIR`` defaults to this checkout; with more than one, each is timed
 in turn after the parent. With ``--steps`` first it times the steps alone,
@@ -57,6 +66,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+K10_FILE = "chip_ab_k10.pt"  # a tree's K10 log-densities, in its build/
 
 
 def build(trees):
@@ -125,15 +135,23 @@ def time_tree(tree, steps_only=False):
         for name, mode in (("sample", False), ("sample_log_prob", True), ("sample_raw", "raw")):
             out[f"maf_{name}@{1 << 20}"] = round(time_ms(
                 lambda: nsf_fused.nsf_sample(x, mps, mlayout, *mst, want_log_prob=mode), 5)[0], 3)
-        for key, make, rows in (("ncsf", zt.NCSF, 1 << 18), ("sospf", zt.SOSPF, 1 << 16),
-                                ("bpf", zt.BPF, 1 << 16)):
+        # the polynomials at the rows the serving path samples (262,144) and
+        # (p), (r) train at (16,384): BPF in the three modes, SOSPF with log q
+        for key, make, rows, modes in (
+                ("ncsf", zt.NCSF, (1 << 18,), (True,)),
+                ("sospf", zt.SOSPF, (1 << 16, 1 << 18), (True,)),
+                ("bpf", zt.BPF, (1 << 16, 1 << 18, 1 << 14), (False, True, "raw"))):
             pflow = zt.load_params(make(6, 0, transforms=3, device=dev),
                                    assets / f"{key}_flagship.npz")
             pps, playout, pcfg = nsf_fused._flatten_flow(pflow)
             pps, pst = [p.detach() for p in pps], nsf_fused._statics(pcfg, 6)
-            z = torch.randn(rows, 6, generator=gen, device=dev)
-            out[f"{key}_sample_log_prob@{rows}"] = round(time_ms(
-                lambda: nsf_fused.nsf_sample(z, pps, playout, *pst, want_log_prob=True), 3)[0], 3)
+            for n in rows:
+                z = torch.randn(n, 6, generator=gen, device=dev)
+                for mode in modes:
+                    name = {False: "sample", True: "sample_log_prob", "raw": "sample_raw"}[mode]
+                    out[f"{key}_{name}@{n}"] = round(time_ms(
+                        lambda: nsf_fused.nsf_sample(z, pps, playout, *pst, want_log_prob=mode),
+                        3)[0], 3)
         lins = [m for m in flow.transform.transforms[0].hyper.modules()
                 if type(m).__name__ == "MaskedLinear"]
         for lin in lins:
@@ -164,14 +182,14 @@ def time_tree(tree, steps_only=False):
             x = torch.randn(rows, 6, generator=gen, device=dev)
             out[f"cnf_density@{rows}"] = round(time_ms(
                 lambda: cnf_fused.cnf_density(x, None, cps, None, ccfg), 3)[0], 3)
-        z = torch.randn(1 << 18, 6, generator=gen, device=dev)
-        out[f"cnf_sample_log_prob@{1 << 18}"] = round(time_ms(
-            lambda: cnf_fused.cnf_sample(z, None, cps, None, ccfg, True), 3)[0], 3)
-        rows = 1 << 14
-        z = torch.randn(rows, 6, generator=gen, device=dev)
-        out[f"cnf_sample_log_prob@{rows}"] = round(time_ms(
-            lambda: cnf_fused.cnf_sample(z, None, cps, None, ccfg, True), 3)[0], 3)
+        for rows in (1 << 18, 1 << 14):  # the serving rows, then (l)'s
+            z = torch.randn(rows, 6, generator=gen, device=dev)
+            for name, want in (("cnf_sample", False), ("cnf_sample_log_prob", True)):
+                out[f"{name}@{rows}"] = round(time_ms(
+                    lambda: cnf_fused.cnf_sample(z, None, cps, None, ccfg, want), 3)[0], 3)
         x, _ = cnf_fused.cnf_sample(z, None, cps, None, ccfg, True)
+        torch.save(k10_log_densities(zt, cnf_fused, cflow, cps, ccfg, dev),
+                   tree / "build" / K10_FILE)
     # (l)'s cotangents: mean(lq) - mean(ring(x)), ring(x) = -(|x| - 2)^2 / 0.1
     xr = x.clone().requires_grad_(True)
     (((xr.norm(dim=-1) - 2.0) ** 2 / 0.1).mean()).backward()
@@ -184,9 +202,47 @@ def time_tree(tree, steps_only=False):
     print(json.dumps(out), flush=True)
 
 
+def k10_log_densities(zt, cnf_fused, cflow, cps, ccfg, dev):
+    """K10's log-densities (on the CPU) of phase 13's cases on inputs and
+    weights made from seeds, the same in every tree."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    c = torch.randn(1 << 16, 4, generator=gen, device=dev)
+    cases = {}
+    for exact, seed in ((True, 40), (False, 41)):
+        torch.manual_seed(seed)
+        flow = zt.CNF(6, 4, exact=exact, device=dev)
+        params, _, cfg = cnf_fused._flatten_cnf(flow, flow.transform(c[:1], generator=gen), c[:1])
+        eps = None if exact else torch.randn(1 << 16, 6, generator=gen, device=dev)
+        cases["conditional" if exact else "hutchinson"] = (
+            [p.detach() for p in params], cfg, torch.randn(1 << 16, 6, generator=gen, device=dev),
+            c, eps)
+    for label, rows in (("flagship", 1 << 18), ("ragged", (1 << 16) - 37), ("one_row", 4097)):
+        cases[label] = (cps, ccfg, torch.randn(rows, 6, generator=gen, device=dev), None, None)
+    with torch.no_grad():
+        return {label: cnf_fused.cnf_density(x, eps, params, cc, cfg).cpu()
+                for label, (params, cfg, x, cc, eps) in cases.items()}
+
+
+def compare_k10(trees):
+    """Each tree's K10 log-densities against the first tree's: the largest
+    difference of each case and whether it is bit for bit."""
+    import torch
+
+    first = torch.load(trees[0] / "build" / K10_FILE)
+    for tree in trees[1:]:
+        other = torch.load(tree / "build" / K10_FILE)
+        for label, lp in first.items():
+            print(f"K10 log-densities, {label} ({lp.shape[0]} rows), {tree.name} vs"
+                  f" {trees[0].name}: max |diff| {(other[label] - lp).abs().max().item():.3e},"
+                  f" bit for bit {torch.equal(other[label], lp)}")
+
+
 def time_ift_steps(zt, assets, dev, host_ms):
-    """The reverse-KL steps through the IFT (ms), from the flagships'
-    weights, on ``chip_smoke.py``'s ring energy."""
+    """The reverse-KL steps (ms) through the IFT and (l)'s through the CNF's
+    continuous adjoint, from the flagships' weights, on ``chip_smoke.py``'s
+    ring energy, and (k)."""
     import torch
 
     def ring(x):
@@ -209,6 +265,16 @@ def time_ift_steps(zt, assets, dev, host_ms):
             state, _ = step_fn(state, gen)
 
         out[f"step_{tag}_{key}@{rows}"] = round(host_ms(one, 9)[0], 3)
+    # (l): reverse KL through the flagship CNF's sampler and its adjoint
+    flow = zt.load_params(zt.CNF(6, device=dev), assets / "cnf_flagship.npz")
+    init_fn, step_fn = zt.make_reverse_kl_step(flow, ring, n_samples=1 << 14, lr=1e-3)
+    state, gen = init_fn(), torch.Generator(device=dev).manual_seed(0)
+
+    def cnf_rkl():
+        nonlocal state
+        state, _ = step_fn(state, gen)
+
+    out[f"step_l_cnf@{1 << 14}"] = round(host_ms(cnf_rkl, 9)[0], 3)
     # (k): maximum likelihood on the flagship CNF
     flow = zt.load_params(zt.CNF(6, device=dev), assets / "cnf_flagship.npz")
     init_fn, step_fn = zt.make_mle_step(flow, lr=1e-3)
@@ -246,6 +312,8 @@ def main():
     for tree in (trees + trees[::-1]) * (3 if steps_only else 1):
         subprocess.run([sys.executable, __file__, "--time", str(tree)]
                        + ["--steps"] * steps_only, check=True)
+    if not steps_only:
+        compare_k10(trees)
     return 0
 
 

@@ -135,7 +135,10 @@ tier (its narrow tier) planned as a cluster a tile and held against plain
 float64 at the same tiles and against the wide tier on the same rows, at
 the density's limits (bit for bit printed), for the flagship, the
 conditional CNF(6, 4) with a first bias a row, a Hutchinson CNF, a ragged
-tile and a last tile of one valid row, one cluster launch each; K10's Function
+tile and a last tile of one valid row, one cluster launch each; K11's
+cluster tier the same way, without log q and with it, in those cases and
+at (l)'s 16,384 draws (samples median <= 1e-5 and 99th percentile <= 1e-4,
+log q median <= 1e-4 and max <= 1e-3); K10's Function
 held at (k)'s parameters and rows against the float64 gradient of the
 global-step integration (parameters max-relative <= 1e-3, input normwise
 <= 1e-2); **(k)** MLE at 65,536 rows a step on the NSF's samples. **Sampling
@@ -166,7 +169,9 @@ three outputs) against its plain version in float64 at the same inputs
 99th percentile <= 1e-3, NCSF's on the circle and against float64
 continued on the kernel's side of the shifts' jumps, also at 16,384 rows
 placed at them, the polynomials' over the rows plain float64 solves, the
-pegged ones counted); K1's Function at the
+pegged ones counted); BPF's sampler (the tiled tier) also against the wide
+tier on the same draws at the served 262,144 rows and (r)'s 16,384
+(samples bit for bit, sums within 1e-4); K1's Function at the
 rows (m), (o), (q) train on and the IFT at (n), (p), (r)'s draws against
 float64 (BPF's at four draw sets, each beside the backward with every
 ReLU side from the float32 march, whose worst set is taken apart: the
@@ -652,7 +657,7 @@ def main():
     from zuko_tpu_torch import ops
     from zuko_tpu_torch.lazy import Flow
     from zuko_tpu_torch.ops import (
-        _build, cnf_fused, gf_fused, ift, masked_linear, naf_fused, nsf_fused, rqs,
+        _build, _common, cnf_fused, gf_fused, ift, masked_linear, naf_fused, nsf_fused, rqs,
     )
     from zuko_tpu_torch.ops._common import NSF_MODES, WHOLE_FLOW
     from zuko_tpu_torch.ops.dispatch import (
@@ -810,11 +815,12 @@ def main():
         hold_values(f"{label} density", "nsf_density", values, [TOL_DENSITY])
         compare_grads(f"{label} density", *density)
 
-    def base_draws(rows, F, base):
+    def base_draws(rows, F, base, generator=gen):
         """``rows`` draws of the base: standard normal, or uniform on a box."""
         if base[0] == "box":
-            return base[1] + (base[2] - base[1]) * torch.rand(rows, F, generator=gen, device=dev)
-        return torch.randn(rows, F, generator=gen, device=dev)
+            return base[1] + (base[2] - base[1]) * torch.rand(rows, F, generator=generator,
+                                                                device=dev)
+        return torch.randn(rows, F, generator=generator, device=dev)
 
     def on_circle(diff):
         return torch.remainder(diff + math.pi, 2 * math.pi) - math.pi
@@ -1105,7 +1111,7 @@ def main():
     # the difference is printed, with whether it is bit for bit), one
     # tiled launch each; draws from a generator of their own
     @contextlib.contextmanager
-    def wide_nsf():
+    def nsf_wide_tier():
         """The NSF kernels' wide tier: the planner told that no shared
         memory is there."""
         plan = nsf_fused.plan_nsf
@@ -1140,7 +1146,7 @@ def main():
                 with torch.no_grad():
                     tiled = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
                     launched = {k: v for k, v in ops.LAUNCHES.items() if v}
-                    with wide_nsf():
+                    with nsf_wide_tier():
                         wide = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
                 check(launched == {name: 1}, f"{label} {name}: one tiled launch, {launched}")
                 tiled = tiled if isinstance(tiled, tuple) else (tiled,)
@@ -3001,7 +3007,7 @@ def main():
     ]
     for label, params, cfg, x, c, eps in k10_cases:
         kx = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
-        plan = cnf_fused.plan_cnf(cnf_fused._widths(kx), cfg["nf"], x.shape[0], density=True,
+        plan = cnf_fused.plan_cnf(cnf_fused._widths(kx), cfg["nf"], x.shape[0],
                                   exact=cfg["exact"])
         check(not plan.wide and plan.cluster * plan.block_rows == cnf_fused.TILE,
               f"{label}: K10 planned as a cluster a tile, {plan}")
@@ -3032,6 +3038,59 @@ def main():
                   and diff.max().item() <= TOL_CNF_MAX, f"{label} K10 cluster tier")
         note_error("cnf_density", d, CNF_ROWS)
     print(f"K10 cluster tier checks: {time.perf_counter() - t_k10:.1f} s")
+
+    # K11's cluster tier (its narrow tier since it was redesigned), the same
+    # way: the cases of K10's, base draws in place of the rows, and (l)'s
+    # 16,384 draws; without log q and with it, each one cluster launch
+    # against the wide tier on the same draws (printed, with whether it is
+    # bit for bit) and against plain float64 at the same tiles
+    t_k11 = time.perf_counter()
+    k11_cases = k10_cases + [
+        ("CNF at (l)'s draws", cparams, ccfg,
+         torch.randn(CNF_RKL_ROWS, 6, generator=gen_k10, device=dev), None, None)]
+    for label, params, cfg, z, c, eps in k11_cases:
+        kz = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+        p64 = [p.double() for p in params]
+        k64 = cnf_fused._kernel_params(p64[0::2], p64[1::2], None if c is None else c.double(),
+                                       cfg)
+        for want, name in ((False, "cnf_sample"), (True, "cnf_sample_log_prob")):
+            plan = cnf_fused.plan_cnf(cnf_fused._widths(kz), cfg["nf"], z.shape[0],
+                                      exact=cfg["exact"] if want else None)
+            check(not plan.wide and plan.cluster * plan.block_rows == cnf_fused.TILE,
+                  f"{label}: K11 planned as a cluster a tile, {plan}")
+            ops.reset_launches()
+            with torch.no_grad():
+                got = cnf_fused.cnf_sample(z, eps, params, c, cfg, want)
+                launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+                fits = cnf_fused._fits_narrow
+                cnf_fused._fits_narrow = lambda widths, nf: False
+                try:
+                    wide = cnf_fused.cnf_sample(z, eps, params, c, cfg, want)
+                finally:
+                    cnf_fused._fits_narrow = fits
+                ref = cnf_fused._cnf_tile_sample_math(
+                    z.double(), None if eps is None else eps.double(), k64, cfg, want)
+            check(launched == {name: 1}, f"{label}: one {name} cluster launch, {launched}")
+            got, wide, ref = ((t if want else (t,)) for t in (got, wide, ref))
+            dx, dxw = (got[0].double() - ref[0]).abs(), (got[0] - wide[0]).abs()
+            med, _, q99, worst = quantiles(dx)
+            line = (f"{label} K11 cluster tier, log q {want} ({plan.cluster} blocks of"
+                    f" {plan.block_rows} rows, {plan.shared_bytes} B) at {z.shape[0]} draws: x vs"
+                    f" plain f64 median {med:.3e} q99 {q99:.3e} max {worst:.3e}; x vs wide tier"
+                    f" max {dxw.max().item():.3e}")
+            for diff in (dx, dxw):
+                check(bool(torch.isfinite(diff).all()) and quantiles(diff)[0] <= TOL_SAMPLE_MEDIAN
+                      and quantiles(diff)[2] <= TOL_CNF_SAMPLE_Q99, f"{label} K11 cluster tier x")
+            if want:
+                dl, dlw = (got[1].double() - ref[1]).abs(), (got[1] - wide[1]).abs()
+                line += (f"; log q vs plain f64 median {quantiles(dl)[0]:.3e} max"
+                         f" {dl.max().item():.3e}, vs wide tier max {dlw.max().item():.3e}")
+                for diff in (dl, dlw):
+                    check(bool(torch.isfinite(diff).all()) and quantiles(diff)[0] <= TOL_CNF_MEDIAN
+                          and diff.max().item() <= TOL_CNF_MAX, f"{label} K11 cluster tier log q")
+            print(line + f"; bit for bit the wide tier's:"
+                  f" {all(torch.equal(a, b) for a, b in zip(got, wide))}")
+    print(f"K11 cluster tier checks: {time.perf_counter() - t_k11:.1f} s")
 
     # K10's Function at (k)'s parameters and rows (the NSF's samples): the
     # kernel forward, the float32 gradient of the global-step integration,
@@ -3145,12 +3204,13 @@ def main():
     per_step["cnf_rkl"] = time_step(
         "cnf_rkl", generator, lambda: flow_l(None).sample_and_log_prob((CNF_RKL_ROWS,), gen))
 
-    # times: K12 in both modes and K11 with log q at (l)'s rows; the served
-    # request with its backward
+    # times: K12 in both modes and K11 without and with log q at (l)'s rows;
+    # the served request with its backward
     with torch.no_grad():
-        time_kernel("cnf_sample_log_prob", CNF_RKL_ROWS, *cnf_work(
-            cparams, ccfg, cx_big[:CNF_RKL_ROWS], None,
-            torch.randn(CNF_RKL_ROWS, 6, generator=gen, device=dev), None)["cnf_sample_log_prob"])
+        work = cnf_work(cparams, ccfg, cx_big[:CNF_RKL_ROWS], None,
+                        torch.randn(CNF_RKL_ROWS, 6, generator=gen, device=dev), None)
+        for name in CNF_NAMES[1:]:
+            time_kernel(name, CNF_RKL_ROWS, *work[name])
     for name in ADJ_NAMES:
         time_kernel(name, CNF_RKL_ROWS, *adj_work[name])
         check(timed[name, CNF_RKL_ROWS, ""]["bound_by"] == "operations", f"{name}: bound by bytes")
@@ -3391,6 +3451,48 @@ def main():
         # the polynomials' samplers are held and timed at POLY_HOLD_ROWS
         hold_rows = sample_rows if key == "ncsf" else POLY_HOLD_ROWS
         hold_nsf(label, flow, fx, base_draws(hold_rows, 6, base))
+        _, widths, passes = nsf_fused._pack_weights(params, layout, 6, 0, st[1], st[4])
+        plan = nsf_fused.plan_nsf(widths, st[1], st[4], len(passes), sample_rows,
+                                  _build.load_library("nsf_fused").nsf_max_shared_bytes(
+                                      dev.index or 0), sample=True)
+        print(f"{label} sampler plan: {plan}")
+        if key == "bpf":
+            # K3's Bernstein mode samples through the tiled tier: against the
+            # wide tier on the same draws (the same solves and sums: the
+            # difference is printed, with whether it is bit for bit), at the
+            # served rows and at (r)'s, one tiled launch each; draws from a
+            # generator of their own, so that (q) and (r) keep their draws
+            check(not plan.wide and plan.tile_rows == 64, f"{label}: the tiled sampler at 64 rows")
+            gen_bpf = torch.Generator(device=dev).manual_seed(16)
+            for rows in (sample_rows, POLY_RKL_ROWS):
+                zc = base_draws(rows, 6, base, gen_bpf)
+                for mode, kind in ((False, "nsf_sample"), (True, "nsf_sample_log_prob"),
+                                   ("raw", "nsf_sample_raw")):
+                    ops.reset_launches()
+                    with torch.no_grad():
+                        tiled = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
+                        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+                        with nsf_wide_tier():
+                            wide = nsf_fused.nsf_sample(zc, params, layout, *st,
+                                                        want_log_prob=mode)
+                    check(launched == {names[kind]: 1},
+                          f"{label} {kind}: one tiled launch, {launched}")
+                    tiled = tiled if isinstance(tiled, tuple) else (tiled,)
+                    wide = wide if isinstance(wide, tuple) else (wide,)
+                    diffs = [(a - b).abs() for a, b in zip(tiled, wide)]
+                    check(all(bool(torch.isfinite(a).all()) for a in tiled),
+                          f"{label} {kind} tiled at {rows} rows: not finite")
+                    check(torch.equal(tiled[0], wide[0]),
+                          f"{label} {kind} tiled at {rows} rows: samples not the wide tier's")
+                    if len(diffs) > 1:
+                        check(diffs[1].max().item() <= TOL_DENSITY,
+                              f"{label} {kind} tiled at {rows} rows: sum vs the wide tier")
+                    print(f"{label} {names[kind]} tiled at {rows} rows vs the wide tier: x max"
+                          f" {diffs[0].max().item():.3e}"
+                          + (f", sum max {diffs[1].max().item():.3e}" if len(diffs) > 1 else "")
+                          + f"; bit for bit: {all(torch.equal(a, b) for a, b in zip(tiled, wide))}")
+        else:  # the per-thread narrow kernels
+            check(plan == _common.narrow_plan(sample_rows), f"{label}: the narrow sampler, {plan}")
         if key == "ncsf":
             hold_nsf(f"{label} at the shifts' jumps", flow, *jump_rows(flow, 1 << 14))
         czc = torch.cat([base_draws(4096, 6, base), fc_few.repeat(4, 1)], dim=1)

@@ -680,11 +680,12 @@ def test_cnf_dispatch(monkeypatch):
     (lambda: zt.CNF(3, hidden_features=(512, 512), device="cpu"), 1 << 14, True),
 ], ids=["flagship", "conditional", "features_64", "width_512"])
 def test_plan_cnf_picks_the_tier_from_the_shapes(make, rows, wide):
-    """The flagship (and its conditional form) plans the narrow tier; 64
-    features (the shape ``zuko_tpu`` refuses at its VMEM gate) and hidden
-    widths of 512 plan the wide tier: a workspace of ``3 F + 7 (F + 1) +
-    sum(hidden) + 4 max(hidden)`` floats a row, launches of whole tiles, at
-    most 1 GiB."""
+    """The flagship (and its conditional form) plans the narrow tier, a
+    cluster of blocks a tile of ``TILE`` rows, in one launch; 64 features
+    (the shape ``zuko_tpu`` refuses at its VMEM gate) and hidden widths of
+    512 plan the wide tier: a workspace of ``3 F + 7 (F + 1) + sum(hidden)
+    + 4 max(hidden)`` floats a row, launches of whole tiles, at most 1
+    GiB."""
     torch.manual_seed(0)
     transform = make().transform
     linears = transform.ode.layers[0::2]
@@ -698,7 +699,8 @@ def test_plan_cnf_picks_the_tier_from_the_shapes(make, rows, wide):
         assert plan.chunk_rows % torch_cnf.TILE == 0 and plan.chunk_rows >= rows
         assert plan.workspace_bytes == 4 * plan.slots * plan.chunk_rows <= 1 << 30
     else:
-        assert plan == (False, 0, rows, 0, 0)
+        assert plan[:5] == (False, 0, rows, 0, 0)
+        assert plan.cluster * plan.block_rows == torch_cnf.TILE
 
 
 def test_hutchinson_needs_a_generator_and_its_probe_is_fixed(monkeypatch):

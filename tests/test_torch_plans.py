@@ -10,7 +10,8 @@ in ``csrc/masked_linear.cu``) and the CNF adjoint's cluster tier
 (``ops/nsf_fused.py`` ``plan_nsf(..., sample=True)``, ``sample_tile_rows``,
 ``_sample_tile_floats``, ``_tiled_weights``, mirrored in
 ``csrc/nsf_fused.cu`` ``tile_plan``), the CNF density's cluster tier
-(``plan_cnf(..., density=True)``, mirrored in ``density_plan``), and that
+and sampler's (``plan_cnf``, mirrored in ``density_plan``), the tiled
+Bernstein sampler (``plan_nsf(..., sample=True)`` for ``bernstein``), and that
 the wrappers hand those
 plans to the C entry points: a library that records its calls stands in for
 the built one, and the tensors say they lie on the GPU."""
@@ -576,6 +577,121 @@ def test_nsf_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, mode, n
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {counter: 1, "nsf_density": 1}
 
 
+@pytest.mark.parametrize("make, widths, tile, nbytes", [
+    (lambda: zt.BPF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 102], 64, 107936),
+    (lambda: zt.BPF(6, 4, transforms=3, device="cpu"), [10, 64, 64, 102], 64, 109984),
+    (lambda: zt.BPF(3, 0, transforms=3, degree=18, device="cpu"), [3, 64, 64, 57], 64, 84992),
+    (lambda: zt.BPF(6, 0, transforms=3, hidden_features=(128, 128), device="cpu"),
+     [6, 128, 128, 102], 64, 218528),
+], ids=["flagship", "conditional", "degree_18", "hidden_128"])
+def test_bernstein_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
+    """The Bernstein sampler's narrow tier is the tiled kernel where its
+    ``M + 5`` coefficients fit the registers (at most 24: degree 18): the
+    closed-form sampler's tile with ``T = M`` raw parameters a feature (the
+    flagship BPF, M = 17: 11,368 floats of linears, then ``[F + C][R]``,
+    ``[F][R]``, two hidden buffers ``[64][R]`` and the last linear's outputs
+    ``[104][R]``: 107,936 bytes at 64 rows), the largest of 64 and 32 rows
+    of which two blocks share an SM (at most 115,712 bytes each), else the
+    largest tile that fits 227 KB (hidden widths of 128: 64 rows alone).
+    The density keeps its own plan."""
+    _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
+    assert got == widths and cfg["univ"] == "bernstein"
+    K = cfg["bins"]
+    assert K + 5 <= 24 and nsf_fused._sample_tiled("bernstein", K)
+    floats = nsf_fused._sample_tile_floats(widths, K, tile)
+    assert 4 * floats == nbytes <= SHARED
+    assert nsf_fused.sample_tile_rows(widths, K, "bernstein") == tile
+    two = 4 * nsf_fused._sample_tile_floats(widths, K, 32) <= (233472 - 2048) // 2
+    assert (nbytes <= (233472 - 2048) // 2) == two
+    for rows in (1, 1 << 14, 1 << 18):
+        plan = nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED, sample=True)
+        assert plan == (False, 0, rows, 0, 0, tile, nbytes)
+        assert nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED) == (False, 0, rows, 0, 0)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: zt.BPF(3, 0, transforms=3, degree=19, device="cpu"),
+    lambda: zt.BPF(3, 0, transforms=3, degree=27, device="cpu"),
+    lambda: zt.BPF(3, 0, transforms=3, degree=58, device="cpu"),
+], ids=["degree_19", "degree_27", "degree_58"])
+def test_bernstein_sampler_past_its_registers_keeps_the_per_thread_kernel(make):
+    """25 to 64 Bernstein coefficients (degrees 19-58) do not fit the
+    tiled sampler's registers but fit the per-thread kernel's arrays: the
+    sampler plans that narrow tier, as the sum of squares does, and the
+    density its own, the same."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
+    K = cfg["bins"]
+    assert 24 < K + 5 <= 64 and not nsf_fused._sample_tiled("bernstein", K)
+    for rows in (1 << 14, 1 << 18):
+        plan = nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED, sample=True)
+        assert plan == _common.narrow_plan(rows)
+        assert nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED) == plan
+
+
+@pytest.mark.parametrize("make", [
+    lambda: zt.BPF(3, 0, transforms=3, degree=59, device="cpu"),
+    lambda: zt.BPF(4, degree=60, device="cpu"),
+], ids=["degree_59", "degree_60"])
+def test_bernstein_sampler_past_its_registers_plans_the_wide_tier(make):
+    """65 or more Bernstein coefficients (degree 59; phase 12's
+    ``BPF(4, degree=60)``, 66) fit neither the tiled sampler's registers
+    nor the per-thread kernel's arrays: the sampler and the density take
+    the wide tier."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
+    K = cfg["bins"]
+    assert K + 5 > 64 and not nsf_fused._sample_tiled("bernstein", K)
+    plan = nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, 1 << 14, SHARED, sample=True)
+    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
+    assert nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, 1 << 14, SHARED).wide
+
+
+def test_sosp_and_circular_samplers_keep_their_narrow_kernel():
+    """The sum-of-squares and circular samplers keep the per-thread narrow
+    kernel: no tile."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"))
+    assert not nsf_fused._sample_tiled("sosp", cfg["bins"])
+    for rows in (1 << 14, 1 << 18):
+        plan = nsf_fused.plan_nsf(widths, cfg["bins"], "sosp", n_ar, rows, SHARED, sample=True)
+        assert plan == _common.narrow_plan(rows)
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(lambda: zt.NCSF(6, 0, transforms=3, device="cpu"))
+    assert not nsf_fused._sample_tiled("crqs", cfg["bins"])
+    plan = nsf_fused.plan_nsf(widths, cfg["bins"], "crqs", n_ar, 1 << 14, SHARED, sample=True)
+    assert plan == _common.narrow_plan(1 << 14)
+
+
+@pytest.mark.parametrize("mode, name, kind", [
+    (False, "nsf_sample_f32", "nsf_sample"),
+    (True, "nsf_sample_f32", "nsf_sample_log_prob"),
+    ("raw", "nsf_sample_raw_f32", "nsf_sample_raw"),
+], ids=["sample", "log_prob", "raw"])
+def test_bernstein_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, mode, name, kind):
+    """The BPF sampler launches its tiled tier with the staged weights of
+    ``_tiled_weights`` and the tile of 64 rows (the last two arguments,
+    after the stream), the univariate's code 4 and M = 17, and counts under
+    its mode's name; the SOSPF sampler takes neither."""
+    flow, params, layout, cfg, F, widths, _ = _nsf_shapes(
+        lambda: zt.BPF(6, 0, transforms=3, device="cpu"))
+    lib = _build.load_library("nsf_fused")
+    monkeypatch.setattr(lib, "nsf_max_shared_bytes", lambda device: SHARED)
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    z = torch.randn(300, 6).as_subclass(_OnCard)
+    nsf_fused.nsf_sample(z, card, layout, *nsf_fused._statics(cfg, F), want_log_prob=mode)
+    sflow, sparams, slayout, scfg, _, _, _ = _nsf_shapes(
+        lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"))
+    scard = [p.detach().as_subclass(_OnCard) for p in sparams]
+    nsf_fused.nsf_sample(z, scard, slayout, *nsf_fused._statics(scfg, F), want_log_prob=mode)
+    [(first, args), (second, sargs)] = recorded
+    assert first == second == name
+    assert len(args) == len(sargs) == len(_build._SIGNATURES["nsf_fused"][name][0])
+    assert args[13] == 4 and args[11] == 17  # bernstein, M
+    assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
+    assert args[-2] is not None and args[-1] == 64
+    assert sargs[-9] == 0 and sargs[-2] is None and sargs[-1] == 0
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        nsf_fused._counter(kind, "bernstein"): 1, nsf_fused._counter(kind, "sosp"): 1}
+
+
 @pytest.mark.parametrize("make, plan", [
     (lambda: zt.CNF(6, device="cpu"), (4, 64, 6, 186752)),
     (lambda: zt.CNF(6, 4, device="cpu"), (4, 64, 6, 186752)),
@@ -592,28 +708,67 @@ def test_cnf_density_plans_a_cluster_a_tile(make, plan):
     flagship) and the exact trace's tangents, ``pad8(widest hidden)`` rows
     of ``nc rb`` columns: all F columns in one pass for the flagship, one
     with Hutchinson's trace, fewer a pass where 227 KB cannot hold them.
-    The sampler (K11) keeps its plan."""
+    The sampler (K11) with log q carries the same trace and plans the same;
+    without it see :func:`test_cnf_sampler_plans_a_cluster_a_tile`."""
     torch.manual_seed(0)
     transform = make().transform
     widths, nf = _cnf_widths(make)
     cluster, rb, nc, nbytes = plan
-    got = cnf_fused.plan_cnf(widths, nf, 1 << 14, density=True, exact=transform.exact)
+    got = cnf_fused.plan_cnf(widths, nf, 1 << 14, exact=transform.exact)
     assert got == (False, 0, 1 << 14, 0, 0, cluster, rb, nc, nbytes)
     F, hidden = widths[0], widths[1:-1]
     hp = -(-max(hidden) // 8) * 8
     weights = sum(i * -(-o // 8) * 8 for i, o in zip(widths[:-1], widths[1:]))
     rows = 3 * F + 1 + 7 * (F + 1) + hp + sum(hidden) + F
     assert nbytes == 4 * (weights + widths[1] + 32 + rows * rb + hp * nc * rb) <= SHARED
-    assert cnf_fused.plan_cnf(widths, nf, 1 << 14) == _common.narrow_plan(1 << 14)
-    wide = cnf_fused.plan_cnf([F, 256, 256, F], nf, 1 << 14, density=True)
+    untraced = cnf_fused.plan_cnf(widths, nf, 1 << 14, exact=None)
+    assert untraced[:5] == (False, 0, 1 << 14, 0, 0) and untraced.columns == 0
+    assert untraced.cluster * untraced.block_rows == cnf_fused.TILE
+    assert untraced.shared_bytes < nbytes
+    wide = cnf_fused.plan_cnf([F, 256, 256, F], nf, 1 << 14)
     assert wide.wide and wide.cluster == 0
+
+
+@pytest.mark.parametrize("make, nbytes", [
+    (lambda: zt.CNF(6, device="cpu"), 50560),
+    (lambda: zt.CNF(6, 4, device="cpu"), 50560),
+    (lambda: zt.CNF(6, 4, exact=False, device="cpu"), 50560),
+    (lambda: zt.CNF(8, hidden_features=(128, 96), device="cpu"), 108160),
+    (lambda: zt.CNF(16, hidden_features=(128, 128), device="cpu"), 152192),
+], ids=["flagship", "conditional", "hutchinson", "wider", "features_16"])
+@pytest.mark.parametrize("exact", [True, None], ids=["log_q", "no_log_q"])
+def test_cnf_sampler_plans_a_cluster_a_tile(make, nbytes, exact):
+    """K11's narrow tier is K10's cluster tier: with log q the exact trace
+    (or Hutchinson's) plans as the density does; without it a tile of 256
+    rows is a cluster of 4 blocks of 64 rows whose shared memory holds the
+    linears ``W^T [in][pad8(out)]``, the time-embedding term, the block max
+    and only ``2 F + 7 F + pad8(widest hidden)`` floats a row (x, the stage
+    inputs, the slopes of x, the activations): no probe, l, ELU derivatives
+    or tangents; past the narrow limits the wide tier."""
+    torch.manual_seed(0)
+    transform = make().transform
+    widths, nf = _cnf_widths(make)
+    trace = None if exact is None else transform.exact
+    got = cnf_fused.plan_cnf(widths, nf, 1 << 14, exact=trace)
+    F, hidden = widths[0], widths[1:-1]
+    hp = -(-max(hidden) // 8) * 8
+    weights = sum(i * -(-o // 8) * 8 for i, o in zip(widths[:-1], widths[1:]))
+    if exact is None:
+        assert got == (False, 0, 1 << 14, 0, 0, 4, 64, 0, nbytes)
+        assert nbytes == 4 * (weights + hp + 32 + (9 * F + hp) * 64) <= SHARED
+    else:
+        rb, nc, floats = cnf_fused._cluster_tile(widths, trace)
+        assert got == (False, 0, 1 << 14, 0, 0, cnf_fused.TILE // rb, rb, nc, 4 * floats)
+        assert got.shared_bytes > nbytes
+    wide = cnf_fused.plan_cnf([F, 256, 256, F], nf, 1 << 14, exact=trace)
+    assert wide.wide and wide.cluster == 0 and wide.chunk_rows % cnf_fused.TILE == 0
 
 
 @pytest.mark.parametrize("context", [None, "rows"], ids=["flagship", "conditional"])
 def test_cnf_density_hands_its_cluster_to_the_kernel(recorded, context):
     """The density launches its cluster tier with the padded linears and
     the tile of ``TILE`` rows (the last two arguments), counted under
-    ``cnf_density``; the sampler takes neither."""
+    ``cnf_density``; so does the sampler, under ``cnf_sample_log_prob``."""
     torch.manual_seed(0)
     n = 300
     flow = zt.CNF(6, 0 if context is None else 4, device="cpu")
@@ -630,6 +785,41 @@ def test_cnf_density_hands_its_cluster_to_the_kernel(recorded, context):
     sig = _build._SIGNATURES["cnf_fused"]
     assert len(args) == len(sig[first][0]) and len(sargs) == len(sig[second][0])
     assert args[-9] == 0 and args[-2] is not None and args[-1] == cnf_fused.TILE
+    assert sargs[-9] == 0 and sargs[-2] is not None and sargs[-1] == cnf_fused.TILE
     assert (args[2] is None) == (c is None)  # a per-row first bias
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "cnf_density": 1, "cnf_sample_log_prob": 1}
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "hutchinson"])
+@pytest.mark.parametrize("want", [False, True], ids=["sample", "log_prob"])
+def test_cnf_sampler_hands_its_cluster_to_the_kernel(recorded, exact, want):
+    """The sampler launches its cluster tier with the padded linears of
+    ``_padded_weights`` and the tile of ``TILE`` rows (the last two
+    arguments), the trace code of its mode (0 without log q, whatever the
+    flow's trace) and the probe only with Hutchinson's trace and log q;
+    counted under ``cnf_sample`` or ``cnf_sample_log_prob``."""
+    torch.manual_seed(0)
+    n = 300
+    flow = zt.CNF(6, 4, exact=exact, device="cpu")
+    c = torch.randn(n, 4)
+    t = flow.transform(c, generator=torch.Generator().manual_seed(0))
+    params, _, cfg = cnf_fused._flatten_cnf(flow, t, c)
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    z, eps = (torch.randn(n, 6).as_subclass(_OnCard) for _ in range(2))
+    with torch.no_grad():
+        cnf_fused.cnf_sample(z, eps, card, c.as_subclass(_OnCard), cfg, want)
+    [(name, args)] = recorded
+    assert name == "cnf_sample_f32"
+    assert len(args) == len(_build._SIGNATURES["cnf_fused"][name][0])
+    kp = cnf_fused._kernel_params(params[0::2], params[1::2], c, cfg)
+    padded = args[-2].value if hasattr(args[-2], "value") else args[-2]
+    assert padded is not None and args[-1] == cnf_fused.TILE and args[-9] == 0
+    assert args[14] == (cnf_fused._TRACE_CODE[exact] if want else 0)
+    assert (args[1] is not None) == (want and not exact)  # the probe
+    assert (args[4] is not None) == want  # log q
+    assert args[2] is not None  # the per-row first bias
+    plan = cnf_fused.plan_cnf(cnf_fused._widths(kp), cfg["nf"], n, exact=exact if want else None)
+    assert not plan.wide and plan.cluster * plan.block_rows == cnf_fused.TILE
+    counter = "cnf_sample_log_prob" if want else "cnf_sample"
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {counter: 1}

@@ -48,9 +48,9 @@ _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
 _NAF_FLOW = [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL, *_TIER, _I, _P]
 # (input, probe, per-row first bias, one or two outputs, weights, widths,
 # linears, frequencies and their count, atol, rtol, trace scale, max_steps,
-# trace mode, rows, the tier, stream)
-_CNF_FLOW = [_P, _P, _I, _I, _P, _F, _F, _F, _I, _I, _LL, *_TIER, _P]
-# the density: then its cluster tier's padded linears and tile rows
+# trace mode, rows, the tier, stream, then the cluster tier's padded
+# linears and tile rows)
+_CNF_FLOW = [_P, _P, _I, _I, _P, _F, _F, _F, _I, _I, _LL, *_TIER, _P, _P, _I]
 # (samples, their cotangent, log-q cotangent, probe, per-row first bias, u1,
 # a1, per-tile sums, per-row first bias's cotangent, weights, the padded
 # linears, widths, linears, frequencies and their count, atol, rtol,
@@ -75,7 +75,7 @@ _SIGNATURES = {
         "naf_sample_f32": ([_P, _P, _P, *_NAF_FLOW], _I),
     },
     "cnf_fused": {
-        "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW, _P, _I], _I),
+        "cnf_density_f32": ([_P, _P, _P, _P, *_CNF_FLOW], _I),
         "cnf_sample_f32": ([_P, _P, _P, _P, _P, *_CNF_FLOW], _I),
         "cnf_adjoint_f32": (_CNF_ADJOINT, _I),
     },

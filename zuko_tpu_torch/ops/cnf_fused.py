@@ -38,9 +38,9 @@ The plain versions (:func:`_cnf_tile_math`, :func:`_cnf_tile_sample_math`,
 
 Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. :func:`plan_cnf` and
-:func:`plan_cnf_adjoint` choose the kernels' tier from the flow's shape; the
-density's narrow tier and the adjoint's spread a tile over a cluster of
-blocks (:class:`DensityPlan`, :class:`AdjointPlan`).
+:func:`plan_cnf_adjoint` choose the kernels' tier from the flow's shape;
+each narrow tier spreads a tile over a cluster of blocks
+(:class:`ClusterPlan` for the density and the sampler, :class:`AdjointPlan`).
 ``LAUNCHES`` counts the launches under ``cnf_density``, ``cnf_sample``,
 ``cnf_sample_log_prob``, ``cnf_adjoint`` and ``cnf_adjoint_log_prob``, with
 ``_wide`` at the end for the wide tier. The density's backward is not a
@@ -68,10 +68,8 @@ from ._common import (
     LAUNCHES,
     SHARED_BYTES,
     WORKSPACE_BYTES,
-    KernelPlan,
     PlainBackward,
     check_cuda_f32,
-    narrow_plan,
     workspace,
 )
 from .nsf_fused import FusedStructureError, _require_standard_base
@@ -79,7 +77,7 @@ from .nsf_fused import FusedStructureError, _require_standard_base
 __all__ = [
     "TILE",
     "AdjointPlan",
-    "DensityPlan",
+    "ClusterPlan",
     "cnf_adjoint",
     "cnf_density",
     "cnf_sample",
@@ -91,12 +89,13 @@ __all__ = [
     "plan_cnf_adjoint",
 ]
 
-#: Rows of a tile: one CUDA block, one thread a row, one sequence of steps.
+#: Rows of a tile: one sequence of steps (a cluster of blocks in the narrow
+#: tier, one block of one thread a row in the wide tier).
 TILE = 256
 _LOG_2PI = math.log(2 * math.pi)
 # The narrow tier's limits (mirrored in csrc/cnf_fused.cu): features, hidden
-# widths, linears, frequencies, and the floats of the weights it stages in
-# shared memory. Beyond any of them the wide tier takes the flow.
+# widths, linears, frequencies, and the floats of the packed weights. Beyond
+# any of them, or where no cluster plan fits, the wide tier takes the flow.
 _MAX_FEATURES = 16
 _MAX_WIDTH = 128
 _MAX_LINEAR = 4
@@ -529,11 +528,13 @@ def _fits_narrow(widths, nf):
             and _weights(widths, nf) <= _MAX_SHARED_FLOATS)
 
 
-class DensityPlan(NamedTuple):
-    """How the density kernel (K10) takes a call, from the shapes alone: the
-    fields of :class:`~zuko_tpu_torch.ops._common.KernelPlan`, and for the
-    narrow tier the blocks of a tile's cluster, the rows of a block, the
-    exact trace's tangent columns a pass and the block's shared memory."""
+class ClusterPlan(NamedTuple):
+    """How the density (K10) and the sampler (K11) take a call, from the
+    shapes alone: the fields of
+    :class:`~zuko_tpu_torch.ops._common.KernelPlan`, and for the narrow tier
+    the blocks of a tile's cluster, the rows of a block, the exact trace's
+    tangent columns a pass (none without a trace) and the block's shared
+    memory."""
 
     wide: bool
     slots: int
@@ -546,27 +547,35 @@ class DensityPlan(NamedTuple):
     shared_bytes: int = 0
 
 
-#: Rows of a block of the density's narrow tier (``kDenRows``).
+#: Rows of a block of the cluster tier (``kDenRows``).
 _DEN_BLOCK_ROWS = 64
 
 
-def _density_tile(widths, exact):
+def _cluster_tile(widths, exact):
     """``(rows a block, tangent columns a pass, shared floats)`` of the
-    density's cluster tier (``density_plan`` in ``csrc/cnf_fused.cu``):
-    blocks of ``rb = min(TILE, 64)`` rows, or 32 where 64 do not fit. Shared
-    memory holds each linear's ``W^T [in][pad8(out)]``, the time-embedding
-    term and the block max, then ``[slot][row]`` columns: ``3 F + 1`` (x,
-    the stage inputs, the probe, l), ``7 (F + 1)`` stage slopes, ``pad8(widest
-    hidden)`` activations, ``sum(hidden)`` ELU derivatives, ``F`` trace terms
-    and ``pad8(widest hidden)`` tangent rows of ``nc rb`` columns, nc = F
-    (exact) or 1 (Hutchinson), fewer where 227 KB cannot hold them; ``None``
-    where nothing fits."""
+    cluster tier of K10 and K11 (``density_plan`` in ``csrc/cnf_fused.cu``)
+    under the trace ``exact`` (``True`` exact, ``False`` Hutchinson's,
+    ``None`` none: K11 without log q): blocks of ``rb = min(TILE, 64)``
+    rows, or 32 where 64 do not fit. Shared memory holds each linear's
+    ``W^T [in][pad8(out)]``, the time-embedding term and the block max,
+    then ``[slot][row]`` columns: with a trace ``3 F + 1`` (x, the stage
+    inputs, the probe, l), ``7 (F + 1)`` stage slopes, ``pad8(widest
+    hidden)`` activations, ``sum(hidden)`` ELU derivatives, ``F`` trace
+    terms and ``pad8(widest hidden)`` tangent rows of ``nc rb`` columns, nc
+    = F (exact) or 1 (Hutchinson), fewer where 227 KB cannot hold them;
+    without one ``2 F`` (x, the stage inputs), ``7 F`` stage slopes and the
+    activations alone. ``None`` where nothing fits."""
     F, hidden = widths[0], widths[1:-1]
     weights = sum(i * _pad8(o) for i, o in zip(widths[:-1], widths[1:]))
     hp = _pad8(max(hidden, default=0))
     for most in (_DEN_BLOCK_ROWS, _DEN_BLOCK_ROWS // 2):
         rb = min(TILE, most)
         if TILE % rb or rb & (rb - 1) or rb < 4 or TILE // rb > 8:
+            continue
+        if exact is None:
+            floats = weights + _pad8(widths[1]) + _RED + (2 * F + 7 * F + hp) * rb
+            if 4 * floats <= SHARED_BYTES:
+                return rb, 0, floats
             continue
         base = (weights + _pad8(widths[1]) + _RED
                 + (3 * F + 1 + 7 * (F + 1) + hp + sum(hidden) + F) * rb)
@@ -576,32 +585,28 @@ def _density_tile(widths, exact):
     return None
 
 
-def plan_cnf(widths, nf, rows, density=False, exact=True):
-    """The tier of the CNF kernels for a network of ``widths = [F, H1, ...,
-    F]`` under ``nf`` frequencies (what the wrappers launch, from the shapes
-    alone): the narrow tier within its limits (the weights staged in shared
-    memory, a row's state in per-thread arrays), else the wide tier with a
-    workspace of ``3 F + 7 (F + 1) + sum(hidden) + 4 max(hidden)`` floats a
-    row (the fields of ``Row`` in ``csrc/cnf_fused.cu``), in launches of whole
-    tiles, and a descriptor buffer of the widths, offsets and frequencies.
-
-    With ``density`` (K10, the ``exact`` trace or Hutchinson's), the narrow
-    tier is the cluster kernel: a :class:`DensityPlan` of ``TILE / rb``
-    blocks of ``rb`` rows a tile, the tangent columns and the shared memory
-    of :func:`_density_tile`; the wide tier where they do not fit."""
+def plan_cnf(widths, nf, rows, exact=True):
+    """The tier of the density (K10) and sampler (K11) kernels for a network
+    of ``widths = [F, H1, ..., F]`` under ``nf`` frequencies and the trace
+    the launch carries (``exact``: ``True`` the exact trace, ``False``
+    Hutchinson's, ``None`` none, the sampler without log q), from the shapes
+    alone: within the narrow limits the cluster tier, a
+    :class:`ClusterPlan` of ``TILE / rb`` blocks of ``rb`` rows a tile, the
+    tangent columns and the shared memory of :func:`_cluster_tile`; else, or
+    where no tile fits, the wide tier with a workspace of ``3 F + 7 (F + 1)
+    + sum(hidden) + 4 max(hidden)`` floats a row (the fields of ``Row`` in
+    ``csrc/cnf_fused.cu``), in launches of whole tiles, and a descriptor
+    buffer of the widths, offsets and frequencies."""
     F, hidden, n_lin = widths[0], widths[1:-1], len(widths) - 1
     if _fits_narrow(widths, nf):
-        if not density:
-            return narrow_plan(rows)
-        tile = _density_tile(widths, exact)
+        tile = _cluster_tile(widths, exact)
         if tile is not None:
             rb, nc, floats = tile
-            return DensityPlan(False, 0, rows, 0, 0, TILE // rb, rb, nc, 4 * floats)
+            return ClusterPlan(False, 0, rows, 0, 0, TILE // rb, rb, nc, 4 * floats)
     slots = 3 * F + 7 * (F + 1) + sum(hidden) + 4 * max(hidden, default=1)
     most = max(TILE, WORKSPACE_BYTES // (4 * slots) // TILE * TILE)
     chunk = min(most, max(TILE, -(-rows // TILE) * TILE))
-    plan = KernelPlan(True, slots, chunk, 4 * slots * chunk, 4 * (2 * n_lin + 1 + nf))
-    return DensityPlan(*plan[:5]) if density else plan
+    return ClusterPlan(True, slots, chunk, 4 * slots * chunk, 4 * (2 * n_lin + 1 + nf))
 
 
 class AdjointPlan(NamedTuple):
@@ -719,13 +724,11 @@ def _launch(fn, counter, x, eps, outs, params, cfg, trace):
         raise ValueError(f"{counter}: the Hutchinson trace needs a probe of shape (n, {F})")
     check_cuda_f32(counter, [x, *params] + ([eps] if trace is False else []))
     widths = _widths(params)
-    density = fn == "cnf_density_f32"
-    plan = plan_cnf(widths, cfg["nf"], n, density=density, exact=trace is not False)
+    plan = plan_cnf(widths, cfg["nf"], n, exact=trace)
     packed = torch.cat([p.detach().reshape(-1) for i, p in enumerate(params)
                         if not (i == 2 and row_bias)])
-    # the density's cluster tier: the padded linears and the tile
-    padded = _padded_weights([p.detach() for p in params]) if density and not plan.wide else None
-    tail = [None if padded is None else padded.data_ptr(), TILE] if density else []
+    # the cluster tier: the padded linears (the tile rows follow them)
+    padded = None if plan.wide else _padded_weights([p.detach() for p in params])
     bias = params[2].detach().contiguous() if row_bias else None
     eps = eps.contiguous() if trace is False else None
     c_widths = (ctypes.c_int * len(widths))(*widths)
@@ -742,7 +745,8 @@ def _launch(fn, counter, x, eps, outs, params, cfg, trace):
             int(plan.wide), None if work is None else work.data_ptr(),
             0 if work is None else work.numel(), plan.chunk_rows,
             None if desc is None else desc.data_ptr(), plan.desc_bytes,
-            torch.cuda.current_stream().cuda_stream, *tail,
+            torch.cuda.current_stream().cuda_stream,
+            None if padded is None else padded.data_ptr(), TILE,
         )
     check_launch(counter, lib, "cnf_fused", rc)
     LAUNCHES[counter + ("_wide" if plan.wide else "")] += 1

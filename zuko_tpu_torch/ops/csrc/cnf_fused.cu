@@ -20,10 +20,10 @@
 // columns are folded into the first bias, one vector or one per row
 // (zuko_tpu's _kernel_params :782 and _batched_aug :802).
 //
-// Step control is per tile, as on the TPU: one block is one tile of rows, one
-// thread a row (kTile = 256 on the card; the kernel takes its tile from
-// blockDim.x); the density's narrow tier spreads a tile over a cluster of
-// blocks (cnf_density_cluster, below). Every attempt the block max-reduces the row's error ratio,
+// Step control is per tile, as on the TPU: a tile of 256 rows (kTile; the
+// wide tier's kernel takes its tile from blockDim.x, one thread a row; the
+// narrow tier spreads a tile over a cluster of blocks, cnf_cluster below).
+// Every attempt the tile max-reduces the rows' error ratio,
 // max |err| / (atol + rtol max(|x|, |y|)) over x and l, NaN counting as
 // infinite (warp shuffles, then shared memory), so every thread takes the
 // same accept decision and the same next step 0.9 ratio^(-1/5) clipped to
@@ -48,11 +48,10 @@
 // each about 5K multiply-adds for the values and 25K for the 6 tangent
 // columns of the exact trace, against 28 bytes a row in and out.
 //
-// Design (simple and right first): the sampler's narrow tier stages the
-// weights in shared memory and keeps a row's state in per-thread arrays
-// (local memory); the density's is cnf_density_cluster;
-// its limits are kMaxF features, hidden widths of kMaxWidth, kMaxLinear
-// linears, kMaxFreqs frequencies and kMaxSharedFloats floats of weights. The
+// Design: the narrow tier of both is cnf_cluster, the rows' state and the
+// padded weights in shared memory; its limits are kMaxF features, hidden
+// widths of kMaxWidth, kMaxLinear linears, kMaxFreqs frequencies and
+// kMaxSharedFloats floats of weights, and a plan that fits 227 KB. The
 // wide tier takes any shape: a row's state in a workspace in device memory,
 // one column of `stride` rows per value (slot), the weights read through the
 // read-only data cache (__ldg; every thread of a warp reads the same address
@@ -83,8 +82,8 @@ constexpr int kMaxF = 16;                 // features
 constexpr int kMaxWidth = 128;            // hidden widths
 constexpr int kMaxLinear = 4;             // linears of the ODE network
 constexpr int kMaxFreqs = 16;             // time-embedding frequencies
-constexpr int kMaxSharedFloats = 32768;   // the weights staged in shared memory
-constexpr int kTile = 256;                // rows of a tile: one block
+constexpr int kMaxSharedFloats = 32768;   // the packed weights
+constexpr int kTile = 256;                // rows of a tile: one block of the wide tier
 constexpr int kRed = 32;                  // shared floats of the block's max
 
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
@@ -139,9 +138,6 @@ struct WideNet {
   int sum_hidden, max_hidden;
 };
 
-template <bool kWide>
-using NetOf = typename std::conditional<kWide, WideNet, Net>::type;
-
 // A slot column of the wide tier's workspace: one of a row's arrays, `stride`
 // floats between consecutive elements.
 struct Column {
@@ -152,25 +148,12 @@ struct Column {
   __device__ __forceinline__ Column at(int off) const { return {p + off * stride, stride}; }
 };
 
-template <bool kWide>
-using Vec = typename std::conditional<kWide, Column, float*>::type;
-
-// A row's state: x, the current stage's input xs, the probe e, the 7 stage
-// slopes of x and of l (F + 1 each), elu' of every hidden layer, and two
-// buffers each of the activations and of the tangent. Narrow: per-thread
-// arrays (local memory).
-template <bool kWide>
+// A row's state in the wide tier: x, the current stage's input xs, the probe
+// e, the 7 stage slopes of x and of l (F + 1 each), elu' of every hidden
+// layer, and two buffers each of the activations and of the tangent, as
+// columns of the workspace from column i on, in this order (the slots
+// mirrored in cnf_fused.py plan_cnf).
 struct Row {
-  float x[kMaxF], xs[kMaxF], e[kMaxF], k[7 * (kMaxF + 1)];
-  float d[(kMaxLinear - 1) * kMaxWidth];
-  float a0[kMaxWidth], a1[kMaxWidth], v0[kMaxWidth], v1[kMaxWidth];
-  __device__ __forceinline__ void init(const Net&, float*, long long, long long) {}
-};
-
-// Wide: the same fields as columns of the workspace, from column i on, in this
-// order (the slots mirrored in cnf_fused.py plan_cnf).
-template <>
-struct Row<true> {
   Column x, xs, e, k, d, a0, a1, v0, v1;
   __device__ __forceinline__ void init(const WideNet& s, float* work, long long stride,
                                        long long i) {
@@ -184,13 +167,6 @@ struct Row<true> {
     }
   }
 };
-
-// A weight: from shared memory (narrow) or through the read-only cache (wide).
-template <bool kWide>
-__device__ __forceinline__ float wt(const float* p) {
-  if (kWide) return __ldg(p);
-  return *p;
-}
 
 // The block's max of v; every thread gets it. Ends with a barrier, so `red`
 // may be written again at once.
@@ -208,7 +184,8 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 // out(o, init(o) + sum_j Wm[o, j] in[j]) for o < dout: eight outputs at a
 // time in registers, so that each in[j] is loaded once for eight of them (each
 // sum in the order of j, one fmaf a term, as one output at a time would be).
-template <bool kWide, class V, class Init, class Out>
+// The weights through the read-only cache.
+template <class V, class Init, class Out>
 __device__ __forceinline__ void matvec(const float* Wm, int din, int dout, const V& in, Init init,
                                        Out out) {
   for (int o0 = 0; o0 < dout; o0 += 8) {
@@ -219,7 +196,7 @@ __device__ __forceinline__ void matvec(const float* Wm, int din, int dout, const
       const float v = in[j];
 #pragma unroll
       for (int b = 0; b < 8; ++b)
-        if (o0 + b < dout) acc[b] = fmaf(wt<kWide>(Wm + (o0 + b) * din + j), v, acc[b]);
+        if (o0 + b < dout) acc[b] = fmaf(__ldg(Wm + (o0 + b) * din + j), v, acc[b]);
     }
 #pragma unroll
     for (int b = 0; b < 8; ++b)
@@ -231,43 +208,42 @@ __device__ __forceinline__ void matvec(const float* Wm, int din, int dout, const
 // slot `ks` of r.k: F values, then trace_scale times the trace (kTrace != kNone).
 // te holds the tile's time-embedding term (with the shared first bias);
 // brow is the row's first bias, or null.
-template <int kTrace, bool kWide, class N, class R>
-__device__ __forceinline__ void dynamics(const N& net, const float* W, const float* te,
-                                         const float* brow, R& r, int ks) {
+template <int kTrace>
+__device__ __forceinline__ void dynamics(const WideNet& net, const float* W, const float* te,
+                                         const float* brow, Row& r, int ks) {
   const int F = net.F, L = net.n_lin, H1 = net.w[1];
   const int kb = ks * (F + 1);
   const float* W1x = W + net.off[0];
   const auto zero = [](int) { return 0.0f; };
   // the first layer: the slopes themselves when it is the only one
-  Vec<kWide> cur = r.a0, nxt = r.a1;
-  matvec<kWide>(W1x, F, H1, r.xs,
-                [&](int o) { return brow != nullptr ? te[o] + __ldg(brow + o) : te[o]; },
-                [&](int o, float acc) {
-                  if (L == 1) {
-                    r.k[kb + o] = acc;
-                  } else {
-                    cur[o] = acc > 0.0f ? acc : expm1f(acc);
-                    r.d[o] = acc > 0.0f ? 1.0f : expf(acc);
-                  }
-                });
+  Column cur = r.a0, nxt = r.a1;
+  matvec(W1x, F, H1, r.xs,
+         [&](int o) { return brow != nullptr ? te[o] + __ldg(brow + o) : te[o]; },
+         [&](int o, float acc) {
+           if (L == 1) {
+             r.k[kb + o] = acc;
+           } else {
+             cur[o] = acc > 0.0f ? acc : expm1f(acc);
+             r.d[o] = acc > 0.0f ? 1.0f : expf(acc);
+           }
+         });
   int dofs = 0;  // where elu' of the current hidden layer starts in r.d
   for (int i = 1; i < L; ++i) {
     const int din = net.w[i], dout = net.w[i + 1];
     const float* Wi = W + net.off[i];
     const float* bi = Wi + dout * din;
     const bool last = i == L - 1;
-    matvec<kWide>(Wi, din, dout, cur, [&](int o) { return wt<kWide>(bi + o); },
-                  [&](int o, float acc) {
-                    if (last) {
-                      r.k[kb + o] = acc;
-                    } else {
-                      nxt[o] = acc > 0.0f ? acc : expm1f(acc);
-                      r.d[dofs + din + o] = acc > 0.0f ? 1.0f : expf(acc);
-                    }
-                  });
+    matvec(Wi, din, dout, cur, [&](int o) { return __ldg(bi + o); }, [&](int o, float acc) {
+      if (last) {
+        r.k[kb + o] = acc;
+      } else {
+        nxt[o] = acc > 0.0f ? acc : expm1f(acc);
+        r.d[dofs + din + o] = acc > 0.0f ? 1.0f : expf(acc);
+      }
+    });
     if (!last) {
       dofs += din;
-      const Vec<kWide> t = cur;
+      const Column t = cur;
       cur = nxt;
       nxt = t;
     }
@@ -279,10 +255,10 @@ __device__ __forceinline__ void dynamics(const N& net, const float* W, const flo
   if (L == 1) {
     for (int j = 0; j < F; ++j) {
       if (kTrace == kExact) {
-        tr += wt<kWide>(W1x + j * F + j);
+        tr += __ldg(W1x + j * F + j);
       } else {
         float acc = 0.0f;
-        for (int q = 0; q < F; ++q) acc = fmaf(wt<kWide>(W1x + j * F + q), r.e[q], acc);
+        for (int q = 0; q < F; ++q) acc = fmaf(__ldg(W1x + j * F + q), r.e[q], acc);
         tr = fmaf(r.e[j], acc, tr);
       }
     }
@@ -290,28 +266,28 @@ __device__ __forceinline__ void dynamics(const N& net, const float* W, const flo
     const int passes = kTrace == kExact ? F : 1;
     for (int j = 0; j < passes; ++j) {
       // v = elu'(h1) * W1_x[:, j] (exact) or elu'(h1) * (W1_x e)
-      Vec<kWide> vc = r.v0, vn = r.v1;
+      Column vc = r.v0, vn = r.v1;
       if (kTrace == kExact) {
-        for (int o = 0; o < H1; ++o) vc[o] = r.d[o] * wt<kWide>(W1x + o * F + j);
+        for (int o = 0; o < H1; ++o) vc[o] = r.d[o] * __ldg(W1x + o * F + j);
       } else {
-        matvec<kWide>(W1x, F, H1, r.e, zero, [&](int o, float u) { vc[o] = r.d[o] * u; });
+        matvec(W1x, F, H1, r.e, zero, [&](int o, float u) { vc[o] = r.d[o] * u; });
       }
       int dv = 0;
       for (int i = 1; i < L - 1; ++i) {
         const int din = net.w[i], dout = net.w[i + 1];
         dv += din;
-        matvec<kWide>(W + net.off[i], din, dout, vc, zero,
-                      [&](int o, float acc) { vn[o] = r.d[dv + o] * acc; });
-        const Vec<kWide> t = vc;
+        matvec(W + net.off[i], din, dout, vc, zero,
+               [&](int o, float acc) { vn[o] = r.d[dv + o] * acc; });
+        const Column t = vc;
         vc = vn;
         vn = t;
       }
       if (kTrace == kExact) {  // row j of the last layer only
         float acc = 0.0f;
-        for (int q = 0; q < dl; ++q) acc = fmaf(wt<kWide>(WL + j * dl + q), vc[q], acc);
+        for (int q = 0; q < dl; ++q) acc = fmaf(__ldg(WL + j * dl + q), vc[q], acc);
         tr += acc;
       } else {
-        matvec<kWide>(WL, dl, F, vc, zero, [&](int o, float acc) { tr = fmaf(r.e[o], acc, tr); });
+        matvec(WL, dl, F, vc, zero, [&](int o, float acc) { tr = fmaf(r.e[o], acc, tr); });
       }
     }
   }
@@ -319,20 +295,20 @@ __device__ __forceinline__ void dynamics(const N& net, const float* W, const flo
 }
 
 // The tile's time-embedding term at time tt (and the shared first bias),
-// computed by the whole block into te. Starts with a barrier: the previous
-// stage's readers are done.
-template <bool kWide, class N>
+// computed by the whole block into te; the weights through the read-only
+// cache. Starts with a barrier: the previous stage's readers are done.
+template <class N>
 __device__ __forceinline__ void time_embedding(const N& net, const float* W, float tt,
                                                bool row_bias, float* te) {
   __syncthreads();
   const int H1 = net.w[1], nf = net.nf;
   const float* Wte = W + net.off_te;
   for (int o = threadIdx.x; o < H1; o += blockDim.x) {
-    float acc = row_bias ? 0.0f : wt<kWide>(W + net.off_b1 + o);
+    float acc = row_bias ? 0.0f : __ldg(W + net.off_b1 + o);
     for (int q = 0; q < nf; ++q) {
       const float ft = net.freqs[q] * tt;
-      acc = fmaf(wt<kWide>(Wte + o * 2 * nf + q), cosf(ft), acc);
-      acc = fmaf(wt<kWide>(Wte + o * 2 * nf + nf + q), sinf(ft), acc);
+      acc = fmaf(__ldg(Wte + o * 2 * nf + q), cosf(ft), acc);
+      acc = fmaf(__ldg(Wte + o * 2 * nf + nf + q), sinf(ft), acc);
     }
     te[o] = acc;
   }
@@ -340,20 +316,22 @@ __device__ __forceinline__ void time_embedding(const N& net, const float* W, flo
 }
 
 // The fifth-order solution of element f (f = F: l) of the current step.
-template <class R>
-__device__ __forceinline__ float fifth(const R& r, int F, int f, float x0, float dt) {
+__device__ __forceinline__ float fifth(const Row& r, int F, int f, float x0, float dt) {
   float y = x0;
   for (int i = 0; i < 7; ++i)
     if (kDpB5[i] != 0.0f) y = fmaf(dt * kDpB5[i], r.k[i * (F + 1) + f], y);
   return y;
 }
 
-template <int kTrace, bool kReverse, bool kRowBias, bool kWide>
+// The wide tier of K10 (kReverse false) and K11 (kReverse true): one block a
+// tile, one thread a row, the row's state in workspace columns. The narrow
+// tier of both is cnf_cluster (below).
+template <int kTrace, bool kReverse, bool kRowBias>
 __global__ void __launch_bounds__(kTile)
     cnf_kernel(const float* __restrict__ in, const float* __restrict__ eps,
                const float* __restrict__ bias_rows, float* __restrict__ out_x,
                float* __restrict__ out_lp, const float* __restrict__ packed,
-               const __grid_constant__ NetOf<kWide> net, float* work, long long stride,
+               const __grid_constant__ WideNet net, float* work, long long stride,
                long long row0, long long row_end) {
   extern __shared__ float smem[];
   const int F = net.F, H1 = net.w[1];
@@ -364,15 +342,9 @@ __global__ void __launch_bounds__(kTile)
   float* te = smem;
   float* red = smem + H1;
   const float* W = packed;
-  if (!kWide) {  // stage the weights
-    float* sw = smem + H1 + kRed;
-    for (int q = threadIdx.x; q < net.total; q += tile) sw[q] = packed[q];
-    W = sw;
-    __syncthreads();
-  }
   // the launch covers whole tiles of a chunk of `stride` rows (a multiple of
   // the tile), so every thread has a workspace row of its own
-  Row<kWide> r;
+  Row r;
   r.init(net, work, stride, i);
   const float* brow = kRowBias && valid ? bias_rows + row * H1 : nullptr;
   float base = 0.0f;  // -|z|^2 / 2 of the sampler's input
@@ -394,8 +366,8 @@ __global__ void __launch_bounds__(kTile)
         r.xs[f] = v;
       }
       const float st = t + kDpC[s] * dt;
-      time_embedding<kWide>(net, W, kReverse ? 1.0f - st : st, kRowBias, te);
-      dynamics<kTrace, kWide>(net, W, te, brow, r, s);
+      time_embedding(net, W, kReverse ? 1.0f - st : st, kRowBias, te);
+      dynamics<kTrace>(net, W, te, brow, r, s);
       if (kReverse)
         for (int f = 0; f <= (kTrace == kNone ? F - 1 : F); ++f)
           r.k[s * (F + 1) + f] = -r.k[s * (F + 1) + f];
@@ -522,7 +494,7 @@ __device__ __forceinline__ int max_width(const N& net) {
 
 // out(q, sum_o Wm[o, q] in[o]) for q < din: the transposed product, eight
 // outputs at a time.
-template <bool kWide, class V, class Out>
+template <class V, class Out>
 __device__ __forceinline__ void matvec_t(const float* Wm, int din, int dout, const V& in, Out out) {
   for (int q0 = 0; q0 < din; q0 += 8) {
     float acc[8];
@@ -532,7 +504,7 @@ __device__ __forceinline__ void matvec_t(const float* Wm, int din, int dout, con
       const float v = in[o];
 #pragma unroll
       for (int b = 0; b < 8; ++b)
-        if (q0 + b < din) acc[b] = fmaf(wt<kWide>(Wm + o * din + q0 + b), v, acc[b]);
+        if (q0 + b < din) acc[b] = fmaf(__ldg(Wm + o * din + q0 + b), v, acc[b]);
     }
 #pragma unroll
     for (int b = 0; b < 8; ++b)
@@ -581,7 +553,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
   const float* W1x = W + net.off[0];
   const auto zero = [](int) { return 0.0f; };
   // forward: z and d of the hidden layers, then f
-  matvec<true>(W1x, F, H1, r.us,
+  matvec(W1x, F, H1, r.us,
                 [&](int o) { return brow != nullptr ? te[o] + __ldg(brow + o) : te[o]; },
                 [&](int o, float acc) {
                   if (L == 1) {
@@ -597,7 +569,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
     const float* Wi = W + net.off[i];
     const float* bi = Wi + dout * din;
     const bool last = i == L - 1;
-    matvec<true>(Wi, din, dout, r.z.at(hoff), [&](int o) { return wt<true>(bi + o); },
+    matvec(Wi, din, dout, r.z.at(hoff), [&](int o) { return __ldg(bi + o); },
                   [&](int o, float acc) {
                     if (last) {
                       r.ku[s * F + o] = acc;
@@ -617,14 +589,14 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
       const int pair = 1 + j;
       if (L > 1) {
         if (kTrace == kExact) {
-          for (int o = 0; o < H1; ++o) r.v[o] = wt<true>(W1x + o * F + j);
+          for (int o = 0; o < H1; ++o) r.v[o] = __ldg(W1x + o * F + j);
         } else {
-          matvec<true>(W1x, F, H1, r.e, zero, [&](int o, float acc) { r.v[o] = acc; });
+          matvec(W1x, F, H1, r.e, zero, [&](int o, float acc) { r.v[o] = acc; });
         }
         int vo = 0;
         for (int i = 1; i < L - 1; ++i) {
           const int din = net.w[i], dout = net.w[i + 1];
-          matvec<true>(W + net.off[i], din, dout, Product{r.d.at(vo), r.v.at(vo)}, zero,
+          matvec(W + net.off[i], din, dout, Product{r.d.at(vo), r.v.at(vo)}, zero,
                         [&](int o, float acc) { r.v[vo + din + o] = acc; });
           vo += din;
         }
@@ -639,7 +611,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
         float* right = fac.right(net, li, pair, row);
         for (int o = 0; o < dout; ++o) left[o] = cur[o];
         for (int q = 0; q < din; ++q) right[q] = r.d[lo + q] * r.v[lo + q];
-        matvec_t<true>(W + net.off[li], din, dout, cur, [&](int q, float w) {
+        matvec_t(W + net.off[li], din, dout, cur, [&](int q, float w) {
           const float dq = r.d[lo + q];
           r.ht[lo + q] = fmaf(r.z[lo + q] > 0.0f ? 0.0f : dq * r.v[lo + q], w, r.ht[lo + q]);
           nxt[q] = dq * w;
@@ -667,7 +639,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
     float* right = fac.right(net, li, 0, row);
     for (int o = 0; o < dout; ++o) left[o] = cur[o];
     for (int q = 0; q < din; ++q) right[q] = r.z[lo + q];
-    matvec_t<true>(W + net.off[li], din, dout, cur, [&](int q, float w) {
+    matvec_t(W + net.off[li], din, dout, cur, [&](int q, float w) {
       const float hq = r.d[lo + q] * w;
       nxt[q] = kTrace != kNone ? hq + r.ht[lo + q] : hq;
     });
@@ -680,7 +652,7 @@ __device__ __forceinline__ void adjoint_row(const N& net, const float* W, const 
   float* right = fac.right(net, 0, 0, row);
   for (int o = 0; o < H1; ++o) left[o] = cur[o];
   for (int q = 0; q < F; ++q) right[q] = r.us[q];
-  matvec_t<true>(W1x, F, H1, cur, [&](int q, float w) { r.ka[s * F + q] = -w; });
+  matvec_t(W1x, F, H1, cur, [&](int q, float w) { r.ka[s * F + q] = -w; });
   if (kRowBias)
     for (int o = 0; o < H1; ++o) {
       r.incb[o] = fmaf(cb5, -cur[o], r.incb[o]);
@@ -809,7 +781,7 @@ __global__ void __launch_bounds__(kTile)
       }
       const float st = t + kDpC[s] * dt;
       const float cb5 = dt * kDpB5[s], ce = dt * kDpE[s];
-      time_embedding<true>(net, W, st, kRowBias, te);
+      time_embedding(net, W, st, kRowBias, te);
       adjoint_row<kTrace, kRowBias>(net, W, te, brow, lbar, r, s, fac, tid, sh, cb5, ce);
       __syncthreads();
       if (kDpB5[s] != 0.0f || kDpE[s] != 0.0f)
@@ -1352,7 +1324,7 @@ __global__ void __launch_bounds__(kAdjRows * kQuad)
         as[f] = va;
       }
       const float st = t + kDpC[s] * dt;
-      time_embedding<true>(net, packed, st, kRowBias, te);  // and the block's barrier
+      time_embedding(net, packed, st, kRowBias, te);  // and the block's barrier
       adjoint_tile_stage<kTrace, kRowBias>(net, W, packed, te, brow, lbar, blk, hs, ku, ka, incb,
                                            errb, s, kDpB5[s] != 0.0f || kDpE[s] != 0.0f, inc,
                                            err, dt * kDpB5[s], dt * kDpE[s], st);
@@ -1436,17 +1408,18 @@ __global__ void __launch_bounds__(kAdjRows * kQuad)
 }
 
 // ------------------------------------------------------------------------
-// The narrow tier of cnf_density (K10): cnf_density_cluster, a tile over a
-// cluster of blocks, as K12's cnf_adjoint_cluster.
+// The narrow tier of cnf_density (K10) and cnf_sample (K11): cnf_cluster, a
+// tile over a cluster of blocks, as K12's cnf_adjoint_cluster.
 //
-// The same function as cnf_kernel<trace, false, row bias, kWide> (the same
-// tile of rows, stages, error ratio, step rule and NaN-poisoning); only the
-// order of float32 sums could change, and it does not: every sum keeps the
+// The same function as cnf_kernel<trace, reverse, row bias> (the same tile
+// of rows, stages, error ratio, step rule and NaN-poisoning); only the order
+// of float32 sums could change, and it does not: every sum keeps the
 // one-thread-a-row order. What held the per-thread design back (a row's
 // 1,060 floats in local memory, one shared-memory load a multiply-add, the
-// exact trace's chain repeated F times a row) it does so:
+// exact trace's chain repeated F times a row, and for K11 at (l)'s 16,384
+// rows 64 blocks on 132 SMs) it does so:
 // - a tile of `tile` rows (256) is a cluster of cl blocks of rb = 64 rows,
-//   256 threads a block; the tile's step decision is the max of the
+//   384 threads a block; the tile's step decision is the max of the
 //   blocks' ratios through distributed shared memory and a cluster barrier;
 // - the rows' state are columns [slot][row] of the block's shared memory:
 //   x, the stage inputs, the probe, the 7 stage slopes of x and l, the
@@ -1462,7 +1435,12 @@ __global__ void __launch_bounds__(kAdjRows * kQuad)
 //   products as extra columns, nc = F of them a pass where shared memory
 //   holds them (the flagship) and fewer a pass, down to one, where it does
 //   not (density_plan); only row j of the last layer is taken for column j;
-//   Hutchinson's trace takes the probe as one column.
+//   Hutchinson's trace takes the probe as one column;
+// - the sampler (kReverse) takes the time embedding at 1 - t and stores
+//   each slope negated, as the wide tier negates it after the stage;
+//   without a trace (kNone, K11 without log q) it keeps no probe, l, ELU
+//   derivatives, trace terms or tangents: its error ratio is over x alone,
+//   and its block of about 50 KB runs two to an SM.
 
 constexpr int kDenRows = 64;      // rows of a block
 constexpr int kDenThreads = 384;  // threads of a block
@@ -1591,30 +1569,45 @@ __device__ __forceinline__ void tangent_out(float* v, const float* d, const floa
 }
 
 // One evaluation of the dynamics for the block's rows at their stage inputs
-// xs, into slope slot s: F values, then trace_scale times the trace. W the
-// padded weights in shared memory, packed the biases (read-only cache), te
-// the tile's time-embedding term, brows the block's first per-row biases
-// (or null).
-template <int kTrace, bool kRowBias>
+// xs, into slope slot s: F values, then (kTrace != kNone) trace_scale times
+// the trace; each negated for the sampler (kReverse). W the padded weights in
+// shared memory, packed the biases (read-only cache), te the tile's
+// time-embedding term, brows the block's first per-row biases (or null).
+template <int kTrace, bool kReverse, bool kRowBias>
 __device__ __forceinline__ void den_stage(const Net& net, const float* W,
                                           const float* __restrict__ packed, const DenTile& tl,
                                           float* sm, const float* brows, int rows, int s) {
   const int F = net.F, L = net.n_lin, H1 = net.w[1], rb = tl.rb, tid = threadIdx.x;
+  const int ne = kTrace == kNone ? F : F + 1;  // the slopes of x, then of l
+  const float sign = kReverse ? -1.0f : 1.0f;
   const float* te = sm + tl.te;
   float* act = sm + tl.act;
   float* d = sm + tl.d;
-  float* k = sm + tl.k + s * (F + 1) * rb;  // slot s: [F + 1][rb]
+  float* k = sm + tl.k + s * ne * rb;  // slot s: [ne][rb]
   const float* WT0 = W + padded_at(net, 0);
   // rows past n (c >= rows) have no first bias of their own
   const auto first = [&](int o, int c) {
     return kRowBias && c < rows ? te[o] + __ldg(brows + (long long)c * H1 + o) : te[o];
   };
+  // a hidden layer's post: the ELU into act, and elu' into d where a trace
+  // needs it
+  const auto hidden = [&](float* a_out, float* d_out, const float* a) {
+    if constexpr (kTrace == kNone) {
+      float z[2];
+      for (int i = 0; i < 2; ++i) z[i] = a[i] > 0.0f ? a[i] : expm1f(a[i]);
+      vstore<2>(a_out, z);
+    } else {
+      elu_out<2>(a_out, d_out, a);
+    }
+  };
   if (L == 1) {
-    den_product<2>(sm + tl.xs, F, rb, WT0, F, rb, first,
-                   [&](int o, int c, const float* a) { vstore<2>(k + o * rb + c, a); });
+    den_product<2>(sm + tl.xs, F, rb, WT0, F, rb, first, [&](int o, int c, const float* a) {
+      const float v[2] = {sign * a[0], sign * a[1]};
+      vstore<2>(k + o * rb + c, v);
+    });
   } else {
     den_product<2>(sm + tl.xs, F, rb, WT0, H1, rb, first, [&](int o, int c, const float* a) {
-      elu_out<2>(act + o * rb + c, d + o * rb + c, a);
+      hidden(act + o * rb + c, d + o * rb + c, a);
     });
   }
   int dofs = 0;  // where elu' of the current hidden layer starts in d
@@ -1625,95 +1618,102 @@ __device__ __forceinline__ void den_stage(const Net& net, const float* W,
     const auto bias = [&](int o, int) { return __ldg(bi + o); };
     if (i == L - 1) {
       den_product<1>(act, din, rb, WTi, dout, rb, bias,
-                     [&](int o, int c, const float* a) { k[o * rb + c] = a[0]; });
+                     [&](int o, int c, const float* a) { k[o * rb + c] = sign * a[0]; });
     } else {
       const int at = dofs + din;
       den_product<2>(act, din, rb, WTi, dout, rb, bias, [&](int o, int c, const float* a) {
-        elu_out<2>(act + o * rb + c, d + (at + o) * rb + c, a);
+        hidden(act + o * rb + c, d + (at + o) * rb + c, a);
       });
       dofs += din;
     }
   }
-  const float* e = sm + tl.e;
-  float* tj = sm + tl.tj;
-  if (L == 1) {
+  if constexpr (kTrace == kNone) {
+    return;  // den_product ends synchronised
+  } else {
+    const float* e = sm + tl.e;
+    float* tj = sm + tl.tj;
+    if (L == 1) {
+      if (tid < rb) {
+        float tr = 0.0f;
+        const int dp = pad8(F);
+        for (int j = 0; j < F; ++j) {
+          if (kTrace == kExact) {
+            tr += WT0[j * dp + j];
+          } else {
+            float acc = 0.0f;
+            for (int q = 0; q < F; ++q) acc = fmaf(WT0[q * dp + j], e[q * rb + tid], acc);
+            tr = fmaf(e[j * rb + tid], acc, tr);
+          }
+        }
+        k[F * rb + tid] = sign * (tr * net.scale);
+      }
+      __syncthreads();
+      return;
+    }
+    float* v = sm + tl.v;
+    const int dl = net.w[L - 1], dpl = pad8(F), dp1 = pad8(H1);
+    const float* WTL = W + den_at(net, L - 1);
+    const int cols = kTrace == kExact ? tl.nc : 1, ldv = cols * rb;
+    for (int j0 = 0; j0 < (kTrace == kExact ? F : 1); j0 += cols) {
+      const int nc = kTrace == kExact ? min(cols, F - j0) : 1, nv = nc * rb;
+      // v = elu'(h1) o W1_x[:, j] (exact) or elu'(h1) o (W1_x e)
+      if (kTrace == kExact) {
+        const int r = tid & (rb - 1);
+        for (int jj = 0; jj < nc; ++jj)
+          for (int o = tid >> tl.lr; o < H1; o += kDenThreads >> tl.lr)
+            v[o * ldv + jj * rb + r] = d[o * rb + r] * WT0[(j0 + jj) * dp1 + o];
+        __syncthreads();
+      } else {
+        den_product<4>(e, F, rb, WT0, H1, rb, [](int, int) { return 0.0f; },
+                       [&](int o, int c, const float* u) {
+                         tangent_out<4>(v + o * ldv + c, d + o * rb + c, u);
+                       });
+      }
+      int dv = 0;
+      for (int i = 1; i < L - 1; ++i) {
+        const int din = net.w[i], dout = net.w[i + 1];
+        dv += din;
+        den_product<4>(v, din, ldv, W + den_at(net, i), dout, nv, [](int, int) { return 0.0f; },
+                       [&](int o, int c, const float* a) {
+                         tangent_out<4>(v + o * ldv + c, d + (dv + o) * rb + (c & (rb - 1)), a);
+                       });
+      }
+      // exact: row j of the last layer for column j; Hutchinson: every row
+      const int outs = kTrace == kExact ? nv : F * rb;
+      for (int q = tid; q < outs; q += kDenThreads) {
+        const int r = q & (rb - 1), j = (kTrace == kExact ? j0 : 0) + (q >> tl.lr);
+        const int c = kTrace == kExact ? q : r;
+        float acc = 0.0f;
+        for (int p = 0; p < dl; ++p) acc = fmaf(WTL[p * dpl + j], v[p * ldv + c], acc);
+        tj[j * rb + r] = acc;
+      }
+      __syncthreads();
+    }
     if (tid < rb) {
       float tr = 0.0f;
-      const int dp = pad8(F);
       for (int j = 0; j < F; ++j) {
         if (kTrace == kExact) {
-          tr += WT0[j * dp + j];
+          tr += tj[j * rb + tid];
         } else {
-          float acc = 0.0f;
-          for (int q = 0; q < F; ++q) acc = fmaf(WT0[q * dp + j], e[q * rb + tid], acc);
-          tr = fmaf(e[j * rb + tid], acc, tr);
+          tr = fmaf(e[j * rb + tid], tj[j * rb + tid], tr);
         }
       }
-      k[F * rb + tid] = tr * net.scale;
-    }
-    __syncthreads();
-    return;
-  }
-  float* v = sm + tl.v;
-  const int dl = net.w[L - 1], dpl = pad8(F), dp1 = pad8(H1);
-  const float* WTL = W + den_at(net, L - 1);
-  const int cols = kTrace == kExact ? tl.nc : 1, ldv = cols * rb;
-  for (int j0 = 0; j0 < (kTrace == kExact ? F : 1); j0 += cols) {
-    const int nc = kTrace == kExact ? min(cols, F - j0) : 1, nv = nc * rb;
-    // v = elu'(h1) o W1_x[:, j] (exact) or elu'(h1) o (W1_x e)
-    if (kTrace == kExact) {
-      const int r = tid & (rb - 1);
-      for (int jj = 0; jj < nc; ++jj)
-        for (int o = tid >> tl.lr; o < H1; o += kDenThreads >> tl.lr)
-          v[o * ldv + jj * rb + r] = d[o * rb + r] * WT0[(j0 + jj) * dp1 + o];
-      __syncthreads();
-    } else {
-      den_product<4>(e, F, rb, WT0, H1, rb, [](int, int) { return 0.0f; },
-                     [&](int o, int c, const float* u) {
-                       tangent_out<4>(v + o * ldv + c, d + o * rb + c, u);
-                     });
-    }
-    int dv = 0;
-    for (int i = 1; i < L - 1; ++i) {
-      const int din = net.w[i], dout = net.w[i + 1];
-      dv += din;
-      den_product<4>(v, din, ldv, W + den_at(net, i), dout, nv, [](int, int) { return 0.0f; },
-                     [&](int o, int c, const float* a) {
-                       tangent_out<4>(v + o * ldv + c, d + (dv + o) * rb + (c & (rb - 1)), a);
-                     });
-    }
-    // exact: row j of the last layer for column j; Hutchinson: every row
-    const int outs = kTrace == kExact ? nv : F * rb;
-    for (int q = tid; q < outs; q += kDenThreads) {
-      const int r = q & (rb - 1), j = (kTrace == kExact ? j0 : 0) + (q >> tl.lr);
-      const int c = kTrace == kExact ? q : r;
-      float acc = 0.0f;
-      for (int p = 0; p < dl; ++p) acc = fmaf(WTL[p * dpl + j], v[p * ldv + c], acc);
-      tj[j * rb + r] = acc;
+      k[F * rb + tid] = sign * (tr * net.scale);
     }
     __syncthreads();
   }
-  if (tid < rb) {
-    float tr = 0.0f;
-    for (int j = 0; j < F; ++j) {
-      if (kTrace == kExact) {
-        tr += tj[j * rb + tid];
-      } else {
-        tr = fmaf(e[j * rb + tid], tj[j * rb + tid], tr);
-      }
-    }
-    k[F * rb + tid] = tr * net.scale;
-  }
-  __syncthreads();
 }
 
-template <int kTrace, bool kRowBias>
-__global__ void __launch_bounds__(kDenThreads, 1)
-    cnf_density_cluster(const float* __restrict__ xin, const float* __restrict__ eps,
-                        const float* __restrict__ bias_rows, float* __restrict__ out_lp,
-                        const float* __restrict__ packed, const float* __restrict__ padded,
-                        const __grid_constant__ Net net, const __grid_constant__ DenTile tl,
-                        long long n) {
+// K10 (kReverse false: out_lp the log-densities of xin) and K11 (kReverse
+// true: out_x the samples of the base draws xin, and with a trace out_lp
+// their log q) over tiles of tl.cl blocks of tl.rb rows.
+template <int kTrace, bool kReverse, bool kRowBias>
+__global__ void __launch_bounds__(kDenThreads, kTrace == kNone ? 2 : 1)
+    cnf_cluster(const float* __restrict__ xin, const float* __restrict__ eps,
+                const float* __restrict__ bias_rows, float* __restrict__ out_x,
+                float* __restrict__ out_lp, const float* __restrict__ packed,
+                const float* __restrict__ padded, const __grid_constant__ Net net,
+                const __grid_constant__ DenTile tl, long long n) {
   extern __shared__ __align__(16) float sm[];
   const int F = net.F, H1 = net.w[1], rb = tl.rb, cl = tl.cl, tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * rb;  // the block's first row
@@ -1729,7 +1729,7 @@ __global__ void __launch_bounds__(kDenThreads, 1)
   float* red = sm + tl.red;
   float* x = sm + tl.x;
   float* xs = sm + tl.xs;
-  float* lrow = sm + tl.l;
+  float* lrow = sm + tl.l;  // l: none without a trace
   const float* k = sm + tl.k;
   const float* brows = kRowBias ? bias_rows + row0 * H1 : nullptr;
   const int rows = n - row0 < rb ? (int)(n - row0) : rb;  // of this block, below n
@@ -1740,9 +1740,10 @@ __global__ void __launch_bounds__(kDenThreads, 1)
     x[q] = valid ? xin[(row0 + r) * F + f] : 0.0f;
     if (kTrace == kHutchinson) sm[tl.e + q] = valid ? eps[(row0 + r) * F + f] : 0.0f;
   }
-  for (int r = tid; r < rb; r += kDenThreads) lrow[r] = 0.0f;
+  if (kTrace != kNone)
+    for (int r = tid; r < rb; r += kDenThreads) lrow[r] = 0.0f;
   __syncthreads();
-  const int ne = F + 1;  // x and l: K10 always carries a trace
+  const int ne = kTrace == kNone ? F : F + 1;  // x, and l with a trace
   float t = 0.0f, dt = 1.0f;
   for (int attempt = 0; t < 1.0f && attempt < net.max_attempts; ++attempt) {
     dt = fminf(dt, 1.0f - t);
@@ -1755,8 +1756,9 @@ __global__ void __launch_bounds__(kDenThreads, 1)
         xs[q] = v;
       }
       const float st = t + kDpC[s] * dt;
-      time_embedding<true>(net, packed, st, kRowBias, te);  // and the block's barriers
-      den_stage<kTrace, kRowBias>(net, sm, packed, tl, sm, brows, rows, s);
+      // and the block's barriers
+      time_embedding(net, packed, kReverse ? 1.0f - st : st, kRowBias, te);
+      den_stage<kTrace, kReverse, kRowBias>(net, sm, packed, tl, sm, brows, rows, s);
     }
     // the rows' error ratios, then the tile's
     float ratio = 0.0f;
@@ -1796,15 +1798,29 @@ __global__ void __launch_bounds__(kDenThreads, 1)
     cluster_sync(cl);  // every rank has read its peers' max; x and l are whole
     dt *= fminf(fmaxf(0.9f * powf(fmaxf(ratio, FLT_MIN), -0.2f), 0.1f), 10.0f);
   }
-  if (tid >= rb || row0 + tid >= n) return;
   const bool exhausted = t < 1.0f - 64.0f * FLT_EPSILON;
-  float sq = 0.0f;
-  for (int f = 0; f < F; ++f) {
-    const float v = exhausted ? NAN : x[f * rb + tid];
-    sq = fmaf(v, v, sq);
-  }
+  if (kReverse)
+    for (int q = tid; q < F * rb; q += kDenThreads) {
+      const int f = q >> lr, r = q & (rb - 1);
+      if (row0 + r < n) out_x[(row0 + r) * F + f] = exhausted ? NAN : x[q];
+    }
+  if (kTrace == kNone || tid >= rb || row0 + tid >= n) return;
   const float l = exhausted ? NAN : lrow[tid];
-  out_lp[row0 + tid] = -0.5f * sq - F * kHalfLog2Pi + l / net.scale;
+  if (kReverse) {  // log q: the base's log-density at the draw, less l / s
+    float base = 0.0f;
+    for (int f = 0; f < F; ++f) {
+      const float v = xin[(row0 + tid) * F + f];
+      base = fmaf(-0.5f * v, v, base);
+    }
+    out_lp[row0 + tid] = base - F * kHalfLog2Pi - l / net.scale;
+  } else {
+    float sq = 0.0f;
+    for (int f = 0; f < F; ++f) {
+      const float v = exhausted ? NAN : x[f * rb + tid];
+      sq = fmaf(v, v, sq);
+    }
+    out_lp[row0 + tid] = -0.5f * sq - F * kHalfLog2Pi + l / net.scale;
+  }
 }
 
 // The network as the host describes it: the widths, the offsets of the
@@ -1917,37 +1933,39 @@ struct Launch {
   void* desc;
   long long desc_bytes;
   cudaStream_t stream;
-  const float* padded;  // the density's narrow tier: the padded linears (_padded_weights)
+  const float* padded;  // the narrow tier: the padded linears (_padded_weights)
   int tile;             // and its tile rows
 };
 
-// The rows in chunks of `stride`, one launch each, a block a tile.
-template <int kTrace, bool kReverse, bool kRowBias, bool kWide>
-int launch(const Launch& l, const NetOf<kWide>& s, long long stride, size_t smem) {
-  auto kernel = cnf_kernel<kTrace, kReverse, kRowBias, kWide>;
+// The wide tier: the rows in chunks of `stride`, one launch each, a block a
+// tile.
+template <int kTrace, bool kReverse, bool kRowBias>
+int launch(const Launch& l, const WideNet& s, size_t smem) {
+  auto kernel = cnf_kernel<kTrace, kReverse, kRowBias>;
   if (smem > 48 * 1024) {
     const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem);
     if (rc != cudaSuccess) return rc;
   }
-  for (long long row0 = 0; row0 < l.n; row0 += stride) {
-    const long long row_end = row0 + stride < l.n ? row0 + stride : l.n;
+  for (long long row0 = 0; row0 < l.n; row0 += l.stride) {
+    const long long row_end = row0 + l.stride < l.n ? row0 + l.stride : l.n;
     const unsigned blocks = (unsigned)((row_end - row0 + kTile - 1) / kTile);
     kernel<<<blocks, kTile, smem, l.stream>>>(l.in, l.eps, l.bias, l.out_x, l.out_lp, l.packed,
-                                              s, l.work, stride, row0, row_end);
+                                              s, l.work, l.stride, row0, row_end);
     const int rc = cudaGetLastError();
     if (rc != cudaSuccess) return rc;
   }
   return cudaSuccess;
 }
 
-// The narrow tier of cnf_density for tiles of `tile` rows (cl = 0: no plan):
-// a cluster of tile / rb blocks of rb = min(tile, 64) rows, or of 32 where
-// 64 do not fit; shared memory holds the linears W^T [in][pad8(out)] one
-// after another, the time-embedding term and the block max, then
-// [slot][row] columns: x, the stage inputs and the probe (F each), l (1),
-// the stage slopes (7 (F + 1)), the hidden activations (pad8(widest
-// hidden)), the ELU derivatives (sum of the hidden widths), the trace's
+// The narrow tier of cnf_density and cnf_sample for tiles of `tile` rows
+// (cl = 0: no plan): a cluster of tile / rb blocks of rb = min(tile, 64)
+// rows, or of 32 where 64 do not fit; shared memory holds the linears W^T
+// [in][pad8(out)] one after another, the time-embedding term and the block
+// max, then [slot][row] columns: x and the stage inputs (F each), and with
+// a trace the probe (F) and l (1), the stage slopes (7 (F + 1) with a
+// trace, 7 F without), the hidden activations (pad8(widest hidden)), and
+// with a trace the ELU derivatives (sum of the hidden widths), the trace's
 // terms (F) and the tangents, pad8(widest hidden) rows of nc rb columns:
 // nc = F (exact) or 1 (Hutchinson), fewer where 227 KB cannot hold them.
 DenTile density_plan(const Desc& d, int tile, int trace) {
@@ -1957,6 +1975,7 @@ DenTile density_plan(const Desc& d, int tile, int trace) {
     if (i > 0) hidden = d.w[i] > hidden ? d.w[i] : hidden;
   }
   hidden = pad8(hidden);
+  const bool tr = trace != kNone;
   for (int rb = kDenRows; rb >= kDenRows / 2; rb /= 2) {
     DenTile t{};
     t.rb = tile < rb ? tile : rb;
@@ -1970,14 +1989,15 @@ DenTile density_plan(const Desc& d, int tile, int trace) {
     t.red = at, at += kRed;
     t.x = at, at += F * t.rb;
     t.xs = at, at += F * t.rb;
-    t.e = at, at += F * t.rb;
-    t.l = at, at += t.rb;
-    t.k = at, at += 7 * (F + 1) * t.rb;
+    t.e = at, at += tr ? F * t.rb : 0;
+    t.l = at, at += tr ? t.rb : 0;
+    t.k = at, at += 7 * (tr ? F + 1 : F) * t.rb;
     t.act = at, at += hidden * t.rb;
-    t.d = at, at += d.sum_hidden * t.rb;
-    t.tj = at, at += F * t.rb;
+    t.d = at, at += tr ? d.sum_hidden * t.rb : 0;
+    t.tj = at, at += tr ? F * t.rb : 0;
     t.v = at;
-    for (int nc = trace == kExact ? F : 1; nc >= 1; --nc) {
+    // no tangents without a trace
+    for (int nc = tr ? (trace == kExact ? F : 1) : 0; nc >= (tr ? 1 : 0); --nc) {
       if (4LL * (at + (long long)hidden * nc * t.rb) <= kMaxShared) {
         t.nc = nc;
         t.smem_floats = at + hidden * nc * t.rb;
@@ -1989,10 +2009,11 @@ DenTile density_plan(const Desc& d, int tile, int trace) {
   return DenTile{};
 }
 
-// The rows in one launch: a cluster of t.cl blocks of t.rb rows a tile.
-template <int kTrace, bool kRowBias>
-int launch_density(const Launch& l, const Net& s, const DenTile& t, int tile) {
-  auto kernel = cnf_density_cluster<kTrace, kRowBias>;
+// The narrow tier: the rows in one launch, a cluster of t.cl blocks of t.rb
+// rows a tile.
+template <int kTrace, bool kReverse, bool kRowBias>
+int launch_cluster_tiles(const Launch& l, const Net& s, const DenTile& t) {
+  auto kernel = cnf_cluster<kTrace, kReverse, kRowBias>;
   const size_t smem = 4 * (size_t)t.smem_floats;
   if (smem > 48 * 1024) {
     const int rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2000,7 +2021,7 @@ int launch_density(const Launch& l, const Net& s, const DenTile& t, int tile) {
     if (rc != cudaSuccess) return rc;
   }
   if (l.n == 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((l.n + tile - 1) / tile * t.cl);
+  const unsigned blocks = (unsigned)((l.n + l.tile - 1) / l.tile * t.cl);
 #ifdef __CUDACC__
   if (t.cl > 1) {
     cudaLaunchConfig_t cfg = {};
@@ -2015,14 +2036,14 @@ int launch_density(const Launch& l, const Net& s, const DenTile& t, int tile) {
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const int rc = cudaLaunchKernelEx(&cfg, kernel, l.in, l.eps, l.bias, l.out_lp, l.packed,
-                                      l.padded, s, t, l.n);
+    const int rc = cudaLaunchKernelEx(&cfg, kernel, l.in, l.eps, l.bias, l.out_x, l.out_lp,
+                                      l.packed, l.padded, s, t, l.n);
     if (rc != cudaSuccess) return rc;
   } else
 #endif
   {
-    kernel<<<blocks, kDenThreads, smem, l.stream>>>(l.in, l.eps, l.bias, l.out_lp, l.packed,
-                                                    l.padded, s, t, l.n);
+    kernel<<<blocks, kDenThreads, smem, l.stream>>>(l.in, l.eps, l.bias, l.out_x, l.out_lp,
+                                                    l.packed, l.padded, s, t, l.n);
   }
   return cudaGetLastError();
 }
@@ -2030,20 +2051,13 @@ int launch_density(const Launch& l, const Net& s, const DenTile& t, int tile) {
 template <int kTrace, bool kReverse>
 int run_mode(const Launch& l, const Desc& d) {
   const bool row_bias = l.bias != nullptr;
-  const size_t te = (size_t)(d.w[1] + kRed) * sizeof(float);
-  if (!l.wide) {
+  if (!l.wide) {  // cnf_cluster
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
     const Net s = narrow_net(d);
-    if constexpr (!kReverse) {  // the density's narrow tier: cnf_density_cluster
-      const DenTile t = density_plan(d, l.tile, kTrace);
-      if (t.cl == 0 || l.padded == nullptr) return cudaErrorInvalidValue;
-      return row_bias ? launch_density<kTrace, true>(l, s, t, l.tile)
-                      : launch_density<kTrace, false>(l, s, t, l.tile);
-    } else {
-      const size_t smem = te + (size_t)d.total * sizeof(float);
-      return row_bias ? launch<kTrace, kReverse, true, false>(l, s, l.n, smem)
-                      : launch<kTrace, kReverse, false, false>(l, s, l.n, smem);
-    }
+    const DenTile t = density_plan(d, l.tile, kTrace);
+    if (t.cl == 0 || l.padded == nullptr) return cudaErrorInvalidValue;
+    return row_bias ? launch_cluster_tiles<kTrace, kReverse, true>(l, s, t)
+                    : launch_cluster_tiles<kTrace, kReverse, false>(l, s, t);
   }
   const long long slots = 3LL * d.F + 7LL * (d.F + 1) + d.sum_hidden + 4LL * d.max_hidden;
   if (l.work == nullptr || l.stride < kTile || l.stride % kTile != 0 ||
@@ -2052,8 +2066,9 @@ int run_mode(const Launch& l, const Desc& d) {
   WideNet s;
   const int rc = wide_net(d, l.desc, l.desc_bytes, l.stream, &s);
   if (rc != cudaSuccess) return rc;
-  return row_bias ? launch<kTrace, kReverse, true, true>(l, s, l.stride, te)
-                  : launch<kTrace, kReverse, false, true>(l, s, l.stride, te);
+  const size_t te = (size_t)(d.w[1] + kRed) * sizeof(float);
+  return row_bias ? launch<kTrace, kReverse, true>(l, s, te)
+                  : launch<kTrace, kReverse, false>(l, s, te);
 }
 
 // What an adjoint launch needs: the inputs (samples, their cotangent, the
@@ -2232,20 +2247,22 @@ extern "C" int cnf_density_f32(const float* x, const float* eps, const float* bi
 
 // xout (n, F): the base draws z (n, F) integrated from t = 1 to 0; with trace
 // 1 (exact) or 2 (Hutchinson, probe eps) also logq (n,) = log q(xout), with
-// trace 0 (logq null) x alone. The other arguments as cnf_density_f32's.
+// trace 0 (logq null) x alone. The other arguments as cnf_density_f32's,
+// the narrow tier's padded linears and tile rows too.
 extern "C" int cnf_sample_f32(const float* z, const float* eps, const float* bias, float* xout,
                               float* logq, const float* packed, const int* widths, int n_lin,
                               int nf, const float* freqs, float atol, float rtol, float scale,
                               int max_steps, int trace, long long n, int wide, float* work,
                               long long work_floats, long long stride, void* desc,
-                              long long desc_bytes, void* stream) {
+                              long long desc_bytes, void* stream, const float* padded,
+                              int tile) {
   Desc d;
   int rc = describe(&d, widths, n_lin, nf, freqs, atol, rtol, scale, max_steps, bias != nullptr);
   if (rc != cudaSuccess) return rc;
   if (n < 0 || (trace == kHutchinson && eps == nullptr) || ((trace == kNone) != (logq == nullptr)))
     return cudaErrorInvalidValue;
   const Launch l{z, eps, bias, xout, logq, packed, n, wide, work, work_floats, stride,
-                 desc, desc_bytes, (cudaStream_t)stream, nullptr, 0};
+                 desc, desc_bytes, (cudaStream_t)stream, padded, tile};
   if (trace == kNone) return run_mode<kNone, true>(l, d);
   if (trace == kExact) return run_mode<kExact, true>(l, d);
   if (trace == kHutchinson) return run_mode<kHutchinson, true>(l, d);

@@ -47,9 +47,13 @@
 // (zuko_tpu_torch/ops/nsf_fused.py plan_nsf). The narrow tier (kWide false)
 // is the design above, within its limits: widths of kMaxWidth, kMaxBins
 // bins, kMaxLinear linears, kMaxLayers layers, and one layer's weights in a
-// block's shared memory (227 KB on an H100); but the closed-form family's
-// sampler (affine and RQS, all three modes) is the tiled nsf_sample_tiled
-// (below), within the same limits where its tile fits. The wide tier takes any shape:
+// block's shared memory (227 KB on an H100); but the sampler of the
+// closed-form family (affine and RQS) and of a Bernstein polynomial of at
+// most kPolyRegs coefficients, all three modes, is the tiled
+// nsf_sample_tiled (below), within the same limits where its tile fits
+// (a Bernstein polynomial of more coefficients samples through the
+// per-thread nsf_sample_kernel, as the sum of squares does). The wide tier
+// takes any shape:
 // the weights are read through the read-only data cache (__ldg), one address
 // per warp at a time, as the NAF kernels read theirs; a row's activations,
 // raw parameters and knots live in a workspace in device memory, one column
@@ -106,6 +110,7 @@ constexpr int kMaxWidth = 256;  // widest hyper layer, F + C inputs included
 constexpr int kMaxBins = 32;
 constexpr int kMaxT = 3 * kMaxBins - 1;  // a feature's raw parameters
 constexpr int kMaxTheta = 64;            // Bernstein coefficients, M + 5
+constexpr int kPolyRegs = 24;            // and in the tiled sampler's registers
 constexpr int kMaxNodes = 32;            // Gauss-Legendre nodes, L + 1
 constexpr int kMaxLinear = 8;
 constexpr int kMaxLayers = 64;
@@ -698,11 +703,13 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
 }
 
 // ------------------------------------------------------------------------
-// The narrow tier of the closed-form sampler (affine and RQS, all three
-// modes): nsf_sample_tiled, a block a tile of R rows (128, or 64 or 32 where
-// a flow's tile passes 227 KB at 128) for the whole inversion.
+// The narrow tier of the closed-form sampler (affine and RQS) and of the
+// Bernstein polynomial's (all three modes): nsf_sample_tiled, a block a tile
+// of R rows (128, or 64 or 32 where a flow's tile passes 227 KB at 128; the
+// Bernstein sampler 64 or 32 rows, two blocks an SM, where they fit) for the
+// whole inversion.
 //
-// The same function as nsf_sample_kernel<kWide = true, mode, kClosed>, with
+// The same function as nsf_sample_kernel<kWide = true, mode, family>, with
 // every float32 sum in the same order: the layers in reverse, the softclip's
 // inverse, min(passes, F) Jacobi sweeps a layer, the log-q (or raw) forward
 // pass at the solved point. What held the per-thread design back (one thread
@@ -725,6 +732,12 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
 //   parameters are normalised in place in its column of the outputs, and
 //   the knots are streamed in registers (the bin is the last knot below the
 //   value, the cumulative sums those of rqs_knots), so no knot array exists;
+// - the Bernstein polynomial's solve and forward log-Jacobian run one
+//   thread a pair too: the pair's coefficients, their steps and De
+//   Casteljau's scratch live in registers (bernstein_registers, up to
+//   kPolyRegs coefficients), every lerp, bisection and Newton step in the
+//   wide tier's order; what held the per-thread kernel back there was
+//   De Casteljau reading two local-memory floats and writing one a lerp;
 // - thread r < R owns row r's running sum (base, softclips, the layers'
 //   log-Jacobians, in the wide tier's order) and its softclip inverse.
 // The masked products are dense (the masks' zeros are multiplied as in the
@@ -876,8 +889,138 @@ __device__ __forceinline__ float spline_streamed(float v, const Strided& p, cons
   return rqs::forward_in_bin(v, x0, x1, y0, y1, d0, d1, ladj);
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kSampleThreads, 1)
+// The Bernstein polynomial of one (row, feature) pair in registers, for
+// N = M + 5 <= kN coefficients: bernstein_coefficients' theta and steps,
+// then poly_eval's and poly_inverse's arithmetic on them, every lerp of De
+// Casteljau's in its order (the loops unrolled to kN, the levels past N
+// skipped), so that no array is indexed at run time.
+
+// theta (N) and order * the steps (N - 1) into th and st, from the pair's M
+// raw parameters p (overwritten by their exponentials).
+template <int kN>
+__device__ __forceinline__ void bernstein_registers(const Strided& p, const Shape& s,
+                                                    float (&th)[kN], float (&st)[kN]) {
+  const int M = s.K;
+  const float B = s.bound, d = (2.0f * B) / (M + 4), scale = 2.0f * B - 4.0f * d;
+  const float order = (float)(M + 4);
+  float mx = -INFINITY;
+  for (int j = 0; j < M; ++j) mx = fmaxf(mx, p[j]);
+  float sum = 0.0f;
+  for (int j = 0; j < M; ++j) {
+    p[j] = expf(p[j] - mx);
+    sum += p[j];
+  }
+  const float inv = 1.0f / sum;
+  th[0] = -B;
+  th[1] = -B + d;
+  th[2] = -B + 2.0f * d;
+  st[0] = order * d;
+  st[1] = order * d;
+  st[kN - 1] = 0.0f;
+  float run = 0.0f;
+#pragma unroll
+  for (int i = 3; i < kN; ++i) {
+    const int j = i - 3;
+    if (j < M) {
+      const float sm = p[j] * inv;
+      run += sm;
+      th[i] = (-B + 2.0f * d) + scale * run;
+      st[i - 1] = order * scale * sm;
+    } else if (i == M + 3) {
+      th[i] = B - d;
+      st[i - 1] = order * d;
+    } else if (i == M + 4) {
+      th[i] = B;
+      st[i - 1] = order * d;
+    } else {
+      th[i] = 0.0f;
+      st[i - 1] = 0.0f;
+    }
+  }
+}
+
+// De Casteljau: the Bezier sum of c[0 .. m) at u (decasteljau's lerps).
+template <int kN>
+__device__ __forceinline__ float casteljau(const float (&c)[kN], int m, float u) {
+  float sc[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) sc[i] = c[i];
+#pragma unroll
+  for (int k = kN - 1; k > 0; --k) {
+    if (k < m) {
+#pragma unroll
+      for (int i = 0; i < kN - 1; ++i)
+        if (i < k) sc[i] = fmaf(u, sc[i + 1] - sc[i], sc[i]);
+    }
+  }
+  return sc[0];
+}
+
+// poly_eval of the Bernstein univariate at x: the value and, with kGrad,
+// dy/dx in *dydx.
+template <bool kGrad, int kN>
+__device__ __forceinline__ float bernstein_eval(const float (&th)[kN], const float (&st)[kN],
+                                                const Shape& s, float x, float* dydx) {
+  const float B = s.bound, u = (x + B) / (2.0f * B);
+  if (u <= kBernsteinEps) {
+    if (kGrad) *dydx = 1.0f;
+    return 2.0f * B * (u - kBernsteinEps) - B;
+  }
+  if (u >= 1.0f - kBernsteinEps) {
+    if (kGrad) *dydx = 1.0f;
+    return 2.0f * B * (u - 1.0f + kBernsteinEps) + B;
+  }
+  const int N = s.K + 5;
+  if (kGrad) *dydx = casteljau(st, N - 1, u) / (2.0f * B);
+  return casteljau(th, N, u);
+}
+
+// poly_inverse: the root of bernstein_eval(x) = y, x0 the previous sweep's
+// root (sweep > 0).
+template <int kN>
+__device__ __forceinline__ float bernstein_inverse(const float (&th)[kN], const float (&st)[kN],
+                                                   const Shape& s, float y, float x0,
+                                                   int sweep) {
+  const float B = s.bound;
+  float lo = -B, hi = B;
+  int iters = s.n_cold;
+  if (sweep > 0) {
+    const float lo0 = fminf(fmaxf(x0 - kWarmR, -B), B), hi0 = fminf(fmaxf(x0 + kWarmR, -B), B);
+    if (bernstein_eval<false>(th, st, s, lo0, nullptr) < y &&
+        y < bernstein_eval<false>(th, st, s, hi0, nullptr)) {
+      lo = lo0;
+      hi = hi0;
+    }
+    iters = s.n_warm;
+  }
+  for (int it = 0; it < iters; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    if (bernstein_eval<false>(th, st, s, mid, nullptr) < y) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  float x = 0.5f * (lo + hi);
+  for (int it = 0; it < kNewton; ++it) {
+    float g;
+    const float v = bernstein_eval<true>(th, st, s, x, &g);
+    x = fminf(fmaxf(x - (v - y) / g, -B), B);
+  }
+  float g;
+  const float f_hi = bernstein_eval<true>(th, st, s, B, &g);
+  if (y > f_hi) x = B + (y - f_hi) / g;
+  const float f_lo = bernstein_eval<true>(th, st, s, -B, &g);
+  if (y < f_lo) x = -B + (y - f_lo) / g;
+  return x;
+}
+
+// kPoly 0: the closed-form univariates (affine, RQS); kPoly > 0: the
+// Bernstein polynomial of at most kPoly = kPolyRegs coefficients
+// (bernstein_registers), whose solve wants the warps of two blocks an SM
+// (the planner's tile of 64 rows for it; at most 128 registers a thread).
+template <int kMode, int kPoly>
+__global__ void __launch_bounds__(kSampleThreads, kPoly > 0 ? 2 : 1)
     nsf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
                      float* __restrict__ logq, const float* __restrict__ tiled,
                      const __grid_constant__ Shape s, const __grid_constant__ SampleTile tl,
@@ -928,8 +1071,14 @@ __global__ void __launch_bounds__(kSampleThreads, 1)
       for (int e = tid; e < F * R; e += kSampleThreads) {
         const int f = e >> lr, r = e & (R - 1);
         const Strided p{P + f * T * R + r, R};
-        xc[e] = s.univ == kAffine ? (y[e] - p[0]) / expf(affine_log_scale(p, s.log_s))
-                                  : spline_streamed<true>(y[e], p, s, nullptr);
+        if constexpr (kPoly > 0) {
+          float th[kPoly], st[kPoly];
+          bernstein_registers(p, s, th, st);
+          xc[e] = bernstein_inverse(th, st, s, y[e], xc[e], sweep);
+        } else {
+          xc[e] = s.univ == kAffine ? (y[e] - p[0]) / expf(affine_log_scale(p, s.log_s))
+                                    : spline_streamed<true>(y[e], p, s, nullptr);
+        }
       }
       __syncthreads();
     }
@@ -939,7 +1088,12 @@ __global__ void __launch_bounds__(kSampleThreads, 1)
         const int f = e >> lr, r = e & (R - 1);
         const Strided p{P + f * T * R + r, R};
         float ladj;
-        if (s.univ == kAffine) {
+        if constexpr (kPoly > 0) {
+          float th[kPoly], st[kPoly], g;
+          bernstein_registers(p, s, th, st);
+          bernstein_eval<true>(th, st, s, xc[e], &g);
+          ladj = logf(g);
+        } else if (s.univ == kAffine) {
           ladj = affine_log_scale(p, s.log_s);
         } else {
           spline_streamed<false>(xc[e], p, s, &ladj);
@@ -1084,7 +1238,7 @@ struct Launch {
   void* desc;
   long long desc_bytes;
   cudaStream_t stream;
-  const float* tiled;  // the closed-form sampler's staged weights (_tiled_weights)
+  const float* tiled;  // the tiled sampler's staged weights (_tiled_weights)
   int tile;            // and its tile rows
 };
 
@@ -1105,7 +1259,8 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, s
       case kDensity: args(nsf_density_kernel<kWide, false, kFam>); break;
       case kApply: args(nsf_density_kernel<kWide, true, kFam>); break;
       default:
-        // the closed-form family's narrow sampler is nsf_sample_tiled
+        // the closed-form family's narrow sampler is nsf_sample_tiled, and
+        // the Bernstein polynomial's where its coefficients fit (sample_tiled)
         if constexpr (kWide || kFam != kClosed) {
           if (op == kSample) {
             args(nsf_sample_kernel<kWide, kNoLadj, kFam>);
@@ -1154,7 +1309,7 @@ int run_narrow(int op, const Launch& l, const Desc& d) {
   return launch<false, kFam>(op, l, s, l.n > 0 ? l.n : 1, smem);
 }
 
-// The closed-form sampler's tile of R rows (SampleTile; R = 0: no plan).
+// The tiled sampler's tile of R rows (SampleTile; R = 0: no plan).
 SampleTile tile_plan(const Desc& d, int R) {
   SampleTile t{};
   if (R != 32 && R != 64 && R != 128) return t;
@@ -1174,7 +1329,14 @@ SampleTile tile_plan(const Desc& d, int R) {
   return t;
 }
 
-// The closed-form family's narrow sampler: a block a tile of l.tile rows.
+// Whether the sampler's narrow tier is nsf_sample_tiled: the closed-form
+// family, and the Bernstein polynomial of at most kPolyRegs coefficients
+// (mirrored in ops/nsf_fused.py plan_nsf).
+bool sample_tiled(const Desc& d) {
+  return family_of(d.univ) == kClosed || (d.univ == kBernstein && d.K + 5 <= kPolyRegs);
+}
+
+// The tiled narrow sampler: a block a tile of l.tile rows.
 int run_tiled(int op, const Launch& l, const Desc& d) {
   const SampleTile t = tile_plan(d, l.tile);
   const size_t smem = 4 * (size_t)t.floats;
@@ -1188,9 +1350,14 @@ int run_tiled(int op, const Launch& l, const Desc& d) {
     kernel<<<blocks, kSampleThreads, smem, l.stream>>>(l.in, l.out0, l.out1, l.tiled, s, t, l.n);
     return (int)cudaGetLastError();
   };
-  if (op == kSample) return go(nsf_sample_tiled<kNoLadj>);
-  if (op == kSampleLogQ) return go(nsf_sample_tiled<kLogQ>);
-  return go(nsf_sample_tiled<kRawLadj>);
+  if (d.univ == kBernstein) {
+    if (op == kSample) return go(nsf_sample_tiled<kNoLadj, kPolyRegs>);
+    if (op == kSampleLogQ) return go(nsf_sample_tiled<kLogQ, kPolyRegs>);
+    return go(nsf_sample_tiled<kRawLadj, kPolyRegs>);
+  }
+  if (op == kSample) return go(nsf_sample_tiled<kNoLadj, 0>);
+  if (op == kSampleLogQ) return go(nsf_sample_tiled<kLogQ, 0>);
+  return go(nsf_sample_tiled<kRawLadj, 0>);
 }
 
 int run(int op, const Launch& l, const Desc& d) {
@@ -1198,7 +1365,7 @@ int run(int op, const Launch& l, const Desc& d) {
   const int fam = family_of(d.univ);
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
-    if (fam == kClosed && op >= kSample) return run_tiled(op, l, d);
+    if (op >= kSample && sample_tiled(d)) return run_tiled(op, l, d);
     if (fam == kCircular) return run_narrow<kCircular>(op, l, d);
     return fam == kPolynomial ? run_narrow<kPolynomial>(op, l, d) : run_narrow<kClosed>(op, l, d);
   }
@@ -1283,10 +1450,10 @@ extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, NSF_FLOW) {
 }
 
 // x (n, F) = T^-1(z) of zc = [z, c]; logq may be null: the solve alone. The
-// closed-form univariates' narrow tier (wide 0, affine or RQS) takes `tiled`,
-// each layer's linears as W^T [in][pad8(out)] then the bias padded to
-// pad8(out), zero-filled, and its tile of `tile` rows (32, 64 or 128); the
-// other samplers ignore both.
+// tiled narrow tier (wide 0: affine, RQS, or Bernstein of at most kPolyRegs
+// coefficients) takes `tiled`, each layer's linears as W^T [in][pad8(out)]
+// then the bias padded to pad8(out), zero-filled, and its tile of `tile`
+// rows (32, 64 or 128); the other samplers ignore both.
 extern "C" int nsf_sample_f32(const float* zc, float* x, float* logq, NSF_FLOW,
                               const float* tiled, int tile) {
   return entry(logq != nullptr ? kSampleLogQ : kSample, zc, x, logq, NSF_ARGS, tiled, tile);

@@ -22,9 +22,10 @@ Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. :func:`plan_nsf` chooses
 the kernels' tier from the flow's shape: the narrow tier within its limits,
 the wide tier (weights through the read-only cache, a row's state in a
-workspace in device memory) beyond them. The closed-form sampler's narrow
-tier (affine and RQS) is tiled: a block a tile of rows, planned with
-:class:`SamplePlan`. ``LAUNCHES`` counts the kernel
+workspace in device memory) beyond them. The sampler's narrow tier for
+the closed-form univariates (affine and RQS) and for Bernstein polynomials
+of at most :data:`_POLY_REGS` coefficients is tiled: a block a tile of
+rows, planned with :class:`SamplePlan`. ``LAUNCHES`` counts the kernel
 launches, one per call that reaches a kernel, the wide tier's under
 ``<name>_wide``.
 
@@ -113,6 +114,8 @@ _MAX_WIDTH = 256
 _MAX_BINS = 32
 _MAX_T = 3 * _MAX_BINS - 1
 _MAX_THETA = 64
+# the tiled sampler's Bernstein coefficients, held in registers (kPolyRegs)
+_POLY_REGS = 24
 _MAX_NODES = 32
 _MAX_LINEAR = 8
 _MAX_LAYERS = 64
@@ -675,13 +678,17 @@ def _pad8(v):
     return -(-v // 8) * 8
 
 
-#: The tiles of the closed-form sampler's narrow tier, in rows, largest
-#: first (``nsf_sample_tiled``, a block of 256 threads a tile).
+#: The tiles of the tiled sampler, in rows, largest first
+#: (``nsf_sample_tiled``, a block of 256 threads a tile).
 _SAMPLE_TILES = (128, 64, 32)
+# a block's shared memory where two blocks share an SM: the 233,472 bytes
+# of an sm_90 SM, the only target the kernels are built for, less 1 KB a
+# block reserved (the per-block limit is queried, nsf_max_shared_bytes)
+_TWO_A_SM = (233472 - 2 * 1024) // 2
 
 
 class SamplePlan(NamedTuple):
-    """The closed-form sampler's tiled narrow tier: the fields of
+    """The sampler's tiled narrow tier: the fields of
     :class:`~zuko_tpu_torch.ops._common.KernelPlan`, then the rows of its
     tile and the block's shared memory."""
 
@@ -694,8 +701,16 @@ class SamplePlan(NamedTuple):
     shared_bytes: int
 
 
+def _sample_tiled(univ, K):
+    """Whether the sampler's narrow tier is the tiled kernel: the
+    closed-form univariates, and Bernstein polynomials of at most
+    :data:`_POLY_REGS` coefficients ``M + 5`` (``sample_tiled`` in
+    ``csrc/nsf_fused.cu``)."""
+    return univ in ("affine", "rqs") or (univ == "bernstein" and K + 5 <= _POLY_REGS)
+
+
 def _sample_tile_floats(widths, T, R):
-    """Floats of shared memory of the closed-form sampler's tile of ``R``
+    """Floats of shared memory of the tiled sampler's tile of ``R``
     rows (``tile_plan`` in ``csrc/nsf_fused.cu``): one layer's linears as
     ``W^T [in][pad8(out)]`` and a bias of ``pad8(out)``, the iterate and
     context ``[F + C][R]``, the targets ``[F][R]``, two hidden buffers of
@@ -708,10 +723,19 @@ def _sample_tile_floats(widths, T, R):
 
 
 def sample_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
-    """Rows of the closed-form sampler's tile: the largest of
+    """Rows of the tiled sampler's tile: the largest of
     :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
-    where none does."""
+    where none does. A Bernstein polynomial's solve wants the warps of two
+    blocks an SM: its tile is the largest of 64 and 32 rows of which two
+    blocks share an SM's 233,472 bytes (1 KB a block reserved), where one
+    does."""
     T = _univ_size(univ, K)
+    if univ == "bernstein":
+        two = next((R for R in _SAMPLE_TILES[1:]
+                    if 4 * _sample_tile_floats(widths, T, R) <= min(smem_limit, _TWO_A_SM)),
+                   None)
+        if two is not None:
+            return two
     return next((R for R in _SAMPLE_TILES
                  if 4 * _sample_tile_floats(widths, T, R) <= smem_limit), None)
 
@@ -725,17 +749,18 @@ def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
     in ``csrc/nsf_fused.cu``), and a descriptor buffer of the widths, the
     passes, the softclip bounds and the Gauss-Legendre nodes and weights.
 
-    With ``sample``, the closed-form univariates (affine, RQS) plan the
+    With ``sample``, the univariates of :func:`_sample_tiled` plan the
     tiled sampler instead of the one-layer limit: within the same limits,
     a :class:`SamplePlan` of :func:`sample_tile_rows` rows and its shared
-    memory, else the wide tier."""
+    memory, else the wide tier; a Bernstein polynomial of more
+    coefficients plans as the sum of squares does."""
     n_lin = len(widths) - 1
     F = widths[-1] // _univ_size(univ, K)
     w_max = max(widths[:-1])
     layer_floats = sum(o * (i + 1) for i, o in zip(widths[:-1], widths[1:]))
     within = (n_lin <= _MAX_LINEAR and n_ar <= _MAX_LAYERS and w_max <= _MAX_WIDTH
               and F <= _MAX_WIDTH and _fits_arrays(univ, K))
-    if sample and univ in ("affine", "rqs"):
+    if sample and _sample_tiled(univ, K):
         R = sample_tile_rows(widths, K, univ, smem_limit) if within else None
         if R is not None:
             T = _univ_size(univ, K)
@@ -827,7 +852,7 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, bas
     plan = plan_nsf(widths, K, univ, len(passes), xc.shape[0],
                     lib.nsf_max_shared_bytes(xc.device.index), sample=sample)
     work, desc = workspace(plan, xc.device)
-    # the closed-form sampler's tiled tier: its staged weights and tile rows
+    # the tiled sampler: its staged weights and tile rows
     tile = getattr(plan, "tile_rows", 0)
     tiled = _tiled_weights(params, layout) if tile else None
     tail = [None if tiled is None else tiled.data_ptr(), tile] if sample else []

@@ -9,8 +9,10 @@ unpacked into a directory ``.gitignore`` lists) as the argument::
 It builds the kernels of each tree with that tree's own ``ops/_build.py``
 (all trees at once) into that tree's ``build/``, prints each tree's ptxas
 report of the NSF and CNF kernels (registers, spills, stack frame and
-shared memory of each entry point), then, in a process of its own for each
-tree, in
+shared memory of each entry point) and whether the SASS of each NSF
+sampler (``nsf_sample_tiled``, ``nsf_sample_kernel``) that two trees both
+build is each tree's as the first tree's, instruction for instruction
+(``cuobjdump -sass``), then, in a process of its own for each tree, in
 the order given and back (parent, change, change, parent), times with
 ``chip_smoke.time_ms`` (the median after a warm-up), one JSON line a
 process:
@@ -18,10 +20,12 @@ process:
 * the flagship NSF's ``nsf_density``, ``nsf_apply`` and ``nsf_sample``
   (without log q, with it, raw) at 1M and 262,144 rows, and a seeded
   MAF(6)'s ``nsf_sample`` in the three modes at 1M rows, 5 runs;
-* the NCSF, SOSPF and BPF flagships' ``nsf_sample`` with log q (the
-  ``crqs``, ``sosp`` and ``bernstein`` modes of K3) at 262,144, 65,536 and
-  65,536 rows, SOSPF's also at 262,144, and BPF's in the three modes
-  (without log q, with it, raw) at 262,144 and 16,384, 3 runs;
+* the NCSF, SOSPF and BPF flagships' ``nsf_sample`` (the ``crqs``,
+  ``sosp`` and ``bernstein`` modes of K3) in the three modes (without log
+  q, with it, raw): NCSF's at the 1M rows it is served at and at the
+  16,384 of step (n), on draws of its box base (uniform on [-pi, pi]);
+  SOSPF's at the 262,144 rows it is served at and at the 16,384 of (p);
+  BPF's at 262,144, 65,536 and 16,384; 3 runs;
 * ``masked_linear`` at the flagship MADE's three layer shapes at 262,144
   rows: 21 runs of 20 queued calls (``ml_...``) and 21 runs of one call
   (``ml_..._single``);
@@ -59,7 +63,10 @@ more than the kernels' do. Trees are compared only within one call, on one
 card.
 """
 
+import functools
 import json
+import os
+import re
 import subprocess
 import sys
 
@@ -73,7 +80,8 @@ def build(trees):
     """Every tree's kernels into its build/, by its own ``_build.build_all``,
     all trees at once; prints each tree's ptxas report of the NSF and CNF
     kernels (registers, spills, stack frame and shared memory of each entry
-    point)."""
+    point), and whether each NSF sampler of each later tree is the first
+    tree's instruction for instruction."""
     report = ("from zuko_tpu_torch.ops import _build; r = _build.build_all(force=True);"
               " print(r.get('nsf_fused', '') + r.get('cnf_fused', ''))")
     jobs = [subprocess.Popen([sys.executable, "-c", report], cwd=tree, stdout=subprocess.PIPE,
@@ -85,6 +93,47 @@ def build(trees):
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
                 print(f"{tree.name}: {line.strip()}")
+    first = sampler_sass(trees[0])
+    for tree in trees[1:]:
+        other = sampler_sass(tree)
+        print(f"SASS: only in {trees[0].name}: {sorted(set(first) - set(other))}; only in"
+              f" {tree.name}: {sorted(set(other) - set(first))}")
+        for name, code in first.items():
+            if name in other:
+                same = other[name] == code
+                differ = [(a, b) for a, b in zip(code, other[name]) if a != b]
+                print(f"SASS of {name}, {tree.name} vs {trees[0].name}: {len(code)} lines,"
+                      f" identical {same}" + ("" if same else
+                                              f" ({len(differ)} differ of {len(other[name])};"
+                                              f" the first: {differ[:1]})"))
+
+
+def sampler_sass(tree):
+    """The SASS of the tree's NSF samplers (``nsf_sample_tiled``,
+    ``nsf_sample_kernel``), by mangled name: their instruction lines with
+    their encodings."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", str(tree / "build" / "libnsf_fused.so")],
+                          capture_output=True, text=True, check=True).stdout
+    # the anonymous namespace's mangled name carries a hash of the source
+    # file: compare without it
+    unhash = functools.partial(re.sub, r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_")
+    functions, name = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            name = unhash(line.split("Function :")[1].strip())
+            # the tiled Bernstein sampler was nsf_sample_tiled<mode, 24> (the
+            # registers) before the template took the univariate, <mode,
+            # kBernstein = 4> since: pair the two
+            name = re.sub(r"(nsf_sample_tiledILi\d)ELi24EE", r"\1ELi4EE", name)
+            name = name if "nsf_sample_tiled" in name or "nsf_sample_kernel" in name else None
+            if name:
+                functions[name] = []
+        elif name and line.strip().startswith("/*"):
+            # an instruction's line or its encoding's second half; the
+            # padding before the encoding follows the file's longest line
+            functions[name].append(unhash(" ".join(line.split())))
+    return functions
 
 
 def time_tree(tree, steps_only=False):
@@ -135,20 +184,21 @@ def time_tree(tree, steps_only=False):
         for name, mode in (("sample", False), ("sample_log_prob", True), ("sample_raw", "raw")):
             out[f"maf_{name}@{1 << 20}"] = round(time_ms(
                 lambda: nsf_fused.nsf_sample(x, mps, mlayout, *mst, want_log_prob=mode), 5)[0], 3)
-        # the polynomials at the rows the serving path samples (262,144) and
-        # (p), (r) train at (16,384): BPF in the three modes, SOSPF with log q
-        for key, make, rows, modes in (
-                ("ncsf", zt.NCSF, (1 << 18,), (True,)),
-                ("sospf", zt.SOSPF, (1 << 16, 1 << 18), (True,)),
-                ("bpf", zt.BPF, (1 << 16, 1 << 18, 1 << 14), (False, True, "raw"))):
+        # K3's other modes at the rows their serving paths sample and their
+        # reverse-KL steps draw, on draws of the flow's base: NCSF at 1M and
+        # (n)'s 16,384, SOSPF at 262,144 and (p)'s 16,384, BPF at 262,144,
+        # 65,536 and (r)'s 16,384
+        modes = {False: "sample", True: "sample_log_prob", "raw": "sample_raw"}
+        for key, make, rows in (("ncsf", zt.NCSF, (1 << 20, 1 << 14)),
+                                ("sospf", zt.SOSPF, (1 << 18, 1 << 14)),
+                                ("bpf", zt.BPF, (1 << 18, 1 << 16, 1 << 14))):
             pflow = zt.load_params(make(6, 0, transforms=3, device=dev),
                                    assets / f"{key}_flagship.npz")
             pps, playout, pcfg = nsf_fused._flatten_flow(pflow)
             pps, pst = [p.detach() for p in pps], nsf_fused._statics(pcfg, 6)
             for n in rows:
-                z = torch.randn(n, 6, generator=gen, device=dev)
-                for mode in modes:
-                    name = {False: "sample", True: "sample_log_prob", "raw": "sample_raw"}[mode]
+                z = nsf_fused._base_draws((pps, playout, pcfg), (n,), None, gen, pcfg["base"])[1]
+                for mode, name in modes.items():
                     out[f"{key}_{name}@{n}"] = round(time_ms(
                         lambda: nsf_fused.nsf_sample(z, pps, playout, *pst, want_log_prob=mode),
                         3)[0], 3)

@@ -122,7 +122,12 @@ signal, shared memory) served through the public API by the wide tier of
 K1-K3 and K6-K11 and by K5 at 48 bins, held against plain float64 at their
 families' tolerances, each wide kernel timed once (the CNFs: ``CNF(64, 10)``
 at 1,024 rows, the shape ``zuko_tpu`` refuses at its VMEM gate, and ``CNF(3,
-hidden_features=(512, 512))`` at 16,384). **The CNF** (phase 13):
+hidden_features=(512, 512))`` at 16,384); and the per-thread narrow
+polynomial sampler, which no flagship reaches, through ``SOSPF(4,
+polynomials=6, degree=4)`` and ``BPF(4, degree=30)`` (30 and 36
+coefficients, past the tiled sampler's 24), served at 16,384 rows, held
+against plain float64 at their family's limits and timed once (the kernels
+line's ``..._thread`` entries). **The CNF** (phase 13):
 ``CNF(6)`` of ``zuko_tpu_torch/assets/cnf_flagship.npz`` (ODE network 12-64-64-6,
 exact trace) and a conditional ``CNF(6, 4)`` under a batched context served
 through K10 (``cnf_density``) and K11 (``cnf_sample``, with and without log q)
@@ -169,9 +174,12 @@ three outputs) against its plain version in float64 at the same inputs
 99th percentile <= 1e-3, NCSF's on the circle and against float64
 continued on the kernel's side of the shifts' jumps, also at 16,384 rows
 placed at them, the polynomials' over the rows plain float64 solves, the
-pegged ones counted); BPF's sampler (the tiled tier) also against the wide
-tier on the same draws at the served 262,144 rows and (r)'s 16,384
-(samples bit for bit, sums within 1e-4); K1's Function at the
+pegged ones counted); each family's sampler (the tiled tier: NCSF tiles
+of 128 rows, SOSPF and BPF 64) also against the wide tier on the same
+draws, in the three modes, one tiled launch each, at the served rows, at
+(n), (p), (r)'s 16,384 and at the conditional's 4,096 (NCSF also at the
+16,384 rows placed at the jumps), samples bit for bit and sums within
+1e-4; K1's Function at the
 rows (m), (o), (q) train on and the IFT at (n), (p), (r)'s draws against
 float64 (BPF's at four draw sets, each beside the backward with every
 ReLU side from the float32 march, whose worst set is taken apart: the
@@ -765,6 +773,17 @@ def main():
         params = [p.detach().to(dtype) for p in params]
         F = params[-3].shape[0] // nsf_fused._univ_size(cfg["univ"], cfg["bins"])
         return params, layout, nsf_fused._statics(cfg, F)
+
+    def sampler_plan(params, layout, st, rows):
+        """K3's plan (``plan_nsf(..., sample=True)``) of an autoregressive
+        flow's ``plain_args`` at ``rows`` rows, with this card's shared
+        memory."""
+        F, K, univ = st[0], st[1], st[4]
+        _, widths, passes = nsf_fused._pack_weights(params, layout, F, params[0].shape[1] - F, K,
+                                                    univ)
+        return nsf_fused.plan_nsf(widths, K, univ, len(passes), rows,
+                                  _build.load_library("nsf_fused").nsf_max_shared_bytes(
+                                      dev.index or 0), sample=True)
 
     def leaves(ps0):
         # every third entry is a mask: no gradient
@@ -1447,6 +1466,9 @@ def main():
     for mode in NSF_MODES:
         origin.update({nsf_fused._counter(k, mode): origin[k] for k in NSF_KINDS})
     origin.update({f"{name}_wide": origin[name] for name in WHOLE_FLOW})
+    # the per-thread narrow polynomial sampler (phase 12)
+    origin.update({f"{nsf_fused._counter(k, mode)}_thread": origin[k]
+                   for mode in ("sosp", "bernstein") for k in NSF_KINDS[2:]})
 
     def flow_work(rows):
         """name -> (kernel, plain, operations, bytes) of the whole-flow
@@ -2819,6 +2841,63 @@ def main():
     check(all(ops.LAUNCHES[name] == 0 for name in WHOLE_FLOW),
           "repair phase: a narrow tier was launched")
 
+    # the per-thread narrow polynomial sampler (nsf_sample_kernel<false, mode,
+    # kPolynomial>), which no flagship reaches since the sum of squares
+    # samples through the tiled tier: a SOSPF and a BPF past the tiled
+    # sampler's 24 coefficients in registers (30 and 36), parameters x 0.3,
+    # served at REPAIR_ROWS // 4 rows, their sampler planned narrow and
+    # untiled, held against plain float64 at their family's limits and timed
+    # once; counted under the sampler's names in the served run, reported in the
+    # kernels line as <name>_thread; draws from a generator of their own
+    with torch.random.fork_rng(devices=[dev]):
+        thread_flows = [
+            ("SOSPF(4, polynomials=6, degree=4)", built(
+                lambda: zt.SOSPF(4, polynomials=6, degree=4, device="cpu"), 25, damp=0.3)),
+            ("BPF(4, degree=30)", built(lambda: zt.BPF(4, degree=30, device="cpu"), 26,
+                                        damp=0.3)),
+        ]
+    gen_thread = torch.Generator(device=dev).manual_seed(25)
+    thread_rows = REPAIR_ROWS // 4
+    thread_launches = {}
+    for label, flow in thread_flows:
+        params, layout, st = plain_args(flow, torch.float32)
+        F, base = st[0], st[5]
+        names = {k: nsf_fused._counter(k, st[4]) for k in NSF_KINDS}
+        plan = sampler_plan(params, layout, st, thread_rows)
+        check(plan == _common.narrow_plan(thread_rows),
+              f"{label}: the per-thread narrow sampler, {plan}")
+        x = torch.randn(thread_rows, F, generator=gen_thread, device=dev)
+        ops.reset_launches()
+        with torch.no_grad():
+            dist = flow(None)
+            outs = [dist.log_prob(x), dist.sample((thread_rows,), generator=gen_thread),
+                    *dist.sample_and_log_prob((thread_rows,), generator=gen_thread)]
+            inverted = Flow(flow.transform.inv, flow.base)(None)
+            y = inverted.sample((thread_rows,), generator=gen_thread)
+            outs += [y, inverted.log_prob(y)]
+        torch.cuda.synchronize()
+        served = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"{label} served at {thread_rows} rows: launches {served}")
+        check(isinstance(dist, FusedDensityFlow), f"{label} did not dispatch")
+        check(all(bool(torch.isfinite(t).all()) for t in outs), f"{label}: not finite")
+        check(served == {names["nsf_density"]: 1, names["nsf_apply"]: 1, names["nsf_sample"]: 1,
+                         names["nsf_sample_log_prob"]: 1, names["nsf_sample_raw"]: 1},
+              f"{label}: served launches {served}")
+        ops.reset_launches()
+        hold_nsf(label, flow, x, base_draws(thread_rows, F, base, gen_thread), "_thread")
+        held = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(all(held.get(names[k], 0) > 0 for k in NSF_KINDS[2:])
+              and not any(k.endswith("_wide") for k in held),
+              f"{label}: the held samplers' launches {held}")
+        for kind in NSF_KINDS[2:]:
+            thread_launches[f"{names[kind]}_thread"] = served.get(names[kind], 0)
+        work = nsf_work(params, layout, st, x, base_draws(thread_rows, F, base, gen_thread))
+        with torch.no_grad():
+            for kind in NSF_KINDS[2:]:
+                time_kernel(f"{names[kind]}_thread", thread_rows, *work[names[kind]], runs=3,
+                            plain_runs=1)
+                report_rows[f"{names[kind]}_thread"] = thread_rows
+
     # each configuration held against plain float64, and each wide kernel
     # timed once, at the first configuration that drives it
     def hold_nsf_wide(label, flow, C, rows):
@@ -3376,6 +3455,37 @@ def main():
         "sospf": ("SOSPF", zt.SOSPF, {}, assets / "sospf_truth_f64.npz", POLY_SAMPLE_ROWS),
         "bpf": ("BPF", zt.BPF, {}, ROOT / "tools" / "bpf_truth_f64.npz", POLY_SAMPLE_ROWS),
     }
+
+    def tiled_vs_wide(label, names, params, layout, st, zc):
+        """K3's tiled tier against its wide tier on the draws ``zc`` in the
+        three modes, one tiled launch each: samples bit for bit, sums within
+        TOL_DENSITY (the difference printed, with whether it is bit for
+        bit)."""
+        rows = zc.shape[0]
+        for mode, kind in ((False, "nsf_sample"), (True, "nsf_sample_log_prob"),
+                           ("raw", "nsf_sample_raw")):
+            ops.reset_launches()
+            with torch.no_grad():
+                tiled = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
+                launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+                with nsf_wide_tier():
+                    wide = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
+            check(launched == {names[kind]: 1}, f"{label} {kind}: one tiled launch, {launched}")
+            tiled = tiled if isinstance(tiled, tuple) else (tiled,)
+            wide = wide if isinstance(wide, tuple) else (wide,)
+            diffs = [(a - b).abs() for a, b in zip(tiled, wide)]
+            check(all(bool(torch.isfinite(a).all()) for a in tiled),
+                  f"{label} {kind} tiled at {rows} rows: not finite")
+            check(torch.equal(tiled[0], wide[0]),
+                  f"{label} {kind} tiled at {rows} rows: samples not the wide tier's")
+            if len(diffs) > 1:
+                check(diffs[1].max().item() <= TOL_DENSITY,
+                      f"{label} {kind} tiled at {rows} rows: sum vs the wide tier")
+            print(f"{label} {names[kind]} tiled at {rows} rows vs the wide tier: x max"
+                  f" {diffs[0].max().item():.3e}"
+                  + (f", sum max {diffs[1].max().item():.3e}" if len(diffs) > 1 else "")
+                  + f"; bit for bit: {all(torch.equal(a, b) for a, b in zip(tiled, wide))}")
+
     fam_flagship, fam_cond, fam_launches = {}, {}, {}
     for i, (key, (label, cls, kw, truth_path, sample_rows)) in enumerate(families.items()):
         flow = zt.load_params(cls(6, 0, transforms=3, device=dev, **kw),
@@ -3451,52 +3561,33 @@ def main():
         # the polynomials' samplers are held and timed at POLY_HOLD_ROWS
         hold_rows = sample_rows if key == "ncsf" else POLY_HOLD_ROWS
         hold_nsf(label, flow, fx, base_draws(hold_rows, 6, base))
-        _, widths, passes = nsf_fused._pack_weights(params, layout, 6, 0, st[1], st[4])
-        plan = nsf_fused.plan_nsf(widths, st[1], st[4], len(passes), sample_rows,
-                                  _build.load_library("nsf_fused").nsf_max_shared_bytes(
-                                      dev.index or 0), sample=True)
+        plan = sampler_plan(params, layout, st, sample_rows)
         print(f"{label} sampler plan: {plan}")
-        if key == "bpf":
-            # K3's Bernstein mode samples through the tiled tier: against the
-            # wide tier on the same draws (the same solves and sums: the
-            # difference is printed, with whether it is bit for bit), at the
-            # served rows and at (r)'s, one tiled launch each; draws from a
-            # generator of their own, so that (q) and (r) keep their draws
-            check(not plan.wide and plan.tile_rows == 64, f"{label}: the tiled sampler at 64 rows")
-            gen_bpf = torch.Generator(device=dev).manual_seed(16)
-            for rows in (sample_rows, POLY_RKL_ROWS):
-                zc = base_draws(rows, 6, base, gen_bpf)
-                for mode, kind in ((False, "nsf_sample"), (True, "nsf_sample_log_prob"),
-                                   ("raw", "nsf_sample_raw")):
-                    ops.reset_launches()
-                    with torch.no_grad():
-                        tiled = nsf_fused.nsf_sample(zc, params, layout, *st, want_log_prob=mode)
-                        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
-                        with nsf_wide_tier():
-                            wide = nsf_fused.nsf_sample(zc, params, layout, *st,
-                                                        want_log_prob=mode)
-                    check(launched == {names[kind]: 1},
-                          f"{label} {kind}: one tiled launch, {launched}")
-                    tiled = tiled if isinstance(tiled, tuple) else (tiled,)
-                    wide = wide if isinstance(wide, tuple) else (wide,)
-                    diffs = [(a - b).abs() for a, b in zip(tiled, wide)]
-                    check(all(bool(torch.isfinite(a).all()) for a in tiled),
-                          f"{label} {kind} tiled at {rows} rows: not finite")
-                    check(torch.equal(tiled[0], wide[0]),
-                          f"{label} {kind} tiled at {rows} rows: samples not the wide tier's")
-                    if len(diffs) > 1:
-                        check(diffs[1].max().item() <= TOL_DENSITY,
-                              f"{label} {kind} tiled at {rows} rows: sum vs the wide tier")
-                    print(f"{label} {names[kind]} tiled at {rows} rows vs the wide tier: x max"
-                          f" {diffs[0].max().item():.3e}"
-                          + (f", sum max {diffs[1].max().item():.3e}" if len(diffs) > 1 else "")
-                          + f"; bit for bit: {all(torch.equal(a, b) for a, b in zip(tiled, wide))}")
-        else:  # the per-thread narrow kernels
-            check(plan == _common.narrow_plan(sample_rows), f"{label}: the narrow sampler, {plan}")
+        # K3's three modes sample through the tiled tier (NCSF with the NSF's
+        # tile, the polynomials two blocks an SM): against the wide tier on
+        # the same draws (the same solves and sums: the difference is
+        # printed, with whether it is bit for bit), one tiled launch each;
+        # draws from a generator of their own, so that (m)-(r) keep theirs
+        tile = {"ncsf": 128, "sospf": 64, "bpf": 64}[key]
+        check(isinstance(plan, nsf_fused.SamplePlan) and plan.tile_rows == tile,
+              f"{label}: the tiled sampler at {tile} rows, {plan}")
+        seed = {"ncsf": 17, "sospf": 18, "bpf": 16}[key]
+        gen_tier = torch.Generator(device=dev).manual_seed(seed)
+        tier_draws = [base_draws(rows, 6, base, gen_tier) for rows in (sample_rows, POLY_RKL_ROWS)]
         if key == "ncsf":
-            hold_nsf(f"{label} at the shifts' jumps", flow, *jump_rows(flow, 1 << 14))
+            at_jumps = jump_rows(flow, 1 << 14)
+            tier_draws.append(at_jumps[1])
+        for zc in tier_draws:
+            tiled_vs_wide(label, names, params, layout, st, zc)
+        if key == "ncsf":
+            hold_nsf(f"{label} at the shifts' jumps", flow, *at_jumps)
         czc = torch.cat([base_draws(4096, 6, base), fc_few.repeat(4, 1)], dim=1)
         hold_nsf(f"conditional {label}", cond, torch.cat([xs_rows, fc], dim=1), czc)
+        cparams, clayout, cst = plain_args(cond, torch.float32)
+        cplan = sampler_plan(cparams, clayout, cst, czc.shape[0])
+        check(isinstance(cplan, nsf_fused.SamplePlan) and cplan.tile_rows == tile,
+              f"conditional {label}: the tiled sampler at {tile} rows, {cplan}")
+        tiled_vs_wide(f"conditional {label}", names, cparams, clayout, cst, czc)
         fam_work = nsf_work(params, layout, st, fx, base_draws(ROWS, 6, base))
         with torch.no_grad():
             time_kernel(names["nsf_density"], ROWS, *fam_work[names["nsf_density"]])
@@ -3688,6 +3779,7 @@ def main():
     launches["cnf_adjoint"] = adj_launches["cnf_adjoint"]
     launches.update({name: repair_launches[name] for name in wide_names})
     launches.update(fam_launches)
+    launches.update(thread_launches)
     for name, (source, replaces) in origin.items():
         rows = report_rows.get(name, ROWS if name in launches else GRAD_ROWS)
         kernels.append({

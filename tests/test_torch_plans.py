@@ -11,7 +11,8 @@ in ``csrc/masked_linear.cu``) and the CNF adjoint's cluster tier
 ``_sample_tile_floats``, ``_tiled_weights``, mirrored in
 ``csrc/nsf_fused.cu`` ``tile_plan``), the CNF density's cluster tier
 and sampler's (``plan_cnf``, mirrored in ``density_plan``), the tiled
-Bernstein sampler (``plan_nsf(..., sample=True)`` for ``bernstein``), and that
+Bernstein, circular and sum-of-squares samplers (``plan_nsf(..., sample=True)``
+for ``bernstein``, ``crqs`` and ``sosp``), and that
 the wrappers hand those
 plans to the C entry points: a library that records its calls stands in for
 the built one, and the tensors say they lie on the GPU."""
@@ -514,8 +515,8 @@ def test_nsf_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
 def test_nsf_sampler_that_fits_no_tile_plans_the_wide_tier():
     """Hidden widths of 256: one layer's staged linears alone (418 KB) pass
     227 KB, so no tile fits and the sampler takes the wide tier, as the
-    density does; the polynomial and circular samplers keep their narrow
-    kernel (no tile)."""
+    density does; the circular sampler, whose tile is the NSF's, takes the
+    same wide tier there."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(
         lambda: zt.NSF(6, 0, transforms=3, hidden_features=(256, 256), device="cpu"))
     assert widths == [6, 256, 256, 138]
@@ -524,8 +525,8 @@ def test_nsf_sampler_that_fits_no_tile_plans_the_wide_tier():
     assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
     assert plan == nsf_fused.plan_nsf(widths, 8, "rqs", n_ar, 1 << 16, SHARED)
-    circular = nsf_fused.plan_nsf([6, 64, 64, 138], 8, "crqs", 3, 1 << 16, SHARED, sample=True)
-    assert circular == _common.narrow_plan(1 << 16)
+    circular = nsf_fused.plan_nsf(widths, 8, "crqs", n_ar, 1 << 16, SHARED, sample=True)
+    assert circular == plan
 
 
 def test_tiled_weights_hold_each_linear_transposed_and_padded():
@@ -646,18 +647,121 @@ def test_bernstein_sampler_past_its_registers_plans_the_wide_tier(make):
     assert nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, 1 << 14, SHARED).wide
 
 
-def test_sosp_and_circular_samplers_keep_their_narrow_kernel():
-    """The sum-of-squares and circular samplers keep the per-thread narrow
-    kernel: no tile."""
-    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"))
-    assert not nsf_fused._sample_tiled("sosp", cfg["bins"])
+@pytest.mark.parametrize("make, widths, tile, nbytes", [
+    (lambda: zt.NCSF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 138], 128, 201280),
+    (lambda: zt.NCSF(6, 4, transforms=3, device="cpu"), [10, 64, 64, 138], 128, 204352),
+    (lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 96], 64, 103808),
+    (lambda: zt.SOSPF(6, 4, transforms=3, device="cpu"), [10, 64, 64, 96], 64, 105856),
+], ids=["ncsf", "ncsf_conditional", "sospf", "sospf_conditional"])
+def test_circular_and_sosp_samplers_plan_the_tiled_tier(make, widths, tile, nbytes):
+    """The circular spline's sampler takes the NSF's tile (T = 3K - 1 = 23
+    raw parameters a feature: 128 rows, 201,280 bytes for the flagship
+    NCSF), and the sum of squares' (P (L + 1) = 15 coefficients in
+    registers, T = 16 with the shift) the Bernstein polynomial's plan: the
+    largest of 64 and 32 rows of which two blocks share an SM (the flagship
+    SOSPF: 10,848 floats of linears, then ``[F + C][R]``, ``[F][R]``, two
+    hidden buffers ``[64][R]`` and the last linear's outputs ``[96][R]``:
+    103,808 bytes at 64 rows). The density keeps its own plan."""
+    _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
+    K, univ = cfg["bins"], cfg["univ"]
+    assert got == widths and nsf_fused._sample_tiled(univ, K)
+    T = nsf_fused._univ_size(univ, K)
+    assert 4 * nsf_fused._sample_tile_floats(widths, T, tile) == nbytes <= SHARED
+    assert nsf_fused.sample_tile_rows(widths, K, univ) == tile
+    if univ == "sosp":
+        assert K == (3, 5) and K[0] * K[1] <= 24 and nbytes <= (233472 - 2048) // 2
+    for rows in (1, 1 << 14, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED, sample=True)
+        assert plan == (False, 0, rows, 0, 0, tile, nbytes)
+        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == (False, 0, rows, 0, 0)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: zt.NCSF(4, 2, bins=40, device="cpu"),
+    lambda: zt.NCSF(3, 0, transforms=3, bins=33, device="cpu"),
+], ids=["bins_40", "bins_33"])
+def test_circular_sampler_past_its_bins_plans_the_wide_tier(make):
+    """Past 32 bins (phase 12's ``NCSF(4, 2, bins=40)``) the circular spline
+    fits neither tile nor narrow arrays: the sampler takes the wide tier, as
+    the density does."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
+    K = cfg["bins"]
+    assert cfg["univ"] == "crqs" and K > 32 and nsf_fused._sample_tiled("crqs", K)
+    plan = nsf_fused.plan_nsf(widths, K, "crqs", n_ar, 1 << 14, SHARED, sample=True)
+    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
+    assert plan == nsf_fused.plan_nsf(widths, K, "crqs", n_ar, 1 << 14, SHARED)
+
+
+@pytest.mark.parametrize("make, coefficients", [
+    (lambda: zt.SOSPF(4, polynomials=6, degree=4, device="cpu"), 30),
+    (lambda: zt.SOSPF(3, 0, transforms=3, polynomials=5, degree=4, device="cpu"), 25),
+    (lambda: zt.SOSPF(3, 0, transforms=3, polynomials=2, degree=15, device="cpu"), 32),
+    (lambda: zt.SOSPF(3, 0, transforms=3, polynomials=2, degree=8, device="cpu"), 18),
+], ids=["p6_degree_4", "p5_degree_4", "p2_degree_15", "p2_degree_8"])
+def test_sosp_sampler_past_its_registers_keeps_the_per_thread_kernel(make, coefficients):
+    """More than 24 sum-of-squares coefficients P (L + 1) (phase 12's
+    ``SOSPF(4, polynomials=6, degree=4)``: 30), or more than the 8
+    Gauss-Legendre nodes L + 1 the tiled kernel unrolls (degree 8), do not
+    fit the tiled sampler's registers but fit the per-thread kernel's
+    arrays: the sampler plans that narrow tier, as the density its own."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
+    K = cfg["bins"]
+    assert K[0] * K[1] == coefficients and not nsf_fused._sample_tiled("sosp", K)
     for rows in (1 << 14, 1 << 18):
-        plan = nsf_fused.plan_nsf(widths, cfg["bins"], "sosp", n_ar, rows, SHARED, sample=True)
+        plan = nsf_fused.plan_nsf(widths, K, "sosp", n_ar, rows, SHARED, sample=True)
         assert plan == _common.narrow_plan(rows)
-    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(lambda: zt.NCSF(6, 0, transforms=3, device="cpu"))
-    assert not nsf_fused._sample_tiled("crqs", cfg["bins"])
-    plan = nsf_fused.plan_nsf(widths, cfg["bins"], "crqs", n_ar, 1 << 14, SHARED, sample=True)
-    assert plan == _common.narrow_plan(1 << 14)
+        assert nsf_fused.plan_nsf(widths, K, "sosp", n_ar, rows, SHARED) == plan
+
+
+@pytest.mark.parametrize("make", [
+    lambda: zt.SOSPF(4, polynomials=8, degree=15, device="cpu"),
+    lambda: zt.SOSPF(3, 0, transforms=3, polynomials=3, degree=31, device="cpu"),
+], ids=["t_129", "t_97"])
+def test_sosp_sampler_past_the_narrow_limits_plans_the_wide_tier(make):
+    """A sum of squares of more than 95 raw parameters a feature (phase
+    12's ``SOSPF(4, polynomials=8, degree=15)``: T = 129) fits neither the
+    registers nor the per-thread arrays: the sampler and the density take
+    the wide tier."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
+    K = cfg["bins"]
+    assert nsf_fused._univ_size("sosp", K) > 95 and not nsf_fused._sample_tiled("sosp", K)
+    plan = nsf_fused.plan_nsf(widths, K, "sosp", n_ar, 1 << 14, SHARED, sample=True)
+    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
+    assert nsf_fused.plan_nsf(widths, K, "sosp", n_ar, 1 << 14, SHARED).wide
+
+
+@pytest.mark.parametrize("make, code, K, tile", [
+    (lambda: zt.NCSF(6, 0, transforms=3, device="cpu"), 2, (8, 0), 128),
+    (lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"), 3, (3, 5), 64),
+], ids=["ncsf", "sospf"])
+@pytest.mark.parametrize("mode, name, kind", [
+    (False, "nsf_sample_f32", "nsf_sample"),
+    (True, "nsf_sample_f32", "nsf_sample_log_prob"),
+    ("raw", "nsf_sample_raw_f32", "nsf_sample_raw"),
+], ids=["sample", "log_prob", "raw"])
+def test_circular_and_sosp_samplers_hand_the_tile_to_the_kernel(recorded, monkeypatch, make, code,
+                                                                K, tile, mode, name, kind):
+    """The NCSF and SOSPF samplers launch their tiled tier with the staged
+    weights of ``_tiled_weights`` and their tile (the last two arguments,
+    after the stream), the univariate's code and sizes (NCSF: 2, K = 8, the
+    box base; SOSPF: 3, P = 3, L + 1 = 5), and count under their mode's
+    name."""
+    flow, params, layout, cfg, F, widths, _ = _nsf_shapes(make)
+    lib = _build.load_library("nsf_fused")
+    monkeypatch.setattr(lib, "nsf_max_shared_bytes", lambda device: SHARED)
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    z = torch.rand(300, 6).as_subclass(_OnCard)
+    nsf_fused.nsf_sample(z, card, layout, *nsf_fused._statics(cfg, F), want_log_prob=mode)
+    [(first, args)] = recorded
+    assert first == name and len(args) == len(_build._SIGNATURES["nsf_fused"][name][0])
+    assert args[13] == code and (args[11], args[12]) == K
+    assert args[18] == (code == 2)  # the box base
+    assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
+    assert args[-2] is not None and args[-1] == tile
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        nsf_fused._counter(kind, cfg["univ"]): 1}
 
 
 @pytest.mark.parametrize("mode, name, kind", [
@@ -669,7 +773,8 @@ def test_bernstein_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, m
     """The BPF sampler launches its tiled tier with the staged weights of
     ``_tiled_weights`` and the tile of 64 rows (the last two arguments,
     after the stream), the univariate's code 4 and M = 17, and counts under
-    its mode's name; the SOSPF sampler takes neither."""
+    its mode's name; a SOSPF past the registers (P (L + 1) = 30, the
+    per-thread kernel) takes neither."""
     flow, params, layout, cfg, F, widths, _ = _nsf_shapes(
         lambda: zt.BPF(6, 0, transforms=3, device="cpu"))
     lib = _build.load_library("nsf_fused")
@@ -678,7 +783,7 @@ def test_bernstein_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, m
     z = torch.randn(300, 6).as_subclass(_OnCard)
     nsf_fused.nsf_sample(z, card, layout, *nsf_fused._statics(cfg, F), want_log_prob=mode)
     sflow, sparams, slayout, scfg, _, _, _ = _nsf_shapes(
-        lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"))
+        lambda: zt.SOSPF(6, 0, transforms=3, polynomials=6, degree=4, device="cpu"))
     scard = [p.detach().as_subclass(_OnCard) for p in sparams]
     nsf_fused.nsf_sample(z, scard, slayout, *nsf_fused._statics(scfg, F), want_log_prob=mode)
     [(first, args), (second, sargs)] = recorded

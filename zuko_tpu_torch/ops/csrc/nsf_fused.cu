@@ -48,12 +48,12 @@
 // is the design above, within its limits: widths of kMaxWidth, kMaxBins
 // bins, kMaxLinear linears, kMaxLayers layers, and one layer's weights in a
 // block's shared memory (227 KB on an H100); but the sampler of the
-// closed-form family (affine and RQS) and of a Bernstein polynomial of at
-// most kPolyRegs coefficients, all three modes, is the tiled
-// nsf_sample_tiled (below), within the same limits where its tile fits
-// (a Bernstein polynomial of more coefficients samples through the
-// per-thread nsf_sample_kernel, as the sum of squares does). The wide tier
-// takes any shape:
+// closed-form family (affine and RQS), of the circular spline and of a
+// polynomial of at most kPolyRegs coefficients (the Bernstein polynomial's
+// M + 5, the sum of squares' P (L + 1) at kSospNodes nodes or fewer), all
+// three modes, is the tiled nsf_sample_tiled (below), within the same limits
+// where its tile fits (a larger polynomial samples through the per-thread
+// nsf_sample_kernel). The wide tier takes any shape:
 // the weights are read through the read-only data cache (__ldg), one address
 // per warp at a time, as the NAF kernels read theirs; a row's activations,
 // raw parameters and knots live in a workspace in device memory, one column
@@ -110,7 +110,8 @@ constexpr int kMaxWidth = 256;  // widest hyper layer, F + C inputs included
 constexpr int kMaxBins = 32;
 constexpr int kMaxT = 3 * kMaxBins - 1;  // a feature's raw parameters
 constexpr int kMaxTheta = 64;            // Bernstein coefficients, M + 5
-constexpr int kPolyRegs = 24;            // and in the tiled sampler's registers
+constexpr int kPolyRegs = 24;            // a polynomial's coefficients in the tiled sampler
+constexpr int kSospNodes = 8;            // and the sum of squares' nodes there, L + 1
 constexpr int kMaxNodes = 32;            // Gauss-Legendre nodes, L + 1
 constexpr int kMaxLinear = 8;
 constexpr int kMaxLayers = 64;
@@ -469,18 +470,23 @@ __device__ __forceinline__ void poly_prepare(Vec<kWide> p, const Sh& s, const Kn
   if (s.univ == kBernstein) bernstein_coefficients<kWide>(p, s, k);
 }
 
-// Solve the prepared polynomial for y; x0 is the previous sweep's root
-// (sweep > 0).
-template <bool kWide, class Sh>
-__device__ __forceinline__ float poly_inverse(float y, float x0, int sweep, const Vec<kWide>& p,
-                                              const Sh& s, const Knots<kWide>& k) {
+// Solve a monotone polynomial univariate for y: a cold bisection of s.n_cold
+// steps over [-B, B], or, after the first sweep, the bracket of kWarmR about
+// the previous sweep's root x0 where it holds y and s.n_warm steps, then
+// kNewton clipped Newton steps; with ends, the Bernstein polynomial's linear
+// ends. eval(std::bool_constant<kGrad>{}, x, dydx) is the value at x and,
+// with kGrad, dy/dx in *dydx. Every evaluator runs this one arithmetic.
+template <class Eval, class Sh>
+__device__ __forceinline__ float poly_solve(const Eval& eval, const Sh& s, bool ends, float y,
+                                            float x0, int sweep) {
+  const std::false_type value{};
+  const std::true_type grad{};
   const float B = s.bound;
   float lo = -B, hi = B;
   int iters = s.n_cold;
   if (sweep > 0) {
     const float lo0 = fminf(fmaxf(x0 - kWarmR, -B), B), hi0 = fminf(fmaxf(x0 + kWarmR, -B), B);
-    if (poly_eval<false, kWide>(lo0, p, s, k, nullptr) < y &&
-        y < poly_eval<false, kWide>(hi0, p, s, k, nullptr)) {
+    if (eval(value, lo0, nullptr) < y && y < eval(value, hi0, nullptr)) {
       lo = lo0;
       hi = hi0;
     }
@@ -488,7 +494,7 @@ __device__ __forceinline__ float poly_inverse(float y, float x0, int sweep, cons
   }
   for (int it = 0; it < iters; ++it) {
     const float mid = 0.5f * (lo + hi);
-    if (poly_eval<false, kWide>(mid, p, s, k, nullptr) < y) {
+    if (eval(value, mid, nullptr) < y) {
       lo = mid;
     } else {
       hi = mid;
@@ -497,17 +503,28 @@ __device__ __forceinline__ float poly_inverse(float y, float x0, int sweep, cons
   float x = 0.5f * (lo + hi);
   for (int it = 0; it < kNewton; ++it) {
     float g;
-    const float v = poly_eval<true, kWide>(x, p, s, k, &g);
+    const float v = eval(grad, x, &g);
     x = fminf(fmaxf(x - (v - y) / g, -B), B);
   }
-  if (s.univ == kBernstein) {
+  if (ends) {
     float g;
-    const float f_hi = poly_eval<true, kWide>(B, p, s, k, &g);
+    const float f_hi = eval(grad, B, &g);
     if (y > f_hi) x = B + (y - f_hi) / g;
-    const float f_lo = poly_eval<true, kWide>(-B, p, s, k, &g);
+    const float f_lo = eval(grad, -B, &g);
     if (y < f_lo) x = -B + (y - f_lo) / g;
   }
   return x;
+}
+
+// Solve the prepared polynomial for y; x0 is the previous sweep's root
+// (sweep > 0).
+template <bool kWide, class Sh>
+__device__ __forceinline__ float poly_inverse(float y, float x0, int sweep, const Vec<kWide>& p,
+                                              const Sh& s, const Knots<kWide>& k) {
+  const auto eval = [&](auto kGrad, float x, float* dydx) {
+    return poly_eval<decltype(kGrad)::value, kWide>(x, p, s, k, dydx);
+  };
+  return poly_solve(eval, s, s.univ == kBernstein, y, x0, sweep);
 }
 
 // Univariate forward of one feature from its raw parameters p (overwritten);
@@ -703,11 +720,11 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
 }
 
 // ------------------------------------------------------------------------
-// The narrow tier of the closed-form sampler (affine and RQS) and of the
-// Bernstein polynomial's (all three modes): nsf_sample_tiled, a block a tile
-// of R rows (128, or 64 or 32 where a flow's tile passes 227 KB at 128; the
-// Bernstein sampler 64 or 32 rows, two blocks an SM, where they fit) for the
-// whole inversion.
+// The narrow tier of the closed-form sampler (affine and RQS), of the
+// circular spline's and of the polynomials' (all three modes):
+// nsf_sample_tiled, a block a tile of R rows (128, or 64 or 32 where a flow's
+// tile passes 227 KB at 128; the polynomials' samplers 64 or 32 rows, two
+// blocks an SM, where they fit) for the whole inversion.
 //
 // The same function as nsf_sample_kernel<kWide = true, mode, family>, with
 // every float32 sum in the same order: the layers in reverse, the softclip's
@@ -732,12 +749,16 @@ nsf_sample_kernel(const float* __restrict__ zc, float* __restrict__ xout,
 //   parameters are normalised in place in its column of the outputs, and
 //   the knots are streamed in registers (the bin is the last knot below the
 //   value, the cumulative sums those of rqs_knots), so no knot array exists;
-// - the Bernstein polynomial's solve and forward log-Jacobian run one
-//   thread a pair too: the pair's coefficients, their steps and De
-//   Casteljau's scratch live in registers (bernstein_registers, up to
-//   kPolyRegs coefficients), every lerp, bisection and Newton step in the
-//   wide tier's order; what held the per-thread kernel back there was
-//   De Casteljau reading two local-memory floats and writing one a lerp;
+//   the circular spline is the same with the shift: its root wrapped, its
+//   forward at the wrapped point (closed_inverse, closed_forward);
+// - the polynomials' solves and forward log-Jacobians run one thread a pair
+//   too, the pair's coefficients in registers (up to kPolyRegs), every
+//   evaluation, bisection and Newton step in the wide tier's order: the
+//   Bernstein polynomial's coefficients, their steps and De Casteljau's
+//   scratch (bernstein_registers), the sum of squares' P (L + 1)
+//   coefficients in the order Horner's rule reads them (sosp_registers);
+//   what held the per-thread kernel back there was reading a local-memory
+//   float for every lerp (two, and one written) or Horner step;
 // - thread r < R owns row r's running sum (base, softclips, the layers'
 //   log-Jacobians, in the wide tier's order) and its softclip inverse.
 // The masked products are dense (the masks' zeros are multiplied as in the
@@ -891,8 +912,8 @@ __device__ __forceinline__ float spline_streamed(float v, const Strided& p, cons
 
 // The Bernstein polynomial of one (row, feature) pair in registers, for
 // N = M + 5 <= kN coefficients: bernstein_coefficients' theta and steps,
-// then poly_eval's and poly_inverse's arithmetic on them, every lerp of De
-// Casteljau's in its order (the loops unrolled to kN, the levels past N
+// then poly_eval's arithmetic on them, solved by poly_solve, every lerp of
+// De Casteljau's in its order (the loops unrolled to kN, the levels past N
 // skipped), so that no array is indexed at run time.
 
 // theta (N) and order * the steps (N - 1) into th and st, from the pair's M
@@ -975,52 +996,89 @@ __device__ __forceinline__ float bernstein_eval(const float (&th)[kN], const flo
   return casteljau(th, N, u);
 }
 
-// poly_inverse: the root of bernstein_eval(x) = y, x0 the previous sweep's
-// root (sweep > 0).
-template <int kN>
-__device__ __forceinline__ float bernstein_inverse(const float (&th)[kN], const float (&st)[kN],
-                                                   const Shape& s, float y, float x0,
-                                                   int sweep) {
-  const float B = s.bound;
-  float lo = -B, hi = B;
-  int iters = s.n_cold;
-  if (sweep > 0) {
-    const float lo0 = fminf(fmaxf(x0 - kWarmR, -B), B), hi0 = fminf(fmaxf(x0 + kWarmR, -B), B);
-    if (bernstein_eval<false>(th, st, s, lo0, nullptr) < y &&
-        y < bernstein_eval<false>(th, st, s, hi0, nullptr)) {
-      lo = lo0;
-      hi = hi0;
-    }
-    iters = s.n_warm;
-  }
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    if (bernstein_eval<false>(th, st, s, mid, nullptr) < y) {
-      lo = mid;
-    } else {
-      hi = mid;
+// The sum-of-squares polynomial of one (row, feature) pair in registers:
+// sosp_integrand's and poly_eval's arithmetic, solved by poly_solve, every
+// Horner step, square and Gauss-Legendre term in their order, for P (L + 1) <=
+// kPolyRegs coefficients and kL = L + 1 <= kSospNodes nodes known at compile
+// time (sosp_pair dispatches on L + 1), so that every loop unrolls, no
+// run-time index reaches the coefficients, and the L + 1 evaluations of the
+// integrand are independent chains; the polynomial slots past P are skipped
+// by a uniform branch.
+
+// c[k kL + i] = polynomial k's coefficient of degree L - i (the order
+// Horner's rule reads them) from the pair's raw parameters p; returns the
+// shift.
+template <int kL>
+__device__ __forceinline__ float sosp_registers(const Strided& p, const Shape& s,
+                                                float (&c)[kPolyRegs]) {
+#pragma unroll
+  for (int k = 0; k < kPolyRegs / kL; ++k) {
+#pragma unroll
+    for (int i = 0; i < kL; ++i) {
+      c[k * kL + i] = 0.0f;
+      if (k < s.K) c[k * kL + i] = p[k * kL + kL - 1 - i];
     }
   }
-  float x = 0.5f * (lo + hi);
-  for (int it = 0; it < kNewton; ++it) {
-    float g;
-    const float v = bernstein_eval<true>(th, st, s, x, &g);
-    x = fminf(fmaxf(x - (v - y) / g, -B), B);
-  }
-  float g;
-  const float f_hi = bernstein_eval<true>(th, st, s, B, &g);
-  if (y > f_hi) x = B + (y - f_hi) / g;
-  const float f_lo = bernstein_eval<true>(th, st, s, -B, &g);
-  if (y < f_lo) x = -B + (y - f_lo) / g;
-  return x;
+  return p[s.K * kL];
 }
 
-// kPoly 0: the closed-form univariates (affine, RQS); kPoly > 0: the
-// Bernstein polynomial of at most kPoly = kPolyRegs coefficients
-// (bernstein_registers), whose solve wants the warps of two blocks an SM
-// (the planner's tile of 64 rows for it; at most 128 registers a thread).
-template <int kMode, int kPoly>
-__global__ void __launch_bounds__(kSampleThreads, kPoly > 0 ? 2 : 1)
+// sosp_integrand: g(v) = mean_k (1 + p_k(v / B))^2 + slope.
+template <int kL>
+__device__ __forceinline__ float sosp_g(const float (&c)[kPolyRegs], const Shape& s, float v) {
+  const float u = v / s.bound;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPolyRegs / kL; ++k) {
+    if (k < s.K) {
+      float q = c[k * kL];
+#pragma unroll
+      for (int i = 1; i < kL; ++i) q = fmaf(q, u, c[k * kL + i]);
+      q += 1.0f;
+      acc = fmaf(q, q, acc);
+    }
+  }
+  return acc / s.K + s.slope;
+}
+
+// poly_eval of the sum of squares at x: the value and, with kGrad, dy/dx in
+// *dydx.
+template <bool kGrad, int kL>
+__device__ __forceinline__ float sosp_eval(const float (&c)[kPolyRegs], float shift,
+                                           const Shape& s, float x, float* dydx) {
+  float quad = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kL; ++t) {
+    quad = fmaf(s.weights[t], sosp_g<kL>(c, s, x * (0.5f * (s.nodes[t] + 1.0f))), quad);
+  }
+  if (kGrad) *dydx = sosp_g<kL>(c, s, x);
+  return 0.5f * x * quad + shift;
+}
+
+// One pair of the sum of squares at its L + 1 = s.K2 nodes (kL, then the
+// next, up to kSospNodes): with kLadj the forward log-Jacobian log g(v), else
+// the solve for the target v, x0 the previous sweep's root.
+template <bool kLadj, int kL = 1>
+__device__ __forceinline__ float sosp_pair(const Strided& p, const Shape& s, float v, float x0,
+                                           int sweep) {
+  if constexpr (kL < kSospNodes) {
+    if (s.K2 != kL) return sosp_pair<kLadj, kL + 1>(p, s, v, x0, sweep);
+  }
+  float c[kPolyRegs];
+  const float shift = sosp_registers<kL>(p, s, c);
+  if (kLadj) return logf(sosp_g<kL>(c, s, v));
+  const auto eval = [&](auto kGrad, float x, float* dydx) {
+    return sosp_eval<decltype(kGrad)::value, kL>(c, shift, s, x, dydx);
+  };
+  return poly_solve(eval, s, false, v, x0, sweep);
+}
+
+// kUniv kAffine (0): the closed-form univariates (affine, RQS); kCRQS: the
+// circular spline over its box; kBernstein, kSOSP: the polynomials of at
+// most kPolyRegs coefficients in registers, whose solves want the warps of
+// two blocks an SM (the planner's tile of 64 rows for them; at most 128
+// registers a thread).
+template <int kMode, int kUniv>
+__global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv == kSOSP ? 2 : 1)
     nsf_sample_tiled(const float* __restrict__ zc, float* __restrict__ xout,
                      float* __restrict__ logq, const float* __restrict__ tiled,
                      const __grid_constant__ Shape s, const __grid_constant__ SampleTile tl,
@@ -1044,7 +1102,7 @@ __global__ void __launch_bounds__(kSampleThreads, kPoly > 0 ? 2 : 1)
   // thread r < R owns row r's sum
   const bool owner = tid < R;
   float acc = 0.0f;
-  if (kMode == kLogQ && owner) acc = base_log_prob<false>(Strided{y + tid, R}, s);
+  if (kMode == kLogQ && owner) acc = base_log_prob<kUniv == kCRQS>(Strided{y + tid, R}, s);
   for (int l = s.n_ar - 1; l >= 0; --l) {
     __syncthreads();  // every thread is done with the previous layer's weights
     {
@@ -1071,10 +1129,17 @@ __global__ void __launch_bounds__(kSampleThreads, kPoly > 0 ? 2 : 1)
       for (int e = tid; e < F * R; e += kSampleThreads) {
         const int f = e >> lr, r = e & (R - 1);
         const Strided p{P + f * T * R + r, R};
-        if constexpr (kPoly > 0) {
-          float th[kPoly], st[kPoly];
+        if constexpr (kUniv == kBernstein) {
+          float th[kPolyRegs], st[kPolyRegs];
           bernstein_registers(p, s, th, st);
-          xc[e] = bernstein_inverse(th, st, s, y[e], xc[e], sweep);
+          const auto eval = [&](auto kGrad, float x, float* dydx) {
+            return bernstein_eval<decltype(kGrad)::value>(th, st, s, x, dydx);
+          };
+          xc[e] = poly_solve(eval, s, true, y[e], xc[e], sweep);
+        } else if constexpr (kUniv == kSOSP) {
+          xc[e] = sosp_pair<false>(p, s, y[e], xc[e], sweep);
+        } else if constexpr (kUniv == kCRQS) {
+          xc[e] = circular_wrap(spline_streamed<true>(y[e], p, s, nullptr), s.bound);
         } else {
           xc[e] = s.univ == kAffine ? (y[e] - p[0]) / expf(affine_log_scale(p, s.log_s))
                                     : spline_streamed<true>(y[e], p, s, nullptr);
@@ -1088,11 +1153,15 @@ __global__ void __launch_bounds__(kSampleThreads, kPoly > 0 ? 2 : 1)
         const int f = e >> lr, r = e & (R - 1);
         const Strided p{P + f * T * R + r, R};
         float ladj;
-        if constexpr (kPoly > 0) {
-          float th[kPoly], st[kPoly], g;
+        if constexpr (kUniv == kBernstein) {
+          float th[kPolyRegs], st[kPolyRegs], g;
           bernstein_registers(p, s, th, st);
           bernstein_eval<true>(th, st, s, xc[e], &g);
           ladj = logf(g);
+        } else if constexpr (kUniv == kSOSP) {
+          ladj = sosp_pair<true>(p, s, xc[e], 0.0f, 0);
+        } else if constexpr (kUniv == kCRQS) {
+          spline_streamed<false>(circular_wrap(xc[e], s.bound), p, s, &ladj);
         } else if (s.univ == kAffine) {
           ladj = affine_log_scale(p, s.log_s);
         } else {
@@ -1259,9 +1328,10 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, s
       case kDensity: args(nsf_density_kernel<kWide, false, kFam>); break;
       case kApply: args(nsf_density_kernel<kWide, true, kFam>); break;
       default:
-        // the closed-form family's narrow sampler is nsf_sample_tiled, and
-        // the Bernstein polynomial's where its coefficients fit (sample_tiled)
-        if constexpr (kWide || kFam != kClosed) {
+        // the closed-form and circular families' narrow sampler is
+        // nsf_sample_tiled, and the polynomials' where their coefficients
+        // fit its registers (sample_tiled)
+        if constexpr (kWide || kFam == kPolynomial) {
           if (op == kSample) {
             args(nsf_sample_kernel<kWide, kNoLadj, kFam>);
           } else if (op == kSampleLogQ) {
@@ -1293,7 +1363,7 @@ int run_narrow(int op, const Launch& l, const Desc& d) {
     case kDensity: rc = allow_smem(nsf_density_kernel<false, false, kFam>, smem); break;
     case kApply: rc = allow_smem(nsf_density_kernel<false, true, kFam>, smem); break;
     default:
-      if constexpr (kFam != kClosed) {
+      if constexpr (kFam == kPolynomial) {
         if (op == kSample) {
           rc = allow_smem(nsf_sample_kernel<false, kNoLadj, kFam>, smem);
         } else if (op == kSampleLogQ) {
@@ -1329,11 +1399,14 @@ SampleTile tile_plan(const Desc& d, int R) {
   return t;
 }
 
-// Whether the sampler's narrow tier is nsf_sample_tiled: the closed-form
-// family, and the Bernstein polynomial of at most kPolyRegs coefficients
-// (mirrored in ops/nsf_fused.py plan_nsf).
+// Whether the sampler's narrow tier is nsf_sample_tiled: the closed-form and
+// circular families, and the polynomials of at most kPolyRegs coefficients,
+// the sum of squares of at most kSospNodes nodes (mirrored in
+// ops/nsf_fused.py plan_nsf).
 bool sample_tiled(const Desc& d) {
-  return family_of(d.univ) == kClosed || (d.univ == kBernstein && d.K + 5 <= kPolyRegs);
+  if (d.univ == kBernstein) return d.K + 5 <= kPolyRegs;
+  if (d.univ == kSOSP) return d.K * d.K2 <= kPolyRegs && d.K2 <= kSospNodes;
+  return true;
 }
 
 // The tiled narrow sampler: a block a tile of l.tile rows.
@@ -1350,14 +1423,23 @@ int run_tiled(int op, const Launch& l, const Desc& d) {
     kernel<<<blocks, kSampleThreads, smem, l.stream>>>(l.in, l.out0, l.out1, l.tiled, s, t, l.n);
     return (int)cudaGetLastError();
   };
-  if (d.univ == kBernstein) {
-    if (op == kSample) return go(nsf_sample_tiled<kNoLadj, kPolyRegs>);
-    if (op == kSampleLogQ) return go(nsf_sample_tiled<kLogQ, kPolyRegs>);
-    return go(nsf_sample_tiled<kRawLadj, kPolyRegs>);
+  const auto modes = [&](auto sample, auto log_q, auto raw) {
+    return op == kSample ? go(sample) : op == kSampleLogQ ? go(log_q) : go(raw);
+  };
+  if (d.univ == kCRQS) {
+    return modes(nsf_sample_tiled<kNoLadj, kCRQS>, nsf_sample_tiled<kLogQ, kCRQS>,
+                 nsf_sample_tiled<kRawLadj, kCRQS>);
   }
-  if (op == kSample) return go(nsf_sample_tiled<kNoLadj, 0>);
-  if (op == kSampleLogQ) return go(nsf_sample_tiled<kLogQ, 0>);
-  return go(nsf_sample_tiled<kRawLadj, 0>);
+  if (d.univ == kSOSP) {
+    return modes(nsf_sample_tiled<kNoLadj, kSOSP>, nsf_sample_tiled<kLogQ, kSOSP>,
+                 nsf_sample_tiled<kRawLadj, kSOSP>);
+  }
+  if (d.univ == kBernstein) {
+    return modes(nsf_sample_tiled<kNoLadj, kBernstein>, nsf_sample_tiled<kLogQ, kBernstein>,
+                 nsf_sample_tiled<kRawLadj, kBernstein>);
+  }
+  return modes(nsf_sample_tiled<kNoLadj, 0>, nsf_sample_tiled<kLogQ, 0>,
+               nsf_sample_tiled<kRawLadj, 0>);
 }
 
 int run(int op, const Launch& l, const Desc& d) {
@@ -1450,10 +1532,11 @@ extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, NSF_FLOW) {
 }
 
 // x (n, F) = T^-1(z) of zc = [z, c]; logq may be null: the solve alone. The
-// tiled narrow tier (wide 0: affine, RQS, or Bernstein of at most kPolyRegs
-// coefficients) takes `tiled`, each layer's linears as W^T [in][pad8(out)]
-// then the bias padded to pad8(out), zero-filled, and its tile of `tile`
-// rows (32, 64 or 128); the other samplers ignore both.
+// tiled narrow tier (wide 0: affine, RQS, the circular spline, or a
+// polynomial of at most kPolyRegs coefficients) takes `tiled`, each layer's
+// linears as W^T [in][pad8(out)] then the bias padded to pad8(out),
+// zero-filled, and its tile of `tile` rows (32, 64 or 128); the other
+// samplers ignore both.
 extern "C" int nsf_sample_f32(const float* zc, float* x, float* logq, NSF_FLOW,
                               const float* tiled, int tile) {
   return entry(logq != nullptr ? kSampleLogQ : kSample, zc, x, logq, NSF_ARGS, tiled, tile);

@@ -23,9 +23,11 @@ launches its kernel (or raises) for a CUDA tensor. :func:`plan_nsf` chooses
 the kernels' tier from the flow's shape: the narrow tier within its limits,
 the wide tier (weights through the read-only cache, a row's state in a
 workspace in device memory) beyond them. The sampler's narrow tier for
-the closed-form univariates (affine and RQS) and for Bernstein polynomials
-of at most :data:`_POLY_REGS` coefficients is tiled: a block a tile of
-rows, planned with :class:`SamplePlan`. ``LAUNCHES`` counts the kernel
+the closed-form univariates (affine and RQS), the circular spline and the
+polynomials of at most :data:`_POLY_REGS` coefficients (Bernstein ``M +
+5``, sum of squares ``P (L + 1)`` of at most :data:`_SOSP_NODES` nodes) is
+tiled: a block a tile of rows, planned with :class:`SamplePlan`; a larger
+polynomial samples through the per-thread narrow kernel. ``LAUNCHES`` counts the kernel
 launches, one per call that reaches a kernel, the wide tier's under
 ``<name>_wide``.
 
@@ -114,8 +116,11 @@ _MAX_WIDTH = 256
 _MAX_BINS = 32
 _MAX_T = 3 * _MAX_BINS - 1
 _MAX_THETA = 64
-# the tiled sampler's Bernstein coefficients, held in registers (kPolyRegs)
+# a polynomial's coefficients in the tiled sampler's registers (kPolyRegs):
+# the Bernstein polynomial's M + 5, the sum of squares' P (L + 1), whose L + 1
+# Gauss-Legendre nodes the kernel unrolls up to kSospNodes
 _POLY_REGS = 24
+_SOSP_NODES = 8
 _MAX_NODES = 32
 _MAX_LINEAR = 8
 _MAX_LAYERS = 64
@@ -703,10 +708,15 @@ class SamplePlan(NamedTuple):
 
 def _sample_tiled(univ, K):
     """Whether the sampler's narrow tier is the tiled kernel: the
-    closed-form univariates, and Bernstein polynomials of at most
-    :data:`_POLY_REGS` coefficients ``M + 5`` (``sample_tiled`` in
+    closed-form univariates and the circular spline, and the polynomials of
+    at most :data:`_POLY_REGS` coefficients, Bernstein ``M + 5`` and sum of
+    squares ``P (L + 1)`` with ``L + 1 <= _SOSP_NODES`` (``sample_tiled`` in
     ``csrc/nsf_fused.cu``)."""
-    return univ in ("affine", "rqs") or (univ == "bernstein" and K + 5 <= _POLY_REGS)
+    if univ == "bernstein":
+        return K + 5 <= _POLY_REGS
+    if univ == "sosp":
+        return K[0] * K[1] <= _POLY_REGS and K[1] <= _SOSP_NODES
+    return True
 
 
 def _sample_tile_floats(widths, T, R):
@@ -725,12 +735,11 @@ def _sample_tile_floats(widths, T, R):
 def sample_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
     """Rows of the tiled sampler's tile: the largest of
     :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
-    where none does. A Bernstein polynomial's solve wants the warps of two
-    blocks an SM: its tile is the largest of 64 and 32 rows of which two
-    blocks share an SM's 233,472 bytes (1 KB a block reserved), where one
-    does."""
+    where none does. A polynomial's solve wants the warps of two blocks an
+    SM: its tile is the largest of 64 and 32 rows of which two blocks share
+    an SM's 233,472 bytes (1 KB a block reserved), where one does."""
     T = _univ_size(univ, K)
-    if univ == "bernstein":
+    if univ in ("sosp", "bernstein"):
         two = next((R for R in _SAMPLE_TILES[1:]
                     if 4 * _sample_tile_floats(widths, T, R) <= min(smem_limit, _TWO_A_SM)),
                    None)
@@ -752,8 +761,8 @@ def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
     With ``sample``, the univariates of :func:`_sample_tiled` plan the
     tiled sampler instead of the one-layer limit: within the same limits,
     a :class:`SamplePlan` of :func:`sample_tile_rows` rows and its shared
-    memory, else the wide tier; a Bernstein polynomial of more
-    coefficients plans as the sum of squares does."""
+    memory, else the wide tier; a polynomial of more coefficients plans the
+    per-thread narrow sampler as the density's narrow tier does."""
     n_lin = len(widths) - 1
     F = widths[-1] // _univ_size(univ, K)
     w_max = max(widths[:-1])
@@ -795,7 +804,7 @@ def _pack_weights(params, layout, F, C, K, univ):
 def _tiled_weights(params, layout):
     """Per AR layer, each linear of the hyper-net as ``(M ⊙ W)^T`` of shape
     ``(in, pad8(out))`` then its bias padded to ``pad8(out)``, zero-filled,
-    in one contiguous buffer: what the closed-form sampler's tiled tier
+    in one contiguous buffer: what the sampler's tiled tier
     stages (a thread's eight outputs in two 16-byte loads)."""
     chunks = []
     for ps, _ in _split_layers(params, layout):

@@ -10,16 +10,25 @@ It builds the kernels of each tree with that tree's own ``ops/_build.py``
 (all trees at once) into that tree's ``build/``, prints each tree's ptxas
 report of the NSF and CNF kernels (registers, spills, stack frame and
 shared memory of each entry point) and whether the SASS of each NSF
-sampler (``nsf_sample_tiled``, ``nsf_sample_kernel``) that two trees both
-build is each tree's as the first tree's, instruction for instruction
-(``cuobjdump -sass``), then, in a process of its own for each tree, in
-the order given and back (parent, change, change, parent), times with
-``chip_smoke.time_ms`` (the median after a warm-up), one JSON line a
+kernel (the samplers ``nsf_sample_tiled`` and ``nsf_sample_kernel``, the
+densities ``nsf_density_kernel`` and ``nsf_density_tiled``) that two
+trees both build is each tree's as the first tree's, instruction for
+instruction (``cuobjdump -sass``), then, in a process of its own for each
+tree, in the order given and back (parent, change, change, parent), times
+with ``chip_smoke.time_ms`` (the median after a warm-up), one JSON line a
 process:
 
 * the flagship NSF's ``nsf_density``, ``nsf_apply`` and ``nsf_sample``
   (without log q, with it, raw) at 1M and 262,144 rows, and a seeded
-  MAF(6)'s ``nsf_sample`` in the three modes at 1M rows, 5 runs;
+  MAF(6)'s ``nsf_density`` and ``nsf_apply`` at 1M and 262,144 rows and
+  ``nsf_sample`` in the three modes at 1M rows, 5 runs; where the tree
+  plans a tiled density (``nsf_fused.density_tile_rows``), the flagship's
+  ``nsf_density`` and ``nsf_apply`` at 1M rows at each tile of 32, 64 and
+  128 rows (``tile<R>_...``);
+* the NCSF, SOSPF and BPF flagships' ``nsf_density`` and ``nsf_apply``
+  (the ``crqs``, ``sosp`` and ``bernstein`` modes of K1 and K2) at the 1M
+  rows they are served at and at the 65,536 of steps (m), (o) and (q), 3
+  runs;
 * the NCSF, SOSPF and BPF flagships' ``nsf_sample`` (the ``crqs``,
   ``sosp`` and ``bernstein`` modes of K3) in the three modes (without log
   q, with it, raw): NCSF's at the 1M rows it is served at and at the
@@ -52,8 +61,11 @@ process:
   energy, (b) NSF at 262,144 draws, (h) NAF at 65,536, (j) UNAF, (n) NCSF,
   (p) SOSPF and (r) BPF at 16,384 (``step_...``); step (l), reverse KL
   through the flagship CNF's sampler with log q and its continuous adjoint
-  at 16,384 draws; and step (k), the flagship CNF's maximum-likelihood step
-  at 65,536 seeded standard-normal rows.
+  at 16,384 draws; step (k), the flagship CNF's maximum-likelihood step
+  at 65,536 seeded standard-normal rows; and the flagship NSF's (a)
+  maximum-likelihood step on 262,144 of its samples and (c) reverse KL
+  through its inverted flow ``Flow(flow.transform.inv, flow.base)`` at
+  262,144 draws.
 
 ``CHANGE_DIR`` defaults to this checkout; with more than one, each is timed
 in turn after the parent. With ``--steps`` first it times the steps alone,
@@ -93,9 +105,9 @@ def build(trees):
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
                 print(f"{tree.name}: {line.strip()}")
-    first = sampler_sass(trees[0])
+    first = nsf_sass(trees[0])
     for tree in trees[1:]:
-        other = sampler_sass(tree)
+        other = nsf_sass(tree)
         print(f"SASS: only in {trees[0].name}: {sorted(set(first) - set(other))}; only in"
               f" {tree.name}: {sorted(set(other) - set(first))}")
         for name, code in first.items():
@@ -108,10 +120,10 @@ def build(trees):
                                               f" the first: {differ[:1]})"))
 
 
-def sampler_sass(tree):
-    """The SASS of the tree's NSF samplers (``nsf_sample_tiled``,
-    ``nsf_sample_kernel``), by mangled name: their instruction lines with
-    their encodings."""
+def nsf_sass(tree):
+    """The SASS of the tree's NSF kernels (``nsf_sample_tiled``,
+    ``nsf_sample_kernel``, ``nsf_density_kernel``, ``nsf_density_tiled``),
+    by mangled name: their instruction lines with their encodings."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     dump = subprocess.run([cuobjdump, "-sass", str(tree / "build" / "libnsf_fused.so")],
                           capture_output=True, text=True, check=True).stdout
@@ -126,7 +138,9 @@ def sampler_sass(tree):
             # registers) before the template took the univariate, <mode,
             # kBernstein = 4> since: pair the two
             name = re.sub(r"(nsf_sample_tiledILi\d)ELi24EE", r"\1ELi4EE", name)
-            name = name if "nsf_sample_tiled" in name or "nsf_sample_kernel" in name else None
+            kernels = ("nsf_sample_tiled", "nsf_sample_kernel", "nsf_density_kernel",
+                       "nsf_density_tiled")
+            name = name if any(k in name for k in kernels) else None
             if name:
                 functions[name] = []
         elif name and line.strip().startswith("/*"):
@@ -176,10 +190,27 @@ def time_tree(tree, steps_only=False):
                     return nsf_fused.nsf_sample(x, ps, layout, *st, want_log_prob=mode)
 
                 out[f"{name}@{rows}"] = round(time_ms(fn, 5)[0], 3)
+        if hasattr(nsf_fused, "density_tile_rows"):  # a tree with the tiled density
+            tile_rows = nsf_fused.density_tile_rows
+            x = torch.randn(1 << 20, 6, generator=gen, device=dev)
+            try:
+                for R in (32, 64, 128):
+                    nsf_fused.density_tile_rows = lambda *a, R=R: R
+                    for name, fn in (("density", nsf_fused.nsf_density),
+                                     ("apply", nsf_fused.nsf_apply)):
+                        out[f"tile{R}_{name}@{1 << 20}"] = round(time_ms(
+                            lambda: fn(x, ps, layout, *st), 5)[0], 3)
+            finally:
+                nsf_fused.density_tile_rows = tile_rows
         torch.manual_seed(0)
         maf = zt.MAF(6, 0, transforms=3, device=dev)
         mps, mlayout, mcfg = nsf_fused._flatten_flow(maf)
         mps, mst = [p.detach() for p in mps], nsf_fused._statics(mcfg, 6)
+        for rows in (1 << 20, 1 << 18):
+            x = torch.randn(rows, 6, generator=gen, device=dev)
+            for name, fn in (("density", nsf_fused.nsf_density), ("apply", nsf_fused.nsf_apply)):
+                out[f"maf_{name}@{rows}"] = round(time_ms(
+                    lambda: fn(x, mps, mlayout, *mst), 5)[0], 3)
         x = torch.randn(1 << 20, 6, generator=gen, device=dev)
         for name, mode in (("sample", False), ("sample_log_prob", True), ("sample_raw", "raw")):
             out[f"maf_{name}@{1 << 20}"] = round(time_ms(
@@ -196,6 +227,14 @@ def time_tree(tree, steps_only=False):
                                    assets / f"{key}_flagship.npz")
             pps, playout, pcfg = nsf_fused._flatten_flow(pflow)
             pps, pst = [p.detach() for p in pps], nsf_fused._statics(pcfg, 6)
+            # K1 and K2 in the mode, at the served 1M rows and the 65,536
+            # of steps (m), (o), (q), on draws of the base (inside its box)
+            for n in (1 << 20, 1 << 16):
+                z = nsf_fused._base_draws((pps, playout, pcfg), (n,), None, gen, pcfg["base"])[1]
+                for name, fn in (("density", nsf_fused.nsf_density),
+                                 ("apply", nsf_fused.nsf_apply)):
+                    out[f"{key}_{name}@{n}"] = round(time_ms(
+                        lambda: fn(z, pps, playout, *pst), 3)[0], 3)
             for n in rows:
                 z = nsf_fused._base_draws((pps, playout, pcfg), (n,), None, gen, pcfg["base"])[1]
                 for mode, name in modes.items():
@@ -292,8 +331,10 @@ def compare_k10(trees):
 def time_ift_steps(zt, assets, dev, host_ms):
     """The reverse-KL steps (ms) through the IFT and (l)'s through the CNF's
     continuous adjoint, from the flagships' weights, on ``chip_smoke.py``'s
-    ring energy, and (k)."""
+    ring energy, and (k), (a) and (c)."""
     import torch
+
+    from zuko_tpu_torch.lazy import Flow
 
     def ring(x):
         return -((x.norm(dim=-1) - 2.0) ** 2) / 0.1
@@ -336,6 +377,29 @@ def time_ift_steps(zt, assets, dev, host_ms):
         state, _ = step_fn(state, x)
 
     out[f"step_k_cnf@{1 << 16}"] = round(host_ms(mle, 9)[0], 3)
+    # (a) and (c): the flagship NSF's maximum-likelihood step on 262,144 of
+    # its samples, and reverse KL through its inverted flow
+    flow = zt.load_params(zt.NSF(6, 0, transforms=3, device=dev), assets / "nsf_flagship.npz")
+    with torch.no_grad():
+        x = flow(None).sample((1 << 18,), generator=torch.Generator(device=dev).manual_seed(0))
+    init_fn, step_fn = zt.make_mle_step(flow, lr=1e-3)
+    state = init_fn()
+
+    def nsf_mle():
+        nonlocal state
+        state, _ = step_fn(state, x)
+
+    out[f"step_a_nsf@{1 << 18}"] = round(host_ms(nsf_mle, 9)[0], 3)
+    flow = zt.load_params(zt.NSF(6, 0, transforms=3, device=dev), assets / "nsf_flagship.npz")
+    inverted = Flow(flow.transform.inv, flow.base)
+    init_fn, step_fn = zt.make_reverse_kl_step(inverted, ring, n_samples=1 << 18, lr=1e-3)
+    state, gen = init_fn(), torch.Generator(device=dev).manual_seed(0)
+
+    def nsf_rkl_inv():
+        nonlocal state
+        state, _ = step_fn(state, gen)
+
+    out[f"step_c_nsf_inv@{1 << 18}"] = round(host_ms(nsf_rkl_inv, 9)[0], 3)
     return out
 
 

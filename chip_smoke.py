@@ -53,6 +53,12 @@ It checks:
   row, one tiled launch each, against plain float64 and against the wide
   tier on the same draws, both at the limits above (whether it is the wide
   tier's bit for bit is printed);
+* K1's and K2's tiled tier (the closed-form density's and apply's narrow
+  tier) for the same three flows, planned as a ``TilePlan``, the density,
+  the apply's ``T(x)`` and its sum at 1M rows, 262,144 - 37 and a last tile
+  of one valid row, one tiled launch each, against plain float64 and
+  against the wide tier on the same rows, max <= 1e-4 (the difference from
+  the wide tier printed, with whether it is bit for bit);
 * the gradient through each ``autograd.Function`` (kernel forward, plain
   float32 backward) against float64 plain autograd at 262,144 rows, and K1's
   again at the parameters and rows step (a) trains on: each parameter's
@@ -1191,6 +1197,56 @@ def main():
                     note_error(name, dx, rows)
                 print(line + f"; bit for bit the wide tier's: {same}")
     print(f"K3 tiled tier checks: {time.perf_counter() - t_k3:.1f} s")
+
+    # K1 and K2's tiled tier (the closed-form density's and apply's narrow
+    # tier since it was redesigned), as K3's above: planned for the three
+    # flows; at 1M rows, 262,144 - 37 and a last tile of one valid row, the
+    # density, the apply's y and its sum against plain float64 and against
+    # the wide tier on the same rows (the difference printed, with whether
+    # it is bit for bit), one tiled launch each; rows from a generator of
+    # their own
+    gen_k12 = torch.Generator(device=dev).manual_seed(16)
+    t_k12 = time.perf_counter()
+    for label, flow in (("flagship", flagship), ("conditional", conditional), ("maf", maf)):
+        params, layout, st = plain_args(flow, torch.float32)
+        p64, _, _ = plain_args(flow, torch.float64)
+        F, C = st[0], params[0].shape[1] - st[0]
+        _, widths, passes = nsf_fused._pack_weights(params, layout, F, C, st[1], st[4])
+        plan = nsf_fused.plan_nsf(widths, st[1], st[4], len(passes), ROWS,
+                                  _build.load_library("nsf_fused").nsf_max_shared_bytes(
+                                      dev.index or 0))
+        print(f"{label} density plan: {plan}")
+        check(isinstance(plan, nsf_fused.TilePlan) and not plan.wide,
+              f"{label}: the tiled density")
+        for rows in (ROWS, GRAD_ROWS - 37, 16 * plan.tile_rows + 1):
+            xc = torch.randn(rows, F + C, generator=gen_k12, device=dev)
+            with torch.no_grad():
+                r_lp = nsf_fused._full_math(xc.double(), p64, layout, *st)
+                r_y, r_sl = nsf_fused._full_math(xc.double(), p64, layout, *st, raw=True)
+            for fn, name, refs in ((nsf_fused.nsf_density, "nsf_density", (r_lp,)),
+                                   (nsf_fused.nsf_apply, "nsf_apply", (r_y, r_sl))):
+                ops.reset_launches()
+                with torch.no_grad():
+                    tiled = fn(xc, params, layout, *st)
+                    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+                    with nsf_wide_tier():
+                        wide = fn(xc, params, layout, *st)
+                check(launched == {name: 1}, f"{label} {name}: one tiled launch, {launched}")
+                tiled = tiled if isinstance(tiled, tuple) else (tiled,)
+                wide = wide if isinstance(wide, tuple) else (wide,)
+                same = all(torch.equal(a, b) for a, b in zip(tiled, wide))
+                diffs = [(a.double() - r).abs() for a, r in zip(tiled, refs)]
+                wdiffs = [(a - b).abs() for a, b in zip(tiled, wide)]
+                print(f"{label} {name} tiled at {rows} rows: vs plain f64 max"
+                      f" {['%.3e' % d.max().item() for d in diffs]}, vs wide tier max"
+                      f" {['%.3e' % d.max().item() for d in wdiffs]}; bit for bit the wide"
+                      f" tier's: {same}")
+                for d in diffs + wdiffs:
+                    check(d.max().item() <= TOL_DENSITY,
+                          f"{label} {name} tiled at {rows} rows vs plain and the wide tier")
+                note_error(name, torch.stack([d.reshape(rows, -1).amax(dim=1) for d in diffs])
+                           .amax(dim=0), rows)
+    print(f"K1 and K2 tiled tier checks: {time.perf_counter() - t_k12:.1f} s")
 
     # 6. the per-op kernels against their plain versions, float64 on the card
     fparams, flayout, fst = plain_args(flagship, torch.float32)
@@ -3569,7 +3625,7 @@ def main():
         # printed, with whether it is bit for bit), one tiled launch each;
         # draws from a generator of their own, so that (m)-(r) keep theirs
         tile = {"ncsf": 128, "sospf": 64, "bpf": 64}[key]
-        check(isinstance(plan, nsf_fused.SamplePlan) and plan.tile_rows == tile,
+        check(isinstance(plan, nsf_fused.TilePlan) and plan.tile_rows == tile,
               f"{label}: the tiled sampler at {tile} rows, {plan}")
         seed = {"ncsf": 17, "sospf": 18, "bpf": 16}[key]
         gen_tier = torch.Generator(device=dev).manual_seed(seed)
@@ -3585,7 +3641,7 @@ def main():
         hold_nsf(f"conditional {label}", cond, torch.cat([xs_rows, fc], dim=1), czc)
         cparams, clayout, cst = plain_args(cond, torch.float32)
         cplan = sampler_plan(cparams, clayout, cst, czc.shape[0])
-        check(isinstance(cplan, nsf_fused.SamplePlan) and cplan.tile_rows == tile,
+        check(isinstance(cplan, nsf_fused.TilePlan) and cplan.tile_rows == tile,
               f"conditional {label}: the tiled sampler at {tile} rows, {cplan}")
         tiled_vs_wide(f"conditional {label}", names, cparams, clayout, cst, czc)
         fam_work = nsf_work(params, layout, st, fx, base_draws(ROWS, 6, base))

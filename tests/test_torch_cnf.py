@@ -272,7 +272,7 @@ def test_unfused_flow_matches_zuko_tpu(fused_rsample, monkeypatch):
         def jloss(p, c_):
             return jnp.sum(combine(p, static)(c_).transform.inv(jnp.asarray(z)) * w)
 
-    jgrads = jax.grad(jloss, argnums=(0, 1) if C else 0)(params, jc)
+    jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1) if C else 0))(params, jc)
     jgrads = jgrads if C else (jgrads,)
     _dispatch(monkeypatch, False)
     jdist = jflow(jc)
@@ -283,10 +283,12 @@ def test_unfused_flow_matches_zuko_tpu(fused_rsample, monkeypatch):
     assert type(tdist) is (FusedContinuousFlow if fused_rsample else NormalizingFlow)
     sample = tdist.rsample((6,) if tc is None else (), generator=generator)
     (sample * torch.as_tensor(w)).sum().backward()
-    _close(sample, jdist.transform.inv(jnp.asarray(z)), 1e-8)
+    jsample, jlp = jax.jit(lambda z_, x_: (jdist.transform.inv(z_), jdist.log_prob(x_)))(
+        jnp.asarray(z), jnp.asarray(x))
+    _close(sample, jsample, 1e-8)
     _dispatch(monkeypatch, False)
     with torch.no_grad():
-        _close(tflow(tc).log_prob(torch.as_tensor(x)), jdist.log_prob(jnp.asarray(x)), 1e-8)
+        _close(tflow(tc).log_prob(torch.as_tensor(x)), jlp, 1e-8)
     if C:
         _close(tcg.grad, jgrads[1], 1e-8)
     got, want = _grads_by_name(jgrads[0], tflow)
@@ -324,9 +326,11 @@ def test_fused_density_and_gradients_match_zuko_tpu(case, monkeypatch):
     _dispatch(monkeypatch, True)
     jdist = jflow(jc)
     assert type(jdist).__name__ == "FusedContinuousFlow"
-    expected = np.asarray(jdist.log_prob(jnp.asarray(x)))
     argnums = (0, 1, 2) if C else (0, 1)
-    jgrads = jax.grad(jloss, argnums=argnums)(params, jnp.asarray(x), jc)
+    # zuko_tpu's density and its gradients, traced once under jax.jit
+    expected, jgrads = jax.jit(lambda p, x_, c_: (
+        combine(p, static)(c_).log_prob(x_), jax.grad(jloss, argnums=argnums)(p, x_, c_)))(
+            params, jnp.asarray(x), jc)
     tflow.zero_grad()
     tx = torch.tensor(x, requires_grad=True)
     tcg = None if tc is None else tc.clone().requires_grad_(True)
@@ -520,6 +524,51 @@ def test_plain_adjoint_matches_zuko_tpus_tile_adjoint(case):
                 _close(got[i], np.asarray(want).reshape(got[i].shape), 1e-10)
 
 
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("row_bias", [False, True], ids=["shared_bias", "row_bias"])
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+@pytest.mark.parametrize("trace", [None, True, False], ids=["no_trace", "exact", "hutchinson"])
+def test_tile_vjp_matches_autograd(trace, depth, row_bias, F):
+    """``_tile_f_vjp``, the plain adjoint's slopes: its ``f`` is
+    ``_tile_f_and_tr``'s bit for bit, and its hand-written vector-Jacobian
+    product of ``sum(fbar f) + sum(trbar tr)`` equals autograd over
+    ``_tile_f_and_tr`` tile by tile (each parameter's cotangent summed over
+    that tile's rows, a per-row first bias's per row) to 1e-12, for every
+    trace, 0-3 hidden ELU layers (none: ``f`` linear in ``u``, the exact
+    trace that of ``W1_x``), a shared or per-row first bias, 1 and 3
+    features."""
+    rng = np.random.default_rng(100 * depth + 10 * F + row_bias)
+    k, T, H, nf = 2, 5, 4, 3
+    outs = [H] * depth + [F]
+    t64 = lambda *shape: torch.as_tensor(rng.standard_normal(shape))  # noqa: E731
+    theta = [t64(outs[0], F), t64(outs[0], 2 * nf),
+             t64(k, T, outs[0]) if row_bias else t64(outs[0])]
+    for i in range(1, depth + 1):
+        theta += [t64(outs[i], outs[i - 1]) / 2, t64(outs[i])]
+    cfg = {"freqs": tuple(float(f) for f in rng.uniform(0.5, 3.0, nf))}
+    s, u, fbar = torch.as_tensor(rng.uniform(0, 1, k)), t64(k, T, F), t64(k, T, F)
+    eps = t64(k, T, F) if trace is False else None
+    trbar = None if trace is None else t64(k, T)
+    f, du, dth = torch_cnf._tile_f_vjp(s, u, theta, eps, fbar, trbar, cfg, trace)
+    assert torch.equal(f, torch_cnf._tile_f_and_tr(s, u, theta, eps, cfg, trace)[0])
+    assert len(dth) == len(theta)
+    for j in range(k):
+        leaves = [u[j : j + 1].clone().requires_grad_()] + [
+            (p[j : j + 1] if row_bias and i == 2 else p).clone().requires_grad_()
+            for i, p in enumerate(theta)]
+        fj, trj = torch_cnf._tile_f_and_tr(s[j : j + 1], leaves[0], leaves[1:],
+                                            None if eps is None else eps[j : j + 1], cfg, trace)
+        phi = (fbar[j : j + 1] * fj).sum()
+        if trace is not None:
+            phi = phi + (trbar[j : j + 1] * trj).sum()
+        want = torch.autograd.grad(phi, leaves, allow_unused=True)
+        got = [du[j : j + 1]] + [g[j : j + 1] if row_bias and i == 2 else g[j]
+                                 for i, g in enumerate(dth)]
+        for i, (g, w) in enumerate(zip(got, want)):
+            w = torch.zeros_like(g) if w is None else w
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12, msg=f"tile {j}, leaf {i}")
+
+
 RSAMPLE_CASES = {
     "exact": ("cnf", False, 1e-10),
     "hutchinson": ("cnf_hutchinson_plain", False, 1e-10),
@@ -559,7 +608,7 @@ def test_rsample_gradients_match_zuko_tpu(case, monkeypatch):
     jdist = build(params, jc)
     assert type(jdist).__name__ == "FusedContinuousFlow"
     _, z, eps, _, _ = jax_cnf._prep_cnf_sample(jflow, jdist.transform, key, shape, jc, True)
-    value, jgrads = jax.value_and_grad(jloss, argnums=(0, 1) if C else 0)(params, jc)
+    value, jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1) if C else 0))(params, jc)
     jgrads = jgrads if C else (jgrads,)
     z, eps = np.asarray(z), np.asarray(eps)
     monkeypatch.setattr(torch, "randn", lambda size, **kw: torch.tensor(z).reshape(size))
@@ -773,9 +822,12 @@ def test_flagship_truth_regenerates_from_zuko_tpu(monkeypatch):
     tight = dict(atol=1e-10, rtol=1e-10, max_steps=4096)
     jdist = _f64(_flagship(**tight))(None)
     rows = slice(0, 32)
-    jlp = np.asarray(jdist.log_prob(jnp.asarray(x[rows])))
-    jxs, jladj = jdist.transform.inverse_and_ladj(jnp.asarray(z[rows]))
-    jlq = np.asarray(jdist.base.log_prob(jnp.asarray(z[rows])) - jladj)
+
+    def truth(x_, z_):
+        jxs, jladj = jdist.transform.inverse_and_ladj(z_)
+        return jdist.log_prob(x_), jxs, jdist.base.log_prob(z_) - jladj
+
+    jlp, jxs, jlq = jax.jit(truth)(jnp.asarray(x[rows]), jnp.asarray(z[rows]))
     for got, want in ((jlp, lp), (jxs, xs), (jlq, lq)):
         np.testing.assert_allclose(np.asarray(got), want[rows], rtol=0, atol=1e-6)
     flow = load_params(zt.CNF(6, device="cpu", **tight).double(), ASSETS / "cnf_flagship.npz")

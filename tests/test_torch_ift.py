@@ -241,16 +241,20 @@ def test_inverted_flow_matches_zuko_tpu(name, tmp_path, monkeypatch):
     assert type(jdist).__name__ == "FusedInvertedAutoregressiveFlow"
     assert isinstance(tdist, dispatch.FusedInvertedAutoregressiveFlow)
 
+    # zuko_tpu's density and its draws with their log q, traced once under
+    # jax.jit; the same base draws for both: zuko_tpu's, from its key
+    key = jax.random.PRNGKey(3)
+
+    def jrun(p, x_, c_):
+        dist = combine(p, static)(c_)
+        return dist.log_prob(x_), dist.sample_and_log_prob(key, (9,))
+
+    jlp, (jx, jlq) = jax.jit(jrun)(_f64(params), jnp.asarray(x), jc)
     with torch.no_grad():
         lp = tdist.log_prob(torch.as_tensor(x))
-    np.testing.assert_allclose(
-        lp.numpy(), np.asarray(jdist.log_prob(jnp.asarray(x))), rtol=1e-9, atol=1e-9)
-
-    # the same base draws for both: zuko_tpu's, from its key
-    key = jax.random.PRNGKey(3)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), rtol=1e-9, atol=1e-9)
     z = np.asarray(jdist.base.sample(key, (9,)))
     assert z.dtype == np.float64 and z.shape == (9,) + x.shape[: 1 if C else 0] + (F,)
-    jx, jlq = jdist.sample_and_log_prob(key, (9,))
     monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.tensor(z))
     tx, tlq = tdist.sample_and_log_prob((9,))
     assert not tx.requires_grad

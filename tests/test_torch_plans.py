@@ -9,7 +9,9 @@ in ``csrc/masked_linear.cu``) and the CNF adjoint's cluster tier
 ``csrc/cnf_fused.cu`` ``adjoint_plan``), the closed-form NSF sampler's tile
 (``ops/nsf_fused.py`` ``plan_nsf(..., sample=True)``, ``sample_tile_rows``,
 ``_sample_tile_floats``, ``_tiled_weights``, mirrored in
-``csrc/nsf_fused.cu`` ``tile_plan``), the CNF density's cluster tier
+``csrc/nsf_fused.cu`` ``tile_plan``) and the closed-form density's and
+apply's (``plan_nsf``, ``density_tile_rows``, ``_density_tile_floats``,
+``tile_plan`` without targets), the CNF density's cluster tier
 and sampler's (``plan_cnf``, mirrored in ``density_plan``), the tiled
 Bernstein, circular and sum-of-squares samplers (``plan_nsf(..., sample=True)``
 for ``bernstein``, ``crqs`` and ``sosp``), and that
@@ -496,7 +498,8 @@ def test_nsf_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
     layer's linears as ``W^T [in][pad8(out)]`` and padded biases, 13,968
     floats, then ``[F + C][R]``, ``[F][R]``, two hidden buffers ``[64][R]``
     and the last linear's outputs ``[144][R]``: 201,280 bytes), else 64 or
-    32 (hidden widths of 128: 32). The density keeps its own plan."""
+    32 (hidden widths of 128: 32). The density plans the same tile
+    without the targets ``[F][R]``."""
     _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
     assert got == widths
     K, univ = cfg["bins"], cfg["univ"]
@@ -509,7 +512,94 @@ def test_nsf_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
     for rows in (1, 1 << 20):
         plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED, sample=True)
         assert plan == (False, 0, rows, 0, 0, tile, nbytes)
-        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == (False, 0, rows, 0, 0)
+        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == (
+            False, 0, rows, 0, 0, tile, nbytes - 4 * F * tile)
+
+
+@pytest.mark.parametrize("make, widths, nbytes", [
+    (lambda: zt.NSF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 138], 198208),
+    (lambda: zt.NSF(3, 5, transforms=3, device="cpu"), [8, 64, 64, 69], 144160),
+    (lambda: zt.MAF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 12], 99392),
+], ids=["flagship", "conditional", "maf"])
+def test_nsf_density_plans_the_tiled_tier(make, widths, nbytes):
+    """The closed-form density and apply (affine, RQS) plan the tiled
+    kernel, a tile of 128 rows: one layer's staged linears (13,968 floats
+    for the flagship NSF), then ``[F + C][R]``, two hidden buffers
+    ``[64][R]`` and the last linear's outputs ``[pad8(F T)][R]``, no
+    targets (the flagship: 49,552 floats, 198,208 bytes; the conditional
+    NSF's 69 outputs pad to 72), at any number of rows."""
+    _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
+    assert got == widths
+    K, univ = cfg["bins"], cfg["univ"]
+    T = nsf_fused._univ_size(univ, K)
+    weights = sum(i * -(-o // 8) * 8 + -(-o // 8) * 8 for i, o in zip(widths[:-1], widths[1:]))
+    floats = weights + (widths[0] + 2 * 64 + -(-F * T // 8) * 8) * 128
+    assert nsf_fused._density_tile_floats(widths, T, 128) == floats and 4 * floats == nbytes
+    assert nsf_fused.density_tile_rows(widths, K, univ) == 128
+    for rows in (1, 1 << 18, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED)
+        assert isinstance(plan, nsf_fused.TilePlan) and plan == (False, 0, rows, 0, 0, 128, nbytes)
+
+
+@pytest.mark.parametrize("make, widths", [
+    (lambda: zt.NSF(6, 0, transforms=3, hidden_features=(256, 256), device="cpu"),
+     [6, 256, 256, 138]),
+    (lambda: zt.NSF(3, 0, transforms=2, bins=40, device="cpu"), [3, 64, 64, 357]),
+    (lambda: zt.MAF(6, 0, transforms=3, hidden_features=(300,), device="cpu"), [6, 300, 12]),
+], ids=["hidden_256", "bins_40", "width_300"])
+def test_nsf_density_past_the_limits_plans_the_wide_tier(make, widths):
+    """A closed-form density that fits no tile (hidden widths of 256: 418 KB
+    of staged linears) or passes the narrow limits (40 bins, a width of 300)
+    plans the wide tier, as the per-thread tier's limits did."""
+    _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
+    assert got == widths
+    K, univ = cfg["bins"], cfg["univ"]
+    plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, 1 << 16, SHARED)
+    assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
+    assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("univ, hidden, tile, nbytes", [
+    ("affine", 16, 128, 30272), ("affine", 32, 128, 51264), ("affine", 48, 128, 74304),
+    ("affine", 64, 128, 99392), ("affine", 96, 128, 155712), ("affine", 128, 128, 220224),
+    ("affine", 160, 64, 205376), ("affine", 192, 32, 217920), ("affine", 224, None, None),
+    ("affine", 256, None, None),
+    ("rqs", 16, 128, 104512), ("rqs", 32, 128, 133696), ("rqs", 48, 128, 164928),
+    ("rqs", 64, 128, 198208), ("rqs", 96, 64, 183360), ("rqs", 128, 32, 195904),
+    ("rqs", 160, None, None), ("rqs", 192, None, None), ("rqs", 224, None, None),
+    ("rqs", 256, None, None),
+])
+def test_nsf_density_tile_shrinks_with_the_hidden_width(univ, hidden, tile, nbytes):
+    """Six features, two hidden layers of ``hidden`` (8 bins for the
+    spline): the tiled density's tile is the largest of 128, 64 and 32 rows
+    that fits 227 KB, so it shrinks as the hidden layers widen (the
+    spline's 138 outputs a row sooner than the affine map's 12), and past
+    the last tile the flow, still within the narrow limits, plans the wide
+    tier, at any number of rows."""
+    T = nsf_fused._univ_size(univ, 8)
+    widths = [6, hidden, hidden, 6 * T]
+    assert nsf_fused.density_tile_rows(widths, 8, univ) == tile
+    for rows in (1, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, 8, univ, 3, rows, SHARED)
+        if tile is None:
+            assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
+        else:
+            assert plan == (False, 0, rows, 0, 0, tile, nbytes)
+            assert nbytes == 4 * nsf_fused._density_tile_floats(widths, T, tile) <= SHARED
+
+
+@pytest.mark.parametrize("make", [
+    lambda: zt.NCSF(6, 0, transforms=3, device="cpu"),
+    lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"),
+    lambda: zt.BPF(6, 0, transforms=3, device="cpu"),
+], ids=["ncsf", "sospf", "bpf"])
+def test_other_densities_keep_the_per_thread_tier(make):
+    """The circular spline's and the polynomials' densities keep the
+    per-thread narrow tier: no tile, at any number of rows."""
+    _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
+    for rows in (1, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, cfg["bins"], cfg["univ"], n_ar, rows, SHARED)
+        assert plan == (False, 0, rows, 0, 0) and not isinstance(plan, nsf_fused.TilePlan)
 
 
 def test_nsf_sampler_that_fits_no_tile_plans_the_wide_tier():
@@ -522,7 +612,7 @@ def test_nsf_sampler_that_fits_no_tile_plans_the_wide_tier():
     assert widths == [6, 256, 256, 138]
     assert nsf_fused.sample_tile_rows(widths, 8, "rqs") is None
     plan = nsf_fused.plan_nsf(widths, 8, "rqs", n_ar, 1 << 16, SHARED, sample=True)
-    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
     assert plan == nsf_fused.plan_nsf(widths, 8, "rqs", n_ar, 1 << 16, SHARED)
     circular = nsf_fused.plan_nsf(widths, 8, "crqs", n_ar, 1 << 16, SHARED, sample=True)
@@ -558,8 +648,8 @@ def test_tiled_weights_hold_each_linear_transposed_and_padded():
 def test_nsf_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, mode, name, counter):
     """The closed-form sampler launches its narrow tier with the staged
     weights of ``_tiled_weights`` and the tile of 128 rows (the last two
-    arguments, after the stream), and counts under its name; the density
-    takes neither."""
+    arguments, after the stream), and counts under its name; so does the
+    density, under its own."""
     flow, params, layout, cfg, F, widths, _ = _nsf_shapes(
         lambda: zt.NSF(6, 0, transforms=3, device="cpu"))
     lib = _build.load_library("nsf_fused")
@@ -574,8 +664,49 @@ def test_nsf_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, mode, n
     assert len(args) == len(_build._SIGNATURES["nsf_fused"][name][0])
     assert len(dargs) == len(_build._SIGNATURES["nsf_fused"]["nsf_density_f32"][0])
     assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
-    assert args[-2] is not None and args[-1] == 128
+    for a in (args, dargs):
+        assert a[-2] is not None and a[-1] == 128
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {counter: 1, "nsf_density": 1}
+
+
+@pytest.mark.parametrize("make, univ", [
+    (lambda: zt.NSF(6, 0, transforms=3, device="cpu"), "rqs"),
+    (lambda: zt.NSF(3, 5, transforms=3, device="cpu"), "rqs"),
+    (lambda: zt.MAF(6, 0, transforms=3, device="cpu"), "affine"),
+    (lambda: zt.NCSF(6, 0, transforms=3, device="cpu"), "crqs"),
+], ids=["flagship", "conditional", "maf", "ncsf"])
+def test_nsf_density_and_apply_hand_the_tile_to_the_kernel(recorded, monkeypatch, make, univ):
+    """``nsf_density`` and ``nsf_apply`` hand the C entry points the
+    buffer ``_tiled_weights`` builds for this call and the tile of 128 rows
+    (the last two arguments, after the stream) on the narrow tier, and
+    count under ``nsf_density`` and ``nsf_apply``; the circular spline's
+    per-thread density and apply take neither (null, 0) and count under
+    their mode's names."""
+    flow, params, layout, cfg, F, widths, _ = _nsf_shapes(make)
+    assert cfg["univ"] == univ
+    lib = _build.load_library("nsf_fused")
+    monkeypatch.setattr(lib, "nsf_max_shared_bytes", lambda device: SHARED)
+    staged, tiled_weights = [], nsf_fused._tiled_weights
+    monkeypatch.setattr(nsf_fused, "_tiled_weights",
+                        lambda *a: staged.append(tiled_weights(*a)) or staged[-1])
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    xc = torch.randn(300, params[0].shape[1]).as_subclass(_OnCard)
+    st = nsf_fused._statics(cfg, F)
+    nsf_fused.nsf_density(xc, card, layout, *st)
+    nsf_fused.nsf_apply(xc, card, layout, *st)
+    assert [name for name, _ in recorded] == ["nsf_density_f32", "nsf_apply_f32"]
+    tiled = univ in ("affine", "rqs")
+    assert len(staged) == (2 if tiled else 0)
+    for (name, args), buffer in zip(recorded, staged if tiled else [None, None]):
+        assert len(args) == len(_build._SIGNATURES["nsf_fused"][name][0])
+        assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
+        if tiled:
+            assert torch.equal(buffer, tiled_weights(params, layout))
+            assert args[-2] == buffer.data_ptr() and args[-1] == 128
+        else:
+            assert args[-2] is None and args[-1] == 0
+    names = ("nsf_density", "nsf_apply") if tiled else (f"nsf_density_{univ}", f"nsf_apply_{univ}")
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == dict.fromkeys(names, 1)
 
 
 @pytest.mark.parametrize("make, widths, tile, nbytes", [
@@ -642,7 +773,7 @@ def test_bernstein_sampler_past_its_registers_plans_the_wide_tier(make):
     K = cfg["bins"]
     assert K + 5 > 64 and not nsf_fused._sample_tiled("bernstein", K)
     plan = nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, 1 << 14, SHARED, sample=True)
-    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
     assert nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, 1 << 14, SHARED).wide
 
@@ -688,7 +819,7 @@ def test_circular_sampler_past_its_bins_plans_the_wide_tier(make):
     K = cfg["bins"]
     assert cfg["univ"] == "crqs" and K > 32 and nsf_fused._sample_tiled("crqs", K)
     plan = nsf_fused.plan_nsf(widths, K, "crqs", n_ar, 1 << 14, SHARED, sample=True)
-    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
     assert plan == nsf_fused.plan_nsf(widths, K, "crqs", n_ar, 1 << 14, SHARED)
 
@@ -727,7 +858,7 @@ def test_sosp_sampler_past_the_narrow_limits_plans_the_wide_tier(make):
     K = cfg["bins"]
     assert nsf_fused._univ_size("sosp", K) > 95 and not nsf_fused._sample_tiled("sosp", K)
     plan = nsf_fused.plan_nsf(widths, K, "sosp", n_ar, 1 << 14, SHARED, sample=True)
-    assert plan.wide and not isinstance(plan, nsf_fused.SamplePlan)
+    assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
     assert nsf_fused.plan_nsf(widths, K, "sosp", n_ar, 1 << 14, SHARED).wide
 

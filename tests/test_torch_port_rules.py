@@ -413,9 +413,10 @@ def test_new_modes_are_built_and_counted_and_have_no_switch():
     assert nsf_fused._UNIV_CODE == {"affine": 0, "rqs": 1, "crqs": 2, "sosp": 3, "bernstein": 4}
     for entry in _build._SIGNATURES["nsf_fused"]:
         assert f'extern "C" int {entry}(' in text
-    # input, output; the flow (20); the tier; the stream
+    # input, output; the flow (20); the tier; the stream; the tiled tier's
+    # staged weights and tile rows
     argtypes = _build._SIGNATURES["nsf_fused"]["nsf_density_f32"][0]
-    assert len(argtypes) == 2 + 20 + len(_build._TIER) + 1
+    assert len(argtypes) == 2 + 20 + len(_build._TIER) + 1 + 2
     for mode in ("crqs", "sosp", "bernstein"):
         for name in (f"nsf_density_{mode}", f"nsf_apply_{mode}", f"nsf_sample_{mode}",
                      f"nsf_sample_{mode}_log_prob", f"nsf_sample_{mode}_raw"):
@@ -665,8 +666,12 @@ def test_flagship_shapes_plan_the_narrow_tier(family):
         flow = zt.NSF(6, 0, transforms=3, device="cpu")
         params, layout, cfg = nsf_fused._flatten_flow(flow)
         _, widths, passes = nsf_fused._pack_weights(params, layout, 6, 0, cfg["bins"], cfg["univ"])
+        # the closed-form density's narrow tier is tiled: the plan's first
+        # five fields, then a tile of 128 rows (198,208 bytes)
         plan = [nsf_fused.plan_nsf(widths, cfg["bins"], cfg["univ"], len(passes), n)
                 for n in (1, 1 << 20)]
+        assert [p[5:] for p in plan] == [(128, 198208)] * 2
+        plan = [p[:5] for p in plan]
         wider = nsf_fused.plan_nsf([6, 256, 256, 138], 8, "rqs", 3, 1 << 20)  # 410 KB a layer
     elif family == "GF":
         with torch.no_grad():

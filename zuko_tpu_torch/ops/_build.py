@@ -35,9 +35,9 @@ _TIER = [_I, _P, _LL, _LL, _P, _LL]
 # box, lo, hi, log(hi - lo), rows, the tier, stream)
 _NSF_FLOW = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P, _I, _F, _F, _F, _LL,
              *_TIER, _P]
-_NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_FLOW], _I)
-# the samplers: then the closed-form tiled tier's staged weights and tile rows
-_NSF_SAMPLE = ([_P, _P, _P, *_NSF_FLOW, _P, _I], _I)
+# then the tiled tier's staged weights and tile rows
+_NSF_TILED = [*_NSF_FLOW, _P, _I]
+_NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_TILED], _I)
 # (packed, kinds, Ks, offs, shifts, raws, row strides, feature strides,
 # stages, F, rows, the tier, stream)
 _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
@@ -60,10 +60,10 @@ _CNF_ADJOINT = [_P] * 11 + [_P, _I, _I, _P, _F, _F, _I, _I, _LL, _I, *_TIER, _P]
 # ``<library>_error_string`` (declared by ``load_library``)
 _SIGNATURES = {
     "nsf_fused": {
-        "nsf_density_f32": ([_P, _P, *_NSF_FLOW], _I),
+        "nsf_density_f32": ([_P, _P, *_NSF_TILED], _I),
         "nsf_apply_f32": _NSF_TWO_OUTPUTS,
-        "nsf_sample_f32": _NSF_SAMPLE,
-        "nsf_sample_raw_f32": _NSF_SAMPLE,
+        "nsf_sample_f32": _NSF_TWO_OUTPUTS,
+        "nsf_sample_raw_f32": _NSF_TWO_OUTPUTS,
         "nsf_max_shared_bytes": ([_I], _I),
     },
     "gf_fused": {

@@ -55,6 +55,7 @@ forms of ELU or of the step factor, no second backend of the adjoint
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 from typing import NamedTuple
@@ -224,49 +225,105 @@ def _ref_log_prob(x, eps, ws, bs, c, cfg):
 # ------------------------------------------------------------ plain versions
 
 
-def _mm(x, W):
-    """``x @ W.T`` for weights ``W (out, in)`` shared by every tile, or tile
-    by tile for weights ``W (k, out, in)`` against ``x (k, ..., in)``."""
-    if W.dim() == 2:
-        return x @ W.T
-    return torch.einsum("k...i,koi->k...o", x, W)
+@functools.lru_cache(maxsize=None)
+def _freq_tensor(freqs, dtype, device):
+    """The frequencies of the time embedding as a tensor, made once."""
+    return torch.tensor(freqs, dtype=dtype, device=device)
+
+
+def _tile_net(s, u, theta, cfg):
+    """The ODE network on the tiles at times ``s (k,)`` and states ``u (k,
+    T, F)``, ``theta = [W1_x, W1_te, b1, W2, b2, ...]`` shared by the tiles
+    but the first bias (``(H1,)``, or per row ``(k, T, H1)``): ``f (k, T,
+    F)``, the time embedding ``[cos(s w), sin(s w)] (k, 2 nf)``, and each
+    hidden layer's ELU output and ELU derivative."""
+    W1_x, W1_te, b1, rest = theta[0], theta[1], theta[2], theta[3:]
+    ft = s[:, None] * _freq_tensor(cfg["freqs"], s.dtype, s.device)
+    emb = torch.cat([torch.cos(ft), torch.sin(ft)], dim=1)
+    h = u @ W1_x.T + b1 + emb[:, None, :] @ W1_te.T
+    acts, derivs = [], []
+    for W, b in zip(rest[0::2], rest[1::2]):
+        derivs.append(torch.exp(h.clamp(max=0)))  # elu'(h): 1 where h > 0
+        acts.append(Fn.elu(h))
+        h = acts[-1] @ W.T + b
+    return h, emb, acts, derivs
 
 
 def _tile_f_and_tr(s, u, theta, eps, cfg, trace):
-    """The tiles' dynamics ``f (k, T, F)`` at times ``s (k,)`` and states
-    ``u (k, T, F)``, and the UNSCALED trace ``(k, T)`` (``None`` without a
-    trace), as a pure function of ``(u, theta)`` (counterpart of
-    ``_tile_f_and_tr`` :447): ``theta = [W1_x, W1_te, b1, W2, b2, ...]``,
-    each shared by the tiles or with a leading tile axis ``k`` (the first
-    bias ``(H1,)``, ``(k, H1)`` or per row ``(k, T, H1)``). The exact trace
-    takes, for each column ``j``, ``W1_x[:, j]`` through the hidden layers
-    (``v <- W (elu'(h) * v)``) and only row ``j`` of the last layer;
-    Hutchinson's (``trace`` False) takes the probe ``eps (k, T, F)`` through
-    once and dots the result with it."""
-    W1_x, W1_te, b1, rest = theta[0], theta[1], theta[2], theta[3:]
-    ft = s[:, None] * torch.tensor(cfg["freqs"], dtype=u.dtype, device=u.device)
-    te = _mm(torch.cat([torch.cos(ft), torch.sin(ft)], dim=1)[:, None, :], W1_te)
-    h = _mm(u, W1_x) + (b1[:, None, :] if b1.dim() == 2 else b1) + te
-    derivs = []
-    for W, b in zip(rest[0::2], rest[1::2]):
-        derivs.append(torch.where(h > 0, 1.0, torch.exp(h.clamp(max=0))))
-        h = _mm(Fn.elu(h), W) + (b[:, None, :] if b.dim() == 2 else b)
+    """The tiles' dynamics ``f (k, T, F)`` and the UNSCALED trace ``(k, T)``
+    (``None`` without a trace), as a pure function of ``(u, theta)``
+    (counterpart of ``_tile_f_and_tr`` :447), :func:`_tile_net`'s arguments.
+    The exact trace takes, for each column ``j``, ``W1_x[:, j]`` through the
+    hidden layers (``v <- W (elu'(h) * v)``) and only row ``j`` of the last
+    layer; Hutchinson's (``trace`` False) takes the probe ``eps (k, T, F)``
+    through once and dots the result with it."""
+    h, _, _, derivs = _tile_net(s, u, theta, cfg)
     if trace is None:
         return h, None
-    Ws = rest[0::2]
+    W1_x, Ws = theta[0], theta[3::2]
     if trace and not Ws:
-        tr = torch.diagonal(W1_x, dim1=-2, dim2=-1).sum(dim=-1)
-        return h, (tr if tr.dim() == 0 else tr[:, None]).expand(h.shape[:-1])
+        return h, torch.diagonal(W1_x).sum().expand(h.shape[:-1])
     if trace:  # exact: column j of W1_x, row j of the last layer
-        W1T = W1_x.mT if W1_x.dim() == 2 else W1_x.mT[:, None]
-        v = derivs[0][..., None, :] * W1T
+        v = derivs[0][..., None, :] * W1_x.T
         for W, d in zip(Ws[:-1], derivs[1:]):
-            v = _mm(v, W) * d[..., None, :]
-        return h, torch.einsum("ktjh,jh->kt" if Ws[-1].dim() == 2 else "ktjh,kjh->kt", v, Ws[-1])
-    v = _mm(eps, W1_x)
+            v = (v @ W.T) * d[..., None, :]
+        return h, torch.einsum("ktjh,jh->kt", v, Ws[-1])
+    v = eps @ W1_x.T
     for W, d in zip(Ws, derivs):
-        v = _mm(d * v, W)
+        v = (d * v) @ W.T
     return h, (v * eps).sum(dim=-1)
+
+
+def _tile_f_vjp(s, u, theta, eps, fbar, trbar, cfg, trace):
+    """:func:`_tile_f_and_tr`'s ``f`` and, by hand, the vector-Jacobian
+    product of ``sum(fbar f) + sum(trbar tr)`` (``trbar (k, T)``, ``None``
+    with ``trace`` ``None``): ``(f, du, dtheta)``, each parameter's
+    cotangent summed over each tile's rows, ``(k, *shape)``, a per-row first
+    bias's ``(k, T, H1)``. The trace's tangents are those of a probe ``E``,
+    the unit vectors (exact) or ``eps`` (Hutchinson): ``P_1 = E W1_x^T``,
+    ``V_i = elu'(h_i) P_i``, ``P_{i + 1} = V_i W_{i + 1}^T``, ``tr = sum(P_L
+    E)``; ``tr``'s cotangent reaches each ``h_i`` through ``elu'``'s
+    derivative."""
+    W1_x, b1, Ws = theta[0], theta[2], theta[3::2]
+    h, emb, acts, derivs = _tile_net(s, u, theta, cfg)
+    if trace is not None:  # the tangents
+        if trace:
+            E = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
+            P = [W1_x.T.expand(u.shape[:2] + W1_x.T.shape)]
+        else:
+            E = eps[..., None, :]
+            P = [E @ W1_x.T]
+        V = []
+        for W, d in zip(Ws, derivs):
+            V.append(d[..., None, :] * P[-1])
+            P.append(V[-1] @ W.T)
+        gP = trbar[..., None, None] * E
+
+    def outer(a, b):  # sum over a tile's rows (and tangents) of a b^T: (k, o, i)
+        return a.flatten(1, -2).mT @ b.flatten(1, -2)
+
+    g, dWs, dbs = fbar, [], []
+    for i in reversed(range(len(Ws))):
+        dWs.append(outer(g, acts[i]))
+        dbs.append(g.sum(dim=1))
+        gh = (g @ Ws[i]) * derivs[i]
+        if trace is not None:
+            dWs[-1] = dWs[-1] + outer(gP, V[i])
+            gV = gP @ Ws[i]
+            gd = (gV * P[i]).sum(dim=-2)
+            gh = gh + gd * torch.where(acts[i] > 0, 0.0, derivs[i])
+            gP = gV * derivs[i][..., None, :]
+        g = gh
+    dW1 = outer(g, u)
+    if trace:
+        dW1 = dW1 + gP.sum(dim=1).mT
+    elif trace is False:
+        dW1 = dW1 + outer(gP[..., 0, :], eps)
+    gte = g.sum(dim=1)
+    dth = [dW1, gte[:, :, None] * emb[:, None, :], gte if b1.dim() == 1 else g]
+    for dW, db in zip(reversed(dWs), reversed(dbs)):
+        dth += [dW, db]
+    return h, g @ W1_x, dth
 
 
 def _tile_dynamics(s, xi, params, b1, eps, cfg, reverse, trace):
@@ -417,9 +474,10 @@ def _cnf_tile_adjoint_math(x, a, glq, eps, params, cfg, tile=None, counts=False)
     1), ``a (n, F)`` the cotangent of ``x`` and ``glq (n,)`` that of log q
     (:math:`\bar L`; ``None``: no trace term, the error control then runs
     without it as ``_cnf_tile_adjoint``'s does). ``f`` and the unscaled
-    trace are :func:`_tile_f_and_tr`, the slopes autograd over it with each
-    tile's own copy of the parameters ``params`` (as
-    :func:`_kernel_params` gives them; ``eps (n, F)`` the Hutchinson probe).
+    trace are :func:`_tile_f_and_tr`, the slopes its vector-Jacobian product
+    by hand (:func:`_tile_f_vjp`), each tile's parameter cotangents its own,
+    of the parameters ``params`` (as :func:`_kernel_params` gives them;
+    ``eps (n, F)`` the Hutchinson probe).
     Dormand-Prince 4(5) with the error ratio the max over every leaf (``u``,
     ``a``, each parameter's accumulator; rows past ``n`` excluded), NaN a
     rejection, at most ``4 max_steps`` attempts; an exhausted tile is NaN in
@@ -451,22 +509,12 @@ def _cnf_tile_adjoint_math(x, a, glq, eps, params, cfg, tile=None, counts=False)
     attempts = torch.zeros(k, dtype=torch.long, device=x.device)
     tiny = torch.finfo(x.dtype).tiny
 
-    def slopes(idx, s, flat):
-        m = idx.numel()
+    def slopes(s, flat, theta, eps, trbar):
+        # (f, -d/du, -d/dtheta) of phi = a . f - Lq tr, trbar = -Lq
+        m = flat.shape[0]
         u, av = (v.reshape(m, tile, F) for v in flat[:, : 2 * sizes[0]].split(sizes[0], dim=1))
-        theta = [B[idx] if i == 2 and row_bias else p.expand((m,) + p.shape)
-                 for i, p in enumerate(params)]
-        with torch.enable_grad():
-            u = u.detach().requires_grad_()
-            th = [q.detach().requires_grad_() for q in theta]
-            f, tr = _tile_f_and_tr(s, u, th, None if E is None else E[idx], cfg, trace)
-            phi = (av * f).sum()
-            if tr is not None:
-                phi = phi - (Lq[idx] * tr).sum()
-            grads = torch.autograd.grad(phi, [u, *th], allow_unused=True)
-        return torch.cat([f.detach().reshape(m, -1)] + [
-            (-g if g is not None else torch.zeros_like(q)).reshape(m, -1)
-            for g, q in zip(grads, [u, *th])], dim=1)
+        f, du, dth = _tile_f_vjp(s, u, theta, eps, av, trbar, cfg, trace)
+        return torch.cat([f.reshape(m, -1)] + [(-g).reshape(m, -1) for g in [du, *dth]], dim=1)
 
     while True:
         idx = ((t < 1) & (attempts < 4 * cfg["max_steps"])).nonzero()[:, 0]
@@ -474,13 +522,15 @@ def _cnf_tile_adjoint_math(x, a, glq, eps, params, cfg, tile=None, counts=False)
             break
         y0, ta = state[idx], t[idx]
         dta = torch.minimum(dt[idx], 1 - ta)
+        at = ([params[0], params[1], B[idx] if row_bias else params[2], *params[3:]],
+              None if E is None else E[idx], None if Lq is None else -Lq[idx])
         ks = []
         for i in range(7):
             yi = y0
             for j, c in enumerate(_DP_A[i]):
                 if c != 0.0:
                     yi = yi + (dta * c)[:, None] * ks[j]
-            ks.append(slopes(idx, ta + _DP_C[i] * dta, yi))
+            ks.append(slopes(ta + _DP_C[i] * dta, yi, *at))
         y, err = y0, torch.zeros_like(y0)
         for i in range(7):
             b5, d = _DP_B5[i], _DP_B5[i] - _DP_B4[i]

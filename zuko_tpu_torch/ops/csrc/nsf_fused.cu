@@ -33,7 +33,8 @@
 // repeats the hyper-net min(passes, F) times per layer. nsf_apply does the
 // density's operations and stays bound by them.
 //
-// Design (simple and right first): one thread per batch row, blocks of 128
+// The per-thread design (the first one; since redesigned for the closed-form
+// family, below): one thread per batch row, blocks of 128
 // rows. Each block stages one AR layer's pre-masked weights and biases into
 // dynamic shared memory (about 53 KB for the flagship), so every weight is
 // read from device memory once per block and layer, and a warp's 32 threads
@@ -51,9 +52,11 @@
 // closed-form family (affine and RQS), of the circular spline and of a
 // polynomial of at most kPolyRegs coefficients (the Bernstein polynomial's
 // M + 5, the sum of squares' P (L + 1) at kSospNodes nodes or fewer), all
-// three modes, is the tiled nsf_sample_tiled (below), within the same limits
-// where its tile fits (a larger polynomial samples through the per-thread
-// nsf_sample_kernel). The wide tier takes any shape:
+// three modes, is the tiled nsf_sample_tiled (below), and the closed-form
+// family's density and apply the tiled nsf_density_tiled, within the same
+// limits where their tile fits (a larger polynomial samples through the
+// per-thread nsf_sample_kernel; the circular spline's and the polynomials'
+// densities and applies are per-thread). The wide tier takes any shape:
 // the weights are read through the read-only data cache (__ldg), one address
 // per warp at a time, as the NAF kernels read theirs; a row's activations,
 // raw parameters and knots live in a workspace in device memory, one column
@@ -1184,6 +1187,75 @@ __global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv =
   if (kMode != kNoLadj && owner && row0 + tid < n) logq[row0 + tid] = acc;
 }
 
+// The narrow tier of the closed-form density and apply (affine and RQS):
+// nsf_density_tiled, the tiled sampler's log-q pass once a layer, in forward
+// order, with no sweeps. A block a tile of R rows (density_tile_rows in
+// ops/nsf_fused.py), its arrays those of the sampler's tile but the targets
+// (tile_plan without them). The same function as nsf_density_kernel<kWide =
+// true, kRaw, kClosed>: for each layer the hyper-net on the tile's x
+// (made_tiled), then one thread a (row, feature) pair takes the forward
+// (spline_streamed<false>, or the affine map) and updates x in place (every
+// feature's parameters are already in P), its log-Jacobian left in the
+// pair's column; thread r < R owns row r's sum (the layers' log-Jacobians
+// feature by feature, then the softclip's, in the wide tier's order). kRaw
+// false: out[row] = the sum + the normal base at T(x); kRaw true (nsf_apply):
+// y[row, :] = T(x) and out[row] = the sum.
+template <bool kRaw>
+__global__ void __launch_bounds__(kSampleThreads)
+    nsf_density_tiled(const float* __restrict__ xcin, float* __restrict__ y,
+                      float* __restrict__ out, const float* __restrict__ tiled,
+                      const __grid_constant__ Shape s, const __grid_constant__ SampleTile tl,
+                      long long n) {
+  extern __shared__ __align__(16) float sm[];
+  const int R = tl.R, lr = tl.lr, tid = threadIdx.x, F = s.F, D0 = s.F + s.C, T = s.T;
+  const long long row0 = (long long)blockIdx.x * R;
+  float* xc = sm + tl.xc;
+  float* P = sm + tl.p;
+  for (int e = tid; e < D0 * R; e += kSampleThreads) {
+    const int j = e >> lr, r = e & (R - 1);
+    xc[e] = row0 + r < n ? xcin[(row0 + r) * D0 + j] : 0.0f;
+  }
+  const bool owner = tid < R;
+  float acc = 0.0f;
+  for (int l = 0; l < s.n_ar; ++l) {
+    __syncthreads();  // every thread is done with the previous layer's weights and x
+    {
+      const float4* src = reinterpret_cast<const float4*>(tiled + (size_t)l * tl.wfloats);
+      float4* dst = reinterpret_cast<float4*>(sm);
+      for (int q = tid; q < (tl.wfloats >> 2); q += kSampleThreads) dst[q] = src[q];
+    }
+    __syncthreads();
+    made_tiled(s, tl, sm);
+    for (int e = tid; e < F * R; e += kSampleThreads) {
+      const int f = e >> lr, r = e & (R - 1);
+      const Strided p{P + f * T * R + r, R};
+      float ladj;
+      if (s.univ == kAffine) {
+        ladj = affine_log_scale(p, s.log_s);
+        xc[e] = xc[e] * expf(ladj) + p[0];
+      } else {
+        xc[e] = spline_streamed<false>(xc[e], p, s, &ladj);
+      }
+      p[0] = ladj;  // the pair's column is read no more
+    }
+    __syncthreads();
+    if (owner) {
+      for (int f = 0; f < F; ++f) acc += P[f * T * R + tid];
+      const float B = s.clips[l];
+      if (B > 0.0f) softclip(Strided{xc + tid, R}, F, B, &acc);
+    }
+  }
+  __syncthreads();
+  if (kRaw) {
+    for (int e = tid; e < F * R; e += kSampleThreads) {
+      const int f = e >> lr, r = e & (R - 1);
+      if (row0 + r < n) y[(row0 + r) * F + f] = xc[e];
+    }
+  }
+  if (owner && row0 + tid < n)
+    out[row0 + tid] = kRaw ? acc : acc + base_log_prob<false>(Strided{xc + tid, R}, s);
+}
+
 // The flow's description as the wrapper hands it over, checked.
 struct Desc {
   int n_lin, n_ar, F, C, K, T, K2, kn, univ;
@@ -1325,6 +1397,8 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, s
                                                     stride, row0, row_end);
     };
     switch (op) {
+      // the closed-form family's narrow density and apply are
+      // nsf_density_tiled (run_tiled)
       case kDensity: args(nsf_density_kernel<kWide, false, kFam>); break;
       case kApply: args(nsf_density_kernel<kWide, true, kFam>); break;
       default:
@@ -1379,8 +1453,9 @@ int run_narrow(int op, const Launch& l, const Desc& d) {
   return launch<false, kFam>(op, l, s, l.n > 0 ? l.n : 1, smem);
 }
 
-// The tiled sampler's tile of R rows (SampleTile; R = 0: no plan).
-SampleTile tile_plan(const Desc& d, int R) {
+// The tiled kernels' tile of R rows (SampleTile; R = 0: no plan), with the
+// sampler's targets or (the density) without them.
+SampleTile tile_plan(const Desc& d, int R, bool targets) {
   SampleTile t{};
   if (R != 32 && R != 64 && R != 128) return t;
   t.R = R;
@@ -1392,7 +1467,7 @@ SampleTile tile_plan(const Desc& d, int R) {
   }
   t.xc = t.wfloats;
   t.y = t.xc + (d.F + d.C) * R;
-  t.a = t.y + d.F * R;
+  t.a = t.y + (targets ? d.F * R : 0);
   t.b = t.a + pad8(hidden) * R;
   t.p = t.b + pad8(hidden) * R;
   t.floats = t.p + pad8(d.F * d.T) * R;
@@ -1409,9 +1484,10 @@ bool sample_tiled(const Desc& d) {
   return true;
 }
 
-// The tiled narrow sampler: a block a tile of l.tile rows.
+// The tiled narrow tier: a block a tile of l.tile rows; the closed-form
+// density and apply, or a sampler.
 int run_tiled(int op, const Launch& l, const Desc& d) {
-  const SampleTile t = tile_plan(d, l.tile);
+  const SampleTile t = tile_plan(d, l.tile, op >= kSample);
   const size_t smem = 4 * (size_t)t.floats;
   if (t.R == 0 || l.tiled == nullptr || smem > (size_t)kMaxShared) return cudaErrorInvalidValue;
   if (l.n == 0) return cudaSuccess;
@@ -1423,6 +1499,8 @@ int run_tiled(int op, const Launch& l, const Desc& d) {
     kernel<<<blocks, kSampleThreads, smem, l.stream>>>(l.in, l.out0, l.out1, l.tiled, s, t, l.n);
     return (int)cudaGetLastError();
   };
+  if (op == kDensity) return go(nsf_density_tiled<false>);
+  if (op == kApply) return go(nsf_density_tiled<true>);
   const auto modes = [&](auto sample, auto log_q, auto raw) {
     return op == kSample ? go(sample) : op == kSampleLogQ ? go(log_q) : go(raw);
   };
@@ -1447,9 +1525,8 @@ int run(int op, const Launch& l, const Desc& d) {
   const int fam = family_of(d.univ);
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
-    if (op >= kSample && sample_tiled(d)) return run_tiled(op, l, d);
-    if (fam == kCircular) return run_narrow<kCircular>(op, l, d);
-    return fam == kPolynomial ? run_narrow<kPolynomial>(op, l, d) : run_narrow<kClosed>(op, l, d);
+    if (op >= kSample ? sample_tiled(d) : fam == kClosed) return run_tiled(op, l, d);
+    return fam == kCircular ? run_narrow<kCircular>(op, l, d) : run_narrow<kPolynomial>(op, l, d);
   }
   // the device buffer: widths, passes (ints), clips, nodes, weights (floats)
   const long long words = (long long)(d.n_lin + 1) + 2LL * d.n_ar + 2LL * d.K2;
@@ -1521,14 +1598,19 @@ int entry(int op, const float* in, float* out0, float* out1, const float* params
   params, widths, passes, clips, n_lin, n_ar, F, C, K, K2, univ, bound, log_s, slope, rule, \
       box, lo, hi, log_box, n, wide, work, work_floats, stride, desc, desc_bytes, stream
 
-// out (n,) = log_prob of xc (n, F + C).
-extern "C" int nsf_density_f32(const float* xc, float* out, NSF_FLOW) {
-  return entry(kDensity, xc, nullptr, out, NSF_ARGS);
+// out (n,) = log_prob of xc (n, F + C). The tiled narrow tier (wide 0:
+// affine, RQS) takes `tiled` and `tile` as nsf_sample_f32 does; the other
+// densities ignore both.
+extern "C" int nsf_density_f32(const float* xc, float* out, NSF_FLOW, const float* tiled,
+                               int tile) {
+  return entry(kDensity, xc, nullptr, out, NSF_ARGS, tiled, tile);
 }
 
-// y (n, F) = T(x), ladj (n,) = the bare sum of the forward log-Jacobians.
-extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, NSF_FLOW) {
-  return entry(kApply, xc, y, ladj, NSF_ARGS);
+// y (n, F) = T(x), ladj (n,) = the bare sum of the forward log-Jacobians;
+// `tiled` and `tile` as nsf_density_f32's.
+extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, NSF_FLOW,
+                             const float* tiled, int tile) {
+  return entry(kApply, xc, y, ladj, NSF_ARGS, tiled, tile);
 }
 
 // x (n, F) = T^-1(z) of zc = [z, c]; logq may be null: the solve alone. The

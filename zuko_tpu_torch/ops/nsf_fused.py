@@ -26,8 +26,10 @@ workspace in device memory) beyond them. The sampler's narrow tier for
 the closed-form univariates (affine and RQS), the circular spline and the
 polynomials of at most :data:`_POLY_REGS` coefficients (Bernstein ``M +
 5``, sum of squares ``P (L + 1)`` of at most :data:`_SOSP_NODES` nodes) is
-tiled: a block a tile of rows, planned with :class:`SamplePlan`; a larger
-polynomial samples through the per-thread narrow kernel. ``LAUNCHES`` counts the kernel
+tiled: a block a tile of rows, planned with :class:`TilePlan`; a larger
+polynomial samples through the per-thread narrow kernel. So are the
+closed-form density and apply (``nsf_density_tiled``); the other
+univariates' stay per-thread. ``LAUNCHES`` counts the kernel
 launches, one per call that reaches a kernel, the wide tier's under
 ``<name>_wide``.
 
@@ -92,7 +94,8 @@ from ._common import (
 __all__ = [
     "FusedStructureError",
     "LAUNCHES",
-    "SamplePlan",
+    "TilePlan",
+    "density_tile_rows",
     "extract_nsf_params",
     "fused_nsf_apply",
     "fused_nsf_log_prob",
@@ -683,8 +686,9 @@ def _pad8(v):
     return -(-v // 8) * 8
 
 
-#: The tiles of the tiled sampler, in rows, largest first
-#: (``nsf_sample_tiled``, a block of 256 threads a tile).
+#: The tiles of the tiled kernels, in rows, largest first
+#: (``nsf_sample_tiled``, ``nsf_density_tiled``, a block of 256 threads a
+#: tile).
 _SAMPLE_TILES = (128, 64, 32)
 # a block's shared memory where two blocks share an SM: the 233,472 bytes
 # of an sm_90 SM, the only target the kernels are built for, less 1 KB a
@@ -692,8 +696,9 @@ _SAMPLE_TILES = (128, 64, 32)
 _TWO_A_SM = (233472 - 2 * 1024) // 2
 
 
-class SamplePlan(NamedTuple):
-    """The sampler's tiled narrow tier: the fields of
+class TilePlan(NamedTuple):
+    """The tiled narrow tier of a sampler or of the closed-form density and
+    apply: the fields of
     :class:`~zuko_tpu_torch.ops._common.KernelPlan`, then the rows of its
     tile and the block's shared memory."""
 
@@ -732,6 +737,22 @@ def _sample_tile_floats(widths, T, R):
     return weights + (widths[0] + F + 2 * hidden + _pad8(F * T)) * R
 
 
+def _density_tile_floats(widths, T, R):
+    """Floats of shared memory of the tiled density's tile of ``R`` rows
+    (``tile_plan`` without targets in ``csrc/nsf_fused.cu``): the sampler's
+    (:func:`_sample_tile_floats`) but its targets ``[F][R]``."""
+    return _sample_tile_floats(widths, T, R) - widths[-1] // T * R
+
+
+def density_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
+    """Rows of the tiled density's tile: the largest of
+    :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
+    where none does."""
+    T = _univ_size(univ, K)
+    return next((R for R in _SAMPLE_TILES
+                 if 4 * _density_tile_floats(widths, T, R) <= smem_limit), None)
+
+
 def sample_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
     """Rows of the tiled sampler's tile: the largest of
     :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
@@ -760,23 +781,29 @@ def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
 
     With ``sample``, the univariates of :func:`_sample_tiled` plan the
     tiled sampler instead of the one-layer limit: within the same limits,
-    a :class:`SamplePlan` of :func:`sample_tile_rows` rows and its shared
+    a :class:`TilePlan` of :func:`sample_tile_rows` rows and its shared
     memory, else the wide tier; a polynomial of more coefficients plans the
-    per-thread narrow sampler as the density's narrow tier does."""
+    per-thread narrow sampler as the density's narrow tier does. Without
+    ``sample``, the closed-form univariates (affine, RQS) plan the tiled
+    density the same way, of :func:`density_tile_rows` rows."""
     n_lin = len(widths) - 1
     F = widths[-1] // _univ_size(univ, K)
     w_max = max(widths[:-1])
     layer_floats = sum(o * (i + 1) for i, o in zip(widths[:-1], widths[1:]))
     within = (n_lin <= _MAX_LINEAR and n_ar <= _MAX_LAYERS and w_max <= _MAX_WIDTH
               and F <= _MAX_WIDTH and _fits_arrays(univ, K))
+    T = _univ_size(univ, K)
     if sample and _sample_tiled(univ, K):
         R = sample_tile_rows(widths, K, univ, smem_limit) if within else None
         if R is not None:
-            T = _univ_size(univ, K)
-            return SamplePlan(*narrow_plan(rows), R, 4 * _sample_tile_floats(widths, T, R))
+            return TilePlan(*narrow_plan(rows), R, 4 * _sample_tile_floats(widths, T, R))
+    elif not sample and univ in ("affine", "rqs"):
+        R = density_tile_rows(widths, K, univ, smem_limit) if within else None
+        if R is not None:
+            return TilePlan(*narrow_plan(rows), R, 4 * _density_tile_floats(widths, T, R))
     elif within and 4 * layer_floats <= smem_limit:
         return narrow_plan(rows)
-    slots = widths[0] + F + 2 * w_max + _univ_size(univ, K) + 3 * _knot_slots(univ, K)
+    slots = widths[0] + F + 2 * w_max + T + 3 * _knot_slots(univ, K)
     nodes = K[1] if univ == "sosp" else 0
     return wide_plan(slots, rows, 4 * (n_lin + 1 + 2 * n_ar + 2 * nodes))
 
@@ -804,8 +831,8 @@ def _pack_weights(params, layout, F, C, K, univ):
 def _tiled_weights(params, layout):
     """Per AR layer, each linear of the hyper-net as ``(M ⊙ W)^T`` of shape
     ``(in, pad8(out))`` then its bias padded to ``pad8(out)``, zero-filled,
-    in one contiguous buffer: what the sampler's tiled tier
-    stages (a thread's eight outputs in two 16-byte loads)."""
+    in one contiguous buffer: what the tiled tier stages (a thread's eight
+    outputs in two 16-byte loads)."""
     chunks = []
     for ps, _ in _split_layers(params, layout):
         for i in range(len(ps) // 3):
@@ -857,14 +884,13 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, bas
     packed, widths, passes = _pack_weights(params, layout, F, C, K, univ)
     clips = _softclip_bounds(layout)
     lib = load_library("nsf_fused")
-    sample = fn.startswith("nsf_sample")
     plan = plan_nsf(widths, K, univ, len(passes), xc.shape[0],
-                    lib.nsf_max_shared_bytes(xc.device.index), sample=sample)
+                    lib.nsf_max_shared_bytes(xc.device.index),
+                    sample=fn.startswith("nsf_sample"))
     work, desc = workspace(plan, xc.device)
-    # the tiled sampler: its staged weights and tile rows
+    # the tiled tier: its staged weights and tile rows
     tile = getattr(plan, "tile_rows", 0)
     tiled = _tiled_weights(params, layout) if tile else None
-    tail = [None if tiled is None else tiled.data_ptr(), tile] if sample else []
     K1, K2 = K if univ == "sosp" else (K, 0)
     nodes = np.concatenate(np.polynomial.legendre.leggauss(K2)) if K2 else []
     box = base[0] == "box"
@@ -883,7 +909,8 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, bas
             xc.shape[0], int(plan.wide),
             None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
             plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
-            torch.cuda.current_stream().cuda_stream, *tail,
+            torch.cuda.current_stream().cuda_stream,
+            None if tiled is None else tiled.data_ptr(), tile,
         )
     counter = _counter(counter, univ)
     check_launch(counter, lib, "nsf_fused", rc)

@@ -24,11 +24,14 @@ process:
   ``nsf_sample`` in the three modes at 1M rows, 5 runs; where the tree
   plans a tiled density (``nsf_fused.density_tile_rows``), the flagship's
   ``nsf_density`` and ``nsf_apply`` at 1M rows at each tile of 32, 64 and
-  128 rows (``tile<R>_...``);
+  128 rows (``tile<R>_...``), and so the NCSF's and BPF's where the tree
+  plans their tiled density (``ncsf_tile<R>_...``, ``bpf_tile<R>_...``);
 * the NCSF, SOSPF and BPF flagships' ``nsf_density`` and ``nsf_apply``
   (the ``crqs``, ``sosp`` and ``bernstein`` modes of K1 and K2) at the 1M
   rows they are served at and at the 65,536 of steps (m), (o) and (q), 3
-  runs;
+  runs; on the host clock (``chip_smoke.host_ms``, 21 runs) the density
+  at 65,536 rows and each of the two weight buffers its wrapper builds a
+  call (``_pack_weights``, ``_tiled_weights``);
 * the NCSF, SOSPF and BPF flagships' ``nsf_sample`` (the ``crqs``,
   ``sosp`` and ``bernstein`` modes of K3) in the three modes (without log
   q, with it, raw): NCSF's at the 1M rows it is served at and at the
@@ -62,7 +65,9 @@ process:
   (p) SOSPF and (r) BPF at 16,384 (``step_...``); step (l), reverse KL
   through the flagship CNF's sampler with log q and its continuous adjoint
   at 16,384 draws; step (k), the flagship CNF's maximum-likelihood step
-  at 65,536 seeded standard-normal rows; and the flagship NSF's (a)
+  at 65,536 seeded standard-normal rows; steps (m) and (q), the flagship
+  NCSF's and BPF's maximum-likelihood steps at 65,536 of their own
+  samples; and the flagship NSF's (a)
   maximum-likelihood step on 262,144 of its samples and (c) reverse KL
   through its inverted flow ``Flow(flow.transform.inv, flow.base)`` at
   262,144 draws.
@@ -138,6 +143,9 @@ def nsf_sass(tree):
             # registers) before the template took the univariate, <mode,
             # kBernstein = 4> since: pair the two
             name = re.sub(r"(nsf_sample_tiledILi\d)ELi24EE", r"\1ELi4EE", name)
+            # the tiled density was nsf_density_tiled<kRaw> (affine and RQS)
+            # before the template took the univariate, <kRaw, 0> since
+            name = re.sub(r"(nsf_density_tiledILb[01])EEEv", r"\1ELi0EEEv", name)
             kernels = ("nsf_sample_tiled", "nsf_sample_kernel", "nsf_density_kernel",
                        "nsf_density_tiled")
             name = name if any(k in name for k in kernels) else None
@@ -191,17 +199,8 @@ def time_tree(tree, steps_only=False):
 
                 out[f"{name}@{rows}"] = round(time_ms(fn, 5)[0], 3)
         if hasattr(nsf_fused, "density_tile_rows"):  # a tree with the tiled density
-            tile_rows = nsf_fused.density_tile_rows
             x = torch.randn(1 << 20, 6, generator=gen, device=dev)
-            try:
-                for R in (32, 64, 128):
-                    nsf_fused.density_tile_rows = lambda *a, R=R: R
-                    for name, fn in (("density", nsf_fused.nsf_density),
-                                     ("apply", nsf_fused.nsf_apply)):
-                        out[f"tile{R}_{name}@{1 << 20}"] = round(time_ms(
-                            lambda: fn(x, ps, layout, *st), 5)[0], 3)
-            finally:
-                nsf_fused.density_tile_rows = tile_rows
+            out.update(tile_sweep(nsf_fused, time_ms, "", x, ps, layout, st))
         torch.manual_seed(0)
         maf = zt.MAF(6, 0, transforms=3, device=dev)
         mps, mlayout, mcfg = nsf_fused._flatten_flow(maf)
@@ -228,13 +227,30 @@ def time_tree(tree, steps_only=False):
             pps, playout, pcfg = nsf_fused._flatten_flow(pflow)
             pps, pst = [p.detach() for p in pps], nsf_fused._statics(pcfg, 6)
             # K1 and K2 in the mode, at the served 1M rows and the 65,536
-            # of steps (m), (o), (q), on draws of the base (inside its box)
+            # of steps (m), (o), (q), on draws of the base (inside its box);
+            # where the tree plans the mode's tiled density, at 1M rows at
+            # each tile
             for n in (1 << 20, 1 << 16):
                 z = nsf_fused._base_draws((pps, playout, pcfg), (n,), None, gen, pcfg["base"])[1]
                 for name, fn in (("density", nsf_fused.nsf_density),
                                  ("apply", nsf_fused.nsf_apply)):
                     out[f"{key}_{name}@{n}"] = round(time_ms(
                         lambda: fn(z, pps, playout, *pst), 3)[0], 3)
+            # on the host clock (synchronised, 21 runs): the density at
+            # 65,536 rows, and the two weight buffers the wrapper builds a
+            # call, the packed one (every tier) and the tiled tier's
+            out[f"{key}_density_host@{1 << 16}"] = round(host_ms(
+                lambda: nsf_fused.nsf_density(z, pps, playout, *pst), 21)[0], 3)
+            out[f"{key}_pack_weights_host"] = round(host_ms(
+                lambda: nsf_fused._pack_weights(pps, playout, 6, 0, pcfg["bins"], pcfg["univ"]),
+                21)[0], 3)
+            out[f"{key}_tiled_weights_host"] = round(host_ms(
+                lambda: nsf_fused._tiled_weights(pps, playout), 21)[0], 3)
+            if hasattr(nsf_fused, "_density_tiled") and nsf_fused._density_tiled(
+                    pcfg["univ"], pcfg["bins"]):
+                z = nsf_fused._base_draws((pps, playout, pcfg), (1 << 20,), None, gen,
+                                          pcfg["base"])[1]
+                out.update(tile_sweep(nsf_fused, time_ms, f"{key}_", z, pps, playout, pst))
             for n in rows:
                 z = nsf_fused._base_draws((pps, playout, pcfg), (n,), None, gen, pcfg["base"])[1]
                 for mode, name in modes.items():
@@ -291,6 +307,21 @@ def time_tree(tree, steps_only=False):
     print(json.dumps(out), flush=True)
 
 
+def tile_sweep(nsf_fused, time_ms, prefix, x, ps, layout, st):
+    """``nsf_density`` and ``nsf_apply`` at the rows ``x`` at each tile of
+    32, 64 and 128 rows (``<prefix>tile<R>_...``), 5 runs."""
+    out, tile_rows = {}, nsf_fused.density_tile_rows
+    try:
+        for R in (32, 64, 128):
+            nsf_fused.density_tile_rows = lambda *a, R=R: R
+            for name, fn in (("density", nsf_fused.nsf_density), ("apply", nsf_fused.nsf_apply)):
+                out[f"{prefix}tile{R}_{name}@{x.shape[0]}"] = round(time_ms(
+                    lambda: fn(x, ps, layout, *st), 5)[0], 3)
+    finally:
+        nsf_fused.density_tile_rows = tile_rows
+    return out
+
+
 def k10_log_densities(zt, cnf_fused, cflow, cps, ccfg, dev):
     """K10's log-densities (on the CPU) of phase 13's cases on inputs and
     weights made from seeds, the same in every tree."""
@@ -331,7 +362,7 @@ def compare_k10(trees):
 def time_ift_steps(zt, assets, dev, host_ms):
     """The reverse-KL steps (ms) through the IFT and (l)'s through the CNF's
     continuous adjoint, from the flagships' weights, on ``chip_smoke.py``'s
-    ring energy, and (k), (a) and (c)."""
+    ring energy, and (k), (m), (q), (a) and (c)."""
     import torch
 
     from zuko_tpu_torch.lazy import Flow
@@ -377,6 +408,21 @@ def time_ift_steps(zt, assets, dev, host_ms):
         state, _ = step_fn(state, x)
 
     out[f"step_k_cnf@{1 << 16}"] = round(host_ms(mle, 9)[0], 3)
+    # (m) and (q): maximum likelihood on the flagship NCSF and BPF at 65,536
+    # of their own samples
+    for tag, key, make in (("m", "ncsf", zt.NCSF), ("q", "bpf", zt.BPF)):
+        flow = zt.load_params(make(6, 0, transforms=3, device=dev), assets / f"{key}_flagship.npz")
+        with torch.no_grad():
+            x = flow(None).sample((1 << 16,),
+                                  generator=torch.Generator(device=dev).manual_seed(0))
+        init_fn, step_fn = zt.make_mle_step(flow, lr=1e-3)
+        state = init_fn()
+
+        def fam_mle():
+            nonlocal state
+            state, _ = step_fn(state, x)
+
+        out[f"step_{tag}_{key}@{1 << 16}"] = round(host_ms(fam_mle, 9)[0], 3)
     # (a) and (c): the flagship NSF's maximum-likelihood step on 262,144 of
     # its samples, and reverse KL through its inverted flow
     flow = zt.load_params(zt.NSF(6, 0, transforms=3, device=dev), assets / "nsf_flagship.npz")

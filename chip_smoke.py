@@ -185,7 +185,12 @@ of 128 rows, SOSPF and BPF 64) also against the wide tier on the same
 draws, in the three modes, one tiled launch each, at the served rows, at
 (n), (p), (r)'s 16,384 and at the conditional's 4,096 (NCSF also at the
 16,384 rows placed at the jumps), samples bit for bit and sums within
-1e-4; K1's Function at the
+1e-4; the NCSF's and BPF's density and apply (the tiled tier: NCSF tiles
+of 128 rows, BPF 64), flagship and conditional, at 1M rows, 65,536 - 37
+and 16 tiles + 1, against plain float64 and against the wide tier on the
+same rows, one launch each (NCSF's each tier continued on its own side
+of the jumps, also at the 16,384 rows placed at them, the tiers held
+against each other on the rows neither continued); K1's Function at the
 rows (m), (o), (q) train on and the IFT at (n), (p), (r)'s draws against
 float64 (BPF's at four draw sets, each beside the backward with every
 ReLU side from the float32 march, whose worst set is taken apart: the
@@ -780,16 +785,16 @@ def main():
         F = params[-3].shape[0] // nsf_fused._univ_size(cfg["univ"], cfg["bins"])
         return params, layout, nsf_fused._statics(cfg, F)
 
-    def sampler_plan(params, layout, st, rows):
-        """K3's plan (``plan_nsf(..., sample=True)``) of an autoregressive
-        flow's ``plain_args`` at ``rows`` rows, with this card's shared
-        memory."""
+    def nsf_plan(params, layout, st, rows, sample=True):
+        """K3's plan (``plan_nsf(..., sample=True)``), or without ``sample``
+        K1 and K2's, of an autoregressive flow's ``plain_args`` at ``rows``
+        rows, with this card's shared memory."""
         F, K, univ = st[0], st[1], st[4]
         _, widths, passes = nsf_fused._pack_weights(params, layout, F, params[0].shape[1] - F, K,
                                                     univ)
         return nsf_fused.plan_nsf(widths, K, univ, len(passes), rows,
                                   _build.load_library("nsf_fused").nsf_max_shared_bytes(
-                                      dev.index or 0), sample=True)
+                                      dev.index or 0), sample=sample)
 
     def leaves(ps0):
         # every third entry is a mask: no gradient
@@ -2901,8 +2906,9 @@ def main():
     # kPolynomial>), which no flagship reaches since the sum of squares
     # samples through the tiled tier: a SOSPF and a BPF past the tiled
     # sampler's 24 coefficients in registers (30 and 36), parameters x 0.3,
-    # served at REPAIR_ROWS // 4 rows, their sampler planned narrow and
-    # untiled, held against plain float64 at their family's limits and timed
+    # served at REPAIR_ROWS // 4 rows, their sampler, density and apply
+    # planned narrow and untiled, held against plain float64 at their
+    # family's limits and timed
     # once; counted under the sampler's names in the served run, reported in the
     # kernels line as <name>_thread; draws from a generator of their own
     with torch.random.fork_rng(devices=[dev]):
@@ -2919,9 +2925,13 @@ def main():
         params, layout, st = plain_args(flow, torch.float32)
         F, base = st[0], st[5]
         names = {k: nsf_fused._counter(k, st[4]) for k in NSF_KINDS}
-        plan = sampler_plan(params, layout, st, thread_rows)
+        plan = nsf_plan(params, layout, st, thread_rows)
         check(plan == _common.narrow_plan(thread_rows),
               f"{label}: the per-thread narrow sampler, {plan}")
+        # past the registers the density and apply are per-thread too
+        plan = nsf_plan(params, layout, st, thread_rows, sample=False)
+        check(plan == _common.narrow_plan(thread_rows),
+              f"{label}: the per-thread narrow density, {plan}")
         x = torch.randn(thread_rows, F, generator=gen_thread, device=dev)
         ops.reset_launches()
         with torch.no_grad():
@@ -3617,7 +3627,7 @@ def main():
         # the polynomials' samplers are held and timed at POLY_HOLD_ROWS
         hold_rows = sample_rows if key == "ncsf" else POLY_HOLD_ROWS
         hold_nsf(label, flow, fx, base_draws(hold_rows, 6, base))
-        plan = sampler_plan(params, layout, st, sample_rows)
+        plan = nsf_plan(params, layout, st, sample_rows)
         print(f"{label} sampler plan: {plan}")
         # K3's three modes sample through the tiled tier (NCSF with the NSF's
         # tile, the polynomials two blocks an SM): against the wide tier on
@@ -3640,7 +3650,7 @@ def main():
         czc = torch.cat([base_draws(4096, 6, base), fc_few.repeat(4, 1)], dim=1)
         hold_nsf(f"conditional {label}", cond, torch.cat([xs_rows, fc], dim=1), czc)
         cparams, clayout, cst = plain_args(cond, torch.float32)
-        cplan = sampler_plan(cparams, clayout, cst, czc.shape[0])
+        cplan = nsf_plan(cparams, clayout, cst, czc.shape[0])
         check(isinstance(cplan, nsf_fused.TilePlan) and cplan.tile_rows == tile,
               f"conditional {label}: the tiled sampler at {tile} rows, {cplan}")
         tiled_vs_wide(f"conditional {label}", names, cparams, clayout, cst, czc)
@@ -3663,6 +3673,94 @@ def main():
                 (sample_rows,), generator=gen), 3)
             print(f"served request {names['nsf_sample_log_prob']} at {sample_rows} rows:"
                   f" {r_ms:.3f} ms {fmt(r_runs)}, {sample_rows / r_ms / 1e3:.3f} M rows/s")
+
+    # K1 and K2's tiled tier in the crqs and bernstein modes (their narrow
+    # tier since it was redesigned), as the closed-form one's above: planned
+    # for the flagship and the conditional (6, 4) flow of each; at 1M rows,
+    # 65,536 - 37 and 16 tiles + 1, the density, the apply's y and its sum
+    # against plain float64 and against the wide tier on the same rows, one
+    # launch of each tier; NCSF's each tier against float64 continued on the
+    # side of the shifts' jumps that the tier took (circle_plain), also at
+    # the 16,384 rows placed at the jumps, the tiers held against each other
+    # on the rows neither continued, and the rows the two put on different
+    # sides counted; rows from a generator of their own
+    def hold_density_tiers(label, names, xc, params, p64, layout, st):
+        rows, circle, base = xc.shape[0], st[4] == "crqs", st[5]
+        out, moved = {}, {}
+        for tier, names_of in (("tiled", ""), ("wide", "_wide")):
+            with nsf_wide_tier() if tier == "wide" else contextlib.nullcontext():
+                for fn, kind in ((nsf_fused.nsf_density, "nsf_density"),
+                                 (nsf_fused.nsf_apply, "nsf_apply")):
+                    ops.reset_launches()
+                    with torch.no_grad():
+                        got = fn(xc, params, layout, *st)
+                    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+                    check(launched == {names[kind] + names_of: 1},
+                          f"{label} {kind}: one {tier} launch, {launched}")
+                    out[tier, kind] = got if isinstance(got, tuple) else (got,)
+                with torch.no_grad():
+                    if circle:
+                        r_y, r_sl, moved[tier] = circle_plain("apply", xc, params, p64, layout,
+                                                              st)
+                        # the box is uniform on the circle: its density at
+                        # the continued point, wrapped back onto the box
+                        r_lp = r_sl + nsf_fused._base_log_prob(on_circle(r_y), base)
+                    else:
+                        r_lp = nsf_fused._full_math(xc.double(), p64, layout, *st)
+                        r_y, r_sl = nsf_fused._full_math(xc.double(), p64, layout, *st,
+                                                         raw=True)
+                        moved[tier] = torch.zeros(rows, dtype=torch.bool, device=dev)
+            (lp,), (y, sl) = out[tier, "nsf_density"], out[tier, "nsf_apply"]
+            dy = y.double() - r_y
+            diffs = {"nsf_density": (lp.double() - r_lp).abs(),
+                     "nsf_apply": torch.maximum((on_circle(dy) if circle else dy).abs()
+                                                .amax(dim=1), (sl.double() - r_sl).abs())}
+            print(f"{label} {tier} tier at {rows} rows vs plain f64: density max"
+                  f" {diffs['nsf_density'].max().item():.3e}, apply (y, sum) max"
+                  f" {diffs['nsf_apply'].max().item():.3e}"
+                  + (f"; rows continued on its side of a jump: {int(moved[tier].sum().item())}"
+                     if circle else ""))
+            for kind, d in diffs.items():
+                check(d.max().item() <= TOL_DENSITY, f"{label} {tier} {kind} at {rows} rows vs plain")
+                if tier == "tiled":
+                    note_error(names[kind], d, rows)
+        ordinary = ~(moved["tiled"] | moved["wide"])
+        wdiff = torch.stack([
+            (a - b).abs().reshape(rows, -1).amax(dim=1)
+            for kind in ("nsf_density", "nsf_apply")
+            for a, b in zip(out["tiled", kind], out["wide", kind])]).amax(dim=0)
+        same = all(torch.equal(a, b) for kind in ("nsf_density", "nsf_apply")
+                   for a, b in zip(out["tiled", kind], out["wide", kind]))
+        worst = torch.where(ordinary, wdiff, torch.zeros_like(wdiff)).max().item()
+        print(f"{label} tiled vs wide tier at {rows} rows: max {worst:.3e}"
+              f" over {int(ordinary.sum().item())} ordinary rows; bit for bit: {same}"
+              + (f"; rows the two tiers put on different sides of a jump:"
+                 f" {int((moved['tiled'] ^ moved['wide']).sum().item())}, differing by more than"
+                 f" {TOL_DENSITY:g}: {int((wdiff > TOL_DENSITY).sum().item())}" if circle else ""))
+        check(worst <= TOL_DENSITY, f"{label} tiled vs wide tier at {rows} rows")
+
+    gen_k12m = torch.Generator(device=dev).manual_seed(19)
+    t_k12m = time.perf_counter()
+    for key, tile in (("ncsf", 128), ("bpf", 64)):
+        label = families[key][0]
+        names = {k: nsf_fused._counter(k, nsf_fused._flatten_flow(fam_flagship[key])[2]["univ"])
+                 for k in NSF_KINDS}
+        for which, flow in ((label, fam_flagship[key]), (f"conditional {label}", fam_cond[key])):
+            params, layout, st = plain_args(flow, torch.float32)
+            p64, _, _ = plain_args(flow, torch.float64)
+            F, C = st[0], params[0].shape[1] - st[0]
+            plan = nsf_plan(params, layout, st, ROWS, sample=False)
+            print(f"{which} density plan: {plan}")
+            check(isinstance(plan, nsf_fused.TilePlan) and not plan.wide and plan.tile_rows == tile,
+                  f"{which}: the tiled density at {tile} rows")
+            for rows in (ROWS, POLY_MLE_ROWS - 37, 16 * tile + 1):
+                xc = torch.cat([base_draws(rows, F, st[5], gen_k12m),
+                                torch.randn(rows, C, generator=gen_k12m, device=dev)], dim=1)
+                hold_density_tiers(which, names, xc, params, p64, layout, st)
+            if key == "ncsf" and flow is fam_flagship[key]:
+                hold_density_tiers(f"{which} at the shifts' jumps", names,
+                                   jump_rows(flow, 1 << 14)[0], params, p64, layout, st)
+    print(f"K1 and K2 tiled tier checks, crqs and bernstein: {time.perf_counter() - t_k12m:.1f} s")
 
     # the Functions at the rows and draws the steps give them: K1's at (m),
     # (o), (q)'s first batch, the IFT (K3 with log q, three sweeps back)

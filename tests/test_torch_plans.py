@@ -14,7 +14,9 @@ apply's (``plan_nsf``, ``density_tile_rows``, ``_density_tile_floats``,
 ``tile_plan`` without targets), the CNF density's cluster tier
 and sampler's (``plan_cnf``, mirrored in ``density_plan``), the tiled
 Bernstein, circular and sum-of-squares samplers (``plan_nsf(..., sample=True)``
-for ``bernstein``, ``crqs`` and ``sosp``), and that
+for ``bernstein``, ``crqs`` and ``sosp``), the circular spline's and the
+Bernstein polynomial's tiled density and apply (``plan_nsf`` for ``crqs``
+and ``bernstein``, mirrored in ``density_tiled``), and that
 the wrappers hand those
 plans to the C entry points: a library that records its calls stands in for
 the built one, and the tensors say they lie on the GPU."""
@@ -589,14 +591,17 @@ def test_nsf_density_tile_shrinks_with_the_hidden_width(univ, hidden, tile, nbyt
 
 
 @pytest.mark.parametrize("make", [
-    lambda: zt.NCSF(6, 0, transforms=3, device="cpu"),
     lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"),
-    lambda: zt.BPF(6, 0, transforms=3, device="cpu"),
-], ids=["ncsf", "sospf", "bpf"])
+    lambda: zt.SOSPF(6, 4, transforms=3, device="cpu"),
+    lambda: zt.BPF(6, 0, transforms=3, degree=30, device="cpu"),
+    lambda: zt.BPF(6, 4, transforms=3, degree=30, device="cpu"),
+], ids=["sospf", "sospf_conditional", "bpf_degree_30", "bpf_degree_30_conditional"])
 def test_other_densities_keep_the_per_thread_tier(make):
-    """The circular spline's and the polynomials' densities keep the
-    per-thread narrow tier: no tile, at any number of rows."""
+    """The sum of squares' density, and a Bernstein polynomial's past the 24
+    coefficients the tiled kernel holds in registers (degree 30: 36), keep
+    the per-thread narrow tier: no tile, at any number of rows."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
+    assert not nsf_fused._density_tiled(cfg["univ"], cfg["bins"])
     for rows in (1, 1 << 20):
         plan = nsf_fused.plan_nsf(widths, cfg["bins"], cfg["univ"], n_ar, rows, SHARED)
         assert plan == (False, 0, rows, 0, 0) and not isinstance(plan, nsf_fused.TilePlan)
@@ -669,19 +674,27 @@ def test_nsf_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, mode, n
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {counter: 1, "nsf_density": 1}
 
 
-@pytest.mark.parametrize("make, univ", [
-    (lambda: zt.NSF(6, 0, transforms=3, device="cpu"), "rqs"),
-    (lambda: zt.NSF(3, 5, transforms=3, device="cpu"), "rqs"),
-    (lambda: zt.MAF(6, 0, transforms=3, device="cpu"), "affine"),
-    (lambda: zt.NCSF(6, 0, transforms=3, device="cpu"), "crqs"),
-], ids=["flagship", "conditional", "maf", "ncsf"])
-def test_nsf_density_and_apply_hand_the_tile_to_the_kernel(recorded, monkeypatch, make, univ):
+@pytest.mark.parametrize("make, univ, tile", [
+    (lambda: zt.NSF(6, 0, transforms=3, device="cpu"), "rqs", 128),
+    (lambda: zt.NSF(3, 5, transforms=3, device="cpu"), "rqs", 128),
+    (lambda: zt.MAF(6, 0, transforms=3, device="cpu"), "affine", 128),
+    (lambda: zt.NCSF(6, 0, transforms=3, device="cpu"), "crqs", 128),
+    (lambda: zt.NCSF(6, 4, transforms=3, device="cpu"), "crqs", 128),
+    (lambda: zt.BPF(6, 0, transforms=3, device="cpu"), "bernstein", 64),
+    (lambda: zt.BPF(6, 4, transforms=3, device="cpu"), "bernstein", 64),
+    (lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"), "sosp", None),
+], ids=["flagship", "conditional", "maf", "ncsf", "ncsf_conditional", "bpf", "bpf_conditional",
+        "sospf"])
+def test_nsf_density_and_apply_hand_the_tile_to_the_kernel(recorded, monkeypatch, make, univ,
+                                                            tile):
     """``nsf_density`` and ``nsf_apply`` hand the C entry points the
-    buffer ``_tiled_weights`` builds for this call and the tile of 128 rows
-    (the last two arguments, after the stream) on the narrow tier, and
-    count under ``nsf_density`` and ``nsf_apply``; the circular spline's
-    per-thread density and apply take neither (null, 0) and count under
-    their mode's names."""
+    buffer ``_tiled_weights`` builds for this call and the tile (the last
+    two arguments, after the stream) on the narrow tier: 128 rows for the
+    closed-form univariates and the circular spline, 64 for the Bernstein
+    polynomial; the sum of squares' per-thread density and apply take
+    neither (null, 0). Each counts under its mode's names (``nsf_density``
+    and ``nsf_apply`` for the closed-form ones, ``nsf_density_<mode>`` and
+    ``nsf_apply_<mode>`` for the others)."""
     flow, params, layout, cfg, F, widths, _ = _nsf_shapes(make)
     assert cfg["univ"] == univ
     lib = _build.load_library("nsf_fused")
@@ -695,18 +708,95 @@ def test_nsf_density_and_apply_hand_the_tile_to_the_kernel(recorded, monkeypatch
     nsf_fused.nsf_density(xc, card, layout, *st)
     nsf_fused.nsf_apply(xc, card, layout, *st)
     assert [name for name, _ in recorded] == ["nsf_density_f32", "nsf_apply_f32"]
-    tiled = univ in ("affine", "rqs")
-    assert len(staged) == (2 if tiled else 0)
-    for (name, args), buffer in zip(recorded, staged if tiled else [None, None]):
+    assert len(staged) == (0 if tile is None else 2)
+    for (name, args), buffer in zip(recorded, staged if tile else [None, None]):
         assert len(args) == len(_build._SIGNATURES["nsf_fused"][name][0])
         assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
-        if tiled:
+        if tile:
             assert torch.equal(buffer, tiled_weights(params, layout))
-            assert args[-2] == buffer.data_ptr() and args[-1] == 128
+            assert args[-2] == buffer.data_ptr() and args[-1] == tile
         else:
             assert args[-2] is None and args[-1] == 0
-    names = ("nsf_density", "nsf_apply") if tiled else (f"nsf_density_{univ}", f"nsf_apply_{univ}")
+    names = [nsf_fused._counter(k, univ) for k in ("nsf_density", "nsf_apply")]
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == dict.fromkeys(names, 1)
+
+
+def _tile_plan_floats(widths, F, R):
+    """Floats of ``csrc/nsf_fused.cu`` ``tile_plan(d, R, false)``, its
+    offsets transcribed: the staged linears, then ``xc``, ``a``, ``b`` and
+    ``p`` (no targets ``y``); each offset a multiple of 4 floats."""
+    pad8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    hidden = max(widths[1:-1], default=0)
+    wfloats = sum(i * pad8(o) + pad8(o) for i, o in zip(widths[:-1], widths[1:]))
+    xc = wfloats
+    a = xc + widths[0] * R
+    b = a + pad8(hidden) * R
+    p = b + pad8(hidden) * R
+    assert all(v % 4 == 0 for v in (wfloats, xc, a, b, p))
+    return p + pad8(widths[-1]) * R
+
+
+@pytest.mark.parametrize("make, widths, tile, nbytes", [
+    (lambda: zt.NCSF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 138], 128, 198208),
+    (lambda: zt.NCSF(6, 4, transforms=3, device="cpu"), [10, 64, 64, 138], 128, 201280),
+    (lambda: zt.BPF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 102], 64, 106400),
+    (lambda: zt.BPF(6, 4, transforms=3, device="cpu"), [10, 64, 64, 102], 64, 108448),
+], ids=["ncsf", "ncsf_conditional", "bpf", "bpf_conditional"])
+def test_ncsf_and_bpf_densities_plan_the_tiled_tier(make, widths, tile, nbytes):
+    """The circular spline's density and apply plan the NSF's tiled density
+    (T = 23: 128 rows, 198,208 bytes for the flagship NCSF, 201,280 for
+    NCSF(6, 4)), and the Bernstein polynomial's (M = 17 raw parameters a
+    feature, 22 coefficients in registers) the largest of 64 and 32 rows of
+    which two blocks share an SM (106,400 bytes for the flagship BPF,
+    108,448 for BPF(6, 4), at most 115,712 each): ``_density_tile_floats``
+    is ``tile_plan(d, R, false)`` of the C++ at each tile, and the plan
+    holds at any number of rows."""
+    _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
+    K, univ = cfg["bins"], cfg["univ"]
+    assert got == widths and nsf_fused._density_tiled(univ, K)
+    T = nsf_fused._univ_size(univ, K)
+    for R in (32, 64, 128):
+        assert nsf_fused._density_tile_floats(widths, T, R) == _tile_plan_floats(widths, F, R)
+    assert 4 * _tile_plan_floats(widths, F, tile) == nbytes <= SHARED
+    assert nsf_fused.density_tile_rows(widths, K, univ) == tile
+    if univ == "bernstein":
+        assert nbytes <= (233472 - 2048) // 2
+    for rows in (1, (1 << 16) - 37, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED)
+        assert isinstance(plan, nsf_fused.TilePlan) and plan == (False, 0, rows, 0, 0, tile, nbytes)
+
+
+@pytest.mark.parametrize("univ, hidden, tile, nbytes", [
+    ("crqs", 16, 128, 104512), ("crqs", 64, 128, 198208), ("crqs", 96, 64, 183360),
+    ("crqs", 128, 32, 195904), ("crqs", 160, None, None), ("crqs", 256, None, None),
+    ("bernstein", 16, 64, 44960), ("bernstein", 32, 64, 63392), ("bernstein", 48, 64, 83872),
+    ("bernstein", 64, 64, 106400), ("bernstein", 96, 64, 157600),
+    ("bernstein", 128, 64, 216992), ("bernstein", 160, 32, 229536),
+    ("bernstein", 192, None, None), ("bernstein", 256, None, None),
+])
+def test_ncsf_and_bpf_density_tile_shrinks_with_the_hidden_width(univ, hidden, tile, nbytes):
+    """Six features, two hidden layers of ``hidden`` (8 bins for the
+    circular spline, degree 16 for the Bernstein polynomial): the circular
+    spline's density tile is the NSF's, the largest of 128, 64 and 32 rows
+    that fits 227 KB; the Bernstein polynomial's is 64 or 32 rows where two
+    blocks share an SM (to hidden widths of 64, even where 128 rows would
+    fit), else the largest that fits alone (96 and 128: 64 rows; 160: 32),
+    and past the last tile the flow, still within the narrow limits, plans
+    the wide tier, at any number of rows."""
+    K = 8 if univ == "crqs" else 17
+    T = nsf_fused._univ_size(univ, K)
+    widths = [6, hidden, hidden, 6 * T]
+    assert nsf_fused.density_tile_rows(widths, K, univ) == tile
+    if univ == "bernstein" and tile is not None:
+        two = 4 * nsf_fused._density_tile_floats(widths, T, 32) <= (233472 - 2048) // 2
+        assert (nbytes <= (233472 - 2048) // 2) == two
+    for rows in (1, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, K, univ, 3, rows, SHARED)
+        if tile is None:
+            assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
+        else:
+            assert plan == (False, 0, rows, 0, 0, tile, nbytes)
+            assert nbytes == 4 * _tile_plan_floats(widths, 6, tile) <= SHARED
 
 
 @pytest.mark.parametrize("make, widths, tile, nbytes", [
@@ -725,7 +815,7 @@ def test_bernstein_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
     ``[104][R]``: 107,936 bytes at 64 rows), the largest of 64 and 32 rows
     of which two blocks share an SM (at most 115,712 bytes each), else the
     largest tile that fits 227 KB (hidden widths of 128: 64 rows alone).
-    The density keeps its own plan."""
+    The density plans the same tile without the targets ``[F][R]``."""
     _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
     assert got == widths and cfg["univ"] == "bernstein"
     K = cfg["bins"]
@@ -738,7 +828,8 @@ def test_bernstein_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
     for rows in (1, 1 << 14, 1 << 18):
         plan = nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED, sample=True)
         assert plan == (False, 0, rows, 0, 0, tile, nbytes)
-        assert nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED) == (False, 0, rows, 0, 0)
+        assert nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED) == (
+            False, 0, rows, 0, 0, tile, nbytes - 4 * F * tile)
 
 
 @pytest.mark.parametrize("make", [
@@ -792,7 +883,9 @@ def test_circular_and_sosp_samplers_plan_the_tiled_tier(make, widths, tile, nbyt
     largest of 64 and 32 rows of which two blocks share an SM (the flagship
     SOSPF: 10,848 floats of linears, then ``[F + C][R]``, ``[F][R]``, two
     hidden buffers ``[64][R]`` and the last linear's outputs ``[96][R]``:
-    103,808 bytes at 64 rows). The density keeps its own plan."""
+    103,808 bytes at 64 rows). The circular spline's density plans the
+    same tile without the targets ``[F][R]``; the sum of squares' density
+    keeps the per-thread narrow tier."""
     _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
     K, univ = cfg["bins"], cfg["univ"]
     assert got == widths and nsf_fused._sample_tiled(univ, K)
@@ -804,7 +897,8 @@ def test_circular_and_sosp_samplers_plan_the_tiled_tier(make, widths, tile, nbyt
     for rows in (1, 1 << 14, 1 << 20):
         plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED, sample=True)
         assert plan == (False, 0, rows, 0, 0, tile, nbytes)
-        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == (False, 0, rows, 0, 0)
+        density = (False, 0, rows, 0, 0) + ((tile, nbytes - 4 * F * tile) if univ == "crqs" else ())
+        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == density
 
 
 @pytest.mark.parametrize("make", [

@@ -34,7 +34,8 @@
 // density's operations and stays bound by them.
 //
 // The per-thread design (the first one; since redesigned for the closed-form
-// family, below): one thread per batch row, blocks of 128
+// family, the circular spline and the smaller Bernstein polynomials, below):
+// one thread per batch row, blocks of 128
 // rows. Each block stages one AR layer's pre-masked weights and biases into
 // dynamic shared memory (about 53 KB for the flagship), so every weight is
 // read from device memory once per block and layer, and a warp's 32 threads
@@ -52,11 +53,13 @@
 // closed-form family (affine and RQS), of the circular spline and of a
 // polynomial of at most kPolyRegs coefficients (the Bernstein polynomial's
 // M + 5, the sum of squares' P (L + 1) at kSospNodes nodes or fewer), all
-// three modes, is the tiled nsf_sample_tiled (below), and the closed-form
-// family's density and apply the tiled nsf_density_tiled, within the same
-// limits where their tile fits (a larger polynomial samples through the
-// per-thread nsf_sample_kernel; the circular spline's and the polynomials'
-// densities and applies are per-thread). The wide tier takes any shape:
+// three modes, is the tiled nsf_sample_tiled (below), and the density and
+// apply of the closed-form family, of the circular spline and of a
+// Bernstein polynomial of at most kPolyRegs coefficients the tiled
+// nsf_density_tiled, within the same limits where their tile fits (a larger
+// polynomial samples through the per-thread nsf_sample_kernel; the sum of
+// squares' and the larger polynomials' densities and applies are
+// per-thread, nsf_density_kernel). The wide tier takes any shape:
 // the weights are read through the read-only data cache (__ldg), one address
 // per warp at a time, as the NAF kernels read theirs; a row's activations,
 // raw parameters and knots live in a workspace in device memory, one column
@@ -1187,21 +1190,30 @@ __global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv =
   if (kMode != kNoLadj && owner && row0 + tid < n) logq[row0 + tid] = acc;
 }
 
-// The narrow tier of the closed-form density and apply (affine and RQS):
+// The narrow tier of the density and apply (affine and RQS, the circular
+// spline, the Bernstein polynomial of at most kPolyRegs coefficients):
 // nsf_density_tiled, the tiled sampler's log-q pass once a layer, in forward
 // order, with no sweeps. A block a tile of R rows (density_tile_rows in
 // ops/nsf_fused.py), its arrays those of the sampler's tile but the targets
 // (tile_plan without them). The same function as nsf_density_kernel<kWide =
-// true, kRaw, kClosed>: for each layer the hyper-net on the tile's x
-// (made_tiled), then one thread a (row, feature) pair takes the forward
-// (spline_streamed<false>, or the affine map) and updates x in place (every
-// feature's parameters are already in P), its log-Jacobian left in the
-// pair's column; thread r < R owns row r's sum (the layers' log-Jacobians
-// feature by feature, then the softclip's, in the wide tier's order). kRaw
-// false: out[row] = the sum + the normal base at T(x); kRaw true (nsf_apply):
-// y[row, :] = T(x) and out[row] = the sum.
-template <bool kRaw>
-__global__ void __launch_bounds__(kSampleThreads)
+// true, kRaw, family>: for each layer the hyper-net on the tile's x
+// (made_tiled), then one thread a (row, feature) pair takes the forward and
+// updates x in place (every feature's parameters are already in P), its
+// log-Jacobian left in the pair's column: kUniv 0 the affine map or
+// spline_streamed<false>; kCRQS the same spline at the wrapped point (the
+// hyper-net read the unwrapped x, as closed_forward's); kBernstein the
+// pair's coefficients in registers (bernstein_registers, bernstein_eval, as
+// the sampler's log-q pass). Thread r < R owns row r's sum (the layers'
+// log-Jacobians feature by feature, then the softclip's, in the wide tier's
+// order). kRaw false: out[row] = the sum + the base (the circular spline's
+// box, else the standard normal) at T(x); kRaw true (nsf_apply): y[row, :] =
+// T(x) and out[row] = the sum. The launch bounds: the Bernstein
+// instantiation's the sampler's, at most 128 registers, so that its tiles of
+// 64 rows put two blocks on an SM; the others' no minimum of blocks (0 emits
+// none: a minimum of 1 changes how ptxas allocates the closed-form
+// instantiation's registers, and its code).
+template <bool kRaw, int kUniv>
+__global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein ? 2 : 0)
     nsf_density_tiled(const float* __restrict__ xcin, float* __restrict__ y,
                       float* __restrict__ out, const float* __restrict__ tiled,
                       const __grid_constant__ Shape s, const __grid_constant__ SampleTile tl,
@@ -1230,7 +1242,14 @@ __global__ void __launch_bounds__(kSampleThreads)
       const int f = e >> lr, r = e & (R - 1);
       const Strided p{P + f * T * R + r, R};
       float ladj;
-      if (s.univ == kAffine) {
+      if constexpr (kUniv == kBernstein) {
+        float th[kPolyRegs], st[kPolyRegs], g;
+        bernstein_registers(p, s, th, st);
+        xc[e] = bernstein_eval<true>(th, st, s, xc[e], &g);
+        ladj = logf(g);
+      } else if constexpr (kUniv == kCRQS) {
+        xc[e] = spline_streamed<false>(circular_wrap(xc[e], s.bound), p, s, &ladj);
+      } else if (s.univ == kAffine) {
         ladj = affine_log_scale(p, s.log_s);
         xc[e] = xc[e] * expf(ladj) + p[0];
       } else {
@@ -1253,7 +1272,8 @@ __global__ void __launch_bounds__(kSampleThreads)
     }
   }
   if (owner && row0 + tid < n)
-    out[row0 + tid] = kRaw ? acc : acc + base_log_prob<false>(Strided{xc + tid, R}, s);
+    out[row0 + tid] =
+        kRaw ? acc : acc + base_log_prob<kUniv == kCRQS>(Strided{xc + tid, R}, s);
 }
 
 // The flow's description as the wrapper hands it over, checked.
@@ -1396,26 +1416,14 @@ int launch(int op, const Launch& l, const ShapeOf<kWide>& s, long long stride, s
       kernel<<<blocks, kThreads, smem, l.stream>>>(l.in, l.out0, l.out1, l.params, s, l.work,
                                                     stride, row0, row_end);
     };
+    // the narrow tier here is the polynomials' per-thread one (run_narrow):
+    // the other families' narrow kernels are tiled (run_tiled)
     switch (op) {
-      // the closed-form family's narrow density and apply are
-      // nsf_density_tiled (run_tiled)
       case kDensity: args(nsf_density_kernel<kWide, false, kFam>); break;
       case kApply: args(nsf_density_kernel<kWide, true, kFam>); break;
-      default:
-        // the closed-form and circular families' narrow sampler is
-        // nsf_sample_tiled, and the polynomials' where their coefficients
-        // fit its registers (sample_tiled)
-        if constexpr (kWide || kFam == kPolynomial) {
-          if (op == kSample) {
-            args(nsf_sample_kernel<kWide, kNoLadj, kFam>);
-          } else if (op == kSampleLogQ) {
-            args(nsf_sample_kernel<kWide, kLogQ, kFam>);
-          } else {
-            args(nsf_sample_kernel<kWide, kRawLadj, kFam>);
-          }
-        } else {
-          return cudaErrorInvalidValue;
-        }
+      case kSample: args(nsf_sample_kernel<kWide, kNoLadj, kFam>); break;
+      case kSampleLogQ: args(nsf_sample_kernel<kWide, kLogQ, kFam>); break;
+      default: args(nsf_sample_kernel<kWide, kRawLadj, kFam>);
     }
     const int rc = cudaGetLastError();
     if (rc != cudaSuccess) return rc;
@@ -1428,29 +1436,22 @@ int allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int kFam>
+// The per-thread narrow tier: the polynomials that no tiled kernel takes
+// (the sum of squares' density and apply; past kPolyRegs coefficients, or
+// the sum of squares past kSospNodes nodes, every kernel).
 int run_narrow(int op, const Launch& l, const Desc& d) {
   const Shape s = narrow_shape(d);
   const size_t smem = (size_t)s.layer_floats * sizeof(float);
   int rc;
   switch (op) {
-    case kDensity: rc = allow_smem(nsf_density_kernel<false, false, kFam>, smem); break;
-    case kApply: rc = allow_smem(nsf_density_kernel<false, true, kFam>, smem); break;
-    default:
-      if constexpr (kFam == kPolynomial) {
-        if (op == kSample) {
-          rc = allow_smem(nsf_sample_kernel<false, kNoLadj, kFam>, smem);
-        } else if (op == kSampleLogQ) {
-          rc = allow_smem(nsf_sample_kernel<false, kLogQ, kFam>, smem);
-        } else {
-          rc = allow_smem(nsf_sample_kernel<false, kRawLadj, kFam>, smem);
-        }
-      } else {
-        return cudaErrorInvalidValue;
-      }
+    case kDensity: rc = allow_smem(nsf_density_kernel<false, false, kPolynomial>, smem); break;
+    case kApply: rc = allow_smem(nsf_density_kernel<false, true, kPolynomial>, smem); break;
+    case kSample: rc = allow_smem(nsf_sample_kernel<false, kNoLadj, kPolynomial>, smem); break;
+    case kSampleLogQ: rc = allow_smem(nsf_sample_kernel<false, kLogQ, kPolynomial>, smem); break;
+    default: rc = allow_smem(nsf_sample_kernel<false, kRawLadj, kPolynomial>, smem);
   }
   if (rc != cudaSuccess) return rc;
-  return launch<false, kFam>(op, l, s, l.n > 0 ? l.n : 1, smem);
+  return launch<false, kPolynomial>(op, l, s, l.n > 0 ? l.n : 1, smem);
 }
 
 // The tiled kernels' tile of R rows (SampleTile; R = 0: no plan), with the
@@ -1484,8 +1485,16 @@ bool sample_tiled(const Desc& d) {
   return true;
 }
 
-// The tiled narrow tier: a block a tile of l.tile rows; the closed-form
-// density and apply, or a sampler.
+// Whether the density's and apply's narrow tier is nsf_density_tiled: the
+// closed-form and circular families, and the Bernstein polynomials of at
+// most kPolyRegs coefficients (mirrored in ops/nsf_fused.py plan_nsf).
+bool density_tiled(const Desc& d) {
+  if (d.univ == kBernstein) return d.K + 5 <= kPolyRegs;
+  return d.univ != kSOSP;
+}
+
+// The tiled narrow tier: a block a tile of l.tile rows; a density or apply
+// (density_tiled), or a sampler (sample_tiled).
 int run_tiled(int op, const Launch& l, const Desc& d) {
   const SampleTile t = tile_plan(d, l.tile, op >= kSample);
   const size_t smem = 4 * (size_t)t.floats;
@@ -1499,8 +1508,16 @@ int run_tiled(int op, const Launch& l, const Desc& d) {
     kernel<<<blocks, kSampleThreads, smem, l.stream>>>(l.in, l.out0, l.out1, l.tiled, s, t, l.n);
     return (int)cudaGetLastError();
   };
-  if (op == kDensity) return go(nsf_density_tiled<false>);
-  if (op == kApply) return go(nsf_density_tiled<true>);
+  if (op == kDensity || op == kApply) {
+    const auto raw = [&](auto density, auto apply) {
+      return op == kDensity ? go(density) : go(apply);
+    };
+    if (d.univ == kCRQS) return raw(nsf_density_tiled<false, kCRQS>, nsf_density_tiled<true, kCRQS>);
+    if (d.univ == kBernstein) {
+      return raw(nsf_density_tiled<false, kBernstein>, nsf_density_tiled<true, kBernstein>);
+    }
+    return raw(nsf_density_tiled<false, 0>, nsf_density_tiled<true, 0>);
+  }
   const auto modes = [&](auto sample, auto log_q, auto raw) {
     return op == kSample ? go(sample) : op == kSampleLogQ ? go(log_q) : go(raw);
   };
@@ -1525,8 +1542,8 @@ int run(int op, const Launch& l, const Desc& d) {
   const int fam = family_of(d.univ);
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
-    if (op >= kSample ? sample_tiled(d) : fam == kClosed) return run_tiled(op, l, d);
-    return fam == kCircular ? run_narrow<kCircular>(op, l, d) : run_narrow<kPolynomial>(op, l, d);
+    if (op >= kSample ? sample_tiled(d) : density_tiled(d)) return run_tiled(op, l, d);
+    return run_narrow(op, l, d);
   }
   // the device buffer: widths, passes (ints), clips, nodes, weights (floats)
   const long long words = (long long)(d.n_lin + 1) + 2LL * d.n_ar + 2LL * d.K2;
@@ -1599,8 +1616,9 @@ int entry(int op, const float* in, float* out0, float* out1, const float* params
       box, lo, hi, log_box, n, wide, work, work_floats, stride, desc, desc_bytes, stream
 
 // out (n,) = log_prob of xc (n, F + C). The tiled narrow tier (wide 0:
-// affine, RQS) takes `tiled` and `tile` as nsf_sample_f32 does; the other
-// densities ignore both.
+// affine, RQS, the circular spline, or a Bernstein polynomial of at most
+// kPolyRegs coefficients) takes `tiled` and `tile` as nsf_sample_f32 does;
+// the other densities ignore both.
 extern "C" int nsf_density_f32(const float* xc, float* out, NSF_FLOW, const float* tiled,
                                int tile) {
   return entry(kDensity, xc, nullptr, out, NSF_ARGS, tiled, tile);

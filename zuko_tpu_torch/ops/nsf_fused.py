@@ -28,8 +28,10 @@ polynomials of at most :data:`_POLY_REGS` coefficients (Bernstein ``M +
 5``, sum of squares ``P (L + 1)`` of at most :data:`_SOSP_NODES` nodes) is
 tiled: a block a tile of rows, planned with :class:`TilePlan`; a larger
 polynomial samples through the per-thread narrow kernel. So are the
-closed-form density and apply (``nsf_density_tiled``); the other
-univariates' stay per-thread. ``LAUNCHES`` counts the kernel
+density and apply of the closed-form univariates, the circular spline and
+the Bernstein polynomial of at most :data:`_POLY_REGS` coefficients
+(``nsf_density_tiled``); the sum of squares' and the larger polynomials'
+stay per-thread. ``LAUNCHES`` counts the kernel
 launches, one per call that reaches a kernel, the wide tier's under
 ``<name>_wide``.
 
@@ -697,8 +699,8 @@ _TWO_A_SM = (233472 - 2 * 1024) // 2
 
 
 class TilePlan(NamedTuple):
-    """The tiled narrow tier of a sampler or of the closed-form density and
-    apply: the fields of
+    """The tiled narrow tier of a sampler or of a density and apply: the
+    fields of
     :class:`~zuko_tpu_torch.ops._common.KernelPlan`, then the rows of its
     tile and the block's shared memory."""
 
@@ -724,6 +726,29 @@ def _sample_tiled(univ, K):
     return True
 
 
+def _density_tiled(univ, K):
+    """Whether the density's and apply's narrow tier is the tiled kernel:
+    the closed-form univariates, the circular spline, and the Bernstein
+    polynomial of at most :data:`_POLY_REGS` coefficients ``M + 5``
+    (``density_tiled`` in ``csrc/nsf_fused.cu``)."""
+    if univ == "bernstein":
+        return K + 5 <= _POLY_REGS
+    return univ != "sosp"
+
+
+def _tile_rows(floats, two_a_sm, smem_limit):
+    """The largest of :data:`_SAMPLE_TILES` rows ``R`` whose ``floats(R)``
+    of shared memory fit ``smem_limit``, ``None`` where none does; with
+    ``two_a_sm``, first the largest of 64 and 32 rows of which two blocks
+    share an SM's 233,472 bytes (1 KB a block reserved), where one does."""
+    if two_a_sm:
+        two = next((R for R in _SAMPLE_TILES[1:]
+                    if 4 * floats(R) <= min(smem_limit, _TWO_A_SM)), None)
+        if two is not None:
+            return two
+    return next((R for R in _SAMPLE_TILES if 4 * floats(R) <= smem_limit), None)
+
+
 def _sample_tile_floats(widths, T, R):
     """Floats of shared memory of the tiled sampler's tile of ``R``
     rows (``tile_plan`` in ``csrc/nsf_fused.cu``): one layer's linears as
@@ -745,29 +770,24 @@ def _density_tile_floats(widths, T, R):
 
 
 def density_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
-    """Rows of the tiled density's tile: the largest of
+    """Rows of the tiled density's tile (:func:`_tile_rows`): the largest of
     :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
-    where none does."""
+    where none does; the Bernstein polynomial's, whose coefficients in
+    registers want the warps of two blocks an SM as its sampler's do, two
+    blocks an SM where they fit."""
     T = _univ_size(univ, K)
-    return next((R for R in _SAMPLE_TILES
-                 if 4 * _density_tile_floats(widths, T, R) <= smem_limit), None)
+    return _tile_rows(lambda R: _density_tile_floats(widths, T, R), univ == "bernstein",
+                      smem_limit)
 
 
 def sample_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
-    """Rows of the tiled sampler's tile: the largest of
+    """Rows of the tiled sampler's tile (:func:`_tile_rows`): the largest of
     :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
-    where none does. A polynomial's solve wants the warps of two blocks an
-    SM: its tile is the largest of 64 and 32 rows of which two blocks share
-    an SM's 233,472 bytes (1 KB a block reserved), where one does."""
+    where none does; a polynomial's, whose solve wants the warps of two
+    blocks an SM, two blocks an SM where they fit."""
     T = _univ_size(univ, K)
-    if univ in ("sosp", "bernstein"):
-        two = next((R for R in _SAMPLE_TILES[1:]
-                    if 4 * _sample_tile_floats(widths, T, R) <= min(smem_limit, _TWO_A_SM)),
-                   None)
-        if two is not None:
-            return two
-    return next((R for R in _SAMPLE_TILES
-                 if 4 * _sample_tile_floats(widths, T, R) <= smem_limit), None)
+    return _tile_rows(lambda R: _sample_tile_floats(widths, T, R),
+                      univ in ("sosp", "bernstein"), smem_limit)
 
 
 def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
@@ -784,8 +804,9 @@ def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
     a :class:`TilePlan` of :func:`sample_tile_rows` rows and its shared
     memory, else the wide tier; a polynomial of more coefficients plans the
     per-thread narrow sampler as the density's narrow tier does. Without
-    ``sample``, the closed-form univariates (affine, RQS) plan the tiled
-    density the same way, of :func:`density_tile_rows` rows."""
+    ``sample``, the univariates of :func:`_density_tiled` plan the tiled
+    density the same way, of :func:`density_tile_rows` rows; the sum of
+    squares and the larger polynomials the per-thread narrow density."""
     n_lin = len(widths) - 1
     F = widths[-1] // _univ_size(univ, K)
     w_max = max(widths[:-1])
@@ -797,7 +818,7 @@ def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
         R = sample_tile_rows(widths, K, univ, smem_limit) if within else None
         if R is not None:
             return TilePlan(*narrow_plan(rows), R, 4 * _sample_tile_floats(widths, T, R))
-    elif not sample and univ in ("affine", "rqs"):
+    elif not sample and _density_tiled(univ, K):
         R = density_tile_rows(widths, K, univ, smem_limit) if within else None
         if R is not None:
             return TilePlan(*narrow_plan(rows), R, 4 * _density_tile_floats(widths, T, R))

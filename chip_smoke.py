@@ -97,6 +97,13 @@ ring energy. Its checks:
   draws peg at the bracket in float64 as well. In the ``kernels`` line the GF
   kernels' ``max_abs_err`` is the largest error over the unsaturated rows
   (density) or the solved, unsaturated rows (samples, log q);
+* the sampler's tiled tier (its narrow tier: a tile of 128 rows, one
+  thread a (row, feature) pair, the pair's mixture in registers), planned
+  for the flagship, GF(6, 4) under a batched context, GF(21) and GF(64),
+  and held against the wide tier on the same draws in both modes, one
+  tiled launch each, at 1M rows, 262,144 - 37 and 16 tiles + 1 (the last
+  tile one valid row): the rows whose samples differ counted (at most 1e-3
+  of them) and log q on the others within 1e-4;
 * the gradients through the two GF ``autograd.Function``s against float64
   (the IFT's at the kernel's own root), over the unsaturated rows: inputs
   under the limits above, parameters max-relative <= 5e-4 (see
@@ -133,7 +140,11 @@ polynomial sampler, which no flagship reaches, through ``SOSPF(4,
 polynomials=6, degree=4)`` and ``BPF(4, degree=30)`` (30 and 36
 coefficients, past the tiled sampler's 24), served at 16,384 rows, held
 against plain float64 at their family's limits and timed once (the kernels
-line's ``..._thread`` entries). **The CNF** (phase 13):
+line's ``..._thread`` entries); and the per-row narrow GF sampler, which no
+flagship reaches since K7's tiled tier, through ``GF(4, components=24)``
+(past the tiled sampler's 16 components in registers), served at 65,536
+rows, held against plain float64 in both modes at phase 9's limits and
+timed once (``gf_sample_thread``, ``gf_sample_log_prob_thread``). **The CNF** (phase 13):
 ``CNF(6)`` of ``zuko_tpu_torch/assets/cnf_flagship.npz`` (ODE network 12-64-64-6,
 exact trace) and a conditional ``CNF(6, 4)`` under a batched context served
 through K10 (``cnf_density``) and K11 (``cnf_sample``, with and without log q)
@@ -185,8 +196,9 @@ of 128 rows, SOSPF and BPF 64) also against the wide tier on the same
 draws, in the three modes, one tiled launch each, at the served rows, at
 (n), (p), (r)'s 16,384 and at the conditional's 4,096 (NCSF also at the
 16,384 rows placed at the jumps), samples bit for bit and sums within
-1e-4; the NCSF's and BPF's density and apply (the tiled tier: NCSF tiles
-of 128 rows, BPF 64), flagship and conditional, at 1M rows, 65,536 - 37
+1e-4; the NCSF's, BPF's and SOSPF's density and apply (the tiled tier:
+NCSF tiles of 128 rows, BPF and SOSPF 64; SOSPF's softclips taken by the
+rows' owner threads), flagship and conditional, at 1M rows, 65,536 - 37
 and 16 tiles + 1, against plain float64 and against the wide tier on the
 same rows, one launch each (NCSF's each tier continued on its own side
 of the jumps, also at the 16,384 rows placed at them, the tiers held
@@ -1530,6 +1542,8 @@ def main():
     # the per-thread narrow polynomial sampler (phase 12)
     origin.update({f"{nsf_fused._counter(k, mode)}_thread": origin[k]
                    for mode in ("sosp", "bernstein") for k in NSF_KINDS[2:]})
+    # the per-row narrow GF sampler (phase 12)
+    origin.update({f"{name}_thread": origin[name] for name in GF_NAMES[1:]})
 
     def flow_work(rows):
         """name -> (kernel, plain, operations, bytes) of the whole-flow
@@ -1706,10 +1720,11 @@ def main():
         if name is not None:
             note_error(name, d[calm], rows)
 
-    def hold_gf(label, flow, c, rows, x, names=GF_NAMES):
+    def hold_gf(label, flow, c, rows, x, names=GF_NAMES, generator=None):
         """K6 and K7 of ``flow`` under context ``c`` at ``rows`` rows against
-        their plain versions in float64; the errors noted under ``names``
-        (density, sample, sample with log q), if any."""
+        their plain versions in float64, on draws from ``generator`` (default
+        ``gen``); the errors noted under ``names`` (density, sample, sample
+        with log q; a name None: not noted), if any."""
         report = names is not None
         params, layout, F = gf_args(flow, c, rows, torch.float32)
         p64 = [p.double() for p in params]
@@ -1717,7 +1732,7 @@ def main():
         hold_density(f"{label} density", names[0] if report else None,
                      gf_fused.gf_density(x, params, layout, F),
                      gf_fused._gf_math(x.double(), p64, layout, F), largest, F, rows)
-        z = torch.randn(rows, F, generator=gen, device=dev)
+        z = torch.randn(rows, F, generator=gen if generator is None else generator, device=dev)
         k_x = gf_fused.gf_sample(z, params, layout, F)
         k_xl, k_lq = gf_fused.gf_sample(z, params, layout, F, True)
         r_x, r_lq = gf_fused._gf_sample_math(z.double(), p64, layout, F, True)
@@ -1820,8 +1835,67 @@ def main():
             hold_gf("conditional GF", gf_cond, gc_big[:rows], rows, x_big[:rows])
         for label, (flow, rows) in gf_wide.items():
             width = flow.base._0.shape[0]
+            check(isinstance(gf_fused.plan_gf(gf_args(flow, None, 1, torch.float32)[1], width,
+                                              rows, sample=True), nsf_fused.TilePlan),
+                  f"{label}: the tiled sampler")
             hold_gf(label, flow, None, rows,
                     torch.randn(rows, width, generator=gen, device=dev), names=None)
+
+    # K7's tiled tier (the sampler's narrow tier where the layers share K <=
+    # 16 components): planned for the flagship and the conditional GF(6, 4)
+    # under a batched context, and held against the wide tier on the same
+    # draws, in both modes, one tiled launch each, at 1M rows, 262,144 - 37
+    # and a last tile of one valid row; the same solves and sums in the same
+    # order, so the rows where the two differ are counted (an nvcc contraction
+    # may part them), and at most 1e-3 of them may; log q on the others
+    # within TOL_DENSITY; draws from a generator of their own
+    @contextlib.contextmanager
+    def gf_wide_tier():
+        """The GF kernels' wide tier: the planner told that no flow is
+        within the narrow limits."""
+        limit = gf_fused._MAX_FEATURES
+        gf_fused._MAX_FEATURES = 0
+        try:
+            yield
+        finally:
+            gf_fused._MAX_FEATURES = limit
+
+    gen_k7 = torch.Generator(device=dev).manual_seed(20)
+    t_k7 = time.perf_counter()
+    for label, flow, c in (("GF", gf, None), ("conditional GF", gf_cond, gc_big)):
+        tile = gf_fused._GF_TILE
+        for rows in (ROWS, GRAD_ROWS - 37, 16 * tile + 1):
+            params, layout, F = gf_args(flow, None if c is None else c[:rows], rows, torch.float32)
+            plan = gf_fused.plan_gf(layout, F, rows, sample=True)
+            check(isinstance(plan, nsf_fused.TilePlan) and plan.tile_rows == tile,
+                  f"{label}: the tiled sampler at {tile} rows, {plan}")
+            z = torch.randn(rows, F, generator=gen_k7, device=dev)
+            for want, kind in ((False, "gf_sample"), (True, "gf_sample_log_prob")):
+                ops.reset_launches()
+                with torch.no_grad():
+                    tiled = gf_fused.gf_sample(z, params, layout, F, want)
+                    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+                    with gf_wide_tier():
+                        wide = gf_fused.gf_sample(z, params, layout, F, want)
+                check(launched == {kind: 1}, f"{label} {kind}: one tiled launch, {launched}")
+                tiled = tiled if want else (tiled,)
+                wide = wide if want else (wide,)
+                check(all(bool(torch.isfinite(t).all()) for t in tiled),
+                      f"{label} {kind} tiled at {rows} rows: not finite")
+                differ = (tiled[0] != wide[0]).any(dim=1)
+                same = all(torch.equal(a, b) for a, b in zip(tiled, wide))
+                dx = (tiled[0] - wide[0]).abs().max().item()
+                dlq = (tiled[1] - wide[1]).abs()[~differ].max().item() if want else 0.0
+                print(f"{label} {kind} tiled at {rows} rows vs the wide tier: rows whose x"
+                      f" differ {int(differ.sum().item())}, x max {dx:.3e}"
+                      + (f", log q max over the others {dlq:.3e}, rows whose log q differ"
+                         f" {int((tiled[1] != wide[1]).sum().item())}" if want else "")
+                      + f"; bit for bit: {same}")
+                check(differ.float().mean().item() <= 1e-3,
+                      f"{label} {kind} tiled at {rows} rows: samples vs the wide tier")
+                check(dlq <= TOL_DENSITY, f"{label} {kind} tiled at {rows} rows: log q vs wide")
+            del params
+    print(f"K7 tiled tier checks: {time.perf_counter() - t_k7:.1f} s")
 
     # gradients through the two Functions (kernel forward, float32 plain
     # backward) against float64, down to the flows' parameters: the density's
@@ -1918,9 +1992,9 @@ def main():
     })
 
     # times: unconditional at both row counts, batched context at 1M rows
-    def gf_work(params, layout, F, rows, x=None):
+    def gf_work(params, layout, F, rows, x=None, generator=None):
         x = x_big[:rows] if x is None else x
-        z = torch.randn(rows, F, generator=gen, device=dev)
+        z = torch.randn(rows, F, generator=gen if generator is None else generator, device=dev)
         args = (params, layout, F)
         read = 4 * sum(p.numel() for p in params)  # every parameter once
         return {
@@ -2964,6 +3038,50 @@ def main():
                             plain_runs=1)
                 report_rows[f"{names[kind]}_thread"] = thread_rows
 
+    # the per-row narrow GF sampler (gf_sample_kernel<false, log q>), which no
+    # flagship reaches since K7's tiled tier: a GF past the tiled sampler's
+    # 16 components in registers (24), parameters x 0.1 as the other GFs of
+    # this phase, its sampler planned narrow and untiled, served at
+    # REPAIR_ROWS rows, held against plain float64 in both modes at phase
+    # 9's limits and timed once; counted under the sampler's names in the
+    # served run, reported in the kernels line as <name>_thread; draws from a
+    # generator of their own
+    def hold_gf_per_row():
+        with torch.random.fork_rng(devices=[dev]):
+            gf24 = built(lambda: zt.GF(4, components=24, device="cpu"), 27, 0.1)
+        label, rows = "GF(4, components=24)", REPAIR_ROWS
+        gen_gf24 = torch.Generator(device=dev).manual_seed(27)
+        params, layout, F = gf_args(gf24, None, rows, torch.float32)
+        plan = gf_fused.plan_gf(layout, F, rows, sample=True)
+        check(plan == _common.narrow_plan(rows), f"{label}: the per-row narrow sampler, {plan}")
+        x = torch.randn(rows, F, generator=gen_gf24, device=dev)
+        ops.reset_launches()
+        with torch.no_grad():
+            dist = gf24(None)
+            outs = [dist.log_prob(x), dist.sample((rows,), generator=gen_gf24),
+                    *dist.sample_and_log_prob((rows,), generator=gen_gf24)]
+        torch.cuda.synchronize()
+        served = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"{label} served at {rows} rows: launches {served}")
+        check(isinstance(dist, FusedGaussianizationFlow), f"{label} did not dispatch")
+        check(all(bool(torch.isfinite(t).all()) for t in outs), f"{label}: not finite")
+        check(served == {name: 1 for name in GF_NAMES}, f"{label}: served launches {served}")
+        thread_launches.update({f"{name}_thread": served.get(name, 0) for name in GF_NAMES[1:]})
+        with torch.no_grad():
+            ops.reset_launches()
+            hold_gf(label, gf24, None, rows, x,
+                    names=(None, *(f"{name}_thread" for name in GF_NAMES[1:])), generator=gen_gf24)
+            held = {k: v for k, v in ops.LAUNCHES.items() if v}
+            check(held.get("gf_sample", 0) > 0 and held.get("gf_sample_log_prob", 0) > 0
+                  and not any(k.endswith("_wide") for k in held),
+                  f"{label}: the held sampler's launches {held}")
+            work = gf_work(params, layout, F, rows, x, generator=gen_gf24)
+            for name in GF_NAMES[1:]:
+                time_kernel(f"{name}_thread", rows, *work[name], runs=3, plain_runs=1)
+                report_rows[f"{name}_thread"] = rows
+
+    hold_gf_per_row()
+
     # each configuration held against plain float64, and each wide kernel
     # timed once, at the first configuration that drives it
     def hold_nsf_wide(label, flow, C, rows):
@@ -3674,9 +3792,10 @@ def main():
             print(f"served request {names['nsf_sample_log_prob']} at {sample_rows} rows:"
                   f" {r_ms:.3f} ms {fmt(r_runs)}, {sample_rows / r_ms / 1e3:.3f} M rows/s")
 
-    # K1 and K2's tiled tier in the crqs and bernstein modes (their narrow
-    # tier since it was redesigned), as the closed-form one's above: planned
-    # for the flagship and the conditional (6, 4) flow of each; at 1M rows,
+    # K1 and K2's tiled tier in the crqs, bernstein and sosp modes (their
+    # narrow tier since it was redesigned; SOSPF's softclip after each layer
+    # taken by the row's owner thread), as the closed-form one's above:
+    # planned for the flagship and the conditional (6, 4) flow of each; at 1M rows,
     # 65,536 - 37 and 16 tiles + 1, the density, the apply's y and its sum
     # against plain float64 and against the wide tier on the same rows, one
     # launch of each tier; NCSF's each tier against float64 continued on the
@@ -3741,7 +3860,7 @@ def main():
 
     gen_k12m = torch.Generator(device=dev).manual_seed(19)
     t_k12m = time.perf_counter()
-    for key, tile in (("ncsf", 128), ("bpf", 64)):
+    for key, tile in (("ncsf", 128), ("bpf", 64), ("sospf", 64)):
         label = families[key][0]
         names = {k: nsf_fused._counter(k, nsf_fused._flatten_flow(fam_flagship[key])[2]["univ"])
                  for k in NSF_KINDS}
@@ -3760,7 +3879,8 @@ def main():
             if key == "ncsf" and flow is fam_flagship[key]:
                 hold_density_tiers(f"{which} at the shifts' jumps", names,
                                    jump_rows(flow, 1 << 14)[0], params, p64, layout, st)
-    print(f"K1 and K2 tiled tier checks, crqs and bernstein: {time.perf_counter() - t_k12m:.1f} s")
+    print(f"K1 and K2 tiled tier checks, crqs, bernstein and sosp:"
+          f" {time.perf_counter() - t_k12m:.1f} s")
 
     # the Functions at the rows and draws the steps give them: K1's at (m),
     # (o), (q)'s first batch, the IFT (K3 with log q, three sweeps back)

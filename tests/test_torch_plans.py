@@ -14,12 +14,14 @@ apply's (``plan_nsf``, ``density_tile_rows``, ``_density_tile_floats``,
 ``tile_plan`` without targets), the CNF density's cluster tier
 and sampler's (``plan_cnf``, mirrored in ``density_plan``), the tiled
 Bernstein, circular and sum-of-squares samplers (``plan_nsf(..., sample=True)``
-for ``bernstein``, ``crqs`` and ``sosp``), the circular spline's and the
-Bernstein polynomial's tiled density and apply (``plan_nsf`` for ``crqs``
-and ``bernstein``, mirrored in ``density_tiled``), and that
-the wrappers hand those
-plans to the C entry points: a library that records its calls stands in for
-the built one, and the tensors say they lie on the GPU."""
+for ``bernstein``, ``crqs`` and ``sosp``), the circular spline's, the
+Bernstein polynomial's and the sum of squares' tiled density and apply
+(``plan_nsf`` for ``crqs``, ``bernstein`` and ``sosp``, mirrored in
+``tiled``), the GF sampler's tile (``ops/gf_fused.py`` ``plan_gf(...,
+sample=True)``, ``_tile_floats``, mirrored in ``csrc/gf_fused.cu``
+``tile_plan``), and that the wrappers hand those plans to the C entry
+points: a library that records its calls stands in for the built one, and
+the tensors say they lie on the GPU."""
 
 import contextlib
 import types
@@ -30,7 +32,15 @@ import torch
 import zuko_tpu_torch as zt
 
 from zuko_tpu_torch import ops
-from zuko_tpu_torch.ops import _build, _common, cnf_fused, masked_linear, naf_fused, nsf_fused
+from zuko_tpu_torch.ops import (
+    _build,
+    _common,
+    cnf_fused,
+    gf_fused,
+    masked_linear,
+    naf_fused,
+    nsf_fused,
+)
 
 torch.set_num_threads(1)
 
@@ -591,17 +601,19 @@ def test_nsf_density_tile_shrinks_with_the_hidden_width(univ, hidden, tile, nbyt
 
 
 @pytest.mark.parametrize("make", [
-    lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"),
-    lambda: zt.SOSPF(6, 4, transforms=3, device="cpu"),
+    lambda: zt.SOSPF(6, 0, transforms=3, polynomials=6, degree=4, device="cpu"),
+    lambda: zt.SOSPF(6, 4, transforms=3, polynomials=2, degree=8, device="cpu"),
     lambda: zt.BPF(6, 0, transforms=3, degree=30, device="cpu"),
     lambda: zt.BPF(6, 4, transforms=3, degree=30, device="cpu"),
 ], ids=["sospf", "sospf_conditional", "bpf_degree_30", "bpf_degree_30_conditional"])
 def test_other_densities_keep_the_per_thread_tier(make):
-    """The sum of squares' density, and a Bernstein polynomial's past the 24
-    coefficients the tiled kernel holds in registers (degree 30: 36), keep
-    the per-thread narrow tier: no tile, at any number of rows."""
+    """A sum of squares' density past the 24 coefficients the tiled kernel
+    holds in registers (6 polynomials of degree 4: 30) or past its 8
+    Gauss-Legendre nodes (degree 8: 9), and a Bernstein polynomial's past
+    its 24 coefficients (degree 30: 36), keep the per-thread narrow tier:
+    no tile, at any number of rows."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
-    assert not nsf_fused._density_tiled(cfg["univ"], cfg["bins"])
+    assert not nsf_fused._tiled(cfg["univ"], cfg["bins"])
     for rows in (1, 1 << 20):
         plan = nsf_fused.plan_nsf(widths, cfg["bins"], cfg["univ"], n_ar, rows, SHARED)
         assert plan == (False, 0, rows, 0, 0) and not isinstance(plan, nsf_fused.TilePlan)
@@ -682,18 +694,18 @@ def test_nsf_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, mode, n
     (lambda: zt.NCSF(6, 4, transforms=3, device="cpu"), "crqs", 128),
     (lambda: zt.BPF(6, 0, transforms=3, device="cpu"), "bernstein", 64),
     (lambda: zt.BPF(6, 4, transforms=3, device="cpu"), "bernstein", 64),
-    (lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"), "sosp", None),
+    (lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"), "sosp", 64),
 ], ids=["flagship", "conditional", "maf", "ncsf", "ncsf_conditional", "bpf", "bpf_conditional",
         "sospf"])
 def test_nsf_density_and_apply_hand_the_tile_to_the_kernel(recorded, monkeypatch, make, univ,
                                                             tile):
     """``nsf_density`` and ``nsf_apply`` hand the C entry points the
     buffer ``_tiled_weights`` builds for this call and the tile (the last
-    two arguments, after the stream) on the narrow tier: 128 rows for the
-    closed-form univariates and the circular spline, 64 for the Bernstein
-    polynomial; the sum of squares' per-thread density and apply take
-    neither (null, 0). Each counts under its mode's names (``nsf_density``
-    and ``nsf_apply`` for the closed-form ones, ``nsf_density_<mode>`` and
+    two arguments, after the stream) on the narrow tier, and no packed
+    weights (null: the tiled tier reads the staged ones alone): 128 rows for
+    the closed-form univariates and the circular spline, 64 for the
+    polynomials. Each counts under its mode's names (``nsf_density`` and
+    ``nsf_apply`` for the closed-form ones, ``nsf_density_<mode>`` and
     ``nsf_apply_<mode>`` for the others)."""
     flow, params, layout, cfg, F, widths, _ = _nsf_shapes(make)
     assert cfg["univ"] == univ
@@ -708,15 +720,13 @@ def test_nsf_density_and_apply_hand_the_tile_to_the_kernel(recorded, monkeypatch
     nsf_fused.nsf_density(xc, card, layout, *st)
     nsf_fused.nsf_apply(xc, card, layout, *st)
     assert [name for name, _ in recorded] == ["nsf_density_f32", "nsf_apply_f32"]
-    assert len(staged) == (0 if tile is None else 2)
-    for (name, args), buffer in zip(recorded, staged if tile else [None, None]):
+    assert len(staged) == 2
+    for (name, args), buffer, n_out in zip(recorded, staged, (1, 2)):
         assert len(args) == len(_build._SIGNATURES["nsf_fused"][name][0])
         assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
-        if tile:
-            assert torch.equal(buffer, tiled_weights(params, layout))
-            assert args[-2] == buffer.data_ptr() and args[-1] == tile
-        else:
-            assert args[-2] is None and args[-1] == 0
+        assert torch.equal(buffer, tiled_weights(params, layout))
+        assert args[-2] == buffer.data_ptr() and args[-1] == tile
+        assert args[1 + n_out] is None  # no packed weights
     names = [nsf_fused._counter(k, univ) for k in ("nsf_density", "nsf_apply")]
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == dict.fromkeys(names, 1)
 
@@ -753,7 +763,7 @@ def test_ncsf_and_bpf_densities_plan_the_tiled_tier(make, widths, tile, nbytes):
     holds at any number of rows."""
     _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
     K, univ = cfg["bins"], cfg["univ"]
-    assert got == widths and nsf_fused._density_tiled(univ, K)
+    assert got == widths and nsf_fused._tiled(univ, K)
     T = nsf_fused._univ_size(univ, K)
     for R in (32, 64, 128):
         assert nsf_fused._density_tile_floats(widths, T, R) == _tile_plan_floats(widths, F, R)
@@ -799,6 +809,34 @@ def test_ncsf_and_bpf_density_tile_shrinks_with_the_hidden_width(univ, hidden, t
             assert nbytes == 4 * _tile_plan_floats(widths, 6, tile) <= SHARED
 
 
+@pytest.mark.parametrize("make, widths, nbytes", [
+    (lambda: zt.SOSPF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 96], 102272),
+    (lambda: zt.SOSPF(6, 4, transforms=3, device="cpu"), [10, 64, 64, 96], 104320),
+], ids=["sospf", "sospf_conditional"])
+def test_sosp_density_plans_the_tiled_tier(make, widths, nbytes):
+    """The sum of squares' density and apply (P (L + 1) = 15 coefficients
+    and the shift, T = 16 raw parameters a feature) plan the tiled density
+    at 64 rows, two blocks an SM as the polynomial samplers do: 10,848
+    floats of linears for the flagship SOSPF, then ``[F + C][R]``, two
+    hidden buffers ``[64][R]`` and the last linear's outputs ``[96][R]``:
+    102,272 bytes (104,320 for SOSPF(6, 4)), at most 115,712;
+    ``_density_tile_floats`` is ``tile_plan(d, R, false)`` of the C++ at
+    each tile, and the plan holds at any number of rows."""
+    _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
+    K, univ = cfg["bins"], cfg["univ"]
+    assert got == widths and univ == "sosp" and K == (3, 5) and nsf_fused._tiled(univ, K)
+    T = nsf_fused._univ_size(univ, K)
+    assert T == 16
+    for R in (32, 64, 128):
+        assert nsf_fused._density_tile_floats(widths, T, R) == _tile_plan_floats(widths, F, R)
+    assert 4 * _tile_plan_floats(widths, F, 64) == nbytes <= (233472 - 2048) // 2
+    assert 4 * _tile_plan_floats(widths, F, 128) <= SHARED  # 64 rows by choice, not by room
+    assert nsf_fused.density_tile_rows(widths, K, univ) == 64
+    for rows in (1, (1 << 16) - 37, 1 << 20):
+        plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED)
+        assert isinstance(plan, nsf_fused.TilePlan) and plan == (False, 0, rows, 0, 0, 64, nbytes)
+
+
 @pytest.mark.parametrize("make, widths, tile, nbytes", [
     (lambda: zt.BPF(6, 0, transforms=3, device="cpu"), [6, 64, 64, 102], 64, 107936),
     (lambda: zt.BPF(6, 4, transforms=3, device="cpu"), [10, 64, 64, 102], 64, 109984),
@@ -819,7 +857,7 @@ def test_bernstein_sampler_plans_the_tiled_tier(make, widths, tile, nbytes):
     _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
     assert got == widths and cfg["univ"] == "bernstein"
     K = cfg["bins"]
-    assert K + 5 <= 24 and nsf_fused._sample_tiled("bernstein", K)
+    assert K + 5 <= 24 and nsf_fused._tiled("bernstein", K)
     floats = nsf_fused._sample_tile_floats(widths, K, tile)
     assert 4 * floats == nbytes <= SHARED
     assert nsf_fused.sample_tile_rows(widths, K, "bernstein") == tile
@@ -844,7 +882,7 @@ def test_bernstein_sampler_past_its_registers_keeps_the_per_thread_kernel(make):
     density its own, the same."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
     K = cfg["bins"]
-    assert 24 < K + 5 <= 64 and not nsf_fused._sample_tiled("bernstein", K)
+    assert 24 < K + 5 <= 64 and not nsf_fused._tiled("bernstein", K)
     for rows in (1 << 14, 1 << 18):
         plan = nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, rows, SHARED, sample=True)
         assert plan == _common.narrow_plan(rows)
@@ -862,7 +900,7 @@ def test_bernstein_sampler_past_its_registers_plans_the_wide_tier(make):
     the wide tier."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
     K = cfg["bins"]
-    assert K + 5 > 64 and not nsf_fused._sample_tiled("bernstein", K)
+    assert K + 5 > 64 and not nsf_fused._tiled("bernstein", K)
     plan = nsf_fused.plan_nsf(widths, K, "bernstein", n_ar, 1 << 14, SHARED, sample=True)
     assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
@@ -883,12 +921,11 @@ def test_circular_and_sosp_samplers_plan_the_tiled_tier(make, widths, tile, nbyt
     largest of 64 and 32 rows of which two blocks share an SM (the flagship
     SOSPF: 10,848 floats of linears, then ``[F + C][R]``, ``[F][R]``, two
     hidden buffers ``[64][R]`` and the last linear's outputs ``[96][R]``:
-    103,808 bytes at 64 rows). The circular spline's density plans the
-    same tile without the targets ``[F][R]``; the sum of squares' density
-    keeps the per-thread narrow tier."""
+    103,808 bytes at 64 rows). Each density plans the same tile without the
+    targets ``[F][R]``."""
     _, _, _, cfg, F, got, n_ar = _nsf_shapes(make)
     K, univ = cfg["bins"], cfg["univ"]
-    assert got == widths and nsf_fused._sample_tiled(univ, K)
+    assert got == widths and nsf_fused._tiled(univ, K)
     T = nsf_fused._univ_size(univ, K)
     assert 4 * nsf_fused._sample_tile_floats(widths, T, tile) == nbytes <= SHARED
     assert nsf_fused.sample_tile_rows(widths, K, univ) == tile
@@ -897,8 +934,8 @@ def test_circular_and_sosp_samplers_plan_the_tiled_tier(make, widths, tile, nbyt
     for rows in (1, 1 << 14, 1 << 20):
         plan = nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED, sample=True)
         assert plan == (False, 0, rows, 0, 0, tile, nbytes)
-        density = (False, 0, rows, 0, 0) + ((tile, nbytes - 4 * F * tile) if univ == "crqs" else ())
-        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == density
+        assert nsf_fused.plan_nsf(widths, K, univ, n_ar, rows, SHARED) == (
+            False, 0, rows, 0, 0, tile, nbytes - 4 * F * tile)
 
 
 @pytest.mark.parametrize("make", [
@@ -911,7 +948,7 @@ def test_circular_sampler_past_its_bins_plans_the_wide_tier(make):
     the density does."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
     K = cfg["bins"]
-    assert cfg["univ"] == "crqs" and K > 32 and nsf_fused._sample_tiled("crqs", K)
+    assert cfg["univ"] == "crqs" and K > 32 and nsf_fused._tiled("crqs", K)
     plan = nsf_fused.plan_nsf(widths, K, "crqs", n_ar, 1 << 14, SHARED, sample=True)
     assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
@@ -932,7 +969,7 @@ def test_sosp_sampler_past_its_registers_keeps_the_per_thread_kernel(make, coeff
     arrays: the sampler plans that narrow tier, as the density its own."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
     K = cfg["bins"]
-    assert K[0] * K[1] == coefficients and not nsf_fused._sample_tiled("sosp", K)
+    assert K[0] * K[1] == coefficients and not nsf_fused._tiled("sosp", K)
     for rows in (1 << 14, 1 << 18):
         plan = nsf_fused.plan_nsf(widths, K, "sosp", n_ar, rows, SHARED, sample=True)
         assert plan == _common.narrow_plan(rows)
@@ -950,7 +987,7 @@ def test_sosp_sampler_past_the_narrow_limits_plans_the_wide_tier(make):
     the wide tier."""
     _, _, _, cfg, F, widths, n_ar = _nsf_shapes(make)
     K = cfg["bins"]
-    assert nsf_fused._univ_size("sosp", K) > 95 and not nsf_fused._sample_tiled("sosp", K)
+    assert nsf_fused._univ_size("sosp", K) > 95 and not nsf_fused._tiled("sosp", K)
     plan = nsf_fused.plan_nsf(widths, K, "sosp", n_ar, 1 << 14, SHARED, sample=True)
     assert plan.wide and not isinstance(plan, nsf_fused.TilePlan)
     assert plan.workspace_bytes <= _common.WORKSPACE_BYTES
@@ -998,8 +1035,9 @@ def test_bernstein_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, m
     """The BPF sampler launches its tiled tier with the staged weights of
     ``_tiled_weights`` and the tile of 64 rows (the last two arguments,
     after the stream), the univariate's code 4 and M = 17, and counts under
-    its mode's name; a SOSPF past the registers (P (L + 1) = 30, the
-    per-thread kernel) takes neither."""
+    its mode's name, with no packed weights (null); a SOSPF past the
+    registers (P (L + 1) = 30, the per-thread kernel) takes neither the
+    staged weights nor a tile, but the packed weights."""
     flow, params, layout, cfg, F, widths, _ = _nsf_shapes(
         lambda: zt.BPF(6, 0, transforms=3, device="cpu"))
     lib = _build.load_library("nsf_fused")
@@ -1016,8 +1054,8 @@ def test_bernstein_sampler_hands_the_tile_to_the_kernel(recorded, monkeypatch, m
     assert len(args) == len(sargs) == len(_build._SIGNATURES["nsf_fused"][name][0])
     assert args[13] == 4 and args[11] == 17  # bernstein, M
     assert args[-9] == 0 and args[-3] is not None  # the narrow tier; a stream
-    assert args[-2] is not None and args[-1] == 64
-    assert sargs[-9] == 0 and sargs[-2] is None and sargs[-1] == 0
+    assert args[-2] is not None and args[-1] == 64 and args[3] is None  # no packed weights
+    assert sargs[-9] == 0 and sargs[-2] is None and sargs[-1] == 0 and sargs[3] is not None
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         nsf_fused._counter(kind, "bernstein"): 1, nsf_fused._counter(kind, "sosp"): 1}
 
@@ -1153,3 +1191,72 @@ def test_cnf_sampler_hands_its_cluster_to_the_kernel(recorded, exact, want):
     assert not plan.wide and plan.cluster * plan.block_rows == cnf_fused.TILE
     counter = "cnf_sample_log_prob" if want else "cnf_sample"
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {counter: 1}
+
+
+def _gf_layout(make, c=None):
+    torch.manual_seed(0)
+    with torch.no_grad():
+        params, layout, F, _ = gf_fused._flatten_gf(make(), c)
+    return params, layout, F
+
+
+@pytest.mark.parametrize("make, context, nbytes", [
+    (lambda: zt.GF(6, 0, transforms=3, components=8, device="cpu"), None, 9360),
+    (lambda: zt.GF(6, 4, transforms=3, device="cpu"), torch.zeros(5, 4), 9360),
+], ids=["flagship", "conditional"])
+def test_gf_sampler_plans_the_tiled_tier(make, context, nbytes):
+    """The GF sampler's narrow tier is tiled where every gaussianization
+    layer has the same K <= 16 components (the flagship's and GF(6, 4)'s 8,
+    under a batched context too): a tile of 128 rows whose shared memory
+    holds the values, a rotation's output and the ladjs, ``[F][R]`` each,
+    and the rotation ``[F][F]`` (``tile_plan`` in ``csrc/gf_fused.cu``:
+    9,360 bytes for F = 6, 114,688 for F = 64), at any number of rows; the
+    density keeps its narrow tier. Layers of 17 to 32 components, or of
+    different counts, keep the per-row narrow sampler; past the narrow
+    limits (65 features) the wide tier."""
+    _, layout, F = _gf_layout(make, context)
+    kinds = {entry[0] for entry in layout}
+    assert F == 6 and kinds == {"gauss" if context is None else "gaussb", "rot"}
+    assert {entry[1] for entry in layout if entry[0] != "rot"} == {8}
+    tile = gf_fused._GF_TILE
+    assert tile == 128 and gf_fused._GF_REGS == 16
+    for R in (32, 64, 128):  # tile_plan: y, t and lad at 0, F R and 2 F R, then rot
+        assert gf_fused._tile_floats(F, R) == 3 * F * R + F * F
+    assert 4 * gf_fused._tile_floats(F, tile) == nbytes
+    assert 4 * gf_fused._tile_floats(64, tile) == 114688 <= SHARED
+    for rows in (1, (1 << 18) - 37, 1 << 20):
+        plan = gf_fused.plan_gf(layout, F, rows, sample=True)
+        assert isinstance(plan, nsf_fused.TilePlan) and plan == (False, 0, rows, 0, 0, tile, nbytes)
+        assert gf_fused.plan_gf(layout, F, rows) == _common.narrow_plan(rows)
+    for other in ([(kind, 24) if kind != "rot" else (kind,) for kind, *_ in layout],
+                  [layout[0], layout[1], (layout[2][0], 4)] + list(layout[3:])):
+        assert gf_fused.plan_gf(tuple(other), F, 1 << 20, sample=True) == _common.narrow_plan(1 << 20)
+    assert gf_fused.plan_gf(layout, 65, 1 << 20, sample=True).wide
+
+
+def test_gf_sampler_hands_its_tile_to_the_kernel(recorded):
+    """The GF sampler launches its tiled tier with the tile of its plan (the
+    last argument, after the stream) in both modes, and a GF of 24
+    components (the per-row narrow sampler) with 0; the density's entry
+    point takes no tile. Each counts under its name."""
+    params, layout, F = _gf_layout(lambda: zt.GF(6, 0, transforms=3, components=8, device="cpu"))
+    card = [p.detach().as_subclass(_OnCard) for p in params]
+    z = torch.randn(300, F).as_subclass(_OnCard)
+    gf_fused.gf_sample(z, card, layout, F)
+    gf_fused.gf_sample(z, card, layout, F, want_log_prob=True)
+    gf_fused.gf_density(z, card, layout, F)
+    wparams, wlayout, _ = _gf_layout(
+        lambda: zt.GF(6, 0, transforms=2, components=24, device="cpu"))
+    gf_fused.gf_sample(z, [p.detach().as_subclass(_OnCard) for p in wparams], wlayout, F)
+    names = [name for name, _ in recorded]
+    assert names == ["gf_sample_f32", "gf_sample_f32", "gf_density_f32", "gf_sample_f32"]
+    sig = _build._SIGNATURES["gf_fused"]
+    for name, args in recorded:
+        assert len(args) == len(sig[name][0])
+    for _, args in recorded[:2]:
+        assert args[-8] == 0 and args[-2] is not None  # the narrow tier; a stream
+        assert args[-1] == gf_fused._GF_TILE == 128
+    assert recorded[1][1][2] is not None  # log q
+    assert recorded[2][1][-7] == 0 and recorded[3][1][-1] == 0
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "gf_sample": 2, "gf_sample_log_prob": 1, "gf_density": 1}

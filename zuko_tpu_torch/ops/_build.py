@@ -41,6 +41,8 @@ _NSF_TWO_OUTPUTS = ([_P, _P, _P, *_NSF_TILED], _I)
 # (packed, kinds, Ks, offs, shifts, raws, row strides, feature strides,
 # stages, F, rows, the tier, stream)
 _GF_FLOW = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, *_TIER, _P]
+# then the tiled sampler's tile rows (0: not tiled)
+_GF_TILED = [*_GF_FLOW, _I]
 # (packed, kinds, passes, bounds, offsets, stages, MADE widths, MADE linears,
 # network widths, network linears, F, C, S, mode, rows, then the tier: wide,
 # workspace, its floats, rows a launch, descriptor buffer, its bytes; the
@@ -68,7 +70,7 @@ _SIGNATURES = {
     },
     "gf_fused": {
         "gf_density_f32": ([_P, _P, *_GF_FLOW], _I),
-        "gf_sample_f32": ([_P, _P, _P, *_GF_FLOW], _I),
+        "gf_sample_f32": ([_P, _P, _P, *_GF_TILED], _I),
     },
     "naf_fused": {
         "naf_density_f32": ([_P, _P, *_NAF_FLOW], _I),

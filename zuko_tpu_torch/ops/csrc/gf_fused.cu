@@ -43,6 +43,10 @@
 // scale = expf(log scale) for its row once, so the 29 bisection steps do not.
 // The rotation products are plain float32 FMAs in the kernel body.
 //
+// The sampler's narrow tier where every gaussianization layer has the same
+// K <= kGfRegs components (the flagship's 8) is tiled instead:
+// gf_sample_tiled, below.
+//
 // Two tiers, chosen by the wrapper from the flow's shape alone
 // (zuko_tpu_torch/ops/gf_fused.py plan_gf). The narrow tier (kWide false) is
 // the design above, within its limits: kMaxF features, kMaxK components,
@@ -70,8 +74,11 @@ namespace {
 constexpr int kMaxF = 64;       // features
 constexpr int kMaxK = 32;       // mixture components
 constexpr int kMaxStages = 64;  // gaussianization layers and rotations together
+constexpr int kGfRegs = 16;      // components the tiled sampler holds in registers
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTileThreads = 256;  // the tiled sampler's block
+constexpr int kMaxShared = 232448;  // a block's shared memory on an H100 (227 KB)
 // floats of one row of the shared tile: a chunk of fc features holds
 // fc * 3 * K of them (shift, scale, log scale), plus one to make the stride odd
 constexpr int kTileRow = 145;
@@ -414,6 +421,165 @@ gf_sample_kernel(const float* __restrict__ z, float* __restrict__ xout,
   if (kLogQ) logq[row] = acc;
 }
 
+// The tiled narrow tier of the sampler: gf_sample_tiled<kLogQ, kK>, a block
+// of kTileThreads threads a tile of R rows (32, 64 or 128: plan_gf in
+// ops/gf_fused.py), for a flow whose gaussianization layers all have kK <=
+// kGfRegs components. The same function as gf_sample_kernel<kWide = true,
+// kLogQ>, with every float32 sum in the same order. What held the per-row
+// design back (one thread a row: its F values in local memory indexed at run
+// time, the row's features solved one after another, 2 K loads through
+// Packed for the K erff of every bisection step, a loop over a run-time K
+// that does not unroll, and under a batched context a staging pass behind
+// two barriers a chunk of features) it does so:
+// - the tile's values live in shared memory as [F][R] (and a second [F][R]
+//   for a rotation's output); a gaussianization layer gives one thread a
+//   (row, feature) pair, F R pairs over the block;
+// - a pair loads its feature's K shifts, K scales and K log-scales into
+//   registers once a layer (Mixture<kK>; under a batched context its row's
+//   own parameters where the hyper-network wrote them, the scale expf of the
+//   log-scale once, fill_scales' value), so the 29 bisection steps run the
+//   K erff unrolled, with no loads, and the F R pairs' chains fill the warps;
+// - a rotation R^T y is one thread an output (row, feature), R staged in
+//   shared memory once a stage, the products in rotate<true>'s order over j;
+// - with kLogQ each pair leaves its forward ladj at the solved x in a shared
+//   column [F][R], and thread r < R sums row r's features in order after the
+//   layer, from the base term, as gf_sample_kernel does.
+
+// A pair's mixture parameters in registers, and mixture_mean's and
+// gauss_forward's arithmetic on them with every loop over the kK components
+// unrolled: overloads of their own, as the run-time K loops of the per-row
+// and wide kernels keep their code only without an unroll pragma (a loop
+// shared through a lambda moved 5-63 SASS lines of each of them). The
+// bisection is gauss_inverse's, which calls the overload for a Mixture.
+template <int kK>
+struct Mixture {
+  float shift[kK], scale[kK], log_scale[kK];
+};
+
+template <int kK>
+__device__ __forceinline__ float mixture_mean(float x, const Mixture<kK>& p, int /*K = kK*/) {
+  float m = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) m += erff(fmaf(p.scale[k], x, p.shift[k]) * kInvSqrt2);
+  return m * (kShrink / (float)kK);
+}
+
+template <int kK>
+__device__ __forceinline__ float gauss_forward(float x, const Mixture<kK>& p, int /*K = kK*/,
+                                               float* ladj) {
+  float m = 0.0f, lmax = -INFINITY, acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const float z = fmaf(p.scale[k], x, p.shift[k]);
+    m += erff(z * kInvSqrt2);
+    const float li = fmaf(-0.5f * z, z, p.log_scale[k]);
+    const float d = li - lmax;
+    const float e = expf(-fabsf(d));
+    acc = d > 0.0f ? fmaf(acc, e, 1.0f) : acc + e;
+    lmax = fmaxf(lmax, li);
+  }
+  const float c = kShrink / (float)kK;
+  const float y = kSqrt2 * erfinvf(m * c);
+  *ladj = 0.5f * y * y + logf(c) + lmax + logf(acc);
+  return y;
+}
+
+// The tile's arrays in dynamic shared memory, as float offsets (tile_plan;
+// mirrored in ops/gf_fused.py _tile_floats): the values [F][R], a
+// rotation's output [F][R], the ladjs [F][R], the rotation [F][F].
+struct GfTile {
+  int R, lr;  // rows of a tile, log2 R
+  int t, lad, rot;
+  int floats;
+};
+
+template <bool kLogQ, int kK>
+__global__ void __launch_bounds__(kTileThreads)
+    gf_sample_tiled(const float* __restrict__ z, float* __restrict__ xout,
+                    float* __restrict__ logq, const float* __restrict__ packed,
+                    const __grid_constant__ Shape s, const __grid_constant__ GfTile tl,
+                    long long n) {
+  extern __shared__ float tile[];
+  const int R = tl.R, lr = tl.lr, tid = threadIdx.x, F = s.F;
+  const long long row0 = (long long)blockIdx.x * R;
+  float* y = tile;
+  float* t = tile + tl.t;
+  float* lad = tile + tl.lad;
+  float* rot = tile + tl.rot;
+  for (int e = tid; e < F * R; e += kTileThreads) {
+    const int f = e >> lr, r = e & (R - 1);
+    y[e] = row0 + r < n ? z[(row0 + r) * F + f] : 0.0f;
+  }
+  __syncthreads();
+  // thread r < R owns row r's sum
+  const bool owner = tid < R && row0 + tid < n;
+  float acc = 0.0f;
+  if (kLogQ && owner) {
+    float sq = 0.0f;
+    for (int f = 0; f < F; ++f) sq = fmaf(y[f * R + tid], y[f * R + tid], sq);
+    acc = -0.5f * sq - F * kHalfLog2Pi;
+  }
+  for (int si = s.n_stages - 1; si >= 0; --si) {
+    const Stage& st = s.st[si];
+    __syncthreads();  // every thread is done with the previous stage's arrays
+    if (st.kind == kRot) {
+      for (int q = tid; q < F * F; q += kTileThreads) rot[q] = __ldg(packed + st.off + q);
+      __syncthreads();
+      for (int e = tid; e < F * R; e += kTileThreads) {
+        const int i = e >> lr, r = e & (R - 1);
+        float a = 0.0f;
+        for (int j = 0; j < F; ++j) a = fmaf(rot[j * F + i], y[j * R + r], a);
+        t[e] = a;
+      }
+      float* const w = y;
+      y = t;
+      t = w;
+      continue;
+    }
+    for (int e = tid; e < F * R; e += kTileThreads) {
+      const int f = e >> lr, r = e & (R - 1);
+      const long long row = row0 + r;
+      if (row >= n) continue;
+      Mixture<kK> p;
+      if (st.kind == kGauss) {
+        const float* q = packed + st.off + f * 3 * kK;
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          p.shift[k] = __ldg(q + k);
+          p.scale[k] = __ldg(q + kK + k);
+          p.log_scale[k] = __ldg(q + 2 * kK + k);
+        }
+      } else {
+        const long long at = row * st.row_stride + (long long)f * st.feat_stride;
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          p.shift[k] = __ldg(st.shift + at + k);
+          p.log_scale[k] = __ldg(st.raw + at + k);
+          p.scale[k] = expf(p.log_scale[k]);
+        }
+      }
+      const float xv = gauss_inverse(y[e], p, kK);
+      y[e] = xv;
+      if (kLogQ) {
+        float ladj;
+        gauss_forward(xv, p, kK, &ladj);
+        lad[e] = ladj;
+      }
+    }
+    if (kLogQ) {
+      __syncthreads();
+      if (owner)
+        for (int f = 0; f < F; ++f) acc += lad[f * R + tid];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < F * R; e += kTileThreads) {
+    const int f = e >> lr, r = e & (R - 1);
+    if (row0 + r < n) xout[(row0 + r) * F + f] = y[e];
+  }
+  if (kLogQ && owner) logq[row0 + tid] = acc;
+}
+
 // The stages as the wrapper hands them over (one entry per stage), checked;
 // the narrow tier's tile chunks sized.
 int describe(std::vector<Stage>* out, const int* kinds, const int* Ks, const long long* offs,
@@ -461,6 +627,7 @@ struct Launch {
   void* desc;
   long long desc_bytes;
   cudaStream_t stream;
+  int tile;  // the tiled sampler's tile rows (0: not tiled)
 };
 
 enum Op { kDensity = 0, kSample = 1, kSampleLogQ = 2 };
@@ -491,11 +658,59 @@ int configure(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The components of every gaussianization layer where they are the same
+// K <= kGfRegs, the sampler's tiled tier (mirrored in ops/gf_fused.py
+// plan_gf); else 0.
+int tiled_components(const std::vector<Stage>& stages) {
+  int K = 0;
+  for (const Stage& st : stages) {
+    if (st.kind == kRot) continue;
+    if (st.K > kGfRegs || (K != 0 && st.K != K)) return 0;
+    K = st.K;
+  }
+  return K;
+}
+
+// The tiled sampler's tile of R rows (GfTile; R = 0: no plan).
+GfTile tile_plan(int F, int R) {
+  GfTile t{};
+  if (R != 32 && R != 64 && R != 128) return t;
+  t.R = R;
+  t.lr = R == 32 ? 5 : R == 64 ? 6 : 7;
+  t.t = F * R;
+  t.lad = 2 * F * R;
+  t.rot = 3 * F * R;
+  t.floats = t.rot + F * F;
+  return t;
+}
+
+// gf_sample_tiled<log q, kK> for the flow's K components, dispatched on K
+// from kK = 1 up.
+template <int kK = 1>
+int run_tiled(int op, const Launch& l, const Shape& s, const GfTile& t, int K) {
+  if constexpr (kK < kGfRegs) {
+    if (K != kK) return run_tiled<kK + 1>(op, l, s, t, K);
+  }
+  const size_t smem = 4 * (size_t)t.floats;
+  const auto go = [&](auto kernel, float* logq) {
+    const int rc = configure(kernel, smem);
+    if (rc != cudaSuccess) return rc;
+    kernel<<<(unsigned)((l.n + t.R - 1) / t.R), kTileThreads, smem, l.stream>>>(
+        l.in, l.out0, logq, l.packed, s, t, l.n);
+    return (int)cudaGetLastError();
+  };
+  return op == kSampleLogQ ? go(gf_sample_tiled<true, kK>, l.out1)
+                           : go(gf_sample_tiled<false, kK>, nullptr);
+}
+
 int run(int op, const Launch& l, const std::vector<Stage>& stages, int F) {
   if (l.n < 0) return cudaErrorInvalidValue;
   const int n_stages = (int)stages.size();
   if (!l.wide) {
     if (!fits_narrow(stages, F)) return cudaErrorInvalidValue;
+    const int K = op == kDensity ? 0 : tiled_components(stages);
+    // the tiled sampler takes exactly the flows it can, with a tile
+    if ((K != 0) != (l.tile != 0)) return cudaErrorInvalidValue;
     Shape s;
     s.F = F;
     s.n_stages = n_stages;
@@ -504,6 +719,11 @@ int run(int op, const Launch& l, const std::vector<Stage>& stages, int F) {
       s.st[i] = stages[i];
       if (stages[i].kind == kGaussBatched)
         tile_row = std::max(tile_row, (stages[i].fc * 3 * stages[i].K) | 1);
+    }
+    if (K != 0) {
+      const GfTile t = tile_plan(F, l.tile);
+      if (t.R == 0 || 4LL * t.floats > kMaxShared) return cudaErrorInvalidValue;
+      return l.n == 0 ? cudaSuccess : run_tiled(op, l, s, t, K);
     }
     const size_t smem = (size_t)kThreads * tile_row * sizeof(float);
     int rc;
@@ -543,14 +763,14 @@ int run(int op, const Launch& l, const std::vector<Stage>& stages, int F) {
       const int *feat_strides, int n_stages, int F, long long n, int wide, float *work,      \
       long long work_floats, long long stride, void *desc, long long desc_bytes, void *stream
 
-static int entry(int op, const float* in, float* out0, float* out1, GF_FLOW) {
+static int entry(int op, const float* in, float* out0, float* out1, GF_FLOW, int tile) {
   std::vector<Stage> stages;
   const int rc = describe(&stages, kinds, Ks, offs, shifts, raws, row_strides, feat_strides,
                           n_stages, F);
   if (rc != cudaSuccess) return rc;
   return run(op,
              {in, out0, out1, packed, n, wide, work, work_floats, stride, desc, desc_bytes,
-              (cudaStream_t)stream},
+              (cudaStream_t)stream, tile},
              stages, F);
 }
 
@@ -558,14 +778,17 @@ static int entry(int op, const float* in, float* out0, float* out1, GF_FLOW) {
 extern "C" int gf_density_f32(const float* x, float* out, GF_FLOW) {
   return entry(kDensity, x, out, nullptr, packed, kinds, Ks, offs, shifts, raws, row_strides,
                feat_strides, n_stages, F, n, wide, work, work_floats, stride, desc, desc_bytes,
-               stream);
+               stream, 0);
 }
 
 // xout (n, F) = T^-1(z), and logq (n,) = log q(xout) unless logq is null.
-extern "C" int gf_sample_f32(const float* z, float* xout, float* logq, GF_FLOW) {
+// On the narrow tier (wide 0) a flow whose gaussianization layers share K <=
+// kGfRegs components takes the tiled sampler with its tile of `tile` rows
+// (32, 64 or 128), any other flow `tile` 0.
+extern "C" int gf_sample_f32(const float* z, float* xout, float* logq, GF_FLOW, int tile) {
   return entry(logq != nullptr ? kSampleLogQ : kSample, z, xout, logq, packed, kinds, Ks, offs,
                shifts, raws, row_strides, feat_strides, n_stages, F, n, wide, work, work_floats,
-               stride, desc, desc_bytes, stream);
+               stride, desc, desc_bytes, stream, tile);
 }
 
 extern "C" const char* gf_fused_error_string(int code) {

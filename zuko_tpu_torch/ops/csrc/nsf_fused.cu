@@ -34,7 +34,7 @@
 // density's operations and stays bound by them.
 //
 // The per-thread design (the first one; since redesigned for the closed-form
-// family, the circular spline and the smaller Bernstein polynomials, below):
+// family, the circular spline and the smaller polynomials, below):
 // one thread per batch row, blocks of 128
 // rows. Each block stages one AR layer's pre-masked weights and biases into
 // dynamic shared memory (about 53 KB for the flagship), so every weight is
@@ -54,12 +54,10 @@
 // polynomial of at most kPolyRegs coefficients (the Bernstein polynomial's
 // M + 5, the sum of squares' P (L + 1) at kSospNodes nodes or fewer), all
 // three modes, is the tiled nsf_sample_tiled (below), and the density and
-// apply of the closed-form family, of the circular spline and of a
-// Bernstein polynomial of at most kPolyRegs coefficients the tiled
-// nsf_density_tiled, within the same limits where their tile fits (a larger
-// polynomial samples through the per-thread nsf_sample_kernel; the sum of
-// squares' and the larger polynomials' densities and applies are
-// per-thread, nsf_density_kernel). The wide tier takes any shape:
+// apply of the same univariates the tiled nsf_density_tiled, within the
+// same limits where their tile fits (a larger polynomial samples, and takes
+// its density and apply, through the per-thread nsf_sample_kernel and
+// nsf_density_kernel). The wide tier takes any shape:
 // the weights are read through the read-only data cache (__ldg), one address
 // per warp at a time, as the NAF kernels read theirs; a row's activations,
 // raw parameters and knots live in a workspace in device memory, one column
@@ -1060,18 +1058,29 @@ __device__ __forceinline__ float sosp_eval(const float (&c)[kPolyRegs], float sh
   return 0.5f * x * quad + shift;
 }
 
+// What sosp_pair computes: the solve for a target, the forward log-Jacobian,
+// or the forward value with its log-Jacobian.
+enum SospOp { kSospSolve = 0, kSospLadj = 1, kSospForward = 2 };
+
 // One pair of the sum of squares at its L + 1 = s.K2 nodes (kL, then the
-// next, up to kSospNodes): with kLadj the forward log-Jacobian log g(v), else
+// next, up to kSospNodes): kSospLadj the forward log-Jacobian log g(v);
+// kSospForward the value at v (poly_eval's), log g(v) in *ladj; kSospSolve
 // the solve for the target v, x0 the previous sweep's root.
-template <bool kLadj, int kL = 1>
+template <int kOp, int kL = 1>
 __device__ __forceinline__ float sosp_pair(const Strided& p, const Shape& s, float v, float x0,
-                                           int sweep) {
+                                           int sweep, float* ladj = nullptr) {
   if constexpr (kL < kSospNodes) {
-    if (s.K2 != kL) return sosp_pair<kLadj, kL + 1>(p, s, v, x0, sweep);
+    if (s.K2 != kL) return sosp_pair<kOp, kL + 1>(p, s, v, x0, sweep, ladj);
   }
   float c[kPolyRegs];
   const float shift = sosp_registers<kL>(p, s, c);
-  if (kLadj) return logf(sosp_g<kL>(c, s, v));
+  if constexpr (kOp == kSospForward) {
+    float g;
+    const float y = sosp_eval<true, kL>(c, shift, s, v, &g);
+    *ladj = logf(g);
+    return y;
+  }
+  if (kOp == kSospLadj) return logf(sosp_g<kL>(c, s, v));
   const auto eval = [&](auto kGrad, float x, float* dydx) {
     return sosp_eval<decltype(kGrad)::value, kL>(c, shift, s, x, dydx);
   };
@@ -1143,7 +1152,7 @@ __global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv =
           };
           xc[e] = poly_solve(eval, s, true, y[e], xc[e], sweep);
         } else if constexpr (kUniv == kSOSP) {
-          xc[e] = sosp_pair<false>(p, s, y[e], xc[e], sweep);
+          xc[e] = sosp_pair<kSospSolve>(p, s, y[e], xc[e], sweep);
         } else if constexpr (kUniv == kCRQS) {
           xc[e] = circular_wrap(spline_streamed<true>(y[e], p, s, nullptr), s.bound);
         } else {
@@ -1165,7 +1174,7 @@ __global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv =
           bernstein_eval<true>(th, st, s, xc[e], &g);
           ladj = logf(g);
         } else if constexpr (kUniv == kSOSP) {
-          ladj = sosp_pair<true>(p, s, xc[e], 0.0f, 0);
+          ladj = sosp_pair<kSospLadj>(p, s, xc[e], 0.0f, 0);
         } else if constexpr (kUniv == kCRQS) {
           spline_streamed<false>(circular_wrap(xc[e], s.bound), p, s, &ladj);
         } else if (s.univ == kAffine) {
@@ -1191,9 +1200,10 @@ __global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv =
 }
 
 // The narrow tier of the density and apply (affine and RQS, the circular
-// spline, the Bernstein polynomial of at most kPolyRegs coefficients):
-// nsf_density_tiled, the tiled sampler's log-q pass once a layer, in forward
-// order, with no sweeps. A block a tile of R rows (density_tile_rows in
+// spline, the polynomials of at most kPolyRegs coefficients, the sum of
+// squares of at most kSospNodes nodes): nsf_density_tiled, the tiled
+// sampler's log-q pass once a layer, in forward order, with no sweeps. A
+// block a tile of R rows (density_tile_rows in
 // ops/nsf_fused.py), its arrays those of the sampler's tile but the targets
 // (tile_plan without them). The same function as nsf_density_kernel<kWide =
 // true, kRaw, family>: for each layer the hyper-net on the tile's x
@@ -1203,17 +1213,20 @@ __global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv =
 // spline_streamed<false>; kCRQS the same spline at the wrapped point (the
 // hyper-net read the unwrapped x, as closed_forward's); kBernstein the
 // pair's coefficients in registers (bernstein_registers, bernstein_eval, as
-// the sampler's log-q pass). Thread r < R owns row r's sum (the layers'
-// log-Jacobians feature by feature, then the softclip's, in the wide tier's
-// order). kRaw false: out[row] = the sum + the base (the circular spline's
-// box, else the standard normal) at T(x); kRaw true (nsf_apply): y[row, :] =
-// T(x) and out[row] = the sum. The launch bounds: the Bernstein
-// instantiation's the sampler's, at most 128 registers, so that its tiles of
-// 64 rows put two blocks on an SM; the others' no minimum of blocks (0 emits
-// none: a minimum of 1 changes how ptxas allocates the closed-form
-// instantiation's registers, and its code).
+// the sampler's log-q pass); kSOSP the sum of squares' P (L + 1)
+// coefficients and shift in registers (sosp_pair's forward: sosp_eval, the
+// value and g, then log g, poly_eval's arithmetic). Thread r < R owns row r's
+// sum (the layers' log-Jacobians feature by feature, then the softclip's, in
+// the wide tier's order) and the softclip of its row's x after each layer
+// that has one (SOSPF's). kRaw false: out[row] = the sum + the base (the
+// circular spline's box, else the standard normal) at T(x); kRaw true
+// (nsf_apply): y[row, :] = T(x) and out[row] = the sum. The launch bounds:
+// the polynomials' instantiations the samplers', at most 128 registers, so
+// that their tiles of 64 rows put two blocks on an SM; the others' no minimum
+// of blocks (0 emits none: a minimum of 1 changes how ptxas allocates the
+// closed-form instantiation's registers, and its code).
 template <bool kRaw, int kUniv>
-__global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein ? 2 : 0)
+__global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein || kUniv == kSOSP ? 2 : 0)
     nsf_density_tiled(const float* __restrict__ xcin, float* __restrict__ y,
                       float* __restrict__ out, const float* __restrict__ tiled,
                       const __grid_constant__ Shape s, const __grid_constant__ SampleTile tl,
@@ -1247,6 +1260,8 @@ __global__ void __launch_bounds__(kSampleThreads, kUniv == kBernstein ? 2 : 0)
         bernstein_registers(p, s, th, st);
         xc[e] = bernstein_eval<true>(th, st, s, xc[e], &g);
         ladj = logf(g);
+      } else if constexpr (kUniv == kSOSP) {
+        xc[e] = sosp_pair<kSospForward>(p, s, xc[e], 0.0f, 0, &ladj);
       } else if constexpr (kUniv == kCRQS) {
         xc[e] = spline_streamed<false>(circular_wrap(xc[e], s.bound), p, s, &ladj);
       } else if (s.univ == kAffine) {
@@ -1437,8 +1452,8 @@ int allow_smem(Kernel kernel, size_t smem) {
 }
 
 // The per-thread narrow tier: the polynomials that no tiled kernel takes
-// (the sum of squares' density and apply; past kPolyRegs coefficients, or
-// the sum of squares past kSospNodes nodes, every kernel).
+// (past kPolyRegs coefficients, or the sum of squares past kSospNodes nodes:
+// the density, the apply and the sampler alike).
 int run_narrow(int op, const Launch& l, const Desc& d) {
   const Shape s = narrow_shape(d);
   const size_t smem = (size_t)s.layer_floats * sizeof(float);
@@ -1475,26 +1490,18 @@ SampleTile tile_plan(const Desc& d, int R, bool targets) {
   return t;
 }
 
-// Whether the sampler's narrow tier is nsf_sample_tiled: the closed-form and
-// circular families, and the polynomials of at most kPolyRegs coefficients,
-// the sum of squares of at most kSospNodes nodes (mirrored in
-// ops/nsf_fused.py plan_nsf).
-bool sample_tiled(const Desc& d) {
+// Whether the narrow tier is tiled (nsf_density_tiled, nsf_sample_tiled):
+// the closed-form and circular families, and the polynomials of at most
+// kPolyRegs coefficients, the sum of squares of at most kSospNodes nodes
+// (mirrored in ops/nsf_fused.py _tiled).
+bool tiled(const Desc& d) {
   if (d.univ == kBernstein) return d.K + 5 <= kPolyRegs;
   if (d.univ == kSOSP) return d.K * d.K2 <= kPolyRegs && d.K2 <= kSospNodes;
   return true;
 }
 
-// Whether the density's and apply's narrow tier is nsf_density_tiled: the
-// closed-form and circular families, and the Bernstein polynomials of at
-// most kPolyRegs coefficients (mirrored in ops/nsf_fused.py plan_nsf).
-bool density_tiled(const Desc& d) {
-  if (d.univ == kBernstein) return d.K + 5 <= kPolyRegs;
-  return d.univ != kSOSP;
-}
-
-// The tiled narrow tier: a block a tile of l.tile rows; a density or apply
-// (density_tiled), or a sampler (sample_tiled).
+// The tiled narrow tier: a block a tile of l.tile rows; a density or apply,
+// or a sampler. It reads the staged weights (l.tiled) alone.
 int run_tiled(int op, const Launch& l, const Desc& d) {
   const SampleTile t = tile_plan(d, l.tile, op >= kSample);
   const size_t smem = 4 * (size_t)t.floats;
@@ -1516,6 +1523,7 @@ int run_tiled(int op, const Launch& l, const Desc& d) {
     if (d.univ == kBernstein) {
       return raw(nsf_density_tiled<false, kBernstein>, nsf_density_tiled<true, kBernstein>);
     }
+    if (d.univ == kSOSP) return raw(nsf_density_tiled<false, kSOSP>, nsf_density_tiled<true, kSOSP>);
     return raw(nsf_density_tiled<false, 0>, nsf_density_tiled<true, 0>);
   }
   const auto modes = [&](auto sample, auto log_q, auto raw) {
@@ -1542,9 +1550,11 @@ int run(int op, const Launch& l, const Desc& d) {
   const int fam = family_of(d.univ);
   if (!l.wide) {
     if (!fits_narrow(d)) return cudaErrorInvalidValue;
-    if (op >= kSample ? sample_tiled(d) : density_tiled(d)) return run_tiled(op, l, d);
+    if (tiled(d)) return run_tiled(op, l, d);
+    if (l.params == nullptr) return cudaErrorInvalidValue;
     return run_narrow(op, l, d);
   }
+  if (l.params == nullptr) return cudaErrorInvalidValue;
   // the device buffer: widths, passes (ints), clips, nodes, weights (floats)
   const long long words = (long long)(d.n_lin + 1) + 2LL * d.n_ar + 2LL * d.K2;
   const long long need = words * 4;
@@ -1597,7 +1607,8 @@ int entry(int op, const float* in, float* out0, float* out1, const float* params
 }  // namespace
 
 // Each entry point takes the flow as the wrapper packs it (per AR layer
-// [M*W_0, b_0, M*W_1, b_1, ...], `widths` of the hyper-net, `passes` and the
+// [M*W_0, b_0, M*W_1, b_1, ...]; null on the tiled narrow tier, which reads
+// `tiled` alone), `widths` of the hyper-net, `passes` and the
 // softclip bound after each layer (0 for none), the univariate's code and
 // sizes K, K2, its bound, log-slope and slope, the SOSP Gauss-Legendre rule
 // (K2 nodes, then K2 weights), the base (box 0: standard normal; 1: the box
@@ -1615,10 +1626,8 @@ int entry(int op, const float* in, float* out0, float* out1, const float* params
   params, widths, passes, clips, n_lin, n_ar, F, C, K, K2, univ, bound, log_s, slope, rule, \
       box, lo, hi, log_box, n, wide, work, work_floats, stride, desc, desc_bytes, stream
 
-// out (n,) = log_prob of xc (n, F + C). The tiled narrow tier (wide 0:
-// affine, RQS, the circular spline, or a Bernstein polynomial of at most
-// kPolyRegs coefficients) takes `tiled` and `tile` as nsf_sample_f32 does;
-// the other densities ignore both.
+// out (n,) = log_prob of xc (n, F + C). The tiled narrow tier takes `tiled`
+// and `tile` as nsf_sample_f32 does; the other densities ignore both.
 extern "C" int nsf_density_f32(const float* xc, float* out, NSF_FLOW, const float* tiled,
                                int tile) {
   return entry(kDensity, xc, nullptr, out, NSF_ARGS, tiled, tile);
@@ -1633,7 +1642,8 @@ extern "C" int nsf_apply_f32(const float* xc, float* y, float* ladj, NSF_FLOW,
 
 // x (n, F) = T^-1(z) of zc = [z, c]; logq may be null: the solve alone. The
 // tiled narrow tier (wide 0: affine, RQS, the circular spline, or a
-// polynomial of at most kPolyRegs coefficients) takes `tiled`, each layer's
+// polynomial of at most kPolyRegs coefficients, a sum of squares of at most
+// kSospNodes nodes) takes `tiled`, each layer's
 // linears as W^T [in][pad8(out)] then the bias padded to pad8(out),
 // zero-filled, and its tile of `tile` rows (32, 64 or 128); the other
 // samplers ignore both.

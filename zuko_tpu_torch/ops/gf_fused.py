@@ -19,6 +19,11 @@ Each wrapper takes the plain version for a tensor that lies on the CPU, and
 launches its kernel (or raises) for a CUDA tensor. :func:`plan_gf` chooses
 the kernels' tier from the flow's shape: the narrow tier within its limits,
 the wide tier (a row's values in a workspace in device memory) beyond them.
+The sampler's narrow tier is tiled (a block a tile of rows, one thread a
+(row, feature) pair, the pair's mixture in registers) where every
+gaussianization layer has the same number of components, at most
+:data:`_GF_REGS`: ``plan_gf(..., sample=True)`` returns its
+:class:`~zuko_tpu_torch.ops.nsf_fused.TilePlan`.
 ``LAUNCHES`` counts the kernel launches under ``gf_density``, ``gf_sample``
 and ``gf_sample_log_prob``, the wide tier's under ``<name>_wide``.
 
@@ -48,7 +53,7 @@ from ._common import (
     wide_plan,
     workspace,
 )
-from .nsf_fused import FusedStructureError, _require_standard_base
+from .nsf_fused import FusedStructureError, TilePlan, _require_standard_base
 
 __all__ = [
     "extract_gf_params",
@@ -66,6 +71,10 @@ _MAX_FEATURES = 64
 _MAX_COMPONENTS = 32
 _MAX_STAGES = 64
 _KIND_CODE = {"gauss": 0, "gaussb": 1, "rot": 2}
+# The tiled sampler (``gf_sample_tiled`` in csrc/gf_fused.cu): the most
+# components a pair holds in registers, and the rows of its tile
+_GF_REGS = 16
+_GF_TILE = 128
 
 # The bracket and the step count of the sampling bisection: those of
 # ``MonotonicTransform`` (bound 10, eps 1e-6) with its margin of 4 steps. Even
@@ -246,14 +255,28 @@ def _gf_sample_math(z, params, layout, F, want_log_prob=False):
 # ---------------------------------------------------------- CUDA launches
 
 
-def plan_gf(layout, F, rows):
+def _tile_floats(F, R):
+    """Floats of shared memory of the tiled sampler's tile of ``R`` rows
+    (``tile_plan`` in ``csrc/gf_fused.cu``): the values, a rotation's output
+    and the ladjs, ``[F][R]`` each, and the rotation ``[F][F]``."""
+    return 3 * F * R + F * F
+
+
+def plan_gf(layout, F, rows, sample=False):
     """The tier of the GF kernels for a flow of this shape (what the
     wrappers launch, from the shapes alone): the narrow tier within its
     limits, else the wide tier with a workspace of ``2 F`` floats a row (the
     two arrays a row's values ping-pong between) and a descriptor buffer of
-    48 bytes a stage (``Stage`` in ``csrc/gf_fused.cu``)."""
-    K = max((entry[1] for entry in layout if entry[0] != "rot"), default=0)
+    48 bytes a stage (``Stage`` in ``csrc/gf_fused.cu``). With ``sample``, a
+    flow within the narrow limits whose gaussianization layers all have the
+    same ``K <= _GF_REGS`` components plans the tiled sampler: a
+    :class:`TilePlan` of ``_GF_TILE`` rows and its shared memory
+    (``tiled_components`` and ``tile_plan`` in the source)."""
+    Ks = {entry[1] for entry in layout if entry[0] != "rot"}
+    K = max(Ks, default=0)
     if F <= _MAX_FEATURES and K <= _MAX_COMPONENTS and len(layout) <= _MAX_STAGES:
+        if sample and len(Ks) == 1 and K <= _GF_REGS:
+            return TilePlan(*narrow_plan(rows), _GF_TILE, 4 * _tile_floats(F, _GF_TILE))
         return narrow_plan(rows)
     return wide_plan(2 * F, rows, 48 * len(layout))
 
@@ -263,7 +286,8 @@ def _launch(fn, counter, x, outs, params, layout, F):
     stages without per-row parameters into one buffer (a layer as
     ``[F][3][K]``: shift, ``exp(raw)``, raw; a rotation as ``R``), describe
     the others by pointer and strides, call the C entry point on the current
-    stream, raise on a CUDA error, count (the wide tier under
+    stream (the sampler's with the tile of its plan, 0 where it is not
+    tiled), raise on a CUDA error, count (the wide tier under
     ``<counter>_wide``)."""
     from ._build import check_launch, load_library
 
@@ -271,7 +295,8 @@ def _launch(fn, counter, x, outs, params, layout, F):
         raise ValueError(f"{counter}: expected a contiguous (n, {F}) tensor")
     check_cuda_f32(counter, [x, *params])
     n = x.shape[0]
-    plan = plan_gf(layout, F, n)
+    sample = fn == "gf_sample_f32"
+    plan = plan_gf(layout, F, n, sample)
     # one row per stage: kind, K, offset in `packed`, and for per-row
     # parameters the two pointers with their row and feature strides
     table, chunks, floats = [], [], 0
@@ -317,6 +342,7 @@ def _launch(fn, counter, x, outs, params, layout, F):
             None if work is None else work.data_ptr(), 0 if work is None else work.numel(),
             plan.chunk_rows, None if desc is None else desc.data_ptr(), plan.desc_bytes,
             torch.cuda.current_stream().cuda_stream,
+            *((getattr(plan, "tile_rows", 0),) if sample else ()),
         )
     check_launch(counter, lib, "gf_fused", rc)
     LAUNCHES[counter + ("_wide" if plan.wide else "")] += 1

@@ -28,10 +28,8 @@ polynomials of at most :data:`_POLY_REGS` coefficients (Bernstein ``M +
 5``, sum of squares ``P (L + 1)`` of at most :data:`_SOSP_NODES` nodes) is
 tiled: a block a tile of rows, planned with :class:`TilePlan`; a larger
 polynomial samples through the per-thread narrow kernel. So are the
-density and apply of the closed-form univariates, the circular spline and
-the Bernstein polynomial of at most :data:`_POLY_REGS` coefficients
-(``nsf_density_tiled``); the sum of squares' and the larger polynomials'
-stay per-thread. ``LAUNCHES`` counts the kernel
+density and apply of the same univariates (``nsf_density_tiled``); the
+larger polynomials' stay per-thread. ``LAUNCHES`` counts the kernel
 launches, one per call that reaches a kernel, the wide tier's under
 ``<name>_wide``.
 
@@ -713,27 +711,17 @@ class TilePlan(NamedTuple):
     shared_bytes: int
 
 
-def _sample_tiled(univ, K):
-    """Whether the sampler's narrow tier is the tiled kernel: the
-    closed-form univariates and the circular spline, and the polynomials of
-    at most :data:`_POLY_REGS` coefficients, Bernstein ``M + 5`` and sum of
-    squares ``P (L + 1)`` with ``L + 1 <= _SOSP_NODES`` (``sample_tiled`` in
-    ``csrc/nsf_fused.cu``)."""
+def _tiled(univ, K):
+    """Whether the narrow tier of the sampler, the density and the apply is
+    tiled: the closed-form univariates and the circular spline, and the
+    polynomials of at most :data:`_POLY_REGS` coefficients, Bernstein ``M +
+    5`` and sum of squares ``P (L + 1)`` with ``L + 1 <= _SOSP_NODES``
+    (``tiled`` in ``csrc/nsf_fused.cu``)."""
     if univ == "bernstein":
         return K + 5 <= _POLY_REGS
     if univ == "sosp":
         return K[0] * K[1] <= _POLY_REGS and K[1] <= _SOSP_NODES
     return True
-
-
-def _density_tiled(univ, K):
-    """Whether the density's and apply's narrow tier is the tiled kernel:
-    the closed-form univariates, the circular spline, and the Bernstein
-    polynomial of at most :data:`_POLY_REGS` coefficients ``M + 5``
-    (``density_tiled`` in ``csrc/nsf_fused.cu``)."""
-    if univ == "bernstein":
-        return K + 5 <= _POLY_REGS
-    return univ != "sosp"
 
 
 def _tile_rows(floats, two_a_sm, smem_limit):
@@ -772,12 +760,12 @@ def _density_tile_floats(widths, T, R):
 def density_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
     """Rows of the tiled density's tile (:func:`_tile_rows`): the largest of
     :data:`_SAMPLE_TILES` whose shared memory fits ``smem_limit``, ``None``
-    where none does; the Bernstein polynomial's, whose coefficients in
-    registers want the warps of two blocks an SM as its sampler's do, two
-    blocks an SM where they fit."""
+    where none does; a polynomial's, whose coefficients in registers want
+    the warps of two blocks an SM as its sampler's do, two blocks an SM
+    where they fit."""
     T = _univ_size(univ, K)
-    return _tile_rows(lambda R: _density_tile_floats(widths, T, R), univ == "bernstein",
-                      smem_limit)
+    return _tile_rows(lambda R: _density_tile_floats(widths, T, R),
+                      univ in ("sosp", "bernstein"), smem_limit)
 
 
 def sample_tile_rows(widths, K, univ, smem_limit=_SMEM_OPTIN):
@@ -799,14 +787,12 @@ def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
     in ``csrc/nsf_fused.cu``), and a descriptor buffer of the widths, the
     passes, the softclip bounds and the Gauss-Legendre nodes and weights.
 
-    With ``sample``, the univariates of :func:`_sample_tiled` plan the
-    tiled sampler instead of the one-layer limit: within the same limits,
-    a :class:`TilePlan` of :func:`sample_tile_rows` rows and its shared
-    memory, else the wide tier; a polynomial of more coefficients plans the
-    per-thread narrow sampler as the density's narrow tier does. Without
-    ``sample``, the univariates of :func:`_density_tiled` plan the tiled
-    density the same way, of :func:`density_tile_rows` rows; the sum of
-    squares and the larger polynomials the per-thread narrow density."""
+    The univariates of :func:`_tiled` plan the tiled tier instead of the
+    one-layer limit: within the same limits, a :class:`TilePlan` of
+    :func:`sample_tile_rows` rows (with ``sample``) or
+    :func:`density_tile_rows` rows (without) and its shared memory, else the
+    wide tier; a polynomial of more coefficients plans the per-thread narrow
+    tier."""
     n_lin = len(widths) - 1
     F = widths[-1] // _univ_size(univ, K)
     w_max = max(widths[:-1])
@@ -814,19 +800,28 @@ def plan_nsf(widths, K, univ, n_ar, rows, smem_limit=_SMEM_OPTIN, sample=False):
     within = (n_lin <= _MAX_LINEAR and n_ar <= _MAX_LAYERS and w_max <= _MAX_WIDTH
               and F <= _MAX_WIDTH and _fits_arrays(univ, K))
     T = _univ_size(univ, K)
-    if sample and _sample_tiled(univ, K):
-        R = sample_tile_rows(widths, K, univ, smem_limit) if within else None
+    if _tiled(univ, K):
+        tile_rows, floats = ((sample_tile_rows, _sample_tile_floats) if sample
+                             else (density_tile_rows, _density_tile_floats))
+        R = tile_rows(widths, K, univ, smem_limit) if within else None
         if R is not None:
-            return TilePlan(*narrow_plan(rows), R, 4 * _sample_tile_floats(widths, T, R))
-    elif not sample and _density_tiled(univ, K):
-        R = density_tile_rows(widths, K, univ, smem_limit) if within else None
-        if R is not None:
-            return TilePlan(*narrow_plan(rows), R, 4 * _density_tile_floats(widths, T, R))
+            return TilePlan(*narrow_plan(rows), R, 4 * floats(widths, T, R))
     elif within and 4 * layer_floats <= smem_limit:
         return narrow_plan(rows)
     slots = widths[0] + F + 2 * w_max + T + 3 * _knot_slots(univ, K)
     nodes = K[1] if univ == "sosp" else 0
     return wide_plan(slots, rows, 4 * (n_lin + 1 + 2 * n_ar + 2 * nodes))
+
+
+def _widths(layers, F, C, K, univ):
+    """Check the shapes of the AR ``layers`` (:func:`_split_layers`):
+    ``(widths, passes)`` of the hyper-net and the layers."""
+    first = layers[0][0]
+    widths = [first[0].shape[1]] + [first[3 * i].shape[0] for i in range(len(first) // 3)]
+    T = _univ_size(univ, K)
+    if widths[0] != F + C or widths[-1] != F * T:
+        raise ValueError(f"hyper-net widths {widths} do not match F={F}, C={C}, T={T}")
+    return widths, [p for _, p in layers]
 
 
 def _pack_weights(params, layout, F, C, K, univ):
@@ -835,18 +830,14 @@ def _pack_weights(params, layout, F, C, K, univ):
     call, as ``_presplit_params``' "mask" mode does). Returns ``(packed,
     widths, passes)``."""
     layers = _split_layers(params, layout)
-    first = layers[0][0]
-    widths = [first[0].shape[1]] + [first[3 * i].shape[0] for i in range(len(first) // 3)]
-    T = _univ_size(univ, K)
-    if widths[0] != F + C or widths[-1] != F * T:
-        raise ValueError(f"hyper-net widths {widths} do not match F={F}, C={C}, T={T}")
+    widths, passes = _widths(layers, F, C, K, univ)
     chunks = []
     for ps, _ in layers:
         for i in range(len(ps) // 3):
             W, b, M = ps[3 * i : 3 * i + 3]
             chunks += [(M * W).reshape(-1), b]
     packed = torch.cat(chunks).detach().contiguous()
-    return packed, widths, [p for _, p in layers]
+    return packed, widths, passes
 
 
 def _tiled_weights(params, layout):
@@ -890,28 +881,30 @@ def _counter(name, univ):
 
 
 def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, base):
-    """Common launch path of the kernels: check, pack, plan the tier (with
-    the card's shared memory), call the C entry point with the input, the
-    output pointers ``outs``, the packed weights, the softclip bounds, the
-    base and (for the sum-of-squares polynomial) the Gauss-Legendre nodes
-    and weights on the current stream, raise on a CUDA error, count (the
-    wide tier under ``<counter>_wide``)."""
+    """Common launch path of the kernels: check, plan the tier (with the
+    card's shared memory), stage the weights the tier reads (the tiled
+    tier's :func:`_tiled_weights`, the others' :func:`_pack_weights`), call
+    the C entry point with the input, the output pointers ``outs``, the
+    weights, the softclip bounds, the base and (for the sum-of-squares
+    polynomial) the Gauss-Legendre nodes and weights on the current stream,
+    raise on a CUDA error, count (the wide tier under ``<counter>_wide``)."""
     from ._build import check_launch, load_library
 
     if xc.dim() != 2 or not xc.is_contiguous():
         raise ValueError(f"{counter}: expected a contiguous (n, F + C) tensor")
     check_cuda_f32(counter, [xc, *params])
     C = xc.shape[1] - F
-    packed, widths, passes = _pack_weights(params, layout, F, C, K, univ)
+    widths, passes = _widths(_split_layers(params, layout), F, C, K, univ)
     clips = _softclip_bounds(layout)
     lib = load_library("nsf_fused")
     plan = plan_nsf(widths, K, univ, len(passes), xc.shape[0],
                     lib.nsf_max_shared_bytes(xc.device.index),
                     sample=fn.startswith("nsf_sample"))
     work, desc = workspace(plan, xc.device)
-    # the tiled tier: its staged weights and tile rows
+    # the tiled tier reads its staged weights alone, the others the packed
     tile = getattr(plan, "tile_rows", 0)
     tiled = _tiled_weights(params, layout) if tile else None
+    packed = None if tile else _pack_weights(params, layout, F, C, K, univ)[0]
     K1, K2 = K if univ == "sosp" else (K, 0)
     nodes = np.concatenate(np.polynomial.legendre.leggauss(K2)) if K2 else []
     box = base[0] == "box"
@@ -922,7 +915,7 @@ def _launch(fn, counter, xc, outs, params, layout, F, K, bound, slope, univ, bas
     c_nodes = (ctypes.c_float * max(1, len(nodes)))(*nodes)
     with torch.cuda.device(xc.device):
         rc = getattr(lib, fn)(
-            xc.data_ptr(), *outs, packed.data_ptr(),
+            xc.data_ptr(), *outs, None if packed is None else packed.data_ptr(),
             ctypes.addressof(c_widths), ctypes.addressof(c_passes), ctypes.addressof(c_clips),
             len(widths) - 1, len(passes), F, C, K1, K2, _UNIV_CODE[univ],
             bound, math.log(slope), slope, ctypes.addressof(c_nodes),
